@@ -1,0 +1,14 @@
+"""PyTorch + CUDA port of ``dreamwaltz_g_tpu`` for one NVIDIA H100.
+
+The package mirrors the JAX package's layout and names, so each module here
+has its counterpart at the same relative path there. It imports ``torch``
+and numpy only: nothing of JAX and nothing of the JAX package.
+
+Entry points take ``device="cuda"`` by default and raise when CUDA is absent;
+only an explicit ``device="cpu"`` runs on the CPU, through each kernel's
+plain PyTorch version.
+
+Ported so far: the render path of a trained avatar (animate -> project ->
+sorted tile bin -> sorted tile blend), with the blend as a hand-written CUDA
+kernel (``csrc/blend_sorted.cu``).
+"""

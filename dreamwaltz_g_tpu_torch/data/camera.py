@@ -1,0 +1,145 @@
+"""Camera math with the reference's coordinate conventions.
+
+Port of the render-path part of ``dreamwaltz_g_tpu/data/camera.py``:
+
+* world is y-up; the spherical camera position is
+  ``(r sin(elev) sin(azim), r cos(elev), r sin(elev) cos(azim))`` with the
+  elevation measured from +y,
+* c2w columns are (right, up, lookat): camera-space +z looks at the scene,
+* intrinsics carry a negative fy (y-flip) and cx = cy = H // 2,
+* the projection matrix is OpenGL-style with y negated.
+
+All functions are batched over a leading B dim.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from .._device import resolve_device
+from ..utils.transforms import look_at_rotation
+
+
+def angle_to_position(radius, elevation, azimuth):
+    """Spherical (degrees) -> Cartesian, y-up, elevation from +y."""
+    azimuth = torch.deg2rad(azimuth)
+    elevation = torch.deg2rad(elevation)
+    return torch.stack(
+        [
+            radius * torch.sin(elevation) * torch.sin(azimuth),
+            radius * torch.cos(elevation),
+            radius * torch.sin(elevation) * torch.cos(azimuth),
+        ],
+        dim=-1,
+    )
+
+
+def to_extrinsic(
+    radius: torch.Tensor,
+    azimuth: torch.Tensor,
+    elevation: torch.Tensor,
+    at_vector=((0.0, 0.0, 0.0),),
+    up_vector=((0.0, 1.0, 0.0),),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (extrinsic w2c (B, 4, 4), c2w (B, 4, 4))."""
+    B = radius.shape[0]
+    kw = dict(dtype=torch.float32, device=radius.device)
+    at = torch.as_tensor(at_vector, **kw).expand(B, 3)
+    up = torch.as_tensor(up_vector, **kw).expand(B, 3)
+    pos_rel = angle_to_position(radius, elevation, azimuth)
+    campos = at + pos_rel
+    lookat = -pos_rel / torch.clamp(
+        torch.linalg.norm(pos_rel, dim=-1, keepdim=True), min=1e-20)
+    rot = look_at_rotation(lookat, up)  # columns: right, up, lookat
+    c2w = torch.zeros((B, 4, 4), **kw)
+    c2w[:, :3, :3] = rot
+    c2w[:, :3, 3] = campos
+    c2w[:, 3, 3] = 1.0
+    rt = rot.transpose(-1, -2)
+    w2c = torch.zeros_like(c2w)
+    w2c[:, :3, :3] = rt
+    w2c[:, :3, 3] = -(rt @ campos[..., None])[..., 0]
+    w2c[:, 3, 3] = 1.0
+    return w2c, c2w
+
+
+def to_intrinsics(tanfov: torch.Tensor, image_height: int,
+                  image_width: int) -> torch.Tensor:
+    """(B,) tanfov -> (B, 3, 3) pinhole intrinsics with negative fy."""
+    B = tanfov.shape[0]
+    f = image_height / (2.0 * tanfov)
+    K = torch.zeros((B, 3, 3), dtype=torch.float32, device=tanfov.device)
+    K[:, 0, 0] = f
+    K[:, 1, 1] = -f
+    K[:, 0, 2] = image_height // 2
+    K[:, 1, 2] = image_width // 2
+    K[:, 2, 2] = 1.0
+    return K
+
+
+def to_projection(tanfov: torch.Tensor, z_near: float, z_far: float,
+                  aspect_wh: float = 1.0) -> torch.Tensor:
+    """OpenGL-style projection, y negated, NDC z in (-1, 1)."""
+    B = tanfov.shape[0]
+    max_y = tanfov * z_near
+    max_x = max_y * aspect_wh
+    P = torch.zeros((B, 4, 4), dtype=torch.float32, device=tanfov.device)
+    P[:, 0, 0] = z_near / max_x
+    P[:, 1, 1] = -z_near / max_y
+    P[:, 2, 2] = (z_far + z_near) / (z_far - z_near)
+    P[:, 2, 3] = -(2 * z_far * z_near) / (z_far - z_near)
+    P[:, 3, 2] = 1.0
+    return P
+
+
+class CameraBatch(NamedTuple):
+    """The camera bundle handed to renderers."""
+
+    extrinsic: torch.Tensor   # (B, 4, 4) w2c
+    c2w: torch.Tensor         # (B, 4, 4)
+    intrinsics: torch.Tensor  # (B, 3, 3)
+    projection: torch.Tensor  # (B, 4, 4)
+    tanfov: torch.Tensor      # (B,)
+    radius: torch.Tensor      # (B,)
+    azimuth: torch.Tensor     # (B,) degrees
+    elevation: torch.Tensor   # (B,) degrees, polar-from-+y
+    image_height: int
+    image_width: int
+
+
+def make_camera_batch(
+    radius,
+    azimuth,
+    elevation,
+    fov_degrees,
+    image_height: int,
+    image_width: int,
+    z_near: float = 0.01,
+    z_far: float = 100.0,
+    at_vector=((0.0, 0.0, 0.0),),
+    device="cuda",
+) -> CameraBatch:
+    device = resolve_device(device)
+
+    def vec(x):
+        return torch.atleast_1d(torch.as_tensor(x, dtype=torch.float32,
+                                                device=device))
+
+    radius, azimuth, elevation = vec(radius), vec(azimuth), vec(elevation)
+    tanfov = torch.tan(vec(fov_degrees) * (math.pi / 180.0) / 2.0)
+    w2c, c2w = to_extrinsic(radius, azimuth, elevation, at_vector=at_vector)
+    return CameraBatch(
+        extrinsic=w2c,
+        c2w=c2w,
+        intrinsics=to_intrinsics(tanfov, image_height, image_width),
+        projection=to_projection(tanfov, z_near, z_far,
+                                 aspect_wh=image_width / image_height),
+        tanfov=tanfov,
+        radius=radius,
+        azimuth=azimuth,
+        elevation=elevation,
+        image_height=image_height,
+        image_width=image_width,
+    )

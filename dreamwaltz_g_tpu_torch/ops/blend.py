@@ -1,0 +1,225 @@
+"""Sorted-segment tile blend: the CUDA kernel's wrapper and its plain version.
+
+Port of ``dreamwaltz_g_tpu/ops/pallas_blend.py:blend_sorted_pallas``. Tile
+t composites the Gaussians ``s_idx[seg_start[t] : seg_start[t] + counts[t]]``
+(depth-ordered by ``rasterize.bin_gaussians_sorted``) front to back over its
+``tile_size**2`` pixels.
+
+* ``blend_sorted`` launches ``csrc/blend_sorted.cu`` for CUDA tensors and
+  takes the plain version for CPU tensors. It counts its kernel launches in
+  ``blend_sorted.launches``.
+* ``blend_sorted_reference`` is the TPU kernel's algorithm in float32
+  PyTorch: per-chunk log-transmittance prefix over C-aligned chunks of the
+  sorted rows, rows outside the tile's segment masked, and the tile stops at
+  a chunk boundary once every pixel's log T is below ln(1e-4).
+
+The two differ by design: the kernel stops per pixel as soon as its T falls
+below the threshold, the plain version per tile at chunk boundaries. What
+the plain version adds after a pixel stopped is at most
+``exp(LOG_T_EPS) * |value|`` (about 1e-4 of the value).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .. import kernels
+
+#: ln(1e-4) as the TPU kernel writes it: a pixel is live while log T > this
+LOG_T_EPS = -9.2
+
+
+def pack_rows(means2d: torch.Tensor, conic: torch.Tensor,
+              opacity: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """(N + 1, 16) float32 rows [mx, my, ca, cb, cc, op, 0, 0, values...,
+    0...]; row N is all zero (the padding Gaussian)."""
+    N, CV = values.shape
+    if CV > 8:
+        raise ValueError(f"at most 8 value channels, got {CV}")
+    f32 = torch.float32
+    z = torch.zeros((N, 1), dtype=f32, device=means2d.device)
+    packed = torch.cat(
+        [means2d.to(f32), conic.to(f32), opacity[:, None].to(f32), z, z,
+         values.to(f32)] + [z] * (8 - CV), dim=-1)
+    return torch.cat([packed, torch.zeros((1, 16), dtype=f32,
+                                          device=means2d.device)])
+
+
+def _untile(out: torch.Tensor, CV: int, image_height: int, image_width: int,
+            tile_size: int) -> torch.Tensor:
+    """(T, P, 8) per-tile pixels -> (H, W, CV) image."""
+    Tx = -(-image_width // tile_size)
+    Ty = -(-image_height // tile_size)
+    img = out[..., :CV].reshape(Ty, Tx, tile_size, tile_size, CV)
+    img = img.permute(0, 2, 1, 3, 4).reshape(Ty * tile_size, Tx * tile_size, CV)
+    return img[:image_height, :image_width]
+
+
+def _tile_pixel_centres(Tx: int, Ty: int, tile_size: int,
+                        device) -> torch.Tensor:
+    """(T, P, 2) pixel centres, tiles row-major, pixels row-major."""
+    ty, tx = torch.meshgrid(torch.arange(Ty, device=device),
+                            torch.arange(Tx, device=device), indexing="ij")
+    base = torch.stack([tx.reshape(-1), ty.reshape(-1)], -1) * tile_size
+    py, px = torch.meshgrid(torch.arange(tile_size, device=device),
+                            torch.arange(tile_size, device=device),
+                            indexing="ij")
+    local = torch.stack([px.reshape(-1), py.reshape(-1)], -1)
+    return (base[:, None, :] + local[None, :, :]).float() + 0.5
+
+
+def blend_sorted_reference(
+    s_idx: torch.Tensor,
+    seg_start: torch.Tensor,
+    counts: torch.Tensor,
+    means2d: torch.Tensor,
+    conic: torch.Tensor,
+    opacity: torch.Tensor,
+    values: torch.Tensor,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 32,
+    chunk: int = 128,
+    capacity: int = 1024,
+    alpha_clip: float = 0.999,
+    min_alpha: float = 1.0 / 255.0,
+    stats: Optional[dict] = None,
+) -> torch.Tensor:
+    """Plain float32 version of the TPU kernel. Returns (H, W, CV).
+
+    ``stats``, when given, receives ``pairs``: the (pixel, entry) pairs
+    before each pixel's own log T falls below ``LOG_T_EPS`` -- the work a
+    per-pixel early stop has to do on these inputs -- and ``blended``, those
+    of them whose weight passes the min_alpha test."""
+    dev = means2d.device
+    N, CV = values.shape
+    C = chunk
+    P = tile_size * tile_size
+    Tx = -(-image_width // tile_size)
+    Ty = -(-image_height // tile_size)
+    T = Tx * Ty
+    n_chunks_max = capacity // C + 1   # +1 covers the misaligned first chunk
+
+    packed = pack_rows(means2d, conic, opacity, values)
+    Ns = s_idx.shape[0]
+    NB = -(-Ns // C) + 1               # +1 chunk: a segment may end in it
+    s_pad = torch.full((NB * C,), N, dtype=torch.long, device=dev)
+    s_pad[:Ns] = s_idx.long()
+
+    seg_start = seg_start.long()
+    counts = counts.long()
+    blk0 = seg_start // C
+    off = seg_start - blk0 * C
+    nblk = torch.where(counts > 0, (off + counts + C - 1) // C,
+                       torch.zeros_like(counts))
+
+    pix = _tile_pixel_centres(Tx, Ty, tile_size, dev)   # (T, P, 2)
+    px, py = pix[..., 0:1], pix[..., 1:2]                # (T, P, 1)
+    lane = torch.arange(C, device=dev)
+    log_t = torch.zeros((T, P), device=dev)
+    acc = torch.zeros((T, P, 8), device=dev)
+    pairs = blended = 0
+    for j in range(n_chunks_max):
+        rows = torch.clamp((blk0 + j)[:, None] * C + lane, max=NB * C - 1)
+        a = packed[s_pad[rows]]                           # (T, C, 16)
+        pos = lane[None, :] + j * C - off[:, None]
+        live = (j < nblk) & (log_t.max(dim=1).values > LOG_T_EPS)
+        use = ((pos >= 0) & (pos < counts[:, None]) & live[:, None])[:, None, :]
+
+        dx = px - a[:, None, :, 0]                        # (T, P, C)
+        dy = py - a[:, None, :, 1]
+        q = a[:, None, :, 2] * dx * dx + 2.0 * a[:, None, :, 3] * dx * dy \
+            + a[:, None, :, 4] * dy * dy
+        w = a[:, None, :, 5] * torch.exp(-0.5 * q)
+        w = torch.where(use & (q >= 0) & (w >= min_alpha),
+                        torch.clamp(w, max=alpha_clip), torch.zeros_like(w))
+        lg = torch.log1p(-w)
+        incl = torch.cumsum(lg, dim=-1)
+        excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]],
+                         dim=-1) + log_t[..., None]
+        contrib = torch.exp(excl) * w
+        acc = acc + torch.bmm(contrib, a[..., 8:16])
+        if stats is not None:
+            before_stop = (excl > LOG_T_EPS) & use
+            pairs += int(before_stop.sum())
+            blended += int((before_stop & (w > 0)).sum())
+        log_t = log_t + incl[..., -1]
+    if stats is not None:
+        stats["pairs"] = pairs
+        stats["blended"] = blended
+    return _untile(acc, CV, image_height, image_width, tile_size)
+
+
+def blend_sorted(
+    s_idx: torch.Tensor,
+    seg_start: torch.Tensor,
+    counts: torch.Tensor,
+    means2d: torch.Tensor,
+    conic: torch.Tensor,
+    opacity: torch.Tensor,
+    values: torch.Tensor,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 32,
+    chunk: int = 128,
+    capacity: int = 1024,
+    alpha_clip: float = 0.999,
+    min_alpha: float = 1.0 / 255.0,
+) -> torch.Tensor:
+    """Sorted-segment blend. Returns (H, W, CV) with CV = values' channels.
+
+    CPU tensors take ``blend_sorted_reference``; CUDA tensors launch the
+    kernel (``chunk`` and ``capacity`` shape only the plain version's loop;
+    the kernel reads each segment whole). Anything else raises."""
+    devs = {t.device for t in (s_idx, seg_start, counts, means2d, conic,
+                               opacity, values)}
+    if len(devs) != 1:
+        raise ValueError(f"blend_sorted inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return blend_sorted_reference(
+            s_idx, seg_start, counts, means2d, conic, opacity, values,
+            image_height, image_width, tile_size=tile_size, chunk=chunk,
+            capacity=capacity, alpha_clip=alpha_clip, min_alpha=min_alpha)
+    if dev.type != "cuda":
+        raise ValueError(f"blend_sorted runs on cpu or cuda, not {dev}")
+
+    N, CV = values.shape
+    P = tile_size * tile_size
+    Tx = -(-image_width // tile_size)
+    Ty = -(-image_height // tile_size)
+    T = Tx * Ty
+    if P > 1024 or P % 32:
+        raise ValueError(f"tile_size {tile_size}: need a multiple of 32 "
+                         "pixels per tile, at most 1024")
+    for name, t, dtype, shape in (
+            ("s_idx", s_idx, torch.int32, (s_idx.shape[0],)),
+            ("seg_start", seg_start, torch.int32, (T,)),
+            ("counts", counts, torch.int32, (T,)),
+            ("means2d", means2d, None, (N, 2)),
+            ("conic", conic, None, (N, 3)),
+            ("opacity", opacity, None, (N,))):
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    packed = pack_rows(means2d, conic, opacity, values)
+    s_idx, seg_start, counts = (x.contiguous() for x in (s_idx, seg_start,
+                                                          counts))
+    out = torch.empty((T, P, 8), dtype=torch.float32, device=dev)
+    fn = kernels.load("blend_sorted").blend_sorted_f32
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(packed.data_ptr(), s_idx.data_ptr(), seg_start.data_ptr(),
+                counts.data_ptr(), out.data_ptr(), T, Tx, tile_size,
+                alpha_clip, min_alpha, math.exp(LOG_T_EPS), stream)
+    if rc != 0:
+        raise RuntimeError(f"blend_sorted kernel launch failed: CUDA error {rc}")
+    blend_sorted.launches += 1
+    return _untile(out, CV, image_height, image_width, tile_size)
+
+
+blend_sorted.launches = 0

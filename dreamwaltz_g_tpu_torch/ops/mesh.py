@@ -1,0 +1,130 @@
+"""Point-mesh geometry: KNN and nearest-triangle queries.
+
+Port of ``dreamwaltz_g_tpu/ops/mesh.py``: setup-time ops of avatar
+initialisation, as chunked brute force over dense (chunk x F) distance
+tiles.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+
+def knn(query: torch.Tensor, points: torch.Tensor, k: int,
+        chunk: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours of each (M, 3) query among (N, 3) points.
+    Returns (squared dists (M, k), idx (M, k)), ascending."""
+    ds, idxs = [], []
+    for qc in torch.split(query, chunk):
+        d2 = torch.sum((qc[:, None, :] - points[None, :, :]) ** 2, dim=-1)
+        neg, idx = torch.topk(-d2, k, dim=-1)
+        ds.append(-neg)
+        idxs.append(idx)
+    return torch.cat(ds), torch.cat(idxs)
+
+
+def _point_triangle_sq_dist(p: torch.Tensor, a, b, c):
+    """Squared distance + barycentric coords of the closest point on triangle
+    (a, b, c) for points p (vectorized Ericson region test).
+
+    Shapes: p (..., 3); a/b/c broadcastable (..., 3).
+    Returns (d2 (...,), bary (..., 3))."""
+    ab = b - a
+    ac = c - a
+    ap = p - a
+
+    d1 = torch.sum(ab * ap, -1)
+    d2 = torch.sum(ac * ap, -1)
+    bp = p - b
+    d3 = torch.sum(ab * bp, -1)
+    d4 = torch.sum(ac * bp, -1)
+    cp = p - c
+    d5 = torch.sum(ab * cp, -1)
+    d6 = torch.sum(ac * cp, -1)
+
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+
+    eps = 1e-20
+    denom = torch.clamp(va + vb + vc, min=eps)
+    v_in = vb / denom
+    w_in = vc / denom
+
+    v_ab = torch.clamp(d1 / torch.clamp(d1 - d3, min=eps), 0.0, 1.0)
+    w_ac = torch.clamp(d2 / torch.clamp(d2 - d6, min=eps), 0.0, 1.0)
+    w_bc = torch.clamp((d4 - d3) / torch.clamp((d4 - d3) + (d5 - d6), min=eps),
+                       0.0, 1.0)
+
+    in_vert_a = (d1 <= 0) & (d2 <= 0)
+    in_vert_b = (d3 >= 0) & (d4 <= d3)
+    in_vert_c = (d6 >= 0) & (d5 <= d6)
+    in_edge_ab = (~in_vert_a) & (~in_vert_b) & (vc <= 0) & (d1 >= 0) & (d3 <= 0)
+    in_edge_ac = (~in_vert_a) & (~in_vert_c) & (vb <= 0) & (d2 >= 0) & (d6 <= 0)
+    in_edge_bc = (~in_vert_b) & (~in_vert_c) & (va <= 0) & ((d4 - d3) >= 0) \
+        & ((d5 - d6) >= 0)
+
+    zero = torch.zeros_like(d1)
+    one = torch.ones_like(d1)
+    v = torch.where(in_vert_a, zero,
+        torch.where(in_vert_b, one,
+        torch.where(in_vert_c, zero,
+        torch.where(in_edge_ab, v_ab,
+        torch.where(in_edge_ac, zero,
+        torch.where(in_edge_bc, 1.0 - w_bc, v_in))))))  # noqa: E128
+    w = torch.where(in_vert_a, zero,
+        torch.where(in_vert_b, zero,
+        torch.where(in_vert_c, one,
+        torch.where(in_edge_ab, zero,
+        torch.where(in_edge_ac, w_ac,
+        torch.where(in_edge_bc, w_bc, w_in))))))  # noqa: E128
+
+    closest = a + v[..., None] * ab + w[..., None] * ac
+    dist2 = torch.sum((p - closest) ** 2, -1)
+    bary = torch.stack([1.0 - v - w, v, w], dim=-1)
+    return dist2, bary
+
+
+class NearestTriangles(NamedTuple):
+    """Per-point nearest-triangle attachment."""
+
+    triangle_indices: torch.Tensor   # (N,) int64
+    sq_dists: torch.Tensor           # (N,)
+    barycentric: torch.Tensor        # (N, 3)
+    vertex_indices: torch.Tensor     # (N,) min-barycentric vertex of that triangle
+
+
+def find_nearest_triangles(
+    points: torch.Tensor,
+    vertices: torch.Tensor,
+    faces: torch.Tensor,
+    point_chunk: int = 1024,
+) -> NearestTriangles:
+    """Chunked brute-force nearest triangle + barycentric coordinates."""
+    tri = vertices[faces]  # (F, 3, 3)
+    a, b, c = tri[None, :, 0], tri[None, :, 1], tri[None, :, 2]
+    d2s, idxs, barys = [], [], []
+    for pc in torch.split(points, point_chunk):
+        d2, bary = _point_triangle_sq_dist(pc[:, None, :], a, b, c)
+        best = torch.argmin(d2, dim=-1)
+        rows = torch.arange(pc.shape[0], device=pc.device)
+        d2s.append(d2[rows, best])
+        idxs.append(best)
+        barys.append(bary[rows, best])
+    d2s, idxs, barys = torch.cat(d2s), torch.cat(idxs), torch.cat(barys)
+    # the reference picks the vertex with the MINIMUM barycentric weight
+    # (kept for parity: these ids gather the per-vertex offset terms)
+    nearest = torch.argmin(barys, dim=-1)
+    vertex_indices = faces[idxs].gather(1, nearest[:, None])[:, 0]
+    return NearestTriangles(triangle_indices=idxs, sq_dists=d2s,
+                            barycentric=barys, vertex_indices=vertex_indices)
+
+
+def interpolate_vertex_attributes(
+    nearest: NearestTriangles, faces: torch.Tensor, attributes: torch.Tensor,
+) -> torch.Tensor:
+    """Barycentric interpolation of per-vertex attributes (V, D) at the
+    attachment points -> (N, D)."""
+    tri_attr = attributes[faces[nearest.triangle_indices]]  # (N, 3, D)
+    return torch.einsum("nk,nkd->nd", nearest.barycentric, tri_attr)
