@@ -8,7 +8,14 @@ Entry points take ``device="cuda"`` by default and raise when CUDA is absent;
 only an explicit ``device="cpu"`` runs on the CPU, through each kernel's
 plain PyTorch version.
 
-Ported so far: the render path of a trained avatar (animate -> project ->
-sorted tile bin -> sorted tile blend), with the blend as a hand-written CUDA
-kernel (``csrc/blend_sorted.cu``).
+Ported so far:
+
+* the render path of a trained avatar (animate -> project -> sorted tile
+  bin -> sorted tile blend), with the blend as a hand-written CUDA kernel
+  (``csrc/blend_sorted.cu``);
+* the stage-2 avatar SDS training step (render through the (T, K) tile
+  table -> VAE encode -> ControlNet + UNet CFG -> SDS gradient -> backward
+  -> Adam -> densification stats), with the table blend's forward and
+  backward, and its forward-only eval twin, as hand-written CUDA kernels
+  (``csrc/blend_train.cu``).
 """

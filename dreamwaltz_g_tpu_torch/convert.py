@@ -1,4 +1,4 @@
-"""Carry a JAX-package avatar into the port.
+"""Carry JAX-package weights and state into the port.
 
 ``avatar_state_from_numpy(tree, model)`` takes the JAX ``AvatarState`` as a
 tree of numpy arrays (e.g. ``jax.tree_util.tree_map(np.asarray, state)``),
@@ -10,8 +10,24 @@ loads the two networks' Flax weights into ``model.color_mlp`` and
   ``head_scale``, ``head_quat``, ``branch_w``, ``branch_v``) map one to one.
 * Triplane planes (3, R, R, F) keep their layout.
 * ``MeshBindingParams`` and the per-slot arrays copy across.
+
+``unet_from_flax``, ``controlnet_from_flax`` and ``vae_from_flax`` load the
+Flax parameter trees of the JAX guidance models (as numpy) into the port's
+modules, whose names are diffusers' own:
+
+* Flax ``Conv`` kernels (kh, kw, in, out) become (out, in, kh, kw);
+  ``Dense`` (in, out) becomes ``nn.Linear.weight`` (out, in);
+  ``GroupNorm`` / ``LayerNorm`` ``scale`` becomes ``weight``.
+* Flax module names map to module paths: ``down_blocks_0/attentions_1/
+  transformer_blocks_0/attn1/to_out_0`` ->
+  ``down_blocks.0.attentions.1.transformer_blocks.0.attn1.to_out.0``; the
+  VAE's flat ``down_blocks_0_resnets_1`` -> ``down_blocks.0.resnets.1``, its
+  ``quant_conv`` / ``post_quant_conv`` at the top level.
+* Every module parameter must be covered and every Flax leaf used.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -91,3 +107,89 @@ def avatar_state_from_numpy(tree, model: AvatarModel,
         max_radii=t(tree.max_radii),
         vertex_indices=None if vidx is None else t(vidx),
     )
+
+
+# ---------------------------------------------------------------------------
+# Guidance weights
+# ---------------------------------------------------------------------------
+
+_INDEXED = re.compile(r"(?<![A-Za-z])(down_blocks|up_blocks|resnets|attentions"
+                      r"|transformer_blocks|downsamplers|upsamplers|blocks"
+                      r"|to_out|net)_(\d+)")
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _module_path(flax_modules) -> str:
+    """Flax module names -> the diffusers-style torch module path."""
+    name = ".".join(flax_modules).replace("mid_block_", "mid_block.")
+    name = _INDEXED.sub(r"\1.\2", name)
+    return re.sub(r"(\.\d+)_", r"\1.", name)
+
+
+def flax_state_dict(flax_params, prefix: str = "", rename=None) -> dict:
+    """{torch name: float32 tensor} from a Flax params tree (numpy leaves),
+    with kernels laid out as torch keeps them."""
+    tree = flax_params.get("params", flax_params)
+    out = {}
+    for path, leaf in _flatten(tree).items():
+        *mods, kind = path
+        a = np.asarray(leaf, np.float32)
+        if kind == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        name = _module_path(mods)
+        if rename is not None:
+            name = rename(name)
+        leaf_name = {"kernel": "weight", "scale": "weight",
+                     "bias": "bias"}[kind]
+        out[f"{prefix}{name}.{leaf_name}"] = torch.as_tensor(
+            np.ascontiguousarray(a))
+    return out
+
+
+@torch.no_grad()
+def _load(module: nn.Module, state: dict) -> nn.Module:
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state))
+    unused = sorted(set(state) - set(own))
+    if missing or unused:
+        raise KeyError(f"weights do not match the module: missing "
+                       f"{missing[:5]} ({len(missing)}), unused {unused[:5]} "
+                       f"({len(unused)})")
+    for name, t in own.items():
+        if tuple(state[name].shape) != tuple(t.shape):
+            raise ValueError(f"{name}: flax {tuple(state[name].shape)} vs "
+                             f"torch {tuple(t.shape)}")
+        t.copy_(state[name].to(t.dtype))
+    return module
+
+
+def unet_from_flax(module: nn.Module, flax_params) -> nn.Module:
+    """Load a JAX ``UNet2DCondition`` params tree into the port's UNet."""
+    return _load(module, flax_state_dict(flax_params))
+
+
+def controlnet_from_flax(module: nn.Module, flax_params) -> nn.Module:
+    """Load a JAX ``ControlNet`` params tree into the port's ControlNet."""
+    return _load(module, flax_state_dict(flax_params))
+
+
+def vae_from_flax(module: nn.Module, flax_params) -> nn.Module:
+    """Load a JAX ``AutoencoderKL`` tree ({'encoder': ..., 'decoder': ...}),
+    whose encoder and decoder hold the two quant convs, into the port's
+    AutoencoderKL."""
+    state = {}
+    for part, top in (("encoder", "quant_conv"),
+                      ("decoder", "post_quant_conv")):
+        state.update(flax_state_dict(
+            flax_params[part],
+            rename=lambda n, part=part, top=top:
+            n if n.startswith(top) else f"{part}.{n}"))
+    return _load(module, state)

@@ -1,0 +1,272 @@
+"""Shared building blocks of the Stable Diffusion stack.
+
+Port of ``dreamwaltz_g_tpu/guidance/layers.py``: resnet blocks, the spatial
+transformer with self and cross attention, up/down sampling and the
+sinusoidal time embedding. Module and parameter names are diffusers' own
+(``transformer_blocks.0.attn1.to_out.0``), so converted Flax weights and a
+later diffusers checkpoint load by name.
+
+Inside the stack activations are NCHW, as ``nn.Conv2d`` takes them; the
+models' public ``forward``s (``unet.py``, ``controlnet.py``, ``vae.py``)
+take and return the JAX package's NHWC.
+
+Attention runs the einsum path only: ``FLASH_ATTENTION = "off"``, which is
+also what the JAX package runs on any device that is not a TPU. The flash
+kernel (TPU kernel B4, ``layers.py:_flash_kernel``) is ported in a later
+slice; until then any other setting raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+#: "off": every attention takes the einsum path. The flash kernel (B4) is
+#: not ported yet, so any other value raises when attention runs.
+FLASH_ATTENTION = "off"
+
+
+def _check_flash() -> None:
+    if FLASH_ATTENTION != "off":
+        raise NotImplementedError(
+            f"FLASH_ATTENTION={FLASH_ATTENTION!r}: the flash-attention kernel "
+            "(TPU kernel B4) is not ported yet -- slice 3 of the port brings "
+            "it; only 'off' (the einsum path) runs")
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: float = 10000.0,
+                       flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0) -> torch.Tensor:
+    """Sinusoidal embeddings, diffusers ``get_timestep_embedding``
+    semantics; float32 (B, dim)."""
+    half = dim // 2
+    dev = timesteps.device
+    exponent = -torch.log(torch.tensor(max_period, device=dev)) \
+        * torch.arange(half, dtype=torch.float32, device=dev)
+    exponent = exponent / (half - downscale_freq_shift)
+    freqs = torch.exp(exponent)
+    args = timesteps.to(torch.float32)[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin], -1) if flip_sin_to_cos \
+        else torch.cat([sin, cos], -1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def _group_norm(channels: int, eps: float, groups: int = 32) -> nn.GroupNorm:
+    return nn.GroupNorm(min(groups, channels), channels, eps=eps)
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, emb):
+        return self.linear_2(F.silu(self.linear_1(emb)))
+
+
+class ResnetBlock2D(nn.Module):
+    """GroupNorm -> SiLU -> conv, plus the projected time embedding, twice;
+    a 1x1 shortcut when the channels change. ``temb_channels=None`` drops
+    the time conditioning (the VAE's resnets); ``eps`` is the GroupNorm
+    epsilon (1e-5 in the UNet, 1e-6 in the VAE)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 temb_channels: Optional[int] = None, eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = _group_norm(in_channels, eps)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        if temb_channels is not None:
+            self.time_emb_proj = nn.Linear(temb_channels, out_channels)
+        self.norm2 = _group_norm(out_channels, eps)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        if in_channels != out_channels:
+            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if hasattr(self, "conv_shortcut"):
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Attention(nn.Module):
+    """Multi-head attention over (B, N, C) tokens; cross-attention when
+    ``context`` is given. Scores are softmaxed in float32 and cast back to
+    the input type, as the JAX package does."""
+
+    def __init__(self, query_dim: int, heads: int, head_dim: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        context_dim = query_dim if context_dim is None else context_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
+
+    def forward(self, x, context=None):
+        _check_flash()
+        context = x if context is None else context
+        B, Nq, _ = x.shape
+        Nk = context.shape[1]
+        H, D = self.heads, self.head_dim
+        q = self.to_q(x).reshape(B, Nq, H, D)
+        k = self.to_k(context).reshape(B, Nk, H, D)
+        v = self.to_v(context).reshape(B, Nk, H, D)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D)
+        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Nq, H * D)
+        return self.to_out[0](out)
+
+
+class _GEGLUProj(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+
+class FeedForwardGEGLU(nn.Module):
+    """GEGLU feed-forward; the gate's GELU is the tanh approximation, as
+    Flax's ``nn.gelu`` computes it by default."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([_GEGLUProj(dim, inner), nn.Identity(),
+                                  nn.Linear(inner, dim)])
+
+    def forward(self, x):
+        a, g = self.net[0].proj(x).chunk(2, dim=-1)
+        return self.net[2](a * F.gelu(g, approximate="tanh"))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, heads, head_dim, context_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForwardGEGLU(dim)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """GroupNorm -> 1x1 in -> transformer block(s) -> 1x1 out, residual."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int,
+                 context_dim: int, depth: int = 1):
+        super().__init__()
+        self.norm = _group_norm(channels, 1e-6)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(channels, heads, head_dim, context_dim)
+            for _ in range(depth)])
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x, context):
+        B, C, H, W = x.shape
+        h = self.proj_in(self.norm(x))
+        h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
+        for block in self.transformer_blocks:
+            h = block(h, context)
+        h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
+        return self.proj_out(h) + x
+
+
+class Downsample2D(nn.Module):
+    """Stride-2 3x3 conv with symmetric padding 1 (the JAX package's; the
+    diffusers VAE pads (0, 1) instead)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest 2x upsampling, then a 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class AttnBlockVAE(nn.Module):
+    """Single-head spatial self-attention of the VAE mid block; its softmax
+    runs in the input type, as in the JAX package."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.group_norm = _group_norm(channels, 1e-6)
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
+        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+
+    def forward(self, x):
+        _check_flash()
+        B, C, H, W = x.shape
+        h = self.group_norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
+        attn = torch.softmax(torch.einsum("bqc,bkc->bqk", q, k)
+                             / math.sqrt(C), dim=-1)
+        h = self.to_out[0](torch.einsum("bqk,bkc->bqc", attn, v))
+        return x + h.reshape(B, H, W, C).permute(0, 3, 1, 2)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights in place, every draw from ``generator``: Linear and
+    Conv2d weights N(0, 1/fan_in) (Flax's LeCun-normal scale), drawn in the
+    parameter's own type and device, so a bf16 model on the card never holds
+    a float32 copy; biases 0, norm scales 1."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            w = m.weight
+            fan_in = w[0].numel()
+            w.copy_(torch.randn(w.shape, generator=generator, dtype=w.dtype,
+                                device=w.device))
+            w.mul_(fan_in ** -0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+def build(make, device, dtype=torch.float32,
+          generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Construct ``make()`` without allocating, then materialise it on
+    ``device`` in ``dtype``, frozen (no parameter requires a gradient), and
+    draw its weights from ``generator`` when one is given (else they stay
+    uninitialised, for a loader to fill)."""
+    with torch.device("meta"):
+        module = make()
+    module = module.to(dtype).to_empty(device=device)
+    module.requires_grad_(False)
+    if generator is not None:
+        init_weights(module, generator)
+    return module.eval()

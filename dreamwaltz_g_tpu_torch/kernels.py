@@ -23,10 +23,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C signature of each kernel library's launch function: (name, argtypes)
+#: C signatures of each kernel library's launch functions: {name: argtypes}
 SIGNATURES = {
-    "blend_sorted": ("blend_sorted_f32",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P]),
+    "blend_sorted": {
+        "blend_sorted_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+    },
+    "blend_train": {
+        "blend_train_fwd_f32": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
+        "blend_tiles_eval_f32": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_P],
+        "blend_train_bwd_f32": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -86,9 +92,9 @@ def load(name: str) -> ctypes.CDLL:
         if _stale(name):
             build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

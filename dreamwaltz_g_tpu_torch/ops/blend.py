@@ -33,28 +33,44 @@ LOG_T_EPS = -9.2
 
 def pack_rows(means2d: torch.Tensor, conic: torch.Tensor,
               opacity: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """(N + 1, 16) float32 rows [mx, my, ca, cb, cc, op, 0, 0, values...,
-    0...]; row N is all zero (the padding Gaussian)."""
-    N, CV = values.shape
+    """(..., N + 1, 16) float32 rows [mx, my, ca, cb, cc, op, 0, 0,
+    values..., 0...]; row N is all zero (the padding Gaussian). Leading
+    dimensions (views) pass through."""
+    *lead, N, CV = values.shape
     if CV > 8:
         raise ValueError(f"at most 8 value channels, got {CV}")
     f32 = torch.float32
-    z = torch.zeros((N, 1), dtype=f32, device=means2d.device)
+    z = torch.zeros((*lead, N, 1), dtype=f32, device=means2d.device)
     packed = torch.cat(
-        [means2d.to(f32), conic.to(f32), opacity[:, None].to(f32), z, z,
+        [means2d.to(f32), conic.to(f32), opacity[..., None].to(f32), z, z,
          values.to(f32)] + [z] * (8 - CV), dim=-1)
-    return torch.cat([packed, torch.zeros((1, 16), dtype=f32,
-                                          device=means2d.device)])
+    return torch.cat([packed, torch.zeros((*lead, 1, 16), dtype=f32,
+                                          device=means2d.device)], dim=-2)
 
 
 def _untile(out: torch.Tensor, CV: int, image_height: int, image_width: int,
             tile_size: int) -> torch.Tensor:
-    """(T, P, 8) per-tile pixels -> (H, W, CV) image."""
+    """(..., T, P, 8) per-tile pixels -> (..., H, W, CV) image."""
     Tx = -(-image_width // tile_size)
     Ty = -(-image_height // tile_size)
-    img = out[..., :CV].reshape(Ty, Tx, tile_size, tile_size, CV)
-    img = img.permute(0, 2, 1, 3, 4).reshape(Ty * tile_size, Tx * tile_size, CV)
-    return img[:image_height, :image_width]
+    lead = out.shape[:-3]
+    img = out[..., :CV].reshape(*lead, Ty, Tx, tile_size, tile_size, CV)
+    img = img.transpose(-4, -3).reshape(*lead, Ty * tile_size,
+                                        Tx * tile_size, CV)
+    return img[..., :image_height, :image_width, :]
+
+
+def _tile(img: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(..., H, W, CV) image -> (..., T, P, 8) per-tile pixels, zero-padded
+    to whole tiles and 8 lanes (the inverse of ``_untile``)."""
+    *lead, H, W, CV = img.shape
+    Tx = -(-W // tile_size)
+    Ty = -(-H // tile_size)
+    img = torch.nn.functional.pad(
+        img, (0, 8 - CV, 0, Tx * tile_size - W, 0, Ty * tile_size - H))
+    img = img.reshape(*lead, Ty, tile_size, Tx, tile_size, 8)
+    return img.transpose(-4, -3).reshape(*lead, Ty * Tx,
+                                         tile_size * tile_size, 8)
 
 
 def _tile_pixel_centres(Tx: int, Ty: int, tile_size: int,

@@ -1,16 +1,18 @@
-"""3D Gaussian Splatting rasterizer, eval path.
+"""3D Gaussian Splatting rasterizer.
 
-Port of the eval branch of ``dreamwaltz_g_tpu/ops/rasterize.py``:
+Port of ``dreamwaltz_g_tpu/ops/rasterize.py``:
 
 1. **project**: EWA splatting -- camera-space transform, perspective
    Jacobian, 2D covariance + conic, radius, culling.
 2. **bin**: every Gaussian emits up to D (tile, quantized depth) keys; one
    stable sort yields per-tile contiguous, depth-ordered segments of the
-   sorted entry array (``bin_gaussians_sorted``).
-3. **blend**: each tile composites its segment front to back
-   (``ops/blend.py:blend_sorted``, a CUDA kernel on the card).
-
-The differentiable (T, K)-table path of the training step is not ported yet.
+   sorted entry array. The render reads them as segments
+   (``bin_gaussians_sorted``), training as a (T, K) table
+   (``bin_gaussians``).
+3. **blend**: each tile composites its entries front to back. The render
+   takes ``ops/blend.py:blend_sorted`` (B2); training the differentiable
+   ``ops/blend_train.py:blend_tiles_train`` (B1 forward and backward); each
+   is a CUDA kernel on the card.
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ from typing import Any, NamedTuple, Optional
 import math
 
 import torch
+from torch.profiler import record_function
 
 from ..utils.transforms import quat_to_matrix
-from .blend import blend_sorted
+from .blend import _tile_pixel_centres, _untile, blend_sorted
+from .blend_train import blend_tiles_eval, blend_tiles_train
 
 
 class Gaussians2D(NamedTuple):
@@ -120,26 +124,14 @@ def _overflow_fraction(raw_counts: torch.Tensor, capacity: int) -> torch.Tensor:
     return dropped.float() / total.float()
 
 
-def bin_gaussians_sorted(
-    means2d: torch.Tensor,
-    radius: torch.Tensor,
-    depth: torch.Tensor,
-    mask: torch.Tensor,
-    image_height: int,
-    image_width: int,
-    tile_size: int = 32,
-    capacity: int = 1024,
-    max_tiles_per_gaussian: int = 8,
-):
-    """Sorted-segment binning. Returns ``(s_idx, seg_start, counts,
-    overflow)``: tile t's depth-ordered entries are the Gaussians
-    ``s_idx[seg_start[t] : seg_start[t] + counts[t]]``, counts capped at
-    ``capacity``. All int32.
-
-    The key is ``tile * 2^qbits + qdepth`` with depth quantized to qbits
-    bits, so one sort gives contiguous depth-ordered tile segments; entries
-    of no tile get tile T and sink to the end. The sort is stable, so ties
-    keep Gaussian order."""
+def _sorted_entries(means2d, radius, depth, mask, image_height, image_width,
+                    tile_size, max_tiles_per_gaussian):
+    """The binning sort shared by both tables. Every Gaussian emits up to D
+    (tile, quantized depth) keys ``tile * 2^qbits + qdepth`` (depth quantized
+    to qbits bits); entries of no tile get tile T and sink to the end. One
+    stable sort yields per-tile contiguous, depth-ordered segments, ties in
+    Gaussian order. Returns ``(s_key, s_idx, seg)``: the sorted keys, the
+    Gaussian of each sorted entry (int32), and the T + 1 segment bounds."""
     dev = means2d.device
     N = means2d.shape[0]
     D = max_tiles_per_gaussian
@@ -184,10 +176,165 @@ def bin_gaussians_sorted(
 
     bounds = torch.arange(T + 1, dtype=torch.int32, device=dev) * (qmax + 1)
     seg = torch.searchsorted(s_key, bounds, right=False).to(torch.int32)
-    seg_start = seg[:T]
+    return s_key, s_idx, seg
+
+
+def bin_gaussians(
+    means2d: torch.Tensor,
+    radius: torch.Tensor,
+    depth: torch.Tensor,
+    mask: torch.Tensor,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 32,
+    capacity: int = 1024,
+    max_tiles_per_gaussian: int = 8,
+):
+    """Depth-ordered tile index table (the training blend's input).
+
+    Returns ``(tile_lists, tile_counts, overflow)``: tile_lists (T, K =
+    capacity) int32 with sentinel N in empty slots, tile_counts (T,) int32
+    (capped at ``capacity``), and the fraction of entries the cap dropped.
+    Tile t's first ``capacity`` sorted entries are read straight out of its
+    segment, as the JAX package does (a (T, K) gather, no scatter)."""
+    N = means2d.shape[0]
+    D = max_tiles_per_gaussian
+    _, s_idx, seg = _sorted_entries(means2d, radius, depth, mask,
+                                    image_height, image_width, tile_size, D)
+    seg_start, seg_end = seg[:-1], seg[1:]
+    src = seg_start[:, None] + torch.arange(capacity, dtype=torch.int32,
+                                            device=means2d.device)[None, :]
+    in_seg = src < seg_end[:, None]
+    idx_at = s_idx[torch.clamp(src, max=N * D - 1).long()]
+    tile_lists = torch.where(in_seg, idx_at, N).to(torch.int32)
+    raw = seg_end - seg_start
+    tile_counts = torch.clamp(raw, max=capacity).to(torch.int32)
+    return tile_lists, tile_counts, _overflow_fraction(raw, capacity)
+
+
+def bin_gaussians_sorted(
+    means2d: torch.Tensor,
+    radius: torch.Tensor,
+    depth: torch.Tensor,
+    mask: torch.Tensor,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 32,
+    capacity: int = 1024,
+    max_tiles_per_gaussian: int = 8,
+):
+    """Sorted-segment binning. Returns ``(s_idx, seg_start, counts,
+    overflow)``: tile t's depth-ordered entries are the Gaussians
+    ``s_idx[seg_start[t] : seg_start[t] + counts[t]]``, counts capped at
+    ``capacity``. All int32. No (T, K) table is built."""
+    _, s_idx, seg = _sorted_entries(means2d, radius, depth, mask,
+                                    image_height, image_width, tile_size,
+                                    max_tiles_per_gaussian)
+    seg_start = seg[:-1]
     raw = seg[1:] - seg_start
     counts = torch.clamp(raw, max=capacity)
     return s_idx, seg_start, counts, _overflow_fraction(raw, capacity)
+
+
+# ---------------------------------------------------------------------------
+# Tile blending over the (T, K) table
+# ---------------------------------------------------------------------------
+
+def _tile_pixel_coords(image_height: int, image_width: int, tile_size: int,
+                       device=None) -> torch.Tensor:
+    """(T, P, 2) pixel centres, tiles row-major, pixels row-major."""
+    Tx = -(-image_width // tile_size)
+    Ty = -(-image_height // tile_size)
+    return _tile_pixel_centres(Tx, Ty, tile_size, device)
+
+
+def blend_tiles(
+    tile_lists: torch.Tensor,
+    g: "Gaussians2D",
+    image_height: int,
+    image_width: int,
+    tile_size: int = 32,
+    chunk: int = 128,
+    alpha_clip: float = 0.999,
+    min_alpha: float = 1.0 / 255.0,
+) -> torch.Tensor:
+    """Front-to-back alpha blending over the (T, K) tile lists, in chunks of
+    ``chunk`` entries with no early stop; plain PyTorch that autograd
+    differentiates (the test oracle for the training blend's gradients).
+
+    Returns (H, W, CH + 2): [colors..., accumulated depth, weights_sum].
+    The JAX version rematerialises each chunk in its backward
+    (``jax.checkpoint``); here autograd keeps every chunk's intermediates,
+    which is fine at the sizes it is used at."""
+    T, K = tile_lists.shape
+    N, CH = g.colors.shape
+    dev = g.colors.device
+    C = min(chunk, K)
+    n_chunks = -(-K // C)
+    if K % C:   # pad lists to a chunk multiple with the sentinel
+        tile_lists = torch.cat([tile_lists, torch.full(
+            (T, n_chunks * C - K), N, dtype=tile_lists.dtype, device=dev)], 1)
+
+    def pad1(a):   # sentinel N is a dead Gaussian
+        return torch.cat([a, torch.zeros((1,) + a.shape[1:], dtype=a.dtype,
+                                         device=dev)])
+
+    means2d = pad1(g.means2d)
+    conic = pad1(g.conic)
+    opacity = pad1(g.opacity * g.mask.to(g.opacity.dtype))
+    values = pad1(torch.cat([g.colors, g.depth[:, None],
+                             torch.ones((N, 1), dtype=g.colors.dtype,
+                                        device=dev)], -1))
+    CV = CH + 2
+    pix = _tile_pixel_coords(image_height, image_width, tile_size, dev)
+    P = pix.shape[1]
+
+    idx_all = tile_lists.long()
+    log_t = torch.zeros((T, P), device=dev)
+    acc = torch.zeros((T, P, CV), device=dev)
+    for k in range(n_chunks):
+        idx = idx_all[:, k * C:(k + 1) * C]        # (T, C)
+        xy, con, op, val = means2d[idx], conic[idx], opacity[idx], values[idx]
+        dx = pix[:, :, None, 0] - xy[:, None, :, 0]   # (T, P, C)
+        dy = pix[:, :, None, 1] - xy[:, None, :, 1]
+        q = (con[:, None, :, 0] * dx * dx
+             + 2.0 * con[:, None, :, 1] * dx * dy
+             + con[:, None, :, 2] * dy * dy)
+        w = op[:, None, :] * torch.exp(-0.5 * q)
+        w = torch.where((q >= 0) & (w >= min_alpha),
+                        torch.clamp(w, max=alpha_clip), torch.zeros_like(w))
+        l = torch.log1p(-w)
+        incl = torch.cumsum(l, dim=-1)
+        excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]],
+                         dim=-1) + log_t[..., None]
+        contrib = torch.exp(excl) * w
+        acc = acc + torch.bmm(contrib, val)
+        log_t = log_t + incl[..., -1]
+    return _untile(acc, CV, image_height, image_width, tile_size)
+
+
+def _blend_dispatch(tile_lists, means2d, conic, opacity, colors, depth, mask,
+                    image_height, image_width, tile_size, chunk,
+                    tile_counts=None, mode="train"):
+    """The table blend's kernels. ``mode='train'`` takes the differentiable
+    pair (``blend_train.blend_tiles_train``: the B1 forward and backward
+    kernels on the card); ``'eval'`` the forward-only kernel over the same
+    table (``blend_train.blend_tiles_eval``, B3)."""
+    N = colors.shape[0]
+    values = torch.cat([colors, depth[:, None],
+                        torch.ones((N, 1), dtype=colors.dtype,
+                                   device=colors.device)], -1)
+    op = opacity * mask.to(opacity.dtype)
+    if tile_counts is None:
+        tile_counts = torch.sum(tile_lists < N, dim=-1).to(torch.int32)
+    kw = dict(tile_size=tile_size, chunk=chunk)
+    if mode == "eval":
+        return blend_tiles_eval(tile_lists, tile_counts, means2d, conic, op,
+                                values, image_height, image_width, **kw)
+    if mode == "train":
+        return blend_tiles_train(tile_lists, tile_counts, means2d, conic, op,
+                                 values, image_height, image_width, **kw)
+    raise ValueError(f"mode must be 'train' or 'eval', got {mode!r}")
 
 
 class RasterOutput(NamedTuple):
@@ -206,24 +353,45 @@ def rasterize_projected(
     capacity: int = 1024,
     chunk: int = 128,
     max_tiles_per_gaussian: int = 8,
+    mode: str = "train",
 ) -> RasterOutput:
-    """Bin + blend already-projected Gaussians (the eval render, forward
-    only). On the card the blend is the CUDA kernel; on the CPU its plain
-    version."""
+    """Bin + blend already-projected Gaussians.
+
+    ``mode='train'`` (the default, as in the JAX package) bins into the
+    (T, K) table and blends through the differentiable training blend:
+    gradients flow to every float field of ``g``; the binning is an index
+    structure built from detached inputs. ``mode='eval'`` bins into sorted
+    segments and blends forward only (the render path). On the card each
+    blend is a CUDA kernel; on the CPU its plain version."""
     CH = g.colors.shape[-1]
-    s_idx, seg_start, counts, overflow = bin_gaussians_sorted(
-        g.means2d, g.radius, g.depth, g.mask, image_height, image_width,
-        tile_size, capacity, max_tiles_per_gaussian)
-    N = g.colors.shape[0]
-    values = torch.cat(
-        [g.colors, g.depth[:, None],
-         torch.ones((N, 1), dtype=g.colors.dtype, device=g.colors.device)],
-        dim=-1)
-    out = blend_sorted(
-        s_idx, seg_start, counts, g.means2d, g.conic,
-        g.opacity * g.mask.to(g.opacity.dtype), values,
-        image_height, image_width, tile_size=tile_size, chunk=chunk,
-        capacity=capacity)
+    if mode == "eval":
+        s_idx, seg_start, counts, overflow = bin_gaussians_sorted(
+            g.means2d.detach(), g.radius.detach(), g.depth.detach(), g.mask,
+            image_height, image_width, tile_size, capacity,
+            max_tiles_per_gaussian)
+        N = g.colors.shape[0]
+        values = torch.cat(
+            [g.colors, g.depth[:, None],
+             torch.ones((N, 1), dtype=g.colors.dtype, device=g.colors.device)],
+            dim=-1)
+        out = blend_sorted(
+            s_idx, seg_start, counts, g.means2d, g.conic,
+            g.opacity * g.mask.to(g.opacity.dtype), values,
+            image_height, image_width, tile_size=tile_size, chunk=chunk,
+            capacity=capacity)
+    elif mode == "train":
+        with record_function("rasterize.bin"):
+            tile_lists, tile_counts, overflow = bin_gaussians(
+                g.means2d.detach(), g.radius.detach(), g.depth.detach(),
+                g.mask, image_height, image_width, tile_size, capacity,
+                max_tiles_per_gaussian)
+        with record_function("rasterize.blend"):
+            out = _blend_dispatch(
+                tile_lists, g.means2d, g.conic, g.opacity, g.colors, g.depth,
+                g.mask, image_height, image_width, tile_size, chunk,
+                tile_counts=tile_counts, mode="train")
+    else:
+        raise ValueError(f"mode must be 'train' or 'eval', got {mode!r}")
     return RasterOutput(image=out[..., :CH], alpha=out[..., CH + 1],
                         depth=out[..., CH], radii=g.radius, overflow=overflow)
 

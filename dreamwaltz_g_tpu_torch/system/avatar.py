@@ -13,8 +13,11 @@ Port of the render-path part of ``dreamwaltz_g_tpu/system/avatar.py``:
 ``AvatarModel`` is the static definition; it owns the two networks as
 ``nn.Module``s, so their weights live there (the JAX package keeps them in
 ``AvatarParams.color_mlp`` / ``sq_net``). ``AvatarParams`` / ``AvatarState``
-hold every other tensor under the JAX field names. Densification and the
-LBS-weight KNN smoothing are not ported yet.
+hold every other tensor under the JAX field names. ``animate`` is
+differentiable with respect to every float tensor of ``AvatarParams`` and
+the networks' weights. ``update_avatar_stats`` accumulates the densifier's
+statistics; densification itself and the LBS-weight KNN smoothing are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -150,6 +153,11 @@ class AvatarModel:
     @property
     def learn_betas(self) -> bool:
         return self.learn_hand_betas or self.learn_face_betas
+
+    @property
+    def n_mesh_points(self) -> int:
+        return sum(p.points_to_triangles.shape[0]
+                   for p in self.mesh_parts.values())
 
 
 # ---------------------------------------------------------------------------
@@ -600,3 +608,26 @@ def place_gaussians(gs: GaussiansOut, scale=None, transl=None,
         t = t[index] if t.ndim == 2 else t
         gs = gs._replace(positions=gs.positions + t[None])
     return gs
+
+
+# ---------------------------------------------------------------------------
+# Densification statistics on the unconstrained set
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def update_avatar_stats(state: AvatarState, means2d_grad: torch.Tensor,
+                        radii: torch.Tensor) -> AvatarState:
+    """Accumulate densification stats from the first C (unconstrained)
+    entries of the merged render: the screen-space gradient norm and a
+    visibility count where the slot is alive and on screen, and the
+    largest screen radius."""
+    C = state.capacity
+    vis = (radii[:C] > 0) & state.alive
+    gnorm = torch.linalg.norm(means2d_grad[:C], dim=-1)
+    zero = torch.zeros_like(gnorm)
+    return state._replace(
+        grad_accum=state.grad_accum + torch.where(vis, gnorm, zero),
+        grad_denom=state.grad_denom + vis.to(torch.float32),
+        max_radii=torch.maximum(state.max_radii,
+                                torch.where(vis, radii[:C], zero)),
+    )

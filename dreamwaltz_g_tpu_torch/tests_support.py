@@ -1,10 +1,12 @@
-"""Synthetic avatar fixtures for tests and chip runs.
+"""Synthetic avatar and guidance fixtures for tests and chip runs.
 
-Port of ``tiny_avatar_setup`` from ``dreamwaltz_g_tpu/tests_support.py``
-(without the guidance builders). It takes sizes, so the same builder makes
-the few-vertex test avatar and the full-width one that ``chip_smoke.py``
-renders. The body and the point cloud come from numpy draws identical to
-the JAX package's.
+Port of ``tiny_avatar_setup`` and ``tiny_guidance`` from
+``dreamwaltz_g_tpu/tests_support.py``. ``tiny_avatar_setup`` takes sizes,
+so the same builder makes the few-vertex test avatar and the full-width one
+that ``chip_smoke.py`` trains and renders; the body and the point cloud come
+from numpy draws identical to the JAX package's. ``sd15_guidance`` builds
+the SD1.5-size UNet, ControlNet and VAE with random weights from a seed,
+straight into their type on their device.
 """
 from __future__ import annotations
 
@@ -14,6 +16,11 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .guidance.controlnet import ControlNet
+from .guidance.layers import build
+from .guidance.sds import GuidanceParams, ScoreDistillation
+from .guidance.unet import UNet2DCondition, sd15_unet_config, tiny_unet_config
+from .guidance.vae import AutoencoderKL, sd_vae_config, tiny_vae_config
 from .human.deform import DeformNetwork
 from .human.smplx_model import SMPLXParams, default_params, make_synthetic_model
 from .nerf.encoder import TriplaneConfig
@@ -84,3 +91,41 @@ def tiny_avatar_setup(capacity: int = 128, n_points: int = 64,
         prune_dists_close_to_mesh=prune_dists_close_to_mesh, device=device)
     return TinyAvatarSetup(model=model, state=state, cloud=cloud,
                            observed=default_params(smpl, 1))
+
+
+def _guidance(ucfg, vcfg, cond_block_channels, seed, with_controlnet,
+              device, dtype):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    unet = build(lambda: UNet2DCondition(ucfg), device, dtype, gen)
+    vae = build(lambda: AutoencoderKL(vcfg), device, dtype, gen)
+    cn = None
+    if with_controlnet:
+        cn = build(lambda: ControlNet(ucfg, cond_block_channels), device,
+                   dtype, gen)
+        cn.zero_init_()
+    return GuidanceParams(unet=unet, vae=vae, controlnet=cn)
+
+
+def tiny_guidance(seed: int = 0, with_controlnet: bool = False,
+                  latent_size: int = 8, device="cuda", dtype=torch.float32):
+    """A randomly initialised tiny SD stack (the JAX fixture's sizes: the
+    tiny UNet and VAE, a ControlNet with two condition blocks to match the
+    tiny VAE's factor 2). Returns (ScoreDistillation, GuidanceParams)."""
+    device = resolve_device(device)
+    params = _guidance(tiny_unet_config(), tiny_vae_config(), (16, 32), seed,
+                       with_controlnet, device, dtype)
+    return ScoreDistillation(latent_size=latent_size,
+                             guidance_scale=7.5), params
+
+
+def sd15_guidance(seed: int = 0, with_controlnet: bool = True,
+                  device="cuda", dtype=torch.bfloat16):
+    """The SD1.5-size stack (``sd15_unet_config`` UNet and ControlNet,
+    ``sd_vae_config`` VAE, 64^2 latents, CFG scale 50) with random weights
+    drawn from ``seed`` in ``dtype`` on ``device``; the ControlNet's zero
+    convolutions are zero, as at a fresh init. Returns
+    (ScoreDistillation, GuidanceParams)."""
+    device = resolve_device(device)
+    params = _guidance(sd15_unet_config(), sd_vae_config(),
+                       (16, 32, 96, 256), seed, with_controlnet, device, dtype)
+    return ScoreDistillation(latent_size=64, guidance_scale=50.0), params

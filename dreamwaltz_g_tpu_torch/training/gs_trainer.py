@@ -1,18 +1,28 @@
-"""Eval/inference renders of a trained avatar.
+"""Stage-2 avatar training step and the renders of a trained avatar.
 
-Port of ``make_avatar_render`` and ``make_avatar_render_frames`` from
-``dreamwaltz_g_tpu/training/gs_trainer.py``: animate -> project -> sorted
-tile bin -> sorted tile blend -> composite over the background, forward
-only. The SDS training step and the multi-device frame sharding are not
-ported yet.
+Port of ``dreamwaltz_g_tpu/training/gs_trainer.py``:
+
+* ``make_avatar_sds_step``: animate -> project (+ a zero ``dummy`` on the
+  screen-space means, whose gradient is the densifier's signal) -> (T, K)
+  tile bin -> differentiable tile blend -> composite -> VAE encode ->
+  ControlNet + UNet CFG -> SDS gradient -> backward (through the blend's
+  backward kernel) -> Adam -> densification stats;
+* ``make_avatar_render`` / ``make_avatar_render_frames``: the eval renders,
+  forward only, through the sorted tile blend.
+
+Not ported yet: the split and data/tensor-parallel step builders,
+densification, the pixel-gradient hooks, scene placement in the step, the
+NeRF->3DGS distillation and the multi-device frame sharding.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from .._device import resolve_device
+from ..guidance.sds import GuidanceParams, ScoreDistillation
 from ..human.smplx_model import SMPLXParams
 from ..ops import rasterize as R
 from ..system.avatar import (
@@ -22,7 +32,9 @@ from ..system.avatar import (
     animate,
     merge_gaussians,
     place_gaussians,
+    update_avatar_stats,
 )
+from .optim import AvatarOptimizer, AvatarOptState, avatar_param_groups
 
 
 def _person(observed_inputs: SMPLXParams, i: int) -> SMPLXParams:
@@ -46,6 +58,114 @@ def _render_gaussians(gs: GaussiansOut, extrinsic, intrinsics, tanfov,
     return image, out.alpha, out.depth
 
 
+class AvatarTrainState(NamedTuple):
+    avatar: AvatarState
+    opt_state: AvatarOptState
+    step: int
+
+
+def _leaves(state: AvatarState, model: AvatarModel):
+    return [t for ts in avatar_param_groups(state.params, model).values()
+            for t in ts]
+
+
+def init_avatar_train_state(state: AvatarState, tx: AvatarOptimizer,
+                            model: AvatarModel) -> AvatarTrainState:
+    """Make every avatar tensor a leaf that takes a gradient and build the
+    optimizer over them and the model's networks (which hold their own
+    weights here, so the model is an argument the JAX version lacks)."""
+    for t in _leaves(state, model):
+        t.requires_grad_(True)
+    return AvatarTrainState(avatar=state,
+                            opt_state=tx.init(state.params, model), step=0)
+
+
+def _render_with_dummy(model: AvatarModel, state: AvatarState, params,
+                       observed_inputs, dummy, extrinsic, intrinsics, tanfov,
+                       background, H: int, W: int, raster: dict):
+    """Animate + project (+ ``dummy`` on means2d) + rasterize + composite.
+    Returns (image (H, W, 3), RasterOutput)."""
+    gs = animate(model, state._replace(params=params), observed_inputs)
+    cov3d = R.covariance3d(gs.quats, gs.scales)
+    g2d = R.project_gaussians(
+        gs.positions, cov3d, gs.opacities, gs.colors, extrinsic, intrinsics,
+        H, W, tanfov=tanfov, alive=gs.alive)
+    g2d = g2d._replace(means2d=g2d.means2d + dummy)
+    out = R.rasterize_projected(g2d, H, W, **raster)
+    image = out.image + (1.0 - out.alpha)[..., None] * background
+    return image, out
+
+
+def make_avatar_sds_step(
+    model: AvatarModel,
+    guidance: ScoreDistillation,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 16,
+    capacity: int = 512,
+    chunk: int = 64,
+    max_tiles_per_gaussian: int = 16,
+    lambda_guidance: float = 1.0,
+    device="cuda",
+) -> Callable:
+    """One avatar SDS step: ``step(tstate, gparams, observed_inputs,
+    extrinsic, intrinsics, tanfov, background, text_embeds, uncond_embeds,
+    t, noise=None, cond_image=None, guidance_scale=None, generator=None)``
+    -> (tstate', {"loss", "sds_loss", "tile_overflow"}).
+
+    One eager pass: render, encode with the graph kept, the guidance's
+    latent gradient under no_grad (noise from ``noise=`` or
+    ``generator``), ``loss = lambda * sum(latents * grad) / B`` in float32,
+    backward, the optimizer step (``tstate.opt_state``, which carries the
+    groups; the JAX version takes the optax transform as an argument), the
+    stats. The optimizer updates the avatar's tensors in place, and each
+    leaf keeps this step's ``.grad``. The stages run inside
+    ``torch.profiler.record_function`` ranges (``sds_step.render``,
+    ``.guidance``, ``.backward``, ``.optimizer_stats``), which a profiler
+    reads and which cost nothing without one."""
+    device = resolve_device(device)
+    H, W = image_height, image_width
+    raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
+                  max_tiles_per_gaussian=max_tiles_per_gaussian, mode="train")
+
+    def step(tstate: AvatarTrainState, gparams: GuidanceParams,
+             observed_inputs: SMPLXParams, extrinsic, intrinsics, tanfov,
+             background, text_embeds, uncond_embeds, t,
+             noise: Optional[torch.Tensor] = None, cond_image=None,
+             guidance_scale=None,
+             generator: Optional[torch.Generator] = None,
+             ) -> tuple:
+        state = tstate.avatar
+        _check_device(state, device)
+        C = state.capacity
+        for leaf in _leaves(state, model):
+            leaf.grad = None
+        dummy = torch.zeros((C + model.n_mesh_points, 2), device=device,
+                            requires_grad=True)
+        with record_function("sds_step.render"):
+            image, out = _render_with_dummy(
+                model, state, state.params, observed_inputs, dummy,
+                extrinsic, intrinsics, tanfov, background, H, W, raster)
+        with record_function("sds_step.guidance"):
+            sds = guidance(gparams, image[None], text_embeds, uncond_embeds,
+                           t, noise=noise, cond_image=cond_image,
+                           guidance_scale=guidance_scale, generator=generator)
+        loss = lambda_guidance * sds["loss"]
+        with record_function("sds_step.backward"):
+            loss.backward()
+        with record_function("sds_step.optimizer_stats"):
+            tstate.opt_state.step()
+            new_avatar = update_avatar_stats(state, dummy.grad[:C],
+                                             out.radii.detach()[:C])
+        metrics: Dict[str, torch.Tensor] = {
+            "loss": loss.detach(), "sds_loss": sds["loss"].detach(),
+            "tile_overflow": out.overflow}
+        return AvatarTrainState(new_avatar, tstate.opt_state,
+                                tstate.step + 1), metrics
+
+    return step
+
+
 def make_avatar_render(model: AvatarModel, image_height: int,
                        image_width: int, tile_size: int = 16,
                        capacity: int = 512, chunk: int = 64,
@@ -64,7 +184,7 @@ def make_avatar_render(model: AvatarModel, image_height: int,
     device = resolve_device(device)
     H, W = image_height, image_width
     raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
-                  max_tiles_per_gaussian=max_tiles_per_gaussian)
+                  max_tiles_per_gaussian=max_tiles_per_gaussian, mode="eval")
 
     def _place(gs, i):
         return gs if placement is None else place_gaussians(
@@ -110,7 +230,7 @@ def make_avatar_render_frames(model: AvatarModel, image_height: int,
     device = resolve_device(device)
     H, W = image_height, image_width
     raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
-                  max_tiles_per_gaussian=max_tiles_per_gaussian)
+                  max_tiles_per_gaussian=max_tiles_per_gaussian, mode="eval")
 
     @torch.no_grad()
     def render_frames(state: AvatarState, observed_frames: SMPLXParams,

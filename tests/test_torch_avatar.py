@@ -211,3 +211,36 @@ def test_entry_point_defaults_to_cuda(name):
         pytest.skip("CUDA present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[name]()
+
+
+def test_renders_take_the_sorted_blend_only(pair, monkeypatch):
+    """The eval renders pass ``mode="eval"``: the sorted blend (B2) renders
+    every frame and the table blends (B1, B3) are never reached."""
+    from dreamwaltz_g_tpu_torch.ops import rasterize as TR
+
+    _, tset = pair
+    calls = []
+
+    def sorted_blend(*a, **k):
+        calls.append("blend_sorted")
+        return real(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("a table blend ran on the render path")
+
+    real = TR.blend_sorted
+    monkeypatch.setattr(TR, "blend_sorted", sorted_blend)
+    monkeypatch.setattr(TR, "blend_tiles_train", refuse)
+    monkeypatch.setattr(TR, "blend_tiles_eval", refuse)
+    H = W = 16
+    cams = tcamera([2.5] * 2, [0.0, 90.0], [80.0] * 2, [55.0] * 2, H, W,
+                   at_vector=((0, 0.7, 0),), device="cpu")
+    obs = TParams(*[torch.stack([x, x]) for x in tset.observed])
+    bg = torch.zeros((H, W, 3))
+    rk = dict(tile_size=8, capacity=32, chunk=16)
+    TG.make_avatar_render_frames(tset.model, H, W, device="cpu", **rk)(
+        tset.state, obs, cams.extrinsic, cams.intrinsics, cams.tanfov, bg)
+    TG.make_avatar_render(tset.model, H, W, device="cpu", **rk)(
+        tset.state, tset.observed, cams.extrinsic[0], cams.intrinsics[0],
+        cams.tanfov[0], bg)
+    assert calls == ["blend_sorted"] * 3
