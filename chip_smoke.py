@@ -6,8 +6,9 @@ plain versions.
 Phases, one JSON line each:
 
 1. device       -- CUDA present (else exit 2), card name and power limit;
-2. build        -- compile every CUDA kernel of the port from ``csrc/``, one
-                   ``nvcc`` per source, all started together;
+2. build        -- compile every CUDA kernel of the port from ``csrc/``
+                   (three sources), one ``nvcc`` per source, all started
+                   together;
 3. avatar       -- build the full-width avatar on the card;
 4. kernel       -- ``blend_sorted`` (B2) against its plain version on the
                    same card inputs: one projected 1024^2 frame of the avatar
@@ -25,20 +26,38 @@ Phases, one JSON line each:
                    and on the random scene: B1 forward and backward and B3
                    (through ``_blend_dispatch(mode="eval")``) against their
                    plain versions;
-10. small_train -- one SDS step of the tiny avatar, with its mesh part,
-                   and the tiny guidance with its ControlNet: on the CPU
-                   (plain versions, under each stop rule) and on the card
-                   (kernels), from the same state and noise;
-11. train       -- the training path: the full avatar, the SD1.5-size bf16
-                   UNet + ControlNet + VAE, counts set to 0, 3 warm-up and
+10. kernel_flash -- flash attention (B4) forward at the five shapes the
+                   training paths give it, and backward at the three that
+                   are differentiated, against the plain versions;
+11. small_train -- one SDS step of the tiny avatar, with its mesh part,
+                   and the tiny guidance with its ControlNet, attention
+                   through flash (``FLASH_ATTENTION = "on"``) and the
+                   pixel-gradient hook set: on the CPU (plain versions,
+                   under each stop rule) and on the card (kernels), from the
+                   same state and noise;
+12. train       -- the training path: the full avatar, the SD1.5-size bf16
+                   UNet + ControlNet + VAE with ``FLASH_ATTENTION = "auto"``,
+                   timesteps and guidance scale from
+                   ``TimePrioritizedScheduler``, the OpenPose canvas of the
+                   body's projected joints; counts set to 0, 3 warm-up and
                    10 steps through ``make_avatar_sds_step``, counts read
                    (``blend_train_fwd`` and ``blend_train_bwd`` once a step,
-                   no other blend), outputs and parameter updates checked;
-12. train_times -- SDS it/s, each table kernel's time beside its plain
-                   version and its bound;
-13. train_profile -- device busy share, the step's device and host ms by
+                   flash forward and backward as often as the models'
+                   structure gives, no other kernel), outputs and parameter
+                   updates checked;
+13. train_times -- SDS it/s with flash and, over 2 + 4 steps, with einsum
+                   attention (``"off"``); each table kernel's and each flash
+                   shape's time beside its plain version, its bound and, for
+                   flash, the einsum path and
+                   ``scaled_dot_product_attention`` (timed here only);
+14. train_profile -- device busy share, the step's device and host ms by
                    stage (its own ``record_function`` ranges) and top
-                   kernels over one profiled SDS step.
+                   kernels over one profiled SDS step;
+15. train_densify -- ``gs_trainer.densify`` on the full avatar, at the
+                   defaults and with thresholds at the medians so that
+                   clones and splits happen; invariants checked; two more
+                   SDS steps; then ``train_profile_densified``: one
+                   profiled step again, with the buffer full.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -46,8 +65,7 @@ script exits non-zero and prints no result. The avatar is the synthetic
 SMPL-X-sized body (10,475 vertices, 55 joints) with random weights from a
 seed: 180k points in a 200k-slot buffer, a 256^2 x 32 triplane, the
 trainer's decode heads, 6,000 hand-bound mesh Gaussians. The guidance
-weights are random from the seed too; attention runs the einsum path
-(``FLASH_ATTENTION = "off"``).
+weights are random from the seed too.
 """
 from __future__ import annotations
 
@@ -65,6 +83,7 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12    # dense, tensor cores
 # float32 operations per (pixel, entry) pair of the blend: every pair
 # evaluates q and w (2 sub, 6 mul + 2 add for q, 2 mul + 1 exp for w) = 13;
 # a pair that passes min_alpha adds the clip, T*w, 8 multiply-adds and the
@@ -119,6 +138,39 @@ TOL_STEP_LOSS = 1e-3
 TOL_STATS_FLIPS = 5e-3
 
 
+# -- flash attention (B4): (shape (B, N, H, D), type, backward held too).
+# The full-width step gives it the three bf16 shapes (UNet and ControlNet
+# under CFG at 64^2 and 32^2 latents, the VAE encoder's mid block, which is
+# differentiated); the tiny step the two float32 ones
+FLASH_SHAPES = (((2, 4096, 8, 40), "bf16", False),
+                ((2, 1024, 8, 80), "bf16", False),
+                ((1, 4096, 1, 512), "bf16", True),
+                ((1, 1024, 2, 16), "f32", True),
+                ((1, 1024, 1, 64), "f32", True))
+# kernel vs plain version (float32 scores) on the same card inputs.
+# float32: 1e-5 absolute on the output, 1e-4 of each gradient's largest
+# entry, the JAX package's own for its TPU kernel. bf16: the kernel rounds
+# each probability and each output to bf16 once, at most 2^-8 relative a
+# rounding. The output's rounding gives at most 2^-8 |out|; the
+# probabilities' roundings are independent over the keys, so their sum stays
+# far inside its worst case 2^-8 sum_j p_j |v_j|. The limit, per element, is
+# 2^-9 (sum_j p_j |v_j| + |out|): all of the first (sum p |v| >= |out|) and
+# what is left for the second. With these inputs it is ~2e-3 where an output
+# is ~0.03 (up to ~0.25), so a kernel that drops keys or normalises wrongly
+# fails it. The backward rounds P, dS and each result likewise, a sum of such
+# terms held to 2^-6 of each gradient's largest entry
+TOL_FLASH_F32_OUT = 1e-5
+TOL_FLASH_F32_GRAD = 1e-4
+TOL_FLASH_BF16_OUT = 2.0 ** -9
+TOL_FLASH_BF16_GRAD = 2.0 ** -6
+# flash launches a step of the SD1.5-size stack (forward, backward): UNet
+# 5 + 5 and ControlNet 2 + 2 self-attentions at 4096 and 1024 tokens, the
+# VAE encoder's mid block forward and backward; the 256- and 64-token layers
+# stay on einsum
+FLASH_PER_STEP = (15, 1)
+OFF_STEPS, OFF_WARMUP = 4, 2   # the einsum-attention comparison run
+
+
 def emit(**kw):
     print(json.dumps(kw), flush=True)
 
@@ -128,10 +180,12 @@ def fail(msg):
 
 
 def cuda_ms(fn, reps):
-    """Mean ms of ``fn()`` over ``reps`` calls, by CUDA events."""
+    """Mean ms of ``fn()`` over ``reps`` calls, by CUDA events, after one
+    untimed call (a library's first call may load or pick its kernel)."""
     import torch
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fn()
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
@@ -451,33 +505,229 @@ def table_bounds(args, stats):
     return out
 
 
-def pose_canvas(H, W):
-    """A 512^2 OpenPose-style condition image in [0, 1]: the frontal stick
-    figure of bench.py's 18 body keypoints, limbs drawn as 4-pixel-wide
-    colored segments with numpy."""
-    import numpy as np
+def flash_inputs(dev, shape, kind):
+    """Seeded q, k, v and an upstream gradient on the card, contiguous
+    (B, N, H, D) as the modules' projections give them."""
+    import torch
 
-    kp = np.array(
-        [[.50, .12], [.50, .25], [.42, .25], [.38, .38], [.36, .50],
-         [.58, .25], [.62, .38], [.64, .50], [.45, .52], [.44, .72],
-         [.44, .90], [.55, .52], [.56, .72], [.56, .90], [.48, .10],
-         [.52, .10], [.45, .11], [.55, .11]], np.float32) * [W, H]
-    limbs = [(1, 2), (1, 5), (2, 3), (3, 4), (5, 6), (6, 7), (1, 8), (8, 9),
-             (9, 10), (1, 11), (11, 12), (12, 13), (1, 0), (0, 14),
-             (14, 16), (0, 15), (15, 17)]
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32) + 0.5
-    canvas = np.zeros((H, W, 3), np.float32)
-    for i, (a, b) in enumerate(limbs):
-        pa, pb = kp[a], kp[b]
-        d = pb - pa
-        s = np.clip(((xx - pa[0]) * d[0] + (yy - pa[1]) * d[1])
-                    / max(float(d @ d), 1e-6), 0.0, 1.0)
-        dist2 = (xx - pa[0] - s * d[0]) ** 2 + (yy - pa[1] - s * d[1]) ** 2
-        hue = i / len(limbs)
-        color = np.array([abs(np.sin(np.pi * (hue + k / 3.0)))
-                          for k in range(3)], np.float32)
-        canvas[dist2 <= 4.0] = color
-    return canvas
+    gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape))
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+def flash_bound(shape, kind, backward):
+    """Least time of one flash call on the card: 4 B H N^2 D operations
+    forward (two products), 10 B H N^2 D backward (five), at the real D,
+    over the tensor cores' bf16 rate or the float32 rate; q, k, v, out (and
+    d_out, dq, dk, dv) and lse moved once over the HBM rate."""
+    B, N, H, D = shape
+    elt = 2 if kind == "bf16" else 4
+    ops = (10 if backward else 4) * B * H * N * N * D
+    nbytes = (8 if backward else 4) * B * N * H * D * elt + 4 * B * H * N
+    rate = BF16_FLOP_PER_S if kind == "bf16" else FP32_FLOP_PER_S
+    o_ms, b_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ops=ops, bytes=nbytes, ops_ms=o_ms, bytes_ms=b_ms,
+                bound_ms=max(o_ms, b_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations")
+
+
+def compare_flash(dev):
+    """B4 forward at every shape of ``FLASH_SHAPES`` and backward where the
+    path differentiates it, against the plain versions on the same inputs.
+    Returns {shape: (inputs, out, lse)} and the worst error of each kernel
+    relative to its tolerance's scale."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.guidance import flash as FL
+
+    kept, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+    for shape, kind, backward in FLASH_SHAPES:
+        q, k, v, g = flash_inputs(dev, shape, kind)
+        out, lse = FL.flash_attn_fwd(q, k, v)
+        torch.cuda.synchronize()
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref, ref_lse = FL.flash_attention_plain(qf, kf, vf)
+        if not bool(torch.isfinite(out).all()):
+            fail(f"flash forward {shape}: output not finite")
+        err = (out.float() - ref).abs()
+        e_out = float(err.max())
+        e_lse = float((lse - ref_lse).abs().max())
+        if kind == "bf16":
+            # per element: 2^-9 (sum_j p_j |v_j| + |out|)
+            tol = TOL_FLASH_BF16_OUT * (
+                FL.flash_attention_plain(qf, kf, vf.abs())[0] + ref.abs())
+        else:
+            tol = torch.full_like(ref, TOL_FLASH_F32_OUT)
+        line = dict(shape=list(shape), type=kind, max_abs_err_out=e_out,
+                    tol_out_min=float(tol.min()), tol_out_max=float(tol.max()),
+                    max_err_out_of_tol=float((err / tol).max()),
+                    max_abs_err_lse=e_lse, max_abs_out=float(ref.abs().max()),
+                    mean_abs_out=float(ref.abs().mean()))
+        worst["fwd"] = max(worst["fwd"], e_out)
+        bad = bool((err > tol).any()) or e_lse > 1e-4
+        if backward:
+            grads = FL.flash_attn_bwd(q, k, v, out, lse, g)
+            torch.cuda.synchronize()
+            refs = FL.flash_attention_plain_bwd(qf, kf, vf, out.float(), lse,
+                                                g.float())
+            tol_g = TOL_FLASH_BF16_GRAD if kind == "bf16" \
+                else TOL_FLASH_F32_GRAD
+            rel = [float((a.float() - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(grads, refs)]
+            e_abs = max(float((a.float() - b).abs().max())
+                        for a, b in zip(grads, refs))
+            line.update(max_err_dq_dk_dv_of_max=rel, tol_grad_of_max=tol_g,
+                        max_abs_err_bwd=e_abs)
+            worst["bwd"] = max(worst["bwd"], e_abs)
+            bad = bad or max(rel) > tol_g or not all(
+                bool(torch.isfinite(x).all()) for x in grads)
+        emit(phase="kernel_flash", **line)
+        if bad:
+            fail(f"flash attention {shape} {kind} disagrees with its plain "
+                 "version")
+        kept[shape] = (q, k, v, g, out, lse)
+    return kept, worst
+
+
+def einsum_attention(q, k, v):
+    """The modules' einsum path: scores in the working type, float32
+    softmax, cast back."""
+    import torch
+
+    a = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    a = torch.softmax(a.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", a, v)
+
+
+def sdpa_times(q, k, v, g, backward):
+    """``scaled_dot_product_attention`` on (B, H, N, D) views of the same
+    tensors: ms of the default dispatch (forward, and backward where asked),
+    and forward ms under each backend alone, or "refused". A yardstick
+    only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    out = {"fwd_ms": cuda_ms(call, 10), "bwd_ms": None, "backends": {}}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out["backends"][backend.name] = cuda_ms(call, 5)
+        except RuntimeError:
+            out["backends"][backend.name] = "refused"
+    if backward:
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = F.scaled_dot_product_attention(*[x.transpose(1, 2)
+                                             for x in leaves])
+        gt = g.transpose(1, 2)
+
+        def back():
+            torch.autograd.grad(o, leaves, gt, retain_graph=True)
+
+        out["bwd_ms"] = cuda_ms(back, 5)
+    return out
+
+
+def flash_times(kept):
+    """Per shape: the kernels' ms beside the plain versions', the einsum
+    path's and the library call's, and the bounds."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.guidance import flash as FL
+
+    rows = []
+    with torch.no_grad():
+        for shape, kind, backward in FLASH_SHAPES:
+            q, k, v, g, out, lse = kept[shape]
+            row = dict(
+                shape=list(shape), type=kind,
+                fwd_ms=cuda_ms(lambda: FL.flash_attn_fwd(q, k, v), 10),
+                fwd_plain_ms=cuda_ms(
+                    lambda: FL.flash_attention_plain(q, k, v), 3),
+                fwd_einsum_ms=cuda_ms(lambda: einsum_attention(q, k, v), 5),
+                fwd_bound=flash_bound(shape, kind, False))
+            if backward:
+                row.update(
+                    bwd_ms=cuda_ms(lambda: FL.flash_attn_bwd(
+                        q, k, v, out, lse, g), 10),
+                    bwd_plain_ms=cuda_ms(
+                        lambda: FL.flash_attention_plain_bwd(
+                            q, k, v, out, lse, g), 3),
+                    bwd_bound=flash_bound(shape, kind, True))
+            rows.append(row)
+    for row, (shape, kind, backward) in zip(rows, FLASH_SHAPES):
+        q, k, v, g, _, _ = kept[shape]
+        row["library"] = sdpa_times(q, k, v, g, backward)
+    return rows
+
+
+def flash_domain(tokens, d):
+    """The flash kernel's domain for a self-attention of ``tokens`` tokens
+    and head dimension ``d``, written out here so that the expected launch
+    counts do not lean on the port's own gate: at least 1024 tokens, a
+    multiple of 128, and d <= 128 or a multiple of 128."""
+    return tokens >= 1024 and tokens % 128 == 0 \
+        and (d <= 128 or d % 128 == 0)
+
+
+def expected_flash_launches(gparams, latent):
+    """Flash launches of one SDS step, from the models' structure: every
+    self-attention of the UNet (down, mid, up) and the ControlNet (down,
+    mid) whose tokens and head dimension lie in ``flash_domain``, under CFG
+    in one batched pass, and the VAE encoder's mid-block attention, the only
+    one differentiated. Returns (forward, backward)."""
+    cfg = gparams.unet.cfg
+    fwd = 0
+    last = len(cfg.block_out_channels) - 1
+    for i, ch in enumerate(cfg.block_out_channels):
+        tokens = (latent >> i) ** 2
+        d = ch // cfg.block_heads(ch)
+        if not flash_domain(tokens, d):
+            continue
+        depth = cfg.block_depth(i)
+        nets = 1 if gparams.controlnet is None else 2
+        if cfg.attn_down[i]:
+            fwd += cfg.layers_per_block * depth * nets        # down blocks
+            fwd += (cfg.layers_per_block + 1) * depth         # up blocks
+        if i == last:
+            fwd += depth * nets                               # mid block
+    vcfg = gparams.vae.cfg
+    vae = int(flash_domain(latent * latent, vcfg.block_out_channels[-1]))
+    return fwd + vae, vae
+
+
+def openpose_canvas(model, observed, extrinsic, intrinsics, H, W):
+    """The ControlNet's condition image in [0, 1]: the synthetic body's
+    posed joints projected by the training camera and drawn by
+    ``draw_openpose_map``, the first 18 joints standing in for the body
+    keypoints (the SMPL-X -> OpenPose keypoint mapping is not ported)."""
+    import numpy as np
+    import torch
+
+    from dreamwaltz_g_tpu_torch.human.openpose import draw_openpose_map
+    from dreamwaltz_g_tpu_torch.human.smplx_model import smplx_forward
+
+    with torch.no_grad():
+        joints = smplx_forward(model.smpl, observed).joints[0, :18]
+        t = joints @ extrinsic[:3, :3].T + extrinsic[:3, 3]
+        z = torch.clamp(t[:, 2], min=1e-6)
+        u = (intrinsics[0, 0] * t[:, 0] / z + intrinsics[0, 2]) / W
+        v = (intrinsics[1, 1] * t[:, 1] / z + intrinsics[1, 2]) / H
+        kp = torch.stack([u, v], -1)
+        kp[t[:, 2] <= 0] = float("nan")
+    canvas = draw_openpose_map([kp.cpu().numpy()], H, W)
+    if canvas.shape != (H, W, 3) or int(canvas.max()) == 0:
+        fail("the OpenPose canvas is empty")
+    return canvas.astype(np.float32) / 255.0
 
 
 def build_guidance(dev):
@@ -504,12 +754,19 @@ def small_train(dev):
     each stop rule, and on the card with the kernels. The card is held to
     the CPU step under its own per-pixel stop, its blend gradient on the
     step's own inputs to both plain backwards (``hold_bwd``), and its loss
-    to the CPU step under the TPU's tile stop."""
+    to the CPU step under the TPU's tile stop. Attention runs with
+    ``FLASH_ATTENTION = "on"`` on both sides (the plain version on the CPU,
+    the kernels on the card: 1,024 tokens in the tiny UNet, d = 16, and the
+    tiny VAE, d = 64, which is differentiated), and the render's gradient
+    passes through the clip + norm pixel-gradient hook."""
     import torch
 
     from dreamwaltz_g_tpu_torch import tests_support
-    from dreamwaltz_g_tpu_torch.configs import RenderConfig
+    from dreamwaltz_g_tpu_torch.configs import GuideConfig, RenderConfig
     from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch
+    from dreamwaltz_g_tpu_torch.guidance import flash as FL
+    from dreamwaltz_g_tpu_torch.guidance import layers as TL
+    from dreamwaltz_g_tpu_torch.guidance.sds import build_pixel_grad_hook
     from dreamwaltz_g_tpu_torch.ops import blend_train as BT
     from dreamwaltz_g_tpu_torch.training.gs_trainer import (
         init_avatar_train_state,
@@ -521,8 +778,13 @@ def small_train(dev):
         build_avatar_optimizer,
     )
 
-    S = 32
+    S = 64      # a 32^2 latent: 1,024 tokens pass the flash gate
     rk = dict(tile_size=16, capacity=64, chunk=32, max_tiles_per_gaussian=16)
+    pgc = build_pixel_grad_hook(GuideConfig(grad_rgb_clip=True,
+                                            grad_rgb_norm=True))
+    flash_setting = TL.FLASH_ATTENTION
+    TL.FLASH_ATTENTION = "on"
+    FL.flash_attn_fwd.launches = FL.flash_attn_bwd.launches = 0
     gen = torch.Generator().manual_seed(SEED)
     txt = torch.randn((1, 4, 32), generator=gen)
     cond = torch.rand((1, S, S, 3), generator=gen)
@@ -564,7 +826,7 @@ def small_train(dev):
                      "pixel reaches T = 1e-4, so the stop rules go untested")
         tx = build_avatar_optimizer(RenderConfig(), MAX_STEPS)
         ts = init_avatar_train_state(state, tx, model)
-        step = make_avatar_sds_step(model, sd, S, S, device=d, **rk)
+        step = make_avatar_sds_step(model, sd, S, S, pgc=pgc, device=d, **rk)
         # the plain versions follow `stop`; the card run takes the kernels,
         # and sets their rule too so that a CPU rehearsal of this script
         # stands in for them
@@ -583,6 +845,8 @@ def small_train(dev):
                                                   model).items()}
         runs[label] = (float(metrics["loss"]), grads,
                        to_device(new.avatar, cpu))
+    TL.FLASH_ATTENTION = flash_setting
+    flash_launches = [FL.flash_attn_fwd.launches, FL.flash_attn_bwd.launches]
     (l_cpu, g_cpu, a_cpu), (l_gpu, g_gpu, a_gpu) = (runs["cpu_pixel"],
                                                     runs["card"])
     l_tile, g_tile, _ = runs["cpu_tile"]
@@ -615,13 +879,130 @@ def small_train(dev):
          grad_err_of_max_vs_tile_stop_by_group={
              k: grad_error(g_gpu[k], g_tile[k])[1] for k in g_tile},
          blend=blend, grad_denom_sum=float(a_cpu.grad_denom.sum()),
+         flash_attention="on", flash_launches_fwd_bwd=flash_launches,
+         pixel_grad_hook="grad_rgb_clip + grad_rgb_norm",
          tol_loss=TOL_STEP_LOSS, tol_stats_flips=TOL_STATS_FLIPS)
+    if min(flash_launches) <= 0:
+        fail("tiny SDS step: the card run launched no flash kernel: "
+             f"{flash_launches}")
     check_bwd("tiny SDS step", blend)
     if loss_rel > TOL_STEP_LOSS or loss_rel_tile > TOL_STEP_LOSS \
             or excess > 0 or acc_excess > 0 or flips > TOL_STATS_FLIPS \
             or float(a_cpu.grad_denom.sum()) <= 0 \
             or quat_noise > 1e-6 * scale:
         fail("tiny SDS step: the card disagrees with the CPU")
+
+
+def train_densify(tstate, model, sds_step, gen):
+    """``gs_trainer.densify`` on the full avatar after the timed steps: once
+    at ``DensifyConfig()``'s defaults, then, from the same statistics, with
+    ``grad_threshold`` at the median accumulated gradient of the visible
+    slots and ``percent_dense`` at the median scale of the hot ones, so
+    that clones and splits both happen. The second pass is held to its
+    invariants (the masks recomputed here from the state before it), then
+    two more SDS steps run. Returns the train state."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.gaussian.densify import (
+        DensifyConfig,
+        allocate_slots,
+    )
+    from dreamwaltz_g_tpu_torch.system.avatar import decode_opacities
+    from dreamwaltz_g_tpu_torch.training.gs_trainer import densify
+
+    def timed(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = densify(tstate, cfg, generator=gen, model=model)
+        torch.cuda.synchronize()
+        return new, (time.perf_counter() - t0) * 1e3
+
+    av = tstate.avatar
+    stats = [x.clone() for x in (av.grad_accum, av.grad_denom, av.max_radii)]
+    alive0 = int(av.alive.sum())
+    tstate, default_ms = timed(DensifyConfig())
+    alive_default = int(tstate.avatar.alive.sum())
+    if any(float(x.abs().max()) != 0.0 for x in (
+            tstate.avatar.grad_accum, tstate.avatar.grad_denom,
+            tstate.avatar.max_radii)):
+        fail("densify left statistics behind")
+    # the statistics of the 13 + 6 steps again, for the pass that grows
+    av = tstate.avatar._replace(grad_accum=stats[0], grad_denom=stats[1],
+                                max_radii=stats[2])
+    tstate = tstate._replace(avatar=av)
+    p = av.params
+    visible = av.alive & (av.grad_denom > 0)
+    avg = av.grad_accum / torch.clamp(av.grad_denom, min=1.0)
+    thr = float(avg[visible].median())
+    max_s = torch.exp(p.log_scales.detach()).max(-1).values
+    hot = visible & (avg > thr)
+    limit = float(max_s[hot].median())
+    cfg = DensifyConfig(grad_threshold=thr, percent_dense=limit)
+    clone, split = hot & (max_s <= limit), hot & (max_s > limit)
+    prune = av.alive & (decode_opacities(model, av) < cfg.min_opacity) \
+        & ~split
+    dest, granted = allocate_slots(clone | split, av.alive & ~prune)
+    src = torch.nonzero(granted)[:, 0]
+    dst = dest[src].long()
+    written = torch.zeros_like(av.alive)
+    written[dst] = True
+    written = written | (split & granted) | prune
+    kept = {n: getattr(p, n).detach().clone()
+            for n in ("quats", "lbs_weights", "positions")}
+    vidx0 = av.vertex_indices.clone()
+    adam = tstate.opt_state.adam
+    moments = {n: {k: adam.state[getattr(p, n)][k].clone()
+                   for k in ("exp_avg", "exp_avg_sq")}
+               for n in ("positions", "log_scales", "quats")}
+    alive1 = int(av.alive.sum())
+
+    tstate, grow_ms = timed(cfg)
+    new = tstate.avatar
+    alive2 = int(new.alive.sum())
+    n_prune, n_granted = int(prune.sum()), int(granted.sum())
+    counts = dict(clones=int((clone & granted).sum()),
+                  splits=int((split & granted).sum()), prunes=n_prune,
+                  asked=int((clone | split).sum()), granted=n_granted)
+    emit(phase="train_densify", alive_before=alive0,
+         alive_after_defaults=alive_default, defaults_ms=default_ms,
+         grad_threshold=thr, percent_dense=limit, alive_before_grow=alive1,
+         alive_after_grow=alive2, grow_ms=grow_ms, capacity=new.capacity,
+         **counts)
+    if min(counts["clones"], counts["splits"]) <= 0:
+        fail(f"densify: no clone or no split happened: {counts}")
+    if alive2 != alive1 - n_prune + n_granted:
+        fail(f"densify: alive {alive1} -> {alive2}, expected "
+             f"{alive1 - n_prune + n_granted}")
+    if not bool(new.alive[dst].all()) or bool(new.alive[prune].any()):
+        fail("densify: a child's slot is not alive, or a pruned one is")
+    q = new.params
+    if not (torch.equal(q.quats.detach()[dst], kept["quats"][src])
+            and torch.equal(q.lbs_weights.detach()[dst],
+                            kept["lbs_weights"][src])
+            and torch.equal(new.vertex_indices[dst], vidx0[src])):
+        fail("densify: a child's quats, lbs_weights or vertex_indices "
+             "differ from its parent's")
+    clone_src = clone[src]
+    if not torch.equal(q.positions.detach()[dst][clone_src],
+                       kept["positions"][src][clone_src]):
+        fail("densify: a clone is not at its parent's position")
+    if any(float(x.abs().max()) != 0.0 for x in (
+            new.grad_accum, new.grad_denom, new.max_radii)):
+        fail("densify left statistics behind")
+    for n, ms in moments.items():
+        st = adam.state[getattr(q, n)]
+        for k, old in ms.items():
+            if float(st[k][written].abs().max()) != 0.0:
+                fail(f"densify: Adam's {k} of {n} is not zero on a written "
+                     "slot")
+            if not torch.equal(st[k][~written], old[~written]):
+                fail(f"densify: Adam's {k} of {n} changed on a slot that "
+                     "was not written")
+    for _ in range(2):
+        tstate, metrics = sds_step(tstate)
+        if not math.isfinite(float(metrics["loss"])):
+            fail("non-finite SDS loss after densification")
+    return tstate
 
 
 # record_function ranges of make_avatar_sds_step and its callees -> stage
@@ -635,6 +1016,11 @@ STAGE_RANGES = (("sds_step.render", "animate_project"),
                 ("sds_step.optimizer_stats", "optimizer_stats"))
 
 
+# substrings of the hand-written kernels' names in a profiler trace
+NAMED_KERNELS = ("blend_bwd_kernel", "flash_fwd", "flash_bwd", "flash_delta",
+                 "indexing_backward")
+
+
 def stage_times(trace_path):
     """Per-stage device and host ms of one profiled SDS step, from the
     profiler's Chrome trace. Each kernel, copy or fill on the card is
@@ -645,8 +1031,9 @@ def stage_times(trace_path):
     parent's: ``animate_project`` is the render range less ``bin`` and
     ``blend_fwd_b1``, ``sds_loss`` the guidance range less its two stages.
     Host ms is each range's whole span, nested ranges and the profiler's
-    overhead included. Returns (device ms by stage, host ms by range, B1
-    backward kernel ms)."""
+    overhead included. Returns (device ms by stage, host ms by range,
+    device ms of the hand-written kernels whose name holds each of
+    ``NAMED_KERNELS``)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     names = dict(STAGE_RANGES)
@@ -657,7 +1044,7 @@ def stage_times(trace_path):
                 and "correlation" in e.get("args", {})}
     device = {stage: 0.0 for _, stage in STAGE_RANGES}
     device["outside_ranges"] = 0.0
-    b1_bwd = 0.0
+    named = {pattern: 0.0 for pattern in NAMED_KERNELS}
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
@@ -669,10 +1056,11 @@ def stage_times(trace_path):
                     inner is None or r["dur"] < inner["dur"]):
                 inner = r
         device[names[inner["name"]] if inner else "outside_ranges"] += ms
-        if "blend_bwd_kernel" in e.get("name", ""):
-            b1_bwd += ms
+        for pattern in NAMED_KERNELS:
+            if pattern in e.get("name", ""):
+                named[pattern] += ms
     host = {r["name"]: r["dur"] / 1e3 for r in ranges}
-    return device, host, b1_bwd
+    return device, host, named
 
 
 def device_events(prof):
@@ -936,35 +1324,68 @@ def main():
         errs_scene = compare_train_blend("random_200k_512", s_args, s_values,
                                          tiles_x)
 
+    # -- flash attention against its plain version at the paths' shapes ----
+    from dreamwaltz_g_tpu_torch.configs import GuideConfig
+    from dreamwaltz_g_tpu_torch.guidance import flash as FL
+    from dreamwaltz_g_tpu_torch.guidance import layers as TL
+    from dreamwaltz_g_tpu_torch.guidance.sds import build_pixel_grad_hook
+    from dreamwaltz_g_tpu_torch.guidance.time_prior import (
+        TimePrioritizedScheduler,
+    )
+
+    flash_kept, flash_err = compare_flash(dev)
+
     # -- the tiny SDS step: CPU plain versions vs card kernels -------------
     small_train(dev)
 
     # -- the training path: counts to 0, 3 + 10 steps, counts read ---------
+    if TL.FLASH_ATTENTION != "auto":
+        fail(f"FLASH_ATTENTION is {TL.FLASH_ATTENTION!r}, not its default")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     guidance, gparams = build_guidance(dev)
     torch.cuda.synchronize()
     guidance_s = time.perf_counter() - t0
+    guide_cfg = GuideConfig()
     tx = build_avatar_optimizer(RenderConfig(), MAX_STEPS)
     tstate = init_avatar_train_state(state, tx, model)
-    step = make_avatar_sds_step(model, guidance, TRAIN_H, TRAIN_W,
+    # None at the config's defaults, as in the default trainer
+    pgc = build_pixel_grad_hook(guide_cfg)
+    step = make_avatar_sds_step(model, guidance, TRAIN_H, TRAIN_W, pgc=pgc,
                                 device=dev, **TRAIN_RASTER)
+    sched = TimePrioritizedScheduler(guide_cfg, seed=SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     dt = torch.bfloat16
     ctx_dim = gparams.unet.cfg.cross_attention_dim     # 768 for SD1.5
     txt = torch.randn((1, 77, ctx_dim), generator=gen, device=dev).to(dt)
     unc = torch.zeros_like(txt)
-    t_step = torch.tensor([TIMESTEP], device=dev)
-    cond = torch.as_tensor(pose_canvas(TRAIN_H, TRAIN_W), device=dev)[None]
-    cond = cond.to(dt)
+    cond = torch.as_tensor(
+        openpose_canvas(model, obs0, tcams.extrinsic[0], tcams.intrinsics[0],
+                        TRAIN_H, TRAIN_W), device=dev)[None].to(dt)
     bg_train = torch.zeros((TRAIN_H, TRAIN_W, 3), device=dev)
     step_in = (obs0, tcams.extrinsic[0], tcams.intrinsics[0],
-               tcams.tanfov[0], bg_train, txt, unc, t_step)
+               tcams.tanfov[0], bg_train, txt, unc)
+    timesteps, scales = [], []
+
+    def sds_step(tstate):
+        """One step of the run: the scheduler's timestep and guidance scale
+        for the 1-based iteration, as the trainer asks for them."""
+        it = tstate.step + 1
+        t = sched.get_timestep(1, it, MAX_STEPS)
+        gs = sched.get_guidance_scale(it, MAX_STEPS)
+        timesteps.append(int(t[0]))
+        scales.append(gs)
+        return step(tstate, gparams, *step_in,
+                    torch.as_tensor(t, device=dev), cond_image=cond,
+                    guidance_scale=gs, generator=gen)
+
     before = params_snapshot(state, model)
     train_fns = {"blend_sorted": blend_sorted,
                  "blend_train_fwd": BT.blend_train_fwd,
                  "blend_train_bwd": BT.blend_train_bwd,
-                 "blend_tiles_eval": BT.blend_tiles_eval_panels}
+                 "blend_tiles_eval": BT.blend_tiles_eval_panels,
+                 "flash_attn_fwd": FL.flash_attn_fwd,
+                 "flash_attn_bwd": FL.flash_attn_bwd}
     for fn in train_fns.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -976,23 +1397,28 @@ def main():
             torch.cuda.synchronize()
             start_ev.record()
         t0 = time.perf_counter()
-        tstate, metrics = step(tstate, gparams, *step_in, cond_image=cond,
-                               generator=gen)
+        tstate, metrics = sds_step(tstate)
         losses.append(float(metrics["loss"]))
         overflows.append(float(metrics["tile_overflow"]))
         step_s.append(time.perf_counter() - t0)
     end_ev.record()
     torch.cuda.synchronize()
     train_ms = start_ev.elapsed_time(end_ev) / TRAIN_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     train_launches = {name: fn.launches for name, fn in train_fns.items()}
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    for name in ("blend_train_fwd", "blend_train_bwd"):
-        if train_launches[name] != n_steps:
-            fail(f"{name} launched {train_launches[name]} times for "
-                 f"{n_steps} steps")
-    for name in ("blend_sorted", "blend_tiles_eval"):
-        if train_launches[name] != 0:
-            fail(f"{name} launched on the training path")
+    flash_per_step = expected_flash_launches(gparams, guidance.latent_size)
+    if flash_per_step != FLASH_PER_STEP:
+        fail(f"the SD1.5-size stack's structure gives {flash_per_step} flash "
+             f"launches a step, not {FLASH_PER_STEP}")
+    want = {"blend_train_fwd": n_steps, "blend_train_bwd": n_steps,
+            "blend_sorted": 0, "blend_tiles_eval": 0,
+            "flash_attn_fwd": flash_per_step[0] * n_steps,
+            "flash_attn_bwd": flash_per_step[1] * n_steps}
+    for name, n in want.items():
+        if train_launches[name] != n:
+            fail(f"{name} launched {train_launches[name]} times in "
+                 f"{n_steps} steps, expected {n}")
     state = tstate.avatar
     after = params_snapshot(state, model)
     moved = {k: float((after[k] - before[k]).abs().max()) for k in before}
@@ -1008,8 +1434,12 @@ def main():
          params_finite=finite_params, guidance_build_s=guidance_s,
          guidance_params=sum(p.numel() for m in gparams if m is not None
                              for p in m.parameters()),
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-         flash_attention="off", **card)
+         peak_mem_gib=peak_gib, flash_attention=TL.FLASH_ATTENTION,
+         flash_launches_per_step=list(flash_per_step),
+         timesteps=timesteps, guidance_scales=scales,
+         pixel_grad_hook=None if pgc is None else "set",
+         cond_coverage=float((cond.float().amax(-1) > 0).float().mean()),
+         **card)
     if not all(math.isfinite(x) for x in losses):
         fail("non-finite SDS loss")
     if float(state.grad_denom.sum()) <= 0:
@@ -1047,42 +1477,93 @@ def main():
                 lambda: BT.blend_tiles_eval_reference(*kargs, ts_, tiles_x),
                 3)}
     bounds = table_bounds(t_args, errs_avatar[3])
-    emit(phase="train_times", sds_step_ms=train_ms,
-         sds_it_per_s=1e3 / train_ms, kernel_ms=k_ms, plain_ms=p_ms,
-         bounds=bounds, tile_overflow_frame=t_overflow,
-         flash_attention="off", **card)
+    flash_rows = flash_times(flash_kept)
 
-    # -- busy share, stage breakdown and top kernels over one SDS step ------
+    # the same run with einsum attention ("off"), the (B, H, N, N) scores
+    # in device memory: its step time and its peak memory beside flash's
+    TL.FLASH_ATTENTION = "off"
+    n_fwd = FL.flash_attn_fwd.launches
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(OFF_WARMUP + OFF_STEPS):
+        if i == OFF_WARMUP:
+            torch.cuda.synchronize()
+            start_ev.record()
+        tstate, metrics = sds_step(tstate)
+    end_ev.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tstate, _ = step(tstate, gparams, *step_in, cond_image=cond,
-                         generator=gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = device_events(prof)
-    busy_ms = sum(e.device_time_total for e in on_card) / 1e3
-    top = sorted(on_card, key=lambda e: -e.device_time_total)[:12]
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    trace = kernels.BUILD_DIR / "sds_step_trace.json"
-    prof.export_chrome_trace(str(trace))
-    stage_dev, stage_host, b1_bwd_ms = stage_times(trace)
-    emit(phase="train_profile", steps=1, wall_ms=wall_ms,
-         device_busy_ms=busy_ms if on_card else None,
-         device_busy_share=busy_ms / wall_ms if on_card else None,
-         kernel_launches=sum(e.count for e in on_card),
-         stage_device_ms=stage_dev, stage_host_ms=stage_host,
-         backward_blend_train_bwd_kernel_ms=b1_bwd_ms,
-         top_kernels=[[e.key[:80], e.device_time_total / 1e3, e.count]
-                      for e in top], **card)
+    TL.FLASH_ATTENTION = "auto"
+    off_ms = start_ev.elapsed_time(end_ev) / OFF_STEPS
+    off_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if FL.flash_attn_fwd.launches != n_fwd:
+        fail('flash launched under FLASH_ATTENTION = "off"')
+    if not math.isfinite(float(metrics["loss"])):
+        fail("non-finite SDS loss with einsum attention")
+    emit(phase="train_times", sds_step_ms=train_ms,
+         sds_it_per_s=1e3 / train_ms, flash_attention="auto",
+         sds_step_ms_flash_off=off_ms, sds_it_per_s_flash_off=1e3 / off_ms,
+         flash_off_steps=[OFF_WARMUP, OFF_STEPS],
+         peak_mem_gib=peak_gib, peak_mem_gib_flash_off=off_peak_gib,
+         kernel_ms=k_ms, plain_ms=p_ms, bounds=bounds, flash=flash_rows,
+         tile_overflow_frame=t_overflow, **card)
+    # the einsum path holds the (2, 8, 4096, 4096) scores (0.5 GiB in bf16,
+    # 1 GiB as the float32 softmax) at the step's peak; flash must not
+    if not peak_gib < off_peak_gib:
+        fail(f"peak memory with flash {peak_gib} GiB is not below the "
+             f"einsum path's {off_peak_gib} GiB")
 
-    def entry(name, source, replaces, launches, err, ms, plain, bound):
+    # -- busy share, stage breakdown and top kernels over one SDS step, -----
+    # before densification (the dead slots lie at the origin) and after
+    # (the buffer is full)
+    def profile_step(phase, tstate):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tstate, _ = sds_step(tstate)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        on_card = device_events(prof)
+        busy_ms = sum(e.device_time_total for e in on_card) / 1e3
+        top = sorted(on_card, key=lambda e: -e.device_time_total)[:12]
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        trace = kernels.BUILD_DIR / "sds_step_trace.json"
+        prof.export_chrome_trace(str(trace))
+        stage_dev, stage_host, named_ms = stage_times(trace)
+        emit(phase=phase, steps=1, wall_ms=wall_ms,
+             device_busy_ms=busy_ms if on_card else None,
+             device_busy_share=busy_ms / wall_ms if on_card else None,
+             kernel_launches=sum(e.count for e in on_card),
+             stage_device_ms=stage_dev, stage_host_ms=stage_host,
+             backward_blend_train_bwd_kernel_ms=named_ms["blend_bwd_kernel"],
+             flash_fwd_kernels_ms=named_ms["flash_fwd"],
+             flash_bwd_kernels_ms=named_ms["flash_bwd"]
+             + named_ms["flash_delta"],
+             index_backward_kernels_ms=named_ms["indexing_backward"],
+             alive=int(tstate.avatar.alive.sum()),
+             top_kernels=[[e.key[:80], e.device_time_total / 1e3, e.count]
+                          for e in top], **card)
+        return tstate
+
+    tstate = profile_step("train_profile", tstate)
+
+    # -- densification on the full avatar, then the step with a full buffer --
+    tstate = train_densify(tstate, model, sds_step, gen)
+    tstate = profile_step("train_profile_densified", tstate)
+
+    def entry(name, source, replaces, launches, err, ms, plain, bound,
+              library=None, **more):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                 "plain_ms": plain, "bound_ms": bound["bound_ms"],
-                "bound_by": bound["bound_by"], "library_ms": None}
+                "bound_by": bound["bound_by"], "library_ms": library, **more}
+
+    # a flash entry's ms, plain_ms, bound_ms and library_ms are those of the
+    # shape that does most of a step's work in that kernel: (2, 4096, 8, 40)
+    # forward, (1, 4096, 1, 512) backward; every shape stands in by_shape
+    flash_src = "dreamwaltz_g_tpu_torch/csrc/flash_attn.cu"
+    flash_replaces = "dreamwaltz_g_tpu/guidance/layers.py:153"
+    f_fwd, _, f_bwd = flash_rows[:3]
 
     train_src = "dreamwaltz_g_tpu_torch/csrc/blend_train.cu"
     print(json.dumps({"kernels": [
@@ -1107,6 +1588,25 @@ def main():
               train_launches["blend_tiles_eval"],
               max(errs_avatar[2], errs_scene[2]), k_ms["blend_tiles_eval"],
               p_ms["blend_tiles_eval"], bounds["blend_tiles_eval"]),
+        entry("flash_attn_fwd", flash_src, flash_replaces,
+              train_launches["flash_attn_fwd"], flash_err["fwd"],
+              f_fwd["fwd_ms"], f_fwd["fwd_plain_ms"], f_fwd["fwd_bound"],
+              library=f_fwd["library"]["fwd_ms"], shape=f_fwd["shape"],
+              by_shape=[{"shape": r["shape"], "type": r["type"],
+                         "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
+                         "einsum_ms": r["fwd_einsum_ms"],
+                         "bound_ms": r["fwd_bound"]["bound_ms"],
+                         "library_ms": r["library"]["fwd_ms"]}
+                        for r in flash_rows]),
+        entry("flash_attn_bwd", flash_src, flash_replaces,
+              train_launches["flash_attn_bwd"], flash_err["bwd"],
+              f_bwd["bwd_ms"], f_bwd["bwd_plain_ms"], f_bwd["bwd_bound"],
+              library=f_bwd["library"]["bwd_ms"], shape=f_bwd["shape"],
+              by_shape=[{"shape": r["shape"], "type": r["type"],
+                         "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
+                         "bound_ms": r["bwd_bound"]["bound_ms"],
+                         "library_ms": r["library"]["bwd_ms"]}
+                        for r in flash_rows if "bwd_ms" in r]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,5 +17,9 @@ Ported so far:
   table -> VAE encode -> ControlNet + UNet CFG -> SDS gradient -> backward
   -> Adam -> densification stats), with the table blend's forward and
   backward, and its forward-only eval twin, as hand-written CUDA kernels
-  (``csrc/blend_train.cu``).
+  (``csrc/blend_train.cu``);
+* the run around that step: flash attention in the UNet, the ControlNet
+  and the VAE as a hand-written CUDA kernel, forward and backward
+  (``csrc/flash_attn.cu``), densification, the pixel-gradient hooks, the
+  timestep scheduler and the OpenPose canvas.
 """

@@ -1,0 +1,820 @@
+// Flash self-attention, forward and backward, for sm_90a.
+//
+// Replaces the TPU kernel behind dreamwaltz_g_tpu/guidance/layers.py
+// `_flash_kernel` (the Pallas TPU flash_attention: forward, dq and dkv
+// kernels): softmax(Q K^T / sqrt(D)) V over (B, N, H, D) without writing the
+// N x N scores to device memory. Scores, the running max / sum and every
+// accumulator are float32; `lse` (B, H, N) = row max + log(row sum) of the
+// scaled scores is what the backward recomputes P = exp(S - lse) from.
+//
+// Bound: operations (4 B H N^2 D forward, 10 B H N^2 D backward against
+// 2-byte operands read once), so the design question is how the products
+// reach the tensor cores, not how bytes move.
+//
+// Two instantiations of each kernel:
+//  * bf16: tensor cores through `mma.sync.m16n8k16` (bf16 in, float32 out).
+//    A block of 4 warps owns 16*WM rows. For D <= 128 the warps split the
+//    rows (WM = 4) and each holds a 16 x D accumulator in registers; above
+//    that (the VAE's D = 512) the four warps share 16 rows and split the
+//    score columns and then the head dimension (WN = 4), so the accumulator
+//    stays at 64 registers a thread and 256 blocks cover N = 4096. Scores
+//    cross between the two products through shared memory (float32 scores,
+//    bf16 probabilities), which is what lets one body serve both layouts.
+//  * float32: CUDA cores, true float32 products (no TF32, no downcast),
+//    accumulators in shared memory, any D up to 512. It is the reference
+//    instantiation for the float32 parity checks, not a fast path.
+// The bf16 kernels are instantiated at four tile widths: 48 and 80 (the
+// SD1.5 UNet's and ControlNet's D = 40 and 80), 128 (any other D <= 128) and
+// 512 (the VAE's mid block; D = 256 and 384 run in it too). A head dimension
+// below its tile's width (40 in a 48-wide tile) is zero-padded in the
+// shared-memory tiles only; a D that is not a multiple of 8, or a view that
+// is not 16-byte aligned, takes the element-wise tile load. Tensors are
+// addressed by their own batch, row and head strides (unit stride along D),
+// so a (B, N, H, D) view of a projection's output needs no copy.
+//
+// Backward: two deterministic passes with no atomics, one body. A block that
+// owns a query tile walks the key tiles and accumulates dQ; a block that
+// owns a key tile walks the query tiles and accumulates dK and dV (the
+// transposed products S^T = K Q^T and dP^T = V dO^T, so the same fragment
+// code serves both). `delta = rowsum(dO * O)` is a small kernel of its own.
+//
+// The C functions launch on the given stream, do not synchronise or
+// allocate, and return cudaGetLastError().
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int PAD = 8;  // bf16 elements of row padding in shared memory
+
+struct Strides {
+  long long b, n, h;
+};
+
+__device__ __forceinline__ long long offset(const Strides& s, int b, int n,
+                                            int h) {
+  return (long long)b * s.b + (long long)n * s.n + (long long)h * s.h;
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core fragments (mma.sync.m16n8k16, bf16 x bf16 -> float32)
+// lane = 4 g + t. A (16 x 16, row): a0 (g, 2t), a1 (g + 8, 2t), a2 (g, 2t + 8),
+// a3 (g + 8, 2t + 8), two consecutive columns each. B (16 x 8, col): b0
+// (k = 2t, n = g), b1 (k = 2t + 8, n = g), two consecutive k each. C (16 x 8):
+// c0, c1 (g, 2t), (g, 2t + 1); c2, c3 (g + 8, 2t), (g + 8, 2t + 1).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack(const bf16* lo, const bf16* hi) {
+  return (uint32_t) * reinterpret_cast<const uint16_t*>(lo) |
+         ((uint32_t) * reinterpret_cast<const uint16_t*>(hi) << 16);
+}
+
+// rows r0.. of a row-major tile X[row][ld], columns k0..k0+15
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* X, int ld,
+                                       int r0, int k0, int g, int t) {
+  const bf16* p = X + (r0 + g) * ld + k0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+
+// B[k][n] = Y[n0 + n][k0 + k]: the product with Y transposed
+__device__ __forceinline__ void frag_b_nt(uint32_t (&b)[2], const bf16* Y,
+                                          int ld, int n0, int k0, int g,
+                                          int t) {
+  const bf16* p = Y + (n0 + g) * ld + k0 + 2 * t;
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+
+// B[k][n] = Y[k0 + k][n0 + n]: the product with Y as it lies
+__device__ __forceinline__ void frag_b_nn(uint32_t (&b)[2], const bf16* Y,
+                                          int ld, int k0, int n0, int g,
+                                          int t) {
+  const bf16* p = Y + (k0 + 2 * t) * ld + n0 + g;
+  b[0] = pack(p, p + ld);
+  b[1] = pack(p + 8 * ld, p + 9 * ld);
+}
+
+// `rows` rows of D values from device memory into a [rows][DP + PAD] tile,
+// columns D..DP-1 zero. `vec`: D, the row stride and the base address are
+// multiples of 8 elements, so rows move as 16-byte words.
+template <int DP>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long row_stride, int rows,
+                                          int D, bool vec) {
+  constexpr int LD = DP + PAD;
+  if (vec) {
+    constexpr int CH = DP / 8;
+    for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
+      int r = i / CH, c = (i % CH) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (c < D) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
+      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DP; i += THREADS) {
+      int r = i / DP, c = i % DP;
+      dst[r * LD + c] = c < D ? src[r * row_stride + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward
+// ---------------------------------------------------------------------------
+
+template <int DP, int WM, int WN, int BN>
+struct FwdSmem {
+  static constexpr int BM = 16 * WM;
+  static constexpr int LD = DP + PAD;
+  static constexpr int LDS = BN + 1;
+  static constexpr int LDP = BN + PAD;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + sizeof(bf16) * BM * LD;
+  static constexpr size_t v = k + sizeof(bf16) * BN * LD;
+  static constexpr size_t p = v + sizeof(bf16) * BN * LD;
+  static constexpr size_t s = p + sizeof(bf16) * BM * LDP;
+  static constexpr size_t rows = s + sizeof(float) * BM * LDS;
+  static constexpr size_t bytes = rows + sizeof(float) * 3 * BM;
+};
+
+template <int DP, int WM, int WN, int BN>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      float* __restrict__ lse, int N, int H, int D, Strides sq,
+                      Strides sk, Strides sv, float scale, bool vec) {
+  static_assert(WM * WN * 32 == THREADS, "four warps a block");
+  using L = FwdSmem<DP, WM, WN, BN>;
+  constexpr int BM = L::BM, LD = L::LD, LDS = L::LDS, LDP = L::LDP;
+  constexpr int NT = BN / WN / 8;  // score n8-tiles a warp
+  constexpr int ND = DP / WN / 8;  // output n8-tiles a warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
+  float* Ss = reinterpret_cast<float*>(smem + L::s);
+  float* row_m = reinterpret_cast<float*>(smem + L::rows);
+  float* row_l = row_m + BM;
+  float* row_a = row_l + BM;
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / WN, wn = warp % WN;
+  const int r0 = wm * 16, c0 = wn * (BN / WN), d0 = wn * (DP / WN);
+
+  load_tile<DP>(Qs, q + offset(sq, b, q0, h), sq.n, BM, D, vec);
+  if (threadIdx.x < BM) {
+    row_m[threadIdx.x] = -INFINITY;
+    row_l[threadIdx.x] = 0.f;
+  }
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int n0 = 0; n0 < N; n0 += BN) {
+    __syncthreads();  // the previous tile's products are done with Ks/Vs/Ps
+    load_tile<DP>(Ks, k + offset(sk, b, n0, h), sk.n, BN, D, vec);
+    load_tile<DP>(Vs, v + offset(sv, b, n0, h), sv.n, BN, D, vec);
+    __syncthreads();
+
+    // scores of this warp's 16 rows x BN / WN keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 4
+    for (int k0 = 0; k0 < DP; k0 += 16) {
+      uint32_t a[4];
+      frag_a(a, Qs, LD, r0, k0, g, t);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bb[2];
+        frag_b_nt(bb, Ks, LD, c0 + 8 * j, k0, g, t);
+        mma_bf16(s[j], a, bb);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      int c = c0 + 8 * j + 2 * t;
+      Ss[(r0 + g) * LDS + c] = s[j][0] * scale;
+      Ss[(r0 + g) * LDS + c + 1] = s[j][1] * scale;
+      Ss[(r0 + g + 8) * LDS + c] = s[j][2] * scale;
+      Ss[(r0 + g + 8) * LDS + c + 1] = s[j][3] * scale;
+    }
+    __syncthreads();
+
+    // online softmax, one warp a row: the first tile takes its max from the
+    // data (row_m starts at -inf, so its rescale factor is exp(-inf) = 0)
+    for (int i = warp; i < BM; i += THREADS / 32) {
+      float mx = -INFINITY;
+      for (int c = lane; c < BN; c += 32) mx = fmaxf(mx, Ss[i * LDS + c]);
+      float m_old = row_m[i];
+      float m_new = fmaxf(m_old, warp_max(mx));
+      float sum = 0.f;
+      for (int c = lane; c < BN; c += 32) {
+        float p = __expf(Ss[i * LDS + c] - m_new);
+        sum += p;
+        Ps[i * LDP + c] = __float2bfloat16(p);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        float alpha = __expf(m_old - m_new);
+        row_a[i] = alpha;
+        row_l[i] = row_l[i] * alpha + sum;
+        row_m[i] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // O = alpha O + P V on this warp's 16 rows x DP / WN columns
+    float a0 = row_a[r0 + g], a1 = row_a[r0 + g + 8];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      o[j][0] *= a0;
+      o[j][1] *= a0;
+      o[j][2] *= a1;
+      o[j][3] *= a1;
+    }
+#pragma unroll
+    for (int k0 = 0; k0 < BN; k0 += 16) {
+      uint32_t a[4];
+      frag_a(a, Ps, LDP, r0, k0, g, t);
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        uint32_t bb[2];
+        frag_b_nn(bb, Vs, LD, k0, d0 + 8 * j, g, t);
+        mma_bf16(o[j], a, bb);
+      }
+    }
+  }
+
+  // out and lse are contiguous (B, N, H, D) and (B, H, N)
+  float l0 = 1.f / row_l[r0 + g], l1 = 1.f / row_l[r0 + g + 8];
+  bf16* o_lo = out + (((long long)b * N + q0 + r0 + g) * H + h) * D;
+  bf16* o_hi = o_lo + (long long)8 * H * D;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    int d = d0 + 8 * j + 2 * t;
+    if (d < D) {
+      o_lo[d] = __float2bfloat16(o[j][0] * l0);
+      o_hi[d] = __float2bfloat16(o[j][2] * l1);
+    }
+    if (d + 1 < D) {
+      o_lo[d + 1] = __float2bfloat16(o[j][1] * l0);
+      o_hi[d + 1] = __float2bfloat16(o[j][3] * l1);
+    }
+  }
+  if (threadIdx.x < BM)
+    lse[((long long)b * H + h) * N + q0 + threadIdx.x] =
+        row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward: one body for the dQ pass (KV = false: the block owns a
+// query tile, X1 = Q, X2 = dO, and streams Y1 = K, Y2 = V) and the dK / dV
+// pass (KV = true: the block owns a key tile, X1 = K, X2 = V, and streams
+// Y1 = Q, Y2 = dO). With S' = X1 Y1^T and dP' = X2 Y2^T (transposed in the
+// KV pass): P' = exp(scale S' - lse), dS' = P' (dP' - delta), lse and delta
+// indexed by the query, which is the row (dQ pass) or the column (KV pass).
+// Then acc1 += dS' Y1 (dQ or dK, times scale at the end) and, in the KV
+// pass, acc2 += P' Y2 (dV).
+// ---------------------------------------------------------------------------
+
+template <int DP, int WM, int WN, int BN>
+struct BwdSmem {
+  static constexpr int BM = 16 * WM;
+  static constexpr int LD = DP + PAD;
+  static constexpr int LDT = BN + PAD;
+  static constexpr int NV = BM > BN ? BM : BN;
+  static constexpr size_t x1 = 0;
+  static constexpr size_t x2 = x1 + sizeof(bf16) * BM * LD;
+  static constexpr size_t y1 = x2 + sizeof(bf16) * BM * LD;
+  static constexpr size_t y2 = y1 + sizeof(bf16) * BN * LD;
+  static constexpr size_t t1 = y2 + sizeof(bf16) * BN * LD;
+  static constexpr size_t t2 = t1 + sizeof(bf16) * BM * LDT;
+  static constexpr size_t vecs = t2 + sizeof(bf16) * BM * LDT;
+  static constexpr size_t bytes = vecs + sizeof(float) * 2 * NV;
+};
+
+template <int DP, int WM, int WN, int BN, bool KV>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
+                      const bf16* __restrict__ y1, const bf16* __restrict__ y2,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ g1,
+                      bf16* __restrict__ g2, int N, int H, int D, Strides sx1,
+                      Strides sx2, Strides sy1, Strides sy2, float scale,
+                      bool vec) {
+  static_assert(WM * WN * 32 == THREADS, "four warps a block");
+  using L = BwdSmem<DP, WM, WN, BN>;
+  constexpr int BM = L::BM, LD = L::LD, LDT = L::LDT;
+  constexpr int NT = BN / WN / 8;
+  constexpr int ND = DP / WN / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* X1s = reinterpret_cast<bf16*>(smem + L::x1);
+  bf16* X2s = reinterpret_cast<bf16*>(smem + L::x2);
+  bf16* Y1s = reinterpret_cast<bf16*>(smem + L::y1);
+  bf16* Y2s = reinterpret_cast<bf16*>(smem + L::y2);
+  bf16* T1s = reinterpret_cast<bf16*>(smem + L::t1);  // dS'
+  bf16* T2s = reinterpret_cast<bf16*>(smem + L::t2);  // P'
+  float* v_lse = reinterpret_cast<float*>(smem + L::vecs);
+  float* v_delta = v_lse + L::NV;
+
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / WN, wn = warp % WN;
+  const int r0 = wm * 16, c0 = wn * (BN / WN), d0 = wn * (DP / WN);
+  const float* lse_bh = lse + ((long long)b * H + h) * N;
+  const float* delta_bh = delta + ((long long)b * H + h) * N;
+
+  load_tile<DP>(X1s, x1 + offset(sx1, b, m0, h), sx1.n, BM, D, vec);
+  load_tile<DP>(X2s, x2 + offset(sx2, b, m0, h), sx2.n, BM, D, vec);
+  if (!KV && threadIdx.x < BM) {
+    v_lse[threadIdx.x] = lse_bh[m0 + threadIdx.x];
+    v_delta[threadIdx.x] = delta_bh[m0 + threadIdx.x];
+  }
+  float acc1[ND][4], acc2[KV ? ND : 1][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc1[j][e] = 0.f;
+      if constexpr (KV) acc2[j][e] = 0.f;
+    }
+
+  for (int n0 = 0; n0 < N; n0 += BN) {
+    __syncthreads();
+    load_tile<DP>(Y1s, y1 + offset(sy1, b, n0, h), sy1.n, BN, D, vec);
+    load_tile<DP>(Y2s, y2 + offset(sy2, b, n0, h), sy2.n, BN, D, vec);
+    if (KV && threadIdx.x < BN) {
+      v_lse[threadIdx.x] = lse_bh[n0 + threadIdx.x];
+      v_delta[threadIdx.x] = delta_bh[n0 + threadIdx.x];
+    }
+    __syncthreads();
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < DP; k0 += 16) {
+      uint32_t a1[4], a2[4];
+      frag_a(a1, X1s, LD, r0, k0, g, t);
+      frag_a(a2, X2s, LD, r0, k0, g, t);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bb[2];
+        frag_b_nt(bb, Y1s, LD, c0 + 8 * j, k0, g, t);
+        mma_bf16(s[j], a1, bb);
+        frag_b_nt(bb, Y2s, LD, c0 + 8 * j, k0, g, t);
+        mma_bf16(dp[j], a2, bb);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int row = r0 + g + (e >= 2 ? 8 : 0);
+        int col = c0 + 8 * j + 2 * t + (e & 1);
+        int qi = KV ? col : row;
+        float p = __expf(s[j][e] * scale - v_lse[qi]);
+        float ds = p * (dp[j][e] - v_delta[qi]);
+        T1s[row * LDT + col] = __float2bfloat16(ds);
+        if constexpr (KV) T2s[row * LDT + col] = __float2bfloat16(p);
+      }
+    __syncthreads();
+
+#pragma unroll
+    for (int k0 = 0; k0 < BN; k0 += 16) {
+      uint32_t a[4];
+      frag_a(a, T1s, LDT, r0, k0, g, t);
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        uint32_t bb[2];
+        frag_b_nn(bb, Y1s, LD, k0, d0 + 8 * j, g, t);
+        mma_bf16(acc1[j], a, bb);
+      }
+      if constexpr (KV) {
+        frag_a(a, T2s, LDT, r0, k0, g, t);
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          uint32_t bb[2];
+          frag_b_nn(bb, Y2s, LD, k0, d0 + 8 * j, g, t);
+          mma_bf16(acc2[j], a, bb);
+        }
+      }
+    }
+  }
+
+  // gradients are contiguous (B, N, H, D)
+  long long lo = (((long long)b * N + m0 + r0 + g) * H + h) * D;
+  long long hi = lo + (long long)8 * H * D;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      int d = d0 + 8 * j + 2 * t + e;
+      if (d < D) {
+        g1[lo + d] = __float2bfloat16(acc1[j][e] * scale);
+        g1[hi + d] = __float2bfloat16(acc1[j][e + 2] * scale);
+        if constexpr (KV) {
+          g2[lo + d] = __float2bfloat16(acc2[j][e]);
+          g2[hi + d] = __float2bfloat16(acc2[j][e + 2]);
+        }
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// float32 kernels: CUDA cores, accumulators in shared memory, runtime D
+// ---------------------------------------------------------------------------
+
+constexpr int F_BM = 16;      // rows a block owns
+constexpr int F_BN_FWD = 32;  // streamed rows a tile, forward
+constexpr int F_BN_BWD = 16;  // streamed rows a tile, backward
+
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld,
+                                              const float* src,
+                                              long long row_stride, int rows,
+                                              int D) {
+  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
+    int r = i / D, c = i % D;
+    dst[r * ld + c] = src[r * row_stride + c];
+  }
+}
+
+static size_t fwd_f32_smem(int D) {
+  return sizeof(float) * ((size_t)2 * F_BM * D + F_BN_FWD * (D + 1) +
+                          (size_t)F_BN_FWD * D + F_BM * (F_BN_FWD + 1) +
+                          3 * F_BM);
+}
+
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int N, int H, int D, Strides sq,
+                     Strides sk, Strides sv, float scale) {
+  constexpr int BM = F_BM, BN = F_BN_FWD, LDS = BN + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Os = Qs + BM * D;
+  float* Ks = Os + BM * D;        // [BN][D + 1]
+  float* Vs = Ks + BN * (D + 1);  // [BN][D]
+  float* Ss = Vs + BN * D;
+  float* row_m = Ss + BM * LDS;
+  float* row_l = row_m + BM;
+  float* row_a = row_l + BM;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  load_rows_f32(Qs, D, q + offset(sq, b, q0, h), sq.n, BM, D);
+  for (int i = threadIdx.x; i < BM * D; i += THREADS) Os[i] = 0.f;
+  if (threadIdx.x < BM) {
+    row_m[threadIdx.x] = -INFINITY;
+    row_l[threadIdx.x] = 0.f;
+  }
+  for (int n0 = 0; n0 < N; n0 += BN) {
+    __syncthreads();
+    load_rows_f32(Ks, D + 1, k + offset(sk, b, n0, h), sk.n, BN, D);
+    load_rows_f32(Vs, D, v + offset(sv, b, n0, h), sv.n, BN, D);
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+      int r = i / BN, c = i % BN;
+      const float* qr = Qs + r * D;
+      const float* kr = Ks + c * (D + 1);
+      float acc = 0.f;
+      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
+      Ss[r * LDS + c] = acc * scale;
+    }
+    __syncthreads();
+    for (int i = warp; i < BM; i += THREADS / 32) {
+      float sv_ = Ss[i * LDS + lane];  // BN == 32: one column a lane
+      float m_old = row_m[i];
+      float m_new = fmaxf(m_old, warp_max(sv_));
+      float p = expf(sv_ - m_new);
+      Ss[i * LDS + lane] = p;
+      float sum = warp_sum(p);
+      if (lane == 0) {
+        float alpha = expf(m_old - m_new);
+        row_a[i] = alpha;
+        row_l[i] = row_l[i] * alpha + sum;
+        row_m[i] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * D; i += THREADS) {
+      int r = i / D, d = i % D;
+      float acc = Os[i] * row_a[r];
+      const float* p_row = Ss + r * LDS;
+      for (int c = 0; c < BN; ++c) acc = fmaf(p_row[c], Vs[c * D + d], acc);
+      Os[i] = acc;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < BM * D; i += THREADS) {
+    int r = i / D, d = i % D;
+    out[(((long long)b * N + q0 + r) * H + h) * D + d] = Os[i] / row_l[r];
+  }
+  if (threadIdx.x < BM)
+    lse[((long long)b * H + h) * N + q0 + threadIdx.x] =
+        row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
+}
+
+static size_t bwd_f32_smem(int D) {
+  return sizeof(float) * ((size_t)4 * F_BM * D + 2 * F_BN_BWD * (D + 1) +
+                          2 * F_BM * (F_BN_BWD + 1) + 2 * F_BM);
+}
+
+// the roles of x1, x2, y1, y2, g1, g2 are those of flash_bwd_bf16_kernel
+template <bool KV>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_f32_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
+                     const float* __restrict__ y1, const float* __restrict__ y2,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ g1,
+                     float* __restrict__ g2, int N, int H, int D, Strides sx1,
+                     Strides sx2, Strides sy1, Strides sy2, float scale) {
+  constexpr int BM = F_BM, BN = F_BN_BWD, LDT = BN + 1;
+  static_assert(BM == BN, "one lse / delta vector serves rows or columns");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* X1s = reinterpret_cast<float*>(smem);
+  float* X2s = X1s + BM * D;
+  float* A1s = X2s + BM * D;
+  float* A2s = A1s + BM * D;
+  float* Y1s = A2s + BM * D;  // [BN][D + 1]
+  float* Y2s = Y1s + BN * (D + 1);
+  float* T1s = Y2s + BN * (D + 1);
+  float* T2s = T1s + BM * LDT;
+  float* v_lse = T2s + BM * LDT;
+  float* v_delta = v_lse + BM;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * BM;
+  const float* lse_bh = lse + ((long long)b * H + h) * N;
+  const float* delta_bh = delta + ((long long)b * H + h) * N;
+
+  load_rows_f32(X1s, D, x1 + offset(sx1, b, m0, h), sx1.n, BM, D);
+  load_rows_f32(X2s, D, x2 + offset(sx2, b, m0, h), sx2.n, BM, D);
+  for (int i = threadIdx.x; i < 2 * BM * D; i += THREADS) A1s[i] = 0.f;
+  if (!KV && threadIdx.x < BM) {
+    v_lse[threadIdx.x] = lse_bh[m0 + threadIdx.x];
+    v_delta[threadIdx.x] = delta_bh[m0 + threadIdx.x];
+  }
+  for (int n0 = 0; n0 < N; n0 += BN) {
+    __syncthreads();
+    load_rows_f32(Y1s, D + 1, y1 + offset(sy1, b, n0, h), sy1.n, BN, D);
+    load_rows_f32(Y2s, D + 1, y2 + offset(sy2, b, n0, h), sy2.n, BN, D);
+    if (KV && threadIdx.x < BN) {
+      v_lse[threadIdx.x] = lse_bh[n0 + threadIdx.x];
+      v_delta[threadIdx.x] = delta_bh[n0 + threadIdx.x];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+      int r = i / BN, c = i % BN;
+      const float *a1 = X1s + r * D, *a2 = X2s + r * D;
+      const float *b1 = Y1s + c * (D + 1), *b2 = Y2s + c * (D + 1);
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(a1[d], b1[d], s);
+        dp = fmaf(a2[d], b2[d], dp);
+      }
+      int qi = KV ? c : r;
+      float p = expf(s * scale - v_lse[qi]);
+      T1s[r * LDT + c] = p * (dp - v_delta[qi]);
+      T2s[r * LDT + c] = p;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * D; i += THREADS) {
+      int r = i / D, d = i % D;
+      float acc1 = A1s[i], acc2 = A2s[i];
+      for (int c = 0; c < BN; ++c) {
+        acc1 = fmaf(T1s[r * LDT + c], Y1s[c * (D + 1) + d], acc1);
+        if (KV) acc2 = fmaf(T2s[r * LDT + c], Y2s[c * (D + 1) + d], acc2);
+      }
+      A1s[i] = acc1;
+      if (KV) A2s[i] = acc2;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < BM * D; i += THREADS) {
+    int r = i / D, d = i % D;
+    long long at = (((long long)b * N + m0 + r) * H + h) * D + d;
+    g1[at] = A1s[i] * scale;
+    if (KV) g2[at] = A2s[i];
+  }
+}
+
+// delta[b, h, n] = sum_d dO[b, n, h, d] O[b, n, h, d]; both contiguous
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<bf16>(bf16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ d_out,
+                   float* __restrict__ delta, int B, int N, int H, int D) {
+  long long row = (long long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (row >= (long long)B * N * H) return;
+  int lane = threadIdx.x % 32;
+  const T* o = out + row * D;
+  const T* g = d_out + row * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc += to_f32(o[d]) * to_f32(g[d]);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    int h = (int)(row % H);
+    long long bn = row / H;
+    int n = (int)(bn % N), b = (int)(bn / N);
+    delta[((long long)b * H + h) * N + n] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+constexpr int BN_FWD = 64;  // keys a tile, bf16 forward
+constexpr int BN_BWD = 32;  // streamed rows a tile, bf16 backward
+
+template <int DP, int WM, int WN>
+cudaError_t launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                            bf16* out, float* lse, int B, int N, int H, int D,
+                            Strides sq, Strides sk, Strides sv, float scale,
+                            bool vec, cudaStream_t stream) {
+  using L = FwdSmem<DP, WM, WN, BN_FWD>;
+  auto kernel = flash_fwd_bf16_kernel<DP, WM, WN, BN_FWD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N / L::BM, H, B);
+  kernel<<<grid, THREADS, L::bytes, stream>>>(q, k, v, out, lse, N, H, D, sq,
+                                              sk, sv, scale, vec);
+  return cudaGetLastError();
+}
+
+template <int DP, int WM, int WN>
+cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                            const bf16* d_out, const float* lse,
+                            const float* delta, bf16* dq, bf16* dk, bf16* dv,
+                            int B, int N, int H, int D, Strides sq, Strides sk,
+                            Strides sv, Strides sd, float scale, bool vec,
+                            cudaStream_t stream) {
+  using L = BwdSmem<DP, WM, WN, BN_BWD>;
+  auto dq_kernel = flash_bwd_bf16_kernel<DP, WM, WN, BN_BWD, false>;
+  auto kv_kernel = flash_bwd_bf16_kernel<DP, WM, WN, BN_BWD, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N / L::BM, H, B);
+  dq_kernel<<<grid, THREADS, L::bytes, stream>>>(
+      q, d_out, k, v, lse, delta, dq, nullptr, N, H, D, sq, sd, sk, sv, scale,
+      vec);
+  kv_kernel<<<grid, THREADS, L::bytes, stream>>>(
+      k, v, q, d_out, lse, delta, dk, dv, N, H, D, sk, sv, sq, sd, scale, vec);
+  return cudaGetLastError();
+}
+
+bool aligned8(const void* p, const Strides& s) {
+  return (uintptr_t)p % 16 == 0 && s.b % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0;
+}
+
+}  // namespace
+
+// error codes beyond cudaError_t's range for shapes the kernels do not take
+#define FLASH_BAD_SHAPE 100001
+
+#define FWD_CASE(DP, WM, WN)                                                 \
+  return launch_fwd_bf16<DP, WM, WN>(                                        \
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, B, N, \
+      H, D, sq, sk, sv, scale, vec, stream)
+
+#define BWD_CASE(DP, WM, WN)                                                  \
+  return launch_bwd_bf16<DP, WM, WN>(                                         \
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_out, lse, \
+      delta, (bf16*)dq, (bf16*)dk, (bf16*)dv, B, N, H, D, sq, sk, sv, sd,     \
+      scale, vec, stream)
+
+// q, k, v: (B, N, H, D) with element strides (b, n, h) and unit stride along
+// D; out contiguous (B, N, H, D); lse contiguous (B, H, N) float32.
+// is_bf16: the tensors' type (else float32). N must be a multiple of 128.
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
+                              void* out, float* lse, int B, int N, int H,
+                              int D, long long sqb, long long sqn,
+                              long long sqh, long long skb, long long skn,
+                              long long skh, long long svb, long long svn,
+                              long long svh, int is_bf16, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  Strides sq{sqb, sqn, sqh}, sk{skb, skn, skh}, sv{svb, svn, svh};
+  if (N % 128 || D < 1 || D > 512 || B < 1 || H < 1) return FLASH_BAD_SHAPE;
+  float scale = 1.0f / sqrtf((float)D);
+  if (!is_bf16) {
+    size_t bytes = fwd_f32_smem(D);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(N / F_BM, H, B);
+    flash_fwd_f32_kernel<<<grid, THREADS, bytes, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, N,
+        H, D, sq, sk, sv, scale);
+    return cudaGetLastError();
+  }
+  bool vec = D % 8 == 0 && aligned8(q, sq) && aligned8(k, sk) && aligned8(v, sv);
+  if (D <= 48) FWD_CASE(48, 4, 1);
+  if (D <= 80) FWD_CASE(80, 4, 1);
+  if (D <= 128) FWD_CASE(128, 4, 1);
+  FWD_CASE(512, 1, 4);
+}
+
+// out, d_out, dq, dk, dv contiguous (B, N, H, D); delta (B, H, N) float32
+// scratch that the call fills.
+extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
+                              const void* out, const float* lse,
+                              const void* d_out, void* dq, void* dk, void* dv,
+                              float* delta, int B, int N, int H, int D,
+                              long long sqb, long long sqn, long long sqh,
+                              long long skb, long long skn, long long skh,
+                              long long svb, long long svn, long long svh,
+                              int is_bf16, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  Strides sq{sqb, sqn, sqh}, sk{skb, skn, skh}, sv{svb, svn, svh};
+  Strides sd{(long long)N * H * D, (long long)H * D, (long long)D};
+  if (N % 128 || D < 1 || D > 512 || B < 1 || H < 1) return FLASH_BAD_SHAPE;
+  float scale = 1.0f / sqrtf((float)D);
+  long long rows = (long long)B * N * H;
+  int delta_blocks = (int)((rows + THREADS / 32 - 1) / (THREADS / 32));
+  if (!is_bf16) {
+    flash_delta_kernel<float><<<delta_blocks, THREADS, 0, stream>>>(
+        (const float*)out, (const float*)d_out, delta, B, N, H, D);
+    size_t bytes = bwd_f32_smem(D);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_f32_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_bwd_f32_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(N / F_BM, H, B);
+    flash_bwd_f32_kernel<false><<<grid, THREADS, bytes, stream>>>(
+        (const float*)q, (const float*)d_out, (const float*)k, (const float*)v,
+        lse, delta, (float*)dq, nullptr, N, H, D, sq, sd, sk, sv, scale);
+    flash_bwd_f32_kernel<true><<<grid, THREADS, bytes, stream>>>(
+        (const float*)k, (const float*)v, (const float*)q,
+        (const float*)d_out, lse, delta, (float*)dk, (float*)dv, N, H, D, sk,
+        sv, sq, sd, scale);
+    return cudaGetLastError();
+  }
+  flash_delta_kernel<bf16><<<delta_blocks, THREADS, 0, stream>>>(
+      (const bf16*)out, (const bf16*)d_out, delta, B, N, H, D);
+  bool vec = D % 8 == 0 && aligned8(q, sq) && aligned8(k, sk) &&
+             aligned8(v, sv) && aligned8(d_out, sd);
+  if (D <= 48) BWD_CASE(48, 4, 1);
+  if (D <= 80) BWD_CASE(80, 4, 1);
+  if (D <= 128) BWD_CASE(128, 4, 1);
+  BWD_CASE(512, 1, 4);
+}

@@ -1,0 +1,178 @@
+"""Flash self-attention: softmax(Q K^T / sqrt(D)) V over (B, N, H, D) tensors
+without the N x N scores in device memory.
+
+Port of the kernel path of ``dreamwaltz_g_tpu/guidance/layers.py``
+(``_flash_kernel`` / ``flash_self_attention``, TPU kernel B4). On CUDA
+tensors ``flash_attn_fwd`` / ``flash_attn_bwd`` launch the hand-written
+kernels of ``csrc/flash_attn.cu`` (bf16 through the tensor cores, float32 in
+true float32); on CPU tensors they take the plain versions below. There is
+no compile probe and no fallback: a CUDA tensor launches the kernel or the
+call raises.
+
+The kernels' domain is the dispatch gate's (``layers._flash_enabled``):
+self-attention, N a multiple of 128, D <= 128 or a multiple of 128, and in
+the kernels D <= 512 (one block's shared memory). Tensors need unit stride
+along D only: a (B, N, H, D) view of a projection's output is taken by its
+strides, without a copy.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import kernels
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward: float32 scores and softmax. Returns
+    ``out`` (B, N, H, D) in q's type and ``lse`` (B, H, N) float32, the log
+    of each row's sum of exp(scaled scores)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype), lse
+
+
+def flash_attention_plain_bwd(q, k, v, out, lse, d_out
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of the backward, from what the forward saved:
+    ``delta = rowsum(d_out * out)``, ``P = exp(S - lse)``, ``dV = P^T dO``,
+    ``dP = dO V^T``, ``dS = P * (dP - delta)``, ``dQ = dS K * scale``,
+    ``dK = dS^T Q * scale``; float32 throughout, results in q's type."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), d_out.float()
+    delta = (gf * out.float()).sum(-1).permute(0, 2, 1)          # (B, H, N)
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+                  - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check(name: str, q, k, v) -> torch.device:
+    """Raise on anything the kernels do not take; returns the device."""
+    if q.ndim != 4:
+        raise ValueError(f"{name}: q must be (B, N, H, D), got "
+                         f"{tuple(q.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"{name}: self-attention only, q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} v {tuple(v.shape)} must have one shape")
+    devs = {t.device for t in (q, k, v)}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: mixed types {q.dtype} {k.dtype} {v.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: bfloat16 or float32, not {q.dtype}")
+    B, N, H, D = q.shape
+    if N % 128:
+        raise ValueError(f"{name}: N = {N} is not a multiple of 128")
+    if D > 128 and D % 128:
+        raise ValueError(f"{name}: D = {D} is above 128 and not a multiple "
+                         "of 128")
+    if D > 512:
+        raise ValueError(f"{name}: D = {D} is above 512, the most one "
+                         "block's shared memory holds")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {n} is not contiguous along D "
+                             f"(strides {t.stride()})")
+    return dev
+
+
+def _launch(fn_name: str, dev: torch.device, *args) -> None:
+    fn = getattr(kernels.load("flash_attn"), fn_name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[a.data_ptr() if torch.is_tensor(a) else a for a in args],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
+
+
+def _strides(*tensors):
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def flash_attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward: (out (B, N, H, D) in q's type, contiguous; lse (B, H, N)
+    float32). Kernel on CUDA tensors, plain version on CPU tensors."""
+    dev = _check("flash_attn_fwd", q, k, v)
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    _launch("flash_attn_fwd", dev, q, k, v, out, lse, B, N, H, D,
+            *_strides(q, k, v), int(q.dtype == torch.bfloat16))
+    flash_attn_fwd.launches += 1
+    return out, lse
+
+
+def flash_attn_bwd(q, k, v, out, lse, d_out
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward from the forward's ``out`` and ``lse``: (dq, dk, dv),
+    contiguous, in q's type. One call is one launch of the kernel group
+    (delta, the dQ pass, the dK / dV pass)."""
+    dev = _check("flash_attn_bwd", q, k, v)
+    B, N, H, D = q.shape
+    for n, t, dtype in (("out", out, q.dtype), ("d_out", d_out, q.dtype)):
+        if tuple(t.shape) != (B, N, H, D) or t.dtype != dtype \
+                or t.device != dev:
+            raise ValueError(f"flash_attn_bwd: {n} must be {(B, N, H, D)} "
+                             f"{dtype} on {dev}")
+    if tuple(lse.shape) != (B, H, N) or lse.dtype != torch.float32 \
+            or lse.device != dev:
+        raise ValueError(f"flash_attn_bwd: lse must be {(B, H, N)} float32 "
+                         f"on {dev}")
+    if dev.type == "cpu":
+        return flash_attention_plain_bwd(q, k, v, out, lse, d_out)
+    for n, t in (("out", out), ("d_out", d_out), ("lse", lse)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attn_bwd: {n} must be contiguous")
+    dq, dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=dev)
+                  for _ in range(3))
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    _launch("flash_attn_bwd", dev, q, k, v, out, lse, d_out, dq, dk, dv,
+            delta, B, N, H, D, *_strides(q, k, v),
+            int(q.dtype == torch.bfloat16))
+    flash_attn_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attn_fwd.launches = 0
+flash_attn_bwd.launches = 0
+
+
+class FlashSelfAttention(torch.autograd.Function):
+    """``flash_attn_fwd`` with ``flash_attn_bwd`` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attn_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attn_bwd(q, k, v, out, lse, d_out.contiguous())
+
+
+def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                         ) -> torch.Tensor:
+    """Fused attention over (B, N, H, D) tensors, differentiable; the
+    scores are scaled by D^-1/2, with no mask."""
+    return FlashSelfAttention.apply(q, k, v)

@@ -10,10 +10,15 @@ Inside the stack activations are NCHW, as ``nn.Conv2d`` takes them; the
 models' public ``forward``s (``unet.py``, ``controlnet.py``, ``vae.py``)
 take and return the JAX package's NHWC.
 
-Attention runs the einsum path only: ``FLASH_ATTENTION = "off"``, which is
-also what the JAX package runs on any device that is not a TPU. The flash
-kernel (TPU kernel B4, ``layers.py:_flash_kernel``) is ported in a later
-slice; until then any other setting raises.
+The long self-attention layers go through the flash-attention kernel
+(``flash.py``, TPU kernel B4) as ``FLASH_ATTENTION`` says: ``"auto"`` (the
+default) takes it iff the tensors lie on a CUDA device, where the JAX
+package takes it iff it runs on a TPU; ``"on"`` always (on CPU tensors that
+is the kernel's plain version, which is how the CPU tests reach the path);
+``"off"`` never. Cross-attention, layers shorter than ``FLASH_MIN_SEQ`` and
+head dimensions outside the kernel's domain stay on the einsum path. There
+is no compile probe: on a CUDA tensor the kernel launches or the call
+raises.
 """
 from __future__ import annotations
 
@@ -24,17 +29,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-#: "off": every attention takes the einsum path. The flash kernel (B4) is
-#: not ported yet, so any other value raises when attention runs.
-FLASH_ATTENTION = "off"
+from .flash import flash_self_attention
+
+#: flash-attention policy of the long self-attention layers: "auto" (flash
+#: iff the tensors are on a CUDA device), "on" or "off"
+FLASH_ATTENTION = "auto"
+FLASH_MIN_SEQ = 1024
 
 
-def _check_flash() -> None:
-    if FLASH_ATTENTION != "off":
-        raise NotImplementedError(
-            f"FLASH_ATTENTION={FLASH_ATTENTION!r}: the flash-attention kernel "
-            "(TPU kernel B4) is not ported yet -- slice 3 of the port brings "
-            "it; only 'off' (the einsum path) runs")
+def _flash_enabled(n_q: int, n_k: int, head_dim: int,
+                   device: torch.device) -> bool:
+    """The JAX package's gate: self-attention over at least
+    ``FLASH_MIN_SEQ`` tokens, a multiple of 128, with a head dimension of
+    at most 128 or a multiple of 128 (SD1.5's 160-wide layers are short)."""
+    if FLASH_ATTENTION == "off":
+        return False
+    if n_q < FLASH_MIN_SEQ or n_q % 128 or n_k != n_q:
+        return False
+    if head_dim > 128 and head_dim % 128:
+        return False
+    if FLASH_ATTENTION == "on":
+        return True
+    return torch.device(device).type == "cuda"
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -103,7 +119,8 @@ class ResnetBlock2D(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention over (B, N, C) tokens; cross-attention when
     ``context`` is given. Scores are softmaxed in float32 and cast back to
-    the input type, as the JAX package does."""
+    the input type, as the JAX package does; gated self-attention takes the
+    flash kernel on (B, N, H, D) views of the projections."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None):
@@ -117,7 +134,6 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
 
     def forward(self, x, context=None):
-        _check_flash()
         context = x if context is None else context
         B, Nq, _ = x.shape
         Nk = context.shape[1]
@@ -125,9 +141,13 @@ class Attention(nn.Module):
         q = self.to_q(x).reshape(B, Nq, H, D)
         k = self.to_k(context).reshape(B, Nk, H, D)
         v = self.to_v(context).reshape(B, Nk, H, D)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D)
-        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Nq, H * D)
+        if _flash_enabled(Nq, Nk, D, x.device):
+            out = flash_self_attention(q, k, v).reshape(B, Nq, H * D)
+        else:
+            attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D)
+            attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(
+                B, Nq, H * D)
         return self.to_out[0](out)
 
 
@@ -215,8 +235,9 @@ class Upsample2D(nn.Module):
 
 
 class AttnBlockVAE(nn.Module):
-    """Single-head spatial self-attention of the VAE mid block; its softmax
-    runs in the input type, as in the JAX package."""
+    """Single-head spatial self-attention of the VAE mid block. On the
+    einsum path its softmax runs in the input type; on the flash path the
+    scores and the softmax are float32, as in the JAX package."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -227,13 +248,17 @@ class AttnBlockVAE(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
 
     def forward(self, x):
-        _check_flash()
         B, C, H, W = x.shape
         h = self.group_norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
-        attn = torch.softmax(torch.einsum("bqc,bkc->bqk", q, k)
-                             / math.sqrt(C), dim=-1)
-        h = self.to_out[0](torch.einsum("bqk,bkc->bqc", attn, v))
+        if _flash_enabled(H * W, H * W, C, x.device):
+            h = flash_self_attention(q[:, :, None, :], k[:, :, None, :],
+                                     v[:, :, None, :])[:, :, 0]
+        else:
+            attn = torch.softmax(torch.einsum("bqc,bkc->bqk", q, k)
+                                 / math.sqrt(C), dim=-1)
+            h = torch.einsum("bqk,bkc->bqc", attn, v)
+        h = self.to_out[0](h)
         return x + h.reshape(B, H, W, C).permute(0, 3, 1, 2)
 
 

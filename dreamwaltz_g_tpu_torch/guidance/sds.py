@@ -14,9 +14,14 @@ model runs in its weights' type: at bfloat16 the UNet sees bfloat16 noisy
 latents, where the JAX package adds the float32 schedule to bfloat16
 latents and runs the UNet on the promoted float32.
 
+The pixel-gradient hooks (``make_pgc``, ``make_rgb_grad_hook``,
+``make_pgc_suppress``, ``build_pixel_grad_hook``) are identity functions on
+the rendered image whose backward clips, normalizes or suppresses its
+gradient, as ``torch.autograd.Function``s.
+
 Not ported yet: the csd / nfsd / ism / custom families, the denoise modes
-(z0, x0), the pixel-gradient hooks, ``sample_images`` and resizing a render
-to the VAE's input size; asking for one raises.
+(z0, x0), ``sample_images`` and 4-channel latent renders
+(``latent_input``); asking for a family that is not ported raises.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
@@ -57,6 +63,9 @@ class ScoreDistillation:
     grad_latent_nan_to_num: bool = True
     prediction_type: str = "epsilon"  # or 'v_prediction'
     latent_size: int = 64
+    # False keeps a render whose size the UNet takes natively (the VAE's
+    # input size, or a square 768) instead of resizing it
+    input_interpolate: bool = True
 
     def __post_init__(self):
         if self.schedule is None:
@@ -69,15 +78,20 @@ class ScoreDistillation:
     def encode_images(self, params: GuidanceParams, images: torch.Tensor
                       ) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] -> (B, h, w, 4) latents, with the graph
-        kept. The render must already be the VAE's input size
-        (``latent_size`` x the VAE's downsampling factor)."""
+        kept. A render of another size than the VAE's input
+        (``latent_size`` x the VAE's downsampling factor) is resized to it
+        first, bilinearly and antialiased when it shrinks, as
+        ``jax.image.resize`` does; with ``input_interpolate=False`` a
+        square 768 render is kept and encodes to 96^2 latents."""
         B, H, W, _ = images.shape
         target = self.latent_size * 2 ** (
             len(params.vae.cfg.block_out_channels) - 1)
-        if H != target or W != target:
-            raise NotImplementedError(
-                f"render {H}x{W} != the VAE input {target}x{target}: resizing "
-                "renders is not ported")
+        if (H != target or W != target) and (
+                self.input_interpolate or H != W or H not in (target, 768)):
+            images = F.interpolate(
+                images.permute(0, 3, 1, 2), size=(target, target),
+                mode="bilinear", align_corners=False,
+                antialias=True).permute(0, 2, 3, 1)
         return params.vae.encode(images)
 
     def _eps(self, params: GuidanceParams, latents, t, context,
@@ -221,3 +235,140 @@ def _rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
                                     correction=0), min=1e-8)
     rescaled = noise_cfg * (std_text / std_cfg)
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
+
+
+# ---------------------------------------------------------------------------
+# Pixel gradient clipping (PGC): identity forward, reshaped backward
+# ---------------------------------------------------------------------------
+
+class _GradHook(torch.autograd.Function):
+    """Identity on ``x``; the backward passes the gradient through
+    ``bwd(g)`` (and gives the mask, when there is one, no gradient)."""
+
+    @staticmethod
+    def forward(ctx, bwd, x, mask=None):
+        ctx.bwd = bwd
+        ctx.has_mask = mask is not None
+        if ctx.has_mask:
+            ctx.save_for_backward(mask)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.has_mask:
+            (mask,) = ctx.saved_tensors
+            return None, ctx.bwd(mask, g), torch.zeros_like(mask)
+        return None, ctx.bwd(g), None
+
+
+def make_pgc(clip_value: float = 0.1, mode: str = "clip"):
+    """Identity forward; the backward clips or normalizes per-pixel RGB
+    gradients. ``mode``: 'clip', 'std_clip' or 'normalize'."""
+    if mode not in ("clip", "std_clip", "normalize"):
+        raise NotImplementedError(mode)
+
+    def bwd(g):
+        if mode == "clip":
+            return torch.clamp(g, -clip_value, clip_value)
+        if mode == "std_clip":
+            std = torch.std(g, correction=0) * clip_value
+            return torch.minimum(torch.maximum(g, -std), std)
+        n = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True))
+        return g / torch.clamp(n, min=1e-8) * clip_value
+
+    return lambda x: _GradHook.apply(bwd, x)
+
+
+def make_rgb_grad_hook(grad_clip: bool, grad_norm: bool,
+                       grad_clip_scale: float = 3.0,
+                       with_mask: bool = False):
+    """RMS-std clip, then global L2 normalization, of the rendered image's
+    gradient.
+
+    ``with_mask``: the hook takes a second (H, W, 1) mask argument (the
+    render's accumulated weights); the gradient is masked before the std
+    statistic, which runs over the mask > 0.5 pixels only, so a soft mask's
+    small background entries do not deflate the threshold. The returned
+    callable then carries ``wants_mask = True`` so that its caller knows to
+    pass the mask."""
+
+    def finish(out):
+        if grad_norm:
+            n = torch.sqrt(torch.sum(out * out))
+            out = out / torch.clamp(n, min=1e-8)
+        return out
+
+    if with_mask:
+        def bwd_m(mask, g):
+            out = g
+            if grad_clip:
+                gz = torch.nan_to_num(out * mask)
+                sel = (mask > 0.5).expand_as(gz)
+                sq = torch.where(sel, gz * gz, torch.zeros_like(gz))
+                nz = torch.clamp(torch.sum(sel & (gz != 0)), min=1)
+                std = torch.sqrt(torch.sum(sq) / nz) * grad_clip_scale
+                out = torch.nan_to_num(
+                    torch.minimum(torch.maximum(gz, -std), std))
+            return finish(out)
+
+        def hook_m(x, mask):
+            return _GradHook.apply(bwd_m, x, mask)
+
+        hook_m.wants_mask = True
+        return hook_m
+
+    def bwd(g):
+        out = g
+        if grad_clip:
+            gz = torch.nan_to_num(out)
+            nz = torch.clamp(torch.sum(gz.abs() > 0), min=1)
+            std = torch.sqrt(torch.sum(gz * gz) / nz) * grad_clip_scale
+            out = torch.nan_to_num(
+                torch.minimum(torch.maximum(out, -std), std))
+        return finish(out)
+
+    return lambda x: _GradHook.apply(bwd, x)
+
+
+def make_pgc_suppress(clip_value: float, suppress_type: int = 0):
+    """The numbered PGC suppress family (channel dimension last):
+    0 pixel-wise clip, 1 clip, 2 global scale, 3 sigmoid, 4 PNGD,
+    5 pixel-max PNGD, any other number: identity."""
+    c = clip_value
+
+    def bwd(g):
+        if suppress_type == 0:
+            ratio = torch.clamp(c / torch.clamp(g.abs(), min=1e-20), max=1.0)
+            return g * ratio.min(dim=-1, keepdim=True).values
+        if suppress_type == 1:
+            return torch.clamp(g, -c, c)
+        if suppress_type == 2:
+            return g / torch.clamp(g.abs().max(), min=1e-20) * c
+        if suppress_type == 3:
+            return (torch.sigmoid(g) - 0.5) * c
+        if suppress_type == 4:
+            return c * g / (g.abs() + c)
+        if suppress_type == 5:
+            n = g.abs().max(dim=-1, keepdim=True).values
+            return c * g / (n + c)
+        return g
+
+    return lambda x: _GradHook.apply(bwd, x)
+
+
+def build_pixel_grad_hook(guide_cfg):
+    """The image-gradient hook a config selects, or None: the PGC suppress
+    family when ``pgc_clip_rgb >= 0``, else the clip / norm hook when
+    either is on."""
+    if getattr(guide_cfg, "pgc_clip_rgb", -1.0) is not None \
+            and guide_cfg.pgc_clip_rgb >= 0:
+        return make_pgc_suppress(guide_cfg.pgc_clip_rgb,
+                                 guide_cfg.pgc_suppress_type)
+    if guide_cfg.grad_rgb_clip or guide_cfg.grad_rgb_norm:
+        return make_rgb_grad_hook(
+            guide_cfg.grad_rgb_clip,
+            guide_cfg.grad_rgb_norm,
+            guide_cfg.grad_rgb_clip_scale,
+            with_mask=getattr(guide_cfg, "grad_rgb_clip_mask_guidance",
+                              False))
+    return None

@@ -23,6 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signatures of each kernel library's launch functions: {name: argtypes}
 SIGNATURES = {
     "blend_sorted": {
@@ -32,6 +33,10 @@ SIGNATURES = {
         "blend_train_fwd_f32": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
         "blend_tiles_eval_f32": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_P],
         "blend_train_bwd_f32": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P],
+    },
+    "flash_attn": {
+        "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I, _P],
+        "flash_attn_bwd": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_I, _P],
     },
 }
 

@@ -16,8 +16,8 @@ Port of the render-path part of ``dreamwaltz_g_tpu/system/avatar.py``:
 hold every other tensor under the JAX field names. ``animate`` is
 differentiable with respect to every float tensor of ``AvatarParams`` and
 the networks' weights. ``update_avatar_stats`` accumulates the densifier's
-statistics; densification itself and the LBS-weight KNN smoothing are not
-ported yet.
+statistics and ``densify_avatar`` clones, splits and prunes the
+unconstrained set in place; the LBS-weight KNN smoothing is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..gaussian.densify import DensifyConfig, allocate_slots
 from ..human.deform import DeformNetwork
 from ..human.glbs import GLBSTransforms, glbs_transforms
 from ..human.smplx_model import SMPLXModelData, SMPLXParams, smplx_forward
@@ -42,6 +43,7 @@ from ..utils.transforms import (
     matrix_to_quat,
     quat_multiply,
     quat_normalize,
+    quat_rotate,
     safe_normalize,
 )
 
@@ -611,7 +613,7 @@ def place_gaussians(gs: GaussiansOut, scale=None, transl=None,
 
 
 # ---------------------------------------------------------------------------
-# Densification statistics on the unconstrained set
+# Densification on the unconstrained set
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
@@ -631,3 +633,142 @@ def update_avatar_stats(state: AvatarState, means2d_grad: torch.Tensor,
         max_radii=torch.maximum(state.max_radii,
                                 torch.where(vis, radii[:C], zero)),
     )
+
+
+@torch.no_grad()
+def decode_opacities(model: AvatarModel, state: AvatarState) -> torch.Tensor:
+    """(C,) MLP-driven opacities at canonical-pose positions. The avatar has
+    no opacity parameter (colors and opacities come from the field and its
+    MLP), so the densifier's min-opacity prune evaluates the decoded
+    opacity."""
+    canonical_tr = glbs_transforms(model.smpl, model.canonical_inputs,
+                                   overrides=state.params.smpl_learn or None)
+    vso, jso, vpo = effective_offset_flags(model)
+    pos = forward_lbs(
+        canonical_tr, state.params.positions, state.params.lbs_weights,
+        use_vertex_shape_offsets=vso,
+        use_joint_shape_offsets=jso,
+        use_vertex_pose_offsets=vpo,
+        vertex_indices=state.vertex_indices)
+    enc = encode_any(state.params.encoder, model.enc_cfg, pos,
+                     model.nerf_bound)
+    return torch.sigmoid(model.color_mlp(enc)[:, 0])
+
+
+@torch.no_grad()
+def densify_avatar(
+    state: AvatarState,
+    cfg: DensifyConfig,
+    generator: Optional[torch.Generator] = None,
+    opacities: Optional[torch.Tensor] = None,
+    offsets: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[AvatarState, torch.Tensor]:
+    """Clone/split/prune the unconstrained Gaussians in zero-pose space.
+
+    The per-point learnables are positions, log_scales, quats and
+    lbs_weights (colors and opacities are MLP-driven). A clone duplicates
+    the point into a free slot; a split samples two children inside the
+    Gaussian's extent and shrinks their scales, child 1 in the parent's
+    slot, child 2 in a free one. Returns (new_state, written): ``written``
+    marks the slots whose parameters were rewritten or pruned, whose
+    optimizer moments must be reset.
+
+    The children are written **in place** (under ``no_grad``) into the
+    tensors of ``state.params``: they are the leaves an optimizer holds, so
+    it keeps its references; the returned state shares them and carries a
+    new ``alive`` mask, zeroed statistics and the children's
+    ``vertex_indices``.
+
+    ``opacities``: pass ``decode_opacities(model, state)`` to enable the
+    min-opacity prune. The two (C, 3) standard-normal draws of the split
+    come from ``generator``, or are handed in as ``offsets=(n1, n2)`` (the
+    JAX package draws them from the two halves of its key)."""
+    p = state.params
+    C = state.capacity
+    dev = p.positions.device
+    avg_grad = state.grad_accum / torch.clamp(state.grad_denom, min=1.0)
+    s = torch.exp(p.log_scales)
+    max_s = s.max(dim=-1).values
+    none = torch.zeros(C, dtype=torch.bool, device=dev)
+
+    limit = cfg.percent_dense * cfg.spatial_scale
+    hot = state.alive & (avg_grad > cfg.grad_threshold) \
+        & (state.grad_denom > 0)
+    # grad-prune mode: clone/split are suspended and the high-gradient
+    # points are pruned instead
+    if cfg.grad_prune:
+        clone_mask = split_mask = none
+    else:
+        clone_mask = hot & (max_s <= limit) if cfg.enable_clone else none
+        split_mask = hot & (max_s > limit) if cfg.enable_split else none
+
+    prune_mask = none
+    if opacities is not None:
+        prune_mask = prune_mask | (state.alive
+                                   & (opacities < cfg.min_opacity))
+    if cfg.max_screen_size is not None:
+        prune_mask = prune_mask | (state.alive
+                                   & (state.max_radii > cfg.max_screen_size))
+    if cfg.max_world_size is not None:
+        prune_mask = prune_mask | (state.alive
+                                   & (max_s > cfg.max_world_size))
+    if cfg.grad_prune:
+        prune_mask = prune_mask | hot
+    if not cfg.enable_prune:
+        prune_mask = none
+    # a split parent is consumed: its slot is overwritten by child 1
+    prune_mask = prune_mask & ~split_mask
+
+    alive_after = state.alive & ~prune_mask
+    need = clone_mask | split_mask
+    dest, granted = allocate_slots(need, alive_after)
+
+    if offsets is None:
+        if generator is None:
+            raise ValueError("pass generator= or offsets=")
+        n1, n2 = (torch.randn(s.shape, generator=generator, device=dev)
+                  for _ in range(2))
+    else:
+        n1, n2 = (torch.as_tensor(n, dtype=torch.float32, device=dev)
+                  for n in offsets)
+    nq = quat_normalize(p.quats)
+    off1 = quat_rotate(nq, n1 * s)
+    off2 = quat_rotate(nq, n2 * s)
+    split_logs = torch.log(torch.clamp(s / cfg.split_scale_shrink,
+                                       min=1e-10))
+
+    # every source value is taken before the first write; the free slots
+    # that receive children and the split parents' own slots are disjoint
+    src = torch.nonzero(granted)[:, 0]
+    dst = dest[src].long()
+    sp = split_mask & granted
+    split_src = split_mask[src, None]
+    child_pos = torch.where(split_src, (p.positions + off2)[src],
+                            p.positions[src])
+    child_logs = torch.where(split_src, split_logs[src], p.log_scales[src])
+    first_pos = (p.positions + off1)[sp]
+    child_quats, child_lbs = p.quats[src], p.lbs_weights[src]
+
+    p.positions[dst] = child_pos
+    p.log_scales[dst] = child_logs
+    p.quats[dst] = child_quats
+    p.lbs_weights[dst] = child_lbs
+    p.positions[sp] = first_pos
+    p.log_scales[sp] = split_logs[sp]
+
+    alive_new = alive_after.clone()
+    alive_new[dst] = True
+    written = torch.zeros(C, dtype=torch.bool, device=dev)
+    written[dst] = True
+    written = written | sp | prune_mask
+
+    vidx = state.vertex_indices
+    if vidx is not None:
+        # children inherit the parent's nearest-vertex attachment
+        vidx = vidx.clone()
+        vidx[dst] = state.vertex_indices[src]
+
+    z = torch.zeros((C,), dtype=torch.float32, device=dev)
+    return AvatarState(params=p, alive=alive_new, grad_accum=z,
+                       grad_denom=z.clone(), max_radii=z.clone(),
+                       vertex_indices=vidx), written

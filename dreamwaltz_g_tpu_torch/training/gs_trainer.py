@@ -10,9 +10,12 @@ Port of ``dreamwaltz_g_tpu/training/gs_trainer.py``:
 * ``make_avatar_render`` / ``make_avatar_render_frames``: the eval renders,
   forward only, through the sorted tile blend.
 
-Not ported yet: the split and data/tensor-parallel step builders,
-densification, the pixel-gradient hooks, scene placement in the step, the
-NeRF->3DGS distillation and the multi-device frame sharding.
+* ``densify``: clone/split/prune of the unconstrained set with the
+  optimizer-moment reset on the rewritten slots.
+
+Not ported yet: the split and data/tensor-parallel steps, scene
+placement and the static background Gaussians in the step, the NeRF->3DGS
+distillation and the multi-device frame sharding.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from .._device import resolve_device
+from ..gaussian.densify import DensifyConfig, reset_opt_slots
 from ..guidance.sds import GuidanceParams, ScoreDistillation
 from ..human.smplx_model import SMPLXParams
 from ..ops import rasterize as R
@@ -30,6 +34,8 @@ from ..system.avatar import (
     AvatarState,
     GaussiansOut,
     animate,
+    decode_opacities,
+    densify_avatar,
     merge_gaussians,
     place_gaussians,
     update_avatar_stats,
@@ -82,9 +88,11 @@ def init_avatar_train_state(state: AvatarState, tx: AvatarOptimizer,
 
 def _render_with_dummy(model: AvatarModel, state: AvatarState, params,
                        observed_inputs, dummy, extrinsic, intrinsics, tanfov,
-                       background, H: int, W: int, raster: dict):
+                       background, H: int, W: int, raster: dict, pgc=None):
     """Animate + project (+ ``dummy`` on means2d) + rasterize + composite.
-    Returns (image (H, W, 3), RasterOutput)."""
+    ``pgc``: optional identity-forward hook on the composited 3-channel
+    image that reshapes its gradient (pixel-gradient clipping). Returns
+    (image (H, W, 3), RasterOutput)."""
     gs = animate(model, state._replace(params=params), observed_inputs)
     cov3d = R.covariance3d(gs.quats, gs.scales)
     g2d = R.project_gaussians(
@@ -93,6 +101,8 @@ def _render_with_dummy(model: AvatarModel, state: AvatarState, params,
     g2d = g2d._replace(means2d=g2d.means2d + dummy)
     out = R.rasterize_projected(g2d, H, W, **raster)
     image = out.image + (1.0 - out.alpha)[..., None] * background
+    if pgc is not None and image.shape[-1] == 3:
+        image = pgc(image)
     return image, out
 
 
@@ -106,6 +116,7 @@ def make_avatar_sds_step(
     chunk: int = 64,
     max_tiles_per_gaussian: int = 16,
     lambda_guidance: float = 1.0,
+    pgc: Optional[Callable] = None,
     device="cuda",
 ) -> Callable:
     """One avatar SDS step: ``step(tstate, gparams, observed_inputs,
@@ -118,8 +129,10 @@ def make_avatar_sds_step(
     ``generator``), ``loss = lambda * sum(latents * grad) / B`` in float32,
     backward, the optimizer step (``tstate.opt_state``, which carries the
     groups; the JAX version takes the optax transform as an argument), the
-    stats. The optimizer updates the avatar's tensors in place, and each
-    leaf keeps this step's ``.grad``. The stages run inside
+    stats. ``pgc`` is the pixel-gradient hook of
+    ``guidance.sds.build_pixel_grad_hook`` (None: no hook), applied to the
+    composited image. The optimizer updates the avatar's tensors in place,
+    and each leaf keeps this step's ``.grad``. The stages run inside
     ``torch.profiler.record_function`` ranges (``sds_step.render``,
     ``.guidance``, ``.backward``, ``.optimizer_stats``), which a profiler
     reads and which cost nothing without one."""
@@ -145,7 +158,8 @@ def make_avatar_sds_step(
         with record_function("sds_step.render"):
             image, out = _render_with_dummy(
                 model, state, state.params, observed_inputs, dummy,
-                extrinsic, intrinsics, tanfov, background, H, W, raster)
+                extrinsic, intrinsics, tanfov, background, H, W, raster,
+                pgc=pgc)
         with record_function("sds_step.guidance"):
             sds = guidance(gparams, image[None], text_embeds, uncond_embeds,
                            t, noise=noise, cond_image=cond_image,
@@ -164,6 +178,24 @@ def make_avatar_sds_step(
                                 tstate.step + 1), metrics
 
     return step
+
+
+def densify(tstate: AvatarTrainState, cfg: DensifyConfig,
+            generator: Optional[torch.Generator] = None,
+            model: Optional[AvatarModel] = None,
+            offsets=None) -> AvatarTrainState:
+    """Clone/split/prune + the per-slot reset of the optimizer's moments.
+
+    Pass ``model`` to enable the min-opacity prune on the MLP-decoded
+    opacities. The avatar's tensors are rewritten in place (see
+    ``densify_avatar``), so ``tstate.opt_state`` keeps its references; its
+    moments are zeroed on the written slots, in place too. ``generator``
+    (or ``offsets``) supplies the split's normal draws."""
+    op = decode_opacities(model, tstate.avatar) if model is not None else None
+    new_avatar, written = densify_avatar(tstate.avatar, cfg, generator,
+                                         opacities=op, offsets=offsets)
+    opt_state = reset_opt_slots(tstate.opt_state, written)
+    return AvatarTrainState(new_avatar, opt_state, tstate.step)
 
 
 def make_avatar_render(model: AvatarModel, image_height: int,

@@ -42,6 +42,14 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate points v (..., 3) by unit quaternions q (..., 4)."""
+    w = q[..., :1]
+    u = q[..., 1:]
+    uv = torch.linalg.cross(u, v)
+    return v + 2.0 * (w * uv + torch.linalg.cross(u, uv))
+
+
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) wxyz -> (..., 3, 3)."""
     q = quat_normalize(q)

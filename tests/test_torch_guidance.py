@@ -2,8 +2,9 @@
 on the CPU: the tiny UNet (with and without ControlNet residuals), the
 ControlNet, the VAE, the time embedding, the noise schedule, and the SDS
 latent gradient and loss with injected noise. Weights cross over through
-``convert.py``. On the CPU the JAX package's attention takes the einsum
-path, the one the port has."""
+``convert.py``. On the CPU both packages' attention takes the einsum path
+under the default ``FLASH_ATTENTION = "auto"``; the flash path is held in
+``tests/test_torch_flash.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,28 +207,6 @@ def test_sds_gradients_and_loss_match_jax(stacks, loss_type, weight_type,
         jnp.asarray(x["img"]))
     tout["loss"].backward()
     _close(jgrad, img.grad)
-
-
-def test_flash_attention_setting_raises_and_sdpa_unused(stacks, monkeypatch):
-    """Anything but FLASH_ATTENTION='off' raises (B4 is not ported), and
-    the einsum path never calls scaled_dot_product_attention."""
-    _, _, _, tgp = stacks
-    x = _inputs(5, B=1)
-    T = torch.as_tensor
-
-    def forbidden(*a, **k):
-        raise AssertionError("scaled_dot_product_attention called")
-
-    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
-                        forbidden)
-    with torch.no_grad():
-        tgp.unet(T(x["lat"]), T(x["t"]), T(x["ctx"]))
-        tgp.vae.encode(T(x["img"]))
-    monkeypatch.setattr(TL, "FLASH_ATTENTION", "auto")
-    with pytest.raises(NotImplementedError, match="B4"):
-        tgp.unet(T(x["lat"]), T(x["t"]), T(x["ctx"]))
-    with pytest.raises(NotImplementedError, match="B4"):
-        tgp.vae.encode(T(x["img"]))
 
 
 def test_unported_loss_families_raise():

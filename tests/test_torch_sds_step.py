@@ -13,17 +13,27 @@ rounding only.
 
 The background is textured: over a flat one, the VAE's GroupNorms see
 near-constant groups, where Flax's variance E[x^2] - E[x]^2 loses most of
-its digits (torch's does not), and the latents then differ by ~1e-4."""
+its digits (torch's does not), and the latents then differ by ~1e-4.
+
+A second case runs the whole step with the pixel-gradient hook set
+(``grad_rgb_clip`` and ``grad_rgb_norm``) and ``FLASH_ATTENTION = "on"`` in
+both packages, the length gate lowered to the 256 tokens of the tiny UNet's
+and VAE's attention: the JAX side through its interpreted TPU kernel, the
+port through the flash wrapper's plain version. Same envelope."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from dreamwaltz_g_tpu import tests_support as jts
+from dreamwaltz_g_tpu.configs import GuideConfig as JGuideConfig
 from dreamwaltz_g_tpu.configs import RenderConfig as JRenderConfig
 from dreamwaltz_g_tpu.data.camera import make_camera_batch as jcamera
+from dreamwaltz_g_tpu.guidance import layers as JL
+from dreamwaltz_g_tpu.guidance import sds as JS
 from dreamwaltz_g_tpu.guidance.sds import GuidanceParams as JGP
 from dreamwaltz_g_tpu.nerf.encoder import TriplaneConfig as JTriplane
 from dreamwaltz_g_tpu.system import avatar as JA
@@ -31,9 +41,11 @@ from dreamwaltz_g_tpu.training import gs_trainer as JG
 from dreamwaltz_g_tpu.training import optim as JO
 from dreamwaltz_g_tpu_torch import convert
 from dreamwaltz_g_tpu_torch import tests_support as tts
-from dreamwaltz_g_tpu_torch.configs import RenderConfig
+from dreamwaltz_g_tpu_torch.configs import GuideConfig, RenderConfig
 from dreamwaltz_g_tpu_torch.convert import avatar_state_from_numpy
 from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch as tcamera
+from dreamwaltz_g_tpu_torch.guidance import layers as TL
+from dreamwaltz_g_tpu_torch.guidance import sds as TS
 from dreamwaltz_g_tpu_torch.ops import blend_train as BT
 from dreamwaltz_g_tpu_torch.training import gs_trainer as TG
 from dreamwaltz_g_tpu_torch.training import optim as TO
@@ -60,8 +72,14 @@ def _np_tree(tree):
     return np.array(tree, np.float32)
 
 
-@pytest.fixture(scope="module")
-def case():
+HOOK = dict(grad_rgb_clip=True, grad_rgb_norm=True)
+
+
+def _make_case(guide_fields=None):
+    """The JAX step's results and the port's twin inputs; ``guide_fields``
+    selects the pixel-gradient hook of the JAX render."""
+    jpgc = None if guide_fields is None else JS.build_pixel_grad_hook(
+        JGuideConfig(**guide_fields))
     jset = jts.tiny_avatar_setup(enc_cfg=JTriplane(resolution=16,
                                                    feature_dim=8))
     jsd, jgp = jts.tiny_guidance(jax.random.PRNGKey(0), with_controlnet=True,
@@ -100,7 +118,7 @@ def case():
         image, out = JG._render_with_dummy(
             jset.model, state, params, jset.observed, dummy,
             jc.extrinsic[0], jc.intrinsics[0], jc.tanfov[0],
-            jnp.asarray(inputs["bg"]), H, W, RASTER)
+            jnp.asarray(inputs["bg"]), H, W, RASTER, pgc=jpgc)
         sds = jsd(jgp, image[None], inputs["txt"], inputs["unc"],
                   inputs["t"], key, cond_image=inputs["cond"])
         return sds["loss"], (out.radii, out.alpha)
@@ -132,6 +150,25 @@ def case():
                 fresh=lambda: avatar_state_from_numpy(tree, tset.model,
                                                       device="cpu"))
     return jax_out, port
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _make_case()
+
+
+@pytest.fixture(scope="module")
+def flash_case():
+    """The JAX step with the pixel-gradient hook and the interpreted TPU
+    flash kernel in the tiny UNet (256 tokens, d = 16) and VAE (256
+    tokens, d = 64)."""
+    old = (JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ)
+    JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ = "on", 256
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            return _make_case(HOOK)
+    finally:
+        JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ = old
 
 
 def _fields(params, model):
@@ -204,12 +241,38 @@ def test_sds_step_matches_jax(case):
     """``make_avatar_sds_step`` on the CPU: the loss, the densification
     stats and, where the gradient is well above rounding, the updated
     parameters after one step; the kernels did not launch."""
-    jax_out, port = case
+    _check_step(*case)
+
+
+def test_sds_step_with_flash_and_pixel_hook_matches_jax(flash_case,
+                                                        monkeypatch):
+    """The same, with ``pgc`` set and ``FLASH_ATTENTION = "on"`` on both
+    sides; the port's attention went through the flash wrapper (its plain
+    version on the CPU) in the UNet, the ControlNet and the VAE."""
+    monkeypatch.setattr(TL, "FLASH_ATTENTION", "on")
+    monkeypatch.setattr(TL, "FLASH_MIN_SEQ", 256)
+    calls = []
+    flash = TL.flash_self_attention
+    monkeypatch.setattr(TL, "flash_self_attention",
+                        lambda *a: calls.append(a[0].shape) or flash(*a))
+    grads = _check_step(*flash_case,
+                        pgc=TS.build_pixel_grad_hook(GuideConfig(**HOOK)))
+    assert sorted(set(calls)) == [(1, 256, 1, 64), (2, 256, 2, 16)]
+    # the hook normalised the image gradient, so the gradients are another
+    # size than the plain case's: held to the JAX step's own
+    jax_out, port = flash_case
+    for name, leaf, get in _fields(grads, port["model"]):
+        if name == "quats" or leaf.grad is None:
+            continue
+        _check_grad(name, leaf.grad.numpy(), get(jax_out["grads"]))
+
+
+def _check_step(jax_out, port, pgc=None):
     model = port["model"]
     x = port["inputs"]
     tx = TO.build_avatar_optimizer(RenderConfig(), MAX_STEPS)
     tstate = TG.init_avatar_train_state(port["fresh"](), tx, model)
-    step = TG.make_avatar_sds_step(model, port["sd"], H, W,
+    step = TG.make_avatar_sds_step(model, port["sd"], H, W, pgc=pgc,
                                    device="cpu", **RASTER)
     launches = (BT.blend_train_fwd.launches, BT.blend_train_bwd.launches)
     new, metrics = step(tstate, port["gp"], port["observed"], *port["cam"],
@@ -237,3 +300,4 @@ def test_sds_step_matches_jax(case):
         np.testing.assert_allclose(leaf.detach().numpy()[sure],
                                    np.asarray(get(jnew.params))[sure],
                                    rtol=1e-6, atol=1e-6, err_msg=name)
+    return new.avatar.params
