@@ -49,7 +49,11 @@ Phases, one JSON line each:
                    attention (``"off"``); each table kernel's and each flash
                    shape's time beside its plain version, its bound and, for
                    flash, the einsum path and
-                   ``scaled_dot_product_attention`` (timed here only);
+                   ``scaled_dot_product_attention`` (timed here only); for
+                   each flash forward also the kernel's device ms, TFLOP/s
+                   and share of the bound, and its instantiation's build
+                   facts (registers and spills from ptxas, shared memory
+                   and blocks an SM from the library);
 14. train_profile -- device busy share, the step's device and host ms by
                    stage (its own ``record_function`` ranges) and top
                    kernels over one profiled SDS step;
@@ -72,6 +76,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -637,9 +642,88 @@ def sdpa_times(q, k, v, g, backward):
     return out
 
 
-def flash_times(kept):
+def kernel_device_ms(fn, reps):
+    """Mean device ms of the kernels one ``fn()`` launches, summed from a
+    profile of ``reps`` calls after one untimed call: the card's time alone,
+    without the host's cost of each wrapper call, which at the small shapes
+    is as long as the kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+def ptxas_facts(log):
+    """{kernel's mangled name: {registers, spill_stores, spill_loads}} from
+    an ``nvcc -Xptxas -v`` log."""
+    facts, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            facts.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            facts[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            facts[name]["registers"] = int(m.group(1))
+    return facts
+
+
+# flash_attn_fwd_info's seven numbers
+FWD_INFO_KEYS = ("tile_width", "threads", "rows_per_block", "smem_bytes",
+                 "blocks_per_sm", "registers_runtime", "local_bytes")
+
+
+def flash_fwd_build(log, shape, kind):
+    """The forward instantiation that ``shape`` runs: its template (tile
+    width, then warps and key tile and ring stages, or warps across rows and
+    columns and key tile), registers and spills from the ptxas log, and
+    dynamic shared memory, threads and resident blocks an SM from the
+    library's ``flash_attn_fwd_info`` (the log has no dynamic shared memory
+    and no occupancy)."""
+    import ctypes
+
+    from dreamwaltz_g_tpu_torch import kernels
+
+    fn = kernels.load("flash_attn").flash_attn_fwd_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(FWD_INFO_KEYS))()
+    rc = fn(shape[-1], int(kind == "bf16"), ctypes.addressof(info))
+    if rc != 0:
+        fail(f"flash_attn_fwd_info failed for {shape} {kind}: {rc}")
+    out = dict(zip(FWD_INFO_KEYS, info))
+    family = ("flash_fwd_f32_kernel" if kind != "bf16" else
+              "flash_fwd_rows_kernel" if shape[-1] <= 128 else
+              "flash_fwd_bf16_kernel")
+    for name, facts in ptxas_facts(log).items():
+        m = re.search(family + r"(?:I((?:Li\d+E)+)E)?", name)
+        args = [int(a) for a in re.findall(r"Li(\d+)E", (m.group(1) or ""))
+                ] if m else []
+        if m and (kind != "bf16" or args[:1] == [out["tile_width"]]):
+            return dict(kernel=family, template=args, **facts, **out)
+    fail(f"no ptxas entry for the forward kernel of {shape} {kind}")
+
+
+def flash_times(kept, build_log):
     """Per shape: the kernels' ms beside the plain versions', the einsum
-    path's and the library call's, and the bounds."""
+    path's and the library call's, and the bounds. For the forward also the
+    kernel's own device ms (profiler), the rate 4 B H N^2 D / that time, its
+    share of the bound, and the build facts of its instantiation."""
     import torch
 
     from dreamwaltz_g_tpu_torch.guidance import flash as FL
@@ -648,13 +732,19 @@ def flash_times(kept):
     with torch.no_grad():
         for shape, kind, backward in FLASH_SHAPES:
             q, k, v, g, out, lse = kept[shape]
+            bound = flash_bound(shape, kind, False)
+            dev_ms = kernel_device_ms(lambda: FL.flash_attn_fwd(q, k, v), 20)
             row = dict(
                 shape=list(shape), type=kind,
                 fwd_ms=cuda_ms(lambda: FL.flash_attn_fwd(q, k, v), 10),
+                fwd_kernel_ms=dev_ms,
+                fwd_tflops=bound["ops"] / dev_ms / 1e9,
+                fwd_share_of_bound=bound["bound_ms"] / dev_ms,
+                build=flash_fwd_build(build_log, shape, kind),
                 fwd_plain_ms=cuda_ms(
                     lambda: FL.flash_attention_plain(q, k, v), 3),
                 fwd_einsum_ms=cuda_ms(lambda: einsum_attention(q, k, v), 5),
-                fwd_bound=flash_bound(shape, kind, False))
+                fwd_bound=bound)
             if backward:
                 row.update(
                     bwd_ms=cuda_ms(lambda: FL.flash_attn_bwd(
@@ -1477,7 +1567,7 @@ def main():
                 lambda: BT.blend_tiles_eval_reference(*kargs, ts_, tiles_x),
                 3)}
     bounds = table_bounds(t_args, errs_avatar[3])
-    flash_rows = flash_times(flash_kept)
+    flash_rows = flash_times(flash_kept, logs["flash_attn"])
 
     # the same run with einsum attention ("off"), the (B, H, N, N) scores
     # in device memory: its step time and its peak memory beside flash's

@@ -5,38 +5,67 @@
 // kernels): softmax(Q K^T / sqrt(D)) V over (B, N, H, D) without writing the
 // N x N scores to device memory. Scores, the running max / sum and every
 // accumulator are float32; `lse` (B, H, N) = row max + log(row sum) of the
-// scaled scores is what the backward recomputes P = exp(S - lse) from.
+// scaled scores, in natural log, is what the backward recomputes
+// P = exp(S - lse) from.
 //
 // Bound: operations (4 B H N^2 D forward, 10 B H N^2 D backward against
-// 2-byte operands read once), so the design question is how the products
-// reach the tensor cores, not how bytes move.
+// 2-byte operands read once). For the UNet's (2, 4096, 8, 40) forward that
+// is 0.043 ms at the tensor cores' 989 TFLOP/s (NVIDIA H100 80GB HBM3 at its
+// 700 W limit), but the B H N^2 = 268M exponentials set a floor above it: at
+// 16 ex2 a clock an SM, ~0.07 ms on 132 SMs at ~1.7 GHz.
 //
-// Two instantiations of each kernel:
-//  * bf16: tensor cores through `mma.sync.m16n8k16` (bf16 in, float32 out).
-//    A block of 4 warps owns 16*WM rows. For D <= 128 the warps split the
-//    rows (WM = 4) and each holds a 16 x D accumulator in registers; above
-//    that (the VAE's D = 512) the four warps share 16 rows and split the
-//    score columns and then the head dimension (WN = 4), so the accumulator
-//    stays at 64 registers a thread and 256 blocks cover N = 4096. Scores
-//    cross between the two products through shared memory (float32 scores,
-//    bf16 probabilities), which is what lets one body serve both layouts.
-//  * float32: CUDA cores, true float32 products (no TF32, no downcast),
-//    accumulators in shared memory, any D up to 512. It is the reference
-//    instantiation for the float32 parity checks, not a fast path.
-// The bf16 kernels are instantiated at four tile widths: 48 and 80 (the
-// SD1.5 UNet's and ControlNet's D = 40 and 80), 128 (any other D <= 128) and
-// 512 (the VAE's mid block; D = 256 and 384 run in it too). A head dimension
-// below its tile's width (40 in a 48-wide tile) is zero-padded in the
-// shared-memory tiles only; a D that is not a multiple of 8, or a view that
-// is not 16-byte aligned, takes the element-wise tile load. Tensors are
-// addressed by their own batch, row and head strides (unit stride along D),
-// so a (B, N, H, D) view of a projection's output needs no copy.
+// bf16 forward, D <= 128 (the UNet's D = 40 and the ControlNet's D = 80:
+// 14 of a training step's 15 launches), FlashAttention-2 on mma.sync:
+//  * Each warp owns 16 query rows and every key of a 64-key tile. The
+//    scores stay in their m16n8k16 accumulators; row max and row sum reduce
+//    over the quad of lanes that holds a row (two shuffles); each exponent
+//    is one FFMA (scale log2 e folded in) and one ex2, with the running max
+//    in that log2 domain (lse goes back to the natural log at the end); the
+//    row sums are per-lane partials, reduced once after the last tile; O is
+//    rescaled by alpha in registers.
+//  * P never leaves registers: the accumulator layout of 16 key columns is
+//    the A-operand layout of P V, so each probability is rounded to bf16
+//    once and packed in place.
+//  * Fragments come through ldmatrix: Q's once per block, kept in registers;
+//    K's by ldmatrix.x4 (two key n8-tiles a load); V's by ldmatrix.x4.trans
+//    from the row-major [key][d] tile. Rows are padded by 8 elements, so the
+//    row pitch is an odd number of 16-byte chunks (7, 11, 17 at the tile
+//    widths 48, 80, 128) and the 8 row addresses of each 8 x 8 matrix fall on
+//    8 different bank groups: no conflicts. An XOR swizzle would need rows of
+//    a power-of-two count of chunks, which 48 and 80 are not.
+//  * K and V stream through a ring of 2-3 stages in dynamic shared memory,
+//    filled by 16-byte cp.async.cg copies: tile i + STAGES - 1 is in flight
+//    while tile i's products run, with one __syncthreads a tile. Q travels
+//    in the first copy group with key tile 0, so one wait covers both.
+//    Columns D..DP-1 of Q and of every stage are zeroed once at block start.
+//    A D that is not a multiple of 8, or a view that is not 16-byte
+//    aligned, loads element by element, synchronously, into the same ring.
+//  * Blocks of 8 warps (128 query rows) at tile widths 48 and 80, 4 warps at
+//    128 (`with_rows_config`); `flash_attn_fwd_info` reports each one's
+//    shared memory, registers and resident blocks an SM.
 //
-// Backward: two deterministic passes with no atomics, one body. A block that
-// owns a query tile walks the key tiles and accumulates dQ; a block that
-// owns a key tile walks the query tiles and accumulates dK and dV (the
-// transposed products S^T = K Q^T and dP^T = V dO^T, so the same fragment
-// code serves both). `delta = rowsum(dO * O)` is a small kernel of its own.
+// bf16 forward, D > 128 (the VAE's mid block, D = 512; 256 and 384 run in
+// the 512-wide tile too): the earlier body, kept for that width only. Its 16
+// x 512 accumulator would be 256 registers a thread, so a block's four warps
+// share 16 query rows and split first the score columns, then the head
+// dimension; scores cross between the two products through shared memory
+// (float32 S, bf16 P).
+//
+// float32: CUDA cores, true float32 products (no TF32, no downcast),
+// accumulators in shared memory, any D up to 512. It is the reference
+// instantiation for the float32 parity checks, not a fast path.
+//
+// A head dimension below its tile's width (40 in a 48-wide tile) is
+// zero-padded in the shared-memory tiles only. Tensors are addressed by
+// their own batch, row and head strides (unit stride along D), so a
+// (B, N, H, D) view of a projection's output needs no copy.
+//
+// Backward (bf16 tile widths 48, 80, 128, 512): two deterministic passes
+// with no atomics, one body. A block that owns a query tile walks the key
+// tiles and accumulates dQ; a block that owns a key tile walks the query
+// tiles and accumulates dK and dV (the transposed products S^T = K Q^T and
+// dP^T = V dO^T, so the same fragment code serves both).
+// `delta = rowsum(dO * O)` is a small kernel of its own.
 //
 // The C functions launch on the given stream, do not synchronise or
 // allocate, and return cudaGetLastError().
@@ -116,23 +145,24 @@ __device__ __forceinline__ void frag_b_nn(uint32_t (&b)[2], const bf16* Y,
 }
 
 // `rows` rows of D values from device memory into a [rows][DP + PAD] tile,
-// columns D..DP-1 zero. `vec`: D, the row stride and the base address are
-// multiples of 8 elements, so rows move as 16-byte words.
-template <int DP>
+// columns D..DP-1 zero, by a block of NTH threads. `vec`: D, the row stride
+// and the base address are multiples of 8 elements, so rows move as 16-byte
+// words.
+template <int DP, int NTH = THREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long row_stride, int rows,
                                           int D, bool vec) {
   constexpr int LD = DP + PAD;
   if (vec) {
     constexpr int CH = DP / 8;
-    for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
+    for (int i = threadIdx.x; i < rows * CH; i += NTH) {
       int r = i / CH, c = (i % CH) * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (c < D) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
       *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
     }
   } else {
-    for (int i = threadIdx.x; i < rows * DP; i += THREADS) {
+    for (int i = threadIdx.x; i < rows * DP; i += NTH) {
       int r = i / DP, c = i % DP;
       dst[r * LD + c] = c < D ? src[r * row_stride + c] : __float2bfloat16(0.f);
     }
@@ -150,7 +180,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward
+// bf16 forward through shared memory, kept for D > 128 only (instantiated as
+// <512, 1, 4>): WM x WN warps, scores and probabilities in shared memory
 // ---------------------------------------------------------------------------
 
 template <int DP, int WM, int WN, int BN>
@@ -303,6 +334,315 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (threadIdx.x < BM)
     lse[((long long)b * H + h) * N + q0 + threadIdx.x] =
         row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward, row split (D <= 128): each warp owns 16 query rows and every
+// key of a tile; scores, softmax and P stay in registers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  const uint32_t b[2] = {b0, b1};
+  mma_bf16(c, a, b);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// four 8 x 8 bf16 matrices, lanes 8 i..8 i + 7 giving the row addresses of
+// matrix i; lane 4 g + t receives row g, columns 2 t and 2 t + 1 of each
+// (of each transposed matrix with .trans)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// over the 4 lanes of a quad, which hold one accumulator row between them
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One key tile's online softmax on a warp's 16 x (8 NT) scores s, held as C
+// fragments (rows g and g + 8 of the lane). m: the running row maxima in the
+// log2 domain of the scaled scores; l: this lane's partial row sums. The
+// tile's P = 2^(scale_log2 s - m) comes back as the A fragments of P V (the
+// C layout of key columns 16 j..16 j + 15 is the A layout), each value
+// rounded to bf16 once; o and l are rescaled by alpha = 2^(m_old - m_new).
+template <int NT, int ND>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4],
+                                               float (&o)[ND][4],
+                                               uint32_t (&pa)[NT / 2][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the first tile: m = -inf, so alpha = 2^-inf = 0
+    float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float p0 = ex2(fmaf(s[j][0], scale_log2, neg_m[0]));
+    float p1 = ex2(fmaf(s[j][1], scale_log2, neg_m[0]));
+    float p2 = ex2(fmaf(s[j][2], scale_log2, neg_m[1]));
+    float p3 = ex2(fmaf(s[j][3], scale_log2, neg_m[1]));
+    sum[0] += p0 + p1;
+    sum[1] += p2 + p3;
+    // key slice j / 2: a0 / a1 from n8-tile 2 (j / 2), a2 / a3 from the next
+    pa[j / 2][2 * (j & 1)] = pack_bf16(p0, p1);
+    pa[j / 2][2 * (j & 1) + 1] = pack_bf16(p2, p3);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most `n` of this thread's committed copy groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// load_tile's `vec` case as asynchronous copies: columns D..DP-1 are left
+// as they are
+template <int DP, int NTH>
+__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src,
+                                                long long row_stride,
+                                                int rows, int D) {
+  constexpr int LD = DP + PAD, CH = DP / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += NTH) {
+    int r = i / CH, c = (i % CH) * 8;
+    if (c < D) cp_async16(dst + r * LD + c, src + r * row_stride + c);
+  }
+}
+
+// the Q tile, then a ring of STAGES K tiles and STAGES V tiles
+template <int DP, int WARPS, int BN, int STAGES>
+struct RowFwdSmem {
+  static constexpr int BM = 16 * WARPS;
+  static constexpr int LD = DP + PAD;
+  static constexpr int TILE = BN * LD;  // elements of one K or V stage
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + sizeof(bf16) * BM * LD;
+  static constexpr size_t v = k + sizeof(bf16) * STAGES * TILE;
+  static constexpr size_t bytes = v + sizeof(bf16) * STAGES * TILE;
+};
+
+template <int DP, int WARPS, int BN, int STAGES>
+__global__ void __launch_bounds__(32 * WARPS)
+flash_fwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      float* __restrict__ lse, int N, int H, int D,
+                      Strides sq, Strides sk, Strides sv, float scale_log2,
+                      bool vec) {
+  static_assert(STAGES >= 2, "tile j + 1 loads while tile j is used");
+  constexpr int NTH = 32 * WARPS;
+  using L = RowFwdSmem<DP, WARPS, BN, STAGES>;
+  constexpr int BM = L::BM, LD = L::LD, TILE = L::TILE;
+  constexpr int NT = BN / 8;   // score n8-tiles
+  constexpr int ND = DP / 8;   // output n8-tiles
+  constexpr int KQ = DP / 16;  // k16 steps of Q K^T
+  constexpr int KP = BN / 16;  // k16 steps of P V
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+
+  // each lane's ldmatrix row address. Q (A operand) and V (B operand of
+  // P V, transposed): matrices (rows 0-7, 8-15) x (columns 0-7, 8-15) in
+  // that order; K (B operand of Q K^T): (keys 0-7, 8-15) x (columns 0-7,
+  // 8-15) in the other order, so that one x4 gives two key n8-tiles
+  const uint32_t q_lane =
+      smem_addr(Qs + (r0 + (lane & 15)) * LD + (lane >> 4) * 8);
+  const uint32_t k_lane = smem_addr(
+      Ks + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8);
+  const uint32_t v_lane = smem_addr(Vs + (lane & 15) * LD + (lane >> 4) * 8);
+
+  // key tile `tile` into ring stage `stage`: asynchronous 16-byte copies,
+  // or the element-wise load (synchronous, padding included)
+  const int n_tiles = N / BN;
+  auto load_kv = [&](int stage, int tile) {
+    const bf16* k_src = k + offset(sk, b, tile * BN, h);
+    const bf16* v_src = v + offset(sv, b, tile * BN, h);
+    if (vec) {
+      copy_tile_async<DP, NTH>(Ks + stage * TILE, k_src, sk.n, BN, D);
+      copy_tile_async<DP, NTH>(Vs + stage * TILE, v_src, sv.n, BN, D);
+    } else {
+      load_tile<DP, NTH>(Ks + stage * TILE, k_src, sk.n, BN, D, false);
+      load_tile<DP, NTH>(Vs + stage * TILE, v_src, sv.n, BN, D, false);
+    }
+  };
+  // the copies never write columns D..DP-1: zero them once in Q and in
+  // every K and V stage (Q, the K ring and the V ring lie back to back,
+  // BM + 2 STAGES BN rows)
+  if (vec && D < DP) {
+    const int tail = (DP - D) / 8;
+    for (int i = threadIdx.x; i < (BM + 2 * STAGES * BN) * tail; i += NTH) {
+      int r = i / tail, c = D + (i % tail) * 8;
+      *reinterpret_cast<uint4*>(Qs + r * LD + c) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // Q and key tile 0 in the first commit group, tiles 1..STAGES-2 in one
+  // group each (empty past the end)
+  if (vec)
+    copy_tile_async<DP, NTH>(Qs, q + offset(sq, b, q0, h), sq.n, BM, D);
+  else
+    load_tile<DP, NTH>(Qs, q + offset(sq, b, q0, h), sq.n, BM, D, false);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_kv(st, st);
+    cp_async_commit();
+  }
+
+  cp_async_wait<STAGES - 2>();  // the first group: Q and tile 0
+  __syncthreads();
+  uint32_t qa[KQ][4];
+#pragma unroll
+  for (int kk = 0; kk < KQ; ++kk) ldsm_x4(qa[kk], q_lane + 32 * kk);
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  int rd = 0, wr = STAGES - 1;  // ring stages read and filled this tile
+  for (int i = 0; i < n_tiles; ++i) {
+    // tile i's group is complete once at most STAGES - 2 younger ones are
+    // in flight; the barrier makes every thread's copies visible and shows
+    // that every warp is done with tile i - 1, whose stage is wr
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (i + STAGES - 1 < n_tiles) load_kv(wr, i + STAGES - 1);
+    cp_async_commit();
+    const uint32_t k_tile = k_lane + 2 * rd * TILE;
+    const uint32_t v_tile = v_lane + 2 * rd * TILE;
+    rd = rd + 1 == STAGES ? 0 : rd + 1;
+    wr = wr + 1 == STAGES ? 0 : wr + 1;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk)
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t kb[4];
+        ldsm_x4(kb, k_tile + 2 * (8 * j * LD + 16 * kk));
+        mma_bf16(s[j], qa[kk], kb[0], kb[1]);
+        mma_bf16(s[j + 1], qa[kk], kb[2], kb[3]);
+      }
+
+    uint32_t pa[KP][4];
+    online_softmax(s, o, pa, m, l, scale_log2);
+
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+      for (int j = 0; j < ND; j += 2) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, v_tile + 2 * (16 * kk * LD + 8 * j));
+        mma_bf16(o[j], pa[kk], vb[0], vb[1]);
+        mma_bf16(o[j + 1], pa[kk], vb[2], vb[3]);
+      }
+  }
+
+  // out and lse are contiguous (B, N, H, D) and (B, H, N); lse is the
+  // natural log: (m + log2 l) ln 2
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = 1.f / l[r];
+  }
+  bf16* o_lo = out + (((long long)b * N + q0 + r0 + g) * H + h) * D;
+  bf16* o_hi = o_lo + (long long)8 * H * D;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    int d = 8 * j + 2 * t;
+    if (d + 1 < D && !(D & 1)) {
+      *reinterpret_cast<__nv_bfloat162*>(o_lo + d) =
+          __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
+      *reinterpret_cast<__nv_bfloat162*>(o_hi + d) =
+          __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
+    } else {
+      if (d < D) {
+        o_lo[d] = __float2bfloat16(o[j][0] * inv[0]);
+        o_hi[d] = __float2bfloat16(o[j][2] * inv[1]);
+      }
+      if (d + 1 < D) {
+        o_lo[d + 1] = __float2bfloat16(o[j][1] * inv[0]);
+        o_hi[d + 1] = __float2bfloat16(o[j][3] * inv[1]);
+      }
+    }
+  }
+  if (t == 0) {
+    float* lse_row = lse + ((long long)b * H + h) * N + q0 + r0 + g;
+    lse_row[0] = (m[0] + log2f(l[0])) * 0.69314718055994531f;
+    lse_row[8] = (m[1] + log2f(l[1])) * 0.69314718055994531f;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -674,7 +1014,8 @@ flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ d_out,
 // launches
 // ---------------------------------------------------------------------------
 
-constexpr int BN_FWD = 64;  // keys a tile, bf16 forward
+constexpr int BN_FWD = 64;  // keys a tile, bf16 forward at D = 512
+constexpr int BN_ROWS = 64;  // keys a tile, row-split bf16 forward
 constexpr int BN_BWD = 32;  // streamed rows a tile, bf16 backward
 
 template <int DP, int WM, int WN>
@@ -691,6 +1032,58 @@ cudaError_t launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
   kernel<<<grid, THREADS, L::bytes, stream>>>(q, k, v, out, lse, N, H, D, sq,
                                               sk, sv, scale, vec);
   return cudaGetLastError();
+}
+
+template <int DP, int WARPS, int STAGES>
+cudaError_t launch_fwd_rows(const bf16* q, const bf16* k, const bf16* v,
+                            bf16* out, float* lse, int B, int N, int H, int D,
+                            Strides sq, Strides sk, Strides sv, float scale,
+                            bool vec, cudaStream_t stream) {
+  using L = RowFwdSmem<DP, WARPS, BN_ROWS, STAGES>;
+  auto kernel = flash_fwd_rows_kernel<DP, WARPS, BN_ROWS, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N / L::BM, H, B);
+  kernel<<<grid, 32 * WARPS, L::bytes, stream>>>(
+      q, k, v, out, lse, N, H, D, sq, sk, sv, scale * 1.4426950408889634f,
+      vec);
+  return cudaGetLastError();
+}
+
+template <int DP_, int WARPS_, int STAGES_>
+struct RowsConfig {
+  static constexpr int DP = DP_, WARPS = WARPS_, STAGES = STAGES_;
+};
+
+// the row-split forward's instantiation for a head dimension D <= 128
+// (tile width, warps, ring stages), handed to f
+template <typename F>
+cudaError_t with_rows_config(int D, F&& f) {
+  if (D <= 48) return f(RowsConfig<48, 8, 3>{});
+  if (D <= 80) return f(RowsConfig<80, 8, 3>{});
+  return f(RowsConfig<128, 4, 2>{});
+}
+
+// info = {tile width (0: float32), threads, query rows a block, dynamic
+// shared-memory bytes, resident blocks an SM, registers a thread,
+// local-memory bytes a thread}
+template <typename K>
+cudaError_t kernel_facts(K* kernel, int width, int threads, int rows,
+                         size_t smem, int* info) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  int facts[7] = {width, threads, rows, (int)smem, blocks, attr.numRegs,
+                  (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) info[i] = facts[i];
+  return err;
 }
 
 template <int DP, int WM, int WN>
@@ -764,10 +1157,35 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     return cudaGetLastError();
   }
   bool vec = D % 8 == 0 && aligned8(q, sq) && aligned8(k, sk) && aligned8(v, sv);
-  if (D <= 48) FWD_CASE(48, 4, 1);
-  if (D <= 80) FWD_CASE(80, 4, 1);
-  if (D <= 128) FWD_CASE(128, 4, 1);
+  if (D <= 128)
+    return with_rows_config(D, [&](auto config) {
+      using C = decltype(config);
+      return launch_fwd_rows<C::DP, C::WARPS, C::STAGES>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, B,
+          N, H, D, sq, sk, sv, scale, vec, stream);
+    });
   FWD_CASE(512, 1, 4);
+}
+
+// The launch facts of the forward kernel that flash_attn_fwd runs for head
+// dimension D and the type is_bf16, as kernel_facts lists them in info[7]
+// (the compiler's log has no dynamic shared memory and no occupancy).
+extern "C" int flash_attn_fwd_info(int D, int is_bf16, int* info) {
+  if (D < 1 || D > 512) return FLASH_BAD_SHAPE;
+  if (!is_bf16)
+    return kernel_facts(flash_fwd_f32_kernel, 0, THREADS, F_BM,
+                        fwd_f32_smem(D), info);
+  if (D <= 128)
+    return with_rows_config(D, [&](auto config) {
+      using C = decltype(config);
+      using L = RowFwdSmem<C::DP, C::WARPS, BN_ROWS, C::STAGES>;
+      return kernel_facts(
+          flash_fwd_rows_kernel<C::DP, C::WARPS, BN_ROWS, C::STAGES>, C::DP,
+          32 * C::WARPS, L::BM, L::bytes, info);
+    });
+  using L = FwdSmem<512, 1, 4, BN_FWD>;
+  return kernel_facts(flash_fwd_bf16_kernel<512, 1, 4, BN_FWD>, 512, THREADS,
+                      L::BM, L::bytes, info);
 }
 
 // out, d_out, dq, dk, dv contiguous (B, N, H, D); delta (B, H, N) float32

@@ -5,9 +5,11 @@ Port of the kernel path of ``dreamwaltz_g_tpu/guidance/layers.py``
 (``_flash_kernel`` / ``flash_self_attention``, TPU kernel B4). On CUDA
 tensors ``flash_attn_fwd`` / ``flash_attn_bwd`` launch the hand-written
 kernels of ``csrc/flash_attn.cu`` (bf16 through the tensor cores, float32 in
-true float32); on CPU tensors they take the plain versions below. There is
-no compile probe and no fallback: a CUDA tensor launches the kernel or the
-call raises.
+true float32; for D <= 128 the bf16 forward keeps scores and softmax in
+registers and streams K and V through a ring of asynchronous copies, as the
+source's header note sets out); on CPU tensors they take the plain versions
+below. There is no compile probe and no fallback: a CUDA tensor launches the
+kernel or the call raises.
 
 The kernels' domain is the dispatch gate's (``layers._flash_enabled``):
 self-attention, N a multiple of 128, D <= 128 or a multiple of 128, and in

@@ -20,8 +20,15 @@ inputs:
   each gradient's largest entry.
 
 The bf16 kernels have tile widths 48, 80, 128 and 512; the head dimensions
-below cover each width exactly (80, 128, 512) and zero-padded (16 and 40 in
-48, 64 in 80, 24 in 48 by the element-wise load, 256 in 512).
+below cover each width exactly (80, 128, 512) and zero-padded (16, 24 and
+40 in 48, 64 in 80, 256 in 512). D = 20 and a view that is not 16-byte
+aligned take the element-wise tile load. The row-split forward (D <= 128)
+streams 64-key tiles through a ring of 3 shared-memory stages (2 at
+D > 80): N = 128 has fewer key tiles than stages; every N (a multiple of
+128) gives an even count of tiles, and N = 1280's 20 end part-way round the
+3-stage ring, N = 1152's 18 at its end. A late dominant key makes every
+row's maximum arrive in the last tile, and the training step's own shapes
+fill the card from a cold cache.
 """
 import pytest
 import torch
@@ -47,22 +54,28 @@ def _qkv(dev, shape, dtype, seed=0):
             for _ in range(4)]
 
 
-def _hold(q, k, v, g):
-    """Kernel forward and backward against the plain versions."""
-    bf16 = q.dtype == torch.bfloat16
+def _hold_fwd(q, k, v):
+    """Kernel forward against the plain version; returns (out, lse)."""
     out, lse = FL.flash_attn_fwd(q, k, v)
     torch.cuda.synchronize()
     ref, ref_lse = FL.flash_attention_plain(q.float(), k.float(), v.float())
     assert out.dtype == q.dtype and out.shape == q.shape
     assert out.is_contiguous()
     assert bool(torch.isfinite(out).all())
-    if bf16:
+    if q.dtype == torch.bfloat16:
         tol = TOL_BF16_OUT * (FL.flash_attention_plain(
             q.float(), k.float(), v.float().abs())[0] + ref.abs())
     else:
         tol = torch.full_like(ref, TOL_F32_OUT)
     assert bool(((out.float() - ref).abs() <= tol).all())
     assert float((lse - ref_lse).abs().max()) <= 1e-4
+    return out, lse
+
+
+def _hold(q, k, v, g):
+    """Kernel forward and backward against the plain versions."""
+    bf16 = q.dtype == torch.bfloat16
+    out, lse = _hold_fwd(q, k, v)
     grads = FL.flash_attn_bwd(q, k, v, out, lse, g)
     torch.cuda.synchronize()
     refs = FL.flash_attention_plain_bwd(q.float(), k.float(), v.float(),
@@ -88,7 +101,10 @@ def test_kernel_matches_plain_over_head_dims(D, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("N,H,D", [(1152, 2, 40), (4096, 1, 80),
-                                   (4096, 1, 512), (1152, 3, 24)])
+                                   (4096, 1, 512), (1152, 3, 24),
+                                   (128, 2, 40), (128, 2, 80), (128, 1, 128),
+                                   (1152, 2, 64), (1280, 2, 40),
+                                   (1280, 1, 128), (1152, 2, 20)])
 def test_kernel_matches_plain_over_lengths(N, H, D, dtype):
     dev = _card()
     q, k, v, g = _qkv(dev, (2, N, H, D), dtype, seed=N + D)
@@ -110,6 +126,55 @@ def test_kernel_takes_views_of_a_fused_projection(dtype):
     assert not q.is_contiguous()
     g = torch.randn((B, N, H, D), generator=gen, device=dev).to(dtype)
     _hold(q, k, v, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [40, 80, 128])
+def test_bf16_rescales_when_the_max_arrives_in_the_last_tile(D):
+    """q scaled x8 with a positive first component, and the last key along
+    that component: every row's largest score is its last, so each row's
+    running maximum jumps in the last key tile and the output accumulated
+    so far must be rescaled by 2^(m_old - m_new). The forward only: the
+    last key takes nearly all of each row's weight, so the gradients
+    cancel to ~1e-17 and say nothing of the kernel."""
+    dev = _card()
+    B, N, H = 1, 1024, 2
+    q, k, v, _ = _qkv(dev, (B, N, H, D), torch.float32, seed=11 + D)
+    q = 8 * q
+    q[..., 0] = q[..., 0].abs() + 32
+    k[:, -1] = 0
+    k[:, -1, :, 0] = 2 * D ** 0.5
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    assert bool((s.argmax(-1) == N - 1).all())
+    _hold_fwd(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (2, 1024, 8, 80)])
+def test_bf16_at_the_training_steps_shapes_from_a_cold_cache(shape):
+    """The UNet's and the ControlNet's shapes, forward only (the step does
+    not differentiate them). They fill the card with blocks, and the inputs
+    are evicted from the 50 MB L2 first, so the first copies of every
+    resident block queue on device memory together: a read of a ring stage
+    before its copies land shows here."""
+    dev = _card()
+    q, k, v, _ = _qkv(dev, shape, torch.bfloat16, seed=sum(shape))
+    torch.empty(2 ** 26, dtype=torch.int32, device=dev).fill_(1)
+    _hold_fwd(q, k, v)
+
+
+@pytest.mark.gpu
+def test_bf16_takes_a_view_that_is_not_16_byte_aligned():
+    dev = _card()
+    B, N, H, D = 2, 1024, 2, 40
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flat = torch.randn(4 * B * N * H * D + 4, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    q, k, v, g = (flat[4 + i * B * N * H * D:][:B * N * H * D]
+                  .view(B, N, H, D) for i in range(4))
+    assert q.data_ptr() % 16 != 0
+    _hold(q, k, v, g.contiguous())
 
 
 @pytest.mark.gpu
