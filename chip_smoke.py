@@ -50,10 +50,12 @@ Phases, one JSON line each:
                    shape's time beside its plain version, its bound and, for
                    flash, the einsum path and
                    ``scaled_dot_product_attention`` (timed here only); for
-                   each flash forward also the kernel's device ms, TFLOP/s
-                   and share of the bound, and its instantiation's build
-                   facts (registers and spills from ptxas, shared memory
-                   and blocks an SM from the library);
+                   each flash forward also the kernels' device ms (by
+                   name: the D = 512 forward is two kernels, the wide
+                   forward and its combine), TFLOP/s and share of the
+                   bound, and its instantiation's build facts (registers
+                   and spills from ptxas, shared memory and blocks an SM
+                   from the library; the combine's too);
 14. train_profile -- device busy share, the step's device and host ms by
                    stage (its own ``record_function`` ranges) and top
                    kernels over one profiled SDS step;
@@ -643,10 +645,10 @@ def sdpa_times(q, k, v, g, backward):
 
 
 def kernel_device_ms(fn, reps):
-    """Mean device ms of the kernels one ``fn()`` launches, summed from a
-    profile of ``reps`` calls after one untimed call: the card's time alone,
-    without the host's cost of each wrapper call, which at the small shapes
-    is as long as the kernel."""
+    """Mean device ms of the kernels one ``fn()`` launches, from a profile
+    of ``reps`` calls after one untimed call: the card's time alone, without
+    the host's cost of each wrapper call, which at the small shapes is as
+    long as the kernel. Returns (the sum, {kernel name: ms})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -658,8 +660,10 @@ def kernel_device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+    by_name = {e.key[:80]: e.device_time_total / reps / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    return sum(by_name.values()), by_name
 
 
 def ptxas_facts(log):
@@ -690,33 +694,46 @@ FWD_INFO_KEYS = ("tile_width", "threads", "rows_per_block", "smem_bytes",
 
 def flash_fwd_build(log, shape, kind):
     """The forward instantiation that ``shape`` runs: its template (tile
-    width, then warps and key tile and ring stages, or warps across rows and
-    columns and key tile), registers and spills from the ptxas log, and
-    dynamic shared memory, threads and resident blocks an SM from the
-    library's ``flash_attn_fwd_info`` (the log has no dynamic shared memory
-    and no occupancy)."""
+    width, then warps and key tile and ring stages, or key tile and ring
+    stages), registers and spills from the ptxas log, and dynamic shared
+    memory, threads and resident blocks an SM from the library's
+    ``flash_attn_fwd_info`` (the log has no dynamic shared memory and no
+    occupancy). The wide forward (bf16, D > 128) adds its combine kernel's
+    facts under ``combine``."""
     import ctypes
 
     from dreamwaltz_g_tpu_torch import kernels
 
     fn = kernels.load("flash_attn").flash_attn_fwd_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    info = (ctypes.c_int * len(FWD_INFO_KEYS))()
-    rc = fn(shape[-1], int(kind == "bf16"), ctypes.addressof(info))
-    if rc != 0:
-        fail(f"flash_attn_fwd_info failed for {shape} {kind}: {rc}")
-    out = dict(zip(FWD_INFO_KEYS, info))
-    family = ("flash_fwd_f32_kernel" if kind != "bf16" else
-              "flash_fwd_rows_kernel" if shape[-1] <= 128 else
-              "flash_fwd_bf16_kernel")
-    for name, facts in ptxas_facts(log).items():
-        m = re.search(family + r"(?:I((?:Li\d+E)+)E)?", name)
-        args = [int(a) for a in re.findall(r"Li(\d+)E", (m.group(1) or ""))
-                ] if m else []
-        if m and (kind != "bf16" or args[:1] == [out["tile_width"]]):
-            return dict(kernel=family, template=args, **facts, **out)
-    fail(f"no ptxas entry for the forward kernel of {shape} {kind}")
+    facts = ptxas_facts(log)
+
+    def one(part, family):
+        info = (ctypes.c_int * len(FWD_INFO_KEYS))()
+        rc = fn(shape[-1], int(kind == "bf16"), part, ctypes.addressof(info))
+        if rc != 0:
+            fail(f"flash_attn_fwd_info failed for {shape} {kind} part "
+                 f"{part}: {rc}")
+        out = dict(zip(FWD_INFO_KEYS, info))
+        for name, f in facts.items():
+            m = re.search(family + r"(?:I((?:Li\d+E)+)E)?", name)
+            args = [int(a) for a in re.findall(r"Li(\d+)E",
+                                                (m.group(1) or ""))
+                    ] if m else []
+            if m and (kind != "bf16" or part == 1
+                      or args[:1] == [out["tile_width"]]):
+                return dict(kernel=f"{family}<{', '.join(map(str, args))}>"
+                            if args else family, template=args, **f, **out)
+        fail(f"no ptxas entry for {family} ({shape} {kind})")
+
+    wide = kind == "bf16" and shape[-1] > 128
+    build = one(0, "flash_fwd_f32_kernel" if kind != "bf16" else
+                "flash_fwd_rows_kernel" if not wide else
+                "flash_fwd_wide_kernel")
+    if wide:
+        build["combine"] = one(1, "flash_combine_kernel")
+    return build
 
 
 def flash_times(kept, build_log):
@@ -733,11 +750,12 @@ def flash_times(kept, build_log):
         for shape, kind, backward in FLASH_SHAPES:
             q, k, v, g, out, lse = kept[shape]
             bound = flash_bound(shape, kind, False)
-            dev_ms = kernel_device_ms(lambda: FL.flash_attn_fwd(q, k, v), 20)
+            dev_ms, by_kernel = kernel_device_ms(
+                lambda: FL.flash_attn_fwd(q, k, v), 20)
             row = dict(
                 shape=list(shape), type=kind,
                 fwd_ms=cuda_ms(lambda: FL.flash_attn_fwd(q, k, v), 10),
-                fwd_kernel_ms=dev_ms,
+                fwd_kernel_ms=dev_ms, fwd_kernel_ms_by_name=by_kernel,
                 fwd_tflops=bound["ops"] / dev_ms / 1e9,
                 fwd_share_of_bound=bound["bound_ms"] / dev_ms,
                 build=flash_fwd_build(build_log, shape, kind),
@@ -1107,8 +1125,8 @@ STAGE_RANGES = (("sds_step.render", "animate_project"),
 
 
 # substrings of the hand-written kernels' names in a profiler trace
-NAMED_KERNELS = ("blend_bwd_kernel", "flash_fwd", "flash_bwd", "flash_delta",
-                 "indexing_backward")
+NAMED_KERNELS = ("blend_bwd_kernel", "flash_fwd", "flash_combine",
+                 "flash_bwd", "flash_delta", "indexing_backward")
 
 
 def stage_times(trace_path):
@@ -1625,7 +1643,8 @@ def main():
              kernel_launches=sum(e.count for e in on_card),
              stage_device_ms=stage_dev, stage_host_ms=stage_host,
              backward_blend_train_bwd_kernel_ms=named_ms["blend_bwd_kernel"],
-             flash_fwd_kernels_ms=named_ms["flash_fwd"],
+             flash_fwd_kernels_ms=named_ms["flash_fwd"]
+             + named_ms["flash_combine"],
              flash_bwd_kernels_ms=named_ms["flash_bwd"]
              + named_ms["flash_delta"],
              index_backward_kernels_ms=named_ms["indexing_backward"],
@@ -1683,7 +1702,11 @@ def main():
               f_fwd["fwd_ms"], f_fwd["fwd_plain_ms"], f_fwd["fwd_bound"],
               library=f_fwd["library"]["fwd_ms"], shape=f_fwd["shape"],
               by_shape=[{"shape": r["shape"], "type": r["type"],
+                         "kernel": r["build"]["kernel"]
+                         + (" + " + r["build"]["combine"]["kernel"]
+                            if "combine" in r["build"] else ""),
                          "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
+                         "kernel_ms": r["fwd_kernel_ms"],
                          "einsum_ms": r["fwd_einsum_ms"],
                          "bound_ms": r["fwd_bound"]["bound_ms"],
                          "library_ms": r["library"]["fwd_ms"]}

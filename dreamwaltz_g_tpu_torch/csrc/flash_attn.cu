@@ -44,12 +44,36 @@
 //    128 (`with_rows_config`); `flash_attn_fwd_info` reports each one's
 //    shared memory, registers and resident blocks an SM.
 //
-// bf16 forward, D > 128 (the VAE's mid block, D = 512; 256 and 384 run in
-// the 512-wide tile too): the earlier body, kept for that width only. Its 16
-// x 512 accumulator would be 256 registers a thread, so a block's four warps
-// share 16 query rows and split first the score columns, then the head
-// dimension; scores cross between the two products through shared memory
-// (float32 S, bf16 P).
+// bf16 forward, D > 128 (the VAE encoder's mid block, (1, 4096, 1, 512),
+// once a training step; 256 and 384 run zero-padded in the 512-wide tile):
+// the same register-resident softmax, shaped for a wide head.
+//  * A 16 x 512 float32 accumulator would be 256 registers a thread, so two
+//    warps share 16 query rows and each holds one half of D (128 registers
+//    of O). A block is 8 warps, 4 row groups x 2, 64 query rows.
+//  * Each warp of a pair scores its own 16 keys of a 32-key tile over all
+//    512 columns, so Q K^T is computed once. The pair trades its tile row
+//    maxima (16 floats) and its bf16 P fragments (16 B a lane) through
+//    shared memory under a 64-thread named barrier, so that both warps
+//    hold the same running max and all 32 keys' P for their half of P V;
+//    the row sums are traded once at the end. Scores never leave
+//    registers. (Each warp scoring all 32 keys instead, with no exchange,
+//    would compute Q K^T twice: 1.5x the mma.sync and 1.33x the ldmatrix
+//    reads of a tile.)
+//  * What bounds it is not the card's 0.035 ms of tensor work but the
+//    traffic into and inside the SMs. With 16 query rows a block, each of
+//    256 blocks would stream all of K and V (2 GiB of L2 reads a call); 64
+//    rows a block cut that 4x. B H = 1 gives only
+//    N / 64 = 64 such blocks for 132 SMs, so the key range is split in two:
+//    128 blocks, each writing its normalised float32 partial O and its lse
+//    to scratch that the wrapper allocates; flash_combine_kernel merges
+//    them, rounding out to bf16 once. Inside the SM, the ldmatrix reads of
+//    Q, K and V (~384 KB a key tile for the 8 warps, 3,072 clocks at 128
+//    B a clock) and the 1,024 mma.sync of a tile are the computed floors.
+//  * Q (64 x 520) is read from shared memory each tile (its fragments
+//    would take another 128 registers); K and V come in 32-key tiles at
+//    full depth through a 2-stage cp.async ring, 204 KB in all. The row
+//    pitch of 520 elements (65 chunks of 16 B) keeps ldmatrix free of bank
+//    conflicts, as at the narrow widths.
 //
 // float32: CUDA cores, true float32 products (no TF32, no downcast),
 // accumulators in shared memory, any D up to 512. It is the reference
@@ -180,163 +204,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward through shared memory, kept for D > 128 only (instantiated as
-// <512, 1, 4>): WM x WN warps, scores and probabilities in shared memory
-// ---------------------------------------------------------------------------
-
-template <int DP, int WM, int WN, int BN>
-struct FwdSmem {
-  static constexpr int BM = 16 * WM;
-  static constexpr int LD = DP + PAD;
-  static constexpr int LDS = BN + 1;
-  static constexpr int LDP = BN + PAD;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(bf16) * BM * LD;
-  static constexpr size_t v = k + sizeof(bf16) * BN * LD;
-  static constexpr size_t p = v + sizeof(bf16) * BN * LD;
-  static constexpr size_t s = p + sizeof(bf16) * BM * LDP;
-  static constexpr size_t rows = s + sizeof(float) * BM * LDS;
-  static constexpr size_t bytes = rows + sizeof(float) * 3 * BM;
-};
-
-template <int DP, int WM, int WN, int BN>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, int N, int H, int D, Strides sq,
-                      Strides sk, Strides sv, float scale, bool vec) {
-  static_assert(WM * WN * 32 == THREADS, "four warps a block");
-  using L = FwdSmem<DP, WM, WN, BN>;
-  constexpr int BM = L::BM, LD = L::LD, LDS = L::LDS, LDP = L::LDP;
-  constexpr int NT = BN / WN / 8;  // score n8-tiles a warp
-  constexpr int ND = DP / WN / 8;  // output n8-tiles a warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* row_m = reinterpret_cast<float*>(smem + L::rows);
-  float* row_l = row_m + BM;
-  float* row_a = row_l + BM;
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / WN, wn = warp % WN;
-  const int r0 = wm * 16, c0 = wn * (BN / WN), d0 = wn * (DP / WN);
-
-  load_tile<DP>(Qs, q + offset(sq, b, q0, h), sq.n, BM, D, vec);
-  if (threadIdx.x < BM) {
-    row_m[threadIdx.x] = -INFINITY;
-    row_l[threadIdx.x] = 0.f;
-  }
-  float o[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    __syncthreads();  // the previous tile's products are done with Ks/Vs/Ps
-    load_tile<DP>(Ks, k + offset(sk, b, n0, h), sk.n, BN, D, vec);
-    load_tile<DP>(Vs, v + offset(sv, b, n0, h), sv.n, BN, D, vec);
-    __syncthreads();
-
-    // scores of this warp's 16 rows x BN / WN keys
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 4
-    for (int k0 = 0; k0 < DP; k0 += 16) {
-      uint32_t a[4];
-      frag_a(a, Qs, LD, r0, k0, g, t);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t bb[2];
-        frag_b_nt(bb, Ks, LD, c0 + 8 * j, k0, g, t);
-        mma_bf16(s[j], a, bb);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      int c = c0 + 8 * j + 2 * t;
-      Ss[(r0 + g) * LDS + c] = s[j][0] * scale;
-      Ss[(r0 + g) * LDS + c + 1] = s[j][1] * scale;
-      Ss[(r0 + g + 8) * LDS + c] = s[j][2] * scale;
-      Ss[(r0 + g + 8) * LDS + c + 1] = s[j][3] * scale;
-    }
-    __syncthreads();
-
-    // online softmax, one warp a row: the first tile takes its max from the
-    // data (row_m starts at -inf, so its rescale factor is exp(-inf) = 0)
-    for (int i = warp; i < BM; i += THREADS / 32) {
-      float mx = -INFINITY;
-      for (int c = lane; c < BN; c += 32) mx = fmaxf(mx, Ss[i * LDS + c]);
-      float m_old = row_m[i];
-      float m_new = fmaxf(m_old, warp_max(mx));
-      float sum = 0.f;
-      for (int c = lane; c < BN; c += 32) {
-        float p = __expf(Ss[i * LDS + c] - m_new);
-        sum += p;
-        Ps[i * LDP + c] = __float2bfloat16(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        float alpha = __expf(m_old - m_new);
-        row_a[i] = alpha;
-        row_l[i] = row_l[i] * alpha + sum;
-        row_m[i] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // O = alpha O + P V on this warp's 16 rows x DP / WN columns
-    float a0 = row_a[r0 + g], a1 = row_a[r0 + g + 8];
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      o[j][0] *= a0;
-      o[j][1] *= a0;
-      o[j][2] *= a1;
-      o[j][3] *= a1;
-    }
-#pragma unroll
-    for (int k0 = 0; k0 < BN; k0 += 16) {
-      uint32_t a[4];
-      frag_a(a, Ps, LDP, r0, k0, g, t);
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        uint32_t bb[2];
-        frag_b_nn(bb, Vs, LD, k0, d0 + 8 * j, g, t);
-        mma_bf16(o[j], a, bb);
-      }
-    }
-  }
-
-  // out and lse are contiguous (B, N, H, D) and (B, H, N)
-  float l0 = 1.f / row_l[r0 + g], l1 = 1.f / row_l[r0 + g + 8];
-  bf16* o_lo = out + (((long long)b * N + q0 + r0 + g) * H + h) * D;
-  bf16* o_hi = o_lo + (long long)8 * H * D;
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    int d = d0 + 8 * j + 2 * t;
-    if (d < D) {
-      o_lo[d] = __float2bfloat16(o[j][0] * l0);
-      o_hi[d] = __float2bfloat16(o[j][2] * l1);
-    }
-    if (d + 1 < D) {
-      o_lo[d + 1] = __float2bfloat16(o[j][1] * l0);
-      o_hi[d + 1] = __float2bfloat16(o[j][3] * l1);
-    }
-  }
-  if (threadIdx.x < BM)
-    lse[((long long)b * H + h) * N + q0 + threadIdx.x] =
-        row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
-}
-
-// ---------------------------------------------------------------------------
 // bf16 forward, row split (D <= 128): each warp owns 16 query rows and every
 // key of a tile; scores, softmax and P stay in registers
 // ---------------------------------------------------------------------------
@@ -391,29 +258,39 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// One key tile's online softmax on a warp's 16 x (8 NT) scores s, held as C
-// fragments (rows g and g + 8 of the lane). m: the running row maxima in the
-// log2 domain of the scaled scores; l: this lane's partial row sums. The
-// tile's P = 2^(scale_log2 s - m) comes back as the A fragments of P V (the
-// C layout of key columns 16 j..16 j + 15 is the A layout), each value
+// The row maxima of a warp's 16 x (8 NT) scores s, held as C fragments
+// (rows g and g + 8 of the lane), reduced over the quad that holds a row.
+template <int NT>
+__device__ __forceinline__ void tile_row_max(const float (&s)[NT][4],
+                                             float (&mx)[2]) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+}
+
+// One key tile's online softmax on a warp's 16 x (8 NT) scores s, given the
+// tile's row maxima mx (unscaled). m: the running row maxima in the log2
+// domain of the scaled scores; l: this lane's partial row sums. The tile's
+// P = 2^(scale_log2 s - m) comes back as the A fragments of P V (the C
+// layout of key columns 16 j..16 j + 15 is the A layout), each value
 // rounded to bf16 once; o and l are rescaled by alpha = 2^(m_old - m_new).
 template <int NT, int ND>
 __device__ __forceinline__ void online_softmax(float (&s)[NT][4],
                                                float (&o)[ND][4],
                                                uint32_t (&pa)[NT / 2][4],
                                                float (&m)[2], float (&l)[2],
+                                               const float (&mx)[2],
                                                float scale_log2) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-  }
   float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     // the first tile: m = -inf, so alpha = 2^-inf = 0
-    float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+    float m_new = fmaxf(m[r], mx[r] * scale_log2);
     alpha[r] = ex2(m[r] - m_new);
     m[r] = m_new;
     neg_m[r] = -m_new;
@@ -596,7 +473,9 @@ flash_fwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
     uint32_t pa[KP][4];
-    online_softmax(s, o, pa, m, l, scale_log2);
+    float mx[2];
+    tile_row_max(s, mx);
+    online_softmax(s, o, pa, m, l, mx, scale_log2);
 
 #pragma unroll
     for (int kk = 0; kk < KP; ++kk)
@@ -643,6 +522,284 @@ flash_fwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse_row[0] = (m[0] + log2f(l[0])) * 0.69314718055994531f;
     lse_row[8] = (m[1] + log2f(l[1])) * 0.69314718055994531f;
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward, wide heads (D > 128, tile width 512): a pair of warps per 16
+// query rows, one half of D each; each computes the scores of half the keys
+// of a tile, and the pair trades row maxima and probabilities; a key range
+// per block, partial outputs merged by flash_combine_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_WARPS = 8;  // 4 row groups x 2 halves (of D, of a tile)
+constexpr int MAX_SPLITS = 4;  // key ranges a call, at most
+
+// the Q tile, a ring of STAGES K tiles and STAGES V tiles, then each warp
+// pair's exchange: row maxima or sums (float [4][2][16]) and P fragments
+// (uint4 [4][2][32])
+template <int DP, int BN, int STAGES>
+struct WideFwdSmem {
+  static constexpr int BM = 16 * WIDE_WARPS / 2;
+  static constexpr int LD = DP + PAD;
+  static constexpr int TILE = BN * LD;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + sizeof(bf16) * BM * LD;
+  static constexpr size_t v = k + sizeof(bf16) * STAGES * TILE;
+  static constexpr size_t rows = v + sizeof(bf16) * STAGES * TILE;
+  static constexpr size_t p = rows + sizeof(float) * WIDE_WARPS * 16;
+  static constexpr size_t bytes = p + sizeof(uint4) * WIDE_WARPS * 32;
+};
+
+// the two warps of row group `pair` (warps pair and pair + 4): bar.sync on
+// named barrier 1 + pair, 64 threads
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
+// o += P V for one k16 step: P the A fragments of 16 keys, V those keys'
+// rows from the ldmatrix address vb0 on, 8 ND columns
+template <int ND>
+__device__ __forceinline__ void pv_16(float (&o)[ND][4],
+                                      const uint32_t (&pa)[4], uint32_t vb0) {
+#pragma unroll
+  for (int j = 0; j < ND; j += 2) {
+    uint32_t vb[4];
+    ldsm_x4_trans(vb, vb0 + 2 * 8 * j);
+    mma_bf16(o[j], pa, vb[0], vb[1]);
+    mma_bf16(o[j + 1], pa, vb[2], vb[3]);
+  }
+}
+
+// Block (query tile, head, batch x splits + split) walks keys split N /
+// splits .. (split + 1) N / splits - 1 and writes, for its 64 rows, the
+// normalised partial output to o_part (splits, B, N, H, D) and the partial
+// lse (natural log) to lse_part (splits, B, H, N), both float32. Warp
+// (row group rg, half w) scores keys 16 w..16 w + 15 of each 32-key tile
+// and accumulates columns w DP / 2.. of O.
+template <int DP, int BN, int STAGES>
+__global__ void __launch_bounds__(32 * WIDE_WARPS, 1)
+flash_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, float* __restrict__ o_part,
+                      float* __restrict__ lse_part, int N, int H, int D,
+                      int splits, Strides sq, Strides sk, Strides sv,
+                      float scale_log2, bool vec) {
+  static_assert(STAGES >= 2, "tile j + 1 loads while tile j is used");
+  static_assert(BN == 32, "two warps, 16 keys each");
+  constexpr int NTH = 32 * WIDE_WARPS;
+  using L = WideFwdSmem<DP, BN, STAGES>;
+  constexpr int BM = L::BM, LD = L::LD, TILE = L::TILE;
+  constexpr int DW = DP / 2;       // output columns a warp
+  constexpr int ND = DW / 8;       // output n8-tiles a warp
+  constexpr int KQ = DP / 16;      // k16 steps of Q K^T
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+
+  const int B = gridDim.z / splits;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int pair = warp % 4, w = warp / 4;
+  const int r0 = pair * 16, d0 = w * DW;
+  const int keys = N / splits, key0 = split * keys;
+  // this warp's and its partner's slots of the pair exchange
+  float* rows_mine = reinterpret_cast<float*>(smem + L::rows) + warp * 16;
+  float* rows_other =
+      reinterpret_cast<float*>(smem + L::rows) + (warp ^ 4) * 16;
+  uint4* p_mine = reinterpret_cast<uint4*>(smem + L::p) + warp * 32 + lane;
+  uint4* p_other =
+      reinterpret_cast<uint4*>(smem + L::p) + (warp ^ 4) * 32 + lane;
+
+  // ldmatrix row addresses as in flash_fwd_rows_kernel: K at this warp's 16
+  // keys, V at this warp's half of D (its own keys' rows, then the other's)
+  const uint32_t q_lane =
+      smem_addr(Qs + (r0 + (lane & 15)) * LD + (lane >> 4) * 8);
+  const uint32_t k_lane = smem_addr(
+      Ks + (16 * w + (lane & 7) + ((lane >> 4) << 3)) * LD +
+      ((lane >> 3) & 1) * 8);
+  const uint32_t v_mine =
+      smem_addr(Vs + (16 * w + (lane & 15)) * LD + d0 + (lane >> 4) * 8);
+  const uint32_t v_other =
+      smem_addr(Vs + (16 * (1 - w) + (lane & 15)) * LD + d0 + (lane >> 4) * 8);
+
+  const int n_tiles = keys / BN;
+  auto load_kv = [&](int stage, int tile) {
+    const bf16* k_src = k + offset(sk, b, key0 + tile * BN, h);
+    const bf16* v_src = v + offset(sv, b, key0 + tile * BN, h);
+    if (vec) {
+      copy_tile_async<DP, NTH>(Ks + stage * TILE, k_src, sk.n, BN, D);
+      copy_tile_async<DP, NTH>(Vs + stage * TILE, v_src, sv.n, BN, D);
+    } else {
+      load_tile<DP, NTH>(Ks + stage * TILE, k_src, sk.n, BN, D, false);
+      load_tile<DP, NTH>(Vs + stage * TILE, v_src, sv.n, BN, D, false);
+    }
+  };
+  // columns D..DP-1 of Q and of every stage, zeroed once
+  if (vec && D < DP) {
+    const int tail = (DP - D) / 8;
+    for (int i = threadIdx.x; i < (BM + 2 * STAGES * BN) * tail; i += NTH) {
+      int r = i / tail, c = D + (i % tail) * 8;
+      *reinterpret_cast<uint4*>(Qs + r * LD + c) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (vec)
+    copy_tile_async<DP, NTH>(Qs, q + offset(sq, b, q0, h), sq.n, BM, D);
+  else
+    load_tile<DP, NTH>(Qs, q + offset(sq, b, q0, h), sq.n, BM, D, false);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_kv(st, st);
+    cp_async_commit();
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  int rd = 0, wr = STAGES - 1;
+  for (int i = 0; i < n_tiles; ++i) {
+    // the barrier also orders the pair exchange: every read of tile i - 1's
+    // slots is done before tile i writes them
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (i + STAGES - 1 < n_tiles) load_kv(wr, i + STAGES - 1);
+    cp_async_commit();
+    const uint32_t k_tile = k_lane + 2 * rd * TILE;
+    const uint32_t stage = 2 * rd * TILE;
+    rd = rd + 1 == STAGES ? 0 : rd + 1;
+    wr = wr + 1 == STAGES ? 0 : wr + 1;
+
+    // this warp's 16 rows x 16 keys over the full depth
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 8
+    for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t qa[4], kb[4];
+      ldsm_x4(qa, q_lane + 32 * kk);
+      ldsm_x4(kb, k_tile + 32 * kk);
+      mma_bf16(s[0], qa, kb[0], kb[1]);
+      mma_bf16(s[1], qa, kb[2], kb[3]);
+    }
+
+    // the tile's row maxima over both warps' keys, the same in both
+    float mx[2], mx_other[2];
+    tile_row_max(s, mx);
+    if (t == 0) {
+      rows_mine[g] = mx[0];
+      rows_mine[g + 8] = mx[1];
+    }
+    pair_sync(pair);
+    mx_other[0] = rows_other[g];
+    mx_other[1] = rows_other[g + 8];
+    mx[0] = fmaxf(mx[0], mx_other[0]);
+    mx[1] = fmaxf(mx[1], mx_other[1]);
+
+    uint32_t pa[1][4], pa_other[4];
+    online_softmax(s, o, pa, m, l, mx, scale_log2);
+    *p_mine = make_uint4(pa[0][0], pa[0][1], pa[0][2], pa[0][3]);
+    pair_sync(pair);
+    const uint4 x = *p_other;
+    pa_other[0] = x.x;
+    pa_other[1] = x.y;
+    pa_other[2] = x.z;
+    pa_other[3] = x.w;
+
+    pv_16(o, pa[0], v_mine + stage);
+    pv_16(o, pa_other, v_other + stage);
+  }
+
+  // row sums: this lane's partials over the quad, then the two warps' keys
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+  __syncthreads();
+  if (t == 0) {
+    rows_mine[g] = l[0];
+    rows_mine[g + 8] = l[1];
+  }
+  pair_sync(pair);
+  l[0] += rows_other[g];
+  l[1] += rows_other[g + 8];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / l[r];
+  const long long row = (long long)(split * B + b) * N + q0 + r0 + g;
+  float* o_lo = o_part + (row * H + h) * D;
+  float* o_hi = o_lo + (long long)8 * H * D;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    int d = d0 + 8 * j + 2 * t;
+    if (d + 1 < D && !(D & 1)) {
+      *reinterpret_cast<float2*>(o_lo + d) =
+          make_float2(o[j][0] * inv[0], o[j][1] * inv[0]);
+      *reinterpret_cast<float2*>(o_hi + d) =
+          make_float2(o[j][2] * inv[1], o[j][3] * inv[1]);
+    } else {
+      if (d < D) {
+        o_lo[d] = o[j][0] * inv[0];
+        o_hi[d] = o[j][2] * inv[1];
+      }
+      if (d + 1 < D) {
+        o_lo[d + 1] = o[j][1] * inv[0];
+        o_hi[d + 1] = o[j][3] * inv[1];
+      }
+    }
+  }
+  // both warps of a pair hold the same row state; the first writes it
+  if (t == 0 && w == 0) {
+    float* lse_row = lse_part + ((long long)(split * B + b) * H + h) * N +
+                     q0 + r0 + g;
+    lse_row[0] = (m[0] + log2f(l[0])) * 0.69314718055994531f;
+    lse_row[8] = (m[1] + log2f(l[1])) * 0.69314718055994531f;
+  }
+}
+
+// lse = log sum_s exp(lse_s) and out = sum_s exp(lse_s - lse) O_s, rounded
+// to bf16 once: one warp a (b, n, h) row; out contiguous (B, N, H, D), lse
+// (B, H, N)
+__global__ void __launch_bounds__(THREADS)
+flash_combine_kernel(const float* __restrict__ o_part,
+                     const float* __restrict__ lse_part,
+                     bf16* __restrict__ out, float* __restrict__ lse, int B,
+                     int N, int H, int D, int splits) {
+  const long long rows = (long long)B * N * H;
+  const long long row =
+      (long long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const int h = (int)(row % H);
+  const long long bn = row / H;
+  const int n = (int)(bn % N), b = (int)(bn / N);
+  const long long at = ((long long)b * H + h) * N + n;
+  // the loops run to MAX_SPLITS so that w stays in registers
+  float w[MAX_SPLITS], mx = -INFINITY, sum = 0.f;
+#pragma unroll
+  for (int s = 0; s < MAX_SPLITS; ++s) {
+    w[s] = s < splits ? lse_part[s * rows + at] : -INFINITY;
+    mx = fmaxf(mx, w[s]);
+  }
+#pragma unroll
+  for (int s = 0; s < MAX_SPLITS; ++s)
+    sum += s < splits ? expf(w[s] - mx) : 0.f;
+  const float lse_row = mx + logf(sum);
+#pragma unroll
+  for (int s = 0; s < MAX_SPLITS; ++s)
+    w[s] = s < splits ? expf(w[s] - lse_row) : 0.f;
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.f;
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s)
+      if (s < splits) acc = fmaf(w[s], o_part[(s * rows + row) * D + d], acc);
+    out[row * D + d] = __float2bfloat16(acc);
+  }
+  if (lane == 0) lse[at] = lse_row;
 }
 
 // ---------------------------------------------------------------------------
@@ -1014,23 +1171,32 @@ flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ d_out,
 // launches
 // ---------------------------------------------------------------------------
 
-constexpr int BN_FWD = 64;  // keys a tile, bf16 forward at D = 512
 constexpr int BN_ROWS = 64;  // keys a tile, row-split bf16 forward
+constexpr int BN_WIDE = 32;  // keys a tile, wide bf16 forward
+constexpr int WIDE_STAGES = 2;
 constexpr int BN_BWD = 32;  // streamed rows a tile, bf16 backward
 
-template <int DP, int WM, int WN>
-cudaError_t launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
-                            bf16* out, float* lse, int B, int N, int H, int D,
-                            Strides sq, Strides sk, Strides sv, float scale,
-                            bool vec, cudaStream_t stream) {
-  using L = FwdSmem<DP, WM, WN, BN_FWD>;
-  auto kernel = flash_fwd_bf16_kernel<DP, WM, WN, BN_FWD>;
+using WideL = WideFwdSmem<512, BN_WIDE, WIDE_STAGES>;
+
+cudaError_t launch_fwd_wide(const bf16* q, const bf16* k, const bf16* v,
+                            bf16* out, float* lse, float* o_part,
+                            float* lse_part, int B, int N, int H, int D,
+                            int splits, Strides sq, Strides sk, Strides sv,
+                            float scale, bool vec, cudaStream_t stream) {
+  auto kernel = flash_fwd_wide_kernel<512, BN_WIDE, WIDE_STAGES>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WideL::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(N / L::BM, H, B);
-  kernel<<<grid, THREADS, L::bytes, stream>>>(q, k, v, out, lse, N, H, D, sq,
-                                              sk, sv, scale, vec);
+  dim3 grid(N / WideL::BM, H, B * splits);
+  kernel<<<grid, 32 * WIDE_WARPS, WideL::bytes, stream>>>(
+      q, k, v, o_part, lse_part, N, H, D, splits, sq, sk, sv,
+      scale * 1.4426950408889634f, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  long long rows = (long long)B * N * H;
+  int blocks = (int)((rows + THREADS / 32 - 1) / (THREADS / 32));
+  flash_combine_kernel<<<blocks, THREADS, 0, stream>>>(
+      o_part, lse_part, out, lse, B, N, H, D, splits);
   return cudaGetLastError();
 }
 
@@ -1120,11 +1286,6 @@ bool aligned8(const void* p, const Strides& s) {
 // error codes beyond cudaError_t's range for shapes the kernels do not take
 #define FLASH_BAD_SHAPE 100001
 
-#define FWD_CASE(DP, WM, WN)                                                 \
-  return launch_fwd_bf16<DP, WM, WN>(                                        \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, B, N, \
-      H, D, sq, sk, sv, scale, vec, stream)
-
 #define BWD_CASE(DP, WM, WN)                                                  \
   return launch_bwd_bf16<DP, WM, WN>(                                         \
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_out, lse, \
@@ -1134,12 +1295,17 @@ bool aligned8(const void* p, const Strides& s) {
 // q, k, v: (B, N, H, D) with element strides (b, n, h) and unit stride along
 // D; out contiguous (B, N, H, D); lse contiguous (B, H, N) float32.
 // is_bf16: the tensors' type (else float32). N must be a multiple of 128.
+// The bf16 forward at D > 128 cuts the keys into `splits` ranges (N / splits
+// a multiple of 32, splits <= 4) and needs float32 scratch from the caller:
+// o_part (splits, B, N, H, D) and lse_part (splits, B, H, N); elsewhere
+// o_part, lse_part and splits are not read.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* out, float* lse, int B, int N, int H,
-                              int D, long long sqb, long long sqn,
-                              long long sqh, long long skb, long long skn,
-                              long long skh, long long svb, long long svn,
-                              long long svh, int is_bf16, void* stream_) {
+                              void* out, float* lse, float* o_part,
+                              float* lse_part, int B, int N, int H, int D,
+                              long long sqb, long long sqn, long long sqh,
+                              long long skb, long long skn, long long skh,
+                              long long svb, long long svn, long long svh,
+                              int is_bf16, int splits, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   Strides sq{sqb, sqn, sqh}, sk{skb, skn, skh}, sv{svb, svn, svh};
   if (N % 128 || D < 1 || D > 512 || B < 1 || H < 1) return FLASH_BAD_SHAPE;
@@ -1164,14 +1330,23 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
           (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, B,
           N, H, D, sq, sk, sv, scale, vec, stream);
     });
-  FWD_CASE(512, 1, 4);
+  if (!o_part || !lse_part || splits < 1 || splits > MAX_SPLITS ||
+      N % splits || (N / splits) % BN_WIDE)
+    return FLASH_BAD_SHAPE;
+  return launch_fwd_wide((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                         (bf16*)out, lse, o_part, lse_part, B, N, H, D, splits,
+                         sq, sk, sv, scale, vec, stream);
 }
 
-// The launch facts of the forward kernel that flash_attn_fwd runs for head
+// The launch facts of the kernels that flash_attn_fwd runs for head
 // dimension D and the type is_bf16, as kernel_facts lists them in info[7]
-// (the compiler's log has no dynamic shared memory and no occupancy).
-extern "C" int flash_attn_fwd_info(int D, int is_bf16, int* info) {
-  if (D < 1 || D > 512) return FLASH_BAD_SHAPE;
+// (the compiler's log has no dynamic shared memory and no occupancy):
+// part 0 the forward kernel, part 1 the wide forward's combine (D > 128,
+// bf16; FLASH_BAD_SHAPE elsewhere).
+extern "C" int flash_attn_fwd_info(int D, int is_bf16, int part, int* info) {
+  if (D < 1 || D > 512 || part < 0 || part > 1) return FLASH_BAD_SHAPE;
+  bool wide = is_bf16 && D > 128;
+  if (part == 1 && !wide) return FLASH_BAD_SHAPE;
   if (!is_bf16)
     return kernel_facts(flash_fwd_f32_kernel, 0, THREADS, F_BM,
                         fwd_f32_smem(D), info);
@@ -1183,9 +1358,11 @@ extern "C" int flash_attn_fwd_info(int D, int is_bf16, int* info) {
           flash_fwd_rows_kernel<C::DP, C::WARPS, BN_ROWS, C::STAGES>, C::DP,
           32 * C::WARPS, L::BM, L::bytes, info);
     });
-  using L = FwdSmem<512, 1, 4, BN_FWD>;
-  return kernel_facts(flash_fwd_bf16_kernel<512, 1, 4, BN_FWD>, 512, THREADS,
-                      L::BM, L::bytes, info);
+  if (part == 1)
+    return kernel_facts(flash_combine_kernel, 512, THREADS, THREADS / 32, 0,
+                        info);
+  return kernel_facts(flash_fwd_wide_kernel<512, BN_WIDE, WIDE_STAGES>, 512,
+                      32 * WIDE_WARPS, WideL::BM, WideL::bytes, info);
 }
 
 // out, d_out, dq, dk, dv contiguous (B, N, H, D); delta (B, H, N) float32

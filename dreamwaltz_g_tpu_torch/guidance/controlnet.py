@@ -13,7 +13,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .layers import TimestepEmbedding, timestep_embedding
+from .layers import Conv2d, TimestepEmbedding, model_input, timestep_embedding
 from .unet import UNetConfig, UNetMidBlock, _down_path
 
 
@@ -23,16 +23,16 @@ class ControlNetConditioningEmbedding(nn.Module):
     def __init__(self, out_channels: int,
                  block_channels: Tuple[int, ...] = (16, 32, 96, 256)):
         super().__init__()
-        self.conv_in = nn.Conv2d(3, block_channels[0], 3, padding=1)
+        self.conv_in = Conv2d(3, block_channels[0], 3, padding=1)
         blocks = []
         for i in range(len(block_channels) - 1):
-            blocks.append(nn.Conv2d(block_channels[i], block_channels[i], 3,
-                                    padding=1))
-            blocks.append(nn.Conv2d(block_channels[i], block_channels[i + 1],
-                                    3, stride=2, padding=1))
+            blocks.append(Conv2d(block_channels[i], block_channels[i], 3,
+                                 padding=1))
+            blocks.append(Conv2d(block_channels[i], block_channels[i + 1],
+                                 3, stride=2, padding=1))
         self.blocks = nn.ModuleList(blocks)
-        self.conv_out = nn.Conv2d(block_channels[-1], out_channels, 3,
-                                  padding=1)
+        self.conv_out = Conv2d(block_channels[-1], out_channels, 3,
+                               padding=1)
 
     def forward(self, cond):
         h = F.silu(self.conv_in(cond))
@@ -49,14 +49,14 @@ class ControlNet(nn.Module):
         chs = cfg.block_out_channels
         ch0 = chs[0]
         self.time_embedding = TimestepEmbedding(ch0, ch0 * 4)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.controlnet_cond_embedding = ControlNetConditioningEmbedding(
             ch0, cond_block_channels)
         self.down_blocks, skip_chs = _down_path(cfg)
         self.mid_block = UNetMidBlock(cfg, chs[-1])
         self.controlnet_down_blocks = nn.ModuleList(
-            [nn.Conv2d(c, c, 1) for c in skip_chs])
-        self.controlnet_mid_block = nn.Conv2d(chs[-1], chs[-1], 1)
+            [Conv2d(c, c, 1) for c in skip_chs])
+        self.controlnet_mid_block = Conv2d(chs[-1], chs[-1], 1)
 
     @torch.no_grad()
     def zero_init_(self) -> None:
@@ -78,14 +78,14 @@ class ControlNet(nn.Module):
         shallow -> deep."""
         cfg = self.cfg
         dt = self.conv_in.weight.dtype
-        context = context.to(dt)
+        context = model_input(context, dt)
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   downscale_freq_shift=cfg.freq_shift)
-        temb = self.time_embedding(temb.to(dt))
+        temb = self.time_embedding(model_input(temb, dt))
 
-        x = self.conv_in(sample.to(dt).permute(0, 3, 1, 2))
+        x = self.conv_in(model_input(sample, dt).permute(0, 3, 1, 2))
         x = x + self.controlnet_cond_embedding(
-            cond_image.to(dt).permute(0, 3, 1, 2))
+            model_input(cond_image, dt).permute(0, 3, 1, 2))
         skips = [x]
         for block in self.down_blocks:
             x, s = block(x, temb, context)

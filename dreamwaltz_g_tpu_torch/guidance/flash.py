@@ -5,11 +5,16 @@ Port of the kernel path of ``dreamwaltz_g_tpu/guidance/layers.py``
 (``_flash_kernel`` / ``flash_self_attention``, TPU kernel B4). On CUDA
 tensors ``flash_attn_fwd`` / ``flash_attn_bwd`` launch the hand-written
 kernels of ``csrc/flash_attn.cu`` (bf16 through the tensor cores, float32 in
-true float32; for D <= 128 the bf16 forward keeps scores and softmax in
-registers and streams K and V through a ring of asynchronous copies, as the
-source's header note sets out); on CPU tensors they take the plain versions
-below. There is no compile probe and no fallback: a CUDA tensor launches the
-kernel or the call raises.
+true float32; the bf16 forward keeps scores and softmax in registers and
+streams K and V through a ring of asynchronous copies, as the source's header
+note sets out); on CPU tensors they take the plain versions below. There is
+no compile probe and no fallback: a CUDA tensor launches the kernel or the
+call raises.
+
+The bf16 forward at D > 128 (the VAE's mid block, D = 512) cuts the keys
+into ``WIDE_KEY_SPLITS`` ranges, one block's work each, and merges their
+partial outputs in a second kernel; ``flash_attention_split_plain`` and
+``combine_key_splits`` are that merge's plain twin.
 
 The kernels' domain is the dispatch gate's (``layers._flash_enabled``):
 self-attention, N a multiple of 128, D <= 128 or a multiple of 128, and in
@@ -25,6 +30,11 @@ import torch
 
 from .. import kernels
 
+#: key ranges of the bf16 forward at D > 128: at (1, 4096, 1, 512) its
+#: 64-row blocks number 64, and two ranges give 128 blocks for the H100's
+#: 132 SMs
+WIDE_KEY_SPLITS = 2
+
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -37,6 +47,33 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype), lse
+
+
+def flash_attention_split_plain(q, k, v, splits: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version over ``splits`` equal key ranges, each on its own:
+    float32 ``o_part`` (splits, B, N, H, D), each range's normalised output,
+    and ``lse_part`` (splits, B, H, N), each range's lse; what the wide
+    forward's blocks write before ``combine_key_splits``."""
+    N = k.shape[1]
+    if N % splits:
+        raise ValueError(f"N = {N} does not split into {splits} ranges")
+    n = N // splits
+    parts = [flash_attention_plain(q.float(), k[:, i * n:(i + 1) * n].float(),
+                                   v[:, i * n:(i + 1) * n].float())
+             for i in range(splits)]
+    return (torch.stack([o for o, _ in parts]),
+            torch.stack([lse for _, lse in parts]))
+
+
+def combine_key_splits(o_part: torch.Tensor, lse_part: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-range softmax results: ``lse = log sum_s exp(lse_s)`` and
+    ``out = sum_s exp(lse_s - lse) O_s`` (float32), as the wide forward's
+    combine kernel does before it rounds ``out`` once."""
+    lse = torch.logsumexp(lse_part, dim=0)
+    w = torch.exp(lse_part - lse).permute(0, 1, 3, 2)[..., None]
+    return (w * o_part).sum(0), lse
 
 
 def flash_attention_plain_bwd(q, k, v, out, lse, d_out
@@ -115,10 +152,18 @@ def flash_attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v)
     B, N, H, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
-    _launch("flash_attn_fwd", dev, q, k, v, out, lse, B, N, H, D,
-            *_strides(q, k, v), int(q.dtype == torch.bfloat16))
+    splits = WIDE_KEY_SPLITS if bf16 and D > 128 else 0
+    o_part = lse_part = None
+    if splits:
+        o_part = torch.empty((splits, B, N, H, D), dtype=torch.float32,
+                             device=dev)
+        lse_part = torch.empty((splits, B, H, N), dtype=torch.float32,
+                               device=dev)
+    _launch("flash_attn_fwd", dev, q, k, v, out, lse, o_part, lse_part, B, N,
+            H, D, *_strides(q, k, v), int(bf16), splits)
     flash_attn_fwd.launches += 1
     return out, lse
 

@@ -19,11 +19,22 @@ is the kernel's plain version, which is how the CPU tests reach the path);
 head dimensions outside the kernel's domain stay on the einsum path. There
 is no compile probe: on a CUDA tensor the kernel launches or the call
 raises.
+
+Types: by default a model runs in its weights' type, its inputs cast to it
+(``model_input``). Under ``jax_promotion()`` the inputs keep their own
+types and each ``Linear``, ``Conv2d``, ``GroupNorm`` and ``LayerNorm`` of
+the stack, and the attention products, compute in the promotion of their
+operands' types (``promote``), as Flax's ``promote_dtype`` and
+``jnp.einsum`` do: a float32 activation against bf16 weights computes in
+float32. That is the JAX package's arithmetic at bf16, for holding the port
+to it; the card keeps the default.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +64,60 @@ def _flash_enabled(n_q: int, n_k: int, head_dim: int,
     return torch.device(device).type == "cuda"
 
 
+_JAX_PROMOTION = False
+
+
+@contextlib.contextmanager
+def jax_promotion(enabled: bool = True) -> Iterator[None]:
+    """Within: the JAX package's types (module docstring), when
+    ``enabled``."""
+    global _JAX_PROMOTION
+    old, _JAX_PROMOTION = _JAX_PROMOTION, bool(enabled)
+    try:
+        yield
+    finally:
+        _JAX_PROMOTION = old
+
+
+def promote(*tensors: Optional[torch.Tensor]):
+    """The tensors (None passes through) in their common promoted type under
+    ``jax_promotion``, else as they are: a layer's input and parameters go
+    through here."""
+    if not _JAX_PROMOTION:
+        return tensors
+    dt = functools.reduce(torch.promote_types,
+                          [t.dtype for t in tensors if t is not None])
+    return tuple(None if t is None else t.to(dt) for t in tensors)
+
+
+def model_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A model's input in the weights' ``dtype``; under ``jax_promotion`` in
+    its own type, as the JAX package casts none."""
+    return x if _JAX_PROMOTION else x.to(dtype)
+
+
+class Linear(nn.Linear):
+    def forward(self, x):
+        return F.linear(*promote(x, self.weight, self.bias))
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x):
+        return self._conv_forward(*promote(x, self.weight, self.bias))
+
+
+class GroupNorm(nn.GroupNorm):
+    def forward(self, x):
+        x, w, b = promote(x, self.weight, self.bias)
+        return F.group_norm(x, self.num_groups, w, b, self.eps)
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x):
+        x, w, b = promote(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: float = 10000.0,
                        flip_sin_to_cos: bool = True,
@@ -74,15 +139,15 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
-def _group_norm(channels: int, eps: float, groups: int = 32) -> nn.GroupNorm:
-    return nn.GroupNorm(min(groups, channels), channels, eps=eps)
+def _group_norm(channels: int, eps: float, groups: int = 32) -> GroupNorm:
+    return GroupNorm(min(groups, channels), channels, eps=eps)
 
 
 class TimestepEmbedding(nn.Module):
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim)
-        self.linear_2 = nn.Linear(dim, dim)
+        self.linear_1 = Linear(in_dim, dim)
+        self.linear_2 = Linear(dim, dim)
 
     def forward(self, emb):
         return self.linear_2(F.silu(self.linear_1(emb)))
@@ -98,13 +163,13 @@ class ResnetBlock2D(nn.Module):
                  temb_channels: Optional[int] = None, eps: float = 1e-5):
         super().__init__()
         self.norm1 = _group_norm(in_channels, eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_channels is not None:
-            self.time_emb_proj = nn.Linear(temb_channels, out_channels)
+            self.time_emb_proj = Linear(temb_channels, out_channels)
         self.norm2 = _group_norm(out_channels, eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.conv_shortcut = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, temb=None):
         h = self.conv1(F.silu(self.norm1(x)))
@@ -128,19 +193,19 @@ class Attention(nn.Module):
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
         context_dim = query_dim if context_dim is None else context_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, inner)])
 
     def forward(self, x, context=None):
         context = x if context is None else context
         B, Nq, _ = x.shape
         Nk = context.shape[1]
         H, D = self.heads, self.head_dim
-        q = self.to_q(x).reshape(B, Nq, H, D)
-        k = self.to_k(context).reshape(B, Nk, H, D)
-        v = self.to_v(context).reshape(B, Nk, H, D)
+        q, k, v = promote(self.to_q(x).reshape(B, Nq, H, D),
+                          self.to_k(context).reshape(B, Nk, H, D),
+                          self.to_v(context).reshape(B, Nk, H, D))
         if _flash_enabled(Nq, Nk, D, x.device):
             out = flash_self_attention(q, k, v).reshape(B, Nq, H * D)
         else:
@@ -154,7 +219,7 @@ class Attention(nn.Module):
 class _GEGLUProj(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = Linear(dim, inner * 2)
 
 
 class FeedForwardGEGLU(nn.Module):
@@ -165,7 +230,7 @@ class FeedForwardGEGLU(nn.Module):
         super().__init__()
         inner = dim * mult
         self.net = nn.ModuleList([_GEGLUProj(dim, inner), nn.Identity(),
-                                  nn.Linear(inner, dim)])
+                                  Linear(inner, dim)])
 
     def forward(self, x):
         a, g = self.net[0].proj(x).chunk(2, dim=-1)
@@ -175,11 +240,11 @@ class FeedForwardGEGLU(nn.Module):
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads, head_dim)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, head_dim, context_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm3 = LayerNorm(dim, eps=1e-5)
         self.ff = FeedForwardGEGLU(dim)
 
     def forward(self, x, context):
@@ -195,11 +260,11 @@ class Transformer2D(nn.Module):
                  context_dim: int, depth: int = 1):
         super().__init__()
         self.norm = _group_norm(channels, 1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, head_dim, context_dim)
             for _ in range(depth)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x, context):
         B, C, H, W = x.shape
@@ -217,7 +282,7 @@ class Downsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x):
         return self.conv(x)
@@ -228,7 +293,7 @@ class Upsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -242,10 +307,10 @@ class AttnBlockVAE(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.group_norm = _group_norm(channels, 1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.to_q = Linear(channels, channels)
+        self.to_k = Linear(channels, channels)
+        self.to_v = Linear(channels, channels)
+        self.to_out = nn.ModuleList([Linear(channels, channels)])
 
     def forward(self, x):
         B, C, H, W = x.shape

@@ -10,9 +10,15 @@ latents is ``grad / B`` (the SpecifyGradient trick).
 The modules hold their own weights, so ``GuidanceParams`` carries the three
 modules where the JAX package carries their parameter trees. The noise
 comes from an explicit ``noise=`` tensor or a ``torch.Generator``. Each
-model runs in its weights' type: at bfloat16 the UNet sees bfloat16 noisy
-latents, where the JAX package adds the float32 schedule to bfloat16
-latents and runs the UNet on the promoted float32.
+model runs in its weights' type: at bfloat16 the UNet and the ControlNet
+see bfloat16 noisy latents and a bfloat16 time embedding, and compute in
+bfloat16. The JAX package does not: its float32 schedule promotes the
+noised latents to float32 (``add_noise``), its float32 time embedding stays
+float32 through the bf16 ``Dense`` layers, and Flax promotes every layer to
+float32 from there. ``jax_promotion=True`` copies that (the noised latents
+stay float32, the eps stack runs under ``layers.jax_promotion``); the
+default keeps bfloat16, the card's path, a difference by design whose gap
+``tests/test_torch_bf16_guidance.py`` measures and bounds.
 
 The pixel-gradient hooks (``make_pgc``, ``make_rgb_grad_hook``,
 ``make_pgc_suppress``, ``build_pixel_grad_hook``) are identity functions on
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from . import layers
 from .time_prior import DiffusionSchedule, make_schedule
 
 #: the loss families ported so far
@@ -66,6 +73,8 @@ class ScoreDistillation:
     # False keeps a render whose size the UNet takes natively (the VAE's
     # input size, or a square 768) instead of resizing it
     input_interpolate: bool = True
+    # the JAX package's types in the eps stack (module docstring)
+    jax_promotion: bool = False
 
     def __post_init__(self):
         if self.schedule is None:
@@ -195,12 +204,14 @@ class ScoreDistillation:
         noise = noise.to(dt)
         t = t.to(lat_sg.device).long()
         schedule = self.schedule.to(lat_sg.device)
-        latents_noisy = schedule.add_noise(lat_sg.float(), noise.float(),
-                                           t).to(dt)
+        latents_noisy = schedule.add_noise(lat_sg.float(), noise.float(), t)
+        if not self.jax_promotion:
+            latents_noisy = latents_noisy.to(dt)
 
-        eps_hat, _, eps_text = self._cfg_eps(
-            params, latents_noisy, t, text_embeds, uncond_embeds, cond_image,
-            gs)
+        with layers.jax_promotion(self.jax_promotion):
+            eps_hat, _, eps_text = self._cfg_eps(
+                params, latents_noisy, t, text_embeds, uncond_embeds,
+                cond_image, gs)
         if self.guidance_rescale > 0.0:
             eps_hat = _rescale_noise_cfg(eps_hat, eps_text,
                                          self.guidance_rescale)

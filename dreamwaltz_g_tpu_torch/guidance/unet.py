@@ -4,7 +4,8 @@ Port of ``dreamwaltz_g_tpu/guidance/unet.py`` with ControlNet residual
 injection (additive down/mid residuals). ``sd15_unet_config()`` matches the
 released SD1.5 weights, ``tiny_unet_config()`` the tests' tiny UNet. The
 SDXL ``addition_embed`` branch is not ported. The model runs in its weights'
-type: inputs are cast to it at ``forward``.
+type: inputs are cast to it at ``forward`` (under ``layers.jax_promotion``
+they keep their own, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -15,11 +16,14 @@ from torch import nn
 from torch.nn import functional as F
 
 from .layers import (
+    Conv2d,
     Downsample2D,
+    GroupNorm,
     ResnetBlock2D,
     TimestepEmbedding,
     Transformer2D,
     Upsample2D,
+    model_input,
     timestep_embedding,
 )
 
@@ -163,7 +167,7 @@ class UNet2DCondition(nn.Module):
         chs = cfg.block_out_channels
         ch0 = chs[0]
         self.time_embedding = TimestepEmbedding(ch0, ch0 * 4)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.down_blocks, skip_chs = _down_path(cfg)
         self.mid_block = UNetMidBlock(cfg, chs[-1])
         ups, x_ch = [], chs[-1]
@@ -175,9 +179,8 @@ class UNet2DCondition(nn.Module):
             ups.append(CrossAttnUpBlock(cfg, ins, chs[bi], cfg.attn_down[bi],
                                         bi != 0, bi))
         self.up_blocks = nn.ModuleList(ups)
-        self.conv_norm_out = nn.GroupNorm(32 if ch0 >= 32 else ch0, ch0,
-                                          eps=1e-5)
-        self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(32 if ch0 >= 32 else ch0, ch0, eps=1e-5)
+        self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor,
@@ -185,12 +188,12 @@ class UNet2DCondition(nn.Module):
                 mid_residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         dt = self.conv_in.weight.dtype
-        context = context.to(dt)
+        context = model_input(context, dt)
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   downscale_freq_shift=cfg.freq_shift)
-        temb = self.time_embedding(temb.to(dt))
+        temb = self.time_embedding(model_input(temb, dt))
 
-        x = self.conv_in(sample.to(dt).permute(0, 3, 1, 2))
+        x = self.conv_in(model_input(sample, dt).permute(0, 3, 1, 2))
         skips = [x]
         for block in self.down_blocks:
             x, s = block(x, temb, context)
@@ -199,11 +202,11 @@ class UNet2DCondition(nn.Module):
             if len(down_residuals) != len(skips):
                 raise ValueError(f"controlnet residual count "
                                  f"{len(down_residuals)} != {len(skips)}")
-            skips = [s + r.to(dt).permute(0, 3, 1, 2)
+            skips = [s + model_input(r, dt).permute(0, 3, 1, 2)
                      for s, r in zip(skips, down_residuals)]
         x = self.mid_block(x, temb, context)
         if mid_residual is not None:
-            x = x + mid_residual.to(dt).permute(0, 3, 1, 2)
+            x = x + model_input(mid_residual, dt).permute(0, 3, 1, 2)
         for block in self.up_blocks:
             x = block(x, skips, temb, context)
         x = self.conv_out(F.silu(self.conv_norm_out(x)))

@@ -35,7 +35,7 @@ SIGNATURES = {
         "blend_train_bwd_f32": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P],
     },
     "flash_attn": {
-        "flash_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I, _P],
+        "flash_attn_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_I, _I, _P],
         "flash_attn_bwd": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_I, _P],
     },
 }

@@ -83,6 +83,36 @@ def test_plain_backward_matches_autograd(shape):
     _grads_close(got, [q.grad, k.grad, v.grad], 1e-5)
 
 
+@pytest.mark.parametrize("shape,splits,late", [
+    ((1, 256, 1, 512), 2, None), ((2, 128, 2, 256), 2, None),
+    ((1, 256, 1, 384), 4, None), ((1, 256, 1, 512), 2, 127),
+    ((1, 256, 1, 512), 2, 255)])
+def test_combine_of_key_splits_matches_plain(shape, splits, late):
+    """The wide forward's merge, plain: each key range's normalised output
+    and lse, combined, give ``flash_attention_plain``'s out and lse within
+    float32 rounding (1e-5 of the output, 1e-5 on lse). ``late``: one key
+    dominates every row, the last of the first range (127) or of the second
+    (255), so one range carries nearly all the weight."""
+    q, k, v, _ = (torch.as_tensor(x) for x in _qkvg(shape, sum(shape)))
+    if late is not None:
+        q[..., 0] = q[..., 0].abs() + 4
+        k[:, late] = 0
+        k[:, late, :, 0] = 4 * shape[-1] ** 0.5
+    ref, ref_lse = FL.flash_attention_plain(q, k, v)
+    o_part, lse_part = FL.flash_attention_split_plain(q, k, v, splits)
+    assert o_part.shape == (splits,) + shape
+    assert lse_part.shape == (splits, shape[0], shape[2], shape[1])
+    out, lse = FL.combine_key_splits(o_part, lse_part)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert float((lse - ref_lse).abs().max()) <= 1e-5
+    if late is not None:
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        assert bool((s.argmax(-1) == late).all())
+        # the range without the key: its partial output is not the answer
+        other = 1 - late // (shape[1] // splits)
+        assert float((o_part[other] - ref).abs().max()) > 0.1
+
+
 @pytest.mark.parametrize("mode,nq,nk,d,expect", [
     ("on", 4096, 4096, 40, True),      # 64^2 self-attention
     ("on", 1024, 1024, 80, True),      # 32^2 self-attention

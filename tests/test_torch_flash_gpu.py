@@ -21,14 +21,18 @@ inputs:
 
 The bf16 kernels have tile widths 48, 80, 128 and 512; the head dimensions
 below cover each width exactly (80, 128, 512) and zero-padded (16, 24 and
-40 in 48, 64 in 80, 256 in 512). D = 20 and a view that is not 16-byte
-aligned take the element-wise tile load. The row-split forward (D <= 128)
-streams 64-key tiles through a ring of 3 shared-memory stages (2 at
-D > 80): N = 128 has fewer key tiles than stages; every N (a multiple of
+40 in 48, 64 in 80, 256 and 384 in 512). D = 20 and a view that is not
+16-byte aligned take the element-wise tile load. The row-split forward
+(D <= 128) streams 64-key tiles through a ring of 3 shared-memory stages (2
+at D > 80): N = 128 has fewer key tiles than stages; every N (a multiple of
 128) gives an even count of tiles, and N = 1280's 20 end part-way round the
-3-stage ring, N = 1152's 18 at its end. A late dominant key makes every
-row's maximum arrive in the last tile, and the training step's own shapes
-fill the card from a cold cache.
+3-stage ring, N = 1152's 18 at its end. The wide forward (D > 128) takes
+64 query rows a block, splits the keys in two ranges of 32-key tiles
+through a 2-stage ring and merges the ranges in a second kernel: N = 128
+gives each range 2 tiles, N = 4096 64, and B H > 1 puts several heads and
+batches in one grid. A late dominant key makes every row's maximum arrive
+in the last tile (of the second key range, or of the first), and the
+training step's own shapes fill the card from a cold cache.
 """
 import pytest
 import torch
@@ -90,7 +94,7 @@ def _hold(q, k, v, g):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("D", [16, 40, 64, 80, 128, 256, 512])
+@pytest.mark.parametrize("D", [16, 40, 64, 80, 128, 256, 384, 512])
 def test_kernel_matches_plain_over_head_dims(D, dtype):
     dev = _card()
     q, k, v, g = _qkv(dev, (1, 1024, 2, D), dtype, seed=D)
@@ -104,7 +108,9 @@ def test_kernel_matches_plain_over_head_dims(D, dtype):
                                    (4096, 1, 512), (1152, 3, 24),
                                    (128, 2, 40), (128, 2, 80), (128, 1, 128),
                                    (1152, 2, 64), (1280, 2, 40),
-                                   (1280, 1, 128), (1152, 2, 20)])
+                                   (1280, 1, 128), (1152, 2, 20),
+                                   (128, 1, 512), (1024, 2, 512),
+                                   (4096, 1, 256), (1152, 1, 384)])
 def test_kernel_matches_plain_over_lengths(N, H, D, dtype):
     dev = _card()
     q, k, v, g = _qkv(dev, (2, N, H, D), dtype, seed=N + D)
@@ -151,13 +157,50 @@ def test_bf16_rescales_when_the_max_arrives_in_the_last_tile(D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (2, 1024, 8, 80)])
+@pytest.mark.parametrize("late", ["last", "first_range_last"])
+def test_bf16_wide_rescales_when_the_max_arrives_late(late):
+    """The wide forward at D = 512: the dominant key is the very last (the
+    last tile of the second key range) or the last of the first range, so
+    the running maximum jumps in a range's last tile, and in the second
+    case the combine must give the first range nearly all the weight."""
+    dev = _card()
+    B, N, H, D = 1, 1024, 1, 512
+    key = N - 1 if late == "last" else N // 2 - 1
+    q, k, v, _ = _qkv(dev, (B, N, H, D), torch.float32, seed=13)
+    q = 8 * q
+    q[..., 0] = q[..., 0].abs() + 32
+    k[:, key] = 0
+    k[:, key, :, 0] = 2 * D ** 0.5
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    assert bool((s.argmax(-1) == key).all())
+    _hold_fwd(q, k, v)
+
+
+@pytest.mark.gpu
+def test_bf16_wide_lse_and_the_backward_from_its_outputs():
+    """At the VAE's (1, 4096, 1, 512): lse within 1e-5 of the plain
+    version's (the kernel's ex2 and the combine's log add ~1e-6), and the
+    backward, fed the wide forward's out and lse, within 2^-6 of each
+    gradient's largest entry."""
+    dev = _card()
+    q, k, v, g = _qkv(dev, (1, 4096, 1, 512), torch.bfloat16, seed=17)
+    out, lse = FL.flash_attn_fwd(q, k, v)
+    torch.cuda.synchronize()
+    _, ref_lse = FL.flash_attention_plain(q.float(), k.float(), v.float())
+    assert float((lse - ref_lse).abs().max()) <= 1e-5
+    _hold(q, k, v, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (2, 1024, 8, 80),
+                                   (1, 4096, 1, 512)])
 def test_bf16_at_the_training_steps_shapes_from_a_cold_cache(shape):
-    """The UNet's and the ControlNet's shapes, forward only (the step does
-    not differentiate them). They fill the card with blocks, and the inputs
-    are evicted from the 50 MB L2 first, so the first copies of every
-    resident block queue on device memory together: a read of a ring stage
-    before its copies land shows here."""
+    """The UNet's, the ControlNet's and the VAE's shapes, forward only. They
+    fill the card with blocks, and the inputs are evicted from the 50 MB L2
+    first, so the first copies of every resident block queue on device
+    memory together: a read of a ring stage before its copies land shows
+    here."""
     dev = _card()
     q, k, v, _ = _qkv(dev, shape, torch.bfloat16, seed=sum(shape))
     torch.empty(2 ** 26, dtype=torch.int32, device=dev).fill_(1)
@@ -165,9 +208,10 @@ def test_bf16_at_the_training_steps_shapes_from_a_cold_cache(shape):
 
 
 @pytest.mark.gpu
-def test_bf16_takes_a_view_that_is_not_16_byte_aligned():
+@pytest.mark.parametrize("D", [40, 512])
+def test_bf16_takes_a_view_that_is_not_16_byte_aligned(D):
     dev = _card()
-    B, N, H, D = 2, 1024, 2, 40
+    B, N, H = 2, 1024, 2
     gen = torch.Generator(device=dev).manual_seed(5)
     flat = torch.randn(4 * B * N * H * D + 4, generator=gen,
                        device=dev).to(torch.bfloat16)
