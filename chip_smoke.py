@@ -55,7 +55,10 @@ Phases, one JSON line each:
                    forward and its combine), TFLOP/s and share of the
                    bound, and its instantiation's build facts (registers
                    and spills from ptxas, shared memory and blocks an SM
-                   from the library; the combine's too);
+                   from the library; the combine's too); the same for each
+                   differentiated shape's backward (``bwd_kernel_ms``,
+                   ``bwd_build``: delta and the two passes, or at D = 512
+                   the dK / dV pass and the dS K product);
 14. train_profile -- device busy share, the step's device and host ms by
                    stage (its own ``record_function`` ranges) and top
                    kernels over one profiled SDS step;
@@ -655,15 +658,20 @@ def kernel_device_ms(fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {e.key[:80]: e.device_time_total / reps / 1e3
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
-    return sum(by_name.values()), by_name
+    # a profile can come back without device events (seen once on a fresh
+    # machine, in the first such profile of the run): take another
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {e.key[:80]: e.device_time_total / reps / 1e3
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        if sum(by_name.values()) > 0:
+            return sum(by_name.values()), by_name
+    fail("the profiler recorded no device time in three profiles")
 
 
 def ptxas_facts(log):
@@ -687,60 +695,105 @@ def ptxas_facts(log):
     return facts
 
 
-# flash_attn_fwd_info's seven numbers
+# flash_attn_fwd_info's and flash_attn_bwd_info's seven numbers
 FWD_INFO_KEYS = ("tile_width", "threads", "rows_per_block", "smem_bytes",
                  "blocks_per_sm", "registers_runtime", "local_bytes")
+
+
+def template_args(name, family):
+    """The template arguments in a mangled kernel name after ``family``:
+    the integers and booleans (``Li48E``, ``Lb1E``) as ints, and the raw
+    text (a type argument such as ``13__nv_bfloat16`` or ``f``); None if
+    ``family`` is not in the name."""
+    if family not in name:
+        return None
+    tail = name.split(family, 1)[1]
+    raw = tail[1:].split("EEv", 1)[0] if tail.startswith("I") else ""
+    return [int(a) for a in re.findall(r"L[ib](\d+)E", raw)], raw
+
+
+def kernel_build(facts, info_fn, shape, kind, part, family, match):
+    """One flash kernel's build facts: ``info_fn`` (the library's
+    ``flash_attn_fwd_info`` or ``flash_attn_bwd_info``) gives its dynamic
+    shared memory, threads, rows a block and resident blocks an SM for
+    ``part``; the ptxas log's entry of ``family`` whose template arguments
+    satisfy ``match(args, raw, info)`` gives its registers and spills (the
+    log has no dynamic shared memory and no occupancy)."""
+    import ctypes
+
+    info = (ctypes.c_int * len(FWD_INFO_KEYS))()
+    rc = info_fn(shape[-1], int(kind == "bf16"), part, ctypes.addressof(info))
+    if rc != 0:
+        fail(f"{family}: build facts failed for {shape} {kind} part {part}: "
+             f"{rc}")
+    out = dict(zip(FWD_INFO_KEYS, info))
+    for name, f in facts.items():
+        got = template_args(name, family)
+        if got is not None and match(*got, out):
+            label = ", ".join(map(str, got[0])) or got[1]
+            return dict(kernel=f"{family}<{label}>" if label else family,
+                        template=got[0], **f, **out)
+    fail(f"no ptxas entry for {family} ({shape} {kind})")
 
 
 def flash_fwd_build(log, shape, kind):
     """The forward instantiation that ``shape`` runs: its template (tile
     width, then warps and key tile and ring stages, or key tile and ring
-    stages), registers and spills from the ptxas log, and dynamic shared
-    memory, threads and resident blocks an SM from the library's
-    ``flash_attn_fwd_info`` (the log has no dynamic shared memory and no
-    occupancy). The wide forward (bf16, D > 128) adds its combine kernel's
-    facts under ``combine``."""
-    import ctypes
-
+    stages), registers and spills, dynamic shared memory, threads and
+    resident blocks an SM (``kernel_build``). The wide forward (bf16,
+    D > 128) adds its combine kernel's facts under ``combine``."""
     from dreamwaltz_g_tpu_torch import kernels
 
     fn = kernels.load("flash_attn").flash_attn_fwd_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     facts = ptxas_facts(log)
-
-    def one(part, family):
-        info = (ctypes.c_int * len(FWD_INFO_KEYS))()
-        rc = fn(shape[-1], int(kind == "bf16"), part, ctypes.addressof(info))
-        if rc != 0:
-            fail(f"flash_attn_fwd_info failed for {shape} {kind} part "
-                 f"{part}: {rc}")
-        out = dict(zip(FWD_INFO_KEYS, info))
-        for name, f in facts.items():
-            m = re.search(family + r"(?:I((?:Li\d+E)+)E)?", name)
-            args = [int(a) for a in re.findall(r"Li(\d+)E",
-                                                (m.group(1) or ""))
-                    ] if m else []
-            if m and (kind != "bf16" or part == 1
-                      or args[:1] == [out["tile_width"]]):
-                return dict(kernel=f"{family}<{', '.join(map(str, args))}>"
-                            if args else family, template=args, **f, **out)
-        fail(f"no ptxas entry for {family} ({shape} {kind})")
-
     wide = kind == "bf16" and shape[-1] > 128
-    build = one(0, "flash_fwd_f32_kernel" if kind != "bf16" else
-                "flash_fwd_rows_kernel" if not wide else
-                "flash_fwd_wide_kernel")
+    build = kernel_build(
+        facts, fn, shape, kind, 0,
+        "flash_fwd_f32_kernel" if kind != "bf16" else
+        "flash_fwd_rows_kernel" if not wide else "flash_fwd_wide_kernel",
+        lambda args, raw, info: kind != "bf16"
+        or args[:1] == [info["tile_width"]])
     if wide:
-        build["combine"] = one(1, "flash_combine_kernel")
+        build["combine"] = kernel_build(facts, fn, shape, kind, 1,
+                                        "flash_combine_kernel",
+                                        lambda *_: True)
     return build
+
+
+def flash_bwd_build(log, shape, kind):
+    """The backward's kernels for ``shape``, in launch order (delta, then
+    the two passes; bf16 at D > 128: the dK / dV pass, then the dS K
+    product), each as ``kernel_build`` gives it, from the library's
+    ``flash_attn_bwd_info``."""
+    from dreamwaltz_g_tpu_torch import kernels
+
+    fn = kernels.load("flash_attn").flash_attn_bwd_info
+    facts = ptxas_facts(log)
+    bf16, D = kind == "bf16", shape[-1]
+    if bf16 and D > 128:
+        passes = [("flash_bwd_kv_wide_kernel", lambda *_: True),
+                  ("flash_bwd_dq_wide_kernel", lambda *_: True)]
+    else:
+        family = "flash_bwd_bf16_kernel" if bf16 else "flash_bwd_f32_kernel"
+
+        def one_pass(kv):
+            # bf16: <tile width, key tile, kv>; float32: <kv>
+            return lambda args, raw, info: args[-1:] == [kv] and (
+                not bf16 or args[:1] == [info["tile_width"]])
+
+        passes = [(family, one_pass(0)), (family, one_pass(1))]
+    parts = [("flash_delta_kernel",
+              lambda args, raw, info: ("bfloat16" in raw) == bf16)] + passes
+    return [kernel_build(facts, fn, shape, kind, part, family, match)
+            for part, (family, match) in enumerate(parts)]
 
 
 def flash_times(kept, build_log):
     """Per shape: the kernels' ms beside the plain versions', the einsum
-    path's and the library call's, and the bounds. For the forward also the
-    kernel's own device ms (profiler), the rate 4 B H N^2 D / that time, its
-    share of the bound, and the build facts of its instantiation."""
+    path's and the library call's, and the bounds. For the forward, and the
+    backward where the path differentiates it, also the kernels' own device
+    ms (profiler), the rate 4 (10 backward) B H N^2 D / that time, its share
+    of the bound, and the build facts of each kernel."""
     import torch
 
     from dreamwaltz_g_tpu_torch.guidance import flash as FL
@@ -764,13 +817,21 @@ def flash_times(kept, build_log):
                 fwd_einsum_ms=cuda_ms(lambda: einsum_attention(q, k, v), 5),
                 fwd_bound=bound)
             if backward:
+                bwd_bound = flash_bound(shape, kind, True)
+                bwd_dev_ms, bwd_by_kernel = kernel_device_ms(
+                    lambda: FL.flash_attn_bwd(q, k, v, out, lse, g), 20)
                 row.update(
                     bwd_ms=cuda_ms(lambda: FL.flash_attn_bwd(
                         q, k, v, out, lse, g), 10),
+                    bwd_kernel_ms=bwd_dev_ms,
+                    bwd_kernel_ms_by_name=bwd_by_kernel,
+                    bwd_tflops=bwd_bound["ops"] / bwd_dev_ms / 1e9,
+                    bwd_share_of_bound=bwd_bound["bound_ms"] / bwd_dev_ms,
+                    bwd_build=flash_bwd_build(build_log, shape, kind),
                     bwd_plain_ms=cuda_ms(
                         lambda: FL.flash_attention_plain_bwd(
                             q, k, v, out, lse, g), 3),
-                    bwd_bound=flash_bound(shape, kind, True))
+                    bwd_bound=bwd_bound)
             rows.append(row)
     for row, (shape, kind, backward) in zip(rows, FLASH_SHAPES):
         q, k, v, g, _, _ = kept[shape]
@@ -782,9 +843,9 @@ def flash_domain(tokens, d):
     """The flash kernel's domain for a self-attention of ``tokens`` tokens
     and head dimension ``d``, written out here so that the expected launch
     counts do not lean on the port's own gate: at least 1024 tokens, a
-    multiple of 128, and d <= 128 or a multiple of 128."""
+    multiple of 128, and d <= 128 or a multiple of 128 up to 512."""
     return tokens >= 1024 and tokens % 128 == 0 \
-        and (d <= 128 or d % 128 == 0)
+        and (d <= 128 or d % 128 == 0) and d <= 512
 
 
 def expected_flash_launches(gparams, latent):
@@ -1701,6 +1762,7 @@ def main():
               train_launches["flash_attn_fwd"], flash_err["fwd"],
               f_fwd["fwd_ms"], f_fwd["fwd_plain_ms"], f_fwd["fwd_bound"],
               library=f_fwd["library"]["fwd_ms"], shape=f_fwd["shape"],
+              kernel_ms=f_fwd["fwd_kernel_ms"],
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]
@@ -1715,8 +1777,12 @@ def main():
               train_launches["flash_attn_bwd"], flash_err["bwd"],
               f_bwd["bwd_ms"], f_bwd["bwd_plain_ms"], f_bwd["bwd_bound"],
               library=f_bwd["library"]["bwd_ms"], shape=f_bwd["shape"],
+              kernel_ms=f_bwd["bwd_kernel_ms"],
               by_shape=[{"shape": r["shape"], "type": r["type"],
+                         "kernel": " + ".join(x["kernel"]
+                                              for x in r["bwd_build"]),
                          "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
+                         "kernel_ms": r["bwd_kernel_ms"],
                          "bound_ms": r["bwd_bound"]["bound_ms"],
                          "library_ms": r["library"]["bwd_ms"]}
                         for r in flash_rows if "bwd_ms" in r]),

@@ -84,12 +84,39 @@
 // their own batch, row and head strides (unit stride along D), so a
 // (B, N, H, D) view of a projection's output needs no copy.
 //
-// Backward (bf16 tile widths 48, 80, 128, 512): two deterministic passes
-// with no atomics, one body. A block that owns a query tile walks the key
-// tiles and accumulates dQ; a block that owns a key tile walks the query
-// tiles and accumulates dK and dV (the transposed products S^T = K Q^T and
-// dP^T = V dO^T, so the same fragment code serves both).
-// `delta = rowsum(dO * O)` is a small kernel of its own.
+// Backward, deterministic, with no atomics. `delta = rowsum(dO * O)` is a
+// small kernel of its own; then P = exp(S - lse), dS = P (dP - delta),
+// dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K, float32 accumulators,
+// P and dS rounded to bf16 once each.
+//  * bf16, tile widths 48, 80, 128, and float32: two passes, one body. A
+//    block that owns a query tile walks the key tiles and accumulates dQ; a
+//    block that owns a key tile walks the query tiles and accumulates dK and
+//    dV (the transposed products S^T = K Q^T and dP^T = V dO^T, so the same
+//    fragment code serves both). Each pass recomputes S and dP: 14 N^2 D.
+//  * bf16, D > 128 (the VAE's (1, 4096, 1, 512), once a training step; 256
+//    and 384 zero-padded in the 512-wide tile): 10 N^2 D, no recompute.
+//    flash_bwd_kv_wide_kernel owns 32 keys a block (N / 32 = 128 blocks at
+//    the VAE's shape, one wave on 132 SMs) with K and V resident in shared
+//    memory, and streams 32-query tiles of Q and dO through a 2-stage
+//    cp.async ring (204 KB in all, 1 block an SM). dK and dV for 32 keys x
+//    512 in float32 are 128 KB of registers: 8 warps of 32 keys x 64
+//    columns, 128 registers a thread. The tile's scores S^T and dP^T (32 x
+//    32 each, full depth) are 8 blocks of 16 x 16, one a warp: the warp that
+//    forms P hands it in float32 to the warp of the same block that forms
+//    dS, under a 64-thread named barrier; both round to bf16 into shared
+//    memory as P^T and dS^T [key][query], the A operands of the products.
+//    The pass writes dS^T to (B H, N, N) bf16 scratch from the wrapper
+//    (32 MiB at the VAE's shape), and flash_bwd_dq_wide_kernel computes
+//    dQ = scale dS K as a tiled product (128 x 128 a block, a 3-stage
+//    ring; dS^T and K are both k-major, so both operands come through
+//    ldmatrix.trans). This is instead of a dQ pass that recomputes S and
+//    dP (14 N^2 D): the scratch costs 2 N^2 bytes written and read, far
+//    below the 4 N^2 D operations it saves. Computed floors (no profiler
+//    of the SMs on the card's machine): the dK / dV pass's ldmatrix reads,
+//    ~360 KB a query tile a block (K and V rows read again by the warps of
+//    each score block), ~2,800 clocks at 128 B a clock, against ~1,500 for
+//    its 1,024 mma.sync; over 128 tiles ~0.2 ms at ~1.75 GHz. Q and dO
+//    stream from L2 once a key block: 1 GiB a call.
 //
 // The C functions launch on the given stream, do not synchronise or
 // allocate, and return cudaGetLastError().
@@ -803,19 +830,20 @@ flash_combine_kernel(const float* __restrict__ o_part,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward: one body for the dQ pass (KV = false: the block owns a
-// query tile, X1 = Q, X2 = dO, and streams Y1 = K, Y2 = V) and the dK / dV
-// pass (KV = true: the block owns a key tile, X1 = K, X2 = V, and streams
-// Y1 = Q, Y2 = dO). With S' = X1 Y1^T and dP' = X2 Y2^T (transposed in the
-// KV pass): P' = exp(scale S' - lse), dS' = P' (dP' - delta), lse and delta
-// indexed by the query, which is the row (dQ pass) or the column (KV pass).
+// bf16 backward, D <= 128: one body for the dQ pass (KV = false: the block
+// owns a query tile, X1 = Q, X2 = dO, and streams Y1 = K, Y2 = V) and the
+// dK / dV pass (KV = true: the block owns a key tile, X1 = K, X2 = V, and
+// streams Y1 = Q, Y2 = dO). With S' = X1 Y1^T and dP' = X2 Y2^T (transposed
+// in the KV pass): P' = exp(scale S' - lse), dS' = P' (dP' - delta), lse and
+// delta indexed by the query, which is the row (dQ pass) or the column (KV
+// pass).
 // Then acc1 += dS' Y1 (dQ or dK, times scale at the end) and, in the KV
 // pass, acc2 += P' Y2 (dV).
 // ---------------------------------------------------------------------------
 
-template <int DP, int WM, int WN, int BN>
+template <int DP, int BN>
 struct BwdSmem {
-  static constexpr int BM = 16 * WM;
+  static constexpr int BM = 16 * (THREADS / 32);
   static constexpr int LD = DP + PAD;
   static constexpr int LDT = BN + PAD;
   static constexpr int NV = BM > BN ? BM : BN;
@@ -829,7 +857,7 @@ struct BwdSmem {
   static constexpr size_t bytes = vecs + sizeof(float) * 2 * NV;
 };
 
-template <int DP, int WM, int WN, int BN, bool KV>
+template <int DP, int BN, bool KV>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
                       const bf16* __restrict__ y1, const bf16* __restrict__ y2,
@@ -838,11 +866,10 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
                       bf16* __restrict__ g2, int N, int H, int D, Strides sx1,
                       Strides sx2, Strides sy1, Strides sy2, float scale,
                       bool vec) {
-  static_assert(WM * WN * 32 == THREADS, "four warps a block");
-  using L = BwdSmem<DP, WM, WN, BN>;
+  using L = BwdSmem<DP, BN>;
   constexpr int BM = L::BM, LD = L::LD, LDT = L::LDT;
-  constexpr int NT = BN / WN / 8;
-  constexpr int ND = DP / WN / 8;
+  constexpr int NT = BN / 8;
+  constexpr int ND = DP / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* X1s = reinterpret_cast<bf16*>(smem + L::x1);
   bf16* X2s = reinterpret_cast<bf16*>(smem + L::x2);
@@ -856,8 +883,7 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int wm = warp / WN, wn = warp % WN;
-  const int r0 = wm * 16, c0 = wn * (BN / WN), d0 = wn * (DP / WN);
+  const int r0 = warp * 16;  // each warp: 16 owned rows, every column
   const float* lse_bh = lse + ((long long)b * H + h) * N;
   const float* delta_bh = delta + ((long long)b * H + h) * N;
 
@@ -899,9 +925,9 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t bb[2];
-        frag_b_nt(bb, Y1s, LD, c0 + 8 * j, k0, g, t);
+        frag_b_nt(bb, Y1s, LD, 8 * j, k0, g, t);
         mma_bf16(s[j], a1, bb);
-        frag_b_nt(bb, Y2s, LD, c0 + 8 * j, k0, g, t);
+        frag_b_nt(bb, Y2s, LD, 8 * j, k0, g, t);
         mma_bf16(dp[j], a2, bb);
       }
     }
@@ -910,7 +936,7 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         int row = r0 + g + (e >= 2 ? 8 : 0);
-        int col = c0 + 8 * j + 2 * t + (e & 1);
+        int col = 8 * j + 2 * t + (e & 1);
         int qi = KV ? col : row;
         float p = __expf(s[j][e] * scale - v_lse[qi]);
         float ds = p * (dp[j][e] - v_delta[qi]);
@@ -926,7 +952,7 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
 #pragma unroll
       for (int j = 0; j < ND; ++j) {
         uint32_t bb[2];
-        frag_b_nn(bb, Y1s, LD, k0, d0 + 8 * j, g, t);
+        frag_b_nn(bb, Y1s, LD, k0, 8 * j, g, t);
         mma_bf16(acc1[j], a, bb);
       }
       if constexpr (KV) {
@@ -934,7 +960,7 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
 #pragma unroll
         for (int j = 0; j < ND; ++j) {
           uint32_t bb[2];
-          frag_b_nn(bb, Y2s, LD, k0, d0 + 8 * j, g, t);
+          frag_b_nn(bb, Y2s, LD, k0, 8 * j, g, t);
           mma_bf16(acc2[j], a, bb);
         }
       }
@@ -948,7 +974,7 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      int d = d0 + 8 * j + 2 * t + e;
+      int d = 8 * j + 2 * t + e;
       if (d < D) {
         g1[lo + d] = __float2bfloat16(acc1[j][e] * scale);
         g1[hi + d] = __float2bfloat16(acc1[j][e + 2] * scale);
@@ -958,6 +984,410 @@ flash_bwd_bf16_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2,
         }
       }
     }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward, wide heads (D > 128, tile width 512): a dK / dV pass that
+// also writes dS^T to scratch, then the product dQ = scale dS K
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_WARPS = 8;
+constexpr int BK_WIDE = 32;  // keys a dK / dV block owns
+constexpr int BQ_WIDE = 32;  // queries a streamed tile
+
+// K and V (resident), a ring of STAGES Q tiles and STAGES dO tiles, the
+// tile's bf16 P^T and dS^T [key][query], each warp pair's float32 P
+// exchange (float [4][32 lanes][8]), and each stage's lse and delta
+template <int DP, int STAGES>
+struct WideBwdSmem {
+  static constexpr int LD = DP + PAD;
+  static constexpr int LDP = BQ_WIDE + PAD;
+  static constexpr int TILE = BQ_WIDE * LD;  // elements of one Q or dO stage
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + sizeof(bf16) * BK_WIDE * LD;
+  static constexpr size_t q = v + sizeof(bf16) * BK_WIDE * LD;
+  static constexpr size_t d_out = q + sizeof(bf16) * STAGES * TILE;
+  static constexpr size_t pt = d_out + sizeof(bf16) * STAGES * TILE;
+  static constexpr size_t dst = pt + sizeof(bf16) * BK_WIDE * LDP;
+  static constexpr size_t xch = dst + sizeof(bf16) * BK_WIDE * LDP;
+  static constexpr size_t vecs = xch + sizeof(float) * 4 * 32 * 8;
+  static constexpr size_t bytes = vecs + sizeof(float) * STAGES * 2 * BQ_WIDE;
+};
+
+// Block (key tile, head, batch) owns keys k0..k0 + 31 and walks every query
+// tile of 32. Scores: warp (mat, blk) computes a 16 x 16 block, keys
+// 16 (blk / 2).., queries 16 (blk % 2).., of S^T = K Q^T (mat 0) or
+// dP^T = V dO^T (mat 1) over the full depth. The S^T warp turns its block
+// into P = exp(scale S - lse) and hands it, in float32, to the dP^T warp of
+// the same block (warps blk and blk + 4, a named barrier), which forms
+// dS = P (dP - delta). Both write bf16 tiles [key][query] to shared
+// memory, P^T and dS^T, each value rounded once. Products: warp w owns
+// columns 64 w..64 w + 63 of dV += P^T dO and dK += dS^T Q for all 32 keys.
+// dS^T goes on to ds (B H, N keys, N queries) for flash_bwd_dq_wide_kernel.
+template <int DP, int STAGES>
+__global__ void __launch_bounds__(32 * BWD_WARPS, 1)
+flash_bwd_kv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ d_out,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, bf16* __restrict__ ds, int N,
+                         int H, int D, Strides sq, Strides sk, Strides sv,
+                         Strides sd, float scale, bool vec) {
+  static_assert(STAGES >= 2, "tile j + 1 loads while tile j is used");
+  constexpr int NTH = 32 * BWD_WARPS;
+  using L = WideBwdSmem<DP, STAGES>;
+  constexpr int LD = L::LD, LDP = L::LDP, TILE = L::TILE;
+  constexpr int BK = BK_WIDE, BQ = BQ_WIDE;
+  constexpr int KD = DP / 16;          // k16 steps of the scores
+  constexpr int DW = DP / BWD_WARPS;   // dK / dV columns a warp
+  constexpr int ND = DW / 8;           // their n8-tiles
+  static_assert(BK == 32 && BQ == 32, "four 16 x 16 score blocks a matrix");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* Gs = reinterpret_cast<bf16*>(smem + L::d_out);
+  bf16* Pt = reinterpret_cast<bf16*>(smem + L::pt);
+  bf16* dSt = reinterpret_cast<bf16*>(smem + L::dst);
+  float* vecs = reinterpret_cast<float*>(smem + L::vecs);
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int mat = warp / 4, blk = warp % 4;
+  const int kr = 16 * (blk / 2), qc = 16 * (blk % 2);
+  const int d0 = warp * DW;
+  const long long bh = (long long)b * H + h;
+  const float* lse_bh = lse + bh * N;
+  const float* delta_bh = delta + bh * N;
+  float* slot = reinterpret_cast<float*>(smem + L::xch) + (blk * 32 + lane) * 8;
+
+  // ldmatrix row addresses (patterns as in flash_fwd_rows_kernel). Scores:
+  // K or V rows as the A operand, Q or dO rows as the B operand (two query
+  // n8-tiles an x4), the latter offset by the ring stage. Products: P^T and
+  // dS^T as A operands, dO and Q transposed as B operands at this warp's
+  // columns.
+  const uint32_t x_lane = smem_addr((mat ? Vs : Ks) + (kr + (lane & 15)) * LD +
+                                    (lane >> 4) * 8);
+  const uint32_t y_lane = smem_addr(
+      (mat ? Gs : Qs) + (qc + (lane & 7) + ((lane >> 4) << 3)) * LD +
+      ((lane >> 3) & 1) * 8);
+  const uint32_t pt_lane = smem_addr(Pt + (lane & 15) * LDP + (lane >> 4) * 8);
+  const uint32_t dst_lane =
+      smem_addr(dSt + (lane & 15) * LDP + (lane >> 4) * 8);
+  const uint32_t g_lane =
+      smem_addr(Gs + (lane & 15) * LD + d0 + (lane >> 4) * 8);
+  const uint32_t q_lane =
+      smem_addr(Qs + (lane & 15) * LD + d0 + (lane >> 4) * 8);
+
+  // query tile `tile` into ring stage `stage`, with its lse and delta
+  const int n_tiles = N / BQ;
+  auto load_q = [&](int stage, int tile) {
+    const int q0 = tile * BQ;
+    const bf16* q_src = q + offset(sq, b, q0, h);
+    const bf16* g_src = d_out + offset(sd, b, q0, h);
+    if (vec) {
+      copy_tile_async<DP, NTH>(Qs + stage * TILE, q_src, sq.n, BQ, D);
+      copy_tile_async<DP, NTH>(Gs + stage * TILE, g_src, sd.n, BQ, D);
+    } else {
+      load_tile<DP, NTH>(Qs + stage * TILE, q_src, sq.n, BQ, D, false);
+      load_tile<DP, NTH>(Gs + stage * TILE, g_src, sd.n, BQ, D, false);
+    }
+    // lse and delta are contiguous (B, H, N) float32: 16-byte copies
+    float* vl = vecs + stage * 2 * BQ;
+    const int i = threadIdx.x;
+    if (i < BQ / 4)
+      cp_async16(vl + 4 * i, lse_bh + q0 + 4 * i);
+    else if (i < BQ / 2)
+      cp_async16(vl + BQ + 4 * (i - BQ / 4), delta_bh + q0 + 4 * (i - BQ / 4));
+  };
+  // columns D..DP-1 of K, V and every stage, zeroed once (the four lie
+  // back to back, 2 BK + 2 STAGES BQ rows)
+  if (vec && D < DP) {
+    const int tail = (DP - D) / 8;
+    for (int i = threadIdx.x; i < (2 * BK + 2 * STAGES * BQ) * tail;
+         i += NTH) {
+      int r = i / tail, c = D + (i % tail) * 8;
+      *reinterpret_cast<uint4*>(Ks + r * LD + c) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // K, V and query tile 0 in the first commit group
+  if (vec) {
+    copy_tile_async<DP, NTH>(Ks, k + offset(sk, b, k0, h), sk.n, BK, D);
+    copy_tile_async<DP, NTH>(Vs, v + offset(sv, b, k0, h), sv.n, BK, D);
+  } else {
+    load_tile<DP, NTH>(Ks, k + offset(sk, b, k0, h), sk.n, BK, D, false);
+    load_tile<DP, NTH>(Vs, v + offset(sv, b, k0, h), sv.n, BK, D, false);
+  }
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_q(st, st);
+    cp_async_commit();
+  }
+
+  float acc_k[2][ND][4], acc_v[2][ND][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[m][j][e] = acc_v[m][j][e] = 0.f;
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  int rd = 0, wr = STAGES - 1;
+  for (int i = 0; i < n_tiles; ++i) {
+    // the barrier also shows that every warp is done with tile i - 1's
+    // P^T, dS^T and exchange slots, which tile i overwrites
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (i + STAGES - 1 < n_tiles) load_q(wr, i + STAGES - 1);
+    cp_async_commit();
+    const uint32_t stage = 2 * rd * TILE;
+    const float* vl = vecs + rd * 2 * BQ;
+    rd = rd + 1 == STAGES ? 0 : rd + 1;
+    wr = wr + 1 == STAGES ? 0 : wr + 1;
+
+    // this warp's 16 keys x 16 queries of S^T or dP^T
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 8
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4], yb[4];
+      ldsm_x4(a, x_lane + 32 * kk);
+      ldsm_x4(yb, y_lane + stage + 32 * kk);
+      mma_bf16(s[0], a, yb[0], yb[1]);
+      mma_bf16(s[1], a, yb[2], yb[3]);
+    }
+
+    // element (j, e): key kr + g (+ 8 for e >= 2), query qc + 8 j + 2 t +
+    // (e & 1); lse and delta are indexed by the query
+    float p[2][4];
+    if (mat == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = qc + 8 * j + 2 * t + (e & 1);
+          p[j][e] = ex2(fmaf(s[j][e], scale_log2,
+                             -vl[col] * 1.4426950408889634f));
+        }
+      *reinterpret_cast<float4*>(slot) =
+          make_float4(p[0][0], p[0][1], p[0][2], p[0][3]);
+      *reinterpret_cast<float4*>(slot + 4) =
+          make_float4(p[1][0], p[1][1], p[1][2], p[1][3]);
+      pair_sync(blk);
+    } else {
+      pair_sync(blk);
+      const float4 x0 = *reinterpret_cast<const float4*>(slot);
+      const float4 x1 = *reinterpret_cast<const float4*>(slot + 4);
+      const float px[2][4] = {{x0.x, x0.y, x0.z, x0.w},
+                              {x1.x, x1.y, x1.z, x1.w}};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = qc + 8 * j + 2 * t + (e & 1);
+          p[j][e] = px[j][e] * (s[j][e] - vl[BQ + col]);
+        }
+    }
+    // P^T (mat 0) or dS^T (mat 1), rounded to bf16 once
+    bf16* out_t = mat ? dSt : Pt;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = qc + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(out_t + (kr + g) * LDP + col) =
+          pack_bf16(p[j][0], p[j][1]);
+      *reinterpret_cast<uint32_t*>(out_t + (kr + g + 8) * LDP + col) =
+          pack_bf16(p[j][2], p[j][3]);
+    }
+    __syncthreads();
+
+    // dS^T of the tile to scratch, 16 bytes a thread
+    if (threadIdx.x < BK * BQ / 8) {
+      const int r = threadIdx.x / (BQ / 8), c = (threadIdx.x % (BQ / 8)) * 8;
+      *reinterpret_cast<uint4*>(ds + (bh * N + k0 + r) * N + (i * BQ + c)) =
+          *reinterpret_cast<const uint4*>(dSt + r * LDP + c);
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t pa[2][4], sa[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        ldsm_x4(pa[m], pt_lane + 2 * (16 * m * LDP + 16 * kk));
+        ldsm_x4(sa[m], dst_lane + 2 * (16 * m * LDP + 16 * kk));
+      }
+#pragma unroll
+      for (int j = 0; j < ND; j += 2) {
+        uint32_t gb[4], qb[4];
+        ldsm_x4_trans(gb, g_lane + stage + 2 * (16 * kk * LD + 8 * j));
+        ldsm_x4_trans(qb, q_lane + stage + 2 * (16 * kk * LD + 8 * j));
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_bf16(acc_v[m][j], pa[m], gb[0], gb[1]);
+          mma_bf16(acc_v[m][j + 1], pa[m], gb[2], gb[3]);
+          mma_bf16(acc_k[m][j], sa[m], qb[0], qb[1]);
+          mma_bf16(acc_k[m][j + 1], sa[m], qb[2], qb[3]);
+        }
+      }
+    }
+  }
+
+  // dK = scale dS^T Q and dV, contiguous (B, N, H, D)
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const long long lo = (((long long)b * N + k0 + 16 * m + g) * H + h) * D;
+    const long long hi = lo + (long long)8 * H * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = d0 + 8 * j + 2 * t;
+      if (d + 1 < D) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + lo + d) = __floats2bfloat162_rn(
+            acc_k[m][j][0] * scale, acc_k[m][j][1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dk + hi + d) = __floats2bfloat162_rn(
+            acc_k[m][j][2] * scale, acc_k[m][j][3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + lo + d) =
+            __floats2bfloat162_rn(acc_v[m][j][0], acc_v[m][j][1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + hi + d) =
+            __floats2bfloat162_rn(acc_v[m][j][2], acc_v[m][j][3]);
+      }
+    }
+  }
+}
+
+// dQ = scale dS K: one (GM queries x GN columns) tile of one head a block,
+// 8 warps of 64 x 32, the keys in GK-key steps through a STAGES-deep
+// cp.async ring (64-key steps in 3 stages: half the barriers of 32-key
+// steps, and the faster of the two on the card). dS^T [key][query] and
+// K [key][d] both lie k-major in their tiles, so both operands come
+// through ldmatrix.trans.
+constexpr int GM = 128, GN = 128, GK = 64;
+
+template <int STAGES>
+struct DqSmem {
+  static constexpr int LDA = GM + PAD;
+  static constexpr int LDB = GN + PAD;
+  static constexpr int A_TILE = GK * LDA;
+  static constexpr int B_TILE = GK * LDB;
+  static constexpr size_t a = 0;
+  static constexpr size_t b = a + sizeof(bf16) * STAGES * A_TILE;
+  static constexpr size_t bytes = b + sizeof(bf16) * STAGES * B_TILE;
+};
+
+template <int STAGES>
+__global__ void __launch_bounds__(32 * BWD_WARPS)
+flash_bwd_dq_wide_kernel(const bf16* __restrict__ ds,
+                         const bf16* __restrict__ k, bf16* __restrict__ dq,
+                         int N, int H, int D, Strides sk, float scale,
+                         bool vec) {
+  static_assert(STAGES >= 2, "tile j + 1 loads while tile j is used");
+  constexpr int NTH = 32 * BWD_WARPS;
+  using L = DqSmem<STAGES>;
+  constexpr int LDA = L::LDA, LDB = L::LDB;
+  constexpr int A_TILE = L::A_TILE, B_TILE = L::B_TILE;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem + L::a);
+  bf16* Bs = reinterpret_cast<bf16*>(smem + L::b);
+
+  const int m0 = blockIdx.x * GM, n0 = blockIdx.y * GN;
+  const int bh = blockIdx.z, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % 2, wn = warp / 2;  // 64 rows, 32 columns a warp
+  const bf16* ds_bh = ds + (long long)bh * N * N;
+
+  // A [m][k] = dS^T [k][m], transposed: matrices (k 0-7, m 0-7), (k 0-7,
+  // m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15) give a0..a3; B = K [k][n],
+  // transposed, as V in flash_fwd_rows_kernel
+  const uint32_t a_lane = smem_addr(
+      As + ((lane & 7) + ((lane >> 4) << 3)) * LDA + wm * 64 +
+      ((lane >> 3) & 1) * 8);
+  const uint32_t b_lane =
+      smem_addr(Bs + (lane & 15) * LDB + wn * 32 + (lane >> 4) * 8);
+
+  const int n_tiles = N / GK;
+  auto load = [&](int stage, int tile) {
+    const int key0 = tile * GK;
+    for (int i = threadIdx.x; i < GK * GM / 8; i += NTH) {
+      int r = i / (GM / 8), c = (i % (GM / 8)) * 8;
+      cp_async16(As + stage * A_TILE + r * LDA + c,
+                 ds_bh + (long long)(key0 + r) * N + m0 + c);
+    }
+    const bf16* k_src = k + offset(sk, b, key0, h) + n0;
+    if (vec) {
+      for (int i = threadIdx.x; i < GK * GN / 8; i += NTH) {
+        int r = i / (GN / 8), c = (i % (GN / 8)) * 8;
+        cp_async16(Bs + stage * B_TILE + r * LDB + c, k_src + r * sk.n + c);
+      }
+    } else {
+      for (int i = threadIdx.x; i < GK * GN; i += NTH) {
+        int r = i / GN, c = i % GN;
+        Bs[stage * B_TILE + r * LDB + c] = k_src[r * sk.n + c];
+      }
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load(st, st);
+    cp_async_commit();
+  }
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  int rd = 0, wr = STAGES - 1;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (i + STAGES - 1 < n_tiles) load(wr, i + STAGES - 1);
+    cp_async_commit();
+    const uint32_t a_st = a_lane + 2 * rd * A_TILE;
+    const uint32_t b_st = b_lane + 2 * rd * B_TILE;
+    rd = rd + 1 == STAGES ? 0 : rd + 1;
+    wr = wr + 1 == STAGES ? 0 : wr + 1;
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk) {
+      uint32_t a[4][4], bb[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4_trans(a[mi], a_st + 2 * (16 * kk * LDA + 16 * mi));
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        ldsm_x4_trans(bb[jj], b_st + 2 * (16 * kk * LDB + 16 * jj));
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          mma_bf16(acc[mi][2 * jj], a[mi], bb[jj][0], bb[jj][1]);
+          mma_bf16(acc[mi][2 * jj + 1], a[mi], bb[jj][2], bb[jj][3]);
+        }
+    }
+  }
+
+  // dq contiguous (B, N, H, D)
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    const int row = m0 + wm * 64 + 16 * mi + g;
+    bf16* lo = dq + (((long long)b * N + row) * H + h) * D;
+    bf16* hi = lo + (long long)8 * H * D;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = n0 + wn * 32 + 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(lo + d) =
+          __floats2bfloat162_rn(acc[mi][j][0] * scale, acc[mi][j][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(hi + d) =
+          __floats2bfloat162_rn(acc[mi][j][2] * scale, acc[mi][j][3] * scale);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1174,7 +1604,7 @@ flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ d_out,
 constexpr int BN_ROWS = 64;  // keys a tile, row-split bf16 forward
 constexpr int BN_WIDE = 32;  // keys a tile, wide bf16 forward
 constexpr int WIDE_STAGES = 2;
-constexpr int BN_BWD = 32;  // streamed rows a tile, bf16 backward
+constexpr int BN_BWD = 32;  // streamed rows a tile, bf16 backward, D <= 128
 
 using WideL = WideFwdSmem<512, BN_WIDE, WIDE_STAGES>;
 
@@ -1252,16 +1682,16 @@ cudaError_t kernel_facts(K* kernel, int width, int threads, int rows,
   return err;
 }
 
-template <int DP, int WM, int WN>
+template <int DP>
 cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                             const bf16* d_out, const float* lse,
                             const float* delta, bf16* dq, bf16* dk, bf16* dv,
                             int B, int N, int H, int D, Strides sq, Strides sk,
                             Strides sv, Strides sd, float scale, bool vec,
                             cudaStream_t stream) {
-  using L = BwdSmem<DP, WM, WN, BN_BWD>;
-  auto dq_kernel = flash_bwd_bf16_kernel<DP, WM, WN, BN_BWD, false>;
-  auto kv_kernel = flash_bwd_bf16_kernel<DP, WM, WN, BN_BWD, true>;
+  using L = BwdSmem<DP, BN_BWD>;
+  auto dq_kernel = flash_bwd_bf16_kernel<DP, BN_BWD, false>;
+  auto kv_kernel = flash_bwd_bf16_kernel<DP, BN_BWD, true>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (err != cudaSuccess) return err;
@@ -1277,6 +1707,40 @@ cudaError_t launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
+constexpr int WIDE_BWD_STAGES = 2;  // Q / dO ring of the dK / dV pass
+constexpr int DQ_STAGES = 3;        // dS / K ring of the dQ product
+
+using WideBwdL = WideBwdSmem<512, WIDE_BWD_STAGES>;
+using DqL = DqSmem<DQ_STAGES>;
+
+// D > 128, a multiple of 128: the dK / dV pass (it writes dS^T to ds,
+// (B H, N, N) bf16), then dQ = scale dS K
+cudaError_t launch_bwd_wide(const bf16* q, const bf16* k, const bf16* v,
+                            const bf16* d_out, const float* lse,
+                            const float* delta, bf16* dq, bf16* dk, bf16* dv,
+                            bf16* ds, int B, int N, int H, int D, Strides sq,
+                            Strides sk, Strides sv, Strides sd, float scale,
+                            bool vec, cudaStream_t stream) {
+  auto kv_kernel = flash_bwd_kv_wide_kernel<512, WIDE_BWD_STAGES>;
+  auto dq_kernel = flash_bwd_dq_wide_kernel<DQ_STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WideBwdL::bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DqL::bytes);
+  if (err != cudaSuccess) return err;
+  kv_kernel<<<dim3(N / BK_WIDE, H, B), 32 * BWD_WARPS, WideBwdL::bytes,
+              stream>>>(q, k, v, d_out, lse, delta, dk, dv, ds, N, H, D, sq,
+                        sk, sv, sd, scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<<<dim3(N / GM, D / GN, B * H), 32 * BWD_WARPS, DqL::bytes,
+              stream>>>(ds, k, dq, N, H, D, sk, scale, vec);
+  return cudaGetLastError();
+}
+
 bool aligned8(const void* p, const Strides& s) {
   return (uintptr_t)p % 16 == 0 && s.b % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0;
 }
@@ -1286,8 +1750,8 @@ bool aligned8(const void* p, const Strides& s) {
 // error codes beyond cudaError_t's range for shapes the kernels do not take
 #define FLASH_BAD_SHAPE 100001
 
-#define BWD_CASE(DP, WM, WN)                                                  \
-  return launch_bwd_bf16<DP, WM, WN>(                                         \
+#define BWD_CASE(DP)                                                          \
+  return launch_bwd_bf16<DP>(                                                 \
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_out, lse, \
       delta, (bf16*)dq, (bf16*)dk, (bf16*)dv, B, N, H, D, sq, sk, sv, sd,     \
       scale, vec, stream)
@@ -1365,12 +1829,55 @@ extern "C" int flash_attn_fwd_info(int D, int is_bf16, int part, int* info) {
                       32 * WIDE_WARPS, WideL::BM, WideL::bytes, info);
 }
 
+// The launch facts of the backward's kernels for head dimension D and the
+// type is_bf16, in launch order, as kernel_facts lists them in info[7]:
+// part 0 delta, part 1 the dQ pass (the dK / dV pass for bf16 at D > 128),
+// part 2 the dK / dV pass (the dS K product for bf16 at D > 128, whose
+// tile width is its column tile).
+extern "C" int flash_attn_bwd_info(int D, int is_bf16, int part, int* info) {
+  if (D < 1 || D > 512 || part < 0 || part > 2) return FLASH_BAD_SHAPE;
+  if (part == 0)
+    return is_bf16 ? kernel_facts(flash_delta_kernel<bf16>, 0, THREADS,
+                                  THREADS / 32, 0, info)
+                   : kernel_facts(flash_delta_kernel<float>, 0, THREADS,
+                                  THREADS / 32, 0, info);
+  if (!is_bf16) {
+    auto dq_pass = flash_bwd_f32_kernel<false>;
+    auto kv_pass = flash_bwd_f32_kernel<true>;
+    return kernel_facts(part == 1 ? dq_pass : kv_pass, 0, THREADS, F_BM,
+                        bwd_f32_smem(D), info);
+  }
+  if (D > 128) {
+    if (D % 128) return FLASH_BAD_SHAPE;
+    if (part == 1)
+      return kernel_facts(flash_bwd_kv_wide_kernel<512, WIDE_BWD_STAGES>, 512,
+                          32 * BWD_WARPS, BK_WIDE, WideBwdL::bytes, info);
+    return kernel_facts(flash_bwd_dq_wide_kernel<DQ_STAGES>, GN,
+                        32 * BWD_WARPS, GM, DqL::bytes, info);
+  }
+#define BWD_INFO(DP)                                                       \
+  {                                                                         \
+    auto dq_pass = flash_bwd_bf16_kernel<DP, BN_BWD, false>;                \
+    auto kv_pass = flash_bwd_bf16_kernel<DP, BN_BWD, true>;                 \
+    return kernel_facts(part == 1 ? dq_pass : kv_pass, DP, THREADS,         \
+                        BwdSmem<DP, BN_BWD>::BM,                            \
+                        BwdSmem<DP, BN_BWD>::bytes, info);                  \
+  }
+  if (D <= 48) BWD_INFO(48);
+  if (D <= 80) BWD_INFO(80);
+  BWD_INFO(128);
+#undef BWD_INFO
+}
+
 // out, d_out, dq, dk, dv contiguous (B, N, H, D); delta (B, H, N) float32
-// scratch that the call fills.
+// scratch that the call fills. bf16 at D > 128 (a multiple of 128) also
+// needs ds, (B, H, N, N) bf16 scratch for dS^T [key][query]; elsewhere ds
+// is not read.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* out, const float* lse,
                               const void* d_out, void* dq, void* dk, void* dv,
-                              float* delta, int B, int N, int H, int D,
+                              float* delta, void* ds, int B, int N, int H,
+                              int D,
                               long long sqb, long long sqn, long long sqh,
                               long long skb, long long skn, long long skh,
                               long long svb, long long svn, long long svh,
@@ -1379,6 +1886,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   Strides sq{sqb, sqn, sqh}, sk{skb, skn, skh}, sv{svb, svn, svh};
   Strides sd{(long long)N * H * D, (long long)H * D, (long long)D};
   if (N % 128 || D < 1 || D > 512 || B < 1 || H < 1) return FLASH_BAD_SHAPE;
+  if (is_bf16 && D > 128 && (D % 128 || !ds)) return FLASH_BAD_SHAPE;
   float scale = 1.0f / sqrtf((float)D);
   long long rows = (long long)B * N * H;
   int delta_blocks = (int)((rows + THREADS / 32 - 1) / (THREADS / 32));
@@ -1408,8 +1916,11 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
       (const bf16*)out, (const bf16*)d_out, delta, B, N, H, D);
   bool vec = D % 8 == 0 && aligned8(q, sq) && aligned8(k, sk) &&
              aligned8(v, sv) && aligned8(d_out, sd);
-  if (D <= 48) BWD_CASE(48, 4, 1);
-  if (D <= 80) BWD_CASE(80, 4, 1);
-  if (D <= 128) BWD_CASE(128, 4, 1);
-  BWD_CASE(512, 1, 4);
+  if (D <= 48) BWD_CASE(48);
+  if (D <= 80) BWD_CASE(80);
+  if (D <= 128) BWD_CASE(128);
+  return launch_bwd_wide((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                         (const bf16*)d_out, lse, delta, (bf16*)dq, (bf16*)dk,
+                         (bf16*)dv, (bf16*)ds, B, N, H, D, sq, sk, sv, sd,
+                         scale, vec, stream);
 }

@@ -14,11 +14,14 @@ call raises.
 The bf16 forward at D > 128 (the VAE's mid block, D = 512) cuts the keys
 into ``WIDE_KEY_SPLITS`` ranges, one block's work each, and merges their
 partial outputs in a second kernel; ``flash_attention_split_plain`` and
-``combine_key_splits`` are that merge's plain twin.
+``combine_key_splits`` are that merge's plain twin. The bf16 backward there
+is a dK / dV pass that also writes dSᵀ to (B, H, N, N) bf16 scratch, then
+the product dQ = scale dS K; ``flash_attention_wide_bwd_plain`` and
+``dq_from_ds_plain`` are its plain twin.
 
 The kernels' domain is the dispatch gate's (``layers._flash_enabled``):
-self-attention, N a multiple of 128, D <= 128 or a multiple of 128, and in
-the kernels D <= 512 (one block's shared memory). Tensors need unit stride
+self-attention, N a multiple of 128, D <= 128 or a multiple of 128, and
+D <= ``MAX_HEAD_DIM`` (one block's shared memory). Tensors need unit stride
 along D only: a (B, N, H, D) view of a projection's output is taken by its
 strides, without a copy.
 """
@@ -34,6 +37,9 @@ from .. import kernels
 #: 64-row blocks number 64, and two ranges give 128 blocks for the H100's
 #: 132 SMs
 WIDE_KEY_SPLITS = 2
+#: the widest head the kernels take (a 512-wide tile of K and V fills one
+#: block's shared memory); the modules' gate sends wider heads to einsum
+MAX_HEAD_DIM = 512
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -76,6 +82,19 @@ def combine_key_splits(o_part: torch.Tensor, lse_part: torch.Tensor
     return (w * o_part).sum(0), lse
 
 
+def _probs_and_ds(q, k, v, out, lse, d_out):
+    """The backward's float32 ``P = exp(S - lse)`` and ``dS = P (dP -
+    delta)``, ``delta = rowsum(d_out * out)``, both (B, H, N queries, N
+    keys)."""
+    scale = q.shape[-1] ** -0.5
+    gf = d_out.float()
+    delta = (gf * out.float()).sum(-1).permute(0, 2, 1)          # (B, H, N)
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+                  * scale - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.float())
+    return p, p * (dp - delta[..., None])
+
+
 def flash_attention_plain_bwd(q, k, v, out, lse, d_out
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
@@ -84,16 +103,38 @@ def flash_attention_plain_bwd(q, k, v, out, lse, d_out
     ``dP = dO V^T``, ``dS = P * (dP - delta)``, ``dQ = dS K * scale``,
     ``dK = dS^T Q * scale``; float32 throughout, results in q's type."""
     scale = q.shape[-1] ** -0.5
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), d_out.float()
-    delta = (gf * out.float()).sum(-1).permute(0, 2, 1)          # (B, H, N)
-    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-                  - lse[..., None])
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
-    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-    ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    p, ds = _probs_and_ds(q, k, v, out, lse, d_out)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, d_out.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_wide_bwd_plain(q, k, v, out, lse, d_out
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor, torch.Tensor]:
+    """The D > 128 bf16 backward's two stages, plain, with the kernels'
+    rounding points: P and dS rounded to q's type once each; dV = Pᵀ dO and
+    dK = scale dSᵀ Q from them (the dK / dV pass), and dSᵀ (B, H, N keys,
+    N queries) as that pass writes it to scratch; then dQ from the scratch
+    (``dq_from_ds_plain``). Returns (dq, dk, dv, ds_t)."""
+    scale = q.shape[-1] ** -0.5
+    p, ds = _probs_and_ds(q, k, v, out, lse, d_out)
+    ds = ds.to(q.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(),
+                      d_out.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.float(), q.float()) * scale
+    ds_t = ds.transpose(-1, -2).contiguous()
+    return dq_from_ds_plain(ds_t, k), dk.to(q.dtype), dv.to(q.dtype), ds_t
+
+
+def dq_from_ds_plain(ds_t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """dQ = scale dS K from the dK / dV pass's scratch ``ds_t`` (B, H,
+    N keys, N queries), float32 sums, in k's type: the plain version of
+    the D > 128 backward's product kernel."""
+    scale = k.shape[-1] ** -0.5
+    dq = torch.einsum("bhkq,bkhd->bqhd", ds_t.float(), k.float()) * scale
+    return dq.to(k.dtype)
 
 
 def _check(name: str, q, k, v) -> torch.device:
@@ -121,9 +162,9 @@ def _check(name: str, q, k, v) -> torch.device:
     if D > 128 and D % 128:
         raise ValueError(f"{name}: D = {D} is above 128 and not a multiple "
                          "of 128")
-    if D > 512:
-        raise ValueError(f"{name}: D = {D} is above 512, the most one "
-                         "block's shared memory holds")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: D = {D} is above {MAX_HEAD_DIM}, the "
+                         "most one block's shared memory holds")
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {n} is not contiguous along D "
@@ -172,7 +213,9 @@ def flash_attn_bwd(q, k, v, out, lse, d_out
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward from the forward's ``out`` and ``lse``: (dq, dk, dv),
     contiguous, in q's type. One call is one launch of the kernel group
-    (delta, the dQ pass, the dK / dV pass)."""
+    (delta, the dQ pass, the dK / dV pass; bf16 at D > 128: delta, the
+    dK / dV pass writing dSᵀ to (B, H, N, N) bf16 scratch, 2 B H N² bytes,
+    then the product dQ = scale dS K)."""
     dev = _check("flash_attn_bwd", q, k, v)
     B, N, H, D = q.shape
     for n, t, dtype in (("out", out, q.dtype), ("d_out", d_out, q.dtype)):
@@ -192,9 +235,11 @@ def flash_attn_bwd(q, k, v, out, lse, d_out
     dq, dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=dev)
                   for _ in range(3))
     delta = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    bf16 = q.dtype == torch.bfloat16
+    ds_t = torch.empty((B, H, N, N), dtype=q.dtype, device=dev) \
+        if bf16 and D > 128 else None
     _launch("flash_attn_bwd", dev, q, k, v, out, lse, d_out, dq, dk, dv,
-            delta, B, N, H, D, *_strides(q, k, v),
-            int(q.dtype == torch.bfloat16))
+            delta, ds_t, B, N, H, D, *_strides(q, k, v), int(bf16))
     flash_attn_bwd.launches += 1
     return dq, dk, dv
 

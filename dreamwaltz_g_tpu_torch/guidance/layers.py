@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .flash import flash_self_attention
+from .flash import MAX_HEAD_DIM, flash_self_attention
 
 #: flash-attention policy of the long self-attention layers: "auto" (flash
 #: iff the tensors are on a CUDA device), "on" or "off"
@@ -52,12 +52,15 @@ def _flash_enabled(n_q: int, n_k: int, head_dim: int,
                    device: torch.device) -> bool:
     """The JAX package's gate: self-attention over at least
     ``FLASH_MIN_SEQ`` tokens, a multiple of 128, with a head dimension of
-    at most 128 or a multiple of 128 (SD1.5's 160-wide layers are short)."""
+    at most 128 or a multiple of 128 (SD1.5's 160-wide layers are short).
+    One difference by design: a head wider than the kernels'
+    ``MAX_HEAD_DIM`` takes the einsum path, which computes the same
+    function, where the JAX package runs its Pallas kernel."""
     if FLASH_ATTENTION == "off":
         return False
     if n_q < FLASH_MIN_SEQ or n_q % 128 or n_k != n_q:
         return False
-    if head_dim > 128 and head_dim % 128:
+    if (head_dim > 128 and head_dim % 128) or head_dim > MAX_HEAD_DIM:
         return False
     if FLASH_ATTENTION == "on":
         return True

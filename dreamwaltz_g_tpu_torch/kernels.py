@@ -36,7 +36,9 @@ SIGNATURES = {
     },
     "flash_attn": {
         "flash_attn_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_I, _I, _P],
-        "flash_attn_bwd": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_I, _P],
+        "flash_attn_bwd": [_P] * 11 + [_I] * 4 + [_L] * 9 + [_I, _P],
+        "flash_attn_fwd_info": [_I, _I, _I, _P],
+        "flash_attn_bwd_info": [_I, _I, _I, _P],
     },
 }
 

@@ -113,6 +113,37 @@ def test_combine_of_key_splits_matches_plain(shape, splits, late):
         assert float((o_part[other] - ref).abs().max()) > 0.1
 
 
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((1, 256, 1, 512), torch.float32, 1e-5),
+    ((2, 128, 2, 256), torch.float32, 1e-5),
+    ((1, 128, 2, 384), torch.float32, 1e-5),
+    ((1, 256, 1, 512), torch.bfloat16, 2.0 ** -6),
+    ((2, 128, 2, 256), torch.bfloat16, 2.0 ** -6)])
+def test_wide_backward_plain_twin_matches_plain_bwd(shape, dtype, tol):
+    """The D > 128 backward's two stages, plain (the dK / dV pass with its
+    dSᵀ scratch, then dQ = scale dS K from the scratch), against
+    ``flash_attention_plain_bwd``: float32 inputs within 1e-5 of each
+    gradient's largest entry (the same sums in another order); bf16 inputs,
+    where P and dS round once more, within 2^-6, the card's backward
+    tolerance. The scratch is dSᵀ, keys by queries."""
+    q, k, v, g = (torch.as_tensor(x).to(dtype)
+                  for x in _qkvg(shape, sum(shape)))
+    out, lse = FL.flash_attention_plain(q, k, v)
+    *got, ds_t = FL.flash_attention_wide_bwd_plain(q, k, v, out, lse, g)
+    want = FL.flash_attention_plain_bwd(q, k, v, out, lse, g)
+    B, N, H, _ = shape
+    assert ds_t.shape == (B, H, N, N) and ds_t.dtype == dtype
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    # dSᵀ [key][query]: dK = scale dSᵀ Q from it
+    dk = torch.einsum("bhkq,bqhd->bkhd", ds_t.float(), q.float()) \
+        * shape[-1] ** -0.5
+    assert float((dk - got[1].float()).abs().max()) \
+        <= 2.0 ** -7 * float(dk.abs().max())
+
+
 @pytest.mark.parametrize("mode,nq,nk,d,expect", [
     ("on", 4096, 4096, 40, True),      # 64^2 self-attention
     ("on", 1024, 1024, 80, True),      # 32^2 self-attention
@@ -219,6 +250,35 @@ def test_vae_attention_block_flash_matches_jax(flash_on):
     tx = torch.as_tensor(x).permute(0, 3, 1, 2).requires_grad_(True)
     tout = tmod(tx)
     (tout * torch.as_tensor(g).permute(0, 3, 1, 2)).sum().backward()
+    _grads_close([tout.permute(0, 2, 3, 1), tx.grad.permute(0, 2, 3, 1)],
+                 [jout, jgrad], 1e-4)
+
+
+def test_vae_attention_block_wider_than_the_kernels_matches_jax(flash_on):
+    """``AttnBlockVAE(640)`` under "on": the JAX package runs its Pallas
+    kernel (the interpreter here), the port's gate sends the head, wider
+    than ``MAX_HEAD_DIM``, to the einsum path instead of the kernels, which
+    refuse it. Output and input gradient within 1e-4 of the largest."""
+    B, S, C = 1, 16, 640
+    assert C > FL.MAX_HEAD_DIM
+    assert JL._flash_enabled(S * S, S * S, C)
+    assert not TL._flash_enabled(S * S, S * S, C, torch.device("cpu"))
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(B, S, S, C)).astype(np.float32)
+    g = rng.normal(size=(B, S, S, C)).astype(np.float32)
+    jmod = JL.AttnBlockVAE()
+    with pltpu.force_tpu_interpret_mode():
+        params = jmod.init(jax.random.PRNGKey(7), jnp.asarray(x))
+        jout = jmod.apply(params, jnp.asarray(x))
+        jgrad = jax.grad(lambda x_: (jmod.apply(params, x_) * g).sum())(
+            jnp.asarray(x))
+    tmod = TL.build(lambda: TL.AttnBlockVAE(C), "cpu")
+    tmod.load_state_dict(convert.flax_state_dict(_np_tree(params)))
+    tx = torch.as_tensor(x).permute(0, 3, 1, 2).requires_grad_(True)
+    before = FL.flash_attn_fwd.launches
+    tout = tmod(tx)
+    (tout * torch.as_tensor(g).permute(0, 3, 1, 2)).sum().backward()
+    assert FL.flash_attn_fwd.launches == before
     _grads_close([tout.permute(0, 2, 3, 1), tx.grad.permute(0, 2, 3, 1)],
                  [jout, jgrad], 1e-4)
 

@@ -32,7 +32,13 @@ through a 2-stage ring and merges the ranges in a second kernel: N = 128
 gives each range 2 tiles, N = 4096 64, and B H > 1 puts several heads and
 batches in one grid. A late dominant key makes every row's maximum arrive
 in the last tile (of the second key range, or of the first), and the
-training step's own shapes fill the card from a cold cache.
+training step's own shapes fill the card from a cold cache. The wide
+backward (D > 128) owns 32 keys a block and streams 32-query tiles of Q and
+dO through a 2-stage ring, writing dSᵀ to scratch for a second kernel,
+dQ = scale dS K, which walks the keys in 64-key steps through a 3-stage
+ring: an upstream gradient on one query tile only, the last or the first,
+shows a pass that skips or misreads a streamed tile; keys 4x as large in
+one key tile, the last or the first, make that tile carry dQ.
 """
 import pytest
 import torch
@@ -78,8 +84,13 @@ def _hold_fwd(q, k, v):
 
 def _hold(q, k, v, g):
     """Kernel forward and backward against the plain versions."""
+    _hold_bwd(q, k, v, g, *_hold_fwd(q, k, v))
+
+
+def _hold_bwd(q, k, v, g, out, lse):
+    """Kernel backward, from the forward's out and lse, against the plain
+    version."""
     bf16 = q.dtype == torch.bfloat16
-    out, lse = _hold_fwd(q, k, v)
     grads = FL.flash_attn_bwd(q, k, v, out, lse, g)
     torch.cuda.synchronize()
     refs = FL.flash_attention_plain_bwd(q.float(), k.float(), v.float(),
@@ -293,3 +304,86 @@ def test_wrapper_raises_outside_the_domain():
     big = torch.zeros((1, 128, 1, 160), device=dev)
     with pytest.raises(ValueError, match="not a multiple"):
         FL.flash_attn_fwd(big, big, big)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 128, 2, 512), (2, 1024, 2, 512),
+                                   (1, 1024, 1, 256), (2, 1024, 2, 384),
+                                   (1, 128, 1, 256)])
+def test_bf16_wide_backward_over_shapes(shape):
+    """The D > 128 backward at N = 128 and 1024, B and H above 1, and the
+    zero-padded widths 256 and 384."""
+    dev = _card()
+    q, k, v, g = _qkv(dev, shape, torch.bfloat16, seed=sum(shape) + 1)
+    _hold(q, k, v, g)
+
+
+@pytest.mark.gpu
+def test_bf16_wide_backward_from_a_cold_cache():
+    """The VAE's (1, 4096, 1, 512), forward and backward, with the inputs
+    evicted from the 50 MB L2 first: every block's first copies (K, V and
+    query tile 0 of the dK / dV pass) queue on device memory together."""
+    dev = _card()
+    q, k, v, g = _qkv(dev, (1, 4096, 1, 512), torch.bfloat16, seed=19)
+    torch.empty(2 ** 26, dtype=torch.int32, device=dev).fill_(1)
+    _hold(q, k, v, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["last", "first"])
+@pytest.mark.parametrize("who", ["query", "key"])
+def test_bf16_wide_backward_when_one_tile_carries_the_gradient(who, where):
+    """"query": the upstream gradient is zero but on one 32-query tile, the
+    last the dK / dV pass streams or the first (its first ring stage), so
+    dK and dV come from that tile alone. "key": one 32-key tile, the last or
+    the first, has keys 4x as large, so it takes most of each row's weight
+    and carries dQ, whose product kernel walks the keys in 64-key steps.
+    The "key" inputs hold the backward only: there a few keys share each
+    row's weight (the largest ~0.45), and the forward's per-element limit,
+    which counts on P's roundings spreading over many keys, does not hold
+    for them (the bf16 forward lands inside the roundings' worst case,
+    2^-8 (sum_j p_j |v_j| + |out|), but up to 1.5x over its limit)."""
+    dev = _card()
+    B, N, H, D = 1, 1024, 1, 512
+    rows = slice(N - 32, N) if where == "last" else slice(0, 32)
+    q, k, v, g = _qkv(dev, (B, N, H, D), torch.float32, seed=23)
+    if who == "query":
+        keep = torch.zeros_like(g)
+        keep[:, rows] = 1
+        g = g * keep
+    else:
+        k[:, rows] *= 4
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    if who == "query":
+        _hold(q, k, v, g)
+    else:
+        _hold_bwd(q, k, v, g, *FL.flash_attn_fwd(q, k, v))
+
+
+@pytest.mark.gpu
+def test_bf16_wide_backward_is_deterministic():
+    """Two backward calls on the same inputs are bitwise equal: no float
+    atomics, fixed summation order."""
+    dev = _card()
+    q, k, v, g = _qkv(dev, (1, 4096, 1, 512), torch.bfloat16, seed=29)
+    out, lse = FL.flash_attn_fwd(q, k, v)
+    first = FL.flash_attn_bwd(q, k, v, out, lse, g)
+    second = FL.flash_attn_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_wide_backward_takes_a_view_that_is_not_16_byte_aligned():
+    """D = 256 (zero-padded) from views off the 16-byte grid: both passes
+    take their element-wise loads."""
+    dev = _card()
+    B, N, H, D = 1, 1024, 2, 256
+    gen = torch.Generator(device=dev).manual_seed(31)
+    flat = torch.randn(4 * B * N * H * D + 2, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    q, k, v, g = (flat[2 + i * B * N * H * D:][:B * N * H * D]
+                  .view(B, N, H, D) for i in range(4))
+    assert q.data_ptr() % 16 != 0
+    _hold(q, k, v, g.contiguous())
