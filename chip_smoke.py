@@ -12,7 +12,9 @@ Phases, one JSON line each:
 3. avatar       -- build the full-width avatar on the card;
 4. kernel       -- ``blend_sorted`` (B2) against its plain version on the
                    same card inputs: one projected 1024^2 frame of the avatar
-                   and a 200k-Gaussian random scene;
+                   and a 200k-Gaussian random scene; the kernel's device ms
+                   alone, its build facts, the entries a tile and the share
+                   of pairs its footprint cull keeps;
 5. small        -- the tiny avatar rendered on the CPU (plain blend) and on
                    the card (kernel) agree;
 6. main         -- the render path: launch counts set to 0, 8 animated
@@ -20,12 +22,14 @@ Phases, one JSON line each:
                    counts read (``blend_sorted`` once a frame, no other
                    kernel);
 7. times        -- render ms/frame, a per-stage breakdown, B2's time beside
-                   its plain version and its bound;
+                   its plain version and its bound: the wrapper call, the
+                   kernel alone, and the wrapper's row packing and untiling;
 8. profile      -- device busy share and top kernels over one 8-frame render;
 9. kernel_train -- the table blends at 512^2 on one projected avatar frame
                    and on the random scene: B1 forward and backward and B3
                    (through ``_blend_dispatch(mode="eval")``) against their
-                   plain versions;
+                   plain versions, each kernel's device ms alone and build
+                   facts, and the per-tile work as for B2;
 10. kernel_flash -- flash attention (B4) forward at the five shapes the
                    training paths give it, and backward at the three that
                    are differentiated, against the plain versions;
@@ -100,6 +104,13 @@ BF16_FLOP_PER_S = 989e12    # dense, tensor cores
 # transmittance update = 20 more
 OPS_PER_PAIR = 13
 OPS_PER_BLENDED_PAIR = 20
+# B1 backward and B2 cull: a pair counts only where its pixel's patch keeps
+# the entry, and each block boxes every entry it walks, in float64
+# (csrc/blend_common.cuh: footprint_box): 1 mul for the op test, 3 for det,
+# 3 for kappa, 9 for r (a log), 3 each for the half-widths (a sqrt each) and
+# 4 for the box's sides = 26
+BOX_OPS = 26
+FP64_FLOP_PER_S = 34e12     # H100 SXM, outside the tensor cores
 # kernel vs plain version on the same card inputs: a pixel the kernel stops
 # early loses at most exp(-9.2) |value| (1e-4 |value|); q and w round alike
 # in both, so a min_alpha decision flips only where exp differs (<= 1/255
@@ -259,14 +270,19 @@ def blend_inputs(g, tile_size, capacity, max_tiles):
             g.opacity * g.mask.to(g.opacity.dtype), values), overflow
 
 
-def compare_blend(label, args):
-    """Kernel vs plain version on the same inputs; returns the errors and
-    the pair counts of the plain version's run."""
+def compare_blend(label, args, build):
+    """Kernel vs plain version on the same inputs; returns the errors and the
+    pair counts of the plain version's run, with ``tile_work``'s. The
+    kernel's device ms alone is taken in phase ``times``, after the render's
+    own timings: a profiler session (``kernel_device_ms``) slows the host's
+    kernel launches for the rest of the process, and the render is bound by
+    them."""
     import torch
 
     from dreamwaltz_g_tpu_torch.ops.blend import (
         blend_sorted,
         blend_sorted_reference,
+        pack_rows,
     )
 
     kw = dict(tile_size=RASTER["tile_size"], chunk=RASTER["chunk"],
@@ -282,6 +298,15 @@ def compare_blend(label, args):
     e_alpha = float(err[..., 4].max())
     e_depth = float(err[..., 3].max())
     dmax = float(args[6][:, 3].abs().max())
+    s_idx, seg_start, counts, means2d, conic, op, values = args
+    slot = torch.arange(RASTER["capacity"], device=s_idx.device)
+    src = (seg_start[:, None] + slot).clamp(max=s_idx.shape[0] - 1).long()
+    lists = torch.where(slot < counts[:, None], s_idx[src], means2d.shape[0])
+    work = tile_work(lists[None], counts[None],
+                     pack_rows(means2d, conic, op, values)[None],
+                     RASTER["tile_size"], -(-W // RASTER["tile_size"]),
+                     stats["reached"][None])
+    stats.update(work)
     emit(phase="kernel", input=label, kernel="blend_sorted",
          max_abs_err_rgb=e_rgb, max_abs_err_alpha=e_alpha,
          max_abs_err_depth=e_depth, max_depth=dmax,
@@ -289,10 +314,110 @@ def compare_blend(label, args):
          pixels_over_1e4=int((err[..., [0, 1, 2, 4]].amax(-1) > 1e-4).sum()),
          pairs=stats["pairs"], blended_pairs=stats["blended"],
          entries=int(args[2].sum()), coverage=float((ref[..., 4] > 0.01)
-                                                    .float().mean()))
+                                                    .float().mean()),
+         build=build, **work)
     if max(e_rgb, e_alpha) > TOL_RGB_ALPHA or e_depth > TOL_DEPTH_REL * dmax:
         fail(f"{label}: blend_sorted disagrees with its plain version")
     return max(e_rgb, e_alpha), stats
+
+
+def tile_work(tile_lists, tile_counts, packed, tile_size, tiles_x, reached):
+    """The per-tile work of a (B, T, K) table: entries a tile (max, mean,
+    tiles holding K), the share of the (pixel, entry) pairs of the live
+    entries -- every pixel of the entry's tile, before any pixel's stop --
+    that the footprint cull keeps, and the most entries it keeps for one
+    8 x 4 patch (the longest walk a warp makes), from the cull's plain twins
+    (``ops/blend.py:footprint_boxes``, ``patch_keep``), not counted in a
+    kernel. With ``reached``, the (B, T, P) entries each pixel reaches
+    before its stop (the plain version's ``stats``), also the work a culling
+    kernel needs: ``kept_pairs``, the reached pairs whose entry the pixel's
+    patch keeps, and ``boxed_entries``, the entries each 8-row block boxes
+    (up to its pixels' largest reach), summed over the blocks."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.ops import blend as BL
+    from dreamwaltz_g_tpu_torch.ops.blend_train import _gather
+
+    K = tile_lists.shape[-1]
+    dev = tile_lists.device
+    live = torch.arange(K, device=dev) < tile_counts[..., None]
+    keep = BL.patch_keep(BL.footprint_boxes(_gather(packed, tile_lists)),
+                         tile_size, tiles_x) & live[..., None, :]
+    per_patch = keep.sum(-1)                           # (B, T, patches)
+    kept = int(per_patch.sum()) * BL.PATCH_W * BL.PATCH_H
+    # kept entries among each pixel's first `reached`, by a prefix count
+    # over its patch's row of `keep`
+    prefix = torch.cat([torch.zeros_like(per_patch[..., None]),
+                        keep.cumsum(-1)], -1).flatten(-2)
+    pid = torch.arange(tile_size ** 2, device=dev)
+    patch = (pid // tile_size // BL.PATCH_H * (tile_size // BL.PATCH_W)
+             + pid % tile_size // BL.PATCH_W)
+    reached = reached.long()
+    kept_pairs = prefix.gather(-1, patch * (K + 1) + reached)
+    # blocks of 8 tile rows (blend_common.cuh: kBlockRows)
+    boxed = reached.unflatten(-1, (tile_size // 8, -1)).amax(-1)
+    counts = tile_counts.float()
+    return dict(entries_per_tile_max=int(tile_counts.max()),
+                entries_per_tile_mean=float(counts.mean()),
+                tiles_at_K=int((tile_counts == K).sum()), tiles=counts.numel(),
+                cull_keep_share=kept / max(int(live.sum()) * tile_size ** 2,
+                                           1),
+                kept_entries_per_patch_max=int(per_patch.max()),
+                kept_pairs=int(kept_pairs.sum()),
+                boxed_entries=int(boxed.sum()))
+
+
+def named_ms(by_name, pattern):
+    """The device ms of the kernels whose name holds ``pattern``, from
+    ``kernel_device_ms``'s by-name dict."""
+    found = [ms for name, ms in by_name.items() if pattern in name]
+    if not found:
+        fail(f"no kernel named like {pattern!r} in {sorted(by_name)}")
+    return sum(found)
+
+
+# blend_sorted_info's and blend_train_info's six numbers
+BLEND_INFO_KEYS = ("threads", "static_smem_bytes", "dynamic_smem_bytes",
+                   "blocks_per_sm", "registers", "local_bytes")
+
+
+def blend_builds(logs):
+    """Each blend kernel's build facts at the paths' launch shapes: spills
+    from the ptxas log, and threads, static and dynamic shared memory,
+    resident blocks an SM, registers and local memory from the library's
+    ``blend_sorted_info`` / ``blend_train_info``."""
+    import ctypes
+
+    from dreamwaltz_g_tpu_torch import kernels
+
+    facts = {**ptxas_facts(logs["blend_sorted"]),
+             **ptxas_facts(logs["blend_train"])}
+    ts = RASTER["tile_size"]
+    sorted_info = kernels.load("blend_sorted").blend_sorted_info
+    train_info = kernels.load("blend_train").blend_train_info
+    out = {}
+    for name, fn, args, family in (
+            ("blend_sorted_kernel", sorted_info, (ts,), "blend_sorted_kernel"),
+            ("blend_fwd_kernel<true>", train_info, (0, ts),
+             "blend_fwd_kernelILb1E"),
+            ("blend_fwd_kernel<false>", train_info, (1, ts),
+             "blend_fwd_kernelILb0E"),
+            ("blend_bwd_kernel", train_info, (2, ts), "blend_bwd_kernelE"),
+            ("blend_bwd_sum_kernel", train_info, (3, ts),
+             "blend_bwd_sum_kernel"),
+            ("blend_bwd_order_kernel", train_info, (4, ts),
+             "blend_bwd_order_kernel")):
+        info = (ctypes.c_int * len(BLEND_INFO_KEYS))()
+        rc = fn(*args, ctypes.addressof(info))
+        if rc != 0:
+            fail(f"{name}: build facts failed: CUDA error {rc}")
+        ptx = next((f for k, f in facts.items() if family in k), None)
+        if ptx is None:
+            fail(f"no ptxas entry for {name}")
+        out[name] = dict(spill_stores=ptx.get("spill_stores"),
+                         spill_loads=ptx.get("spill_loads"),
+                         **dict(zip(BLEND_INFO_KEYS, info)))
+    return out
 
 
 def random_scene(dev, height=H, width=W):
@@ -407,10 +532,11 @@ def check_bwd(label, errs):
              "backward by more than the stop rules explain")
 
 
-def compare_train_blend(label, args, values, tiles_x):
+def compare_train_blend(label, args, values, tiles_x, build):
     """B1 forward and backward and B3 against their plain versions on the
-    same card inputs. Returns the errors and the plain version's pair
-    counts."""
+    same card inputs. Returns the errors, the plain version's pair counts
+    with ``tile_work``'s, and each kernel's device ms alone
+    (``kernel_device_ms``; the backward's three kernels summed)."""
     import torch
 
     from dreamwaltz_g_tpu_torch.ops import blend_train as BT
@@ -459,6 +585,21 @@ def compare_train_blend(label, args, values, tiles_x):
                      TRAIN_H, TRAIN_W, ts)
     torch.cuda.synchronize()
     e_eval = float((ev - ev_ref).abs().max())
+    stats.update(tile_work(tl, tc, packed, ts, tiles_x, stats["reached"]))
+    by_name = {
+        "blend_train_fwd": kernel_device_ms(lambda: BT.blend_train_fwd(
+            tl, tc, packed, ts, tiles_x, **kw), 20)[1],
+        "blend_train_bwd": kernel_device_ms(lambda: BT.blend_train_bwd(
+            tl, tc, packed, saved, g, ts, tiles_x, **kw), 20)[1],
+        "blend_tiles_eval": kernel_device_ms(
+            lambda: BT.blend_tiles_eval_panels(tl, tc, packed, ts, tiles_x,
+                                               **kw), 20)[1]}
+    alone = {"blend_train_fwd": named_ms(by_name["blend_train_fwd"],
+                                         "blend_fwd_kernel<true>"),
+             "blend_train_bwd": named_ms(by_name["blend_train_bwd"],
+                                         "blend_bwd"),
+             "blend_tiles_eval": named_ms(by_name["blend_tiles_eval"],
+                                          "blend_fwd_kernel<false>")}
     emit(phase="kernel_train", input=label,
          max_abs_err_fwd_rgb=e_fwd[0], max_abs_err_fwd_alpha=e_fwd[1],
          max_abs_err_fwd_depth=e_fwd[2], max_depth=dmax, **errs_bwd,
@@ -467,7 +608,10 @@ def compare_train_blend(label, args, values, tiles_x):
          grad_rtol=GRAD_RTOL, grad_atol_of_max=GRAD_ATOL_OF_MAX,
          pairs=stats["pairs"], blended_pairs=stats["blended"],
          entries=int(tc.sum()), coverage=float((img_ref[..., 4] > 0.01)
-                                               .float().mean()))
+                                               .float().mean()),
+         kernel_alone_ms=alone, kernel_ms_by_name=by_name, build=build,
+         **{k: v for k, v in stats.items() if k not in ("pairs", "blended",
+                                                         "reached")})
     if max(e_fwd[0], e_fwd[1]) > TOL_RGB_ALPHA or \
             e_fwd[2] > TOL_DEPTH_REL * dmax:
         fail(f"{label}: blend_train_fwd disagrees with its plain version")
@@ -475,7 +619,18 @@ def compare_train_blend(label, args, values, tiles_x):
     if e_eval > max(TOL_RGB_ALPHA, TOL_DEPTH_REL * dmax):
         fail(f"{label}: blend_tiles_eval disagrees with its plain version")
     return (max(e_fwd[0], e_fwd[1]), errs_bwd["max_abs_err_bwd"], e_eval,
-            stats)
+            stats, alone)
+
+
+def cull_ops_ms(stats, ops_per_blended):
+    """The operations a culling kernel (B1 backward, B2) needs on a frame,
+    and their least ms: the 13 of a pair for the reached pairs whose patch
+    keeps the entry, the blended pairs' own, over the float32 rate, and
+    each block's float64 boxes over the float64 rate."""
+    f32 = (OPS_PER_PAIR * stats["kept_pairs"]
+           + ops_per_blended * stats["blended"])
+    f64 = BOX_OPS * stats["boxed_entries"]
+    return f32 + f64, (f32 / FP32_FLOP_PER_S + f64 / FP64_FLOP_PER_S) * 1e3
 
 
 def table_bounds(args, stats):
@@ -485,7 +640,9 @@ def table_bounds(args, stats):
     lists' live entries, read once; the tile counts; per pixel the 32-byte
     output and 8-byte state (forward), or the state and the 32-byte
     upstream gradient (backward); and the backward's 64-byte gradient of
-    each live entry, written once."""
+    each live entry, written once. The forwards count every reached pair;
+    the backward, which culls, only the kept ones (``cull_ops_ms``), and
+    beside it ``ops_unculled``, every reached pair."""
     import torch
 
     tl, tc, packed = args
@@ -498,20 +655,23 @@ def table_bounds(args, stats):
     common = 64 * rows + 4 * entries + 4 * B * T
     fwd_ops = (OPS_PER_PAIR * stats["pairs"]
                + OPS_PER_BLENDED_PAIR * stats["blended"])
-    bwd_ops = (OPS_PER_PAIR * stats["pairs"]
-               + OPS_BWD_PER_BLENDED_PAIR * stats["blended"])
+    fwd_ms = fwd_ops / FP32_FLOP_PER_S * 1e3
+    bwd_ops, bwd_ms = cull_ops_ms(stats, OPS_BWD_PER_BLENDED_PAIR)
     out = {}
-    for name, nbytes, ops in (
-            ("blend_train_fwd", common + (32 + 8) * B * T * P, fwd_ops),
+    for name, nbytes, ops, o_ms in (
+            ("blend_train_fwd", common + (32 + 8) * B * T * P, fwd_ops,
+             fwd_ms),
             ("blend_train_bwd", common + (8 + 32) * B * T * P
-             + 64 * entries, bwd_ops),
-            ("blend_tiles_eval", common + 32 * B * T * P, fwd_ops)):
+             + 64 * entries, bwd_ops, bwd_ms),
+            ("blend_tiles_eval", common + 32 * B * T * P, fwd_ops, fwd_ms)):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = ops / FP32_FLOP_PER_S * 1e3
         out[name] = dict(bytes=nbytes, ops=ops, rows=rows, entries=entries,
                          bytes_ms=b_ms, ops_ms=o_ms,
                          bound_ms=max(b_ms, o_ms),
                          bound_by="bytes" if b_ms >= o_ms else "operations")
+    out["blend_train_bwd"]["ops_unculled"] = (
+        OPS_PER_PAIR * stats["pairs"]
+        + OPS_BWD_PER_BLENDED_PAIR * stats["blended"])
     return out
 
 
@@ -1186,7 +1346,7 @@ STAGE_RANGES = (("sds_step.render", "animate_project"),
 
 
 # substrings of the hand-written kernels' names in a profiler trace
-NAMED_KERNELS = ("blend_bwd_kernel", "flash_fwd", "flash_combine",
+NAMED_KERNELS = ("blend_bwd", "flash_fwd", "flash_combine",
                  "flash_bwd", "flash_delta", "indexing_backward")
 
 
@@ -1255,7 +1415,12 @@ def main():
     from dreamwaltz_g_tpu_torch.nerf.encoder import TriplaneConfig
     from dreamwaltz_g_tpu_torch.ops import rasterize as R
     from dreamwaltz_g_tpu_torch.ops import blend_train as BT
-    from dreamwaltz_g_tpu_torch.ops.blend import blend_sorted, blend_sorted_reference
+    from dreamwaltz_g_tpu_torch.ops.blend import (
+        _untile,
+        blend_sorted,
+        blend_sorted_reference,
+        pack_rows,
+    )
     from dreamwaltz_g_tpu_torch.system.avatar import animate
     from dreamwaltz_g_tpu_torch.training.gs_trainer import (
         make_avatar_render,
@@ -1279,6 +1444,7 @@ def main():
          kernels=sorted(logs),
          ptxas=[ln.strip() for log in logs.values()
                 for ln in log.splitlines() if "registers" in ln or "smem" in ln])
+    blend_build = blend_builds(logs)
 
     # -- the full-width avatar -------------------------------------------
     torch.cuda.synchronize()
@@ -1319,11 +1485,15 @@ def main():
         avatar_args, _ = blend_inputs(project_frame(0), RASTER["tile_size"],
                                       RASTER["capacity"],
                                       RASTER["max_tiles_per_gaussian"])
-        err_avatar, avatar_stats = compare_blend("avatar_frame0", avatar_args)
+        err_avatar, avatar_stats = compare_blend(
+            "avatar_frame0", avatar_args,
+            blend_build["blend_sorted_kernel"])
         scene_args, _ = blend_inputs(random_scene(dev), RASTER["tile_size"],
                                      RASTER["capacity"],
                                      RASTER["max_tiles_per_gaussian"])
-        err_scene, _ = compare_blend("random_200k_D16", scene_args)
+        err_scene, _ = compare_blend(
+            "random_200k_D16", scene_args,
+            blend_build["blend_sorted_kernel"])
 
     # -- the tiny avatar: CPU plain path vs card kernel path --------------
     tiny = tests_support.tiny_avatar_setup(device="cpu")
@@ -1418,25 +1588,42 @@ def main():
             lambda: blend_sorted_reference(*avatar_args, H, W, **bkw), 3)
         scene_kernel_ms = cuda_ms(
             lambda: blend_sorted(*scene_args, H, W, **bkw), 20)
+        # the kernel alone, and the wrapper's two torch ops around it
+        alone_ms = {
+            label: named_ms(kernel_device_ms(
+                lambda: blend_sorted(*a, H, W, **bkw), 20)[1],
+                "blend_sorted_kernel")
+            for label, a in (("avatar", avatar_args),
+                             ("random_200k", scene_args))}
+        tiled0 = torch.zeros((avatar_args[1].numel(),
+                              RASTER["tile_size"] ** 2, 8), device=dev)
+        pack_ms = cuda_ms(lambda: pack_rows(*avatar_args[3:]), 20)
+        untile_ms = cuda_ms(lambda: _untile(tiled0, 5, H, W,
+                                            RASTER["tile_size"]), 20)
     stage_ms["blend"] = kernel_ms
 
     # bound of blend_sorted on the avatar frame: each input read once, the
-    # output written once; the operations this frame's pairs need
+    # output written once; the operations this frame's kept pairs and the
+    # blocks' boxes need (``ops_unculled``: every reached pair)
     s_idx, seg_start, counts, means2d, conic, op, values = avatar_args
     n = means2d.shape[0]
     bytes_moved = (4 * int(counts.sum()) + 4 * 2 * seg_start.numel()
                    + 4 * n * (2 + 3 + 1 + values.shape[1])
                    + 4 * H * W * values.shape[1])
-    ops = (OPS_PER_PAIR * avatar_stats["pairs"]
-           + OPS_PER_BLENDED_PAIR * avatar_stats["blended"])
+    ops, ops_ms = cull_ops_ms(avatar_stats, OPS_PER_BLENDED_PAIR)
+    ops_unculled = (OPS_PER_PAIR * avatar_stats["pairs"]
+                    + OPS_PER_BLENDED_PAIR * avatar_stats["blended"])
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     emit(phase="times", ms_per_frame=frame_ms,
          fps=1e3 / sorted(frame_ms)[1], stage_ms=stage_ms,
          blend_kernel_ms=kernel_ms, blend_plain_ms=plain_ms,
          blend_kernel_ms_random_200k=scene_kernel_ms,
-         blend_bytes=bytes_moved, blend_ops=ops, blend_bytes_ms=bytes_ms,
+         blend_kernel_alone_ms=alone_ms["avatar"],
+         blend_kernel_alone_ms_random_200k=alone_ms["random_200k"],
+         blend_pack_rows_ms=pack_ms, blend_untile_ms=untile_ms,
+         blend_bytes=bytes_moved, blend_ops=ops,
+         blend_ops_unculled=ops_unculled, blend_bytes_ms=bytes_ms,
          blend_ops_ms=ops_ms, blend_bound_ms=bound_ms, **card)
 
     # -- device busy share and kernel time by name over one 8-frame render --
@@ -1457,6 +1644,10 @@ def main():
          device_busy_ms=busy_ms if on_card else None,
          device_busy_share=busy_ms / wall_ms if on_card else None,
          kernel_launches=sum(e.count for e in on_card),
+         blend_kernel_ms_per_frame=sum(
+             e.device_time_total for e in on_card
+             if "blend_sorted_kernel" in e.key) / 1e3 / N_FRAMES
+         if on_card else None,
          top_kernels=[[e.key[:80], e.device_time_total / 1e3, e.count]
                       for e in top], **card)
 
@@ -1485,13 +1676,15 @@ def main():
             alive=gs0.alive)
         t_args, t_values, t_overflow = panel_args(g_train, TRAIN_H, TRAIN_W,
                                                   TRAIN_RASTER)
+        train_build = {k: v for k, v in blend_build.items()
+                       if k != "blend_sorted_kernel"}
         errs_avatar = compare_train_blend("avatar_512", t_args, t_values,
-                                          tiles_x)
+                                          tiles_x, train_build)
         g_scene = random_scene(dev, TRAIN_H, TRAIN_W)
         s_args, s_values, _ = panel_args(g_scene, TRAIN_H, TRAIN_W,
                                          TRAIN_RASTER)
         errs_scene = compare_train_blend("random_200k_512", s_args, s_values,
-                                         tiles_x)
+                                         tiles_x, train_build)
 
     # -- flash attention against its plain version at the paths' shapes ----
     from dreamwaltz_g_tpu_torch.configs import GuideConfig
@@ -1672,7 +1865,8 @@ def main():
          sds_step_ms_flash_off=off_ms, sds_it_per_s_flash_off=1e3 / off_ms,
          flash_off_steps=[OFF_WARMUP, OFF_STEPS],
          peak_mem_gib=peak_gib, peak_mem_gib_flash_off=off_peak_gib,
-         kernel_ms=k_ms, plain_ms=p_ms, bounds=bounds, flash=flash_rows,
+         kernel_ms=k_ms, kernel_alone_ms=errs_avatar[4], plain_ms=p_ms,
+         bounds=bounds, flash=flash_rows,
          tile_overflow_frame=t_overflow, **card)
     # the einsum path holds the (2, 8, 4096, 4096) scores (0.5 GiB in bf16,
     # 1 GiB as the float32 softmax) at the step's peak; flash must not
@@ -1697,18 +1891,16 @@ def main():
         kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         trace = kernels.BUILD_DIR / "sds_step_trace.json"
         prof.export_chrome_trace(str(trace))
-        stage_dev, stage_host, named_ms = stage_times(trace)
+        stage_dev, stage_host, named = stage_times(trace)
         emit(phase=phase, steps=1, wall_ms=wall_ms,
              device_busy_ms=busy_ms if on_card else None,
              device_busy_share=busy_ms / wall_ms if on_card else None,
              kernel_launches=sum(e.count for e in on_card),
              stage_device_ms=stage_dev, stage_host_ms=stage_host,
-             backward_blend_train_bwd_kernel_ms=named_ms["blend_bwd_kernel"],
-             flash_fwd_kernels_ms=named_ms["flash_fwd"]
-             + named_ms["flash_combine"],
-             flash_bwd_kernels_ms=named_ms["flash_bwd"]
-             + named_ms["flash_delta"],
-             index_backward_kernels_ms=named_ms["indexing_backward"],
+             backward_blend_train_bwd_kernel_ms=named["blend_bwd"],
+             flash_fwd_kernels_ms=named["flash_fwd"] + named["flash_combine"],
+             flash_bwd_kernels_ms=named["flash_bwd"] + named["flash_delta"],
+             index_backward_kernels_ms=named["indexing_backward"],
              alive=int(tstate.avatar.alive.sum()),
              top_kernels=[[e.key[:80], e.device_time_total / 1e3, e.count]
                           for e in top], **card)
@@ -1722,9 +1914,10 @@ def main():
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
               library=None, **more):
+        # kernel_ms: the kernels alone (profiler), for every entry below
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+                "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": bound["bound_ms"],
                 "bound_by": bound["bound_by"], "library_ms": library, **more}
 
@@ -1742,22 +1935,26 @@ def main():
               launches["blend_sorted"], max(err_avatar, err_scene),
               kernel_ms, plain_ms,
               {"bound_ms": bound_ms,
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"},
+              kernel_ms=alone_ms["avatar"]),
         entry("blend_train_fwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_fwd"],
               max(errs_avatar[0], errs_scene[0]), k_ms["blend_train_fwd"],
-              p_ms["blend_train_fwd"], bounds["blend_train_fwd"]),
+              p_ms["blend_train_fwd"], bounds["blend_train_fwd"],
+              kernel_ms=errs_avatar[4]["blend_train_fwd"]),
         entry("blend_train_bwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_bwd"],
               max(errs_avatar[1], errs_scene[1]), k_ms["blend_train_bwd"],
-              p_ms["blend_train_bwd"], bounds["blend_train_bwd"]),
+              p_ms["blend_train_bwd"], bounds["blend_train_bwd"],
+              kernel_ms=errs_avatar[4]["blend_train_bwd"]),
         entry("blend_tiles_eval", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:126",
               train_launches["blend_tiles_eval"],
               max(errs_avatar[2], errs_scene[2]), k_ms["blend_tiles_eval"],
-              p_ms["blend_tiles_eval"], bounds["blend_tiles_eval"]),
+              p_ms["blend_tiles_eval"], bounds["blend_tiles_eval"],
+              kernel_ms=errs_avatar[4]["blend_tiles_eval"]),
         entry("flash_attn_fwd", flash_src, flash_replaces,
               train_launches["flash_attn_fwd"], flash_err["fwd"],
               f_fwd["fwd_ms"], f_fwd["fwd_plain_ms"], f_fwd["fwd_bound"],

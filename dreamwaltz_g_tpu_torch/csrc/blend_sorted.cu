@@ -1,26 +1,47 @@
 // Sorted-segment front-to-back Gaussian blend (eval render), for sm_90a.
 //
-// Replaces dreamwaltz_g_tpu/ops/pallas_blend.py:_make_sorted_kernel (called
-// by blend_sorted_pallas). Same function: tile t composites the Gaussians
-// s_idx[seg_start[t] : seg_start[t] + counts[t]] (depth-sorted by the
-// binning) front to back over its tile_size^2 pixels and writes, per pixel,
-// the 8 value lanes [c0, c1, c2, depth, 1, 0, 0, 0] weighted by T_i * w_i,
-// with w = op * exp(-q / 2), q the conic form at the pixel centre, an entry
-// skipped unless q >= 0 and w >= min_alpha, and w clipped to alpha_clip.
+// Replaces dreamwaltz_g_tpu/ops/pallas_blend.py:_make_sorted_kernel (:228,
+// called by blend_sorted_pallas :326, pallas_call :392). Same function: tile
+// t composites the Gaussians s_idx[seg_start[t] : seg_start[t] + counts[t]]
+// (depth-sorted by the binning) front to back over its tile_size^2 pixels
+// and writes, per pixel, the 8 value lanes [c0, c1, c2, depth, 1, 0, 0, 0]
+// weighted by T_i * w_i, with w = op * exp(-q / 2), q the conic form at the
+// pixel centre, an entry skipped unless q >= 0 and w >= min_alpha, and w
+// clipped to alpha_clip.
 //
 // Packed row per Gaussian, 16 floats (64 B):
 //   [mx, my, ca, cb, cc, op, 0, 0, v0, v1, v2, v3, v4, v5, v6, v7]
 //
-// Design (the 3DGS forward, not the TPU block structure):
-// * one thread block per tile, one thread per pixel;
-// * the block gathers its segment's rows itself, 256 rows (16 KB) at a
-//   time, into shared memory: it reads s_idx and then packed[s_idx[j]],
-//   so the wrapper never materialises an (N*D, 16) sorted panel array --
-//   the (N, 16) packed table (13 MB for 200k Gaussians) stays in L2;
-// * each thread composites in float32 with a running transmittance T;
-//   a pixel stops once T <= t_eps (exp(-9.2), the TPU kernel's threshold),
-//   and the block leaves as soon as __syncthreads_count says every pixel
-//   has stopped.
+// What bounds it on the H100: the bytes are small (the packed table, 4 B
+// of s_idx per entry, the 32 B-per-pixel output: ~30 MB for a 1024^2 frame
+// of a 200k-Gaussian avatar), and so is the float work once the cull below
+// drops the pairs min_alpha rejects: 13 float32 operations with one exp for
+// each pair a pixel reaches and its patch keeps (~16% of the pairs reached
+// on the render's frames), 20 more for each pair it blends (~2-3%), and a
+// float64 box a block per entry (chip_smoke.py counts that work for the
+// bound). A third of the tiles overflow to the full 1024 entries while the
+// rest are light, so without the cull the rejected pairs, and with it the
+// heaviest tiles' walks, set the time.
+//
+// Design (blend_common.cuh has the patch map and the cull's proof):
+// * Sub-tile blocks: a block covers 8 rows of a tile (a 32 x 8 strip of
+//   256 threads, 4 blocks a tile at tile_size 32), so a heavy tile
+//   spreads over several SMs. Each block gathers the tile's rows itself (the
+//   packed table stays in the 50 MB L2) and leaves once all its pixels have
+//   stopped.
+// * A warp owns an 8 x 4 pixel patch, not a row, and skips every entry
+//   whose footprint box misses the patch's pixel centres: no exp, no test.
+//   The box (computed once a block per entry, in float64, widened past the
+//   kernel's rounding) holds every pixel where w >= min_alpha can pass, so a
+//   skipped pair is one the plain test rejects and each pixel's arithmetic
+//   and its order are the parent design's: the output is the same to every
+//   bit. Each warp tests 32 entries' boxes at once (one a lane) and walks
+//   the ballot's set bits in order.
+// * Rows arrive through 16-byte cp.async copies, double-buffered: batch
+//   b + 1 is in flight while batch b is blended. The thread that copied a
+//   row computes its box after waiting for its own copies, so one barrier a
+//   batch (which also counts the stopped pixels) suffices; s_idx of the
+//   batch after is read into a register a batch ahead.
 //
 // Differences from the TPU kernel, by design: the TPU kernel keeps log T,
 // forms the exclusive prefix with a bf16 matmul (about 0.4% on log T) and
@@ -30,25 +51,18 @@
 // q and w are evaluated with explicit round-to-nearest multiplies and adds
 // (no FMA contraction) in the plain PyTorch version's operation order, so
 // that the min_alpha and q >= 0 tests decide alike in both versions.
-//
-// What bounds it on the H100: the bytes are small (the packed table,
-// 4 B of s_idx per entry, and the 20 B-per-pixel rgb/depth/alpha output,
-// about 30 MB for a 1024^2 frame of a 200k-Gaussian avatar), so the bound
-// is the per pixel-entry arithmetic: 13 float32 operations including one
-// exp for every pair a pixel reaches, 20 more for every pair it blends, on
-// the FP32 pipes and the SFU.
-// The design keeps those pipes fed by sharing each batch of rows through
-// shared memory (one global read per row per tile, broadcast to all 1024
-// threads), by skipping entries whose weight is below min_alpha before
-// touching the value lanes, and by the per-pixel and per-block early exit.
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kBatch = 256;  // rows per shared-memory batch (16 KB)
+using blend::kFull;
 
-__global__ void __launch_bounds__(1024)
+constexpr int kRows = 128;  // rows a batch: 8 KB of rows + 2 KB of boxes
+
+__global__ void __launch_bounds__(blend::kMaxThreads)
 blend_sorted_kernel(const float4* __restrict__ packed,
                     const int* __restrict__ s_idx,
                     const int* __restrict__ seg_start,
@@ -56,32 +70,66 @@ blend_sorted_kernel(const float4* __restrict__ packed,
                     float4* __restrict__ out,
                     int tiles_x, int tile_size,
                     float alpha_clip, float min_alpha, float t_eps) {
-  __shared__ float4 rows[kBatch * 4];
-  const int t = blockIdx.x;
-  const int P = blockDim.x;
-  const int pid = threadIdx.x;
+  __shared__ float4 rows[2][kRows * 4];
+  __shared__ float4 boxes[2][kRows];
+  const int S = tile_size / blend::kBlockRows;
+  const int t = blockIdx.x / S;
+  const int nthr = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int R = min(kRows, nthr);  // one row a thread, at most
+  const blend::Patch pt =
+      blend::patch_of(t, blockIdx.x % S, tiles_x, tile_size);
   const int start = seg_start[t];
   const int count = counts[t];
-  const float px = (float)((t % tiles_x) * tile_size + pid % tile_size) + 0.5f;
-  const float py = (float)((t / tiles_x) * tile_size + pid / tile_size) + 0.5f;
+
+  // s_idx of row `tid` of the batch at b0, or -1 past the segment
+  auto index_at = [&](int b0) {
+    return tid < R && b0 + tid < count ? s_idx[start + b0 + tid] : -1;
+  };
+  auto issue = [&](int g, int buf) {
+    if (g >= 0) {
+      const float4* src = packed + (size_t)g * 4;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) blend::cp_async16(&rows[buf][4 * tid + c],
+                                                    src + c);
+    }
+    blend::cp_async_commit();
+  };
+  auto box = [&](int g, int buf) {
+    blend::cp_async_wait_all();
+    if (g >= 0)
+      boxes[buf][tid] = blend::footprint_box(rows[buf][4 * tid],
+                                             rows[buf][4 * tid + 1],
+                                             min_alpha);
+  };
 
   float T = 1.0f;
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   int done = 0;
 
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
-    const int n = min(kBatch, count - b0);
-    for (int k = pid; k < n * 4; k += P) {
-      const int g = s_idx[start + b0 + (k >> 2)];
-      rows[k] = packed[(size_t)g * 4 + (k & 3)];
-    }
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        const float4 a0 = rows[4 * j];
-        const float4 a1 = rows[4 * j + 1];
-        const float dx = px - a0.x;
-        const float dy = py - a0.y;
+  int g = index_at(0);
+  issue(g, 0);
+  box(g, 0);
+  g = index_at(R);
+  __syncthreads();
+  for (int b0 = 0, buf = 0; b0 < count; b0 += R, buf ^= 1) {
+    const int n = min(R, count - b0);
+    const int g_next = g;
+    issue(g_next, buf ^ 1);
+    g = index_at(b0 + 2 * R);  // used a batch from now
+    for (int j0 = 0; j0 < n && !__all_sync(kFull, done); j0 += 32) {
+      const bool hit =
+          j0 + lane < n && blend::box_hits(boxes[buf][j0 + lane], pt);
+      unsigned mask = __ballot_sync(kFull, hit);
+      while (mask) {
+        const int j = j0 + __ffs(mask) - 1;
+        mask &= mask - 1;
+        if (done) continue;
+        const float4 a0 = rows[buf][4 * j];
+        const float4 a1 = rows[buf][4 * j + 1];
+        const float dx = pt.px - a0.x;
+        const float dy = pt.py - a0.y;
         const float q = __fadd_rn(
             __fadd_rn(__fmul_rn(__fmul_rn(a0.z, dx), dx),
                       __fmul_rn(__fmul_rn(__fmul_rn(2.0f, a0.w), dx), dy)),
@@ -89,44 +137,57 @@ blend_sorted_kernel(const float4* __restrict__ packed,
         float w = __fmul_rn(a1.y, expf(__fmul_rn(-0.5f, q)));
         if (!(q >= 0.0f && w >= min_alpha)) continue;
         w = fminf(w, alpha_clip);
-        const float4 v0 = rows[4 * j + 2];
-        const float4 v1 = rows[4 * j + 3];
+        const float4 v0 = rows[buf][4 * j + 2];
+        const float4 v1 = rows[buf][4 * j + 3];
         const float c = T * w;
         acc[0] += c * v0.x; acc[1] += c * v0.y;
         acc[2] += c * v0.z; acc[3] += c * v0.w;
         acc[4] += c * v1.x; acc[5] += c * v1.y;
         acc[6] += c * v1.z; acc[7] += c * v1.w;
         T *= 1.0f - w;
-        if (T <= t_eps) {
-          done = 1;
-          break;
-        }
+        if (T <= t_eps) done = 1;
       }
     }
-    // barrier before the next batch overwrites `rows`, and the block exit
-    if (__syncthreads_count(done) == P) break;
+    box(g_next, buf ^ 1);
+    // the batch after lands before anyone reads it, nobody still reads this
+    // batch's buffers when the next iteration refills them, and the block
+    // leaves once every pixel has stopped
+    if (__syncthreads_count(done) == nthr) break;
   }
 
-  float4* o = out + ((size_t)t * P + pid) * 2;
+  float4* o = out + ((size_t)t * tile_size * tile_size + pt.pid) * 2;
   o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
   o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
 }
 
 }  // namespace
 
-// Launch on `stream`: one block of tile_size^2 threads per tile. Returns the
-// cudaGetLastError() code of the launch (0 on success).
+// Launch on `stream`: tile_size / 8 blocks of tile_size * 8 threads a
+// tile. Returns the cudaGetLastError() code of the launch (0 on success;
+// cudaErrorInvalidValue for a tile size the kernel does not take, see
+// blend::valid_tile).
 extern "C" int blend_sorted_f32(const float* packed, const int* s_idx,
                                 const int* seg_start, const int* counts,
                                 float* out, int n_tiles, int tiles_x,
                                 int tile_size, float alpha_clip,
-                                float min_alpha, float t_eps, void* stream) {
-  const int P = tile_size * tile_size;
+                                float min_alpha,
+                                float t_eps, void* stream) {
+  if (!blend::valid_tile(tile_size)) return (int)cudaErrorInvalidValue;
   if (n_tiles > 0) {
-    blend_sorted_kernel<<<n_tiles, P, 0, (cudaStream_t)stream>>>(
+    blend_sorted_kernel<<<n_tiles * (tile_size / blend::kBlockRows),
+                          tile_size * blend::kBlockRows, 0,
+                          (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(packed), s_idx, seg_start, counts,
         reinterpret_cast<float4*>(out), tiles_x, tile_size, alpha_clip,
         min_alpha, t_eps);
   }
   return (int)cudaGetLastError();
+}
+
+// The launch facts of blend_sorted_f32's kernel at tile_size, as
+// blend::launch_facts lists them in info[6].
+extern "C" int blend_sorted_info(int tile_size, int* info) {
+  if (!blend::valid_tile(tile_size)) return (int)cudaErrorInvalidValue;
+  return (int)blend::launch_facts(blend_sorted_kernel,
+                                  tile_size * blend::kBlockRows, 0, info);
 }

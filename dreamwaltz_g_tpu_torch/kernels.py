@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
+Each ``csrc/<name>.cu`` has a plain C interface (``csrc/*.cuh`` are headers
+they share). It is compiled with ``nvcc``
 for ``sm_90a`` into ``_build/lib<name>.so`` on first use (or by ``build``,
 which starts one ``nvcc`` per source, all at once) and loaded with
 ``ctypes``. Nothing is compiled or loaded at import time.
@@ -27,12 +28,14 @@ _L = ctypes.c_longlong
 #: C signatures of each kernel library's launch functions: {name: argtypes}
 SIGNATURES = {
     "blend_sorted": {
-        "blend_sorted_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P],
+        "blend_sorted_f32": [_P] * 5 + [_I] * 3 + [_F] * 3 + [_P],
+        "blend_sorted_info": [_I, _P],
     },
     "blend_train": {
         "blend_train_fwd_f32": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
         "blend_tiles_eval_f32": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_P],
-        "blend_train_bwd_f32": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P],
+        "blend_train_bwd_f32": [_P] * 10 + [_I] * 6 + [_F] * 2 + [_P],
+        "blend_train_info": [_I, _I, _P],
     },
     "flash_attn": {
         "flash_attn_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_I, _I, _P],
@@ -61,9 +64,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header."""
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build(names: Optional[Iterable[str]] = None, force: bool = False

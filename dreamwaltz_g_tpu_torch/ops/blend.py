@@ -12,6 +12,10 @@ t composites the Gaussians ``s_idx[seg_start[t] : seg_start[t] + counts[t]]``
   PyTorch: per-chunk log-transmittance prefix over C-aligned chunks of the
   sorted rows, rows outside the tile's segment masked, and the tile stops at
   a chunk boundary once every pixel's log T is below ln(1e-4).
+* ``footprint_boxes`` and ``patch_keep`` are the plain twins of the
+  kernels' footprint cull (``csrc/blend_common.cuh``): each entry's box of
+  the pixel centres where its weight can pass min_alpha, and which 8 x 4
+  pixel patches of a tile it reaches.
 
 The two differ by design: the kernel stops per pixel as soon as its T falls
 below the threshold, the plain version per tile at chunk boundaries. What
@@ -29,6 +33,17 @@ from .. import kernels
 
 #: ln(1e-4) as the TPU kernel writes it: a pixel is live while log T > this
 LOG_T_EPS = -9.2
+#: rows of a tile each block of the sorted blend and the table backward
+#: covers (csrc/blend_common.cuh kBlockRows): 4 blocks a 32^2 tile
+BLOCK_ROWS = 8
+#: the cull's margins (csrc/blend_common.cuh): relative error of the
+#: kernel's w, error of its q relative to kappa q, and the largest kappa
+#: = (ca + cc)^2 / det that may be culled
+CULL_EPS_W = 2.0 ** -20
+CULL_GAMMA = 2.0 ** -21
+CULL_KAPPA_MAX = 0.25 / CULL_GAMMA
+#: pixels of a warp's patch: 8 wide, 4 tall
+PATCH_W, PATCH_H = 8, 4
 
 
 def pack_rows(means2d: torch.Tensor, conic: torch.Tensor,
@@ -46,6 +61,59 @@ def pack_rows(means2d: torch.Tensor, conic: torch.Tensor,
          values.to(f32)] + [z] * (8 - CV), dim=-1)
     return torch.cat([packed, torch.zeros((*lead, 1, 16), dtype=f32,
                                           device=means2d.device)], dim=-2)
+
+
+def footprint_boxes(packed: torch.Tensor,
+                    min_alpha: float = 1.0 / 255.0) -> torch.Tensor:
+    """Each packed row's box ``[x_lo, x_hi, y_lo, y_hi]`` (float64) of the
+    pixel centres where its weight can pass ``w >= min_alpha``: the ellipse
+    q <= 2 ln(op / min_alpha) of a positive-definite conic, widened (with
+    ``margin``) past the float32 rounding of q, exp and the products, as
+    ``csrc/blend_common.cuh`` argues. The whole plane (never culled) for a
+    conic with det <= 0 or ca <= 0, one too thin for the margin's bound, or
+    a non-finite attribute; the empty box (inf, -inf, inf, -inf) where op
+    (1 + eps) < min_alpha, op = 0 rows included. The kernels compute the same
+    box and round it outward to float32."""
+    a = packed.double()
+    mx, my, ca, cb, cc, op = (a[..., i] for i in range(6))
+    # the kernels compare against min_alpha as a float32
+    ma = torch.tensor(min_alpha, dtype=torch.float32).double()
+    det = ca * cc - cb * cb
+    kappa = (ca + cc) ** 2 / det
+    r = torch.clamp(2.0 * torch.log(op / ma) + 2.0 * CULL_EPS_W, min=0.0) \
+        / (1.0 - 2.0 * CULL_GAMMA * kappa) * (1.0 + 2.0 ** -30)
+    hx = torch.sqrt(r * cc / det)
+    hy = torch.sqrt(r * ca / det)
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], -1)
+    bounded = (det > 0) & (ca > 0) & (kappa <= CULL_KAPPA_MAX) \
+        & torch.isfinite(op) & torch.isfinite(box).all(-1)
+    inf = float("inf")
+    box = torch.where(bounded[..., None], box,
+                      box.new_tensor([-inf, inf, -inf, inf]))
+    return torch.where((op * (1.0 + CULL_EPS_W) < ma)[..., None],
+                       box.new_tensor([inf, -inf, inf, -inf]), box)
+
+
+def patch_keep(boxes: torch.Tensor, tile_size: int,
+               tiles_x: int) -> torch.Tensor:
+    """Which patches of its tile each entry reaches: ``boxes`` (..., T, E, 4)
+    from ``footprint_boxes`` for tile t's entries -> (..., T, n_patches, E)
+    bool, True where the box holds one of the patch's pixel centres (the
+    kernels' warp-level cull keeps the pair)."""
+    T = boxes.shape[-3]
+    dev = boxes.device
+    t = torch.arange(T, device=dev)
+    pr, pc = torch.meshgrid(torch.arange(tile_size // PATCH_H, device=dev),
+                            torch.arange(tile_size // PATCH_W, device=dev),
+                            indexing="ij")
+    x0 = ((t % tiles_x) * tile_size)[:, None] + (pc * PATCH_W).reshape(-1) \
+        + 0.5                                              # (T, n_patches)
+    y0 = ((t // tiles_x) * tile_size)[:, None] + (pr * PATCH_H).reshape(-1) \
+        + 0.5
+    b = boxes[..., None, :, :]                            # (..., T, 1, E, 4)
+    x0, y0 = x0[..., None].double(), y0[..., None].double()
+    return ((b[..., 1] >= x0) & (b[..., 0] <= x0 + PATCH_W - 1)
+            & (b[..., 3] >= y0) & (b[..., 2] <= y0 + PATCH_H - 1))
 
 
 def _untile(out: torch.Tensor, CV: int, image_height: int, image_width: int,
@@ -107,8 +175,9 @@ def blend_sorted_reference(
 
     ``stats``, when given, receives ``pairs``: the (pixel, entry) pairs
     before each pixel's own log T falls below ``LOG_T_EPS`` -- the work a
-    per-pixel early stop has to do on these inputs -- and ``blended``, those
-    of them whose weight passes the min_alpha test."""
+    per-pixel early stop has to do on these inputs --, ``blended``, those
+    of them whose weight passes the min_alpha test, and ``reached``, the
+    (T, P) count of them for each pixel (a prefix of its tile's segment)."""
     dev = means2d.device
     N, CV = values.shape
     C = chunk
@@ -137,6 +206,7 @@ def blend_sorted_reference(
     log_t = torch.zeros((T, P), device=dev)
     acc = torch.zeros((T, P, 8), device=dev)
     pairs = blended = 0
+    reached = torch.zeros((T, P), dtype=torch.long, device=dev)
     for j in range(n_chunks_max):
         rows = torch.clamp((blk0 + j)[:, None] * C + lane, max=NB * C - 1)
         a = packed[s_pad[rows]]                           # (T, C, 16)
@@ -161,10 +231,12 @@ def blend_sorted_reference(
             before_stop = (excl > LOG_T_EPS) & use
             pairs += int(before_stop.sum())
             blended += int((before_stop & (w > 0)).sum())
+            reached += before_stop.sum(-1)
         log_t = log_t + incl[..., -1]
     if stats is not None:
         stats["pairs"] = pairs
         stats["blended"] = blended
+        stats["reached"] = reached
     return _untile(acc, CV, image_height, image_width, tile_size)
 
 

@@ -48,7 +48,14 @@ from typing import Optional, Tuple
 import torch
 
 from .. import kernels
-from .blend import LOG_T_EPS, _tile, _tile_pixel_centres, _untile, pack_rows
+from .blend import (
+    BLOCK_ROWS,
+    LOG_T_EPS,
+    _tile,
+    _tile_pixel_centres,
+    _untile,
+    pack_rows,
+)
 
 #: the stop rule of the plain versions the wrappers take for CPU tensors:
 #: "tile" (the TPU kernels' algorithm) or "pixel" (the CUDA kernels' rule)
@@ -123,8 +130,9 @@ def blend_tiles_train_reference_fwd(
 
     ``stats``, when given, receives ``pairs``: the (pixel, entry) pairs
     before each pixel's own log T falls below ``LOG_T_EPS`` -- the work a
-    per-pixel early stop has to do -- and ``blended``, those whose weight
-    passes the min_alpha test."""
+    per-pixel early stop has to do --, ``blended``, those whose weight
+    passes the min_alpha test, and ``reached``, the (B, T, P) count of them
+    for each pixel (a prefix of its tile's list)."""
     B, T, _ = tile_lists.shape
     tile_lists, C, n_chunks = _chunked(tile_lists, packed.shape[1], chunk)
     panels = _gather(packed, tile_lists)
@@ -137,6 +145,7 @@ def blend_tiles_train_reference_fwd(
     acc = torch.zeros((B, T, P, 8), device=packed.device)
     ckpt = torch.empty((B, T, n_chunks, P), device=packed.device)
     pairs = blended = 0
+    reached = torch.zeros((B, T, P), dtype=torch.long, device=packed.device)
     for k in range(n_chunks):
         ckpt[:, :, k] = log_t
         a = panels[:, :, k * C:(k + 1) * C]               # (B, T, C, 16)
@@ -152,10 +161,12 @@ def blend_tiles_train_reference_fwd(
             before_stop = (excl > LOG_T_EPS) & use
             pairs += int(before_stop.sum())
             blended += int((before_stop & (w > 0)).sum())
+            reached += before_stop.sum(-1)
         log_t = log_t + total
     if stats is not None:
         stats["pairs"] = pairs
         stats["blended"] = blended
+        stats["reached"] = reached
     return acc, ckpt
 
 
@@ -362,6 +373,8 @@ def _check(name, tile_lists, tile_counts, packed, tile_size, tiles_x):
                 raise ValueError(f"{n} must be {dtype}, got {t.dtype}")
             if not t.is_contiguous():
                 raise ValueError(f"{n} must be contiguous")
+        if packed.data_ptr() % 16:
+            raise ValueError("packed must be 16-byte aligned")
     return dev
 
 
@@ -408,7 +421,10 @@ def blend_train_bwd(tile_lists, tile_counts, packed, saved, g_out,
                     alpha_clip: float = 0.999,
                     min_alpha: float = 1.0 / 255.0) -> torch.Tensor:
     """B1 backward: (B, T, P, 8) upstream gradient -> (B, T, K, 16)
-    per-entry gradient panel (slots past a tile's count are zero)."""
+    per-entry gradient panel (slots past a tile's count are zero). On the
+    card it allocates a (B, T, tile_size / BLOCK_ROWS, K, 16) float32
+    scratch for the sub-tile blocks' sums, their walk lengths and the order
+    in which the blocks take the tiles."""
     dev = _check("blend_train_bwd", tile_lists, tile_counts, packed,
                  tile_size, tiles_x)
     if dev.type == "cpu":
@@ -423,10 +439,16 @@ def blend_train_bwd(tile_lists, tile_counts, packed, saved, g_out,
     if tuple(g_out.shape) != (B, T, P, 8):
         raise ValueError(f"g_out has shape {tuple(g_out.shape)}, expected "
                          f"{(B, T, P, 8)}")
+    S = tile_size // BLOCK_ROWS
+    # each sub-tile block's per-entry sums and its walk length, summed in
+    # strip order by the second kernel
+    parts = torch.empty((B, T, S, K, 16), dtype=torch.float32, device=dev)
+    lens = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+    order = torch.empty((B, T), dtype=torch.int32, device=dev)
     d_panels = torch.empty((B, T, K, 16), dtype=torch.float32, device=dev)
     _launch("blend_train_bwd_f32", packed, tile_lists, tile_counts, t_final,
-            n_last, g_out, d_panels, B, T, K, packed.shape[1], tiles_x,
-            tile_size, alpha_clip, min_alpha)
+            n_last, g_out, parts, lens, order, d_panels, B, T, K,
+            packed.shape[1], tiles_x, tile_size, alpha_clip, min_alpha)
     blend_train_bwd.launches += 1
     return d_panels
 

@@ -6,7 +6,8 @@ so the same builder makes the few-vertex test avatar and the full-width one
 that ``chip_smoke.py`` trains and renders; the body and the point cloud come
 from numpy draws identical to the JAX package's. ``sd15_guidance`` builds
 the SD1.5-size UNet, ControlNet and VAE with random weights from a seed,
-straight into their type on their device.
+straight into their type on their device. ``screen_gaussians`` places 2D
+Gaussians straight on the screen for the blend kernels' tests.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from .human.deform import DeformNetwork
 from .human.smplx_model import SMPLXParams, default_params, make_synthetic_model
 from .nerf.encoder import TriplaneConfig
 from .nerf.network import SigmaMLP
+from .ops import rasterize as R
+from .ops.blend import PATCH_H, PATCH_W, footprint_boxes, pack_rows
 from .system import avatar as A
 
 
@@ -129,3 +132,51 @@ def sd15_guidance(seed: int = 0, with_controlnet: bool = True,
     params = _guidance(sd15_unet_config(), sd_vae_config(),
                        (16, 32, 96, 256), seed, with_controlnet, device, dtype)
     return ScoreDistillation(latent_size=64, guidance_scale=50.0), params
+
+
+def screen_gaussians(n: int, height: int, width: int, seed: int = 0,
+                     opacity=(0.3, 0.99), sigma=(0.5, 6.0),
+                     grazing: bool = False,
+                     device="cpu") -> R.Gaussians2D:
+    """``n`` Gaussians placed straight on a height x width screen, as
+    ``rasterize.project_gaussians`` returns them: random rotated covariances
+    with standard deviations in ``sigma`` plus the projection's 0.3 blur,
+    opacities in ``opacity``, depths in [1, 5). The radius covers the
+    footprint box (``ops/blend.py:footprint_boxes``) by a pixel, so every
+    pixel an entry can blend lies in a tile it is binned to. With
+    ``grazing``, each Gaussian is moved so that one x edge and one y edge of
+    its box fall within a pixel of a patch border (x a multiple of 8, y of
+    4): the cull's closest calls."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0, np.pi, n)
+    l1 = rng.uniform(*sigma, n) ** 2 + 0.3
+    l2 = rng.uniform(*sigma, n) ** 2 + 0.3
+    c, s = np.cos(th), np.sin(th)
+    a = l1 * c * c + l2 * s * s
+    b = (l1 - l2) * c * s
+    d = l1 * s * s + l2 * c * c
+    det = a * d - b * b
+    f32 = torch.float32
+    conic = torch.tensor(np.stack([d / det, -b / det, a / det], -1), dtype=f32)
+    op = torch.tensor(rng.uniform(*opacity, n), dtype=f32)
+    colors = torch.tensor(rng.uniform(0, 1, (n, 3)), dtype=f32)
+    box = footprint_boxes(pack_rows(torch.zeros((n, 2)), conic, op,
+                                    colors)[:-1]).numpy()
+    half = np.stack([box[:, 1], box[:, 3]], -1)          # x, y half-extents
+    if grazing:
+        border = np.stack([PATCH_W * rng.integers(0, width // PATCH_W + 1, n),
+                           PATCH_H * rng.integers(0, height // PATCH_H + 1,
+                                                  n)], -1)
+        side = rng.choice([-1.0, 1.0], (n, 2))
+        means = border + rng.uniform(-1, 1, (n, 2)) - side * half
+    else:
+        means = rng.uniform(0, 1, (n, 2)) * [width, height]
+    radius = np.ceil(np.maximum(half.max(-1), 3 * np.sqrt(np.maximum(l1, l2))))
+    return R.Gaussians2D(
+        means2d=torch.tensor(means, dtype=f32, device=dev),
+        conic=conic.to(dev),
+        depth=torch.tensor(rng.uniform(1, 5, n), dtype=f32, device=dev),
+        radius=torch.tensor(radius + 1, dtype=f32, device=dev),
+        opacity=op.to(dev), colors=colors.to(dev),
+        mask=torch.ones(n, dtype=torch.bool, device=dev))

@@ -9,13 +9,20 @@ Tolerance, kernel vs plain version on the same card inputs: 5e-3 on rgb and
 alpha, 5e-3 x the largest depth on depth. A pixel the kernel stops early
 loses at most exp(-9.2) |value| (the plain version stops per tile at chunk
 boundaries), and a min_alpha decision flips only where exp rounds apart
-(at most 1/255 of one entry)."""
+(at most 1/255 of one entry).
+
+The kernel's footprint cull skips only pairs the plain test rejects, so its
+image equals, to every bit, the table eval kernel's (B3, which culls
+nothing) on the same depth-sorted entries: ``test_sorted_equals_table_eval``
+holds it there at grazing footprints and at full tiles."""
 import numpy as np
 import pytest
 import torch
 
+from dreamwaltz_g_tpu_torch import tests_support
 from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch
 from dreamwaltz_g_tpu_torch.ops import blend as B
+from dreamwaltz_g_tpu_torch.ops import blend_train as BT
 from dreamwaltz_g_tpu_torch.ops import rasterize as R
 from dreamwaltz_g_tpu_torch.utils.transforms import quat_normalize
 
@@ -96,3 +103,59 @@ def test_blend_wrapper_rejects_bad_card_inputs():
         B.blend_sorted(*bad)
     with pytest.raises(ValueError):         # 64 x 64 = 4096 threads a tile
         B.blend_sorted(*args, tile_size=64)
+
+
+def _screen_args(dev, scene, tile_size):
+    """blend_sorted's arguments for Gaussians placed on the screen:
+    "grazing" puts box edges within a pixel of patch borders; "full" packs
+    64 x 64 so densely that every tile holds the full 1024 entries, faint
+    enough that most pixels walk them all."""
+    if scene == "grazing":
+        H, W, n, kw = 128, 160, 3000, dict(grazing=True)
+    else:
+        H, W, n, kw = 64, 64, 8000, dict(opacity=(0.005, 0.05),
+                                          sigma=(2.0, 8.0))
+    g = tests_support.screen_gaussians(n, H, W, seed=tile_size, device=dev,
+                                       **kw)
+    s_idx, start, counts, _ = R.bin_gaussians_sorted(
+        g.means2d, g.radius, g.depth, g.mask, H, W, tile_size, 1024, 64)
+    vals = torch.cat([g.colors, g.depth[:, None],
+                      torch.ones((n, 1), device=dev)], -1)
+    return (s_idx, start, counts, g.means2d, g.conic, g.opacity, vals, H, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["grazing", "full"])
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_sorted_equals_table_eval(scene, tile_size):
+    """B2 against B3 bitwise: the same depth-sorted segments as (1, T, K)
+    tile lists padded with the sentinel row, through
+    ``blend_tiles_eval_panels``, then untiled."""
+    args = _screen_args(_card(), scene, tile_size)
+    s_idx, start, counts, means2d, conic, op, vals, H, W = args
+    out = B.blend_sorted(*args, tile_size=tile_size)
+    N = means2d.shape[0]
+    K = int(counts.max())
+    if scene == "full":
+        assert int(counts.min()) == K == 1024
+    slot = torch.arange(K, device=s_idx.device)
+    src = (start[:, None] + slot).clamp(max=s_idx.shape[0] - 1).long()
+    tl = torch.where(slot < counts[:, None], s_idx[src], N).to(torch.int32)
+    tiles_x = -(-W // tile_size)
+    packed = B.pack_rows(means2d, conic, op, vals)[None].contiguous()
+    ev = BT.blend_tiles_eval_panels(tl[None].contiguous(),
+                                    counts[None].contiguous(), packed,
+                                    tile_size, tiles_x)
+    ev = B._untile(ev[0], 5, H, W, tile_size)
+    torch.cuda.synchronize()
+    assert float(out[..., 4].max()) > 0.5
+    assert torch.equal(out, ev), float((out - ev).abs().max())
+
+
+@pytest.mark.gpu
+def test_sorted_blend_is_deterministic():
+    args = _screen_args(_card(), "grazing", 32)
+    a = B.blend_sorted(*args)
+    b = B.blend_sorted(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from dreamwaltz_g_tpu_torch import tests_support
 from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch
 from dreamwaltz_g_tpu_torch.ops import blend_train as BT
 from dreamwaltz_g_tpu_torch.ops import rasterize as R
@@ -82,8 +83,33 @@ def _check_grads(got, ref, env=None, peak=None):
             float(((a - b).abs() - bound).max())
 
 
+def _screen_table(dev, scene, tile_size):
+    """The table of Gaussians placed on the screen: "grazing" puts footprint
+    box edges within a pixel of patch borders; "full" fills every tile to
+    K = 1024 entries, faint enough that most pixels walk them all."""
+    if scene == "grazing":
+        H, W, n, kw = 128, 160, 3000, dict(grazing=True)
+    else:
+        H, W, n, kw = 64, 64, 8000, dict(opacity=(0.005, 0.05),
+                                          sigma=(2.0, 8.0))
+    g = tests_support.screen_gaussians(n, H, W, seed=tile_size, device=dev,
+                                       **kw)
+    tl, tc, _ = R.bin_gaussians(g.means2d, g.radius, g.depth, g.mask, H, W,
+                                tile_size, 1024, 64)
+    vals = torch.cat([g.colors, g.depth[:, None],
+                      torch.ones((n, 1), device=dev)], -1)
+    packed = pack_rows(g.means2d, g.conic, g.opacity, vals)
+    return (tl[None].contiguous(), tc[None].contiguous(),
+            packed[None].contiguous(), vals), W
+
+
 def _run(dev, H, W, n, tile_size, **kw):
-    tl, tc, packed, vals = _table(dev, H, W, n, tile_size, **kw)
+    return _hold(*_table(dev, H, W, n, tile_size, **kw), tile_size, W)
+
+
+def _hold(tl, tc, packed, vals, tile_size, W):
+    """B1 forward and backward and B3 on one table against their plain
+    versions; returns the tile-stop plain forward."""
     Tx = -(-W // tile_size)
     f0, b0 = BT.blend_train_fwd.launches, BT.blend_train_bwd.launches
     out, saved = BT.blend_train_fwd(tl, tc, packed, tile_size, Tx)
@@ -96,6 +122,7 @@ def _run(dev, H, W, n, tile_size, **kw):
     _close(out, ref, vals)
     _close(out, ref_px, vals)
 
+    dev = out.device
     g = torch.randn(out.shape, generator=torch.Generator(dev).manual_seed(0),
                     device=dev)
     g[..., 5:] = 0.0
@@ -139,6 +166,36 @@ def test_train_kernels_early_stop_match_plain_versions():
     ref = _run(_card(), 128, 128, 3000, 32, spread=0.15, scale=0.05,
                opacity=(0.9, 0.99))
     assert float(ref[..., 4].max()) > 1.0 - 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["grazing", "full"])
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_train_kernels_at_grazing_footprints_and_full_tiles(scene,
+                                                            tile_size):
+    """Where the backward's cull has its closest calls, and where every tile
+    is full (count = K = 1024, the step's heaviest tiles)."""
+    (tl, tc, packed, vals), W = _screen_table(_card(), scene, tile_size)
+    if scene == "full":
+        assert int(tc.min()) == tl.shape[-1] == 1024
+    ref = _hold(tl, tc, packed, vals, tile_size, W)
+    assert float(ref[..., 4].max()) > 0.5
+
+
+@pytest.mark.gpu
+def test_backward_is_deterministic():
+    """Two backward calls on the same inputs give the same panel, to every
+    bit: the sub-tile blocks' sums meet in a fixed order."""
+    (tl, tc, packed, _), W = _screen_table(_card(), "full", 32)
+    Tx = -(-W // 32)
+    out, saved = BT.blend_train_fwd(tl, tc, packed, 32, Tx)
+    g = torch.randn(out.shape, generator=torch.Generator(out.device)
+                    .manual_seed(3), device=out.device)
+    a = BT.blend_train_bwd(tl, tc, packed, saved, g, 32, Tx)
+    b = BT.blend_train_bwd(tl, tc, packed, saved, g, 32, Tx)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert float(a.abs().max()) > 0
 
 
 @pytest.mark.gpu
