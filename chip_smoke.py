@@ -28,8 +28,9 @@ Phases, one JSON line each:
 9. kernel_train -- the table blends at 512^2 on one projected avatar frame
                    and on the random scene: B1 forward and backward and B3
                    (through ``_blend_dispatch(mode="eval")``) against their
-                   plain versions, each kernel's device ms alone and build
-                   facts, and the per-tile work as for B2;
+                   plain versions, each kernel's device ms alone (with its
+                   launches' median, min and max) and build facts, and the
+                   per-tile work as for B2;
 10. kernel_flash -- flash attention (B4) forward at the five shapes the
                    training paths give it, and backward at the three that
                    are differentiated, against the plain versions;
@@ -64,7 +65,9 @@ Phases, one JSON line each:
                    ``bwd_build``: delta and the two passes, or at D = 512
                    the dK / dV pass and the dS K product);
 14. train_profile -- device busy share, the step's device and host ms by
-                   stage (its own ``record_function`` ranges) and top
+                   stage (its own ``record_function`` ranges), the
+                   hand-written kernels' device ms by name (B1 forward's,
+                   B1 backward's, flash forward's and backward's) and top
                    kernels over one profiled SDS step;
 15. train_densify -- ``gs_trainer.densify`` on the full avatar, at the
                    defaults and with thresholds at the medians so that
@@ -86,6 +89,7 @@ import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -104,8 +108,9 @@ BF16_FLOP_PER_S = 989e12    # dense, tensor cores
 # transmittance update = 20 more
 OPS_PER_PAIR = 13
 OPS_PER_BLENDED_PAIR = 20
-# B1 backward and B2 cull: a pair counts only where its pixel's patch keeps
-# the entry, and each block boxes every entry it walks, in float64
+# The blends cull (every table kernel and B2): a pair counts only where its
+# pixel's patch keeps the entry, and each block boxes every entry it walks,
+# in float64
 # (csrc/blend_common.cuh: footprint_box): 1 mul for the op test, 3 for det,
 # 3 for kappa, 9 for r (a log), 3 each for the half-widths (a sqrt each) and
 # 4 for the box's sides = 26
@@ -536,7 +541,9 @@ def compare_train_blend(label, args, values, tiles_x, build):
     """B1 forward and backward and B3 against their plain versions on the
     same card inputs. Returns the errors, the plain version's pair counts
     with ``tile_work``'s, and each kernel's device ms alone
-    (``kernel_device_ms``; the backward's three kernels summed)."""
+    (``kernel_device_ms``; the backward's three kernels summed), whose
+    per-launch median, min and max stand beside it in
+    ``kernel_launch_spread_ms``."""
     import torch
 
     from dreamwaltz_g_tpu_torch.ops import blend_train as BT
@@ -586,14 +593,15 @@ def compare_train_blend(label, args, values, tiles_x, build):
     torch.cuda.synchronize()
     e_eval = float((ev - ev_ref).abs().max())
     stats.update(tile_work(tl, tc, packed, ts, tiles_x, stats["reached"]))
-    by_name = {
+    profiled = {
         "blend_train_fwd": kernel_device_ms(lambda: BT.blend_train_fwd(
-            tl, tc, packed, ts, tiles_x, **kw), 20)[1],
+            tl, tc, packed, ts, tiles_x, **kw), 20, spread=True),
         "blend_train_bwd": kernel_device_ms(lambda: BT.blend_train_bwd(
-            tl, tc, packed, saved, g, ts, tiles_x, **kw), 20)[1],
+            tl, tc, packed, saved, g, ts, tiles_x, **kw), 20, spread=True),
         "blend_tiles_eval": kernel_device_ms(
             lambda: BT.blend_tiles_eval_panels(tl, tc, packed, ts, tiles_x,
-                                               **kw), 20)[1]}
+                                               **kw), 20, spread=True)}
+    by_name = {k: v[1] for k, v in profiled.items()}
     alone = {"blend_train_fwd": named_ms(by_name["blend_train_fwd"],
                                          "blend_fwd_kernel<true>"),
              "blend_train_bwd": named_ms(by_name["blend_train_bwd"],
@@ -609,7 +617,9 @@ def compare_train_blend(label, args, values, tiles_x, build):
          pairs=stats["pairs"], blended_pairs=stats["blended"],
          entries=int(tc.sum()), coverage=float((img_ref[..., 4] > 0.01)
                                                .float().mean()),
-         kernel_alone_ms=alone, kernel_ms_by_name=by_name, build=build,
+         kernel_alone_ms=alone, kernel_ms_by_name=by_name,
+         kernel_launch_spread_ms={k: v[2] for k, v in profiled.items()},
+         build=build,
          **{k: v for k, v in stats.items() if k not in ("pairs", "blended",
                                                          "reached")})
     if max(e_fwd[0], e_fwd[1]) > TOL_RGB_ALPHA or \
@@ -623,10 +633,10 @@ def compare_train_blend(label, args, values, tiles_x, build):
 
 
 def cull_ops_ms(stats, ops_per_blended):
-    """The operations a culling kernel (B1 backward, B2) needs on a frame,
-    and their least ms: the 13 of a pair for the reached pairs whose patch
-    keeps the entry, the blended pairs' own, over the float32 rate, and
-    each block's float64 boxes over the float64 rate."""
+    """The operations a culling blend (every table kernel, B2) needs on a
+    frame, and their least ms: the 13 of a pair for the reached pairs whose
+    patch keeps the entry, the blended pairs' own, over the float32 rate,
+    and each block's float64 boxes over the float64 rate."""
     f32 = (OPS_PER_PAIR * stats["kept_pairs"]
            + ops_per_blended * stats["blended"])
     f64 = BOX_OPS * stats["boxed_entries"]
@@ -640,9 +650,9 @@ def table_bounds(args, stats):
     lists' live entries, read once; the tile counts; per pixel the 32-byte
     output and 8-byte state (forward), or the state and the 32-byte
     upstream gradient (backward); and the backward's 64-byte gradient of
-    each live entry, written once. The forwards count every reached pair;
-    the backward, which culls, only the kept ones (``cull_ops_ms``), and
-    beside it ``ops_unculled``, every reached pair."""
+    each live entry, written once. All three cull, so each counts only the
+    reached pairs its patches keep and its blocks' boxes (``cull_ops_ms``),
+    and beside that ``ops_unculled``, every reached pair."""
     import torch
 
     tl, tc, packed = args
@@ -653,25 +663,22 @@ def table_bounds(args, stats):
     rows = sum(int(torch.unique(tl[b][tl[b] < n_rows - 1]).numel())
                for b in range(B))
     common = 64 * rows + 4 * entries + 4 * B * T
-    fwd_ops = (OPS_PER_PAIR * stats["pairs"]
-               + OPS_PER_BLENDED_PAIR * stats["blended"])
-    fwd_ms = fwd_ops / FP32_FLOP_PER_S * 1e3
-    bwd_ops, bwd_ms = cull_ops_ms(stats, OPS_BWD_PER_BLENDED_PAIR)
     out = {}
-    for name, nbytes, ops, o_ms in (
-            ("blend_train_fwd", common + (32 + 8) * B * T * P, fwd_ops,
-             fwd_ms),
+    for name, nbytes, per_blended in (
+            ("blend_train_fwd", common + (32 + 8) * B * T * P,
+             OPS_PER_BLENDED_PAIR),
             ("blend_train_bwd", common + (8 + 32) * B * T * P
-             + 64 * entries, bwd_ops, bwd_ms),
-            ("blend_tiles_eval", common + 32 * B * T * P, fwd_ops, fwd_ms)):
+             + 64 * entries, OPS_BWD_PER_BLENDED_PAIR),
+            ("blend_tiles_eval", common + 32 * B * T * P,
+             OPS_PER_BLENDED_PAIR)):
+        ops, o_ms = cull_ops_ms(stats, per_blended)
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         out[name] = dict(bytes=nbytes, ops=ops, rows=rows, entries=entries,
                          bytes_ms=b_ms, ops_ms=o_ms,
                          bound_ms=max(b_ms, o_ms),
-                         bound_by="bytes" if b_ms >= o_ms else "operations")
-    out["blend_train_bwd"]["ops_unculled"] = (
-        OPS_PER_PAIR * stats["pairs"]
-        + OPS_BWD_PER_BLENDED_PAIR * stats["blended"])
+                         bound_by="bytes" if b_ms >= o_ms else "operations",
+                         ops_unculled=OPS_PER_PAIR * stats["pairs"]
+                         + per_blended * stats["blended"])
     return out
 
 
@@ -807,11 +814,14 @@ def sdpa_times(q, k, v, g, backward):
     return out
 
 
-def kernel_device_ms(fn, reps):
+def kernel_device_ms(fn, reps, spread=False):
     """Mean device ms of the kernels one ``fn()`` launches, from a profile
     of ``reps`` calls after one untimed call: the card's time alone, without
     the host's cost of each wrapper call, which at the small shapes is as
-    long as the kernel. Returns (the sum, {kernel name: ms})."""
+    long as the kernel. Returns (the sum, {kernel name: ms}); with
+    ``spread``, also {kernel name: the median, min and max ms of its
+    launches and their count}, from the profile's per-launch device events,
+    not ``key_averages``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -829,8 +839,19 @@ def kernel_device_ms(fn, reps):
         by_name = {e.key[:80]: e.device_time_total / reps / 1e3
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA}
-        if sum(by_name.values()) > 0:
+        if sum(by_name.values()) <= 0:
+            continue
+        if not spread:
             return sum(by_name.values()), by_name
+        launches = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                launches.setdefault(e.key[:80], []).append(
+                    e.device_time_total / 1e3)
+        return sum(by_name.values()), by_name, {
+            name: dict(median=statistics.median(ms), min=min(ms),
+                       max=max(ms), launches=len(ms))
+            for name, ms in launches.items()}
     fail("the profiler recorded no device time in three profiles")
 
 
@@ -1346,7 +1367,7 @@ STAGE_RANGES = (("sds_step.render", "animate_project"),
 
 
 # substrings of the hand-written kernels' names in a profiler trace
-NAMED_KERNELS = ("blend_bwd", "flash_fwd", "flash_combine",
+NAMED_KERNELS = ("blend_fwd", "blend_bwd", "flash_fwd", "flash_combine",
                  "flash_bwd", "flash_delta", "indexing_backward")
 
 
@@ -1897,6 +1918,7 @@ def main():
              device_busy_share=busy_ms / wall_ms if on_card else None,
              kernel_launches=sum(e.count for e in on_card),
              stage_device_ms=stage_dev, stage_host_ms=stage_host,
+             blend_fwd_b1_kernel_ms=named["blend_fwd"],
              backward_blend_train_bwd_kernel_ms=named["blend_bwd"],
              flash_fwd_kernels_ms=named["flash_fwd"] + named["flash_combine"],
              flash_bwd_kernels_ms=named["flash_bwd"] + named["flash_delta"],

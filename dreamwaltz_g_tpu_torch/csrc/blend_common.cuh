@@ -1,5 +1,6 @@
 // Shared by blend_sorted.cu and blend_train.cu: the warp patches, the exact
-// footprint cull, 16-byte cp.async copies and the launch facts.
+// footprint cull, 16-byte cp.async copies, the per-pair weight, the
+// front-to-back walk of the three forward blends and the launch facts.
 //
 // Patches. A tile of tile_size^2 pixels (tile_size 8, 16, 24 or 32) is cut
 // into 8 x 4 pixel patches, numbered row-major (tile_size / 8 a row). A block
@@ -129,6 +130,136 @@ __device__ __forceinline__ void cp_async_commit() {
 // every copy this thread issued has landed and is visible to it
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct Weight {
+  float dx, dy, q, w;  // w is the raw weight op * exp(-q / 2)
+};
+
+// q and w of one (pixel, entry) pair with explicit round-to-nearest
+// multiplies and adds (no FMA contraction) in the plain PyTorch version's
+// operation order, so that the q >= 0 and min_alpha tests decide alike in
+// both versions.
+__device__ __forceinline__ Weight weight(const float4 a0, const float4 a1,
+                                         float px, float py) {
+  Weight r;
+  r.dx = px - a0.x;
+  r.dy = py - a0.y;
+  r.q = __fadd_rn(
+      __fadd_rn(__fmul_rn(__fmul_rn(a0.z, r.dx), r.dx),
+                __fmul_rn(__fmul_rn(__fmul_rn(2.0f, a0.w), r.dx), r.dy)),
+      __fmul_rn(__fmul_rn(a1.x, r.dy), r.dy));
+  r.w = __fmul_rn(a1.y, expf(__fmul_rn(-0.5f, r.q)));
+  return r;
+}
+
+constexpr int kWalkRows = 128;  // rows a batch: 8 KB of rows + 2 KB of boxes
+
+// The forward walk of the three forward blends (B2, B1 forward, B3): this
+// block's pixels composite the `count` entries idx[0 .. count) (rows of
+// `table`, depth-ordered) front to back, and pixel p of the output gets
+// sum_j T_j w_j v_j. Each warp walks only the entries whose footprint box
+// hits its patch; a pixel stops after the entry that takes its T to t_eps
+// or below, and the block leaves once all its pixels have stopped. With
+// kSave it also writes the pixel's final T and n_last, the list index + 1
+// of the entry that stopped it (`count` where none did), which the
+// backward walks back from: T = T (1 - w) is rounded as the backward's
+// recovery T_j = T_{j+1} / (1 - w_j) undoes it.
+//
+// Rows arrive through 16-byte cp.async copies, double-buffered: batch
+// b + 1 is in flight while batch b is blended. The thread that copied a
+// row waits for its own copies and computes the row's box, so one barrier
+// a batch (which also counts the stopped pixels) suffices; the row index
+// of the batch after is read into a register a batch ahead. Each warp
+// tests 32 entries' boxes at once (one a lane) and walks the ballot's set
+// bits in list order.
+template <bool kSave>
+__device__ __forceinline__ void forward_walk(
+    const float4* __restrict__ table, const int* __restrict__ idx, int count,
+    const Patch& pt, size_t p, float alpha_clip, float min_alpha,
+    float t_eps, float4* __restrict__ out, float* __restrict__ t_final,
+    int* __restrict__ n_last) {
+  __shared__ float4 rows[2][kWalkRows * 4];
+  __shared__ float4 boxes[2][kWalkRows];
+  const int nthr = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int R = min(kWalkRows, nthr);  // one row a thread, at most
+
+  // the row of entry b0 + tid, or -1 past the list
+  auto index_at = [&](int b0) {
+    return tid < R && b0 + tid < count ? idx[b0 + tid] : -1;
+  };
+  auto issue = [&](int g, int buf) {
+    if (g >= 0) {
+      const float4* src = table + (size_t)g * 4;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cp_async16(&rows[buf][4 * tid + c],
+                                             src + c);
+    }
+    cp_async_commit();
+  };
+  auto box = [&](int g, int buf) {
+    cp_async_wait_all();
+    if (g >= 0)
+      boxes[buf][tid] = footprint_box(rows[buf][4 * tid],
+                                      rows[buf][4 * tid + 1], min_alpha);
+  };
+
+  float T = 1.0f;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int done = 0;
+  int walked = count;
+
+  int g = index_at(0);
+  issue(g, 0);
+  box(g, 0);
+  g = index_at(R);
+  __syncthreads();
+  for (int b0 = 0, buf = 0; b0 < count; b0 += R, buf ^= 1) {
+    const int n = min(R, count - b0);
+    const int g_next = g;
+    issue(g_next, buf ^ 1);
+    g = index_at(b0 + 2 * R);  // used a batch from now
+    for (int j0 = 0; j0 < n && !__all_sync(kFull, done); j0 += 32) {
+      const bool hit = j0 + lane < n && box_hits(boxes[buf][j0 + lane], pt);
+      unsigned mask = __ballot_sync(kFull, hit);
+      while (mask) {
+        const int j = j0 + __ffs(mask) - 1;
+        mask &= mask - 1;
+        if (done) continue;
+        const float4 a0 = rows[buf][4 * j];
+        const float4 a1 = rows[buf][4 * j + 1];
+        const Weight r = weight(a0, a1, pt.px, pt.py);
+        if (!(r.q >= 0.0f && r.w >= min_alpha)) continue;
+        const float w = fminf(r.w, alpha_clip);
+        const float4 v0 = rows[buf][4 * j + 2];
+        const float4 v1 = rows[buf][4 * j + 3];
+        const float c = T * w;
+        acc[0] += c * v0.x; acc[1] += c * v0.y;
+        acc[2] += c * v0.z; acc[3] += c * v0.w;
+        acc[4] += c * v1.x; acc[5] += c * v1.y;
+        acc[6] += c * v1.z; acc[7] += c * v1.w;
+        T = __fmul_rn(T, __fsub_rn(1.0f, w));
+        if (T <= t_eps) {
+          done = 1;
+          walked = b0 + j + 1;
+        }
+      }
+    }
+    box(g_next, buf ^ 1);
+    // the batch after lands before anyone reads it, nobody still reads this
+    // batch's buffers when the next iteration refills them, and the block
+    // leaves once every pixel has stopped
+    if (__syncthreads_count(done) == nthr) break;
+  }
+
+  out[2 * p] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  out[2 * p + 1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  if (kSave) {
+    t_final[p] = T;
+    n_last[p] = walked;
+  }
 }
 
 // info = {threads, static shared-memory bytes, dynamic shared-memory bytes,

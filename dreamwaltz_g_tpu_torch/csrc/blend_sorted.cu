@@ -37,11 +37,13 @@
 //   and its order are the parent design's: the output is the same to every
 //   bit. Each warp tests 32 entries' boxes at once (one a lane) and walks
 //   the ballot's set bits in order.
-// * Rows arrive through 16-byte cp.async copies, double-buffered: batch
-//   b + 1 is in flight while batch b is blended. The thread that copied a
-//   row computes its box after waiting for its own copies, so one barrier a
-//   batch (which also counts the stopped pixels) suffices; s_idx of the
-//   batch after is read into a register a batch ahead.
+// * Rows arrive through 16-byte cp.async copies, double-buffered, one
+//   barrier a batch.
+// The walk itself is blend::forward_walk, which B1's forward and B3
+// (blend_train.cu) share: the three forward blends differ only in where
+// an entry's row index comes from (s_idx here, a tile list there), the
+// table's view offset and whether the walk's state is saved, so B2's image
+// equals B3's to every bit by construction.
 //
 // Differences from the TPU kernel, by design: the TPU kernel keeps log T,
 // forms the exclusive prefix with a bf16 matmul (about 0.4% on log T) and
@@ -58,10 +60,6 @@
 
 namespace {
 
-using blend::kFull;
-
-constexpr int kRows = 128;  // rows a batch: 8 KB of rows + 2 KB of boxes
-
 __global__ void __launch_bounds__(blend::kMaxThreads)
 blend_sorted_kernel(const float4* __restrict__ packed,
                     const int* __restrict__ s_idx,
@@ -70,94 +68,14 @@ blend_sorted_kernel(const float4* __restrict__ packed,
                     float4* __restrict__ out,
                     int tiles_x, int tile_size,
                     float alpha_clip, float min_alpha, float t_eps) {
-  __shared__ float4 rows[2][kRows * 4];
-  __shared__ float4 boxes[2][kRows];
   const int S = tile_size / blend::kBlockRows;
   const int t = blockIdx.x / S;
-  const int nthr = blockDim.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int R = min(kRows, nthr);  // one row a thread, at most
   const blend::Patch pt =
       blend::patch_of(t, blockIdx.x % S, tiles_x, tile_size);
-  const int start = seg_start[t];
-  const int count = counts[t];
-
-  // s_idx of row `tid` of the batch at b0, or -1 past the segment
-  auto index_at = [&](int b0) {
-    return tid < R && b0 + tid < count ? s_idx[start + b0 + tid] : -1;
-  };
-  auto issue = [&](int g, int buf) {
-    if (g >= 0) {
-      const float4* src = packed + (size_t)g * 4;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) blend::cp_async16(&rows[buf][4 * tid + c],
-                                                    src + c);
-    }
-    blend::cp_async_commit();
-  };
-  auto box = [&](int g, int buf) {
-    blend::cp_async_wait_all();
-    if (g >= 0)
-      boxes[buf][tid] = blend::footprint_box(rows[buf][4 * tid],
-                                             rows[buf][4 * tid + 1],
-                                             min_alpha);
-  };
-
-  float T = 1.0f;
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int done = 0;
-
-  int g = index_at(0);
-  issue(g, 0);
-  box(g, 0);
-  g = index_at(R);
-  __syncthreads();
-  for (int b0 = 0, buf = 0; b0 < count; b0 += R, buf ^= 1) {
-    const int n = min(R, count - b0);
-    const int g_next = g;
-    issue(g_next, buf ^ 1);
-    g = index_at(b0 + 2 * R);  // used a batch from now
-    for (int j0 = 0; j0 < n && !__all_sync(kFull, done); j0 += 32) {
-      const bool hit =
-          j0 + lane < n && blend::box_hits(boxes[buf][j0 + lane], pt);
-      unsigned mask = __ballot_sync(kFull, hit);
-      while (mask) {
-        const int j = j0 + __ffs(mask) - 1;
-        mask &= mask - 1;
-        if (done) continue;
-        const float4 a0 = rows[buf][4 * j];
-        const float4 a1 = rows[buf][4 * j + 1];
-        const float dx = pt.px - a0.x;
-        const float dy = pt.py - a0.y;
-        const float q = __fadd_rn(
-            __fadd_rn(__fmul_rn(__fmul_rn(a0.z, dx), dx),
-                      __fmul_rn(__fmul_rn(__fmul_rn(2.0f, a0.w), dx), dy)),
-            __fmul_rn(__fmul_rn(a1.x, dy), dy));
-        float w = __fmul_rn(a1.y, expf(__fmul_rn(-0.5f, q)));
-        if (!(q >= 0.0f && w >= min_alpha)) continue;
-        w = fminf(w, alpha_clip);
-        const float4 v0 = rows[buf][4 * j + 2];
-        const float4 v1 = rows[buf][4 * j + 3];
-        const float c = T * w;
-        acc[0] += c * v0.x; acc[1] += c * v0.y;
-        acc[2] += c * v0.z; acc[3] += c * v0.w;
-        acc[4] += c * v1.x; acc[5] += c * v1.y;
-        acc[6] += c * v1.z; acc[7] += c * v1.w;
-        T *= 1.0f - w;
-        if (T <= t_eps) done = 1;
-      }
-    }
-    box(g_next, buf ^ 1);
-    // the batch after lands before anyone reads it, nobody still reads this
-    // batch's buffers when the next iteration refills them, and the block
-    // leaves once every pixel has stopped
-    if (__syncthreads_count(done) == nthr) break;
-  }
-
-  float4* o = out + ((size_t)t * tile_size * tile_size + pt.pid) * 2;
-  o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  blend::forward_walk<false>(
+      packed, s_idx + seg_start[t], counts[t], pt,
+      (size_t)t * tile_size * tile_size + pt.pid, alpha_clip, min_alpha,
+      t_eps, out, nullptr, nullptr);
 }
 
 }  // namespace

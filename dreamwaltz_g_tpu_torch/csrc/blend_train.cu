@@ -19,16 +19,36 @@
 //   [mx, my, ca, cb, cc, op, 0, 0, v0 .. v7]     (row N is all zero)
 //
 // Forward (B1 forward, B3): the 3DGS forward, not the TPU block structure
-// (chunked matmul prefixes, lane-transposed panels). One block per (tile,
-// view), one thread per pixel of the tile in row order; the block gathers
-// the rows of its list into shared memory in batches through tile_lists, so
-// no (T, K) panel array is materialised and the (N + 1, 16) table (13 MB for
-// 200k Gaussians) stays in the 50 MB L2. Running float32 transmittance; a
-// pixel stops once T <= t_eps (exp(-9.2), the TPU kernel's threshold) after
-// blending the entry that took it there, and the block leaves when
-// __syncthreads_count says every pixel has stopped. For the backward it
-// keeps, per pixel, the final T and the number of entries it walked (8 bytes
-// a pixel; the TPU kernel keeps a per-chunk log-T checkpoint instead).
+// (chunked matmul prefixes, lane-transposed panels), on B2's design
+// (blend_sorted.cu) and with B2's walk, blend::forward_walk in
+// blend_common.cuh: the three forward blends differ only in where an
+// entry's row index comes from (here tile_lists[b, t, i]), the table's view
+// offset (view b reads rows b * n_rows ..) and whether the state is saved.
+// What bounds it on the H100 is what bounds B2: the bytes are small (the
+// packed rows the lists reference, 4 B of list an entry, the 32 B-per-pixel
+// output and, for B1, the 8 B-per-pixel state), and so is the float work
+// once the cull drops the pairs min_alpha rejects (on the step's 512^2
+// frame a pixel reaches ~92% of its tile's entries, its patch keeps ~12%
+// of those, and it blends ~2.4%); the heaviest tiles' walks set the time.
+// * Sub-tile blocks: a block covers 8 rows of a (tile, view) (a 32 x 8
+//   strip of 256 threads, 4 blocks a tile at tile_size 32, over a
+//   dim3(n_tiles * 4, n_views) grid), so a heavy tile spreads over several
+//   SMs; each gathers the rows of its list itself (the (N + 1, 16) table,
+//   13 MB for 200k Gaussians, stays in the 50 MB L2; no (T, K) panel array
+//   is materialised) and leaves once all its pixels have stopped.
+// * A warp owns an 8 x 4 pixel patch and skips every entry whose footprint
+//   box misses the patch: a skipped pair is one the plain test rejects, so
+//   each pixel's arithmetic and order are unchanged and B1 forward's out
+//   equals B3's, and B2's image, to every bit.
+// * Rows arrive through a double-buffered cp.async ring, one barrier a
+//   batch.
+// * The saved state (B1 forward), per pixel in the tile's row-major order:
+//   the final T (T = T (1 - w), each rounded once, as the backward's
+//   recovery undoes it) and n_last, the list index + 1 of the entry that
+//   took T to t_eps = exp(-9.2) or below (the TPU kernel's threshold), or
+//   the tile's count where none did; a culled entry never blends, so never
+//   stops a pixel. 8 bytes a pixel; the TPU kernel keeps a per-chunk log-T
+//   checkpoint instead.
 //
 // Backward (B1 backward). Per pixel it walks its entries back to front,
 // recovers T_j = T_{j+1} / (1 - w_j) with the same rounded (1 - w_j) the
@@ -104,37 +124,12 @@ namespace {
 
 using blend::kFull;
 
-constexpr int kBatch = 256;     // forward: rows per shared-memory batch (16 KB)
 constexpr int kBwdBatch = 32;   // backward: entries per batch, one a lane
 
-struct Weight {
-  float dx, dy, q, w;  // w is the raw weight op * exp(-q / 2)
-};
-
-__device__ __forceinline__ Weight weight(const float4 a0, const float4 a1,
-                                         float px, float py) {
-  Weight r;
-  r.dx = px - a0.x;
-  r.dy = py - a0.y;
-  r.q = __fadd_rn(
-      __fadd_rn(__fmul_rn(__fmul_rn(a0.z, r.dx), r.dx),
-                __fmul_rn(__fmul_rn(__fmul_rn(2.0f, a0.w), r.dx), r.dy)),
-      __fmul_rn(__fmul_rn(a1.x, r.dy), r.dy));
-  r.w = __fmul_rn(a1.y, expf(__fmul_rn(-0.5f, r.q)));
-  return r;
-}
-
-// Load rows list[lo .. lo + n) of the view's table into rows[0 .. 4n).
-__device__ __forceinline__ void load_rows(float4* rows, const float4* table,
-                                          const int* list, int lo, int n) {
-  for (int k = threadIdx.x; k < n * 4; k += blockDim.x) {
-    const int g = list[lo + (k >> 2)];
-    rows[k] = table[(size_t)g * 4 + (k & 3)];
-  }
-}
-
+// B1 forward (kTrain) and B3: S = tile_size / 8 blocks a (tile, view),
+// blockIdx.y the view.
 template <bool kTrain>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(blend::kMaxThreads)
 blend_fwd_kernel(const float4* __restrict__ packed,
                  const int* __restrict__ tile_lists,
                  const int* __restrict__ tile_counts,
@@ -142,57 +137,15 @@ blend_fwd_kernel(const float4* __restrict__ packed,
                  int* __restrict__ n_last, int n_tiles, int K, int n_rows,
                  int tiles_x, int tile_size, float alpha_clip,
                  float min_alpha, float t_eps) {
-  __shared__ float4 rows[kBatch * 4];
-  const int t = blockIdx.x;
+  const int S = tile_size / blend::kBlockRows;
+  const int t = blockIdx.x / S;
   const size_t bt = (size_t)blockIdx.y * n_tiles + t;
-  const int P = blockDim.x;
-  const int pid = threadIdx.x;
-  const int* list = tile_lists + bt * K;
-  const int count = tile_counts[bt];
-  const float4* table = packed + (size_t)blockIdx.y * n_rows * 4;
-  const float px = (float)((t % tiles_x) * tile_size + pid % tile_size) + 0.5f;
-  const float py = (float)((t / tiles_x) * tile_size + pid / tile_size) + 0.5f;
-
-  float T = 1.0f;
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int done = 0;
-  int walked = count;
-
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
-    const int n = min(kBatch, count - b0);
-    load_rows(rows, table, list, b0, n);
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        const Weight g = weight(rows[4 * j], rows[4 * j + 1], px, py);
-        if (!(g.q >= 0.0f && g.w >= min_alpha)) continue;
-        const float w = fminf(g.w, alpha_clip);
-        const float4 v0 = rows[4 * j + 2];
-        const float4 v1 = rows[4 * j + 3];
-        const float c = T * w;
-        acc[0] += c * v0.x; acc[1] += c * v0.y;
-        acc[2] += c * v0.z; acc[3] += c * v0.w;
-        acc[4] += c * v1.x; acc[5] += c * v1.y;
-        acc[6] += c * v1.z; acc[7] += c * v1.w;
-        T = __fmul_rn(T, __fsub_rn(1.0f, w));
-        if (T <= t_eps) {
-          done = 1;
-          walked = b0 + j + 1;
-          break;
-        }
-      }
-    }
-    // barrier before the next batch overwrites `rows`, and the block exit
-    if (__syncthreads_count(done) == P) break;
-  }
-
-  const size_t p = bt * P + pid;
-  out[2 * p] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  out[2 * p + 1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  if (kTrain) {
-    t_final[p] = T;
-    n_last[p] = walked;
-  }
+  const blend::Patch pt =
+      blend::patch_of(t, blockIdx.x % S, tiles_x, tile_size);
+  blend::forward_walk<kTrain>(
+      packed + (size_t)blockIdx.y * n_rows * 4, tile_lists + bt * K,
+      tile_counts[bt], pt, bt * tile_size * tile_size + pt.pid, alpha_clip,
+      min_alpha, t_eps, out, t_final, n_last);
 }
 
 // The 16 lanes of v summed over the warp: after five shuffle rounds that
@@ -359,7 +312,7 @@ blend_bwd_kernel(const float4* __restrict__ packed,
       if (lo + jj < walked) {
         const float4 a0 = rows[buf][4 * jj];
         const float4 a1 = rows[buf][4 * jj + 1];
-        const Weight g = weight(a0, a1, pt.px, pt.py);
+        const blend::Weight g = blend::weight(a0, a1, pt.px, pt.py);
         if (g.q >= 0.0f && g.w >= min_alpha) {
           reached = true;
           const float w = fminf(g.w, alpha_clip);
@@ -432,8 +385,30 @@ constexpr int kSumThreads = 256;
 
 }  // namespace
 
-// Launch on `stream`: one block of tile_size^2 threads per (tile, view).
-// Each returns the cudaGetLastError() code of its launch (0 on success).
+// Launch on `stream`: S = tile_size / 8 blocks of tile_size * 8 threads a
+// (tile, view). Each returns the cudaGetLastError() code of its launch (0
+// on success; cudaErrorInvalidValue for a tile size the kernel does not
+// take, see blend::valid_tile).
+template <bool kTrain>
+static int launch_fwd(const float* packed, const int* tile_lists,
+                      const int* tile_counts, float* out, float* t_final,
+                      int* n_last, int n_views, int n_tiles, int K,
+                      int n_rows, int tiles_x, int tile_size,
+                      float alpha_clip, float min_alpha, float t_eps,
+                      void* stream) {
+  if (!blend::valid_tile(tile_size)) return (int)cudaErrorInvalidValue;
+  if (n_tiles > 0 && n_views > 0) {
+    const int S = tile_size / blend::kBlockRows;
+    blend_fwd_kernel<kTrain><<<dim3(n_tiles * S, n_views),
+                               tile_size * blend::kBlockRows, 0,
+                               (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(packed), tile_lists, tile_counts,
+        reinterpret_cast<float4*>(out), t_final, n_last, n_tiles, K, n_rows,
+        tiles_x, tile_size, alpha_clip, min_alpha, t_eps);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int blend_train_fwd_f32(const float* packed, const int* tile_lists,
                                    const int* tile_counts, float* out,
                                    float* t_final, int* n_last, int n_views,
@@ -441,15 +416,9 @@ extern "C" int blend_train_fwd_f32(const float* packed, const int* tile_lists,
                                    int tiles_x, int tile_size,
                                    float alpha_clip, float min_alpha,
                                    float t_eps, void* stream) {
-  const int P = tile_size * tile_size;
-  if (n_tiles > 0 && n_views > 0) {
-    blend_fwd_kernel<true><<<dim3(n_tiles, n_views), P, 0,
-                             (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(packed), tile_lists, tile_counts,
-        reinterpret_cast<float4*>(out), t_final, n_last, n_tiles, K, n_rows,
-        tiles_x, tile_size, alpha_clip, min_alpha, t_eps);
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd<true>(packed, tile_lists, tile_counts, out, t_final,
+                          n_last, n_views, n_tiles, K, n_rows, tiles_x,
+                          tile_size, alpha_clip, min_alpha, t_eps, stream);
 }
 
 extern "C" int blend_tiles_eval_f32(const float* packed, const int* tile_lists,
@@ -458,15 +427,9 @@ extern "C" int blend_tiles_eval_f32(const float* packed, const int* tile_lists,
                                     int n_rows, int tiles_x, int tile_size,
                                     float alpha_clip, float min_alpha,
                                     float t_eps, void* stream) {
-  const int P = tile_size * tile_size;
-  if (n_tiles > 0 && n_views > 0) {
-    blend_fwd_kernel<false><<<dim3(n_tiles, n_views), P, 0,
-                              (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(packed), tile_lists, tile_counts,
-        reinterpret_cast<float4*>(out), nullptr, nullptr, n_tiles, K, n_rows,
-        tiles_x, tile_size, alpha_clip, min_alpha, t_eps);
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(packed, tile_lists, tile_counts, out, nullptr,
+                           nullptr, n_views, n_tiles, K, n_rows, tiles_x,
+                           tile_size, alpha_clip, min_alpha, t_eps, stream);
 }
 
 // The backward: blend_bwd_order_kernel ranks each view's tiles into
@@ -514,16 +477,17 @@ extern "C" int blend_train_bwd_f32(const float* packed, const int* tile_lists,
 // tile_size.
 extern "C" int blend_train_info(int part, int tile_size, int* info) {
   if (!blend::valid_tile(tile_size)) return (int)cudaErrorInvalidValue;
-  const int P = tile_size * tile_size;
+  const int threads = tile_size * blend::kBlockRows;
   switch (part) {
-    case 0: return (int)blend::launch_facts(blend_fwd_kernel<true>, P, 0, info);
+    case 0:
+      return (int)blend::launch_facts(blend_fwd_kernel<true>, threads, 0,
+                                      info);
     case 1:
-      return (int)blend::launch_facts(blend_fwd_kernel<false>, P, 0, info);
-    case 2: {
-      const int threads = tile_size * blend::kBlockRows;
+      return (int)blend::launch_facts(blend_fwd_kernel<false>, threads, 0,
+                                      info);
+    case 2:
       return (int)blend::launch_facts(blend_bwd_kernel, threads,
                                       bwd_smem(threads / 32), info);
-    }
     case 3:
       return (int)blend::launch_facts(blend_bwd_sum_kernel, kSumThreads, 0,
                                       info);

@@ -11,10 +11,14 @@ loses at most exp(-9.2) |value| (the plain version stops per tile at chunk
 boundaries), and a min_alpha decision flips only where exp rounds apart
 (at most 1/255 of one entry).
 
-The kernel's footprint cull skips only pairs the plain test rejects, so its
-image equals, to every bit, the table eval kernel's (B3, which culls
-nothing) on the same depth-sorted entries: ``test_sorted_equals_table_eval``
-holds it there at grazing footprints and at full tiles."""
+The kernel's image equals, to every bit, the table eval kernel's (B3) on
+the same depth-sorted entries, since the two run one walk
+(``csrc/blend_common.cuh:forward_walk``) and differ only in where an
+entry's row index comes from: ``test_sorted_equals_table_eval`` holds it
+there at grazing footprints and at full tiles. That the cull drops only
+pairs the plain test rejects is held by the plain versions' tolerances
+above and, to every bit, by B1 forward's saved state against a walk of
+every entry (``test_torch_blend_train_gpu.py``)."""
 import numpy as np
 import pytest
 import torch

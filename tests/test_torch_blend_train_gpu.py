@@ -18,8 +18,13 @@ Tolerances, kernel vs plain version on the same card inputs:
   prefix); against the plain backward with the TPU's tile stop, that
   envelope on top of ``blend_tiles_train_stop_envelope``, the stop rules'
   own (an earlier entry's dw moves by up to 1e-4 |G| / (1 - w), w up to
-  0.999).
+  0.999);
+* B1 forward's ``out`` against B3's, and its saved state against a walk of
+  every entry in torch with the kernels' float32 roundings
+  (``_walk_state``): to every bit, since the arithmetic is the same.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -28,7 +33,12 @@ from dreamwaltz_g_tpu_torch import tests_support
 from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch
 from dreamwaltz_g_tpu_torch.ops import blend_train as BT
 from dreamwaltz_g_tpu_torch.ops import rasterize as R
-from dreamwaltz_g_tpu_torch.ops.blend import _tile, pack_rows
+from dreamwaltz_g_tpu_torch.ops.blend import (
+    LOG_T_EPS,
+    _tile,
+    _tile_pixel_centres,
+    pack_rows,
+)
 from dreamwaltz_g_tpu_torch.utils.transforms import quat_normalize
 
 TOL = 5e-3
@@ -196,6 +206,88 @@ def test_backward_is_deterministic():
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert float(a.abs().max()) > 0
+
+
+def _walk_state(tl, tc, packed, tile_size, tiles_x, alpha_clip=0.999,
+                min_alpha=1.0 / 255.0):
+    """Each pixel's final T and n_last by a front-to-back walk in torch,
+    entry by entry, with the kernels' float32 roundings: one an operation,
+    in their order, no fused multiply-add. Every entry is tested, none
+    culled. Returns (B, T, P) float32 and int32."""
+    B, T, _ = tl.shape
+    dev = tl.device
+    pix = _tile_pixel_centres(tiles_x, T // tiles_x, tile_size, dev)
+    px, py = pix[..., 0], pix[..., 1]                    # (T, P)
+    f32 = dict(dtype=torch.float32, device=dev)
+    t_eps = torch.tensor(math.exp(LOG_T_EPS), **f32)
+    min_alpha = torch.tensor(min_alpha, **f32)
+    alpha_clip = torch.tensor(alpha_clip, **f32)
+    t = torch.ones((B, T, px.shape[1]), **f32)
+    n_last = tc[..., None].expand_as(t).clone()
+    done = torch.zeros_like(t, dtype=torch.bool)
+    for j in range(int(tc.max())):
+        idx = tl[:, :, j].long()[..., None].expand(B, T, 16)
+        a = torch.gather(packed, 1, idx)[:, :, None, :]  # (B, T, 1, 16)
+        dx = px - a[..., 0]
+        dy = py - a[..., 1]
+        q = a[..., 2] * dx * dx + 2.0 * a[..., 3] * dx * dy \
+            + a[..., 4] * dy * dy
+        w = a[..., 5] * torch.exp(-0.5 * q)
+        live = (j < tc)[..., None] & ~done & (q >= 0) & (w >= min_alpha)
+        t = torch.where(live, t * (1.0 - torch.minimum(w, alpha_clip)), t)
+        stop = live & (t <= t_eps)
+        n_last = torch.where(stop, j + 1, n_last)
+        done |= stop
+    return t, n_last
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["grazing", "full"])
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_forward_saves_each_pixels_stop(scene, tile_size):
+    """B1 forward's saved state, which the backward walks back from: per
+    pixel, n_last is the list index + 1 of the entry that took T to t_eps
+    or below, or the tile's count where none did, so it lies in
+    [1, count], is the count wherever the final T is above t_eps, and where
+    it is short of the count, entry n_last - 1 passes the pixel's
+    ``q >= 0`` and ``w >= min_alpha`` tests (a culled entry never stops a
+    pixel). Both equal, to every bit, ``_walk_state``'s walk of every
+    entry, so the cull drops no entry that the pixel blends. ``out`` equals
+    B3's to every bit, and a second call gives the same three tensors to
+    every bit."""
+    (tl, tc, packed, _), W = _screen_table(_card(), scene, tile_size)
+    Tx = -(-W // tile_size)
+    out, (t_final, n_last) = BT.blend_train_fwd(tl, tc, packed, tile_size,
+                                                Tx)
+    out2, (t_final2, n_last2) = BT.blend_train_fwd(tl, tc, packed,
+                                                   tile_size, Tx)
+    ev = BT.blend_tiles_eval_panels(tl, tc, packed, tile_size, Tx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ev), float((out - ev).abs().max())
+    assert torch.equal(out, out2) and torch.equal(t_final, t_final2) \
+        and torch.equal(n_last, n_last2)
+
+    t_eps = math.exp(LOG_T_EPS)
+    count = tc[..., None].expand_as(n_last)
+    assert int(tc.min()) > 0
+    assert bool(((n_last >= 1) & (n_last <= count)).all())
+    assert bool((n_last[t_final > t_eps] == count[t_final > t_eps]).all())
+    stopped = n_last < count
+    assert bool((t_final[stopped] <= t_eps).all())
+    if scene == "grazing":           # opaque enough that pixels stop early
+        assert int(stopped.sum()) > 1000
+    row = tl.gather(-1, (n_last - 1).long())             # (1, T, P)
+    a = packed[0, row.long()]                            # (1, T, P, 16)
+    pix = _tile_pixel_centres(Tx, tl.shape[1] // Tx, tile_size, out.device)
+    dx = pix[..., 0] - a[..., 0]
+    dy = pix[..., 1] - a[..., 1]
+    q = a[..., 2] * dx * dx + 2.0 * a[..., 3] * dx * dy + a[..., 4] * dy * dy
+    w = a[..., 5] * torch.exp(-0.5 * q)
+    assert bool(((q >= 0) & (w >= 1.0 / 255.0))[stopped].all())
+    # to every bit the walk of every entry, culled or not
+    t_ref, n_ref = _walk_state(tl, tc, packed, tile_size, Tx)
+    assert torch.equal(n_last, n_ref), int((n_last != n_ref).sum())
+    assert torch.equal(t_final, t_ref), float((t_final - t_ref).abs().max())
 
 
 @pytest.mark.gpu
