@@ -31,9 +31,10 @@ Phases, one JSON line each:
                    plain versions, each kernel's device ms alone (with its
                    launches' median, min and max) and build facts, and the
                    per-tile work as for B2;
-10. kernel_flash -- flash attention (B4) forward at the five shapes the
-                   training paths give it, and backward at the three that
-                   are differentiated, against the plain versions;
+10. kernel_flash -- flash attention (B4) forward at the eight shapes the
+                   training paths give it (bf16, and float32 for the tiny
+                   step and the float32-guidance step), and backward at the
+                   four that are differentiated, against the plain versions;
 11. small_train -- one SDS step of the tiny avatar, with its mesh part,
                    and the tiny guidance with its ControlNet, attention
                    through flash (``FLASH_ATTENTION = "on"``) and the
@@ -73,7 +74,14 @@ Phases, one JSON line each:
                    defaults and with thresholds at the medians so that
                    clones and splits happen; invariants checked; two more
                    SDS steps; then ``train_profile_densified``: one
-                   profiled step again, with the buffer full.
+                   profiled step again, with the buffer full;
+16. train_f32   -- the same step with the UNet, ControlNet and VAE in
+                   float32 (the JAX package's ``guide.dtype = "fp32"``): the
+                   bf16 stack freed, counts set to 0, 1 warm-up and 3 steps
+                   with flash, counts and the calls' types read (15 float32
+                   forwards and 1 backward a step), 1 + 2 steps with einsum
+                   attention, one profiled step; step ms, the float32 flash
+                   kernels' device ms a step, busy share, peak memory.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -102,6 +110,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
+TF32_FLOP_PER_S = 495e12    # dense, tensor cores
 # float32 operations per (pixel, entry) pair of the blend: every pair
 # evaluates q and w (2 sub, 6 mul + 2 add for q, 2 mul + 1 exp for w) = 13;
 # a pair that passes min_alpha adds the clip, T*w, 8 multiply-adds and the
@@ -167,12 +176,16 @@ TOL_STATS_FLIPS = 5e-3
 # -- flash attention (B4): (shape (B, N, H, D), type, backward held too).
 # The full-width step gives it the three bf16 shapes (UNet and ControlNet
 # under CFG at 64^2 and 32^2 latents, the VAE encoder's mid block, which is
-# differentiated); the tiny step the two float32 ones
+# differentiated); the tiny step the first two float32 ones; the full-width
+# step with the guidance in float32 (phase ``train_f32``) the last three
 FLASH_SHAPES = (((2, 4096, 8, 40), "bf16", False),
                 ((2, 1024, 8, 80), "bf16", False),
                 ((1, 4096, 1, 512), "bf16", True),
                 ((1, 1024, 2, 16), "f32", True),
-                ((1, 1024, 1, 64), "f32", True))
+                ((1, 1024, 1, 64), "f32", True),
+                ((2, 4096, 8, 40), "f32", False),
+                ((2, 1024, 8, 80), "f32", False),
+                ((1, 4096, 1, 512), "f32", True))
 # kernel vs plain version (float32 scores) on the same card inputs.
 # float32: 1e-5 absolute on the output, 1e-4 of each gradient's largest
 # entry, the JAX package's own for its TPU kernel. bf16: the kernel rounds
@@ -195,6 +208,10 @@ TOL_FLASH_BF16_GRAD = 2.0 ** -6
 # stay on einsum
 FLASH_PER_STEP = (15, 1)
 OFF_STEPS, OFF_WARMUP = 4, 2   # the einsum-attention comparison run
+# the float32-guidance step (phase train_f32): warm-up and timed steps with
+# flash ("auto"), then with einsum attention ("off")
+F32_WARMUP, F32_STEPS = 1, 3
+F32_OFF_WARMUP, F32_OFF_STEPS = 1, 2
 
 
 def emit(**kw):
@@ -695,16 +712,26 @@ def flash_inputs(dev, shape, kind):
 
 def flash_bound(shape, kind, backward):
     """Least time of one flash call on the card: 4 B H N^2 D operations
-    forward (two products), 10 B H N^2 D backward (five), at the real D,
-    over the tensor cores' bf16 rate or the float32 rate; q, k, v, out (and
-    d_out, dq, dk, dv) and lse moved once over the HBM rate."""
+    forward (two products), 10 B H N^2 D backward (five), at the real D;
+    q, k, v, out (and d_out, dq, dk, dv) and lse moved once over the HBM
+    rate. bf16 operations run at the tensor cores' bf16 rate. float32-grade
+    products have two routes, whichever is faster, whatever a kernel's
+    design: the CUDA cores at 67 TFLOP/s, or three TF32 tensor-core products
+    for each at 495 TFLOP/s (165 TFLOP/s of float32 products); both times
+    are reported."""
     B, N, H, D = shape
     elt = 2 if kind == "bf16" else 4
     ops = (10 if backward else 4) * B * H * N * N * D
     nbytes = (8 if backward else 4) * B * N * H * D * elt + 4 * B * H * N
-    rate = BF16_FLOP_PER_S if kind == "bf16" else FP32_FLOP_PER_S
-    o_ms, b_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(ops=ops, bytes=nbytes, ops_ms=o_ms, bytes_ms=b_ms,
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    routes = {}
+    if kind == "bf16":
+        o_ms = ops / BF16_FLOP_PER_S * 1e3
+    else:
+        routes = dict(cuda_cores_ms=ops / FP32_FLOP_PER_S * 1e3,
+                      tf32x3_ms=3 * ops / TF32_FLOP_PER_S * 1e3)
+        o_ms = min(routes.values())
+    return dict(ops=ops, bytes=nbytes, ops_ms=o_ms, bytes_ms=b_ms, **routes,
                 bound_ms=max(o_ms, b_ms),
                 bound_by="bytes" if b_ms >= o_ms else "operations")
 
@@ -712,13 +739,14 @@ def flash_bound(shape, kind, backward):
 def compare_flash(dev):
     """B4 forward at every shape of ``FLASH_SHAPES`` and backward where the
     path differentiates it, against the plain versions on the same inputs.
-    Returns {shape: (inputs, out, lse)} and the worst error of each kernel
-    relative to its tolerance's scale."""
+    Returns the worst error of each kernel relative to its tolerance's
+    scale. No input outlives its shape's check: the training phases' peak
+    memory is the step's own."""
     import torch
 
     from dreamwaltz_g_tpu_torch.guidance import flash as FL
 
-    kept, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "bwd": 0.0}
     for shape, kind, backward in FLASH_SHAPES:
         q, k, v, g = flash_inputs(dev, shape, kind)
         out, lse = FL.flash_attn_fwd(q, k, v)
@@ -764,8 +792,7 @@ def compare_flash(dev):
         if bad:
             fail(f"flash attention {shape} {kind} disagrees with its plain "
                  "version")
-        kept[shape] = (q, k, v, g, out, lse)
-    return kept, worst
+    return worst
 
 
 def einsum_attention(q, k, v):
@@ -917,10 +944,25 @@ def kernel_build(facts, info_fn, shape, kind, part, family, match):
     fail(f"no ptxas entry for {family} ({shape} {kind})")
 
 
+# the float32 kernels' names: the three-pass TF32 kernels, or the CUDA-core
+# kernels of an older checkout, so that this script times either tree
+F32_FWD_FAMILIES = ("flash_fwd_tf32_kernel", "flash_fwd_f32_kernel")
+F32_BWD_FAMILIES = ("flash_bwd_tf32_kernel", "flash_bwd_f32_kernel")
+
+
+def f32_family(facts, families):
+    """The first of ``families`` that the ptxas log names."""
+    for family in families:
+        if any(family in name for name in facts):
+            return family
+    fail(f"no ptxas entry for any of {families}")
+
+
 def flash_fwd_build(log, shape, kind):
     """The forward instantiation that ``shape`` runs: its template (tile
     width, then warps and key tile and ring stages, or key tile and ring
-    stages), registers and spills, dynamic shared memory, threads and
+    stages; float32: tile width, D-split warps, row groups, key tile and
+    ring stages), registers and spills, dynamic shared memory, threads and
     resident blocks an SM (``kernel_build``). The wide forward (bf16,
     D > 128) adds its combine kernel's facts under ``combine``."""
     from dreamwaltz_g_tpu_torch import kernels
@@ -928,12 +970,11 @@ def flash_fwd_build(log, shape, kind):
     fn = kernels.load("flash_attn").flash_attn_fwd_info
     facts = ptxas_facts(log)
     wide = kind == "bf16" and shape[-1] > 128
+    family = f32_family(facts, F32_FWD_FAMILIES) if kind != "bf16" else \
+        "flash_fwd_rows_kernel" if not wide else "flash_fwd_wide_kernel"
     build = kernel_build(
-        facts, fn, shape, kind, 0,
-        "flash_fwd_f32_kernel" if kind != "bf16" else
-        "flash_fwd_rows_kernel" if not wide else "flash_fwd_wide_kernel",
-        lambda args, raw, info: kind != "bf16"
-        or args[:1] == [info["tile_width"]])
+        facts, fn, shape, kind, 0, family,
+        lambda args, raw, info: not args or args[:1] == [info["tile_width"]])
     if wide:
         build["combine"] = kernel_build(facts, fn, shape, kind, 1,
                                         "flash_combine_kernel",
@@ -944,18 +985,22 @@ def flash_fwd_build(log, shape, kind):
 def flash_bwd_build(log, shape, kind):
     """The backward's kernels for ``shape``, in launch order (delta, then
     the two passes; bf16 at D > 128: the dK / dV pass, then the dS K
-    product), each as ``kernel_build`` gives it, from the library's
-    ``flash_attn_bwd_info``."""
+    product; float32: both passes in one grid), each as ``kernel_build``
+    gives it, from the library's ``flash_attn_bwd_info``."""
     from dreamwaltz_g_tpu_torch import kernels
 
     fn = kernels.load("flash_attn").flash_attn_bwd_info
     facts = ptxas_facts(log)
     bf16, D = kind == "bf16", shape[-1]
+    f32 = None if bf16 else f32_family(facts, F32_BWD_FAMILIES)
     if bf16 and D > 128:
         passes = [("flash_bwd_kv_wide_kernel", lambda *_: True),
                   ("flash_bwd_dq_wide_kernel", lambda *_: True)]
+    elif f32 == F32_BWD_FAMILIES[0]:
+        passes = [(f32, lambda args, raw, info:
+                   args[:1] == [info["tile_width"]])]
     else:
-        family = "flash_bwd_bf16_kernel" if bf16 else "flash_bwd_f32_kernel"
+        family = f32 or "flash_bwd_bf16_kernel"
 
         def one_pass(kv):
             # bf16: <tile width, key tile, kv>; float32: <kv>
@@ -969,12 +1014,22 @@ def flash_bwd_build(log, shape, kind):
             for part, (family, match) in enumerate(parts)]
 
 
-def flash_times(kept, build_log):
+def launch_median(spread):
+    """One call's kernels alone on the launch medians: the sum over the
+    kernels it launches of each one's median launch (``kernel_device_ms``'s
+    ``spread``)."""
+    return sum(x["median"] for x in spread.values())
+
+
+def flash_times(dev, build_log):
     """Per shape: the kernels' ms beside the plain versions', the einsum
     path's and the library call's, and the bounds. For the forward, and the
     backward where the path differentiates it, also the kernels' own device
-    ms (profiler), the rate 4 (10 backward) B H N^2 D / that time, its share
-    of the bound, and the build facts of each kernel."""
+    ms (profiler: the mean over the calls, and each kernel's launches'
+    median, min and max), the rate 4 (10 backward) B H N^2 D / that mean,
+    its share of the bound, and the build facts of each kernel. Each
+    shape's inputs are made again from the seed (``flash_inputs``), out and
+    lse by the kernel, as in ``compare_flash``."""
     import torch
 
     from dreamwaltz_g_tpu_torch.guidance import flash as FL
@@ -982,14 +1037,17 @@ def flash_times(kept, build_log):
     rows = []
     with torch.no_grad():
         for shape, kind, backward in FLASH_SHAPES:
-            q, k, v, g, out, lse = kept[shape]
+            q, k, v, g = flash_inputs(dev, shape, kind)
+            out, lse = FL.flash_attn_fwd(q, k, v)
             bound = flash_bound(shape, kind, False)
-            dev_ms, by_kernel = kernel_device_ms(
-                lambda: FL.flash_attn_fwd(q, k, v), 20)
+            dev_ms, by_kernel, spread = kernel_device_ms(
+                lambda: FL.flash_attn_fwd(q, k, v), 20, spread=True)
             row = dict(
                 shape=list(shape), type=kind,
                 fwd_ms=cuda_ms(lambda: FL.flash_attn_fwd(q, k, v), 10),
                 fwd_kernel_ms=dev_ms, fwd_kernel_ms_by_name=by_kernel,
+                fwd_kernel_launch_ms=spread,
+                fwd_kernel_launch_median_ms=launch_median(spread),
                 fwd_tflops=bound["ops"] / dev_ms / 1e9,
                 fwd_share_of_bound=bound["bound_ms"] / dev_ms,
                 build=flash_fwd_build(build_log, shape, kind),
@@ -999,13 +1057,16 @@ def flash_times(kept, build_log):
                 fwd_bound=bound)
             if backward:
                 bwd_bound = flash_bound(shape, kind, True)
-                bwd_dev_ms, bwd_by_kernel = kernel_device_ms(
-                    lambda: FL.flash_attn_bwd(q, k, v, out, lse, g), 20)
+                bwd_dev_ms, bwd_by_kernel, bwd_spread = kernel_device_ms(
+                    lambda: FL.flash_attn_bwd(q, k, v, out, lse, g), 20,
+                    spread=True)
                 row.update(
                     bwd_ms=cuda_ms(lambda: FL.flash_attn_bwd(
                         q, k, v, out, lse, g), 10),
                     bwd_kernel_ms=bwd_dev_ms,
                     bwd_kernel_ms_by_name=bwd_by_kernel,
+                    bwd_kernel_launch_ms=bwd_spread,
+                    bwd_kernel_launch_median_ms=launch_median(bwd_spread),
                     bwd_tflops=bwd_bound["ops"] / bwd_dev_ms / 1e9,
                     bwd_share_of_bound=bwd_bound["bound_ms"] / bwd_dev_ms,
                     bwd_build=flash_bwd_build(build_log, shape, kind),
@@ -1015,8 +1076,8 @@ def flash_times(kept, build_log):
                     bwd_bound=bwd_bound)
             rows.append(row)
     for row, (shape, kind, backward) in zip(rows, FLASH_SHAPES):
-        q, k, v, g, _, _ = kept[shape]
-        row["library"] = sdpa_times(q, k, v, g, backward)
+        row["library"] = sdpa_times(*flash_inputs(dev, shape, kind),
+                                    backward)
     return rows
 
 
@@ -1080,12 +1141,12 @@ def openpose_canvas(model, observed, extrinsic, intrinsics, H, W):
     return canvas.astype(np.float32) / 255.0
 
 
-def build_guidance(dev):
-    """The SD1.5-size bf16 UNet + pose ControlNet + VAE with random weights
-    from the seed."""
+def build_guidance(dev, dtype):
+    """The SD1.5-size UNet + pose ControlNet + VAE in ``dtype`` with random
+    weights from the seed."""
     from dreamwaltz_g_tpu_torch import tests_support
 
-    return tests_support.sd15_guidance(SEED, device=dev)
+    return tests_support.sd15_guidance(SEED, device=dev, dtype=dtype)
 
 
 def params_snapshot(state, model):
@@ -1716,7 +1777,7 @@ def main():
         TimePrioritizedScheduler,
     )
 
-    flash_kept, flash_err = compare_flash(dev)
+    flash_err = compare_flash(dev)
 
     # -- the tiny SDS step: CPU plain versions vs card kernels -------------
     small_train(dev)
@@ -1726,7 +1787,7 @@ def main():
         fail(f"FLASH_ATTENTION is {TL.FLASH_ATTENTION!r}, not its default")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    guidance, gparams = build_guidance(dev)
+    guidance, gparams = build_guidance(dev, torch.bfloat16)
     torch.cuda.synchronize()
     guidance_s = time.perf_counter() - t0
     guide_cfg = GuideConfig()
@@ -1860,7 +1921,7 @@ def main():
                 lambda: BT.blend_tiles_eval_reference(*kargs, ts_, tiles_x),
                 3)}
     bounds = table_bounds(t_args, errs_avatar[3])
-    flash_rows = flash_times(flash_kept, logs["flash_attn"])
+    flash_rows = flash_times(dev, logs["flash_attn"])
 
     # the same run with einsum attention ("off"), the (B, H, N, N) scores
     # in device memory: its step time and its peak memory beside flash's
@@ -1898,12 +1959,13 @@ def main():
     # -- busy share, stage breakdown and top kernels over one SDS step, -----
     # before densification (the dead slots lie at the origin) and after
     # (the buffer is full)
-    def profile_step(phase, tstate):
+    def profile_step(tstate):
+        """One profiled SDS step: (the new state, the phase's fields)."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            tstate, _ = sds_step(tstate)
+            tstate, metrics = sds_step(tstate)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         on_card = device_events(prof)
@@ -1913,26 +1975,103 @@ def main():
         trace = kernels.BUILD_DIR / "sds_step_trace.json"
         prof.export_chrome_trace(str(trace))
         stage_dev, stage_host, named = stage_times(trace)
-        emit(phase=phase, steps=1, wall_ms=wall_ms,
-             device_busy_ms=busy_ms if on_card else None,
-             device_busy_share=busy_ms / wall_ms if on_card else None,
-             kernel_launches=sum(e.count for e in on_card),
-             stage_device_ms=stage_dev, stage_host_ms=stage_host,
-             blend_fwd_b1_kernel_ms=named["blend_fwd"],
-             backward_blend_train_bwd_kernel_ms=named["blend_bwd"],
-             flash_fwd_kernels_ms=named["flash_fwd"] + named["flash_combine"],
-             flash_bwd_kernels_ms=named["flash_bwd"] + named["flash_delta"],
-             index_backward_kernels_ms=named["indexing_backward"],
-             alive=int(tstate.avatar.alive.sum()),
-             top_kernels=[[e.key[:80], e.device_time_total / 1e3, e.count]
-                          for e in top], **card)
-        return tstate
+        return tstate, dict(
+            steps=1, wall_ms=wall_ms, loss=float(metrics["loss"]),
+            device_busy_ms=busy_ms if on_card else None,
+            device_busy_share=busy_ms / wall_ms if on_card else None,
+            kernel_launches=sum(e.count for e in on_card),
+            stage_device_ms=stage_dev, stage_host_ms=stage_host,
+            blend_fwd_b1_kernel_ms=named["blend_fwd"],
+            backward_blend_train_bwd_kernel_ms=named["blend_bwd"],
+            flash_fwd_kernels_ms=named["flash_fwd"] + named["flash_combine"],
+            flash_bwd_kernels_ms=named["flash_bwd"] + named["flash_delta"],
+            index_backward_kernels_ms=named["indexing_backward"],
+            alive=int(tstate.avatar.alive.sum()),
+            top_kernels=[[e.key[:80], e.device_time_total / 1e3, e.count]
+                         for e in top], **card)
 
-    tstate = profile_step("train_profile", tstate)
+    tstate, line = profile_step(tstate)
+    emit(phase="train_profile", **line)
 
     # -- densification on the full avatar, then the step with a full buffer --
     tstate = train_densify(tstate, model, sds_step, gen)
-    tstate = profile_step("train_profile_densified", tstate)
+    tstate, line = profile_step(tstate)
+    emit(phase="train_profile_densified", **line)
+
+    # -- the float32-guidance step: the same avatar, step, scheduler and
+    # raster settings with the UNet, ControlNet and VAE in float32 (the JAX
+    # package's guide.dtype = "fp32"); every flash call then takes float32
+    guidance = gparams = step = None
+    torch.cuda.empty_cache()
+    guidance, gparams = build_guidance(dev, torch.float32)
+    step = make_avatar_sds_step(model, guidance, TRAIN_H, TRAIN_W, pgc=pgc,
+                                device=dev, **TRAIN_RASTER)
+    txt, unc, cond = (x.float() for x in (txt, unc, cond))
+    step_in = step_in[:5] + (txt, unc)
+    fwd_fn, bwd_fn = FL.flash_attn_fwd, FL.flash_attn_bwd
+    launch_fn, types = FL._launch, []
+
+    def typed_launch(fn_name, dev_, *args):
+        types.append(args[0].dtype)    # q's type, at each kernel launch
+        return launch_fn(fn_name, dev_, *args)
+
+    FL._launch = typed_launch
+    try:
+        fwd_fn.launches = bwd_fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        f32_losses = []
+        for i in range(F32_WARMUP + F32_STEPS):
+            if i == F32_WARMUP:
+                torch.cuda.synchronize()
+                start_ev.record()
+            tstate, metrics = sds_step(tstate)
+            f32_losses.append(float(metrics["loss"]))
+        end_ev.record()
+        torch.cuda.synchronize()
+        f32_ms = start_ev.elapsed_time(end_ev) / F32_STEPS
+        f32_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        f32_launches = [fwd_fn.launches, bwd_fn.launches]
+        f32_types = sorted({str(t) for t in types})
+        if len(types) != sum(f32_launches):
+            fail(f"float32 step: {len(types)} kernel launches for "
+                 f"{f32_launches} counted")
+        TL.FLASH_ATTENTION = "off"
+        for i in range(F32_OFF_WARMUP + F32_OFF_STEPS):
+            if i == F32_OFF_WARMUP:
+                torch.cuda.synchronize()
+                start_ev.record()
+            tstate, metrics = sds_step(tstate)
+            f32_losses.append(float(metrics["loss"]))
+        end_ev.record()
+        torch.cuda.synchronize()
+        TL.FLASH_ATTENTION = "auto"
+        f32_off_ms = start_ev.elapsed_time(end_ev) / F32_OFF_STEPS
+        off_launches = [fwd_fn.launches, bwd_fn.launches]
+        tstate, line = profile_step(tstate)
+        f32_losses.append(line["loss"])
+    finally:
+        FL._launch = launch_fn
+        TL.FLASH_ATTENTION = "auto"
+    n_f32 = F32_WARMUP + F32_STEPS
+    emit(phase="train_f32", guidance_dtype="float32",
+         steps=[F32_WARMUP, F32_STEPS], off_steps=[F32_OFF_WARMUP,
+                                                    F32_OFF_STEPS],
+         sds_step_ms=f32_ms, sds_step_ms_flash_off=f32_off_ms,
+         launches=f32_launches, flash_call_types=f32_types,
+         loss=f32_losses, peak_mem_gib=f32_peak,
+         profile={k: line[k] for k in (
+             "wall_ms", "device_busy_ms", "device_busy_share",
+             "kernel_launches", "stage_device_ms", "flash_fwd_kernels_ms",
+             "flash_bwd_kernels_ms", "top_kernels")}, **card)
+    if f32_launches != [FLASH_PER_STEP[0] * n_f32, FLASH_PER_STEP[1] * n_f32]:
+        fail(f"float32 step: flash launched {f32_launches} times in {n_f32} "
+             f"steps, expected {FLASH_PER_STEP} a step")
+    if off_launches != f32_launches:
+        fail('float32 step: flash launched under FLASH_ATTENTION = "off"')
+    if f32_types != ["torch.float32"]:
+        fail(f"float32 step: flash took {f32_types}")
+    if not all(math.isfinite(x) for x in f32_losses):
+        fail("non-finite SDS loss with float32 guidance")
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
               library=None, **more):
@@ -1988,6 +2127,8 @@ def main():
                             if "combine" in r["build"] else ""),
                          "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
                          "kernel_ms": r["fwd_kernel_ms"],
+                         "kernel_launch_median_ms":
+                             r["fwd_kernel_launch_median_ms"],
                          "einsum_ms": r["fwd_einsum_ms"],
                          "bound_ms": r["fwd_bound"]["bound_ms"],
                          "library_ms": r["library"]["fwd_ms"]}
@@ -2002,6 +2143,8 @@ def main():
                                               for x in r["bwd_build"]),
                          "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"],
                          "kernel_ms": r["bwd_kernel_ms"],
+                         "kernel_launch_median_ms":
+                             r["bwd_kernel_launch_median_ms"],
                          "bound_ms": r["bwd_bound"]["bound_ms"],
                          "library_ms": r["library"]["bwd_ms"]}
                         for r in flash_rows if "bwd_ms" in r]),

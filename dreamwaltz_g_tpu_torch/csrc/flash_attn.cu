@@ -75,9 +75,51 @@
 //    pitch of 520 elements (65 chunks of 16 B) keeps ldmatrix free of bank
 //    conflicts, as at the narrow widths.
 //
-// float32: CUDA cores, true float32 products (no TF32, no downcast),
-// accumulators in shared memory, any D up to 512. It is the reference
-// instantiation for the float32 parity checks, not a fast path.
+// float32 (the same TPU kernel, dreamwaltz_g_tpu/guidance/layers.py:153
+// `_flash_kernel` via :174 `flash_self_attention`, at float32: the tiny
+// stack, the float32 guidance, the parity mode): three-pass TF32 on the
+// tensor cores, FlashAttention-2 shaped like the bf16 forward.
+//  * Products. Each operand x splits into hi = tf32(x) (cvt.rna, 10
+//    mantissa bits) and lo = tf32(x - hi); x - hi is exact, so x = hi + lo
+//    to within 2^-22 |x|. Each product is lo hi + hi lo + hi hi on
+//    mma.sync.m16n8k8 TF32, each partial product exact; the dropped lo lo
+//    and the roundings of lo leave ~3 2^-22 of each product, against 2^-24
+//    for CUDA-core float32. A single TF32 product (2^-11) misses the
+//    float32 tolerances (1e-5 on out, 1e-4 of each gradient's largest);
+//    three pass them with room (the plain twins in guidance/flash.py).
+//  * Accumulator chains. The tensor cores add into a float32 accumulator
+//    without rounding to nearest: over the 1,536 chained adds of a
+//    4096-key row the bias passed 1e-5 on out at (2, 4096, 8, 40) (NVIDIA
+//    H100 80GB HBM3). So each tile's P V (and
+//    each backward tile's products) goes into registers of its own, and
+//    the running sums take it with a round-to-nearest add (o = alpha o +
+//    P V as one FFMA, where the rescale was anyway).
+//  * Bound on this card: operations, 3 x 4 B H N^2 D forward at TF32's 495
+//    TFLOP/s, i.e. float32 products at 165 TFLOP/s (0.26 ms at the UNet's
+//    (2, 4096, 8, 40)), above the CUDA cores' 67 TFLOP/s (0.64 ms).
+//  * Fragments. ldmatrix moves 16-bit elements and cannot transpose 32-bit
+//    ones, so fragments come from float tiles by 32-bit loads. Rows are
+//    padded by 4 floats: the pitch is 4 x an odd number of words, so the 8
+//    rows x 4 columns of an A or B fragment, and the 4 row pairs x 8
+//    columns of V's, fall on 32 different banks. Operands split as they
+//    are loaded (Q, K, V and P alike).
+//  * P without a shuffle. The scores' accumulator holds columns 2t, 2t + 1
+//    of each 8-key slice, the A operand wants t, t + 4. P V sums over the
+//    keys, so the k order inside a slice is free: k = t is key 2t, k = t + 4
+//    key 2t + 1, and V's rows are read in that order (frag_b32_kn). The
+//    backward takes P and dS into dV, dK and dQ the same way.
+//  * Tiles. D <= 128 (tile widths 16, 40, 64, 80, 128): 4 row groups of 16
+//    query rows a block, one warp each (two at width 64, see
+//    with_tf32_fwd_config), 64-key tiles through a 2-stage cp.async ring. D > 128 (512; 256 and 384 zero-padded): 16 x 512 of O is
+//    too many registers for a warp, so the DSPLIT warps of a row group take
+//    slices of the depth, for both Q K^T (partial scores, summed through
+//    shared memory in warp order by sum_partials, so every warp holds the
+//    same scores and softmax) and O: 4 warps of 128 columns, 2 row groups,
+//    32 rows a block, 16-key tiles (float32 tiles are twice bf16's: Q 66 KB
+//    + the ring 132 KB + the exchange 8 KB). 128 blocks at (1, 4096, 1,
+//    512) fill the card without splitting the keys.
+//  * Exponent: ex2.approx.ftz in the log2 domain, as the bf16 forward
+//    (~2^-22 relative); lse goes back to the natural log.
 //
 // A head dimension below its tile's width (40 in a 48-wide tile) is
 // zero-padded in the shared-memory tiles only. Tensors are addressed by
@@ -86,9 +128,18 @@
 //
 // Backward, deterministic, with no atomics. `delta = rowsum(dO * O)` is a
 // small kernel of its own; then P = exp(S - lse), dS = P (dP - delta),
-// dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K, float32 accumulators,
-// P and dS rounded to bf16 once each.
-//  * bf16, tile widths 48, 80, 128, and float32: two passes, one body. A
+// dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K, float32 accumulators;
+// bf16 rounds P and dS to bf16 once each.
+//  * float32 (three-pass TF32, as the forward): a dQ pass and a dK / dV pass
+//    in one grid (the dK / dV blocks first, the heavier), each recomputing
+//    S and dP (14 N^2 D, three products each), no scratch. Row groups and
+//    D-split warps as in the forward: D <= 128, 4 groups of 16 rows, one
+//    warp each (two at widths 64, 80 and 128), 32-row streamed
+//    tiles; D = 512, one group of 8 warps of 64 columns, 16-row tiles (X1
+//    and X2 66 KB, the ring 132 KB, the exchange of S and dP 16 KB). P and
+//    dS stay in registers and enter the products as A operands in the
+//    permuted k order.
+//  * bf16, tile widths 48, 80, 128: two passes, one body. A
 //    block that owns a query tile walks the key tiles and accumulates dQ; a
 //    block that owns a key tile walks the query tiles and accumulates dK and
 //    dV (the transposed products S^T = K Q^T and dP^T = V dO^T, so the same
@@ -218,11 +269,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
       dst[r * LD + c] = c < D ? src[r * row_stride + c] : __float2bfloat16(0.f);
     }
   }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -1391,180 +1437,575 @@ flash_bwd_dq_wide_kernel(const bf16* __restrict__ ds,
 }
 
 // ---------------------------------------------------------------------------
-// float32 kernels: CUDA cores, accumulators in shared memory, runtime D
+// float32: three-pass TF32 on the tensor cores (mma.sync.m16n8k8). Each
+// operand x splits into hi = tf32(x) and lo = tf32(x - hi); each product is
+// lo hi + hi lo + hi hi, accumulated in float32
 // ---------------------------------------------------------------------------
 
-constexpr int F_BM = 16;      // rows a block owns
-constexpr int F_BN_FWD = 32;  // streamed rows a tile, forward
-constexpr int F_BN_BWD = 16;  // streamed rows a tile, backward
+constexpr int F32_PAD = 4;  // float32 elements of row padding in shared memory
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld,
-                                              const float* src,
+// round to nearest, ties away from zero, to TF32's 10 mantissa bits
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4). B (8 x 8, col): b0 (k = t, n = g), b1 (k = t + 4, n = g). C as for
+// m16n8k16: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+struct FragA32 {
+  uint32_t hi[4], lo[4];
+};
+struct FragB32 {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += A B as three TF32 products, the small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA32& a,
+                                     const FragB32& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// A from a row-major tile, X at (row r0, column k0)
+__device__ __forceinline__ FragA32 frag_a32(const float* X, int ld, int g,
+                                            int t) {
+  FragA32 f;
+  split_tf32(X[g * ld + t], f.hi[0], f.lo[0]);
+  split_tf32(X[(g + 8) * ld + t], f.hi[1], f.lo[1]);
+  split_tf32(X[g * ld + t + 4], f.hi[2], f.lo[2]);
+  split_tf32(X[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A from a 16 x 8 block of scores in C layout (rows g, g + 8; columns 2t,
+// 2t + 1), with the k order permuted: k = t is column 2t, k = t + 4 column
+// 2t + 1. The B operand it meets (frag_b32_kn) reads its rows in that order.
+__device__ __forceinline__ FragA32 frag_a32_scores(const float (&c)[4]) {
+  FragA32 f;
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B[k][n] = Y[n][k]: Y at (row n0, column k0), the product with Y transposed
+__device__ __forceinline__ FragB32 frag_b32_nk(const float* Y, int ld, int g,
+                                               int t) {
+  FragB32 f;
+  split_tf32(Y[g * ld + t], f.hi[0], f.lo[0]);
+  split_tf32(Y[g * ld + t + 4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B[k][n] = Y[row(k)][n], rows in frag_a32_scores' k order (k = t: row 2t,
+// k = t + 4: row 2t + 1): Y at (row k0, column n0), the product with Y as
+// it lies
+__device__ __forceinline__ FragB32 frag_b32_kn(const float* Y, int ld, int g,
+                                               int t) {
+  FragB32 f;
+  split_tf32(Y[2 * t * ld + g], f.hi[0], f.lo[0]);
+  split_tf32(Y[(2 * t + 1) * ld + g], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// `rows` rows of D floats into a [rows][DP + F32_PAD] tile by NTH threads.
+// `vec` (D, the row stride and the base a multiple of 4 floats, 16-byte
+// aligned): asynchronous 16-byte copies, columns D..DP-1 left as they are;
+// else element by element, synchronously, columns D..DP-1 zeroed.
+template <int DP, int NTH>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long row_stride, int rows,
-                                              int D) {
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    int r = i / D, c = i % D;
-    dst[r * ld + c] = src[r * row_stride + c];
+                                              int D, bool vec) {
+  constexpr int LD = DP + F32_PAD;
+  if (vec) {
+    constexpr int CH = DP / 4;
+    for (int i = threadIdx.x; i < rows * CH; i += NTH) {
+      int r = i / CH, c = (i % CH) * 4;
+      if (c < D) cp_async16(dst + r * LD + c, src + r * row_stride + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DP; i += NTH) {
+      int r = i / DP, c = i % DP;
+      dst[r * LD + c] = c < D ? src[r * row_stride + c] : 0.f;
+    }
   }
 }
 
-static size_t fwd_f32_smem(int D) {
-  return sizeof(float) * ((size_t)2 * F_BM * D + F_BN_FWD * (D + 1) +
-                          (size_t)F_BN_FWD * D + F_BM * (F_BN_FWD + 1) +
-                          3 * F_BM);
+// columns D..DP-1 of `rows` consecutive tile rows, zeroed (the `vec` copies
+// never write them)
+template <int DP, int NTH>
+__device__ __forceinline__ void zero_tail_f32(float* tiles, int rows, int D) {
+  constexpr int LD = DP + F32_PAD;
+  const int tail = (DP - D) / 4;
+  for (int i = threadIdx.x; i < rows * tail; i += NTH) {
+    int r = i / tail, c = D + (i % tail) * 4;
+    *reinterpret_cast<float4*>(tiles + r * LD + c) = make_float4(0, 0, 0, 0);
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int N, int H, int D, Strides sq,
-                     Strides sk, Strides sv, float scale) {
-  constexpr int BM = F_BM, BN = F_BN_FWD, LDS = BN + 1;
+// The DSPLIT warps of row group rg (warps DSPLIT rg..) each hold partial
+// sums of the same M 16 x (8 NT) score tiles, over their own columns of the
+// depth. Each writes its partials to xs ([warp][m][j][lane] float4) and,
+// after the group's named barrier, adds all of them in warp order, so every
+// warp of the group ends with the same sums. The caller's next block-wide
+// barrier keeps the next tile's writes behind this tile's reads.
+template <int DSPLIT, int M, int NT>
+__device__ __forceinline__ void sum_partials(float (&s)[M][NT][4], float4* xs,
+                                             int rg, int w, int lane) {
+  float4* mine = xs + (rg * DSPLIT + w) * M * NT * 32 + lane;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      mine[(m * NT + j) * 32] =
+          make_float4(s[m][j][0], s[m][j][1], s[m][j][2], s[m][j][3]);
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "r"(32 * DSPLIT)
+               : "memory");
+  const float4* group = xs + rg * DSPLIT * M * NT * 32 + lane;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float4 acc = make_float4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < DSPLIT; ++u) {
+        const float4 x = group[(u * M * NT + m * NT + j) * 32];
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
+      }
+      s[m][j][0] = acc.x;
+      s[m][j][1] = acc.y;
+      s[m][j][2] = acc.z;
+      s[m][j][3] = acc.w;
+    }
+}
+
+// online_softmax for float32 P: p = 2^(scale_log2 s - m) in place of s, l
+// rescaled by alpha, which comes back for the caller's O
+template <int NT>
+__device__ __forceinline__ void online_softmax_f32(float (&s)[NT][4],
+                                                   float (&alpha)[2],
+                                                   float (&m)[2], float (&l)[2],
+                                                   const float (&mx)[2],
+                                                   float scale_log2) {
+  float neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(fmaf(s[j][e], scale_log2, neg_m[e >> 1]));
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+}
+
+// zeroed accumulators
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// Q (resident), a ring of STAGES K tiles and STAGES V tiles, and the score
+// exchange of D-split warps
+template <int DP, int DSPLIT, int RG, int BN, int STAGES>
+struct Tf32FwdSmem {
+  static constexpr int WARPS = DSPLIT * RG;
+  static constexpr int BM = 16 * RG;
+  static constexpr int LD = DP + F32_PAD;
+  static constexpr int TILE = BN * LD;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + sizeof(float) * BM * LD;
+  static constexpr size_t v = k + sizeof(float) * STAGES * TILE;
+  static constexpr size_t xs = v + sizeof(float) * STAGES * TILE;
+  static constexpr size_t bytes =
+      xs + (DSPLIT > 1 ? sizeof(float) * WARPS * 16 * BN : 0);
+};
+
+// Block (query tile, head, batch): RG row groups of 16 query rows, DSPLIT
+// warps each; warp w of a group takes columns w DW.. of the depth, both of
+// Q K^T (its partial sums, summed over the group by sum_partials) and of O.
+// Every warp of a group then holds the same scores and softmax state.
+template <int DP, int DSPLIT, int RG, int BN, int STAGES>
+__global__ void __launch_bounds__(32 * DSPLIT * RG, 1)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int N, int H, int D,
+                      Strides sq, Strides sk, Strides sv, float scale_log2,
+                      bool vec) {
+  static_assert(STAGES >= 2, "tile j + 1 loads while tile j is used");
+  using L = Tf32FwdSmem<DP, DSPLIT, RG, BN, STAGES>;
+  constexpr int NTH = 32 * L::WARPS;
+  constexpr int BM = L::BM, LD = L::LD, TILE = L::TILE;
+  constexpr int DW = DP / DSPLIT;  // depth columns a warp
+  static_assert(DW % 8 == 0 && BN % 8 == 0, "whole k8 steps and n8 tiles");
+  constexpr int KD = DW / 8;  // k8 steps of Q K^T
+  constexpr int NT = BN / 8;  // score n8 tiles, k8 steps of P V
+  constexpr int ND = DW / 8;  // output n8 tiles
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Os = Qs + BM * D;
-  float* Ks = Os + BM * D;        // [BN][D + 1]
-  float* Vs = Ks + BN * (D + 1);  // [BN][D]
-  float* Ss = Vs + BN * D;
-  float* row_m = Ss + BM * LDS;
-  float* row_l = row_m + BM;
-  float* row_a = row_l + BM;
+  float* Qs = reinterpret_cast<float*>(smem + L::q);
+  float* Ks = reinterpret_cast<float*>(smem + L::k);
+  float* Vs = reinterpret_cast<float*>(smem + L::v);
+  float4* xs = reinterpret_cast<float4*>(smem + L::xs);
+
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp / DSPLIT, w = warp % DSPLIT;
+  const int r0 = 16 * rg, d0 = w * DW;
 
-  load_rows_f32(Qs, D, q + offset(sq, b, q0, h), sq.n, BM, D);
-  for (int i = threadIdx.x; i < BM * D; i += THREADS) Os[i] = 0.f;
-  if (threadIdx.x < BM) {
-    row_m[threadIdx.x] = -INFINITY;
-    row_l[threadIdx.x] = 0.f;
+  const int n_tiles = N / BN;
+  auto load_kv = [&](int stage, int tile) {
+    load_tile_f32<DP, NTH>(Ks + stage * TILE, k + offset(sk, b, tile * BN, h),
+                           sk.n, BN, D, vec);
+    load_tile_f32<DP, NTH>(Vs + stage * TILE, v + offset(sv, b, tile * BN, h),
+                           sv.n, BN, D, vec);
+  };
+  // Q, the K ring and the V ring lie back to back: BM + 2 STAGES BN rows
+  if (vec && D < DP) zero_tail_f32<DP, NTH>(Qs, BM + 2 * STAGES * BN, D);
+  load_tile_f32<DP, NTH>(Qs, q + offset(sq, b, q0, h), sq.n, BM, D, vec);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_kv(st, st);
+    cp_async_commit();
   }
-  for (int n0 = 0; n0 < N; n0 += BN) {
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float* q_w = Qs + r0 * LD + d0;
+
+  int rd = 0, wr = STAGES - 1;
+  for (int i = 0; i < n_tiles; ++i) {
+    // tile i's group is complete; the barrier shows every warp done with
+    // tile i - 1 (its stage wr and the exchange slots)
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    load_rows_f32(Ks, D + 1, k + offset(sk, b, n0, h), sk.n, BN, D);
-    load_rows_f32(Vs, D, v + offset(sv, b, n0, h), sv.n, BN, D);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-      int r = i / BN, c = i % BN;
-      const float* qr = Qs + r * D;
-      const float* kr = Ks + c * (D + 1);
-      float acc = 0.f;
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      Ss[r * LDS + c] = acc * scale;
+    if (i + STAGES - 1 < n_tiles) load_kv(wr, i + STAGES - 1);
+    cp_async_commit();
+    const float* k_t = Ks + rd * TILE + d0;
+    const float* v_t = Vs + rd * TILE + d0;
+    rd = rd + 1 == STAGES ? 0 : rd + 1;
+    wr = wr + 1 == STAGES ? 0 : wr + 1;
+
+    float s[1][NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const FragA32 a = frag_a32(q_w + 8 * kk, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mma3(s[0][j], a, frag_b32_nk(k_t + 8 * j * LD + 8 * kk, LD, g, t));
     }
-    __syncthreads();
-    for (int i = warp; i < BM; i += THREADS / 32) {
-      float sv_ = Ss[i * LDS + lane];  // BN == 32: one column a lane
-      float m_old = row_m[i];
-      float m_new = fmaxf(m_old, warp_max(sv_));
-      float p = expf(sv_ - m_new);
-      Ss[i * LDS + lane] = p;
-      float sum = warp_sum(p);
-      if (lane == 0) {
-        float alpha = expf(m_old - m_new);
-        row_a[i] = alpha;
-        row_l[i] = row_l[i] * alpha + sum;
-        row_m[i] = m_new;
-      }
+    if constexpr (DSPLIT > 1) sum_partials<DSPLIT, 1, NT>(s, xs, rg, w, lane);
+
+    float mx[2], alpha[2];
+    tile_row_max(s[0], mx);
+    online_softmax_f32(s[0], alpha, m, l, mx, scale_log2);
+    // the tile's P V in registers of its own, then o = alpha o + P V in
+    // round-to-nearest float32 (see the header on accumulator chains)
+    float pv[ND][4];
+    zero(pv);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const FragA32 pa = frag_a32_scores(s[0][j]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        mma3(pv[n], pa, frag_b32_kn(v_t + 8 * j * LD + 8 * n, LD, g, t));
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * D; i += THREADS) {
-      int r = i / D, d = i % D;
-      float acc = Os[i] * row_a[r];
-      const float* p_row = Ss + r * LDS;
-      for (int c = 0; c < BN; ++c) acc = fmaf(p_row[c], Vs[c * D + d], acc);
-      Os[i] = acc;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = fmaf(o[n][e], alpha[e >> 1], pv[n][e]);
+  }
+
+  // out (B, N, H, D) and lse (B, H, N), contiguous; lse in natural log
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = 1.f / l[r];
+  }
+  float* o_lo = out + (((long long)b * N + q0 + r0 + g) * H + h) * D;
+  float* o_hi = o_lo + (long long)8 * H * D;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int d = d0 + 8 * j + 2 * t;
+    if (d < D) {
+      o_lo[d] = o[j][0] * inv[0];
+      o_hi[d] = o[j][2] * inv[1];
+    }
+    if (d + 1 < D) {
+      o_lo[d + 1] = o[j][1] * inv[0];
+      o_hi[d + 1] = o[j][3] * inv[1];
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * D; i += THREADS) {
-    int r = i / D, d = i % D;
-    out[(((long long)b * N + q0 + r) * H + h) * D + d] = Os[i] / row_l[r];
+  if (t == 0 && w == 0) {
+    float* lse_row = lse + ((long long)b * H + h) * N + q0 + r0 + g;
+    lse_row[0] = (m[0] + log2f(l[0])) * 0.69314718055994531f;
+    lse_row[8] = (m[1] + log2f(l[1])) * 0.69314718055994531f;
   }
-  if (threadIdx.x < BM)
-    lse[((long long)b * H + h) * N + q0 + threadIdx.x] =
-        row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
 }
 
-static size_t bwd_f32_smem(int D) {
-  return sizeof(float) * ((size_t)4 * F_BM * D + 2 * F_BN_BWD * (D + 1) +
-                          2 * F_BM * (F_BN_BWD + 1) + 2 * F_BM);
-}
+// X1 and X2 (resident), a ring of STAGES Y1 tiles and STAGES Y2 tiles, each
+// stage's lse and delta (the dK / dV pass), and the score exchange of
+// D-split warps (S and dP)
+template <int DP, int DSPLIT, int RG, int BN, int STAGES>
+struct Tf32BwdSmem {
+  static constexpr int WARPS = DSPLIT * RG;
+  static constexpr int BM = 16 * RG;
+  static constexpr int LD = DP + F32_PAD;
+  static constexpr int TILE = BN * LD;
+  static constexpr size_t x1 = 0;
+  static constexpr size_t x2 = x1 + sizeof(float) * BM * LD;
+  static constexpr size_t y1 = x2 + sizeof(float) * BM * LD;
+  static constexpr size_t y2 = y1 + sizeof(float) * STAGES * TILE;
+  static constexpr size_t vecs = y2 + sizeof(float) * STAGES * TILE;
+  static constexpr size_t xs = vecs + sizeof(float) * STAGES * 2 * BN;
+  static constexpr size_t bytes =
+      xs + (DSPLIT > 1 ? sizeof(float) * WARPS * 2 * 16 * BN : 0);
+};
 
-// the roles of x1, x2, y1, y2, g1, g2 are those of flash_bwd_bf16_kernel
-template <bool KV>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_f32_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
-                     const float* __restrict__ y1, const float* __restrict__ y2,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ g1,
-                     float* __restrict__ g2, int N, int H, int D, Strides sx1,
-                     Strides sx2, Strides sy1, Strides sy2, float scale) {
-  constexpr int BM = F_BM, BN = F_BN_BWD, LDT = BN + 1;
-  static_assert(BM == BN, "one lse / delta vector serves rows or columns");
+// One pass of the float32 backward over the rows m0.. that the block owns,
+// with the roles of flash_bwd_bf16_kernel: the dQ pass (KV = false: X1 = Q,
+// X2 = dO, streamed Y1 = K, Y2 = V) or the dK / dV pass (KV = true: X1 = K,
+// X2 = V, Y1 = Q, Y2 = dO). Row groups and D-split warps as in
+// flash_fwd_tf32_kernel: S' and dP' are summed over the group's warps, and
+// each warp accumulates its own DW columns of acc1 += dS' Y1 and (KV) acc2
+// += P' Y2, with P' and dS' taken from the score registers as A operands.
+template <int DP, int DSPLIT, int RG, int BN, int STAGES, bool KV>
+__device__ __forceinline__ void flash_bwd_tf32_pass(
+    const float* __restrict__ x1, const float* __restrict__ x2,
+    const float* __restrict__ y1, const float* __restrict__ y2,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ g1, float* __restrict__ g2, int m0, int N, int H,
+    int D, Strides sx1, Strides sx2, Strides sy1, Strides sy2, float scale,
+    bool vec) {
+  static_assert(STAGES >= 2, "tile j + 1 loads while tile j is used");
+  using L = Tf32BwdSmem<DP, DSPLIT, RG, BN, STAGES>;
+  constexpr int NTH = 32 * L::WARPS;
+  constexpr int BM = L::BM, LD = L::LD, TILE = L::TILE;
+  constexpr int DW = DP / DSPLIT;
+  static_assert(DW % 8 == 0 && BN % 8 == 0, "whole k8 steps and n8 tiles");
+  static_assert(NTH >= BN / 2, "one 16-byte copy a thread for lse, delta");
+  constexpr int KD = DW / 8, NT = BN / 8, ND = DW / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* X1s = reinterpret_cast<float*>(smem);
-  float* X2s = X1s + BM * D;
-  float* A1s = X2s + BM * D;
-  float* A2s = A1s + BM * D;
-  float* Y1s = A2s + BM * D;  // [BN][D + 1]
-  float* Y2s = Y1s + BN * (D + 1);
-  float* T1s = Y2s + BN * (D + 1);
-  float* T2s = T1s + BM * LDT;
-  float* v_lse = T2s + BM * LDT;
-  float* v_delta = v_lse + BM;
-  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * BM;
+  float* X1s = reinterpret_cast<float*>(smem + L::x1);
+  float* X2s = reinterpret_cast<float*>(smem + L::x2);
+  float* Y1s = reinterpret_cast<float*>(smem + L::y1);
+  float* Y2s = reinterpret_cast<float*>(smem + L::y2);
+  float* vecs = reinterpret_cast<float*>(smem + L::vecs);
+  float4* xs = reinterpret_cast<float4*>(smem + L::xs);
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp / DSPLIT, w = warp % DSPLIT;
+  const int r0 = 16 * rg, d0 = w * DW;
+  const float scale_log2 = scale * LOG2E;
   const float* lse_bh = lse + ((long long)b * H + h) * N;
   const float* delta_bh = delta + ((long long)b * H + h) * N;
 
-  load_rows_f32(X1s, D, x1 + offset(sx1, b, m0, h), sx1.n, BM, D);
-  load_rows_f32(X2s, D, x2 + offset(sx2, b, m0, h), sx2.n, BM, D);
-  for (int i = threadIdx.x; i < 2 * BM * D; i += THREADS) A1s[i] = 0.f;
-  if (!KV && threadIdx.x < BM) {
-    v_lse[threadIdx.x] = lse_bh[m0 + threadIdx.x];
-    v_delta[threadIdx.x] = delta_bh[m0 + threadIdx.x];
-  }
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    __syncthreads();
-    load_rows_f32(Y1s, D + 1, y1 + offset(sy1, b, n0, h), sy1.n, BN, D);
-    load_rows_f32(Y2s, D + 1, y2 + offset(sy2, b, n0, h), sy2.n, BN, D);
-    if (KV && threadIdx.x < BN) {
-      v_lse[threadIdx.x] = lse_bh[n0 + threadIdx.x];
-      v_delta[threadIdx.x] = delta_bh[n0 + threadIdx.x];
+  // the dQ pass's rows: lse (log2 domain) and delta in registers
+  float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+  if constexpr (!KV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_lse[r] = lse_bh[m0 + r0 + g + 8 * r] * LOG2E;
+      row_delta[r] = delta_bh[m0 + r0 + g + 8 * r];
     }
+  }
+
+  const int n_tiles = N / BN;
+  auto load_y = [&](int stage, int tile) {
+    const int n0 = tile * BN;
+    load_tile_f32<DP, NTH>(Y1s + stage * TILE, y1 + offset(sy1, b, n0, h),
+                           sy1.n, BN, D, vec);
+    load_tile_f32<DP, NTH>(Y2s + stage * TILE, y2 + offset(sy2, b, n0, h),
+                           sy2.n, BN, D, vec);
+    if constexpr (KV) {
+      // lse and delta are contiguous (B, H, N) float32
+      float* vl = vecs + stage * 2 * BN;
+      const int i = threadIdx.x;
+      if (i < BN / 4)
+        cp_async16(vl + 4 * i, lse_bh + n0 + 4 * i);
+      else if (i < BN / 2)
+        cp_async16(vl + BN + 4 * (i - BN / 4), delta_bh + n0 + 4 * (i - BN / 4));
+    }
+  };
+  // X1, X2, the Y1 ring and the Y2 ring lie back to back
+  if (vec && D < DP) zero_tail_f32<DP, NTH>(X1s, 2 * BM + 2 * STAGES * BN, D);
+  load_tile_f32<DP, NTH>(X1s, x1 + offset(sx1, b, m0, h), sx1.n, BM, D, vec);
+  load_tile_f32<DP, NTH>(X2s, x2 + offset(sx2, b, m0, h), sx2.n, BM, D, vec);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_y(st, st);
+    cp_async_commit();
+  }
+
+  float acc1[ND][4], acc2[KV ? ND : 1][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc1[j][e] = 0.f;
+      if constexpr (KV) acc2[j][e] = 0.f;
+    }
+  const float* x1_w = X1s + r0 * LD + d0;
+  const float* x2_w = X2s + r0 * LD + d0;
+
+  int rd = 0, wr = STAGES - 1;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-      int r = i / BN, c = i % BN;
-      const float *a1 = X1s + r * D, *a2 = X2s + r * D;
-      const float *b1 = Y1s + c * (D + 1), *b2 = Y2s + c * (D + 1);
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(a1[d], b1[d], s);
-        dp = fmaf(a2[d], b2[d], dp);
+    if (i + STAGES - 1 < n_tiles) load_y(wr, i + STAGES - 1);
+    cp_async_commit();
+    const float* y1_t = Y1s + rd * TILE + d0;
+    const float* y2_t = Y2s + rd * TILE + d0;
+    const float* vl = vecs + rd * 2 * BN;
+    rd = rd + 1 == STAGES ? 0 : rd + 1;
+    wr = wr + 1 == STAGES ? 0 : wr + 1;
+
+    // sd[0] = S', sd[1] = dP'
+    float sd[2][NT][4];
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sd[mm][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const FragA32 a1 = frag_a32(x1_w + 8 * kk, LD, g, t);
+      const FragA32 a2 = frag_a32(x2_w + 8 * kk, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mma3(sd[0][j], a1, frag_b32_nk(y1_t + 8 * j * LD + 8 * kk, LD, g, t));
+        mma3(sd[1][j], a2, frag_b32_nk(y2_t + 8 * j * LD + 8 * kk, LD, g, t));
       }
-      int qi = KV ? c : r;
-      float p = expf(s * scale - v_lse[qi]);
-      T1s[r * LDT + c] = p * (dp - v_delta[qi]);
-      T2s[r * LDT + c] = p;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * D; i += THREADS) {
-      int r = i / D, d = i % D;
-      float acc1 = A1s[i], acc2 = A2s[i];
-      for (int c = 0; c < BN; ++c) {
-        acc1 = fmaf(T1s[r * LDT + c], Y1s[c * (D + 1) + d], acc1);
-        if (KV) acc2 = fmaf(T2s[r * LDT + c], Y2s[c * (D + 1) + d], acc2);
+    if constexpr (DSPLIT > 1) sum_partials<DSPLIT, 2, NT>(sd, xs, rg, w, lane);
+
+    // element (j, e): row r0 + g (+ 8 for e >= 2), column 8 j + 2 t + (e & 1);
+    // lse and delta are the query's: the row (dQ pass) or the column (KV)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const float l2 = KV ? vl[col] * LOG2E : row_lse[e >> 1];
+        const float dl = KV ? vl[BN + col] : row_delta[e >> 1];
+        const float p = ex2(fmaf(sd[0][j][e], scale_log2, -l2));
+        sd[0][j][e] = p;
+        sd[1][j][e] = p * (sd[1][j][e] - dl);
       }
-      A1s[i] = acc1;
-      if (KV) A2s[i] = acc2;
+
+    // the tile's products in registers of their own, added to acc1 and
+    // acc2 in round-to-nearest float32
+    float t1[ND][4], t2[KV ? ND : 1][4];
+    zero(t1);
+    zero(t2);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const FragA32 da = frag_a32_scores(sd[1][j]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        mma3(t1[n], da, frag_b32_kn(y1_t + 8 * j * LD + 8 * n, LD, g, t));
+      if constexpr (KV) {
+        const FragA32 pa = frag_a32_scores(sd[0][j]);
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+          mma3(t2[n], pa, frag_b32_kn(y2_t + 8 * j * LD + 8 * n, LD, g, t));
+      }
     }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc1[n][e] += t1[n][e];
+        if constexpr (KV) acc2[n][e] += t2[n][e];
+      }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * D; i += THREADS) {
-    int r = i / D, d = i % D;
-    long long at = (((long long)b * N + m0 + r) * H + h) * D + d;
-    g1[at] = A1s[i] * scale;
-    if (KV) g2[at] = A2s[i];
-  }
+
+  // gradients are contiguous (B, N, H, D)
+  const long long lo = (((long long)b * N + m0 + r0 + g) * H + h) * D;
+  const long long hi = lo + (long long)8 * H * D;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = d0 + 8 * j + 2 * t + e;
+      if (d < D) {
+        g1[lo + d] = acc1[j][e] * scale;
+        g1[hi + d] = acc1[j][e + 2] * scale;
+        if constexpr (KV) {
+          g2[lo + d] = acc2[j][e];
+          g2[hi + d] = acc2[j][e + 2];
+        }
+      }
+    }
+}
+
+// Both passes in one grid: blocks 0..N / BM - 1 take the dK / dV pass (the
+// heavier, so it is scheduled first), the rest the dQ pass
+template <int DP, int DSPLIT, int RG, int BN, int STAGES>
+__global__ void __launch_bounds__(32 * DSPLIT * RG, 1)
+flash_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ d_out,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dq,
+                      float* __restrict__ dk, float* __restrict__ dv, int N,
+                      int H, int D, Strides sq, Strides sk, Strides sv,
+                      Strides sd, float scale, bool vec) {
+  constexpr int BM = 16 * RG;
+  const int blocks = N / BM;
+  if ((int)blockIdx.x < blocks)
+    flash_bwd_tf32_pass<DP, DSPLIT, RG, BN, STAGES, true>(
+        k, v, q, d_out, lse, delta, dk, dv, blockIdx.x * BM, N, H, D, sk, sv,
+        sq, sd, scale, vec);
+  else
+    flash_bwd_tf32_pass<DP, DSPLIT, RG, BN, STAGES, false>(
+        q, d_out, k, v, lse, delta, dq, nullptr, (blockIdx.x - blocks) * BM,
+        N, H, D, sq, sd, sk, sv, scale, vec);
 }
 
 // delta[b, h, n] = sum_d dO[b, n, h, d] O[b, n, h, d]; both contiguous
@@ -1745,6 +2186,88 @@ bool aligned8(const void* p, const Strides& s) {
   return (uintptr_t)p % 16 == 0 && s.b % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0;
 }
 
+// float32: 16-byte rows of 4 floats
+bool aligned4(const void* p, const Strides& s) {
+  return (uintptr_t)p % 16 == 0 && s.b % 4 == 0 && s.n % 4 == 0 && s.h % 4 == 0;
+}
+
+template <int DP_, int DSPLIT_, int RG_, int BN_, int STAGES_>
+struct Tf32Config {
+  static constexpr int DP = DP_, DSPLIT = DSPLIT_, RG = RG_, BN = BN_,
+                       STAGES = STAGES_;
+};
+
+// the float32 kernels' instantiations for a head dimension D (tile width,
+// D-split warps, row groups of 16 rows, streamed tile, ring stages), handed
+// to f. Registers: a forward warp holds O and the tile's P V, 2 x 4 DW
+// floats over its 32 lanes; a dK / dV warp dK, dV and the tile's products,
+// 4 x 4 DW. Hence the forward's 4 warps of 128 columns at D = 512, and the
+// backward's 2 warps at widths 80 and 128 and 8 of 64 columns at 512. At
+// width 64 (only the tiny VAE's (1, 1024, 1, 64): 64 row groups for 132
+// SMs) 2 warps a group double the warps in flight: 0.087 -> 0.070 ms
+// forward, 0.19 -> 0.13 backward (NVIDIA H100 80GB HBM3, 700 W); at 16,
+// 80 and 512 more D-split warps were slower.
+template <typename F>
+cudaError_t with_tf32_fwd_config(int D, F&& f) {
+  if (D <= 16) return f(Tf32Config<16, 1, 4, 64, 2>{});
+  if (D <= 40) return f(Tf32Config<40, 1, 4, 64, 2>{});
+  if (D <= 64) return f(Tf32Config<64, 2, 4, 64, 2>{});
+  if (D <= 80) return f(Tf32Config<80, 1, 4, 64, 2>{});
+  if (D <= 128) return f(Tf32Config<128, 1, 4, 64, 2>{});
+  return f(Tf32Config<512, 4, 2, 16, 2>{});
+}
+
+template <typename F>
+cudaError_t with_tf32_bwd_config(int D, F&& f) {
+  if (D <= 16) return f(Tf32Config<16, 1, 4, 32, 2>{});
+  if (D <= 40) return f(Tf32Config<40, 1, 4, 32, 2>{});
+  if (D <= 64) return f(Tf32Config<64, 2, 4, 32, 2>{});
+  if (D <= 80) return f(Tf32Config<80, 2, 4, 32, 2>{});
+  if (D <= 128) return f(Tf32Config<128, 2, 4, 32, 2>{});
+  return f(Tf32Config<512, 8, 1, 16, 2>{});
+}
+
+template <typename C>
+using Tf32FwdL = Tf32FwdSmem<C::DP, C::DSPLIT, C::RG, C::BN, C::STAGES>;
+template <typename C>
+using Tf32BwdL = Tf32BwdSmem<C::DP, C::DSPLIT, C::RG, C::BN, C::STAGES>;
+
+template <typename C>
+cudaError_t launch_fwd_tf32(const float* q, const float* k, const float* v,
+                            float* out, float* lse, int B, int N, int H, int D,
+                            Strides sq, Strides sk, Strides sv, float scale,
+                            bool vec, cudaStream_t stream) {
+  using L = Tf32FwdL<C>;
+  auto kernel =
+      flash_fwd_tf32_kernel<C::DP, C::DSPLIT, C::RG, C::BN, C::STAGES>;
+  // once for this instantiation, not on every launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3(N / L::BM, H, B), 32 * L::WARPS, L::bytes, stream>>>(
+      q, k, v, out, lse, N, H, D, sq, sk, sv, scale * LOG2E, vec);
+  return cudaGetLastError();
+}
+
+template <typename C>
+cudaError_t launch_bwd_tf32(const float* q, const float* k, const float* v,
+                            const float* d_out, const float* lse,
+                            const float* delta, float* dq, float* dk,
+                            float* dv, int B, int N, int H, int D, Strides sq,
+                            Strides sk, Strides sv, Strides sd, float scale,
+                            bool vec, cudaStream_t stream) {
+  using L = Tf32BwdL<C>;
+  auto kernel =
+      flash_bwd_tf32_kernel<C::DP, C::DSPLIT, C::RG, C::BN, C::STAGES>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3(2 * (N / L::BM), H, B), 32 * L::WARPS, L::bytes, stream>>>(
+      q, k, v, d_out, lse, delta, dq, dk, dv, N, H, D, sq, sk, sv, sd, scale,
+      vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // error codes beyond cudaError_t's range for shapes the kernels do not take
@@ -1775,16 +2298,13 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (N % 128 || D < 1 || D > 512 || B < 1 || H < 1) return FLASH_BAD_SHAPE;
   float scale = 1.0f / sqrtf((float)D);
   if (!is_bf16) {
-    size_t bytes = fwd_f32_smem(D);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid(N / F_BM, H, B);
-    flash_fwd_f32_kernel<<<grid, THREADS, bytes, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, N,
-        H, D, sq, sk, sv, scale);
-    return cudaGetLastError();
+    bool vec = D % 4 == 0 && aligned4(q, sq) && aligned4(k, sk) &&
+               aligned4(v, sv);
+    return with_tf32_fwd_config(D, [&](auto config) {
+      return launch_fwd_tf32<decltype(config)>(
+          (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+          B, N, H, D, sq, sk, sv, scale, vec, stream);
+    });
   }
   bool vec = D % 8 == 0 && aligned8(q, sq) && aligned8(k, sk) && aligned8(v, sv);
   if (D <= 128)
@@ -1812,8 +2332,13 @@ extern "C" int flash_attn_fwd_info(int D, int is_bf16, int part, int* info) {
   bool wide = is_bf16 && D > 128;
   if (part == 1 && !wide) return FLASH_BAD_SHAPE;
   if (!is_bf16)
-    return kernel_facts(flash_fwd_f32_kernel, 0, THREADS, F_BM,
-                        fwd_f32_smem(D), info);
+    return with_tf32_fwd_config(D, [&](auto config) {
+      using C = decltype(config);
+      using L = Tf32FwdL<C>;
+      return kernel_facts(
+          flash_fwd_tf32_kernel<C::DP, C::DSPLIT, C::RG, C::BN, C::STAGES>,
+          C::DP, 32 * L::WARPS, L::BM, L::bytes, info);
+    });
   if (D <= 128)
     return with_rows_config(D, [&](auto config) {
       using C = decltype(config);
@@ -1831,9 +2356,10 @@ extern "C" int flash_attn_fwd_info(int D, int is_bf16, int part, int* info) {
 
 // The launch facts of the backward's kernels for head dimension D and the
 // type is_bf16, in launch order, as kernel_facts lists them in info[7]:
-// part 0 delta, part 1 the dQ pass (the dK / dV pass for bf16 at D > 128),
-// part 2 the dK / dV pass (the dS K product for bf16 at D > 128, whose
-// tile width is its column tile).
+// part 0 delta, part 1 the dQ pass (the dK / dV pass for bf16 at D > 128;
+// for float32 the one kernel of both passes), part 2 the dK / dV pass (the
+// dS K product for bf16 at D > 128, whose tile width is its column tile;
+// FLASH_BAD_SHAPE for float32).
 extern "C" int flash_attn_bwd_info(int D, int is_bf16, int part, int* info) {
   if (D < 1 || D > 512 || part < 0 || part > 2) return FLASH_BAD_SHAPE;
   if (part == 0)
@@ -1842,10 +2368,14 @@ extern "C" int flash_attn_bwd_info(int D, int is_bf16, int part, int* info) {
                    : kernel_facts(flash_delta_kernel<float>, 0, THREADS,
                                   THREADS / 32, 0, info);
   if (!is_bf16) {
-    auto dq_pass = flash_bwd_f32_kernel<false>;
-    auto kv_pass = flash_bwd_f32_kernel<true>;
-    return kernel_facts(part == 1 ? dq_pass : kv_pass, 0, THREADS, F_BM,
-                        bwd_f32_smem(D), info);
+    if (part == 2) return FLASH_BAD_SHAPE;
+    return with_tf32_bwd_config(D, [&](auto config) {
+      using C = decltype(config);
+      using L = Tf32BwdL<C>;
+      return kernel_facts(
+          flash_bwd_tf32_kernel<C::DP, C::DSPLIT, C::RG, C::BN, C::STAGES>,
+          C::DP, 32 * L::WARPS, L::BM, L::bytes, info);
+    });
   }
   if (D > 128) {
     if (D % 128) return FLASH_BAD_SHAPE;
@@ -1893,24 +2423,16 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   if (!is_bf16) {
     flash_delta_kernel<float><<<delta_blocks, THREADS, 0, stream>>>(
         (const float*)out, (const float*)d_out, delta, B, N, H, D);
-    size_t bytes = bwd_f32_smem(D);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_f32_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(flash_bwd_f32_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid(N / F_BM, H, B);
-    flash_bwd_f32_kernel<false><<<grid, THREADS, bytes, stream>>>(
-        (const float*)q, (const float*)d_out, (const float*)k, (const float*)v,
-        lse, delta, (float*)dq, nullptr, N, H, D, sq, sd, sk, sv, scale);
-    flash_bwd_f32_kernel<true><<<grid, THREADS, bytes, stream>>>(
-        (const float*)k, (const float*)v, (const float*)q,
-        (const float*)d_out, lse, delta, (float*)dk, (float*)dv, N, H, D, sk,
-        sv, sq, sd, scale);
-    return cudaGetLastError();
+    bool vec = D % 4 == 0 && aligned4(q, sq) && aligned4(k, sk) &&
+               aligned4(v, sv) && aligned4(d_out, sd);
+    return with_tf32_bwd_config(D, [&](auto config) {
+      return launch_bwd_tf32<decltype(config)>(
+          (const float*)q, (const float*)k, (const float*)v,
+          (const float*)d_out, lse, delta, (float*)dq, (float*)dk, (float*)dv,
+          B, N, H, D, sq, sk, sv, sd, scale, vec, stream);
+    });
   }
   flash_delta_kernel<bf16><<<delta_blocks, THREADS, 0, stream>>>(
       (const bf16*)out, (const bf16*)d_out, delta, B, N, H, D);

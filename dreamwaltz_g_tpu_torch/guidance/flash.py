@@ -4,10 +4,12 @@ without the N x N scores in device memory.
 Port of the kernel path of ``dreamwaltz_g_tpu/guidance/layers.py``
 (``_flash_kernel`` / ``flash_self_attention``, TPU kernel B4). On CUDA
 tensors ``flash_attn_fwd`` / ``flash_attn_bwd`` launch the hand-written
-kernels of ``csrc/flash_attn.cu`` (bf16 through the tensor cores, float32 in
-true float32; the bf16 forward keeps scores and softmax in registers and
-streams K and V through a ring of asynchronous copies, as the source's header
-note sets out); on CPU tensors they take the plain versions below. There is
+kernels of ``csrc/flash_attn.cu`` (bf16 through the tensor cores; float32
+through them too, each product as three TF32 products, whose plain twins
+are ``flash_attention_tf32_plain`` and ``flash_attention_tf32_plain_bwd``;
+scores and softmax stay in registers and K and V stream through a ring of
+asynchronous copies, as the source's header note sets out); on CPU tensors
+they take the plain versions below. There is
 no compile probe and no fallback: a CUDA tensor launches the kernel or the
 call raises.
 
@@ -135,6 +137,68 @@ def dq_from_ds_plain(ds_t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     scale = k.shape[-1] ** -0.5
     dq = torch.einsum("bhkq,bkhd->bqhd", ds_t.float(), k.float()) * scale
     return dq.to(k.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float32 rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: half of the 13
+    dropped bits' range added to the magnitude, then those bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): hi = ``tf32_round(x)``, lo = ``tf32_round(x - hi)``; hi + lo
+    is x to within 2^-22 of |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def _tf32_einsum(eq: str, a, b, passes: int) -> torch.Tensor:
+    """``einsum(eq, a, b)`` from TF32 pieces of the operands, float32 sums:
+    ``passes`` 3 is the float32 kernels' lo·hi + hi·lo + hi·hi (lo·lo,
+    below 2^-22 of each product, dropped), 1 a single TF32 product."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if passes == 1:
+        return torch.einsum(eq, a_hi, b_hi)
+    if passes != 3:
+        raise ValueError(f"passes is 1 or 3, not {passes}")
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def flash_attention_tf32_plain(q, k, v, passes: int = 3
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the float32 forward with the kernel's products:
+    S = Q Kᵀ and out = P V each from TF32 pieces (``_tf32_einsum``), the
+    softmax in float32 as in ``flash_attention_plain``. ``passes=1`` is a
+    single TF32 product, which the float32 tolerances tell apart from it.
+    Returns float32 ``out`` (B, N, H, D) and ``lse`` (B, H, N)."""
+    s = _tf32_einsum("bqhd,bkhd->bhqk", q, k, passes) * q.shape[-1] ** -0.5
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return _tf32_einsum("bhqk,bkhd->bqhd", p, v, passes), lse
+
+
+def flash_attention_tf32_plain_bwd(q, k, v, out, lse, d_out, passes: int = 3
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Plain version of the float32 backward with the kernels' products:
+    S, dP, dV = Pᵀ dO, dQ = scale dS K and dK = scale dSᵀ Q each from TF32
+    pieces, ``delta``, P and dS in float32 as in
+    ``flash_attention_plain_bwd``. Returns float32 (dq, dk, dv)."""
+    scale = q.shape[-1] ** -0.5
+    gf = d_out.float()
+    delta = (gf * out.float()).sum(-1).permute(0, 2, 1)
+    p = torch.exp(_tf32_einsum("bqhd,bkhd->bhqk", q, k, passes) * scale
+                  - lse[..., None])
+    dp = _tf32_einsum("bqhd,bkhd->bhqk", gf, v, passes)
+    ds = p * (dp - delta[..., None])
+    dv = _tf32_einsum("bhqk,bqhd->bkhd", p, gf, passes)
+    dq = _tf32_einsum("bhqk,bkhd->bqhd", ds, k, passes) * scale
+    dk = _tf32_einsum("bhqk,bqhd->bkhd", ds, q, passes) * scale
+    return dq, dk, dv
 
 
 def _check(name: str, q, k, v) -> torch.device:

@@ -387,3 +387,75 @@ def test_bf16_wide_backward_takes_a_view_that_is_not_16_byte_aligned():
                   .view(B, N, H, D) for i in range(4))
     assert q.data_ptr() % 16 != 0
     _hold(q, k, v, g.contiguous())
+
+
+def _evict_l2(dev):
+    """Write 256 MB, five times the 50 MB L2, so the next kernel's inputs
+    come from device memory."""
+    torch.empty(2 ** 26, dtype=torch.int32, device=dev).fill_(1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (2, 1024, 8, 80),
+                                   (1, 4096, 1, 512)])
+def test_f32_at_the_full_width_steps_shapes_from_a_cold_cache(shape):
+    """The float32 guidance's shapes (the UNet's, the ControlNet's, the
+    VAE's), forward and backward, each from a cold cache: every resident
+    block's first ring copies queue on device memory together, so a read of
+    a stage before its copies land shows here."""
+    dev = _card()
+    q, k, v, g = _qkv(dev, shape, torch.float32, seed=sum(shape) + 3)
+    _evict_l2(dev)
+    out, lse = _hold_fwd(q, k, v)
+    _evict_l2(dev)
+    _hold_bwd(q, k, v, g, out, lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1024, 2, 16), (2, 1152, 2, 40),
+                                   (1, 4096, 1, 512)])
+def test_f32_backward_is_deterministic(shape):
+    """Two float32 backward calls on the same inputs are bitwise equal: no
+    atomics, and the D-split warps add their partial scores in one fixed
+    order."""
+    dev = _card()
+    q, k, v, g = _qkv(dev, shape, torch.float32, seed=sum(shape) + 5)
+    out, lse = FL.flash_attn_fwd(q, k, v)
+    first = FL.flash_attn_bwd(q, k, v, out, lse, g)
+    second = FL.flash_attn_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [40, 80, 128, 512])
+def test_f32_rescales_when_the_max_arrives_in_the_last_tile(D):
+    """As the bf16 case above, in float32: every row's largest score is the
+    last key's, so the running maximum jumps in the last key tile and the
+    output so far is rescaled; held to 1e-5 absolute."""
+    dev = _card()
+    B, N, H = 1, 1024, 2
+    q, k, v, _ = _qkv(dev, (B, N, H, D), torch.float32, seed=37 + D)
+    q = 8 * q
+    q[..., 0] = q[..., 0].abs() + 32
+    k[:, -1] = 0
+    k[:, -1, :, 0] = 2 * D ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    assert bool((s.argmax(-1) == N - 1).all())
+    _hold_fwd(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [40, 512])
+def test_f32_takes_a_view_that_is_not_16_byte_aligned(D):
+    """Views one float off the 16-byte grid: the float32 kernels take their
+    element-wise loads, forward and backward."""
+    dev = _card()
+    B, N, H = 2, 1024, 2
+    gen = torch.Generator(device=dev).manual_seed(41)
+    flat = torch.randn(4 * B * N * H * D + 1, generator=gen, device=dev)
+    q, k, v, g = (flat[1 + i * B * N * H * D:][:B * N * H * D]
+                  .view(B, N, H, D) for i in range(4))
+    assert q.data_ptr() % 16 != 0
+    _hold(q, k, v, g.contiguous())
