@@ -41,7 +41,12 @@ Phases, one JSON line each:
                    pixel-gradient hook set: on the CPU (plain versions,
                    under each stop rule) and on the card (kernels), from the
                    same state and noise;
-12. train       -- the training path: the full avatar, the SD1.5-size bf16
+12. clip_text    -- the SD1.5 text tower (12 layers, 768 wide, 77 tokens)
+                   with random weights from the seed, on the card and on
+                   the CPU from the same weights and ``HashTokenizer`` ids;
+                   its embeddings of the run's prompts (the first, and the
+                   null prompt last) condition every SDS phase below;
+13. train       -- the training path: the full avatar, the SD1.5-size bf16
                    UNet + ControlNet + VAE with ``FLASH_ATTENTION = "auto"``,
                    timesteps and guidance scale from
                    ``TimePrioritizedScheduler``, the OpenPose canvas of the
@@ -51,7 +56,7 @@ Phases, one JSON line each:
                    flash forward and backward as often as the models'
                    structure gives, no other kernel), outputs and parameter
                    updates checked;
-13. train_times -- SDS it/s with flash and, over 2 + 4 steps, with einsum
+14. train_times -- SDS it/s with flash and, over 2 + 4 steps, with einsum
                    attention (``"off"``); each table kernel's and each flash
                    shape's time beside its plain version, its bound and, for
                    flash, the einsum path and
@@ -65,17 +70,34 @@ Phases, one JSON line each:
                    differentiated shape's backward (``bwd_kernel_ms``,
                    ``bwd_build``: delta and the two passes, or at D = 512
                    the dK / dV pass and the dS K product);
-14. train_profile -- device busy share, the step's device and host ms by
+15. train_profile -- device busy share, the step's device and host ms by
                    stage (its own ``record_function`` ranges), the
                    hand-written kernels' device ms by name (B1 forward's,
                    B1 backward's, flash forward's and backward's) and top
                    kernels over one profiled SDS step;
-15. train_densify -- ``gs_trainer.densify`` on the full avatar, at the
+16. train_densify -- ``gs_trainer.densify`` on the full avatar, at the
                    defaults and with thresholds at the medians so that
                    clones and splits happen; invariants checked; two more
                    SDS steps; then ``train_profile_densified``: one
                    profiled step again, with the buffer full;
-16. train_f32   -- the same step with the UNet, ControlNet and VAE in
+17. small_nerf_train -- one stage-1 SDS step of a tiny NeRF (16^2 x 8
+                   triplane) with the tiny guidance and its ControlNet,
+                   flash ``"on"``, rays in checkpointed chunks, sigma
+                   guidance, volume sparsity and the background MLP: on the
+                   CPU (plain versions) and on the card (kernels), from the
+                   same field, grid and draws;
+18. nerf_train  -- the stage-1 path at the full width of step 1.2 of
+                   ``scripts/train_w_expr.sh``: ``NeRFConfig()``'s field
+                   rendered at 512^2, the SD1.5-size bf16 guidance of phase
+                   13 under ``FLASH_ATTENTION = "auto"``, sigma guidance on
+                   5,000 body points a step; counts set to 0, 3 warm-up and
+                   10 steps through ``make_nerf_sds_step`` with the
+                   occupancy cadence and one forced refresh, counts read
+                   (flash forward and backward each step as the models'
+                   structure gives, no blend kernel, no library
+                   attention); then ``nerf_profile``: device ms by the
+                   step's own ranges, busy share, top kernels;
+19. train_f32   -- the same step with the UNet, ControlNet and VAE in
                    float32 (the JAX package's ``guide.dtype = "fp32"``): the
                    bf16 stack freed, counts set to 0, 1 warm-up and 3 steps
                    with flash, counts and the calls' types read (15 float32
@@ -88,8 +110,8 @@ last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits non-zero and prints no result. The avatar is the synthetic
 SMPL-X-sized body (10,475 vertices, 55 joints) with random weights from a
 seed: 180k points in a 200k-slot buffer, a 256^2 x 32 triplane, the
-trainer's decode heads, 6,000 hand-bound mesh Gaussians. The guidance
-weights are random from the seed too.
+trainer's decode heads, 6,000 hand-bound mesh Gaussians. The guidance,
+text tower and stage-1 field weights are random from the seed too.
 """
 from __future__ import annotations
 
@@ -1416,6 +1438,389 @@ def train_densify(tstate, model, sds_step, gen):
     return tstate
 
 
+# ---------------------------------------------------------------------------
+# Stage 1: the text tower, the tiny and the full-width NeRF SDS step
+# ---------------------------------------------------------------------------
+
+# the prompts of the run: the view-dependent prompts of one avatar and the
+# null prompt, last; the first is the text embedding of every SDS phase
+CLIP_PROMPTS = ("a DSLR photo of a dancer in a red dress, full body, front "
+                "view", "a DSLR photo of a dancer in a red dress, full body, "
+                "side view", "a DSLR photo of a dancer in a red dress, full "
+                "body, back view", "")
+# the text tower in float32 on the card (no TF32) against the CPU, the same
+# weights and ids: within 1e-5 of the largest output entry, the JAX
+# package's tolerance for its own float32 guidance modules
+TOL_CLIP_REL = 1e-5
+# the full-width stage-1 step: scripts/train_w_expr.sh step 1.2 (5k steps
+# at 512^2) on the NeRF defaults
+NERF_H = NERF_W = 512
+NERF_MAX_STEPS = 5000
+NERF_WARMUP, NERF_STEPS = 3, 10
+SIGMA_POINTS = 5000
+
+
+def clip_text(dev):
+    """The SD1.5 text tower (``CLIPTextConfig()``: 12 layers, 768 wide, 77
+    tokens) with random weights from the seed and ``HashTokenizer`` ids, on
+    the card and on the CPU from the same weights. Returns the card's
+    embeddings of ``CLIP_PROMPTS`` (N, 77, 768), float32."""
+    import copy
+
+    import torch
+
+    from dreamwaltz_g_tpu_torch._device import resolve_device
+    from dreamwaltz_g_tpu_torch.guidance.clip_text import (
+        CLIPTextConfig,
+        CLIPTextModel,
+        HashTokenizer,
+    )
+
+    dev = resolve_device(dev)
+    cfg = CLIPTextConfig()
+    cpu_model = CLIPTextModel(cfg).eval().requires_grad_(False)
+    cpu_model.reset_parameters(torch.Generator().manual_seed(SEED))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    ids = torch.as_tensor(HashTokenizer(cfg.vocab_size, cfg.max_length)(
+        list(CLIP_PROMPTS)))
+    with torch.no_grad():
+        want = cpu_model(ids)
+        got = card_model(ids.to(dev))
+        ms = cuda_ms(lambda: card_model(ids.to(dev)), 10)
+    err = float((got.cpu() - want).abs().max())
+    rel = err / float(want.abs().max())
+    emit(phase="clip_text", config=cfg._asdict(), prompts=len(CLIP_PROMPTS),
+         shape=list(got.shape), max_abs_err=err, max_err_of_max=rel,
+         tol_of_max=TOL_CLIP_REL, ms_per_call=ms,
+         params=sum(p.numel() for p in card_model.parameters()))
+    if not bool(torch.isfinite(got).all()) or rel > TOL_CLIP_REL:
+        fail(f"text tower: card vs CPU {rel} of the largest entry")
+    return got
+
+
+def nerf_groups_snapshot(model):
+    """Copies of one tensor of each optimizer group of the NeRF."""
+    from dreamwaltz_g_tpu_torch.training.optim import nerf_param_groups
+
+    return {label: [p.detach().clone() for p in params]
+            for label, params in nerf_param_groups(model).items()}
+
+
+def small_nerf_train(dev):
+    """One stage-1 SDS step of a tiny NeRF (a 16^2 x 8 triplane, a 16^3
+    grid, 16 samples a ray, 8 compacted) with the tiny guidance and its
+    ControlNet at 64^2, from the same field, grid, weights and draws: on
+    the CPU with the plain versions and on the card with the kernels.
+    Attention runs with ``FLASH_ATTENTION = "on"`` (1,024 tokens in the tiny
+    UNet, d = 16, and the tiny VAE, d = 64, which is differentiated); the
+    rays march in checkpointed chunks of 1,000 (4,096 rays); sigma
+    guidance, volume sparsity, ray sparsity and the background MLP are on.
+    The loss within 1e-3 relative, every gradient in ``grad_error``'s
+    envelope."""
+    import copy
+
+    import torch
+
+    from dreamwaltz_g_tpu_torch import tests_support
+    from dreamwaltz_g_tpu_torch.configs import NeRFConfig
+    from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch
+    from dreamwaltz_g_tpu_torch.guidance import flash as FL
+    from dreamwaltz_g_tpu_torch.guidance import layers as TL
+    from dreamwaltz_g_tpu_torch.human.smplx_model import make_synthetic_model
+    from dreamwaltz_g_tpu_torch.nerf.network import build_nerf
+    from dreamwaltz_g_tpu_torch.nerf.renderer import (
+        init_occupancy,
+        update_occupancy,
+    )
+    from dreamwaltz_g_tpu_torch.training import nerf_trainer as NT
+    from dreamwaltz_g_tpu_torch.training.losses import (
+        make_sigma_guidance_points,
+        volume_sparsity_draws,
+    )
+    from dreamwaltz_g_tpu_torch.training.optim import (
+        build_nerf_optimizer,
+        nerf_param_groups,
+    )
+
+    S, chunk, steps = 64, 1000, 16
+    cfg = NeRFConfig(triplane_resolution=16, triplane_dim=8, grid_size=16,
+                     num_steps=steps, compact_steps=8, lambda_opacity=1e-2)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    field = build_nerf(cfg, generator=gen, device=cpu)
+    grid = update_occupancy(init_occupancy(cfg.grid_size), field,
+                            generator=gen)
+    body = make_synthetic_model(num_vertices=120, num_joints=6, seed=SEED,
+                                device=cpu)
+    sigma_pts = make_sigma_guidance_points(body.v_template, body.faces, 256,
+                                           generator=gen)
+    txt = torch.randn((1, 4, 32), generator=gen)
+    cond = torch.rand((1, S, S, 3), generator=gen)
+    draws = dict(jitter=torch.rand(NT.jitter_shape(S, S, chunk, steps),
+                                   generator=gen),
+                 noise=torch.randn((1, S // 2, S // 2, 4), generator=gen),
+                 vs_draws=volume_sparsity_draws(gen, cfg.bound,
+                                                n_surface=S * S))
+    sd, gp = tests_support.tiny_guidance(SEED, with_controlnet=True,
+                                         latent_size=S // 2, device=cpu)
+    flash_setting = TL.FLASH_ATTENTION
+    TL.FLASH_ATTENTION = "on"
+    FL.flash_attn_fwd.launches = FL.flash_attn_bwd.launches = 0
+    runs = {}
+    try:
+        for label, d in (("cpu", cpu), ("card", dev)):
+            model = copy.deepcopy(field).to(d)
+            tx = build_nerf_optimizer(cfg, NERF_MAX_STEPS)
+            ts = NT.init_train_state(model, tx)
+            step = NT.make_nerf_sds_step(
+                model, sd, S, S, cfg, num_steps=steps,
+                max_iteration=NERF_MAX_STEPS, bg_mode="nerf",
+                ray_chunk=chunk, device=d)
+            cam = make_camera_batch(2.5, 30.0, 80.0, 50.0, S, S, device=d)
+            new, metrics = step(
+                ts, to_device(grid, d), to_device(gp, d), cam.c2w[0],
+                cam.intrinsics[0], torch.full((3,), 0.5, device=d),
+                txt.to(d), torch.zeros_like(txt).to(d),
+                torch.tensor([TIMESTEP], device=d), cond_image=cond.to(d),
+                sigma_pts=to_device(sigma_pts, d), use_sigma=True,
+                **to_device(draws, d))
+            grads = {k: [torch.zeros(p.shape) if p.grad is None
+                         else p.grad.detach().cpu() for p in ps]
+                     for k, ps in nerf_param_groups(model).items()}
+            runs[label] = ({k: float(v) for k, v in metrics.items()}, grads)
+    finally:
+        TL.FLASH_ATTENTION = flash_setting
+    flash_launches = [FL.flash_attn_fwd.launches, FL.flash_attn_bwd.launches]
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = runs["cpu"], runs["card"]
+    loss_rel = abs(m_gpu["loss"] - m_cpu["loss"]) / max(abs(m_cpu["loss"]),
+                                                         1e-30)
+    e_abs, e_rel, excess = grad_error(
+        [t for k in g_cpu for t in g_gpu[k]],
+        [t for k in g_cpu for t in g_cpu[k]])
+    emit(phase="small_nerf_train", metrics_cpu=m_cpu, metrics_card=m_gpu,
+         loss_rel_err=loss_rel, grad_max_abs_err=e_abs,
+         grad_max_err_of_max=e_rel, grad_excess_over_tol=excess,
+         grad_err_of_max_by_group={k: grad_error(g_gpu[k], g_cpu[k])[1]
+                                   for k in g_cpu},
+         occupied_share=float(grid.occupied.float().mean()),
+         flash_attention="on", flash_launches_fwd_bwd=flash_launches,
+         ray_chunk=chunk, rays=S * S, tol_loss=TOL_STEP_LOSS)
+    if min(flash_launches) <= 0:
+        fail(f"tiny NeRF step: the card launched no flash kernel: "
+             f"{flash_launches}")
+    if loss_rel > TOL_STEP_LOSS or excess > 0 or not all(
+            math.isfinite(v) for v in m_gpu.values()):
+        fail("tiny NeRF step: the card disagrees with the CPU")
+    if min(float(g.abs().max()) for gs in g_cpu.values() for g in gs[:1]) \
+            <= 0.0:
+        fail("tiny NeRF step: a parameter group took no gradient")
+
+
+# record_function ranges of make_nerf_sds_step and its callees -> stage;
+# the render's ranges recur once a ray chunk, and again inside the backward
+# when the checkpointed chunks are recomputed ("backward_recompute")
+NERF_STAGE_RANGES = (("nerf.rays_occupancy", "rays_occupancy"),
+                     ("nerf.march_field", "march_field"),
+                     ("nerf.composite", "composite"),
+                     ("nerf_step.regularizers", "regularizers"),
+                     ("nerf_step.guidance", "sds_loss"),
+                     ("sds.encode_images", "vae_encode"),
+                     ("sds.latent_gradients", "controlnet_unet_cfg"),
+                     ("nerf_step.backward", "backward"),
+                     ("nerf_step.optimizer", "optimizer"))
+
+
+def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
+    """The stage-1 training path at the full width of step 1.2 of
+    ``scripts/train_w_expr.sh``: a 512^2 render of ``NeRFConfig()``'s field
+    (a 256^2 x 32 triplane, a 128^3 grid, 96 samples a ray of which 32
+    compacted, rays marched in checkpointed chunks of 4,096, bound 2, gray
+    background; the background MLP built, as the trainer builds it, and
+    unreached), ``build_nerf_optimizer(NeRFConfig(), 5000)``, sigma
+    guidance on 5,000 points of the SMPL-X-sized synthetic body a step,
+    the volume-sparsity prior at 3e-3, and the SD1.5-size bf16 guidance
+    under ``FLASH_ATTENTION = "auto"`` with the scheduler's timesteps and
+    guidance scales and the text tower's embeddings. Counts set to 0, then
+    3 warm-up and 10 timed steps with ``maybe_update_occupancy`` before
+    each (it refreshes at step 0) and one refresh forced between the two
+    runs; counts read. Then one profiled step (phase ``nerf_profile``).
+    Returns the flash launches of the 13 steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dreamwaltz_g_tpu_torch import kernels
+    from dreamwaltz_g_tpu_torch.configs import GuideConfig, NeRFConfig
+    from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch
+    from dreamwaltz_g_tpu_torch.guidance import layers as TL
+    from dreamwaltz_g_tpu_torch.guidance.time_prior import (
+        TimePrioritizedScheduler,
+    )
+    from dreamwaltz_g_tpu_torch.human.smplx_model import (
+        default_params,
+        smplx_forward,
+    )
+    from dreamwaltz_g_tpu_torch.nerf.network import build_nerf
+    from dreamwaltz_g_tpu_torch.nerf.renderer import (
+        init_occupancy,
+        update_occupancy,
+    )
+    from dreamwaltz_g_tpu_torch.training import nerf_trainer as NT
+    from dreamwaltz_g_tpu_torch.training.losses import (
+        make_sigma_guidance_points,
+    )
+    from dreamwaltz_g_tpu_torch.training.optim import build_nerf_optimizer
+
+    if TL.FLASH_ATTENTION != "auto":
+        fail(f"FLASH_ATTENTION is {TL.FLASH_ATTENTION!r}, not its default")
+    cfg = NeRFConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    field = build_nerf(cfg, with_background=cfg.bg_mode == "nerf"
+                       or cfg.bg_radius > 0, generator=gen, device=dev)
+    tstate = NT.init_train_state(field, build_nerf_optimizer(
+        cfg, NERF_MAX_STEPS))
+    step = NT.make_nerf_sds_step(
+        field, guidance, NERF_H, NERF_W, cfg, num_steps=cfg.num_steps,
+        max_iteration=NERF_MAX_STEPS, bg_mode="color",
+        ray_chunk=cfg.max_ray_batch, device=dev)
+    grid = init_occupancy(cfg.grid_size, device=dev)
+    grid0 = grid.occupied.clone()
+    n = NERF_WARMUP + NERF_STEPS + 1
+    cams = make_camera_batch([3.0] * n, [360.0 * i / n for i in range(n)],
+                             [80.0] * n, [45.0] * n, NERF_H, NERF_W,
+                             at_vector=((0.0, 0.7, 0.0),), device=dev)
+    smpl = body.smpl
+    obs = default_params(smpl, 1)
+    with torch.no_grad():
+        verts = smplx_forward(smpl, obs).vertices[0]
+    dt = gparams.unet.conv_in.weight.dtype
+    canvases = [torch.as_tensor(openpose_canvas(
+        body, obs, cams.extrinsic[i], cams.intrinsics[i], NERF_H, NERF_W),
+        device=dev)[None].to(dt) for i in range(n)]
+    txt, unc = embeds[:1].to(dt), embeds[-1:].to(dt)
+    bg = torch.full((3,), 0.5, device=dev)
+    sched = TimePrioritizedScheduler(GuideConfig(), seed=SEED)
+    timesteps, scales, occupied = [], [], []
+
+    def run_step(tstate, grid):
+        """The trainer's stage-1 iteration: the occupancy cadence, the
+        step's sigma points, the scheduler, the step."""
+        i = tstate.step
+        grid = NT.maybe_update_occupancy(
+            tstate, grid, field, interval=cfg.update_extra_interval,
+            density_thresh=cfg.density_thresh, generator=gen)
+        pts = make_sigma_guidance_points(verts, smpl.faces, SIGMA_POINTS,
+                                         generator=gen)
+        t = sched.get_timestep(1, i + 1, NERF_MAX_STEPS)
+        gs = sched.get_guidance_scale(i + 1, NERF_MAX_STEPS)
+        timesteps.append(int(t[0]))
+        scales.append(gs)
+        tstate, metrics = step(
+            tstate, grid, gparams, cams.c2w[i], cams.intrinsics[i], bg,
+            txt, unc, torch.as_tensor(t, device=dev), generator=gen,
+            cond_image=canvases[i], guidance_scale=gs, sigma_pts=pts,
+            use_sigma=True)
+        return tstate, grid, metrics
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_calls = []
+
+    def counted_sdpa(*a, **k):
+        library_calls.append(1)
+        return sdpa(*a, **k)
+
+    before = nerf_groups_snapshot(field)
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.nn.functional.scaled_dot_product_attention = counted_sdpa
+    per_step, losses, refresh_ms = [], [], None
+    start_ev, end_ev = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(NERF_WARMUP + NERF_STEPS):
+            if i == NERF_WARMUP:
+                # the refresh the trainer runs every 16 steps, forced here
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grid = update_occupancy(grid, field, generator=gen,
+                                        density_thresh=cfg.density_thresh)
+                torch.cuda.synchronize()
+                refresh_ms = (time.perf_counter() - t0) * 1e3
+                start_ev.record()
+            n0 = [kernel_fns[k].launches for k in ("flash_attn_fwd",
+                                                   "flash_attn_bwd")]
+            tstate, grid, metrics = run_step(tstate, grid)
+            per_step.append([kernel_fns[k].launches - n0[j] for j, k in
+                             enumerate(("flash_attn_fwd", "flash_attn_bwd"))])
+            losses.append({k: float(v) for k, v in metrics.items()})
+            occupied.append(int(grid.occupied.sum()))
+        end_ev.record()
+        torch.cuda.synchronize()
+    finally:
+        torch.nn.functional.scaled_dot_product_attention = sdpa
+    step_ms = start_ev.elapsed_time(end_ev) / NERF_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    after = nerf_groups_snapshot(field)
+    moved = {k: max(float((a - b).abs().max()) for a, b in
+                    zip(after[k], before[k])) for k in before}
+    expected = list(expected_flash_launches(gparams, guidance.latent_size))
+    emit(phase="nerf_train", steps=[NERF_WARMUP, NERF_STEPS],
+         resolution=[NERF_H, NERF_W], config=dataclasses.asdict(cfg),
+         sds_step_ms=step_ms, sds_it_per_s=1e3 / step_ms,
+         peak_mem_gib=peak_gib, launches=launches,
+         flash_launches_per_step=per_step,
+         flash_expected_per_step=expected,
+         library_attention_calls=len(library_calls), loss=losses,
+         moved=moved, timesteps=timesteps, guidance_scales=scales,
+         occupied_cells=occupied, grid_cells=cfg.grid_size ** 3,
+         occupancy_refresh_ms=refresh_ms, sigma_points=SIGMA_POINTS,
+         flash_attention=TL.FLASH_ATTENTION, **card)
+    if any(s != expected for s in per_step):
+        fail(f"stage-1 step: flash launched {per_step} a step, expected "
+             f"{expected} from the models' structure")
+    if any(launches[k] for k in launches if k.startswith("blend")):
+        fail(f"stage-1 step: a blend kernel launched: {launches}")
+    if library_calls:
+        fail("stage-1 step: a library attention ran")
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        fail("stage-1 step: a non-finite loss")
+    if min(moved["encoder"], moved["mlp"]) <= 0.0:
+        fail(f"stage-1 step: a parameter group the loss reaches did not "
+             f"move: {moved}")
+    if torch.equal(grid.occupied, grid0) or len(set(occupied)) < 2:
+        fail(f"stage-1 step: the occupancy grid did not change: {occupied}")
+
+    # -- one profiled step: device ms by the step's own ranges ------------
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tstate, grid, metrics = run_step(tstate, grid)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = device_events(prof)
+    busy_ms = sum(e.device_time_total for e in on_card) / 1e3
+    top = sorted(on_card, key=lambda e: -e.device_time_total)[:15]
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace = kernels.BUILD_DIR / "nerf_step_trace.json"
+    prof.export_chrome_trace(str(trace))
+    stage_dev, stage_host, named = stage_times(
+        trace, NERF_STAGE_RANGES, recompute_in="nerf_step.backward")
+    emit(phase="nerf_profile", steps=1, wall_ms=wall_ms,
+         loss=float(metrics["loss"]),
+         device_busy_ms=busy_ms if on_card else None,
+         device_busy_share=busy_ms / wall_ms if on_card else None,
+         kernel_launches=sum(e.count for e in on_card),
+         stage_device_ms=stage_dev, stage_host_ms=stage_host,
+         flash_fwd_kernels_ms=named["flash_fwd"] + named["flash_combine"],
+         flash_bwd_kernels_ms=named["flash_bwd"] + named["flash_delta"],
+         index_backward_kernels_ms=named["indexing_backward"],
+         top_kernels=[[e.key[:80], e.device_time_total / 1e3, e.count]
+                      for e in top], **card)
+    return [launches["flash_attn_fwd"], launches["flash_attn_bwd"]]
+
+
 # record_function ranges of make_avatar_sds_step and its callees -> stage
 STAGE_RANGES = (("sds_step.render", "animate_project"),
                 ("rasterize.bin", "bin"),
@@ -1432,7 +1837,7 @@ NAMED_KERNELS = ("blend_fwd", "blend_bwd", "flash_fwd", "flash_combine",
                  "flash_bwd", "flash_delta", "indexing_backward")
 
 
-def stage_times(trace_path):
+def stage_times(trace_path, stage_ranges=STAGE_RANGES, recompute_in=None):
     """Per-stage device and host ms of one profiled SDS step, from the
     profiler's Chrome trace. Each kernel, copy or fill on the card is
     charged to the innermost of the step's own ``record_function`` ranges
@@ -1442,19 +1847,32 @@ def stage_times(trace_path):
     parent's: ``animate_project`` is the render range less ``bin`` and
     ``blend_fwd_b1``, ``sds_loss`` the guidance range less its two stages.
     Host ms is each range's whole span, nested ranges and the profiler's
-    overhead included. Returns (device ms by stage, host ms by range,
-    device ms of the hand-written kernels whose name holds each of
-    ``NAMED_KERNELS``)."""
+    overhead included. With ``recompute_in``, a range nested inside a range
+    of that name (a checkpointed forward recomputed by the backward) is
+    charged to ``backward_recompute``. Returns (device ms by stage, host ms
+    by range, device ms of the hand-written kernels whose name holds each
+    of ``NAMED_KERNELS``)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    names = dict(STAGE_RANGES)
+    names = dict(stage_ranges)
     ranges = [e for e in events if e.get("cat") == "user_annotation"
               and e.get("name") in names]
+    outer = [r for r in ranges if r["name"] == recompute_in]
+
+    def stage(r):
+        if r["name"] != recompute_in and any(
+                o["ts"] <= r["ts"] and r["ts"] + r["dur"] <= o["ts"] + o["dur"]
+                for o in outer):
+            return "backward_recompute"
+        return names[r["name"]]
+
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
-    device = {stage: 0.0 for _, stage in STAGE_RANGES}
+    device = {stage: 0.0 for _, stage in stage_ranges}
     device["outside_ranges"] = 0.0
+    if recompute_in:
+        device["backward_recompute"] = 0.0
     named = {pattern: 0.0 for pattern in NAMED_KERNELS}
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
@@ -1466,11 +1884,13 @@ def stage_times(trace_path):
             if r["ts"] <= ts <= r["ts"] + r["dur"] and (
                     inner is None or r["dur"] < inner["dur"]):
                 inner = r
-        device[names[inner["name"]] if inner else "outside_ranges"] += ms
+        device[stage(inner) if inner else "outside_ranges"] += ms
         for pattern in NAMED_KERNELS:
             if pattern in e.get("name", ""):
                 named[pattern] += ms
-    host = {r["name"]: r["dur"] / 1e3 for r in ranges}
+    host = {}
+    for r in ranges:       # a range that recurs (a ray chunk's) sums
+        host[r["name"]] = host.get(r["name"], 0.0) + r["dur"] / 1e3
     return device, host, named
 
 
@@ -1480,7 +1900,7 @@ def device_events(prof):
     the kernels inside them."""
     from torch.autograd import DeviceType
 
-    ranges = {name for name, _ in STAGE_RANGES}
+    ranges = {name for name, _ in STAGE_RANGES + NERF_STAGE_RANGES}
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in ranges]
 
@@ -1782,6 +2202,9 @@ def main():
     # -- the tiny SDS step: CPU plain versions vs card kernels -------------
     small_train(dev)
 
+    # -- the text tower: its embeddings condition every SDS phase below ----
+    embeds = clip_text(dev)
+
     # -- the training path: counts to 0, 3 + 10 steps, counts read ---------
     if TL.FLASH_ATTENTION != "auto":
         fail(f"FLASH_ATTENTION is {TL.FLASH_ATTENTION!r}, not its default")
@@ -1800,9 +2223,9 @@ def main():
     sched = TimePrioritizedScheduler(guide_cfg, seed=SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     dt = torch.bfloat16
-    ctx_dim = gparams.unet.cfg.cross_attention_dim     # 768 for SD1.5
-    txt = torch.randn((1, 77, ctx_dim), generator=gen, device=dev).to(dt)
-    unc = torch.zeros_like(txt)
+    # the first prompt's embedding and the null prompt's, cast to the
+    # guidance's type as the trainer casts them
+    txt, unc = embeds[:1].to(dt), embeds[-1:].to(dt)
     cond = torch.as_tensor(
         openpose_canvas(model, obs0, tcams.extrinsic[0], tcams.intrinsics[0],
                         TRAIN_H, TRAIN_W), device=dev)[None].to(dt)
@@ -1998,6 +2421,12 @@ def main():
     tstate, line = profile_step(tstate)
     emit(phase="train_profile_densified", **line)
 
+    # -- stage 1: the tiny NeRF step (CPU vs card), then the full-width ----
+    # NeRF SDS step through the same bf16 guidance, and its profile
+    small_nerf_train(dev)
+    nerf_flash = nerf_train(dev, card, guidance, gparams, model, embeds,
+                            train_fns)
+
     # -- the float32-guidance step: the same avatar, step, scheduler and
     # raster settings with the UNet, ControlNet and VAE in float32 (the JAX
     # package's guide.dtype = "fp32"); every flash call then takes float32
@@ -2117,10 +2546,13 @@ def main():
               p_ms["blend_tiles_eval"], bounds["blend_tiles_eval"],
               kernel_ms=errs_avatar[4]["blend_tiles_eval"]),
         entry("flash_attn_fwd", flash_src, flash_replaces,
-              train_launches["flash_attn_fwd"], flash_err["fwd"],
+              train_launches["flash_attn_fwd"] + nerf_flash[0],
+              flash_err["fwd"],
               f_fwd["fwd_ms"], f_fwd["fwd_plain_ms"], f_fwd["fwd_bound"],
               library=f_fwd["library"]["fwd_ms"], shape=f_fwd["shape"],
               kernel_ms=f_fwd["fwd_kernel_ms"],
+              launches_by_path={"train": train_launches["flash_attn_fwd"],
+                                "nerf_train": nerf_flash[0]},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]
@@ -2134,10 +2566,13 @@ def main():
                          "library_ms": r["library"]["fwd_ms"]}
                         for r in flash_rows]),
         entry("flash_attn_bwd", flash_src, flash_replaces,
-              train_launches["flash_attn_bwd"], flash_err["bwd"],
+              train_launches["flash_attn_bwd"] + nerf_flash[1],
+              flash_err["bwd"],
               f_bwd["bwd_ms"], f_bwd["bwd_plain_ms"], f_bwd["bwd_bound"],
               library=f_bwd["library"]["bwd_ms"], shape=f_bwd["shape"],
               kernel_ms=f_bwd["bwd_kernel_ms"],
+              launches_by_path={"train": train_launches["flash_attn_bwd"],
+                                "nerf_train": nerf_flash[1]},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": " + ".join(x["kernel"]
                                               for x in r["bwd_build"]),

@@ -21,5 +21,11 @@ Ported so far:
 * the run around that step: flash attention in the UNet, the ControlNet
   and the VAE as a hand-written CUDA kernel, forward and backward
   (``csrc/flash_attn.cu``), densification, the pixel-gradient hooks, the
-  timestep scheduler and the OpenPose canvas.
+  timestep scheduler and the OpenPose canvas;
+* stage 1 and the guidance's inputs: the CLIP text tower and its
+  tokenizers, the loader of released diffusers / transformers weights, and
+  the NeRF SDS step (rays -> occupancy grid -> compacted samples ->
+  triplane field -> composite -> the same guidance, flash attention
+  included -> regularisers -> Adam / AdamW / Adan), with the pretrain step
+  and the eval render.
 """

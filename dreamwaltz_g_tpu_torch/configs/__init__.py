@@ -4,9 +4,10 @@ The port keeps its own copy of the parts of ``dreamwaltz_g_tpu/configs``
 that it reads (it imports nothing of the JAX package). ``RenderConfig``
 holds the learning rates, the learn switches and the densification
 settings of the stage-2 avatar optimisation; ``GuideConfig`` holds what the
-timestep scheduler and the pixel-gradient hooks read. Defaults are the JAX
-package's; the JAX dataclasses' other fields are not read by any ported
-path yet.
+timestep scheduler and the pixel-gradient hooks read; ``NeRFConfig`` the
+stage-1 field, renderer, regularizer and optimizer settings. Defaults are
+the JAX package's; the JAX dataclasses' other fields are not read by any
+ported path yet.
 """
 from __future__ import annotations
 
@@ -85,3 +86,56 @@ class GuideConfig:
     def __post_init__(self):
         self.min_timestep = _schedule(self.min_timestep)
         self.max_timestep = _schedule(self.max_timestep)
+
+
+@dataclass
+class NeRFConfig:
+    """Stage-1 NeRF settings (the triplane backbone; the hash / tiled grid
+    is not ported)."""
+
+    density_activation: str = "exp"  # {'exp', 'softplus', 'scaling'}
+
+    # ray marching: num_steps static samples a ray, of which at most
+    # compact_steps occupied ones reach the field in training renders
+    grid_size: int = 128
+    num_steps: int = 96
+    compact_steps: int = 32
+    upsample_steps: int = 0
+    update_extra_interval: int = 16
+    # the training render's checkpointed ray chunk
+    max_ray_batch: int = 4096
+    density_thresh: float = 10.0
+
+    bound: float = 2.0
+    min_near: float = 0.1
+
+    backbone: str = "triplane"
+    triplane_resolution: int = 256
+    triplane_dim: int = 32
+    # decoupled weight decay on the plane tables (triplane only)
+    triplane_weight_decay: float = 0.1
+    # Cauchy volume-sparsity prior at random AABB points (triplane only)
+    triplane_volume_sparsity: float = 3e-3
+    grid_dtype: str = "f32"      # {'f32', 'bf16'} plane gather type
+    nerf_type: str = "rgb"       # {'rgb', 'latent'}
+    structure: str = "shared_mlp"  # {'shared_mlp', 'dual_mlp', 'dual_enc'}
+    density_prior: str = "none"  # {'none', 'gaussian', 'sqrt'}
+    bg_mode: str = "gray"
+    bg_radius: float = 3.0
+    rand_bg_prob: Optional[float] = None
+
+    optimizer: str = "adam"
+    lr: float = 1e-3
+    bg_lr: float = 1e-3
+    lr_policy: str = "constant"
+    encoder_lr_scale: float = 10.0
+
+    # sparsity constraints
+    lambda_opacity: float = 0.0
+    lambda_entropy: float = 0.0
+    lambda_emptiness: float = 0.0
+    sparsity_multiplier: float = 20.0
+    sparsity_step: float = 1.0
+
+    # stop-gradient on weights_sum when compositing the background
+    detach_bg_weights_sum: bool = False

@@ -11,9 +11,15 @@ loads the two networks' Flax weights into ``model.color_mlp`` and
 * Triplane planes (3, R, R, F) keep their layout.
 * ``MeshBindingParams`` and the per-slot arrays copy across.
 
-``unet_from_flax``, ``controlnet_from_flax`` and ``vae_from_flax`` load the
-Flax parameter trees of the JAX guidance models (as numpy) into the port's
-modules, whose names are diffusers' own:
+``nerf_state_from_numpy(tree, model)`` loads the JAX ``NeRFParams`` (as
+numpy) into the port's ``NeRFModel``: the triplane planes (and the
+``dual_enc`` sigma planes), the sigma / albedo heads, the background MLP
+and ``sigma_scale``.
+
+``unet_from_flax``, ``controlnet_from_flax``, ``vae_from_flax`` and
+``clip_text_from_flax`` load the Flax parameter trees of the JAX guidance
+models and text tower (as numpy) into the port's modules, whose names are
+diffusers' and transformers' own:
 
 * Flax ``Conv`` kernels (kh, kw, in, out) become (out, in, kh, kw);
   ``Dense`` (in, out) becomes ``nn.Linear.weight`` (out, in);
@@ -23,6 +29,9 @@ modules, whose names are diffusers' own:
   ``down_blocks.0.attentions.1.transformer_blocks.0.attn1.to_out.0``; the
   VAE's flat ``down_blocks_0_resnets_1`` -> ``down_blocks.0.resnets.1``, its
   ``quant_conv`` / ``post_quant_conv`` at the top level.
+* The text tower's ``layers_i`` -> ``text_model.encoder.layers.i``, its
+  ``mlp_fc1`` -> ``mlp.fc1``, its embeddings (``embedding`` and the bare
+  ``position_embedding``) -> ``text_model.embeddings.*.weight``.
 * Every module parameter must be covered and every Flax leaf used.
 """
 from __future__ import annotations
@@ -62,6 +71,39 @@ def load_flax_dense_params(module: nn.Module, flax_params) -> None:
                              f" vs torch weight {tuple(lin.weight.shape)}")
         lin.weight.copy_(kernel)
         lin.bias.copy_(torch.as_tensor(np.array(p["bias"], np.float32)))
+
+
+@torch.no_grad()
+def nerf_state_from_numpy(tree, model) -> None:
+    """Load a numpy JAX ``NeRFParams`` into ``model`` (a ``NeRFModel``) in
+    place; every part the model has must be in the tree and the reverse."""
+    def put(dst, a, name):
+        a = torch.as_tensor(np.array(a, np.float32))
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: jax {tuple(a.shape)} vs torch "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(a)
+
+    if not hasattr(tree.encoder, "planes"):
+        raise NotImplementedError(
+            "only triplane field encoders are ported; got "
+            f"{type(tree.encoder).__name__}")
+    put(model.planes, tree.encoder.planes, "planes")
+    pairs = (("encoder_sigma", "planes_sigma"), ("sigma_mlp", "sigma_mlp"),
+             ("albedo_mlp", "albedo_mlp"), ("bg_mlp", "bg_mlp"),
+             ("sigma_scale", "sigma_scale"))
+    for jax_name, name in pairs:
+        src, dst = getattr(tree, jax_name), getattr(model, name)
+        if (src is None) != (dst is None):
+            raise ValueError(f"{jax_name}: present on one side only")
+        if src is None:
+            continue
+        if isinstance(dst, nn.Module):
+            load_flax_dense_params(dst, src)
+        elif jax_name == "encoder_sigma":
+            put(dst, src.planes, name)
+        else:
+            put(dst, src, name)
 
 
 def avatar_state_from_numpy(tree, model: AvatarModel,
@@ -192,4 +234,30 @@ def vae_from_flax(module: nn.Module, flax_params) -> nn.Module:
             flax_params[part],
             rename=lambda n, part=part, top=top:
             n if n.startswith(top) else f"{part}.{n}"))
+    return _load(module, state)
+
+
+def clip_text_from_flax(module: nn.Module, flax_params) -> nn.Module:
+    """Load a JAX ``CLIPTextModel`` params tree into the port's tower."""
+    tree = flax_params.get("params", flax_params)
+    state = {}
+    for path, leaf in _flatten(tree).items():
+        a = np.asarray(leaf, np.float32)
+        if path == ("position_embedding",):
+            state["text_model.embeddings.position_embedding.weight"] = \
+                torch.as_tensor(a)
+            continue
+        *mods, kind = path
+        if kind == "kernel":
+            a = a.T
+        name = ".".join(mods)
+        name = re.sub(r"^layers_(\d+)", r"encoder.layers.\1", name)
+        name = name.replace("mlp_fc", "mlp.fc")
+        if name == "token_embedding":
+            name = "embeddings.token_embedding"
+        if name != "text_projection":
+            name = "text_model." + name
+        leaf_name = "bias" if kind == "bias" else "weight"
+        state[f"{name}.{leaf_name}"] = torch.as_tensor(
+            np.ascontiguousarray(a))
     return _load(module, state)

@@ -1,6 +1,7 @@
 """Camera math with the reference's coordinate conventions.
 
-Port of the render-path part of ``dreamwaltz_g_tpu/data/camera.py``:
+Port of ``dreamwaltz_g_tpu/data/camera.py`` but for the camera wireframe
+drawings:
 
 * world is y-up; the spherical camera position is
   ``(r sin(elev) sin(azim), r cos(elev), r sin(elev) cos(azim))`` with the
@@ -94,6 +95,49 @@ def to_projection(tanfov: torch.Tensor, z_near: float, z_far: float,
     return P
 
 
+def to_screen(batch: int, image_height: int, image_width: int,
+              with_xyflip: bool = False, device="cpu") -> torch.Tensor:
+    """NDC -> pixel matrix, (batch, 4, 4)."""
+    s = -1.0 if with_xyflip else 1.0
+    K = torch.zeros((batch, 4, 4), dtype=torch.float32, device=device)
+    K[:, 0, 0] = s * (image_width - 1.0) / 2.0
+    K[:, 1, 1] = s * (image_height - 1.0) / 2.0
+    K[:, 0, 3] = (image_width - 1.0) / 2.0
+    K[:, 1, 3] = (image_height - 1.0) / 2.0
+    K[:, 2, 2] = 1.0
+    K[:, 3, 3] = 1.0
+    return K
+
+
+def depth_to_ndc_depth(depth, z_near: float, z_far: float):
+    return (z_near + z_far - 2 * z_near * z_far / depth) / (z_far - z_near)
+
+
+def ndc_depth_to_depth(ndc_depth, z_near: float, z_far: float):
+    return 2 * z_near * z_far / (z_near + z_far - ndc_depth * (z_far - z_near))
+
+
+def get_rays(c2w: torch.Tensor, intrinsics: torch.Tensor, H: int, W: int):
+    """Per-pixel rays: (rays_o (B, H*W, 3), rays_d (B, H*W, 3)). Pixel
+    centres at +0.5; the negative fy in the intrinsics flips image y into
+    camera-up; directions are unit length."""
+    fx, fy = intrinsics[:, 0, 0], intrinsics[:, 1, 1]
+    cx, cy = intrinsics[:, 0, 2], intrinsics[:, 1, 2]
+    kw = dict(dtype=torch.float32, device=c2w.device)
+    jj, ii = torch.meshgrid(torch.arange(H, **kw) + 0.5,
+                            torch.arange(W, **kw) + 0.5, indexing="ij")
+    i = ii.reshape(1, H * W)
+    j = jj.reshape(1, H * W)
+    xs = (i - cx[:, None]) / fx[:, None]
+    ys = (j - cy[:, None]) / fy[:, None]
+    dirs = torch.stack([xs, ys, torch.ones_like(xs)], dim=-1)
+    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True),
+                              min=1e-20)
+    rays_d = torch.einsum("bnk,bik->bni", dirs, c2w[:, :3, :3])
+    rays_o = c2w[:, None, :3, 3].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
 class CameraBatch(NamedTuple):
     """The camera bundle handed to renderers."""
 
@@ -107,6 +151,15 @@ class CameraBatch(NamedTuple):
     elevation: torch.Tensor   # (B,) degrees, polar-from-+y
     image_height: int
     image_width: int
+
+    @property
+    def full_projection(self) -> torch.Tensor:
+        """world -> NDC: P @ w2c, (B, 4, 4), column-vector convention."""
+        return self.projection @ self.extrinsic
+
+    @property
+    def campos(self) -> torch.Tensor:
+        return self.c2w[:, :3, 3]
 
 
 def make_camera_batch(

@@ -57,6 +57,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out.to(q.dtype), lse
 
 
+def flash_attention_rounded_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor) -> torch.Tensor:
+    """The plain forward with the bf16 kernels' two rounding points: the
+    normalised probabilities rounded to q's type once, their product with
+    V summed in float32, and the output rounded once. Only the roundings'
+    error is in it, which is what the bf16 forwards' per-element limits
+    bound (``tests/test_torch_flash_gpu.py``)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    p = torch.softmax(s, dim=-1).to(q.dtype).float()
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
 def flash_attention_split_plain(q, k, v, splits: int
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version over ``splits`` equal key ranges, each on its own:

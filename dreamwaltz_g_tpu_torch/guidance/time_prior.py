@@ -5,7 +5,8 @@ Port of ``dreamwaltz_g_tpu/guidance/time_prior.py``: the schedule's arrays
 are torch tensors; timestep selection (``C``, ``PriorFunction``,
 ``WindowedAnnealing``, ``TimePrioritizedScheduler``) is host-side numpy,
 copied so that the same seed and config give the same integers as the JAX
-package. ``TimePrioritizedLR`` and ``draw_curves`` are not ported yet.
+package; ``TimePrioritizedLR`` gives the 'ddpm' lr policy's per-timestep
+weights. ``draw_curves`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -344,3 +345,19 @@ class TimePrioritizedScheduler:
             r = train_step / max(max_iteration, 1)
             return float(base * (1.0 - 0.5 * r))
         raise NotImplementedError(adjust)
+
+
+class TimePrioritizedLR:
+    """Timestep-dependent learning-rate weight, the 'ddpm' lr policy's:
+    ``w(t) = sqrt((1 - ac_t) / ac_t) / max`` over the schedule (numpy);
+    the stage-1 step multiplies its updates by ``weights[t]``
+    (``tp_lr_weights``)."""
+
+    def __init__(self, schedule: DiffusionSchedule):
+        ac = schedule.alphas_cumprod.detach().cpu().numpy()   # float32
+        w = np.sqrt((1 - ac) / ac)
+        self.weights = w / w.max()
+
+    def __call__(self, timestep) -> float:
+        t = int(np.clip(int(timestep), 0, len(self.weights) - 1))
+        return float(self.weights[t])

@@ -2,7 +2,7 @@
 
 Port of the triplane branch of ``dreamwaltz_g_tpu/nerf/encoder.py``. The
 multi-resolution hash/tiled grid (``GridEncoderConfig``) is not ported yet;
-``encode_any`` refuses it.
+``encode_any`` and ``enc_cfg_from_nerf`` refuse it.
 """
 from __future__ import annotations
 
@@ -91,6 +91,17 @@ def init_encoder_any(cfg, generator: torch.Generator):
         return init_triplane(cfg, generator)
     raise NotImplementedError(
         f"{type(cfg).__name__} backbone is not ported; use TriplaneConfig")
+
+
+def enc_cfg_from_nerf(nerf_cfg) -> TriplaneConfig:
+    """The field encoder's config from a ``NeRFConfig`` (the one place the
+    backbone setting maps to a layout). Only the triplane is ported."""
+    if nerf_cfg.backbone != "triplane":
+        raise NotImplementedError(
+            f"{nerf_cfg.backbone!r} backbone is not ported; use 'triplane'")
+    return TriplaneConfig(resolution=nerf_cfg.triplane_resolution,
+                          feature_dim=nerf_cfg.triplane_dim,
+                          compute_dtype=nerf_cfg.grid_dtype)
 
 
 def frequency_encode(x: torch.Tensor, degree: int = 6,

@@ -1,12 +1,14 @@
-"""Point-mesh geometry: KNN and nearest-triangle queries.
+"""Point-mesh geometry: KNN, nearest-triangle queries, surface sampling
+and vertex normals.
 
 Port of ``dreamwaltz_g_tpu/ops/mesh.py``: setup-time ops of avatar
-initialisation, as chunked brute force over dense (chunk x F) distance
-tiles.
+initialisation and of stage 1's sigma guidance, the queries as chunked
+brute force over dense (chunk x F) distance tiles. ``triangle_frames`` is
+not ported yet.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -128,3 +130,48 @@ def interpolate_vertex_attributes(
     attachment points -> (N, D)."""
     tri_attr = attributes[faces[nearest.triangle_indices]]  # (N, 3, D)
     return torch.einsum("nk,nkd->nd", nearest.barycentric, tri_attr)
+
+
+def sample_mesh_surface(vertices: torch.Tensor, faces, n: int,
+                        generator: Optional[torch.Generator] = None,
+                        fidx: Optional[torch.Tensor] = None,
+                        u: Optional[torch.Tensor] = None,
+                        return_bary: bool = False):
+    """Area-weighted uniform surface samples: (points (n, 3), face_idx
+    (n,)), plus the (n, 3) barycentric weights when ``return_bary``. The
+    faces (``fidx``, drawn in proportion to area) and the (n, 2) uniform
+    draws ``u`` are handed in, or drawn from ``generator``."""
+    faces = torch.as_tensor(faces, device=vertices.device).long()
+    tri = vertices[faces]
+    if fidx is None or u is None:
+        if generator is None:
+            raise ValueError("pass fidx= and u=, or generator=")
+        e1 = tri[:, 1] - tri[:, 0]
+        e2 = tri[:, 2] - tri[:, 0]
+        area = 0.5 * torch.linalg.norm(torch.cross(e1, e2, dim=-1), dim=-1)
+        fidx = torch.multinomial(torch.clamp(area, min=1e-20), n,
+                                 replacement=True, generator=generator)
+        u = torch.rand((n, 2), generator=generator, device=vertices.device)
+    fidx = torch.as_tensor(fidx, device=vertices.device).long()
+    u = torch.as_tensor(u, device=vertices.device, dtype=vertices.dtype)
+    su = torch.sqrt(u[:, 0:1])
+    bary = torch.cat([1 - su, su * (1 - u[:, 1:2]), su * u[:, 1:2]], -1)
+    pts = torch.einsum("nk,nkd->nd", bary, tri[fidx])
+    if return_bary:
+        return pts, fidx, bary
+    return pts, fidx
+
+
+def vertex_normals(vertices: torch.Tensor, faces) -> torch.Tensor:
+    """Per-vertex unit normals: the mean of the adjacent faces' unit
+    normals (trimesh's ``vertex_normals``)."""
+    faces = torch.as_tensor(faces, device=vertices.device).long()
+    tri = vertices[faces]
+    fn = torch.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
+    fn = fn / torch.clamp(torch.linalg.norm(fn, dim=-1, keepdim=True),
+                          min=1e-12)
+    vn = torch.zeros_like(vertices)
+    for k in range(3):
+        vn = vn.index_add(0, faces[:, k], fn)
+    return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True),
+                            min=1e-12)

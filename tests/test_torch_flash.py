@@ -317,3 +317,30 @@ def test_wrapper_raises_outside_the_domain(bad, match):
     if bad in ("length", "head_dim"):
         with pytest.raises(ValueError, match=match):
             FL.flash_attn_bwd(q, k, v, q, torch.zeros(q.shape[:1]), q)
+
+
+@pytest.mark.parametrize("peaked", [False, True], ids=["spread", "peaked"])
+def test_bf16_roundings_against_the_forward_limits(peaked):
+    """The bf16 forwards' two rounding points alone
+    (``flash_attention_rounded_plain``: P rounded once, out rounded once)
+    at D = 512, N = 1024: on rows whose weight spreads over many keys they
+    stay within 2^-9 (sum_j p_j |v_j| + |out|), the kernels' limit; with
+    one 32-key tile's keys 4x as large, a few keys carry each row, P's
+    roundings no longer average out and pass that limit, while staying
+    within their worst case 2^-8 (sum_j p_j |v_j| + |out|), the limit the
+    card tests hold such rows to."""
+    gen = torch.Generator().manual_seed(23)
+    q, k, v = (torch.randn((1, 1024, 1, 512), generator=gen)
+               for _ in range(3))
+    if peaked:
+        k[:, -32:] *= 4
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    ref = FL.flash_attention_plain(q.float(), k.float(), v.float())[0]
+    lim = 2.0 ** -9 * (FL.flash_attention_plain(
+        q.float(), k.float(), v.float().abs())[0] + ref.abs())
+    ratio = float(((FL.flash_attention_rounded_plain(q, k, v).float() - ref)
+                   .abs() / lim).max())
+    if peaked:
+        assert 1.0 < ratio <= 2.0
+    else:
+        assert ratio <= 1.0

@@ -50,6 +50,10 @@ TOL_F32_OUT = 1e-5
 TOL_F32_GRAD = 1e-4
 TOL_BF16_OUT = 2.0 ** -9
 TOL_BF16_GRAD = 2.0 ** -6
+# rows whose weight sits on a few keys: P's roundings do not spread over
+# many keys, so the limit is their worst case with the output's, 2^-8
+# (sum_j p_j |v_j| + |out|)
+TOL_BF16_OUT_PEAKED = 2.0 ** -8
 
 
 def _card():
@@ -64,8 +68,10 @@ def _qkv(dev, shape, dtype, seed=0):
             for _ in range(4)]
 
 
-def _hold_fwd(q, k, v):
-    """Kernel forward against the plain version; returns (out, lse)."""
+def _hold_fwd(q, k, v, peaked=False):
+    """Kernel forward against the plain version; returns (out, lse).
+    ``peaked``: rows whose weight sits on a few keys, held to the bf16
+    roundings' worst case (``TOL_BF16_OUT_PEAKED``)."""
     out, lse = FL.flash_attn_fwd(q, k, v)
     torch.cuda.synchronize()
     ref, ref_lse = FL.flash_attention_plain(q.float(), k.float(), v.float())
@@ -73,8 +79,9 @@ def _hold_fwd(q, k, v):
     assert out.is_contiguous()
     assert bool(torch.isfinite(out).all())
     if q.dtype == torch.bfloat16:
-        tol = TOL_BF16_OUT * (FL.flash_attention_plain(
-            q.float(), k.float(), v.float().abs())[0] + ref.abs())
+        tol = (TOL_BF16_OUT_PEAKED if peaked else TOL_BF16_OUT) * (
+            FL.flash_attention_plain(
+                q.float(), k.float(), v.float().abs())[0] + ref.abs())
     else:
         tol = torch.full_like(ref, TOL_F32_OUT)
     assert bool(((out.float() - ref).abs() <= tol).all())
@@ -338,11 +345,10 @@ def test_bf16_wide_backward_when_one_tile_carries_the_gradient(who, where):
     dK and dV come from that tile alone. "key": one 32-key tile, the last or
     the first, has keys 4x as large, so it takes most of each row's weight
     and carries dQ, whose product kernel walks the keys in 64-key steps.
-    The "key" inputs hold the backward only: there a few keys share each
-    row's weight (the largest ~0.45), and the forward's per-element limit,
-    which counts on P's roundings spreading over many keys, does not hold
-    for them (the bf16 forward lands inside the roundings' worst case,
-    2^-8 (sum_j p_j |v_j| + |out|), but up to 1.5x over its limit)."""
+    On the "key" inputs a few keys share each row's weight, so the forward
+    is held to the limit derived for such rows, the roundings' worst case
+    2^-8 (sum_j p_j |v_j| + |out|) (``test_bf16_wide_forward_on_peaked_
+    rows_is_the_roundings``)."""
     dev = _card()
     B, N, H, D = 1, 1024, 1, 512
     rows = slice(N - 32, N) if where == "last" else slice(0, 32)
@@ -357,7 +363,36 @@ def test_bf16_wide_backward_when_one_tile_carries_the_gradient(who, where):
     if who == "query":
         _hold(q, k, v, g)
     else:
-        _hold_bwd(q, k, v, g, *FL.flash_attn_fwd(q, k, v))
+        _hold_bwd(q, k, v, g, *_hold_fwd(q, k, v, peaked=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["last", "first"])
+def test_bf16_wide_forward_on_peaked_rows_is_the_roundings(where):
+    """The D = 512 forward on rows whose weight sits on a few keys (one
+    32-key tile's keys 4x as large, the last or the first): the plain
+    version with P rounded to bf16 once, and the output once
+    (``flash_attention_rounded_plain``), passes the 2^-9 (sum_j p_j |v_j| +
+    |out|) limit there too, so the rounding alone accounts for the
+    kernel's excess over it; both stay within the roundings' worst case,
+    2^-8 (sum_j p_j |v_j| + |out|), the limit derived for such rows."""
+    dev = _card()
+    B, N, H, D = 1, 1024, 1, 512
+    rows = slice(N - 32, N) if where == "last" else slice(0, 32)
+    q, k, v, _ = _qkv(dev, (B, N, H, D), torch.float32, seed=23)
+    k[:, rows] *= 4
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out, _ = FL.flash_attn_fwd(q, k, v)
+    torch.cuda.synchronize()
+    rounded = FL.flash_attention_rounded_plain(q, k, v)
+    ref = FL.flash_attention_plain(q.float(), k.float(), v.float())[0]
+    lim = TOL_BF16_OUT * (FL.flash_attention_plain(
+        q.float(), k.float(), v.float().abs())[0] + ref.abs())
+    err_kernel = (out.float() - ref).abs()
+    err_rounded = (rounded.float() - ref).abs()
+    assert float((err_rounded / lim).max()) > 1.0
+    for err in (err_kernel, err_rounded):
+        assert bool((err <= TOL_BF16_OUT_PEAKED / TOL_BF16_OUT * lim).all())
 
 
 @pytest.mark.gpu
