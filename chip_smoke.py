@@ -49,8 +49,8 @@ Phases, one JSON line each:
 13. train       -- the training path: the full avatar, the SD1.5-size bf16
                    UNet + ControlNet + VAE with ``FLASH_ATTENTION = "auto"``,
                    timesteps and guidance scale from
-                   ``TimePrioritizedScheduler``, the OpenPose canvas of the
-                   body's projected joints; counts set to 0, 3 warm-up and
+                   ``TimePrioritizedScheduler``, the condition renderer's
+                   OpenPose canvas of the posed body; counts set to 0, 3 warm-up and
                    10 steps through ``make_avatar_sds_step``, counts read
                    (``blend_train_fwd`` and ``blend_train_bwd`` once a step,
                    flash forward and backward as often as the models'
@@ -103,7 +103,26 @@ Phases, one JSON line each:
                    with flash, counts and the calls' types read (15 float32
                    forwards and 1 backward a step), 1 + 2 steps with einsum
                    attention, one profiled step; step ms, the float32 flash
-                   kernels' device ms a step, busy share, peak memory.
+                   kernels' device ms a step, busy share, peak memory;
+20. cli_assets / cli_two_stage -- ``scripts/train_w_expr.sh`` steps 1.2,
+                   2.1 and 2.3 through the port's CLI in-process
+                   (``dreamwaltz_g_tpu_torch.main.main``) at full width:
+                   the synthetic SMPL-X-sized body (with landmark tables
+                   and a segmentation of hands and head) and the SD1.5
+                   card's UNet, pose ControlNet, VAE and CLIP text tower
+                   with random weights in diffusers layout, written to a
+                   temporary directory, and a field fitted to the body
+                   standing in for step 1.1's output; 4, 4 and 3 steps,
+                   the last of each run profiled; counts set to 0 before
+                   each run and read after it (flash (15, 1) a step, the
+                   table blends (0, 0) in stage 1 and (1, 1) in stage 2);
+                   losses, s/step, peak memory, busy share, the device ms
+                   of the trainer's batch build, condition render and
+                   step; the handoff's export (dense cells before and
+                   after the isolated-cell filter, points, capacity), its
+                   LBS smoothing ms, the stage-1 planes carried verbatim,
+                   and step 2.3's warm start equal to step 2.1's last
+                   checkpoint to every bit.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -115,6 +134,7 @@ text tower and stage-1 field weights are random from the seed too.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1139,25 +1159,19 @@ def expected_flash_launches(gparams, latent):
 
 
 def openpose_canvas(model, observed, extrinsic, intrinsics, H, W):
-    """The ControlNet's condition image in [0, 1]: the synthetic body's
-    posed joints projected by the training camera and drawn by
-    ``draw_openpose_map``, the first 18 joints standing in for the body
-    keypoints (the SMPL-X -> OpenPose keypoint mapping is not ported)."""
+    """The ControlNet's condition image in [0, 1]: the trainer's pose
+    condition of the posed synthetic body (``human/condition.py``: its 128
+    OpenPose keypoints projected by the training camera, occlusion-culled
+    by ray casts against the mesh, drawn by ``draw_openpose_map``)."""
     import numpy as np
     import torch
 
-    from dreamwaltz_g_tpu_torch.human.openpose import draw_openpose_map
+    from dreamwaltz_g_tpu_torch.human.condition import ConditionRenderer
     from dreamwaltz_g_tpu_torch.human.smplx_model import smplx_forward
 
     with torch.no_grad():
-        joints = smplx_forward(model.smpl, observed).joints[0, :18]
-        t = joints @ extrinsic[:3, :3].T + extrinsic[:3, 3]
-        z = torch.clamp(t[:, 2], min=1e-6)
-        u = (intrinsics[0, 0] * t[:, 0] / z + intrinsics[0, 2]) / W
-        v = (intrinsics[1, 1] * t[:, 1] / z + intrinsics[1, 2]) / H
-        kp = torch.stack([u, v], -1)
-        kp[t[:, 2] <= 0] = float("nan")
-    canvas = draw_openpose_map([kp.cpu().numpy()], H, W)
+        canvas = ConditionRenderer(model.smpl).render_pose(
+            smplx_forward(model.smpl, observed), extrinsic, intrinsics, H, W)
     if canvas.shape != (H, W, 3) or int(canvas.max()) == 0:
         fail("the OpenPose canvas is empty")
     return canvas.astype(np.float32) / 255.0
@@ -1248,6 +1262,7 @@ def small_train(dev):
         if d.type == "cuda":
             model, state = to_device(model, d), to_device(state, d)
             gp = to_device(gp, d)
+            sd = dataclasses.replace(sd, schedule=sd.schedule.to(d))
         cam = make_camera_batch(2.0, 20.0, 90.0, 50.0, S, S,
                                 at_vector=((0.0, 0.7, 0.0),), device=d)
         if label == "cpu_tile":
@@ -1548,7 +1563,7 @@ def small_nerf_train(dev):
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(SEED)
     field = build_nerf(cfg, generator=gen, device=cpu)
-    grid = update_occupancy(init_occupancy(cfg.grid_size), field,
+    grid = update_occupancy(init_occupancy(cfg.grid_size, device=cpu), field,
                             generator=gen)
     body = make_synthetic_model(num_vertices=120, num_joints=6, seed=SEED,
                                 device=cpu)
@@ -1573,7 +1588,8 @@ def small_nerf_train(dev):
             tx = build_nerf_optimizer(cfg, NERF_MAX_STEPS)
             ts = NT.init_train_state(model, tx)
             step = NT.make_nerf_sds_step(
-                model, sd, S, S, cfg, num_steps=steps,
+                model, dataclasses.replace(sd, schedule=sd.schedule.to(d)),
+                S, S, cfg, num_steps=steps,
                 max_iteration=NERF_MAX_STEPS, bg_mode="nerf",
                 ray_chunk=chunk, device=d)
             cam = make_camera_batch(2.5, 30.0, 80.0, 50.0, S, S, device=d)
@@ -1821,6 +1837,454 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     return [launches["flash_attn_fwd"], launches["flash_attn_bwd"]]
 
 
+# -- the two-stage run through the port's CLI (phase cli_two_stage) --------
+
+CLI_TEXT = "a DSLR photo of a dancer in a red dress"
+# steps of each run of scripts/train_w_expr.sh driven here: the first is a
+# warm-up, the last is profiled, the ones between are timed
+CLI_STEPS = {"1.2": 4, "2.1": 4, "2.3": 3}
+CLI_PARTS = "hands,face"
+# the trainer's host-side ranges around its batch build and its step
+CLI_RANGES = (("trainer.batch", "batch_build"),
+              ("trainer.condition", "condition_render"),
+              ("trainer.step", "step"))
+CLI_SEQUENTIAL_STEPS = 2
+TEMPLATE_FIT_STEPS = 300
+TEMPLATE_SIGMA_IN, TEMPLATE_SIGMA_OUT = 50.0, 0.05
+TEMPLATE_SHELL = 0.05   # a point within this of a vertex lies in the body
+
+
+def write_body(path, seg_path):
+    """The SMPL-X-sized synthetic body in ``load_smplx_npz``'s layout
+    (SMPL-X's 300 shape + 100 expression directions, the first 10 of each
+    random), with 51 landmark triangles and barycentric weights, and a
+    vertex segmentation whose hand and head labels cover 1,000 and 500
+    whole triangles."""
+    import numpy as np
+
+    from dreamwaltz_g_tpu_torch.human.smplx_model import make_synthetic_model
+
+    smpl = make_synthetic_model(num_vertices=10_475, num_joints=55,
+                                num_betas=10, num_expr=10, seed=SEED,
+                                device="cpu")
+    V, J = smpl.num_vertices, smpl.num_joints
+    shapedirs = np.zeros((V, 3, 400), np.float32)
+    shapedirs[..., :10] = smpl.shapedirs.numpy()
+    shapedirs[..., 300:310] = smpl.expr_dirs.numpy()
+    faces = np.asarray(smpl.faces, np.int64)
+    rng = np.random.default_rng(SEED)
+    np.savez(path, v_template=smpl.v_template.numpy(), shapedirs=shapedirs,
+             posedirs=smpl.posedirs.numpy(),
+             J_regressor=smpl.J_regressor.numpy(),
+             weights=smpl.lbs_weights.numpy(),
+             kintree_table=np.stack([np.asarray(smpl.parents, np.int64),
+                                     np.arange(J)]),
+             f=faces, lmk_faces_idx=rng.choice(len(faces), 51,
+                                               replace=False),
+             lmk_bary_coords=rng.dirichlet(np.ones(3), 51).astype(
+                 np.float32))
+    order = rng.permutation(len(faces))
+
+    def verts(ids):
+        return sorted(set(faces[ids].reshape(-1).tolist()))
+
+    with open(seg_path, "w") as f:
+        json.dump({"leftHand": verts(order[:500]),
+                   "rightHand": verts(order[500:1000]),
+                   "head": verts(order[1000:1500])}, f)
+
+
+def write_guidance(root, dev):
+    """The SD1.5 card in diffusers layout with random weights from the seed:
+    the UNet, the pose ControlNet, the VAE and the CLIP text tower as
+    float16 ``torch.save`` files, and a BPE vocabulary of the 256 byte
+    symbols, their word ends and the two special tokens."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch import tests_support
+    from dreamwaltz_g_tpu_torch.guidance.clip_text import (
+        CLIPTextConfig,
+        CLIPTextModel,
+        _bytes_to_unicode,
+    )
+    from dreamwaltz_g_tpu_torch.guidance.layers import build
+
+    _, gp = tests_support.sd15_guidance(SEED, device=dev, dtype=torch.float16)
+    clip = build(lambda: CLIPTextModel(CLIPTextConfig()), dev, torch.float16)
+    clip.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    for name, module, file in (
+            ("unet", gp.unet, "diffusion_pytorch_model.bin"),
+            ("controlnet_pose", gp.controlnet, "diffusion_pytorch_model.bin"),
+            ("vae", gp.vae, "diffusion_pytorch_model.bin"),
+            ("text_encoder", clip, "pytorch_model.bin")):
+        (root / name).mkdir(parents=True)
+        torch.save({k: v.cpu() for k, v in module.state_dict().items()},
+                   root / name / file)
+    symbols = list(_bytes_to_unicode().values())
+    vocab = symbols + [s + "</w>" for s in symbols] \
+        + ["<|startoftext|>", "<|endoftext|>"]
+    (root / "tokenizer").mkdir()
+    (root / "tokenizer" / "vocab.json").write_text(
+        json.dumps({t: i for i, t in enumerate(vocab)}))
+    (root / "tokenizer" / "merges.txt").write_text("#version: 0.2\n")
+
+
+def fit_template(npz, ckpt_dir, dev):
+    """The stand-in for step 1.1's output (itself warm-started from the
+    human-template NeRF): ``NeRFConfig()``'s field fitted to the canonical
+    body, density 50 within ``TEMPLATE_SHELL`` of a vertex and 0.05
+    elsewhere (a log-density regression on 400k fixed points, half near
+    the body), saved as a port checkpoint. Returns its fit numbers."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.configs import NeRFConfig
+    from dreamwaltz_g_tpu_torch.human.poses import canonical_params
+    from dreamwaltz_g_tpu_torch.human.smplx_model import (
+        load_smplx_npz,
+        smplx_forward,
+    )
+    from dreamwaltz_g_tpu_torch.nerf.network import build_nerf
+    from dreamwaltz_g_tpu_torch.ops.mesh import knn
+    from dreamwaltz_g_tpu_torch.training.checkpoint import save_pytree
+
+    smpl = load_smplx_npz(npz, device=dev)
+    with torch.no_grad():
+        verts = smplx_forward(smpl, canonical_params(smpl)).vertices[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cfg = NeRFConfig()
+    field = build_nerf(cfg, generator=gen, device=dev)
+    n = 200_000
+    near = verts[torch.randint(0, verts.shape[0], (n,), generator=gen,
+                               device=dev)] \
+        + 0.04 * torch.randn((n, 3), generator=gen, device=dev)
+    far = (torch.rand((n, 3), generator=gen, device=dev) * 2 - 1) * cfg.bound
+    pts = torch.cat([near, far])
+    d2, _ = knn(pts, verts, 1, chunk=2048)
+    inside = d2[:, 0] < TEMPLATE_SHELL ** 2
+    target = torch.where(inside, math.log(TEMPLATE_SIGMA_IN),
+                         math.log(TEMPLATE_SIGMA_OUT))
+    opt = torch.optim.Adam(field.parameters(), lr=1e-2)
+    t0 = time.perf_counter()
+    for _ in range(TEMPLATE_FIT_STEPS):
+        i = torch.randint(0, pts.shape[0], (65_536,), generator=gen,
+                          device=dev)
+        sigma, _ = field.density(pts[i])
+        loss = torch.mean((torch.log(sigma + 1e-3) - target[i]) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    with torch.no_grad():
+        sigma = torch.cat([field.density(p)[0]
+                           for p in torch.split(pts, 65_536)])
+    torch.cuda.synchronize()
+    save_pytree(ckpt_dir, {"params": field.state_dict(), "opt_state": {},
+                           "step": 0})
+    return {"fit_steps": TEMPLATE_FIT_STEPS,
+            "fit_s": time.perf_counter() - t0, "loss": float(loss.detach()),
+            "inside_points": int(inside.sum()),
+            "inside_above_10": float((sigma[inside] > 10).float().mean()),
+            "outside_above_10": float((sigma[~inside] > 10).float().mean())}
+
+
+def cli_launches_per_step(stage2):
+    """Each kernel's launches a trainer step: flash as the SD1.5-size
+    stack's structure gives, the table blends once a step in stage 2."""
+    return {"flash_attn_fwd": FLASH_PER_STEP[0],
+            "flash_attn_bwd": FLASH_PER_STEP[1],
+            "blend_train_fwd": int(stage2), "blend_train_bwd": int(stage2),
+            "blend_sorted": 0, "blend_tiles_eval": 0}
+
+
+def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True):
+    """One run of the port's CLI as ``dreamwaltz_g_tpu_torch.main.run``
+    makes it: ``Trainer(parse_args(argv))``, ``check(trainer)`` when given,
+    then ``train``, with the counts set to 0 just before the trainer is
+    built and read just after training, and the trainer's timing spans on
+    (``utils/timing.py``: the export, the avatar's initialisation, the LBS
+    smoothing). ``train``'s ``on_step`` records a CUDA event at the end of
+    each step's update: s/step runs from step 1's end to the last
+    unprofiled step's. With ``prefetch`` the last step is profiled
+    (torch.profiler's schedule, stepped by ``on_step``), its launches
+    counted apart, and then one batch build is profiled on the main
+    thread; ``prefetch=False`` trains with each batch built on the main
+    thread before its step and profiles nothing. Returns its fields."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from dreamwaltz_g_tpu_torch import kernels
+    from dreamwaltz_g_tpu_torch.configs import parse_args
+    from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+    from dreamwaltz_g_tpu_torch.utils import timing
+
+    stage = argv[argv.index("--stage") + 1]
+    ranges = CLI_RANGES + (NERF_STAGE_RANGES if stage == "nerf"
+                           else STAGE_RANGES)
+    line = {}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace = kernels.BUILD_DIR / f"cli_{label}_trace.json"
+
+    def profile_line(prof, wall):
+        prof.export_chrome_trace(str(trace))
+        dev_ms, host_ms, named = stage_times(
+            trace, ranges, recompute_in="nerf_step.backward"
+            if stage == "nerf" else None)
+        busy = sum(e.device_time_total for e in device_events(prof)) / 1e3
+        return dict(wall_ms=wall, device_busy_ms=busy,
+                    device_busy_share=busy / wall, stage_device_ms=dev_ms,
+                    stage_host_ms=host_ms, named_kernels_ms=named)
+
+    events, window = {}, {}
+
+    def on_step(k):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[k] = ev
+        if not prefetch:
+            return
+        if k == n_steps - 1:       # the profiled step starts
+            torch.cuda.synchronize()
+            window["before"] = {name: fn.launches
+                                for name, fn in kernel_fns.items()}
+        elif k == n_steps:
+            torch.cuda.synchronize()
+            window["wall"] = (time.perf_counter() - window["t0"]) * 1e3
+            window["launches"] = {
+                name: fn.launches - window["before"][name]
+                for name, fn in kernel_fns.items()}
+        prof.step()
+        window["t0"] = time.perf_counter()
+
+    timing.enabled = True
+    timing.records.clear()
+    try:
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(parse_args(argv))
+        line["build_s"] = time.perf_counter() - t0
+        if check is not None:
+            check(trainer)
+        # the last step profiled: the schedule's steps are on_step's
+        profiler = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=n_steps - 1, warmup=0, active=1,
+                              repeat=1),
+            on_trace_ready=lambda p: window.update(
+                line=profile_line(p, window["wall"]))) \
+            if prefetch else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with profiler as prof:
+            trainer.train(on_step=on_step, prefetch=prefetch)
+        torch.cuda.synchronize()
+        line["train_s"] = time.perf_counter() - t0
+        line["launches"] = {name: fn.launches
+                            for name, fn in kernel_fns.items()}
+        line["spans_ms"] = {name: timing.times(name)
+                            for name in timing.records}
+    finally:
+        timing.enabled = False
+    line["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    line["steps"] = trainer.train_step
+    line["loss"] = list(trainer.losses)
+    last = n_steps - 1 if prefetch else n_steps
+    line["s_per_step"] = events[1].elapsed_time(events[last]) / 1e3 \
+        / (last - 1)
+    if prefetch:
+        line["profiled_step"] = dict(step=n_steps,
+                                     launches=window["launches"],
+                                     **window["line"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer._train_batch(trainer.train_step)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        line["batch_build_profile"] = profile_line(prof, wall)
+    return line
+
+
+def cli_two_stage(dev, card, kernel_fns):
+    """Phase ``cli_two_stage``: ``scripts/train_w_expr.sh`` steps 1.2, 2.1
+    and 2.3 through the port's CLI in-process, at full width on the
+    synthetic SMPL-X-sized body with the SD1.5-size card's random weights
+    in diffusers layout (both written to a temporary directory the phase
+    deletes; step 1.2 warm-starts from a field fitted to the body, standing
+    in for step 1.1's output), each run with its script arguments plus
+    ``--optim.iters N`` and a save interval of N, then a short run of the
+    same step without the prefetch worker (its own experiment directory,
+    ``CLI_SEQUENTIAL_STEPS`` + 1 steps). Checks: finite losses,
+    flash (15, 1) a step in every run and in its profiled step, the table
+    blends (0, 0) in stage 1 and (1, 1) a step in stage 2, the stage-1
+    planes carried into the avatar with a difference of 0, the warm start
+    of step 2.3 equal to step 2.1's last checkpoint to every bit. Returns
+    the runs' launches."""
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from dreamwaltz_g_tpu_torch.configs import paths
+    from dreamwaltz_g_tpu_torch.training.checkpoint import (
+        load_pytree,
+        resolve_ckpt_path,
+    )
+    from dreamwaltz_g_tpu_torch.training.trainer import avatar_tree
+
+    tmp = Path(tempfile.mkdtemp(prefix="cli_two_stage_"))
+    old_paths = (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        t0 = time.perf_counter()
+        human = tmp / "human_templates"
+        (human / "smplx").mkdir(parents=True)
+        npz = human / "smplx" / "SMPLX_NEUTRAL_2020.npz"
+        write_body(npz, human / "smplx" / "smplx_vert_segmentation.json")
+        write_guidance(tmp / "guidance", dev)
+        template = human / "instant-ngp" / "adult_neutral"
+        fit = fit_template(str(npz), template / "checkpoints"
+                           / "step_00000000", dev)
+        torch.cuda.empty_cache()
+        assets_s = time.perf_counter() - t0
+        paths.HUMAN_TEMPLATES = str(human)
+        paths.GUIDANCE_WEIGHTS = str(tmp / "guidance")
+        emit(phase="cli_assets", seconds=assets_s,
+             guidance_bytes=sum(f.stat().st_size for f in
+                                (tmp / "guidance").rglob("*")
+                                if f.is_file()),
+             template=fit, **card)
+        if fit["inside_above_10"] <= 0.5:
+            fail(f"the template field is not dense in the body: {fit}")
+
+        out = tmp / "outputs"
+        exp = {k: f"dancer/{k}" for k in CLI_STEPS}
+
+        def argv(step, *extra, n=None, name=None):
+            n = n or CLI_STEPS[step]
+            return ["--guide.text", CLI_TEXT, "--log.exp_root", str(out),
+                    "--log.exp_name", name or exp[step],
+                    "--predefined_body_parts", CLI_PARTS,
+                    "--optim.iters", str(n), "--log.save_interval", str(n),
+                    "--log.snapshot_interval", "0",
+                    "--log.evaluate_interval", "0"] + list(extra)
+
+        args = {
+            "1.2": ("--optim.ckpt", str(template), "--stage", "nerf",
+                    "--nerf.bg_mode", "gray", "--prompt.scene", "canonical",
+                    "--data.train_w", "512", "--data.train_h", "512",
+                    "--use_sigma_guidance", "true"),
+            "2.1": ("--render.from_nerf", str(out / exp["1.2"]),
+                    "--stage", "gs", "--prompt.scene", "canonical",
+                    "--render.learn_hand_betas", "true",
+                    "--render.lbs_weight_smooth", "true",
+                    "--render.bg_color", "(0.5,0.5,0.5)"),
+            "2.3": ("--optim.ckpt", str(out / exp["2.1"]), "--stage", "gs",
+                    "--prompt.scene", "random-body,hand,expr",
+                    "--render.bg_color", "(0.5,0.5,0.5)")}
+        carried, warm = {}, {}
+
+        # 2.1: the avatar seeded from 1.2's field
+        def check_planes(tr):
+            stage1 = load_pytree(resolve_ckpt_path(out / exp["1.2"]),
+                                 map_location=dev)["params"]["planes"]
+            carried["planes_max_abs_diff"] = float(
+                (tr.state.avatar.params.encoder.planes.detach() - stage1)
+                .abs().max())
+            carried["seeded_from_cloud"] = tr._nerf_guidance is not None
+            carried["mesh_parts"] = {
+                k: len(p.points_to_triangles)
+                for k, p in tr.avatar_model.mesh_parts.items()}
+            carried["alive"] = int(tr.state.avatar.alive.sum())
+            carried.update(tr.export_stats)
+
+        # 2.3: random poses, warm-started from 2.1's last checkpoint
+        def check_warm_start(tr):
+            want = load_pytree(resolve_ckpt_path(out / exp["2.1"]),
+                               map_location=dev)["params"]
+            got = avatar_tree(tr.state.avatar, tr.avatar_model)
+            diff = []
+
+            def walk(g, w, name):
+                if isinstance(g, dict):
+                    for k in g:
+                        walk(g[k], w[k], f"{name}.{k}")
+                elif not torch.equal(g, w):
+                    diff.append(name)
+
+            walk(got, want, "avatar")
+            warm["differs"] = diff
+            warm["tensors"] = len(_leaf_names(got))
+
+        checks = {"2.1": check_planes, "2.3": check_warm_start}
+        runs, sequential = {}, {}
+        for step in CLI_STEPS:
+            runs[step] = cli_run(step, argv(step, *args[step]),
+                                 CLI_STEPS[step], kernel_fns,
+                                 check=checks.get(step))
+            free()
+            # the same step's own short run without the prefetch worker
+            n = CLI_SEQUENTIAL_STEPS + 1
+            sequential[step] = cli_run(
+                f"{step}-sequential", argv(step, *args[step], n=n,
+                                           name=exp[step] + "-sequential"),
+                n, kernel_fns, prefetch=False)
+            free()
+            runs[step]["s_per_step_no_prefetch"] = \
+                sequential[step]["s_per_step"]
+        spans = runs["2.1"]["spans_ms"]
+        handoff = dict(carried, export_ms=spans["trainer.export"],
+                       init_avatar_state_ms=spans[
+                           "trainer.init_avatar_state"],
+                       lbs_smooth_ms=spans["avatar.lbs_smooth"])
+    finally:
+        paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS = old_paths
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    emit(phase="cli_two_stage", runs=runs, handoff=handoff,
+         warm_start=warm, sequential=sequential, **card)
+    for step, line in list(runs.items()) + [
+            (f"{k}-sequential", v) for k, v in sequential.items()]:
+        n = line["steps"]
+        want = CLI_STEPS[step] if step in CLI_STEPS \
+            else CLI_SEQUENTIAL_STEPS + 1
+        stage2 = step.startswith("2")
+        if n != want or len(line["loss"]) != n \
+                or not all(math.isfinite(x) for x in line["loss"]):
+            fail(f"cli {step}: {line['steps']} steps, losses "
+                 f"{line['loss']}")
+        profiled = line.get("profiled_step", {}).get("launches")
+        for name, k in cli_launches_per_step(stage2).items():
+            if line["launches"][name] != k * n \
+                    or (profiled is not None and profiled[name] != k):
+                fail(f"cli {step}: {name} launched "
+                     f"{line['launches'][name]} times in {n} steps "
+                     f"({profiled and profiled[name]} in the profiled "
+                     f"one), expected {k} a step")
+    if not handoff["seeded_from_cloud"] or handoff["points"] <= 0:
+        fail(f"cli 2.1: not seeded from the exported cloud: {handoff}")
+    if handoff["planes_max_abs_diff"] != 0.0:
+        fail("cli 2.1: the stage-1 planes did not arrive verbatim: "
+             f"{handoff['planes_max_abs_diff']}")
+    if warm["differs"]:
+        fail(f"cli 2.3: the warm start differs from 2.1's checkpoint in "
+             f"{warm['differs']}")
+    return {step: line["launches"] for step, line in runs.items()}
+
+
+def _leaf_names(tree, name="avatar"):
+    if not isinstance(tree, dict):
+        return [name]
+    return [n for k, v in tree.items() for n in _leaf_names(v, f"{name}.{k}")]
+
+
 # record_function ranges of make_avatar_sds_step and its callees -> stage
 STAGE_RANGES = (("sds_step.render", "animate_project"),
                 ("rasterize.bin", "bin"),
@@ -1900,7 +2364,8 @@ def device_events(prof):
     the kernels inside them."""
     from torch.autograd import DeviceType
 
-    ranges = {name for name, _ in STAGE_RANGES + NERF_STAGE_RANGES}
+    ranges = {name for name, _ in STAGE_RANGES + NERF_STAGE_RANGES
+              + CLI_RANGES}
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in ranges]
 
@@ -2196,6 +2661,7 @@ def main():
     from dreamwaltz_g_tpu_torch.guidance.time_prior import (
         TimePrioritizedScheduler,
     )
+    from dreamwaltz_g_tpu_torch.training.trainer import guidance_dtype
 
     flash_err = compare_flash(dev)
 
@@ -2210,7 +2676,8 @@ def main():
         fail(f"FLASH_ATTENTION is {TL.FLASH_ATTENTION!r}, not its default")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    guidance, gparams = build_guidance(dev, torch.bfloat16)
+    guidance, gparams = build_guidance(
+        dev, guidance_dtype(GuideConfig().dtype))
     torch.cuda.synchronize()
     guidance_s = time.perf_counter() - t0
     guide_cfg = GuideConfig()
@@ -2432,7 +2899,8 @@ def main():
     # package's guide.dtype = "fp32"); every flash call then takes float32
     guidance = gparams = step = None
     torch.cuda.empty_cache()
-    guidance, gparams = build_guidance(dev, torch.float32)
+    guidance, gparams = build_guidance(
+        dev, guidance_dtype(GuideConfig(dtype="fp32").dtype))
     step = make_avatar_sds_step(model, guidance, TRAIN_H, TRAIN_W, pgc=pgc,
                                 device=dev, **TRAIN_RASTER)
     txt, unc, cond = (x.float() for x in (txt, unc, cond))
@@ -2502,6 +2970,13 @@ def main():
     if not all(math.isfinite(x) for x in f32_losses):
         fail("non-finite SDS loss with float32 guidance")
 
+    # -- the two-stage run through the port's CLI --------------------------
+    guidance = gparams = step = tstate = None
+    torch.cuda.empty_cache()
+    cli_runs = cli_two_stage(dev, card, train_fns)
+    cli = {name: sum(run[name] for run in cli_runs.values())
+           for name in train_fns}
+
     def entry(name, source, replaces, launches, err, ms, plain, bound,
               library=None, **more):
         # kernel_ms: the kernels alone (profiler), for every entry below
@@ -2529,16 +3004,20 @@ def main():
               kernel_ms=alone_ms["avatar"]),
         entry("blend_train_fwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
-              train_launches["blend_train_fwd"],
+              train_launches["blend_train_fwd"] + cli["blend_train_fwd"],
               max(errs_avatar[0], errs_scene[0]), k_ms["blend_train_fwd"],
               p_ms["blend_train_fwd"], bounds["blend_train_fwd"],
-              kernel_ms=errs_avatar[4]["blend_train_fwd"]),
+              kernel_ms=errs_avatar[4]["blend_train_fwd"],
+              launches_by_path={"train": train_launches["blend_train_fwd"],
+                                "cli": cli["blend_train_fwd"]}),
         entry("blend_train_bwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
-              train_launches["blend_train_bwd"],
+              train_launches["blend_train_bwd"] + cli["blend_train_bwd"],
               max(errs_avatar[1], errs_scene[1]), k_ms["blend_train_bwd"],
               p_ms["blend_train_bwd"], bounds["blend_train_bwd"],
-              kernel_ms=errs_avatar[4]["blend_train_bwd"]),
+              kernel_ms=errs_avatar[4]["blend_train_bwd"],
+              launches_by_path={"train": train_launches["blend_train_bwd"],
+                                "cli": cli["blend_train_bwd"]}),
         entry("blend_tiles_eval", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:126",
               train_launches["blend_tiles_eval"],
@@ -2546,13 +3025,15 @@ def main():
               p_ms["blend_tiles_eval"], bounds["blend_tiles_eval"],
               kernel_ms=errs_avatar[4]["blend_tiles_eval"]),
         entry("flash_attn_fwd", flash_src, flash_replaces,
-              train_launches["flash_attn_fwd"] + nerf_flash[0],
+              train_launches["flash_attn_fwd"] + nerf_flash[0]
+              + cli["flash_attn_fwd"],
               flash_err["fwd"],
               f_fwd["fwd_ms"], f_fwd["fwd_plain_ms"], f_fwd["fwd_bound"],
               library=f_fwd["library"]["fwd_ms"], shape=f_fwd["shape"],
               kernel_ms=f_fwd["fwd_kernel_ms"],
               launches_by_path={"train": train_launches["flash_attn_fwd"],
-                                "nerf_train": nerf_flash[0]},
+                                "nerf_train": nerf_flash[0],
+                                "cli": cli["flash_attn_fwd"]},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]
@@ -2566,13 +3047,15 @@ def main():
                          "library_ms": r["library"]["fwd_ms"]}
                         for r in flash_rows]),
         entry("flash_attn_bwd", flash_src, flash_replaces,
-              train_launches["flash_attn_bwd"] + nerf_flash[1],
+              train_launches["flash_attn_bwd"] + nerf_flash[1]
+              + cli["flash_attn_bwd"],
               flash_err["bwd"],
               f_bwd["bwd_ms"], f_bwd["bwd_plain_ms"], f_bwd["bwd_bound"],
               library=f_bwd["library"]["bwd_ms"], shape=f_bwd["shape"],
               kernel_ms=f_bwd["bwd_kernel_ms"],
               launches_by_path={"train": train_launches["flash_attn_bwd"],
-                                "nerf_train": nerf_flash[1]},
+                                "nerf_train": nerf_flash[1],
+                                "cli": cli["flash_attn_bwd"]},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": " + ".join(x["kernel"]
                                               for x in r["bwd_build"]),

@@ -14,7 +14,9 @@ loads the two networks' Flax weights into ``model.color_mlp`` and
 ``nerf_state_from_numpy(tree, model)`` loads the JAX ``NeRFParams`` (as
 numpy) into the port's ``NeRFModel``: the triplane planes (and the
 ``dual_enc`` sigma planes), the sigma / albedo heads, the background MLP
-and ``sigma_scale``.
+and ``sigma_scale``. ``nerf_checkpoint_from_numpy`` and
+``avatar_checkpoint_from_numpy`` write either as a port checkpoint, which
+the CLI's ``--render.from_nerf`` / ``--optim.ckpt`` read.
 
 ``unet_from_flax``, ``controlnet_from_flax``, ``vae_from_flax`` and
 ``clip_text_from_flax`` load the Flax parameter trees of the JAX guidance
@@ -149,6 +151,34 @@ def avatar_state_from_numpy(tree, model: AvatarModel,
         max_radii=t(tree.max_radii),
         vertex_indices=None if vidx is None else t(vidx),
     )
+
+
+def nerf_checkpoint_from_numpy(tree, nerf_cfg, ckpt_dir):
+    """Write a numpy JAX ``NeRFParams`` as a port checkpoint directory
+    (``training/checkpoint.py``'s format: the field's state dict under
+    "params"), so that ``--render.from_nerf`` or ``--optim.ckpt`` reads a
+    field the JAX package trained. Returns the step directory."""
+    from .nerf.network import build_nerf
+    from .training.checkpoint import save_pytree
+
+    model = build_nerf(nerf_cfg, with_background=tree.bg_mlp is not None,
+                       device="cpu")
+    nerf_state_from_numpy(tree, model)
+    return save_pytree(ckpt_dir, {"params": model.state_dict(),
+                                  "opt_state": {}, "step": 0})
+
+
+def avatar_checkpoint_from_numpy(tree, model: AvatarModel, ckpt_dir):
+    """Write a numpy JAX ``AvatarState`` as a port checkpoint directory,
+    the tree ``--optim.ckpt`` warm-starts a stage-2 sub-stage from (the
+    networks' weights land in ``model`` too). Returns the step
+    directory."""
+    from .training.checkpoint import save_pytree
+    from .training.trainer import avatar_tree
+
+    state = avatar_state_from_numpy(tree, model, device="cpu")
+    return save_pytree(ckpt_dir, {"params": avatar_tree(state, model),
+                                  "opt_state": {}, "step": 0})
 
 
 # ---------------------------------------------------------------------------

@@ -96,8 +96,9 @@ def to_projection(tanfov: torch.Tensor, z_near: float, z_far: float,
 
 
 def to_screen(batch: int, image_height: int, image_width: int,
-              with_xyflip: bool = False, device="cpu") -> torch.Tensor:
+              with_xyflip: bool = False, device="cuda") -> torch.Tensor:
     """NDC -> pixel matrix, (batch, 4, 4)."""
+    device = resolve_device(device)
     s = -1.0 if with_xyflip else 1.0
     K = torch.zeros((batch, 4, 4), dtype=torch.float32, device=device)
     K[:, 0, 0] = s * (image_width - 1.0) / 2.0

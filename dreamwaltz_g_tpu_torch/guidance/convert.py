@@ -353,6 +353,7 @@ def load_guidance(
     from .controlnet import ControlNet
     from .layers import build
     from .sds import GuidanceParams, ScoreDistillation
+    from .time_prior import make_schedule
     from .unet import UNet2DCondition, sd15_unet_config
     from .vae import AutoencoderKL, sd_vae_config
 
@@ -411,9 +412,9 @@ def load_guidance(
         return clip(ids)
 
     sd = ScoreDistillation(
-        loss_type=loss_type, weight_type=weight_type,
-        guidance_scale=guidance_scale, controlnet_scale=controlnet_scale,
-        guidance_rescale=guidance_rescale, latent_size=cfgs["latent_size"],
-        prediction_type=fam["pred"])
+        schedule=make_schedule(device=device), loss_type=loss_type,
+        weight_type=weight_type, guidance_scale=guidance_scale,
+        controlnet_scale=controlnet_scale, guidance_rescale=guidance_rescale,
+        latent_size=cfgs["latent_size"], prediction_type=fam["pred"])
     return sd, GuidanceParams(unet=unet, vae=vae, controlnet=cn), \
         text_embed_fn

@@ -58,6 +58,8 @@ class GuidanceParams(NamedTuple):
 class ScoreDistillation:
     """Static guidance settings + the loss computation."""
 
+    # on the device of the models it serves; None: the SD1.5 schedule on
+    # the card
     schedule: DiffusionSchedule = None
     loss_type: str = "sds"
     weight_type: str = "sjc"          # {'dreamfusion', 'latent-nerf', 'ism', 'sjc'}
@@ -77,12 +79,12 @@ class ScoreDistillation:
     jax_promotion: bool = False
 
     def __post_init__(self):
-        if self.schedule is None:
-            self.schedule = make_schedule()
         if self.loss_type not in LOSS_TYPES:
             raise NotImplementedError(
                 f"loss_type {self.loss_type!r} is not ported; ported: "
                 f"{LOSS_TYPES}")
+        if self.schedule is None:
+            self.schedule = make_schedule()
 
     def encode_images(self, params: GuidanceParams, images: torch.Tensor
                       ) -> torch.Tensor:
@@ -97,10 +99,11 @@ class ScoreDistillation:
             len(params.vae.cfg.block_out_channels) - 1)
         if (H != target or W != target) and (
                 self.input_interpolate or H != W or H not in (target, 768)):
+            # in float32: the CPU has no bfloat16 antialiased resize
             images = F.interpolate(
-                images.permute(0, 3, 1, 2), size=(target, target),
+                images.permute(0, 3, 1, 2).float(), size=(target, target),
                 mode="bilinear", align_corners=False,
-                antialias=True).permute(0, 2, 3, 1)
+                antialias=True).permute(0, 2, 3, 1).to(images.dtype)
         return params.vae.encode(images)
 
     def _eps(self, params: GuidanceParams, latents, t, context,
@@ -116,7 +119,7 @@ class ScoreDistillation:
             pred = params.unet(latents, t, context)
         if self.prediction_type == "v_prediction":
             # eps = sqrt(ac) v + sqrt(1 - ac) x_t
-            ac = self.schedule.alphas_cumprod.to(latents.device)[t]
+            ac = self.schedule.alphas_cumprod[t]
             ac = ac.reshape((-1,) + (1,) * (latents.ndim - 1))
             pred = (torch.sqrt(ac) * pred.float()
                     + torch.sqrt(1.0 - ac) * latents.float()).to(pred.dtype)
@@ -138,7 +141,7 @@ class ScoreDistillation:
             eps_uncond, eps_text
 
     def _weight(self, t: torch.Tensor) -> torch.Tensor:
-        ac = self.schedule.alphas_cumprod.to(t.device)[t]
+        ac = self.schedule.alphas_cumprod[t]
         if self.weight_type == "dreamfusion":
             w = 1.0 - ac
         elif self.weight_type == "latent-nerf":
@@ -203,8 +206,7 @@ class ScoreDistillation:
                                 device=lat_sg.device, dtype=dt)
         noise = noise.to(dt)
         t = t.to(lat_sg.device).long()
-        schedule = self.schedule.to(lat_sg.device)
-        latents_noisy = schedule.add_noise(lat_sg.float(), noise.float(), t)
+        latents_noisy = self.schedule.add_noise(lat_sg.float(), noise.float(), t)
         if not self.jax_promotion:
             latents_noisy = latents_noisy.to(dt)
 

@@ -18,6 +18,8 @@ from typing import Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
 
 def C(value, current_step: int, max_iteration: Optional[int] = None) -> float:
     """Scalar-or-schedule: number, or (start_step, v0, v1, end_step)
@@ -85,7 +87,7 @@ def make_schedule(
     beta_start: float = 0.00085,
     beta_end: float = 0.012,
     beta_schedule: str = "scaled_linear",
-    device="cpu",
+    device="cuda",
 ) -> DiffusionSchedule:
     """The SD1.5 'scaled_linear' schedule (diffusers' DDPMScheduler config),
     computed in float64 with numpy and stored as float32."""
@@ -98,6 +100,7 @@ def make_schedule(
     else:
         raise ValueError(beta_schedule)
     ac = np.cumprod(1.0 - betas)
+    device = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -256,9 +259,11 @@ class TimePrioritizedScheduler:
     """Timestep and guidance-scale provider of the training loop."""
 
     def __init__(self, guide_cfg, schedule: Optional[DiffusionSchedule] = None,
-                 num_train_timesteps: int = 1000, seed: int = 0):
+                 num_train_timesteps: int = 1000, seed: int = 0,
+                 device="cuda"):
         self.cfg = guide_cfg
-        self.schedule = schedule or make_schedule(num_train_timesteps)
+        self.schedule = schedule or make_schedule(num_train_timesteps,
+                                                  device=device)
         self.T = num_train_timesteps
         self.rng = np.random.default_rng(seed)
         self.time_sampling = guide_cfg.time_sampling

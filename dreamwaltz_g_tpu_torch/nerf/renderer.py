@@ -26,6 +26,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .._device import resolve_device
+
 
 class OccupancyGrid(NamedTuple):
     density: torch.Tensor       # (G, G, G) EMA density
@@ -33,7 +35,8 @@ class OccupancyGrid(NamedTuple):
     mean_density: torch.Tensor  # () running mean over the cells
 
 
-def init_occupancy(grid_size: int = 128, device="cpu") -> OccupancyGrid:
+def init_occupancy(grid_size: int = 128, device="cuda") -> OccupancyGrid:
+    device = resolve_device(device)
     g = grid_size
     return OccupancyGrid(
         density=torch.zeros((g, g, g), device=device),

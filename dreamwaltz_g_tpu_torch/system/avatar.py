@@ -17,7 +17,7 @@ hold every other tensor under the JAX field names. ``animate`` is
 differentiable with respect to every float tensor of ``AvatarParams`` and
 the networks' weights. ``update_avatar_stats`` accumulates the densifier's
 statistics and ``densify_avatar`` clones, splits and prunes the
-unconstrained set in place; the LBS-weight KNN smoothing is not ported yet.
+unconstrained set in place.
 """
 from __future__ import annotations
 
@@ -32,13 +32,15 @@ from ..gaussian.densify import DensifyConfig, allocate_slots
 from ..human.deform import DeformNetwork
 from ..human.glbs import GLBSTransforms, glbs_transforms
 from ..human.smplx_model import SMPLXModelData, SMPLXParams, smplx_forward
-from ..nerf.encoder import encode_any, init_encoder_any
+from ..nerf.encoder import TriplaneParams, encode_any, init_encoder_any
 from ..nerf.network import SigmaMLP
 from ..ops.mesh import (
     NearestTriangles,
     find_nearest_triangles,
     interpolate_vertex_attributes,
+    knn,
 )
+from ..utils.timing import span
 from ..utils.transforms import (
     matrix_to_quat,
     quat_multiply,
@@ -207,17 +209,51 @@ def init_mesh_binding_params(
     )
 
 
+def knn_chunk(n_points: int, budget_floats: int = 2 ** 28,
+              most: int = 4096) -> int:
+    """Query rows a ``knn`` chunk over ``n_points`` points may take so that
+    its (chunk, n_points, 3) difference tensor stays within
+    ``budget_floats`` float32s (1 GiB): 4096 up to 21,845 points, 89 at a
+    million. The neighbours do not depend on it."""
+    return max(1, min(most, budget_floats // max(3 * n_points, 1)))
+
+
 def initialize_lbs_weights(
     smpl: SMPLXModelData,
     nearest: NearestTriangles,
+    positions: Optional[torch.Tensor] = None,
     smooth: bool = False,
+    smooth_K: int = 30,
+    smooth_N: int = 5000,
+    use_sqrt: bool = True,
+    valid_dist_threshold: float = 0.01,
 ) -> torch.Tensor:
-    """Barycentric LBS-weight transfer from the nearest triangle, then
-    normalized. The KNN smoothing (``smooth=True``) is not ported yet."""
-    if smooth:
-        raise NotImplementedError("LBS-weight KNN smoothing is not ported")
+    """Barycentric LBS-weight transfer from the nearest triangle, the
+    optional KNN smoothing, then normalisation.
+
+    The smoothing is ``smooth_N`` iterations of a distance-weighted average
+    over each point's ``smooth_K`` nearest other ``positions`` (kernel
+    ``1 / (mesh_dist[neighbour] * knn_dist)``), applied only to points
+    farther than ``valid_dist_threshold`` from the mesh; the others keep
+    their transferred weights."""
     faces = torch.as_tensor(smpl.faces, device=smpl.device)
     w = interpolate_vertex_attributes(nearest, faces, smpl.lbs_weights)
+    if smooth:
+        if positions is None:
+            raise ValueError("smooth=True needs the points' positions")
+        d2, idx = knn(positions, positions, smooth_K + 1,
+                      chunk=knn_chunk(positions.shape[0]))
+        idx, d2 = idx[:, 1:], d2[:, 1:]  # drop self
+        mesh_d, knn_d = nearest.sq_dists, d2
+        if use_sqrt:
+            mesh_d, knn_d = torch.sqrt(mesh_d), torch.sqrt(knn_d)
+        kw = 1.0 / torch.clamp(mesh_d[idx] * knn_d, min=1e-12)
+        kw = kw / kw.sum(-1, keepdim=True)
+        upd = (mesh_d > valid_dist_threshold).to(w.dtype)[:, None]
+        with span("avatar.lbs_smooth", w.device):
+            for _ in range(smooth_N):
+                new = torch.einsum("nk,nkj->nj", kw, w[idx])
+                w = (1.0 - upd) * w + upd * new
     return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-8)
 
 
@@ -302,12 +338,21 @@ def init_avatar_state(
     lbs_weight_smooth: bool = False,
     init_scales: Optional[torch.Tensor] = None,  # (N, 3) linear per-point
     device="cuda",
+    nerf_model=None,
+    lbs_weight_smooth_K: int = 30,
+    lbs_weight_smooth_N: int = 5000,
 ) -> AvatarState:
     """Build the avatar from a point cloud: canonical SMPL-X mesh,
     nearest-triangle attachment, prune-near-mesh (points close to a
-    mesh-bound part lose their alive bit), LBS-weight transfer, inverse LBS
-    into zero-pose space. Draws the field tables and (re)initialises the
-    model's networks from ``generator`` (seed 0 on ``device`` by default)."""
+    mesh-bound part lose their alive bit), LBS-weight transfer (with the
+    KNN smoothing when ``lbs_weight_smooth``), inverse LBS into zero-pose
+    space. Draws the field tables and (re)initialises the model's networks
+    from ``generator`` (seed 0 on ``device`` by default).
+
+    ``nerf_model`` (a stage-1 ``NeRFModel``, the JAX function's
+    ``nerf_params``) continues the stage-1 field: its plane tables are
+    copied verbatim into the avatar's encoder and its sigma / albedo head
+    into ``model.color_mlp``; only the deform net is drawn."""
     device = resolve_device(device)
     if model.smpl.device != device:
         raise ValueError(f"model.smpl is on {model.smpl.device}, not {device}")
@@ -331,8 +376,9 @@ def init_avatar_state(
                 & (nearest.sq_dists < thr ** 2)
             keep = keep & ~close
 
-    lbs_w = initialize_lbs_weights(model.smpl, nearest,
-                                   smooth=lbs_weight_smooth)
+    lbs_w = initialize_lbs_weights(
+        model.smpl, nearest, point_cloud, smooth=lbs_weight_smooth,
+        smooth_K=lbs_weight_smooth_K, smooth_N=lbs_weight_smooth_N)
 
     canonical_tr = glbs_transforms(model.smpl, model.canonical_inputs)
     vso, jso, vpo = effective_offset_flags(model)
@@ -354,9 +400,16 @@ def init_avatar_state(
         return torch.cat([a, torch.full((C - N,) + a.shape[1:], fill,
                                         dtype=a.dtype, device=device)])
 
-    encoder = init_encoder_any(model.enc_cfg, generator)
-    for net in (model.color_mlp, model.sq_net):
+    nets = (model.color_mlp, model.sq_net)
+    for net in nets:
         net.to(device)
+    if nerf_model is not None:
+        encoder = TriplaneParams(planes=nerf_model.planes.detach().clone())
+        model.color_mlp.load_state_dict(nerf_model.sigma_mlp.state_dict())
+        nets = (model.sq_net,)
+    else:
+        encoder = init_encoder_any(model.enc_cfg, generator)
+    for net in nets:
         net.reset_parameters(generator)
 
     mesh_params = {

@@ -20,6 +20,7 @@ from ._device import resolve_device
 from .guidance.controlnet import ControlNet
 from .guidance.layers import build
 from .guidance.sds import GuidanceParams, ScoreDistillation
+from .guidance.time_prior import make_schedule
 from .guidance.unet import UNet2DCondition, sd15_unet_config, tiny_unet_config
 from .guidance.vae import AutoencoderKL, sd_vae_config, tiny_vae_config
 from .human.deform import DeformNetwork
@@ -117,7 +118,8 @@ def tiny_guidance(seed: int = 0, with_controlnet: bool = False,
     device = resolve_device(device)
     params = _guidance(tiny_unet_config(), tiny_vae_config(), (16, 32), seed,
                        with_controlnet, device, dtype)
-    return ScoreDistillation(latent_size=latent_size,
+    return ScoreDistillation(schedule=make_schedule(device=device),
+                             latent_size=latent_size,
                              guidance_scale=7.5), params
 
 
@@ -131,7 +133,8 @@ def sd15_guidance(seed: int = 0, with_controlnet: bool = True,
     device = resolve_device(device)
     params = _guidance(sd15_unet_config(), sd_vae_config(),
                        (16, 32, 96, 256), seed, with_controlnet, device, dtype)
-    return ScoreDistillation(latent_size=64, guidance_scale=50.0), params
+    return ScoreDistillation(schedule=make_schedule(device=device),
+                             latent_size=64, guidance_scale=50.0), params
 
 
 def screen_gaussians(n: int, height: int, width: int, seed: int = 0,

@@ -1,0 +1,1044 @@
+"""Top-level trainer: config -> models -> data -> train loop -> checkpoints.
+
+Port of ``dreamwaltz_g_tpu/training/trainer.py`` for the two-stage run of
+``scripts/train_w_expr.sh`` steps 1.1-2.3: ``--stage nerf`` (the stage-1
+NeRF SDS run, progressive resolutions included) and ``--stage gs`` with the
+default ``gs_type`` (the animatable avatar, seeded from a stage-1
+checkpoint through ``--render.from_nerf``, from the SMPL-X mesh without
+one, or warm-started from an earlier avatar through ``--optim.ckpt``).
+
+The Trainer owns the host-side providers (pose prompt, camera sampler,
+timestep scheduler, checkpointer) and the device state: the field or the
+avatar with its optimizer, on ``cfg.log.platform`` (None: the card;
+'cpu': the CPU). Asset gating is the JAX package's: without the SMPL-X
+npz under ``HUMAN_TEMPLATES`` or a diffusers-layout weights directory under
+``GUIDANCE_WEIGHTS``, ``--log.debug true`` runs the synthetic body and the
+tiny random guidance.
+
+Randomness: the numpy ``Generator``s are the JAX trainer's, seeded alike
+and drawn in its order (``rng``: sigma guidance and random backgrounds;
+``_batch_rng``; the camera sampler's, the scheduler's and the prompt's
+own), so one seed gives both packages the same cameras, timesteps,
+guidance scales and view indices. The JAX trainer's ``jax.random`` keys
+become ``generator``, one ``torch.Generator`` seeded from ``optim.seed``
+that only the main thread draws from; the prompt's pose draws come from
+the prompt's own generator, on the prefetch worker. A checkpoint carries
+every generator's state, so a resumed run draws what an uninterrupted one
+would.
+
+Not ported yet, and refused at construction where a flag asks for them:
+``evaluate`` / ``full_eval`` / snapshots (``utils/media.py``), ``pretrain``,
+``pretrain_nerf2gs``, ``export_mesh``, ``compute_r_precision``,
+``check`` / ``check_sd``, the vanilla and hash avatars, DMTet, the MLP /
+Gaussian / video backgrounds, scene composition and placement, SDXL,
+``batch_size > 1`` and tensor parallelism, the motion and vposer scenes.
+"""
+from __future__ import annotations
+
+import ast
+import logging
+import time
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .._device import resolve_device
+from ..configs import TrainConfig, paths, save_config
+from ..data.sampler import RandomCamera4Avatar
+from ..gaussian.densify import DensifyConfig
+from ..guidance.text_aug import TextAugmentation
+from ..guidance.time_prior import TimePrioritizedScheduler
+from ..human.keypoints import load_landmark_data, openpose_keypoints
+from ..human.prompt import SMPLPrompt
+from ..human.smplx_model import load_smplx_npz, make_synthetic_model
+from ..nerf.network import build_nerf
+from ..nerf.renderer import init_occupancy
+from ..utils.timing import span
+from . import gs_trainer, nerf_trainer
+from .checkpoint import Checkpointer, load_pytree, resolve_ckpt_path
+from .losses import make_sigma_guidance_points
+from .optim import build_avatar_optimizer, build_nerf_optimizer
+
+logger = logging.getLogger("dreamwaltz_g_tpu_torch")
+
+
+def _find_smplx_npz(cfg: TrainConfig) -> Optional[str]:
+    root = Path(paths.HUMAN_TEMPLATES)
+    for c in (root / "smplx" / "SMPLX_NEUTRAL_2020.npz",
+              root / "smplx" / f"SMPLX_{cfg.prompt.smpl_gender.upper()}.npz"):
+        if c.is_file():
+            return str(c)
+    return None
+
+
+def guidance_dtype(name: str) -> torch.dtype:
+    """The guidance's compute type for ``guide.dtype``: float32 for
+    'fp32' / 'f32', bf16 otherwise ('fp16' included), as the JAX
+    trainer's ``_cast_guidance_dtype`` casts."""
+    return torch.float32 if name in ("fp32", "f32") else torch.bfloat16
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet")
+
+
+# -- the torch checkpoint trees ---------------------------------------------
+
+def avatar_tree(state, model) -> dict:
+    """The avatar's tensors and networks as a tree of tensors."""
+    p = state.params
+    return {
+        "positions": p.positions, "log_scales": p.log_scales,
+        "quats": p.quats, "lbs_weights": p.lbs_weights,
+        "planes": p.encoder.planes,
+        "mesh": {k: {"bary_coords": m.bary_coords,
+                     "vertex_coords": m.vertex_coords, "scales": m.scales}
+                 for k, m in p.mesh.items()},
+        "extra_betas": p.extra_betas, "smpl_learn": dict(p.smpl_learn),
+        "alive": state.alive, "grad_accum": state.grad_accum,
+        "grad_denom": state.grad_denom, "max_radii": state.max_radii,
+        "vertex_indices": state.vertex_indices,
+        "color_mlp": model.color_mlp.state_dict(),
+        "sq_net": model.sq_net.state_dict(),
+    }
+
+
+@torch.no_grad()
+def load_avatar_tree(state, model, tree: dict) -> None:
+    """Copy a tree of ``avatar_tree`` into ``state`` and ``model`` in place
+    (the optimizer keeps its references); shapes must match."""
+    cur = avatar_tree(state, model)
+
+    def put(dst, src, name):
+        if isinstance(dst, dict):
+            if set(dst) != set(src):
+                raise ValueError(f"{name}: keys {sorted(src)} vs "
+                                 f"{sorted(dst)}")
+            for k in dst:
+                put(dst[k], src[k], f"{name}.{k}")
+        elif dst is None or src is None:
+            if (dst is None) != (src is None):
+                raise ValueError(f"{name}: present on one side only")
+        else:
+            if tuple(dst.shape) != tuple(src.shape):
+                raise ValueError(f"{name}: checkpoint {tuple(src.shape)} vs "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+
+    for k in cur:
+        if k not in ("color_mlp", "sq_net"):
+            put(cur[k], tree[k], k)
+    model.color_mlp.load_state_dict(tree["color_mlp"])
+    model.sq_net.load_state_dict(tree["sq_net"])
+
+
+def _opt_tree(opt_state) -> dict:
+    if isinstance(opt_state, nerf_trainer.NeRFOptState):
+        return {label: state for label, (_, _, state)
+                in opt_state.groups.items()}
+    return {"adam": opt_state.adam.state_dict(), "count": opt_state.count}
+
+
+@torch.no_grad()
+def _load_opt_tree(opt_state, tree: dict) -> None:
+    if isinstance(opt_state, nerf_trainer.NeRFOptState):
+        for label, (_, _, state) in opt_state.groups.items():
+            for k, v in tree[label].items():
+                if isinstance(v, list):
+                    for dst, src in zip(state[k], v):
+                        dst.copy_(src)
+                else:
+                    state[k] = v
+        return
+    opt_state.adam.load_state_dict(tree["adam"])
+    opt_state.count = int(tree["count"])
+
+
+class Trainer:
+    """The two-stage run's trainer (module docstring)."""
+
+    def __init__(self, cfg: TrainConfig):
+        self.cfg = cfg
+        self._refuse_unported()
+        self.device = resolve_device(
+            "cuda" if cfg.log.platform in (None, "cuda", "gpu")
+            else cfg.log.platform)
+        self.exp_dir = Path(cfg.log.exp_dir)
+        self.exp_dir.mkdir(parents=True, exist_ok=True)
+        save_config(cfg, self.exp_dir / "config.json")
+        if not logger.handlers:
+            logger.setLevel(logging.INFO)
+            fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
+            for h in (logging.StreamHandler(),
+                      logging.FileHandler(self.exp_dir / "log.txt")):
+                h.setFormatter(fmt)
+                logger.addHandler(h)
+            logger.propagate = False
+
+        self.rng = np.random.default_rng(cfg.optim.seed)
+        # _train_batch's own: it runs on the prefetch worker
+        self._batch_rng = np.random.default_rng(cfg.optim.seed + 7919)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.optim.seed)
+        self.max_iteration = cfg.optim.iters
+        self.train_step = 0
+        self.losses = []
+        self.neg_embeds = None
+        self.export_stats: Dict[str, Any] = {}
+
+        self._warn_unsupported_knobs()
+        self._init_human()
+        self._init_guidance()
+        self._init_cameras()
+        self.checkpointer = Checkpointer(self.exp_dir / "checkpoints",
+                                         max_keep=cfg.log.max_keep_ckpts)
+        if cfg.stage == "nerf":
+            self._init_nerf()
+        else:
+            self._init_avatar()
+
+    def _refuse_unported(self):
+        """The paths this slice does not port raise here, where their
+        flag is set."""
+        cfg = self.cfg
+        r, g, lg = cfg.render, cfg.guide, cfg.log
+        if cfg.stage not in ("nerf", "gs"):
+            raise ValueError(f"unknown stage {cfg.stage!r}")
+        if lg.platform not in (None, "cuda", "gpu", "cpu"):
+            raise ValueError(f"log.platform {lg.platform!r}: the port runs "
+                             "on 'cuda' (the default) or 'cpu'")
+        refused = [
+            (lg.snapshot_interval or lg.evaluate_interval,
+             "evaluate / snapshots (log.snapshot_interval, "
+             "log.evaluate_interval; utils/media.py)"),
+            (lg.eval_only, "log.eval_only (full_eval)"),
+            (lg.pretrain_only, "log.pretrain_only (pretrain)"),
+            (lg.nerf2gs, "log.nerf2gs (pretrain_nerf2gs)"),
+            (lg.nerf2mesh, "log.nerf2mesh (export_mesh)"),
+            (lg.check or lg.check_sd, "log.check / log.check_sd"),
+            (cfg.stage == "gs" and r.gs_type != "dreamwaltz-g",
+             f"render.gs_type {r.gs_type!r}"),
+            (cfg.nerf.dmtet, "nerf.dmtet (DMTet finetune)"),
+            (cfg.nerf.backbone != "triplane",
+             f"nerf.backbone {cfg.nerf.backbone!r} (the hash / tiled grid)"),
+            (r.use_mlp_background, "render.use_mlp_background"),
+            (r.use_gs_background, "render.use_gs_background"),
+            (r.use_video_background, "render.use_video_background"),
+            (r.avatar_scale is not None or r.avatar_transl is not None,
+             "render.avatar_scale / avatar_transl (scene placement)"),
+            (cfg.optim.ckpt_extra, "optim.ckpt_extra (scene composition)"),
+            (str(g.diffusion).startswith("sdxl"), "SDXL guidance"),
+            (cfg.optim.batch_size > 1 or cfg.parallel.tp > 1,
+             "batch_size > 1 and tensor parallelism"),
+        ]
+        for cond, what in refused:
+            if cond:
+                _not_ported(what)
+
+    def _warn_unsupported_knobs(self):
+        """Knobs parsed for reference-CLI compatibility that have no effect,
+        warned about as the JAX trainer warns (knob for knob)."""
+        r, g, d = self.cfg.render, self.cfg.guide, self.cfg.data
+        n, p, lg = self.cfg.nerf, self.cfg.prompt, self.cfg.log
+        checks = [
+            (r.non_rigid_scale_mode != "add",
+             "render.non_rigid_scale_mode (dead in the reference: stored at "
+             "avatar.py:1126, never read — the scale branch gates on "
+             "non_rigid_rotation_mode, avatar.py:1471)"),
+            (r.use_nerf_opacities is False, "render.use_nerf_opacities "
+             "(dead in the reference: defaulted at configs/__init__.py:179, "
+             "never read by any core module)"),
+            (r.use_nerf_scales_and_quaternions is False,
+             "render.use_nerf_scales_and_quaternions (use gs_type=hash)"),
+            (r.use_nerf_mesh_scales_and_quaternions is False,
+             "render.use_nerf_mesh_scales_and_quaternions (only read by "
+             "the reference's dead HashAvatarWithMesh, avatar.py:520)"),
+            (not r.learn_mesh_quaternions is False,
+             "render.learn_mesh_quaternions (dead for the shipped avatar: "
+             "only read by the reference's dead HashAvatarWithMesh, "
+             "avatar.py:518/563/746 — DreamWaltzG's mesh quats always "
+             "derive from triangle frames, avatar.py:1027-1079)"),
+            (d.batched_view, "data.batched_view (dead in the reference: "
+             "parsed at configs/__init__.py:319, never read)"),
+            (d.uniform_sphere_rate not in (None, 0, 0.0),
+             "data.uniform_sphere_rate (dead in the reference: parsed at "
+             "configs/__init__.py:320, never read)"),
+            (d.jitter_pose, "data.jitter_pose (dead in the reference: "
+             "parsed at configs/__init__.py:322, never read)"),
+            (g.concept_name is not None and g.diffusion.startswith("sdxl"),
+             "guide.concept_name with SDXL (sd-concepts are 768-dim SD1.x "
+             "embeddings — dimensionally incompatible with the bigG tower; "
+             "the reference would inject them into tower 1 only)"),
+            (g.diffusion_fp16 or g.controlnet_fp16,
+             "guide.diffusion_fp16/controlnet_fp16 (precision comes from "
+             "guide.dtype here: bf16 default, f32 available)"),
+            (not n.cuda_ray, "nerf.cuda_ray=false (the static-shape marcher "
+             "is the only one; tune nerf.num_steps instead)"),
+            (n.max_steps != 1024, "nerf.max_steps (use nerf.num_steps/"
+             "compact_steps — static-shape marching)"),
+            (n.dt_gamma != 0.0, "nerf.dt_gamma (fixed-step marching)"),
+            (n.bg_suppress, "nerf.bg_suppress (dead in the reference: "
+             "consumer commented out, nerf_renderer.py:445-462)"),
+            (n.lambda_normal > 0, "nerf.lambda_normal (normal_image loss "
+             "never consumed by the reference trainer)"),
+            (n.lambda_2d_normal_smooth > 0,
+             "nerf.lambda_2d_normal_smooth (normal_image loss never "
+             "consumed by the reference trainer)"),
+            (n.lambda_3d_normal_smooth > 0,
+             "nerf.lambda_3d_normal_smooth (dead in the reference)"),
+            (n.start_shading_iter is not None,
+             "nerf.start_shading_iter (dead in the reference)"),
+            (r.use_nerf_scales or r.use_nerf_quaternions
+             or r.use_deform_scales_and_quaternions,
+             "render.use_nerf_scales/use_nerf_quaternions/"
+             "use_deform_scales_and_quaternions (dead in the reference)"),
+            (r.use_nerf_mesh_opacities, "render.use_nerf_mesh_opacities "
+             "(only read by the reference's dead HashAvatarWithMesh)"),
+            (p.nerf_depth_step != 0.2,
+             "prompt.nerf_depth_step (dead in the reference)"),
+            (p.num_object != 0, "prompt.num_object (dead in the reference)"),
+            (p.adaptive_hand_dist_thres is not None,
+             "prompt.adaptive_hand_dist_thres (dead in the reference: "
+             "consumer commented out, smpl_condition.py:152)"),
+            (lg.nvstrain_only or lg.anytrain_only or lg.skip_rgb,
+             "log.nvstrain_only/anytrain_only/skip_rgb (dead in the "
+             "reference)"),
+        ]
+        for cond, name in checks:
+            if cond:
+                logger.warning("config knob %s is parsed for reference-CLI "
+                               "compatibility but has no effect in this "
+                               "build", name)
+        if g.grad_rgb_clip_mask_guidance and self.cfg.stage != "nerf":
+            raise ValueError(
+                "guide.grad_rgb_clip_mask_guidance is a stage-1 (nerf) "
+                "feature — the mask is the NeRF render's weights_sum")
+        if r.deform_type == "lbs":
+            # pure-LBS deform: no non-rigid residuals
+            r.use_non_rigid_offsets = False
+            r.use_non_rigid_scales = False
+            r.use_non_rigid_rotations = False
+
+    def _common_step_kwargs(self) -> dict:
+        """Builder kwargs shared by every stage-2 step constructor, in one
+        place so the first build and the progressive-resolution rebuilds
+        agree."""
+        r = self.cfg.render
+        return dict(lambda_guidance=self.cfg.guide.lambda_guidance,
+                    pgc=self.pgc, tile_size=r.tile_size,
+                    capacity=r.tile_capacity, chunk=r.chunk,
+                    device=self.device)
+
+    # ------------------------------------------------------------------
+    # builders
+    # ------------------------------------------------------------------
+
+    def _init_human(self):
+        cfg = self.cfg
+        npz = _find_smplx_npz(cfg)
+        if npz is not None:
+            kid_path = None
+            if cfg.prompt.smpl_age == "kid":
+                cand = Path(npz).parent / "smplx_kid_template.npy"
+                if cand.is_file():
+                    kid_path = str(cand)
+                else:
+                    logger.warning("smpl_age='kid' but %s is missing — "
+                                   "training the adult template", cand)
+            self.smpl = load_smplx_npz(
+                npz, flat_hand_mean=cfg.prompt.flat_hand_mean,
+                kid_template_path=kid_path, device=self.device)
+            if kid_path is not None:
+                kid_vec = np.zeros((1, self.smpl.num_betas), np.float32)
+                kid_vec[0, -1] = 0.7   # the kid interpolation rate
+                if cfg.prompt.canonical_betas is None:
+                    cfg.prompt.canonical_betas = kid_vec
+                if cfg.prompt.observed_betas is None:
+                    cfg.prompt.observed_betas = kid_vec
+            landmarks = load_landmark_data(npz)
+        else:
+            assert cfg.log.debug, (
+                "SMPL-X npz not found under HUMAN_TEMPLATES; "
+                "pass --log.debug true to run with the synthetic body")
+            logger.warning("debug: using the synthetic stick body")
+            self.smpl = make_synthetic_model(device=self.device)
+            landmarks = None
+        self.prompt = SMPLPrompt(
+            cfg.prompt, self.smpl,
+            cond_type=list(cfg.guide.controlnet_condition),
+            height=512, width=512,   # the ControlNet's native condition
+            landmarks=landmarks, seed=cfg.optim.seed)
+
+    def _init_guidance(self):
+        cfg = self.cfg
+        g = cfg.guide
+        self.view_prompt = TextAugmentation(
+            g.text or "a person",
+            mode=cfg.prompt.text_augmentation_mode
+            if cfg.prompt.text_augmentation else "suffix",
+            angle_front=cfg.prompt.angle_front,
+            angle_overhead=cfg.prompt.angle_overhead)
+        weights_dir = Path(g.weights_dir or paths.GUIDANCE_WEIGHTS)
+        dtype = guidance_dtype(g.dtype)
+        if (weights_dir / "unet").is_dir():
+            from ..guidance.convert import load_guidance
+
+            self.guidance, self.guidance_params, text_embed_fn = \
+                load_guidance(
+                    str(weights_dir), use_controlnet=g.use_controlnet,
+                    loss_type=g.sds_loss_type, weight_type=g.sds_weight_type,
+                    guidance_scale=g.guidance_scale,
+                    controlnet_scale=g.controlnet_scale,
+                    guidance_rescale=g.guidance_rescale, model=g.diffusion,
+                    lora_name=g.lora_name, lora_scale=g.lora_scale,
+                    concept_name=g.concept_name, device=self.device,
+                    dtype=dtype)
+            uncond = g.negative_text if g.use_negative_text else g.null_text
+            self.text_embeds = text_embed_fn(list(self.view_prompt.texts))
+            self.uncond_embeds = text_embed_fn([uncond])
+        else:
+            assert cfg.log.debug, (
+                f"guidance weights not found at {weights_dir} (a diffusers "
+                "model directory with unet/); pass --log.debug true")
+            logger.warning("debug: using tiny randomly-initialized guidance")
+            from ..tests_support import tiny_guidance
+
+            self.guidance, self.guidance_params = tiny_guidance(
+                cfg.optim.seed, with_controlnet=g.use_controlnet,
+                device=self.device, dtype=dtype)
+            self.guidance.loss_type = g.sds_loss_type
+            self.guidance.weight_type = g.sds_weight_type
+            self.guidance.guidance_scale = g.guidance_scale
+            self.guidance.guidance_rescale = g.guidance_rescale
+            D = self.guidance_params.unet.cfg.cross_attention_dim
+            V = len(self.view_prompt.texts)
+            self.text_embeds = torch.randn(
+                (V, 4, D), generator=self.generator,
+                device=self.device) * 0.02
+            self.uncond_embeds = torch.zeros((1, 4, D), device=self.device)
+        self._cast_guidance_dtype()
+        self.guidance.input_interpolate = g.input_interpolate
+        from ..guidance.sds import build_pixel_grad_hook
+
+        self.pgc = build_pixel_grad_hook(g)
+        self.t_scheduler = TimePrioritizedScheduler(
+            g, schedule=self.guidance.schedule, seed=cfg.optim.seed)
+        self.guidance.schedule = self.t_scheduler.schedule
+        vae_factor = 2 ** (len(
+            self.guidance_params.vae.cfg.block_out_channels) - 1)
+        self.cond_size = self.guidance.latent_size * vae_factor
+
+    def _cast_guidance_dtype(self):
+        """The text embeddings in the guidance's compute type
+        (``guide.dtype``, bf16 by default); the UNet, ControlNet and VAE
+        are built in it."""
+        dt = guidance_dtype(self.cfg.guide.dtype)
+        self.text_embeds = self.text_embeds.to(dt)
+        self.uncond_embeds = self.uncond_embeds.to(dt)
+
+    def _canonical_keypoints(self) -> np.ndarray:
+        return openpose_keypoints(
+            self.smpl, self.prompt.canonical_outputs,
+            self.prompt.condition.landmarks).cpu().numpy()
+
+    def _init_cameras(self):
+        cfg = self.cfg
+        if isinstance(cfg.data.train_w, str):
+            self.train_resolutions = [int(x) for x in
+                                      str(cfg.data.train_w).split(",")]
+        else:
+            self.train_resolutions = [int(cfg.data.train_w)]
+        if not cfg.data.progressive_grid:
+            self.train_resolutions = self.train_resolutions[-1:]
+        if cfg.data.grid_milestone:
+            self.grid_milestones = list(cfg.data.grid_milestone)
+        else:  # equal splits of the run
+            n = len(self.train_resolutions)
+            self.grid_milestones = [i / n for i in range(1, n)]
+        self._res_index = 0
+        self.train_res = self.train_resolutions[0]
+        self.train_camera = RandomCamera4Avatar(
+            cfg.data, self.train_res, self.train_res, seed=cfg.optim.seed,
+            device=self.device)
+        kp = self._canonical_keypoints()
+        if np.isfinite(kp[:, :18]).all():
+            self.train_camera.setup_camera_offset(kp)
+
+    def _init_nerf(self):
+        cfg = self.cfg
+        self.nerf = build_nerf(
+            cfg.nerf, with_background=cfg.nerf.bg_mode == "nerf"
+            or cfg.nerf.bg_radius > 0, generator=self.generator,
+            device=self.device)
+        ac = self.guidance.schedule.alphas_cumprod.cpu().numpy()
+        self.tx = build_nerf_optimizer(cfg.nerf, self.max_iteration,
+                                       alphas_cumprod=ac)
+        # the 'ddpm' lr policy: per-timestep update weights in the step
+        self._tp_lr_weights = None
+        if cfg.nerf.lr_policy == "ddpm":
+            from ..guidance.time_prior import TimePrioritizedLR
+
+            self._tp_lr_weights = TimePrioritizedLR(
+                self.guidance.schedule).weights
+        self.state = nerf_trainer.init_train_state(self.nerf, self.tx)
+        if cfg.optim.ckpt:
+            # model-only warm start
+            step_dir = resolve_ckpt_path(cfg.optim.ckpt)
+            if step_dir is not None:
+                raw = load_pytree(step_dir, map_location=self.device)
+                with torch.no_grad():
+                    self.nerf.load_state_dict(raw["params"])
+                logger.info("warm-started NeRF from %s", step_dir)
+        self.grid = init_occupancy(cfg.nerf.grid_size, device=self.device)
+        self._build_nerf_sds_step(self.train_res)
+
+    def _build_nerf_sds_step(self, H: int):
+        cfg = self.cfg
+        self.sds_step_fn = nerf_trainer.make_nerf_sds_step(
+            self.nerf, self.guidance, H, H, cfg.nerf,
+            num_steps=cfg.nerf.num_steps,
+            lambda_guidance=cfg.guide.lambda_guidance,
+            lambda_sigma=cfg.lambda_sigma_sigma,
+            sigma_peak=cfg.sigma_guidance_peak,
+            sigma_loss_type=cfg.sigma_loss_type,
+            max_iteration=self.max_iteration,
+            bg_mode="nerf" if cfg.nerf.bg_mode == "nerf" else "color",
+            ray_chunk=cfg.nerf.max_ray_batch, pgc=self.pgc,
+            tp_lr_weights=self._tp_lr_weights, device=self.device)
+
+    def _build_avatar_model(self):
+        from ..human.deform import DeformNetwork
+        from ..nerf.encoder import enc_cfg_from_nerf
+        from ..nerf.network import SigmaMLP
+        from ..system import avatar as A
+
+        cfg = self.cfg
+        r = cfg.render
+        enc_cfg = enc_cfg_from_nerf(cfg.nerf)
+        mesh_parts = {}
+        if self.smpl.num_vertices < 1000:
+            # the synthetic debug body has no semantic tables: bind the top
+            # of the chain as 'face'
+            faces = self.smpl.faces
+            v = self.smpl.v_template.cpu().numpy()
+            top = np.argsort(-v[faces].mean(1)[:, 1])[:10]
+            vids = np.unique(faces[top].reshape(-1))
+            mesh_parts["face"] = A.make_mesh_binding_static(
+                faces, vids, top, n_per_triangle=r.n_gaussians_per_triangle)
+        else:
+            from ..human.semantics import get_semantic_parts
+
+            for name in cfg.predefined_body_parts.split(","):
+                part = get_semantic_parts(self.smpl, name)
+                if part is not None:
+                    vids, fids = part
+                    mesh_parts[name] = A.make_mesh_binding_static(
+                        self.smpl.faces, vids, fids,
+                        n_per_triangle=r.n_gaussians_per_triangle)
+        out_ch = 1 + (4 if cfg.nerf.nerf_type == "latent" else 3)
+        if r.use_joint_shape_offsets and r.use_vertex_shape_offsets:
+            raise ValueError("joint and vertex shape offsets are mutually "
+                             "exclusive")
+        deform_learn = tuple(
+            k for k in ("v_template", "shapedirs", "posedirs", "expr_dirs",
+                        "lbs_weights", "J_regressor")
+            if getattr(r, f"deform_learn_{k}"))
+        return A.AvatarModel(
+            smpl=self.smpl,
+            canonical_inputs=self.prompt.canonical_inputs,
+            enc_cfg=enc_cfg,
+            nerf_bound=cfg.nerf.bound,
+            color_mlp=SigmaMLP(enc_cfg.output_dim, hidden=64, num_layers=3,
+                               out_channels=out_ch, device=self.device),
+            sq_net=DeformNetwork(
+                xyz_input_ch=enc_cfg.output_dim
+                if r.use_nerf_encoded_position else None,
+                device=self.device),
+            mesh_parts=mesh_parts,
+            init_scale=r.init_scale,
+            max_scale=r.max_scale,
+            init_offset=r.init_offset,
+            use_non_rigid_offsets=r.use_non_rigid_offsets,
+            use_non_rigid_scales=r.use_non_rigid_scales,
+            use_non_rigid_rotations=r.use_non_rigid_rotations,
+            use_joint_shape_offsets=r.use_joint_shape_offsets,
+            use_vertex_shape_offsets=r.use_vertex_shape_offsets,
+            use_vertex_pose_offsets=r.use_vertex_pose_offsets,
+            non_rigid_rotation_mode=r.non_rigid_rotation_mode,
+            deform_with_shape=r.deform_with_shape,
+            deform_rotation_mode=r.deform_rotation_mode,
+            use_nerf_encoded_position=r.use_nerf_encoded_position,
+            deform_learn=deform_learn,
+            learn_hand_betas=r.learn_hand_betas,
+            learn_face_betas=r.learn_face_betas,
+            use_zero_scales=r.use_zero_scales,
+            use_constant_colors=r.use_constant_colors,
+            use_constant_opacities=r.use_constant_opacities,
+            use_fixed_n_gaussians=r.use_fixed_n_gaussians,
+            render_only="mesh" if r.render_mesh_binding_3d_gaussians_only
+            else "unconstrained"
+            if r.render_unconstrained_3d_gaussians_only else "all",
+        )
+
+    def _seed_cloud(self):
+        """Gaussian seeds from the canonical SMPL-X mesh when no stage-1
+        cloud exists: (cloud (N, 3), colors (N, 3), linear scales (N, 3)
+        or None for gaussian_scale_init='default')."""
+        from ..gaussian.seed import (
+            seed_colors,
+            seed_positions,
+            seed_scales_radius,
+        )
+
+        r = self.cfg.render
+        verts = self.prompt.canonical_outputs.vertices[0]
+        faces = self.smpl.faces
+        cloud = seed_positions(r.gaussian_point_init, self.generator, verts,
+                               faces, r.n_gaussians, r.n_gaussians_per_vertex)
+        colors = seed_colors(r.gaussian_color_init, self.generator, cloud,
+                             verts, faces)
+        scales = None
+        if r.gaussian_scale_init == "radius":
+            scales = seed_scales_radius(cloud, verts,
+                                        r.init_scale_radius_rate)
+        logger.info("seeded %d gaussians from the SMPL-X mesh (point_init="
+                    "%s, color_init=%s, scale_init=%s)", cloud.shape[0],
+                    r.gaussian_point_init, r.gaussian_color_init,
+                    r.gaussian_scale_init)
+        return cloud, colors, scales
+
+    def _export_cloud(self, nerf):
+        """The stage-1 field's point cloud, its counts in
+        ``export_stats``."""
+        from ..nerf import export
+
+        cfg = self.cfg
+        st = self.export_stats
+        pc = export.export_point_cloud(
+            nerf, resolution=cfg.render.nerf_resolution,
+            density_thresh=cfg.nerf.density_thresh,
+            max_points=cfg.render.n_gaussians,
+            min_neighbors=cfg.nerf.export_min_neighbors, stats=st)
+        if cfg.render.nerf_exclusion_bboxes is not None:
+            n0 = pc.points.shape[0]
+            pc = export.remove_points_inside_bboxes(
+                pc, ast.literal_eval(cfg.render.nerf_exclusion_bboxes))
+            logger.info("removed %d points inside exclusion bboxes",
+                        n0 - pc.points.shape[0])
+        st["points"] = int(pc.points.shape[0])
+        return pc
+
+    def _init_avatar(self):
+        from ..system import avatar as A
+
+        cfg = self.cfg
+        r = cfg.render
+        self.avatar_model = self._build_avatar_model()
+        self._nerf_guidance = None
+        nerf_model = None
+        nerf_step_dir = resolve_ckpt_path(r.from_nerf) if r.from_nerf \
+            else None
+        seed_scales = None
+        if nerf_step_dir is not None:
+            # the stage-1 handoff: the checkpoint's field -> its point cloud
+            # and the continued encoder tables and head
+            nerf = build_nerf(
+                cfg.nerf, with_background=cfg.nerf.bg_mode == "nerf"
+                or cfg.nerf.bg_radius > 0, device=self.device)
+            raw = load_pytree(nerf_step_dir, map_location=self.device)
+            with torch.no_grad():
+                nerf.load_state_dict(raw["params"])
+            nerf.requires_grad_(False)
+            with span("trainer.export", self.device):
+                pc = self._export_cloud(nerf)
+            cloud = torch.as_tensor(pc.points, device=self.device)
+            logger.info("NeRF point cloud: %d points", cloud.shape[0])
+            self._nerf_guidance = (nerf,)   # frozen
+            if not r.reset_nerf:
+                nerf_model = nerf
+        forced_capacity = None
+        if nerf_step_dir is None and cfg.optim.ckpt \
+                and resolve_ckpt_path(cfg.optim.ckpt) is not None:
+            # sub-stage handoff without from_nerf: buffers sized like the
+            # checkpoint, whose tensors overwrite everything learnable below
+            raw = load_pytree(resolve_ckpt_path(cfg.optim.ckpt))
+            forced_capacity = raw["params"]["positions"].shape[0]
+            rng = np.random.default_rng(cfg.optim.seed)
+            cloud = torch.as_tensor(
+                rng.normal(size=(forced_capacity, 3)) * 0.2,
+                dtype=torch.float32, device=self.device)
+        elif nerf_step_dir is None:
+            cloud, _, seed_scales = self._seed_cloud()
+
+        capacity = forced_capacity or min(
+            r.n_gaussians, max(2 * cloud.shape[0], cloud.shape[0] + 1024))
+        with span("trainer.init_avatar_state", self.device):
+            avatar_state = A.init_avatar_state(
+                self.avatar_model, cloud, self.generator, capacity=capacity,
+                prune_dists_close_to_mesh=r.prune_dists_close_to_mesh
+                if r.prune_points_close_to_mesh
+                and self.avatar_model.mesh_parts else None,
+                lbs_weight_smooth=r.lbs_weight_smooth,
+                lbs_weight_smooth_K=r.lbs_weight_smooth_K,
+                lbs_weight_smooth_N=r.lbs_weight_smooth_N,
+                init_scales=seed_scales, device=self.device,
+                nerf_model=nerf_model)
+        self.export_stats["capacity"] = capacity
+
+        spatial = r.spatial_scale or 1.0
+        self.tx = build_avatar_optimizer(r, self.max_iteration,
+                                         spatial_scale=spatial)
+        self.state = gs_trainer.init_avatar_train_state(
+            avatar_state, self.tx, self.avatar_model)
+
+        if cfg.optim.ckpt:
+            # sub-stage warm start from an earlier avatar (train_w_expr.sh
+            # passes --optim.ckpt between the cnl / rcnl / rand sub-stages);
+            # the optimizer starts afresh
+            step_dir = resolve_ckpt_path(cfg.optim.ckpt)
+            if step_dir is not None:
+                restored = load_pytree(step_dir, map_location=self.device)
+                try:
+                    load_avatar_tree(self.state.avatar, self.avatar_model,
+                                     restored["params"])
+                except (KeyError, ValueError, RuntimeError) as e:
+                    raise RuntimeError(
+                        f"avatar checkpoint at {step_dir} does not match "
+                        f"this configuration (capacity / mesh parts): {e}")
+                logger.info("warm-started avatar from %s", step_dir)
+
+        self._build_avatar_step(self.train_res)
+        self.densify_cfg = DensifyConfig(
+            grad_threshold=r.densify_grad_threshold,
+            spatial_scale=spatial,
+            min_opacity=r.densify_min_opacity,
+            enable_clone=not r.densify_disable_clone,
+            enable_split=not r.densify_disable_split,
+            enable_prune=not r.densify_disable_prune)
+        # the reference's 15k-iteration cadence scaled to this run
+        self.densification_interval = r.densification_interval \
+            or max(int(self.max_iteration * 100 / 15000), 1)
+
+    def _build_avatar_step(self, H: int):
+        self.sds_step_fn = gs_trainer.make_avatar_sds_step(
+            self.avatar_model, self.guidance, H, H,
+            **self._common_step_kwargs())
+
+    # ------------------------------------------------------------------
+    # data assembly (host side; the prefetch worker runs it)
+    # ------------------------------------------------------------------
+
+    def _train_batch(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """One training draw for ``step``: camera, pose, condition image,
+        view text, timestep, guidance scale and progress. ``step`` is the
+        step the batch is for: the worker builds step N + 1's while the
+        card runs step N."""
+        if step is None:
+            step = self.train_step
+        cfg = self.cfg
+        with record_function("trainer.batch"):
+            rpi = cfg.data.random_pose_iter
+            if rpi and self.prompt.scene_type == "random" \
+                    and getattr(self, "_pose_cache", None) is not None \
+                    and step % rpi != 0:
+                smpl_inputs, smpl_outputs = self._pose_cache
+            else:
+                smpl_inputs, smpl_outputs = self.prompt(batch_idx=step)
+                self._pose_cache = (smpl_inputs, smpl_outputs)
+
+            # --render.always_animate=false in the plain canonical scene:
+            # the render observes the canonical pose, the conditions and
+            # text the sampled one
+            render_inputs = smpl_inputs
+            if cfg.stage == "gs" and not cfg.render.always_animate \
+                    and cfg.prompt.scene == "canonical":
+                render_inputs = self.prompt.canonical_inputs
+
+            cam, part = self.train_camera(1)
+            view_idx = int(self.view_prompt(
+                cam.azimuth.cpu().numpy(), cam.elevation.cpu().numpy(),
+                part)[0])
+        cond_image = None
+        if cfg.guide.use_controlnet:
+            with record_function("trainer.condition"):
+                imgs = self.prompt.get_cond_images_batch(
+                    [smpl_outputs], cam.extrinsic, cam.intrinsics,
+                    cond_type=cfg.guide.controlnet_condition[0],
+                    height=self.cond_size, width=self.cond_size)
+                cond_image = torch.as_tensor(
+                    np.stack([np.asarray(im, np.float32) / 255.0
+                              for im in imgs]), device=self.device)
+        if cfg.guide.sds_loss_type == "ism":
+            t = self.t_scheduler.get_ism_timestep(1, step,
+                                                  self.max_iteration)
+        else:
+            t = self.t_scheduler.get_timestep(1, step, self.max_iteration)
+        gs_scale = self.t_scheduler.get_guidance_scale(step,
+                                                       self.max_iteration)
+        return dict(cam=cam, part=part, view_idx=view_idx,
+                    smpl_inputs=render_inputs, cond_image=cond_image,
+                    text=self.text_embeds[view_idx][None],
+                    uncond=self.uncond_embeds[:1],
+                    t=torch.as_tensor(np.asarray(t), device=self.device),
+                    guidance_scale=float(gs_scale),
+                    progress=step / max(self.max_iteration, 1))
+
+    def _resolution_target(self) -> int:
+        ratio = self.train_step / self.max_iteration
+        target = sum(1 for m in self.grid_milestones if ratio >= m)
+        return min(target, len(self.train_resolutions) - 1)
+
+    def _maybe_switch_resolution(self) -> bool:
+        """The progressive training resolution (64 -> 128 -> 256); True
+        when it changed (a batch prefetched at the old one is dropped)."""
+        target = self._resolution_target()
+        if target == self._res_index:
+            return False
+        self._res_index = target
+        self.train_res = self.train_resolutions[target]
+        logger.info("switching train resolution to %d", self.train_res)
+        self.train_camera = RandomCamera4Avatar(
+            self.cfg.data, self.train_res, self.train_res,
+            seed=self.cfg.optim.seed + target, device=self.device)
+        self.train_camera.training_ratio = \
+            self.train_step / self.max_iteration
+        kp = self._canonical_keypoints()
+        if np.isfinite(kp[:, :18]).all():
+            self.train_camera.setup_camera_offset(kp)
+        self._rebuild_train_step()
+        return True
+
+    def _rebuild_train_step(self):
+        if self.cfg.stage == "nerf":
+            self._build_nerf_sds_step(self.train_res)
+        else:
+            self._build_avatar_step(self.train_res)
+
+    def _bg_color(self) -> torch.Tensor:
+        if self.cfg.stage == "nerf":
+            from ..system.background import COLOR_PRESETS
+
+            c = COLOR_PRESETS.get(self.cfg.nerf.bg_mode, (0.5, 0.5, 0.5))
+            if self.cfg.nerf.rand_bg_prob \
+                    and self.rng.random() < self.cfg.nerf.rand_bg_prob:
+                c = tuple(self.rng.random(3))
+        else:
+            c = tuple(self.cfg.render.bg_color)
+        return torch.as_tensor(c, dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------------
+    # loops
+    # ------------------------------------------------------------------
+
+    def train(self, on_step=None, prefetch: bool = True) -> None:
+        """The loop; a runtime failure saves an emergency checkpoint and
+        re-raises (the eval render of the JAX trainer's handler is not
+        ported). ``on_step(step)`` runs on the main thread after each
+        step's update, before its logging and checkpoint;
+        ``prefetch=False`` builds each batch on the main thread just before
+        its step."""
+        try:
+            self._train_loop(on_step, prefetch)
+        except RuntimeError:
+            logger.exception("training crashed at step %d — saving "
+                             "emergency checkpoint", self.train_step)
+            self.save_checkpoint()
+            raise
+
+    def _train_loop(self, on_step=None, prefetch: bool = True) -> None:
+        """The next step's batch is built on a worker thread while this
+        step runs. Both threads issue to the card's one stream, so the
+        worker's tensors are complete before the step's kernels, which are
+        queued after the future's result; the worker draws only from
+        generators of its own (the camera's, the scheduler's, the
+        prompt's)."""
+        import concurrent.futures as cf
+
+        cfg = self.cfg
+        log_interval = max(cfg.log.snapshot_interval, 1)
+        t0 = time.time()
+        pool = cf.ThreadPoolExecutor(max_workers=1)
+        pending = None
+        try:
+            while self.train_step < self.max_iteration:
+                self.train_step += 1
+                if pending is not None and self._will_mutate_shared_state():
+                    pending.result()
+                    pending = None
+                self.prompt.training_ratio = \
+                    self.train_step / self.max_iteration
+                self.train_camera.training_ratio = self.prompt.training_ratio
+                switched = self._maybe_switch_resolution()
+                if pending is not None and not switched:
+                    batch = pending.result()
+                else:
+                    if pending is not None:
+                        pending.result()
+                    batch = self._train_batch(self.train_step)
+                pending = None
+                if prefetch and self.train_step < self.max_iteration \
+                        and not self._post_step_mutates(self.train_step):
+                    pending = pool.submit(self._train_batch,
+                                          self.train_step + 1)
+                metrics = self._train_one(batch)
+                if on_step is not None:
+                    on_step(self.train_step)
+                self._post_step(batch, metrics, log_interval, t0)
+                if prefetch and pending is None \
+                        and self.train_step < self.max_iteration:
+                    pending = pool.submit(self._train_batch,
+                                          self.train_step + 1)
+            self.save_checkpoint()
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def _post_step_mutates(self, step: int) -> bool:
+        """Whether the step's post-step work must see the generators
+        before the next batch draws: a checkpoint saves their states."""
+        si = self.cfg.log.save_interval
+        return bool(si and step % si == 0)
+
+    def _will_mutate_shared_state(self) -> bool:
+        # a resolution switch rebuilds self.train_camera
+        return self._resolution_target() != self._res_index
+
+    def _post_step(self, batch, metrics, log_interval, t0) -> None:
+        cfg = self.cfg
+        if self.train_step % log_interval == 0 or self.train_step == 1:
+            loss = float(metrics.get("loss", np.nan))
+            self.losses.append(loss)
+            ovf = metrics.get("tile_overflow")
+            logger.info("step %d/%d loss=%.4f (%.2f s/it)%s",
+                        self.train_step, self.max_iteration, loss,
+                        (time.time() - t0) / self.train_step,
+                        "" if ovf is None
+                        else " tile_overflow=%.4f" % float(ovf))
+        if cfg.log.save_interval and \
+                self.train_step % cfg.log.save_interval == 0:
+            self.save_checkpoint()
+
+    def _train_one(self, batch) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        cam = batch["cam"]
+        with record_function("trainer.step"):
+            if cfg.stage == "nerf":
+                self.grid = nerf_trainer.maybe_update_occupancy(
+                    self.state, self.grid, self.nerf,
+                    interval=cfg.nerf.update_extra_interval,
+                    density_thresh=cfg.nerf.density_thresh,
+                    generator=self.generator)
+                sigma_pts = None
+                use_sigma = cfg.use_sigma_guidance \
+                    and self.rng.random() < cfg.sigma_prob
+                if use_sigma:
+                    sigma_pts = make_sigma_guidance_points(
+                        self.prompt.canonical_outputs.vertices[0],
+                        self.smpl.faces, num_points=cfg.sigma_num_points,
+                        noise_range=cfg.sigma_noise_range,
+                        surface_thickness=cfg.sigma_surface_thickness,
+                        generator=self.generator)
+                self.state, metrics = self.sds_step_fn(
+                    self.state, self.grid, self.guidance_params,
+                    cam.c2w[0], cam.intrinsics[0], self._bg_color(),
+                    batch["text"], batch["uncond"], batch["t"],
+                    generator=self.generator,
+                    cond_image=batch["cond_image"],
+                    guidance_scale=batch["guidance_scale"],
+                    sigma_pts=sigma_pts, use_sigma=use_sigma)
+            else:
+                bg = self._bg_color().expand(self.train_res, self.train_res,
+                                             3)
+                self.state, metrics = self.sds_step_fn(
+                    self.state, self.guidance_params, batch["smpl_inputs"],
+                    cam.extrinsic[0], cam.intrinsics[0], cam.tanfov[0], bg,
+                    batch["text"], batch["uncond"], batch["t"][:1],
+                    cond_image=batch["cond_image"],
+                    guidance_scale=batch["guidance_scale"],
+                    generator=self.generator)
+                self._maybe_densify()
+        return metrics
+
+    def _maybe_densify(self):
+        """Clone / split / prune every ``densification_interval`` steps in
+        the [densify_from_iter, densify_until_iter) window."""
+        r = self.cfg.render
+        if not r.use_densifier or r.densify_from_iter is None:
+            return
+        in_window = r.densify_from_iter <= self.train_step \
+            and (r.densify_until_iter is None
+                 or self.train_step < r.densify_until_iter)
+        if not in_window or self.train_step % self.densification_interval:
+            return
+        dcfg = self.densify_cfg
+        if r.enable_grad_prune:
+            # grad-prune holds for the first third of the window; the mode
+            # flips off only after the first event past the boundary
+            until = r.densify_until_iter or self.max_iteration
+            window = (until - r.densify_from_iter) / 3
+            dcfg = dcfg._replace(
+                grad_prune=self.train_step - self.densification_interval
+                <= r.densify_from_iter + window)
+        n_before = int(self.state.avatar.alive.sum())
+        self.state = gs_trainer.densify(self.state, dcfg, self.generator,
+                                        model=self.avatar_model)
+        logger.info("densify @%d: %d -> %d alive", self.train_step,
+                    n_before, int(self.state.avatar.alive.sum()))
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+
+    def _rng_tree(self) -> dict:
+        return {
+            "numpy": {name: g.bit_generator.state for name, g in (
+                ("trainer", self.rng), ("batch", self._batch_rng),
+                ("camera", self.train_camera.rng),
+                ("scheduler", self.t_scheduler.rng),
+                ("prompt", self.prompt._rng))},
+            "torch": {"trainer": self.generator.get_state(),
+                      "prompt": self.prompt.generator.get_state()},
+        }
+
+    def _load_rng_tree(self, tree: dict) -> None:
+        for name, g in (("trainer", self.rng), ("batch", self._batch_rng),
+                        ("camera", self.train_camera.rng),
+                        ("scheduler", self.t_scheduler.rng),
+                        ("prompt", self.prompt._rng)):
+            g.bit_generator.state = tree["numpy"][name]
+        self.generator.set_state(tree["torch"]["trainer"].cpu())
+        self.prompt.generator.set_state(tree["torch"]["prompt"].cpu())
+
+    def save_checkpoint(self) -> None:
+        if self.cfg.stage == "nerf":
+            params = self.nerf.state_dict()
+            extra = {"grid": self.grid._asdict()}
+        else:
+            params = avatar_tree(self.state.avatar, self.avatar_model)
+            extra = {}
+        tree = {"params": params, "opt_state": _opt_tree(self.state.opt_state),
+                "step": self.train_step, "rng": self._rng_tree(), **extra}
+        self.checkpointer.save(self.train_step, tree)
+        logger.info("saved checkpoint at step %d", self.train_step)
+
+    def load_checkpoint(self, step: Optional[int] = None) -> None:
+        """Restore the state, the optimizer, the step and the generators
+        of a checkpoint of this experiment (the latest by default)."""
+        restored, step = self.checkpointer.restore(
+            step, map_location=self.device)
+        self.train_step = int(restored["step"])
+        if self.cfg.stage == "nerf":
+            with torch.no_grad():
+                self.nerf.load_state_dict(restored["params"])
+            if "grid" in restored:
+                self.grid = type(self.grid)(**restored["grid"])
+        else:
+            load_avatar_tree(self.state.avatar, self.avatar_model,
+                             restored["params"])
+        _load_opt_tree(self.state.opt_state, restored["opt_state"])
+        self.state = self.state._replace(step=self.train_step)
+        if "rng" in restored:
+            self._load_rng_tree(restored["rng"])
+        logger.info("restored checkpoint step %d", step)

@@ -100,7 +100,7 @@ def test_timestep_embedding_and_schedule_match_jax():
             e = TL.timestep_embedding(torch.as_tensor(ts), dim).numpy()
             assert j.shape == e.shape
             assert float(np.abs(j - e).max()) <= 1e-6 + 1.2e-7 * t
-    js, tsch = JT.make_schedule(), TT.make_schedule()
+    js, tsch = JT.make_schedule(), TT.make_schedule(device="cpu")
     for name in ("betas", "alphas_cumprod", "sigmas"):
         _close(getattr(js, name), getattr(tsch, name), tol=1e-6)
     rng = np.random.default_rng(1)

@@ -167,7 +167,8 @@ def test_encode_images_resize_matches_jax(size, interpolate, resized):
     img = rng.uniform(size=(2,) + size + (3,)).astype(np.float32)
     jsd = JS.ScoreDistillation(unet=None, vae=_StubVAE(), latent_size=8,
                                input_interpolate=interpolate)
-    tsd = TS.ScoreDistillation(latent_size=8, input_interpolate=interpolate)
+    tsd = TS.ScoreDistillation(schedule=TS.make_schedule(device="cpu"),
+                               latent_size=8, input_interpolate=interpolate)
     jout = np.asarray(jsd.encode_images(
         JS.GuidanceParams(unet=None, vae=None), jnp.asarray(img)))
     tin = torch.as_tensor(img).requires_grad_(True)
@@ -215,7 +216,8 @@ def test_scheduler_timesteps_match_jax(fields):
     """Every ``time_sampling`` mode, annealing and window over 50 steps of
     a 50-step run: the same integers from the same seed."""
     js = JT.TimePrioritizedScheduler(JGuideConfig(**fields), seed=3)
-    ts = TT.TimePrioritizedScheduler(GuideConfig(**fields), seed=3)
+    ts = TT.TimePrioritizedScheduler(GuideConfig(**fields), seed=3,
+                                     device="cpu")
     got, want = [], []
     for step in range(1, 51):
         want.append(js.get_timestep(2, step, 50))
@@ -232,7 +234,8 @@ def test_scheduler_timesteps_match_jax(fields):
 def test_scheduler_guidance_scale_matches_jax(adjust):
     fields = dict(guidance_adjust=adjust, guidance_scale=30.0)
     js = JT.TimePrioritizedScheduler(JGuideConfig(**fields), seed=1)
-    ts = TT.TimePrioritizedScheduler(GuideConfig(**fields), seed=1)
+    ts = TT.TimePrioritizedScheduler(GuideConfig(**fields), seed=1,
+                                     device="cpu")
     for step in range(1, 51):
         assert ts.get_guidance_scale(step, 50) \
             == js.get_guidance_scale(step, 50)
@@ -240,8 +243,8 @@ def test_scheduler_guidance_scale_matches_jax(adjust):
         for step in (0, 5, 15, 40):
             assert TT.C(value, step, 50) == JT.C(value, step, 50)
     with pytest.raises(NotImplementedError):
-        TT.TimePrioritizedScheduler(GuideConfig(guidance_adjust="nope")
-                                    ).get_guidance_scale(1, 50)
+        TT.TimePrioritizedScheduler(GuideConfig(guidance_adjust="nope"),
+                                    device="cpu").get_guidance_scale(1, 50)
 
 
 def _keypoints(seed, n=128):

@@ -174,7 +174,7 @@ def test_get_rays_and_camera_helpers_match_jax():
                                atol=FWD_TOL)
     for flip in (False, True):
         np.testing.assert_array_equal(
-            TC.to_screen(2, H, W, flip).numpy(),
+            TC.to_screen(2, H, W, flip, device="cpu").numpy(),
             np.asarray(JC.to_screen(2, H, W, flip)))
     depth = np.linspace(0.5, 50.0, 20).astype(np.float32)
     ndc = TC.depth_to_ndc_depth(_t(depth), 0.01, 100.0)
@@ -228,7 +228,7 @@ def test_update_occupancy_matches_jax():
     key = jax.random.PRNGKey(5)
     jitter = jax.random.uniform(key, (G ** 3, 3), minval=-0.5, maxval=0.5)
     jgrid = JR.init_occupancy(G)
-    tgrid = TR.init_occupancy(G)
+    tgrid = TR.init_occupancy(G, device="cpu")
     for _ in range(2):           # a second pass decays the first's EMA
         jgrid = JR.update_occupancy(jgrid, jmodel, params, key,
                                     chunk=1000)
@@ -586,7 +586,7 @@ def test_nerf_lr_schedules_match_jax(policy):
 
 def test_time_prioritized_lr_weights_match_jax():
     j = JTPLR(jschedule())
-    t = TimePrioritizedLR(make_schedule())
+    t = TimePrioritizedLR(make_schedule(device="cpu"))
     np.testing.assert_array_equal(t.weights, j.weights)
     for ts in (-5, 0, 500, 999, 2000):
         assert t(ts) == j(ts)

@@ -206,7 +206,7 @@ def _make_case(name):
     if c["tp_lr"]:
         weights = JTPLR(jsd.schedule).weights
         np.testing.assert_array_equal(
-            TimePrioritizedLR(TS.make_schedule()).weights, weights)
+            TimePrioritizedLR(TS.make_schedule(device="cpu")).weights, weights)
         upd = jax.tree_util.tree_map(lambda u: u * weights[x["t"][0]], upd)
     new = optax.apply_updates(params, upd)
     jax_out = dict(loss=float(loss), sds_loss=float(sds_loss),
@@ -397,7 +397,7 @@ def test_eval_render_and_occupancy_cadence():
     model = TN.build_nerf(cfg, device="cpu")
     tstate = TT.init_train_state(model, build_nerf_optimizer(cfg, MAX_IT))
     from dreamwaltz_g_tpu_torch.nerf.renderer import init_occupancy
-    grid = init_occupancy(cfg.grid_size)
+    grid = init_occupancy(cfg.grid_size, device="cpu")
     gen = torch.Generator().manual_seed(0)
     same = TT.maybe_update_occupancy(tstate._replace(step=3), grid, model,
                                      generator=gen)
