@@ -11,8 +11,10 @@ Phases, one JSON line each:
                    together;
 3. avatar       -- build the full-width avatar on the card;
 4. kernel       -- ``blend_sorted`` (B2) against its plain version on the
-                   same card inputs: one projected 1024^2 frame of the avatar
-                   and a 200k-Gaussian random scene; the kernel's device ms
+                   same card inputs: one projected 1024^2 frame of the avatar,
+                   a 200k-Gaussian random scene and the avatar on a
+                   Motion-X-ReEnact camera at 720 x 1280 (half a tile row
+                   at the bottom); the kernel's device ms
                    alone, its build facts, the entries a tile and the share
                    of pairs its footprint cull keeps;
 5. small        -- the tiny avatar rendered on the CPU (plain blend) and on
@@ -122,7 +124,19 @@ Phases, one JSON line each:
                    after the isolated-cell filter, points, capacity), its
                    LBS smoothing ms, the stage-1 planes carried verbatim,
                    and step 2.3's warm start equal to step 2.1's last
-                   checkpoint to every bit.
+                   checkpoint to every bit;
+21. cli_inference -- in the same directory, the inference and evaluation
+                   paths through ``dreamwaltz_g_tpu_torch.main.main``:
+                   step 3 of the script (``--log.eval_only``: 60 frames of
+                   a synthetic TalkSHOW demo motion at 1024^2 through B2,
+                   their PNGs, mp4 and R-Precision with full-size random
+                   CLIP towers), steps 1.2 and 2.3 for 2 steps with a
+                   snapshot every step and an evaluation every 2, and
+                   ``scripts/inference_reenact.sh``'s command on a
+                   synthetic Motion-X-ReEnact sequence (30 frames of
+                   720 x 1280 on its own cameras over its inpainted video,
+                   the overlay mp4); counts set to 0 before each run and
+                   read after it.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -317,7 +331,7 @@ def motion(smpl, n_frames, dev):
     return frames
 
 
-def blend_inputs(g, tile_size, capacity, max_tiles):
+def blend_inputs(g, tile_size, capacity, max_tiles, height=H, width=W):
     """The wrapper's arguments for one projected frame, as the render path
     builds them."""
     import torch
@@ -325,8 +339,8 @@ def blend_inputs(g, tile_size, capacity, max_tiles):
     from dreamwaltz_g_tpu_torch.ops import rasterize as R
 
     s_idx, seg_start, counts, overflow = R.bin_gaussians_sorted(
-        g.means2d, g.radius, g.depth, g.mask, H, W, tile_size, capacity,
-        max_tiles)
+        g.means2d, g.radius, g.depth, g.mask, height, width, tile_size,
+        capacity, max_tiles)
     N = g.colors.shape[0]
     values = torch.cat([g.colors, g.depth[:, None],
                         torch.ones((N, 1), device=g.colors.device)], -1)
@@ -334,8 +348,9 @@ def blend_inputs(g, tile_size, capacity, max_tiles):
             g.opacity * g.mask.to(g.opacity.dtype), values), overflow
 
 
-def compare_blend(label, args, build):
-    """Kernel vs plain version on the same inputs; returns the errors and the
+def compare_blend(label, args, build, height=H, width=W):
+    """Kernel vs plain version on the same inputs (a ``height`` x ``width``
+    frame); returns the errors and the
     pair counts of the plain version's run, with ``tile_work``'s. The
     kernel's device ms alone is taken in phase ``times``, after the render's
     own timings: a profiler session (``kernel_device_ms``) slows the host's
@@ -351,9 +366,9 @@ def compare_blend(label, args, build):
 
     kw = dict(tile_size=RASTER["tile_size"], chunk=RASTER["chunk"],
               capacity=RASTER["capacity"])
-    out = blend_sorted(*args, H, W, **kw)
+    out = blend_sorted(*args, height, width, **kw)
     stats = {}
-    ref = blend_sorted_reference(*args, H, W, stats=stats, **kw)
+    ref = blend_sorted_reference(*args, height, width, stats=stats, **kw)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(out).all()):
         fail(f"{label}: kernel output not finite")
@@ -368,10 +383,11 @@ def compare_blend(label, args, build):
     lists = torch.where(slot < counts[:, None], s_idx[src], means2d.shape[0])
     work = tile_work(lists[None], counts[None],
                      pack_rows(means2d, conic, op, values)[None],
-                     RASTER["tile_size"], -(-W // RASTER["tile_size"]),
+                     RASTER["tile_size"], -(-width // RASTER["tile_size"]),
                      stats["reached"][None])
     stats.update(work)
     emit(phase="kernel", input=label, kernel="blend_sorted",
+         resolution=[height, width],
          max_abs_err_rgb=e_rgb, max_abs_err_alpha=e_alpha,
          max_abs_err_depth=e_depth, max_depth=dmax,
          tol_rgb_alpha=TOL_RGB_ALPHA, tol_depth=TOL_DEPTH_REL * dmax,
@@ -1852,6 +1868,16 @@ CLI_SEQUENTIAL_STEPS = 2
 TEMPLATE_FIT_STEPS = 300
 TEMPLATE_SIGMA_IN, TEMPLATE_SIGMA_OUT = 50.0, 0.05
 TEMPLATE_SHELL = 0.05   # a point within this of a vertex lies in the body
+# the inference path (phase cli_inference): the synthetic demo motion, in
+# Demo's layout of 265 values a frame, each a slow sine of this amplitude
+DEMO_FRAMES = 240
+DEMO_AMPLITUDE = 0.3    # rad
+EVAL_RUN_STEPS = 2      # the short runs with a snapshot and an evaluation
+# the reenact sequence: Motion-X-ReEnact's layout, a 1280 x 720 video
+REENACT_SEQ = "dance_0001"
+REENACT_FRAMES = 30
+REENACT_H, REENACT_W = 720, 1280
+REENACT_FOCAL = 900.0
 
 
 def write_body(path, seg_path):
@@ -2106,7 +2132,7 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True):
     return line
 
 
-def cli_two_stage(dev, card, kernel_fns):
+def cli_two_stage(dev, card, kernel_fns, times_ms):
     """Phase ``cli_two_stage``: ``scripts/train_w_expr.sh`` steps 1.2, 2.1
     and 2.3 through the port's CLI in-process, at full width on the
     synthetic SMPL-X-sized body with the SD1.5-size card's random weights
@@ -2120,7 +2146,8 @@ def cli_two_stage(dev, card, kernel_fns):
     blends (0, 0) in stage 1 and (1, 1) a step in stage 2, the stage-1
     planes carried into the avatar with a difference of 0, the warm start
     of step 2.3 equal to step 2.1's last checkpoint to every bit. Returns
-    the runs' launches."""
+    the runs' launches and, from phase ``cli_inference`` (run after these
+    checks in the same directory), its runs' launches."""
     import gc
     import shutil
     import tempfile
@@ -2136,7 +2163,8 @@ def cli_two_stage(dev, card, kernel_fns):
     from dreamwaltz_g_tpu_torch.training.trainer import avatar_tree
 
     tmp = Path(tempfile.mkdtemp(prefix="cli_two_stage_"))
-    old_paths = (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS)
+    old_paths = (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS,
+                 paths.DEMO_MOTIONS, paths.MOTIONX_REENACT_ROOT)
 
     def free():
         gc.collect()
@@ -2244,10 +2272,19 @@ def cli_two_stage(dev, card, kernel_fns):
                        init_avatar_state_ms=spans[
                            "trainer.init_avatar_state"],
                        lbs_smooth_ms=spans["avatar.lbs_smooth"])
+        check_two_stage(card, runs, handoff, warm, sequential)
+        inference = cli_inference(dev, card, kernel_fns, tmp, argv, args,
+                                  exp, times_ms)
     finally:
-        paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS = old_paths
+        (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS, paths.DEMO_MOTIONS,
+         paths.MOTIONX_REENACT_ROOT) = old_paths
         shutil.rmtree(tmp, ignore_errors=True)
+    return {step: line["launches"] for step, line in runs.items()}, \
+        inference
 
+
+def check_two_stage(card, runs, handoff, warm, sequential):
+    """Emit phase ``cli_two_stage``'s line and hold its checks."""
     emit(phase="cli_two_stage", runs=runs, handoff=handoff,
          warm_start=warm, sequential=sequential, **card)
     for step, line in list(runs.items()) + [
@@ -2276,7 +2313,391 @@ def cli_two_stage(dev, card, kernel_fns):
     if warm["differs"]:
         fail(f"cli 2.3: the warm start differs from 2.1's checkpoint in "
              f"{warm['differs']}")
-    return {step: line["launches"] for step, line in runs.items()}
+
+
+def reenact_cam_params(i):
+    """Frame ``i``'s camera in Motion-X-ReEnact's json: OpenCV axes (x
+    right, y down, z forward) looking at the body from +z, 3 m away and
+    drifting along x, the principal point at the centre of the frame."""
+    return {"cam_R": [[1.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, -1.0]],
+            "cam_T": [0.01 * i - 0.15, 0.1, 3.0],
+            "intrins": [REENACT_FOCAL, REENACT_FOCAL, REENACT_W / 2,
+                        REENACT_H / 2]}
+
+
+def reenact_camera(i):
+    """Frame ``i``'s camera as the reenact loader parses it (the y row of
+    the extrinsic flipped, fy negated)."""
+    import numpy as np
+
+    from dreamwaltz_g_tpu_torch.data.motion.loaders import (
+        _parse_reenact_camera,
+    )
+
+    return _parse_reenact_camera({k: np.asarray([v]) for k, v in
+                                  reenact_cam_params(i).items()})
+
+
+def write_demo_motion(root):
+    """``talkshow.npy`` in ``Demo``'s layout: ``DEMO_FRAMES`` frames of jaw
+    (3), eyes (6), root orientation (3, left at 0: the body faces the
+    camera), body (63), hands (90) and expression (100), each a 0.5 Hz
+    sine at 30 frames a second of amplitude ``DEMO_AMPLITUDE`` on its own
+    phase."""
+    import numpy as np
+
+    t = np.arange(DEMO_FRAMES)[:, None] / 30.0
+    phase = np.random.default_rng(SEED).random((1, 265)) * 2 * np.pi
+    arr = DEMO_AMPLITUDE * np.sin(np.pi * t + phase)
+    arr[:, 9:12] = 0.0
+    root.mkdir(parents=True, exist_ok=True)
+    np.save(root / "talkshow.npy", arr.astype(np.float32))
+
+
+def write_reenact(root):
+    """``Motion-X-ReEnact.zip``: ``motion/<seq>.json`` (``REENACT_FRAMES``
+    frames of SMPL-X parameters, small smooth angles, zero shape, each
+    with ``reenact_cam_params``) and ``inpainting/<seq>_inpainting.mp4``,
+    a moving color ramp written by OpenCV at 1280 x 720."""
+    import zipfile
+
+    import cv2
+    import numpy as np
+
+    root.mkdir(parents=True)
+    t = np.arange(REENACT_FRAMES)[:, None] / 30.0
+    phase = np.random.default_rng(SEED + 1).random((1, 162)) * 2 * np.pi
+    ang = 0.2 * np.sin(np.pi * t + phase)
+    ann = [{"smplx_params": {"root_orient": [0.0, 0.0, 0.0],
+                             "pose_body": ang[i, :63].tolist(),
+                             "pose_hand": ang[i, 63:153].tolist(),
+                             "pose_jaw": ang[i, 153:156].tolist(),
+                             "trans": [0.0, 0.0, 0.0],
+                             "betas": [0.0] * 10},
+            "cam_params": reenact_cam_params(i)}
+           for i in range(REENACT_FRAMES)]
+    mp4 = root / "inpainting.mp4"
+    writer = cv2.VideoWriter(str(mp4), cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (REENACT_W, REENACT_H))
+    if not writer.isOpened():
+        fail("OpenCV cannot write the reenact video")
+    yy, xx = np.mgrid[0:REENACT_H, 0:REENACT_W]
+    for i in range(REENACT_FRAMES):
+        writer.write(np.stack([(xx // 5 + 4 * i) % 256, (yy // 3) % 256,
+                               np.full_like(xx, 96)], -1).astype(np.uint8))
+    writer.release()
+    with zipfile.ZipFile(root / "Motion-X-ReEnact.zip", "w") as z:
+        z.writestr(f"motion/{REENACT_SEQ}.json",
+                   json.dumps({"annotations": ann}))
+        z.write(mp4, f"inpainting/{REENACT_SEQ}_inpainting.mp4")
+    mp4.unlink()
+
+
+def write_retrieval(root, tokenizer_dir, dev):
+    """The R-Precision towers at the JAX package's default sizes (the
+    ViT-B/32 image tower: 224^2, patch 32, 768 wide, 12 layers; the
+    768-wide, 12-layer text tower; projections of 512) with random weights
+    from the seed, as one float16 torch file in transformers' ``CLIPModel``
+    names, beside the BPE vocabulary of ``write_guidance``."""
+    import shutil
+
+    import torch
+
+    from dreamwaltz_g_tpu_torch.utils.r_precision import (
+        CLIPTextTower,
+        CLIPVisionModel,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    towers = (CLIPVisionModel().to(dev), CLIPTextTower().to(dev))
+    sd = {}
+    for m in towers:
+        m.reset_parameters(gen)
+        sd.update({k: v.half().cpu() for k, v in m.state_dict().items()})
+    root.mkdir(parents=True)
+    torch.save(sd, root / "pytorch_model.bin")
+    for name in ("vocab.json", "merges.txt"):
+        shutil.copy(tokenizer_dir / name, root / name)
+    return sum(v.numel() for v in sd.values())
+
+
+def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
+    """Phase ``cli_inference``, in ``cli_two_stage``'s directory after its
+    runs: the inference and evaluation paths through
+    ``dreamwaltz_g_tpu_torch.main.main`` on step 2.3's avatar, each run
+    with the counts set to 0 just before it and read just after.
+
+    (a) step 3 of ``scripts/train_w_expr.sh`` as written: ``full_eval`` of
+    the synthetic demo motion at the reference's defaults (60 frames at
+    1024^2) and its R-Precision with the full-size random towers; the
+    restored avatar equal to 2.3's last checkpoint to every bit; 60 PNGs
+    and an mp4 of 60 1024^2 frames; frames 0 and 59 rendered again after
+    the run, finite, covered and equal to their PNGs; B2 60 times, the
+    table blends and flash never.
+    (b) steps 1.2 and 2.3 for 2 steps with a snapshot every step and an
+    evaluation every 2: 8 eval PNGs at 512^2 and the mp4, the snapshots;
+    flash (15, 1) a step, the table blends (0, 0) / (1, 1), B2 0 in stage 1
+    and 8 + 2 in stage 2.
+    (c) ``scripts/inference_reenact.sh``'s command on a synthetic
+    Motion-X-ReEnact sequence, with the avatar's body parts, the
+    sequence's length as ``full_eval_size`` and, as the background, the
+    inpainted video that ``MotionXReEnact.extract_video`` writes (the JAX
+    rule reads only a '.mp4' value): 30 frames of 720 x 1280 on the
+    sequence's own cameras, B2 once a frame, the overlay mp4 of 30.
+    Returns each run's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dreamwaltz_g_tpu_torch import main as M
+    from dreamwaltz_g_tpu_torch.configs import paths
+    from dreamwaltz_g_tpu_torch.data.motion.loaders import MotionXReEnact
+    from dreamwaltz_g_tpu_torch.training.checkpoint import (
+        load_pytree,
+        resolve_ckpt_path,
+    )
+    from dreamwaltz_g_tpu_torch.training.gs_trainer import (
+        make_avatar_render,
+        make_avatar_render_frames,
+    )
+    from dreamwaltz_g_tpu_torch.training.trainer import avatar_tree
+    from dreamwaltz_g_tpu_torch.utils import timing
+    from dreamwaltz_g_tpu_torch.utils.media import (
+        load_image,
+        read_video,
+        to_uint8,
+    )
+
+    out = tmp / "outputs"
+
+    def drive(argv_):
+        """main.main(argv_) with the counts and timing spans; its fields."""
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        timing.records.clear()
+        timing.enabled = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            tr = M.main(argv_)
+            torch.cuda.synchronize()
+        finally:
+            timing.enabled = False
+        run = {"wall_s": time.perf_counter() - t0,
+               "launches": {k: fn.launches for k, fn in kernel_fns.items()},
+               "spans_ms": {k: timing.times(k) for k in timing.records},
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        return tr, run
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (a) step 3: the avatar animated by the demo motion at 1024^2 -----
+    t0 = time.perf_counter()
+    write_demo_motion(tmp / "motions")
+    n_retrieval = write_retrieval(tmp / "guidance" / "clip_retrieval",
+                                  tmp / "guidance" / "tokenizer", dev)
+    paths.DEMO_MOTIONS = str(tmp / "motions")
+    assets_s = time.perf_counter() - t0
+    step3 = ["--log.exp_root", str(out), "--log.exp_name", exp["2.3"],
+             "--predefined_body_parts", CLI_PARTS, "--stage", "gs",
+             "--log.eval_only", "true", "--optim.resume", "true",
+             "--prompt.scene", "demo,talkshow",
+             "--data.eval_elevation", "90",
+             "--data.eval_camera_track", "fixed"]
+    ckpt = resolve_ckpt_path(out / exp["2.3"])
+    want = load_pytree(ckpt, map_location=dev)["params"]
+    tr, a = drive(step3)
+    d = tr.cfg.data
+    n_full, test_size = d.full_eval_size, [d.test_h, d.test_w, 3]
+    got = avatar_tree(tr.state.avatar, tr.avatar_model)
+    differs = []
+
+    def walk(g, w, name):
+        if isinstance(g, dict):
+            for k in g:
+                walk(g[k], w[k], f"{name}.{k}")
+        elif not torch.equal(g, w):
+            differs.append(name)
+
+    walk(got, want, "avatar")
+    results = out / exp["2.3"] / "results"
+    step_dir = results / f"step_{tr.train_step:06d}"
+    pngs = sorted(step_dir.glob("*.png"))
+    video = read_video(str(step_dir) + ".mp4")
+    rerender = {}
+    with torch.no_grad():
+        for i in (0, n_full - 1):
+            obs, _ = tr.prompt(frame_idx=i)
+            cam = tr.test_camera(i / n_full)
+            bg = torch.zeros((d.test_h, d.test_w, 3), device=dev)
+            img, alpha, _ = tr.test_render(
+                tr.state.avatar, obs, cam.extrinsic[0], cam.intrinsics[0],
+                cam.tanfov[0], bg)
+            img = torch.clamp(img, 0, 1).cpu().numpy()
+            rerender[i] = dict(
+                finite=bool(np.isfinite(img).all()),
+                coverage=float((alpha > 0.01).float().mean()),
+                png_max_diff=float(np.abs(
+                    to_uint8(img).astype(np.float32) / 255.0
+                    - load_image(str(pngs[i]))).max()) if len(pngs) > i else None,
+                image=img)
+    # the render span's parts, after the counts: the prompt's draws (an
+    # SMPL-X forward a frame) and one chunk of 8 frames through the frame
+    # render alone, on the same poses and cameras
+    t0 = time.perf_counter()
+    poses = [tr.prompt(frame_idx=i)[0] for i in range(8)]
+    torch.cuda.synchronize()
+    prompt_ms = (time.perf_counter() - t0) * 1e3 / 8
+    cams = [tr.test_camera(i / n_full) for i in range(8)]
+    chunk = (type(poses[0])(*[torch.stack(x) for x in zip(*poses)]),
+             torch.cat([c.extrinsic for c in cams]),
+             torch.cat([c.intrinsics for c in cams]),
+             torch.cat([c.tanfov for c in cams]),
+             torch.zeros((d.test_h, d.test_w, 3), device=dev))
+    frames_fn = make_avatar_render_frames(
+        tr.avatar_model, d.test_h, d.test_w,
+        tile_size=tr.cfg.render.tile_size,
+        capacity=tr.cfg.render.tile_capacity, chunk=tr.cfg.render.chunk,
+        device=dev)
+    chunk_ms = cuda_ms(lambda: frames_fn(tr.state.avatar, *chunk), 2) / 8
+    spans = a.pop("spans_ms")
+    render_dev, render_host = spans["evaluate.render"][0]
+    a.update(
+        full_eval_size=n_full, test_size=test_size,
+        checkpoint=str(ckpt.name), restored_tensors=len(_leaf_names(got)),
+        restored_differs=differs, pngs=len(pngs),
+        png_size=list(load_image(str(pngs[0])).shape) if pngs else None,
+        mp4_frames=int(video.shape[0]), mp4_size=list(video.shape[1:]),
+        rerender={k: {kk: vv for kk, vv in v.items() if kk != "image"}
+                  for k, v in rerender.items()},
+        frames_differ=float(np.abs(rerender[0]["image"]
+                                   - rerender[n_full - 1]["image"]).max()),
+        render_ms_per_frame=render_dev and render_dev / n_full,
+        render_host_ms_per_frame=render_host / n_full,
+        frame_render_ms_per_frame=chunk_ms,
+        prompt_draw_ms_per_frame=prompt_ms,
+        alive=int(tr.state.avatar.alive.sum()),
+        capacity=int(tr.state.avatar.alive.numel()),
+        times_phase_ms_per_frame=times_ms,
+        write_host_ms=spans["evaluate.write"][0][1],
+        r_precision_ms=spans["trainer.r_precision"][0],
+        retrieval_params=n_retrieval, assets_s=assets_s)
+    tr = None
+    free()
+
+    # -- (b) evaluation and snapshots inside training ---------------------
+    b = {}
+    for step in ("1.2", "2.3"):
+        name = exp[step] + "-evaluate"
+        tr, run = drive(argv(step, *args[step], n=EVAL_RUN_STEPS, name=name)
+                        + ["--log.snapshot_interval", "1",
+                           "--log.evaluate_interval", str(EVAL_RUN_STEPS)])
+        e = out / name
+        ev = sorted((e / "results" / f"step_{EVAL_RUN_STEPS:06d}")
+                    .glob("*.png"))
+        run.update(
+            steps=tr.train_step, loss=list(tr.losses),
+            eval_size=tr.cfg.data.eval_size,
+            eval_res=[tr.cfg.data.eval_h, tr.cfg.data.eval_w, 3],
+            eval_pngs=len(ev),
+            eval_png_size=list(load_image(str(ev[0])).shape) if ev else None,
+            eval_mp4_frames=int(read_video(str(
+                e / "results" / f"step_{EVAL_RUN_STEPS:06d}.mp4")).shape[0]),
+            snapshots=sorted(f.name for f in
+                             (e / "snapshots" / "train").glob("*.png")))
+        ev_ms = run.pop("spans_ms")["evaluate.render"][0][0]
+        run["eval_render_ms_per_frame"] = ev_ms and ev_ms / max(len(ev), 1)
+        b[step] = run
+        tr = None
+        free()
+
+    # -- (c) the reenact path -----------------------------------------------
+    write_reenact(tmp / "reenact")
+    paths.MOTIONX_REENACT_ROOT = str(tmp / "reenact")
+    bg_path = MotionXReEnact(str(tmp / "reenact")).extract_video(
+        REENACT_SEQ, str(tmp / "reenact_bg" / f"{REENACT_SEQ}.mp4"))
+    tr, c = drive(["--stage", "gs", "--log.eval_only", "true",
+                   "--optim.resume", "true", "--log.exp_root", str(out),
+                   "--log.exp_name", exp["2.3"],
+                   "--prompt.scene", f"motionx_reenact,{REENACT_SEQ}",
+                   "--render.use_video_background", bg_path,
+                   "--predefined_body_parts", CLI_PARTS,
+                   "--data.full_eval_size", str(REENACT_FRAMES)])
+    step_dir = results / f"step_{tr.train_step:06d}"
+    shots = [load_image(str(step_dir / f"{i:04d}.png"))
+             for i in range(REENACT_FRAMES)]
+    render_dev = c.pop("spans_ms")["evaluate.render"][0][0]
+    # frame 0 again over a transparent background (after the counts)
+    cp = tr.prompt.get_camera_params_from_sequences(0)
+    obs, _ = tr.prompt(frame_idx=0)
+    _, alpha, _ = make_avatar_render(
+        tr.avatar_model, REENACT_H, REENACT_W,
+        tile_size=tr.cfg.render.tile_size,
+        capacity=tr.cfg.render.tile_capacity, chunk=tr.cfg.render.chunk,
+        device=dev)(tr.state.avatar, obs, cp["extrinsic"], cp["intrinsics"],
+                    torch.tensor(cp["tanfov"], device=dev),
+                    torch.zeros((REENACT_H, REENACT_W, 3), device=dev))
+    c.update(frames=len(shots), frame_size=list(shots[0].shape),
+             camera=tr.prompt.get_camera_params_from_sequences(0)[
+                 "intrinsics"].tolist(),
+             mp4_frames=int(read_video(str(step_dir) + ".mp4").shape[0]),
+             overlay_frames=int(read_video(
+                 str(step_dir) + "_overlay.mp4").shape[0]),
+             coverage_frame0=float((alpha > 0.01).float().mean()),
+             render_ms_per_frame=render_dev and render_dev / REENACT_FRAMES)
+    tr = None
+    free()
+
+    emit(phase="cli_inference", step3=a, in_training=b, reenact=c, **card)
+    quiet = {"blend_train_fwd": 0, "blend_train_bwd": 0,
+             "blend_tiles_eval": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+    for label, run, n_b2 in (("step 3", a, n_full),
+                             ("reenact", c, REENACT_FRAMES)):
+        want_l = dict(quiet, blend_sorted=n_b2)
+        if run["launches"] != want_l:
+            fail(f"cli_inference {label}: launches {run['launches']}, "
+                 f"expected {want_l}")
+    if differs:
+        fail(f"cli_inference: the restored avatar differs from {ckpt} in "
+             f"{differs}")
+    if a["pngs"] != n_full or a["png_size"] != test_size \
+            or a["mp4_frames"] != n_full or a["mp4_size"] != test_size:
+        fail(f"cli_inference step 3: {a['pngs']} PNGs of {a['png_size']}, "
+             f"an mp4 of {a['mp4_frames']} x {a['mp4_size']}")
+    for i, r in a["rerender"].items():
+        if not r["finite"] or r["coverage"] <= 0.0 \
+                or r["png_max_diff"] is None or r["png_max_diff"] > 1 / 255:
+            fail(f"cli_inference step 3: frame {i} {r}")
+    if a["frames_differ"] <= 0.0:
+        fail("cli_inference step 3: frame 0 equals the last frame")
+    for step, run in b.items():
+        stage2 = step.startswith("2")
+        want_l = {k: v * EVAL_RUN_STEPS
+                  for k, v in cli_launches_per_step(stage2).items()}
+        want_l["blend_sorted"] = (run["eval_size"] + EVAL_RUN_STEPS) \
+            * stage2
+        snaps = sorted(f"{s:06d}_{k}.png" for s in
+                       range(1, EVAL_RUN_STEPS + 1) for k in ("cond", "rgb"))
+        if run["launches"] != want_l or run["steps"] != EVAL_RUN_STEPS \
+                or not all(math.isfinite(x) for x in run["loss"]) \
+                or run["eval_pngs"] != run["eval_size"] \
+                or run["eval_png_size"] != run["eval_res"] \
+                or run["eval_mp4_frames"] != run["eval_size"] \
+                or run["snapshots"] != snaps:
+            fail(f"cli_inference {step} with evaluation: {run}, expected "
+                 f"launches {want_l}")
+    if c["frames"] != REENACT_FRAMES \
+            or c["frame_size"] != [REENACT_H, REENACT_W, 3] \
+            or c["overlay_frames"] != REENACT_FRAMES \
+            or c["mp4_frames"] != REENACT_FRAMES or c["camera"][1][1] >= 0 \
+            or c["coverage_frame0"] <= 0.0:
+        fail(f"cli_inference reenact: {c}")
+    return {"step3": a["launches"], "reenact": c["launches"],
+            **{f"{k}-evaluate": v["launches"] for k, v in b.items()}}
 
 
 def _leaf_names(tree, name="avatar"):
@@ -2461,6 +2882,27 @@ def main():
         err_scene, _ = compare_blend(
             "random_200k_D16", scene_args,
             blend_build["blend_sorted_kernel"])
+        # the reenact frame: Motion-X-ReEnact's camera (its y row flipped,
+        # fy negated) on 720 x 1280, whose last tile row is half a tile
+        re_cam = reenact_camera(0)
+        obs0 = type(frames)(*[x[0] for x in frames])
+        gs0 = animate(model, state, obs0)
+        re_args, _ = blend_inputs(
+            R.project_gaussians(
+                gs0.positions, R.covariance3d(gs0.quats, gs0.scales),
+                gs0.opacities, gs0.colors,
+                torch.as_tensor(re_cam["extrinsic"][0], dtype=torch.float32,
+                                device=dev),
+                torch.as_tensor(re_cam["intrinsics"][0], dtype=torch.float32,
+                                device=dev), REENACT_H, REENACT_W,
+                tanfov=torch.tensor(float(re_cam["tanfov"][0]), device=dev),
+                alive=gs0.alive),
+            RASTER["tile_size"], RASTER["capacity"],
+            RASTER["max_tiles_per_gaussian"], REENACT_H, REENACT_W)
+        err_reenact, _ = compare_blend(
+            "avatar_reenact_720x1280", re_args,
+            blend_build["blend_sorted_kernel"], REENACT_H, REENACT_W)
+        del re_args, gs0
 
     # -- the tiny avatar: CPU plain path vs card kernel path --------------
     tiny = tests_support.tiny_avatar_setup(device="cpu")
@@ -2973,8 +3415,9 @@ def main():
     # -- the two-stage run through the port's CLI --------------------------
     guidance = gparams = step = tstate = None
     torch.cuda.empty_cache()
-    cli_runs = cli_two_stage(dev, card, train_fns)
-    cli = {name: sum(run[name] for run in cli_runs.values())
+    cli_runs, inference_runs = cli_two_stage(dev, card, train_fns, frame_ms)
+    cli = {name: sum(run[name] for run in list(cli_runs.values())
+                     + list(inference_runs.values()))
            for name in train_fns}
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
@@ -2997,11 +3440,17 @@ def main():
     print(json.dumps({"kernels": [
         entry("blend_sorted", "dreamwaltz_g_tpu_torch/csrc/blend_sorted.cu",
               "dreamwaltz_g_tpu/ops/pallas_blend.py:326",
-              launches["blend_sorted"], max(err_avatar, err_scene),
+              launches["blend_sorted"] + cli["blend_sorted"],
+              max(err_avatar, err_scene, err_reenact),
               kernel_ms, plain_ms,
               {"bound_ms": bound_ms,
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"},
-              kernel_ms=alone_ms["avatar"]),
+              kernel_ms=alone_ms["avatar"],
+              launches_by_path={"render": launches["blend_sorted"],
+                                "cli": cli["blend_sorted"],
+                                "cli_by_run": {
+                                    k: v["blend_sorted"]
+                                    for k, v in inference_runs.items()}}),
         entry("blend_train_fwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_fwd"] + cli["blend_train_fwd"],

@@ -35,6 +35,12 @@ diffusers' and transformers' own:
   ``mlp_fc1`` -> ``mlp.fc1``, its embeddings (``embedding`` and the bare
   ``position_embedding``) -> ``text_model.embeddings.*.weight``.
 * Every module parameter must be covered and every Flax leaf used.
+
+``clip_vision_from_flax`` and ``clip_text_tower_from_flax`` do the same
+for the R-Precision towers (``utils/r_precision.py``), whose names are
+transformers' ``CLIPModel``'s: the ViT's ``patch_embedding`` /
+``class_embedding`` / ``position_embedding`` under
+``vision_model.embeddings.``, ``pre_layernorm`` -> ``pre_layrnorm``.
 """
 from __future__ import annotations
 
@@ -291,3 +297,41 @@ def clip_text_from_flax(module: nn.Module, flax_params) -> nn.Module:
         state[f"{name}.{leaf_name}"] = torch.as_tensor(
             np.ascontiguousarray(a))
     return _load(module, state)
+
+
+def clip_vision_from_flax(module: nn.Module, flax_params) -> nn.Module:
+    """Load a JAX ``utils/r_precision.CLIPVisionModel`` params tree into the
+    port's ``CLIPVisionModel`` (transformers' names)."""
+    tree = flax_params.get("params", flax_params)
+    emb = "vision_model.embeddings."
+    state = {}
+    for path, leaf in _flatten(tree).items():
+        a = np.asarray(leaf, np.float32)
+        if path in (("class_embedding",), ("position_embedding",)):
+            name = emb + path[0] + ("" if path[0] == "class_embedding"
+                                    else ".weight")
+            state[name] = torch.tensor(a)
+            continue
+        *mods, kind = path
+        if kind == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        name = ".".join(mods)
+        name = re.sub(r"^layers_(\d+)", r"vision_model.encoder.layers.\1",
+                      name)
+        name = name.replace("mlp_fc", "mlp.fc")
+        name = {"patch_embedding": emb + "patch_embedding",
+                "pre_layernorm": "vision_model.pre_layrnorm",
+                "post_layernorm": "vision_model.post_layernorm"}.get(
+            name, name)
+        leaf_name = "bias" if kind == "bias" else "weight"
+        state[f"{name}.{leaf_name}"] = torch.as_tensor(
+            np.ascontiguousarray(a))
+    return _load(module, state)
+
+
+def clip_text_tower_from_flax(module: nn.Module, flax_params) -> nn.Module:
+    """Load a JAX ``utils/r_precision.CLIPTextTower`` params tree (the text
+    model and its ``text_projection``) into the port's ``CLIPTextTower``."""
+    tree = flax_params.get("params", flax_params)
+    return clip_text_from_flax(module, dict(
+        tree["text_model"], text_projection=tree["text_projection"]))

@@ -46,6 +46,18 @@ from .time_prior import DiffusionSchedule, make_schedule
 LOSS_TYPES = ("sds", "sjc", "sjc-red")
 
 
+def resize_images(images: torch.Tensor, height: int, width: int
+                  ) -> torch.Tensor:
+    """(B, H, W, C) -> (B, height, width, C) as ``jax.image.resize(...,
+    'bilinear')`` resizes: half-pixel centres, antialiased when it
+    shrinks. Computed in float32 (the CPU has no bfloat16 antialiased
+    resize) and returned in the input's type."""
+    return F.interpolate(
+        images.permute(0, 3, 1, 2).float(), size=(height, width),
+        mode="bilinear", align_corners=False,
+        antialias=True).permute(0, 2, 3, 1).to(images.dtype)
+
+
 class GuidanceParams(NamedTuple):
     """The frozen guidance models."""
 
@@ -99,11 +111,7 @@ class ScoreDistillation:
             len(params.vae.cfg.block_out_channels) - 1)
         if (H != target or W != target) and (
                 self.input_interpolate or H != W or H not in (target, 768)):
-            # in float32: the CPU has no bfloat16 antialiased resize
-            images = F.interpolate(
-                images.permute(0, 3, 1, 2).float(), size=(target, target),
-                mode="bilinear", align_corners=False,
-                antialias=True).permute(0, 2, 3, 1).to(images.dtype)
+            images = resize_images(images, target, target)
         return params.vae.encode(images)
 
     def _eps(self, params: GuidanceParams, latents, t, context,

@@ -1,14 +1,16 @@
 """SMPLPrompt: the per-step human-pose provider.
 
 Port of ``dreamwaltz_g_tpu/human/prompt.py`` for the canonical scenes
-('canonical', its named variants, 'canonical-R', '-choice', '-loop') and
-the random ones ('random', 'random-<parts>'): the canonical pose, the
-observed-pose draw, the betas schedule and the condition fan-out. The
-numpy draws (canonical mixup, '-choice') come from a ``Generator`` seeded
-as the JAX package's, in its order; the pose draws, from ``jax.random``
-keys there, come from a ``torch.Generator`` of the prompt's own here, or
-are handed in (``draws``). The motion scenes (``data/motion/``) and the
-'vposer' sampler are not ported yet and raise.
+('canonical', its named variants, 'canonical-R', '-choice', '-loop'), the
+random ones ('random', 'random-<parts>') and the motion scenes
+('<dataset>,<name>[,<start>-<end>[-<interval>]]', ``data/motion/``, with
+the reenact and TRAM camera tracks): the canonical pose, the observed-pose
+draw, the betas schedule and the condition fan-out. The numpy draws
+(canonical mixup, '-choice', a motion scene's random frame) come from a
+``Generator`` seeded as the JAX package's, in its order; the pose draws,
+from ``jax.random`` keys there, come from a ``torch.Generator`` of the
+prompt's own here, or are handed in (``draws``). The 'vposer' sampler is
+not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..data.motion import load_smpl_sequences
 from .condition import ConditionRenderer
 from .keypoints import LandmarkData
 from .poses import (
@@ -69,6 +72,16 @@ def sample_betas(betas: torch.Tensor, i: Optional[int] = None,
         return betas[:1]
     r = min(i / max_iteration, 1.0)
     return betas[:1] * (1 - r) + betas[1:2] * r
+
+
+def load_hand_components(path: str, ncomps: int = 45):
+    """The PCA hand bases (left, right) of a SMPL-X npz, numpy float32, for
+    the TalkSHOW decode; None when the file has none."""
+    with np.load(path, allow_pickle=True) as data:
+        if "hands_componentsl" not in data:
+            return None
+        return (np.asarray(data["hands_componentsl"], np.float32)[:ncomps],
+                np.asarray(data["hands_componentsr"], np.float32)[:ncomps])
 
 
 def get_smpl_inputs(
@@ -132,6 +145,29 @@ def get_smpl_inputs(
     return p
 
 
+def _params_from_seq_frame(model: SMPLXModelData, seqs: Dict[str, np.ndarray],
+                           frame_idx: int) -> SMPLXParams:
+    """One frame of the (P, F, D) sequence dict as SMPLXParams of batch P on
+    the model's device; betas and expression zero-padded or cut to the
+    model's sizes."""
+    P = seqs["body_pose"].shape[0]
+    p = default_params(model, P)
+    updates = {}
+    for k, v in seqs.items():
+        if k not in SMPLXParams._fields:
+            continue
+        updates[k] = torch.as_tensor(v[:, frame_idx] if v.ndim >= 3 else v,
+                                     dtype=torch.float32,
+                                     device=model.device)
+    for k, n in (("betas", model.num_betas), ("expression", model.num_expr)):
+        if k in updates:
+            x = updates[k]
+            if x.shape[-1] < n:
+                x = torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+            updates[k] = x[:, :n]
+    return p._replace(**updates)
+
+
 class SMPLPrompt:
     """The observed-pose provider of the trainer."""
 
@@ -143,7 +179,9 @@ class SMPLPrompt:
         height: int = 512,
         width: int = 512,
         landmarks: Optional[LandmarkData] = None,
+        hand_components=None,
         seed: int = 0,
+        _dataset=None,
     ):
         self.cfg = cfg
         self.model = model
@@ -152,10 +190,6 @@ class SMPLPrompt:
         self.height, self.width = height, width
         self.scene = cfg.scene
         self.scene_type = parse_scene_type(cfg.scene)
-        if self.scene_type == "motion":
-            raise NotImplementedError(
-                f"motion scene {cfg.scene!r}: the motion loaders "
-                "(data/motion/) are not ported yet")
         if cfg.scene == "vposer":
             raise NotImplementedError("the 'vposer' scene is not ported yet")
         self.canonical_pose = cfg.canonical_pose
@@ -190,6 +224,31 @@ class SMPLPrompt:
                 betas=self.canonical_betas[:1])
         self.canonical_outputs = smplx_forward(model, self.canonical_inputs)
 
+        # the observed source: a motion scene's sequences (host numpy) and,
+        # for the reenact / TRAM datasets, their camera track
+        self.num_frame = 1
+        self.num_person = cfg.num_person or 1
+        self.camera_sequences: Optional[dict] = None
+        self.sequences = None
+        if self.scene_type == "motion":
+            cam_seqs: dict = {}
+            pelvis = torch.einsum("v,vc->c", model.J_regressor[0],
+                                  model.v_template).cpu().numpy()
+            self.sequences, self.num_person, self.num_frame = \
+                load_smpl_sequences(
+                    self.scene, model_type="smplx",
+                    camera_sequences=cam_seqs, num_person=cfg.num_person,
+                    pop_betas=cfg.pop_betas, pop_transl=cfg.pop_transl,
+                    normalize_transl=cfg.normalize_transl,
+                    centralize_pelvis=cfg.centralize_pelvis,
+                    pop_global_orient=cfg.pop_global_orient,
+                    frame_interval=cfg.frame_interval,
+                    num_betas=model.num_betas,
+                    pelvis_position=pelvis if cfg.centralize_pelvis
+                    else None,
+                    hand_components=hand_components, _dataset=_dataset)
+            self.camera_sequences = cam_seqs or None
+
     def __call__(self, frame_idx: Optional[int] = None,
                  batch_idx: Optional[int] = None,
                  draws: Optional[Dict[str, torch.Tensor]] = None,
@@ -209,11 +268,20 @@ class SMPLPrompt:
                 self.model, self.scene, self.generator,
                 training_ratio=self.training_ratio, rng=self._rng,
                 draws=draws)
-        else:
+        elif self.scene_type == "random":
             p = get_smpl_inputs(
                 self.model, self.scene, self.generator,
                 canonical_mixup_prob=self.canonical_mixup_prob,
                 rng=self._rng, draws=draws)
+        else:
+            if self.observed_betas is not None \
+                    and self.observed_betas.shape[0] > 1 \
+                    and frame_idx is not None:
+                frame_idx = max(self.max_beta_iteration, frame_idx)
+            if frame_idx is None:
+                frame_idx = int(self._rng.integers(0, self.num_frame))
+            frame_idx %= self.num_frame
+            p = _params_from_seq_frame(self.model, self.sequences, frame_idx)
         if extra:
             B = p.body_pose.shape[0]
             p = p._replace(betas=extra["betas"].expand(
@@ -249,3 +317,22 @@ class SMPLPrompt:
         return [self.condition(o, extrinsics[i], intrinsics[i], cond_type,
                                h, w)
                 for i, o in enumerate(smpl_outputs_per_view)]
+
+    def get_camera_params_from_sequences(self, frame_idx: int
+                                         ) -> Optional[dict]:
+        """The predefined camera of frame ``frame_idx`` (the reenact / TRAM
+        tracks, cycled), on the model's device; None without a track."""
+        if self.camera_sequences is None:
+            return None
+        cs = self.camera_sequences
+        i = frame_idx % cs["extrinsic"].shape[0]
+        dev = self.model.device
+        return {
+            "extrinsic": torch.as_tensor(cs["extrinsic"][i],
+                                         dtype=torch.float32, device=dev),
+            "intrinsics": torch.as_tensor(cs["intrinsics"][i],
+                                          dtype=torch.float32, device=dev),
+            "image_height": cs["image_height"],
+            "image_width": cs["image_width"],
+            "tanfov": float(cs["tanfov"][i]),
+        }

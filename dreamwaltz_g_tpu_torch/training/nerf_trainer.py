@@ -308,10 +308,17 @@ def maybe_update_occupancy(tstate: NeRFTrainState, grid: OccupancyGrid,
     return grid
 
 
+# rays a pass of the eval render: the rays are independent, so the chunks
+# give the whole frame's render; a 512^2 frame's 33.5M samples at once would
+# hold tens of GiB of field intermediates
+EVAL_RAY_CHUNK = 32768
+
+
 def make_eval_render(model: NeRFModel, image_height: int, image_width: int,
                      num_steps: int = 128, device="cuda") -> Callable:
-    """Full-frame eval render, no stratification: ``render(grid, cam_c2w,
-    cam_intr, bg_color)`` -> (image (H, W, C), depth, weights_sum)."""
+    """Full-frame eval render, no stratification, ``EVAL_RAY_CHUNK`` rays a
+    pass: ``render(grid, cam_c2w, cam_intr, bg_color)`` -> (image
+    (H, W, C), depth, weights_sum)."""
     device = resolve_device(device)
     H, W = image_height, image_width
 
@@ -319,10 +326,13 @@ def make_eval_render(model: NeRFModel, image_height: int, image_width: int,
     def render(grid: OccupancyGrid, cam_c2w, cam_intr, bg_color):
         _check_device(model, device)
         rays_o, rays_d = get_rays(cam_c2w[None], cam_intr[None], H, W)
-        out = render_rays(model, grid, rays_o[0], rays_d[0],
-                          num_steps=num_steps, perturb=False)
-        img = out.image + (1.0 - out.weights_sum)[:, None] * bg_color
-        return (img.reshape(H, W, -1), out.depth.reshape(H, W),
-                out.weights_sum.reshape(H, W))
+        outs = [render_rays(model, grid, o, d, num_steps=num_steps,
+                            perturb=False)
+                for o, d in zip(rays_o[0].split(EVAL_RAY_CHUNK),
+                                rays_d[0].split(EVAL_RAY_CHUNK))]
+        image, depth, ws = (torch.cat([getattr(o, k) for o in outs])
+                            for k in ("image", "depth", "weights_sum"))
+        img = image + (1.0 - ws)[:, None] * bg_color
+        return img.reshape(H, W, -1), depth.reshape(H, W), ws.reshape(H, W)
 
     return render

@@ -5,7 +5,12 @@ Port of ``dreamwaltz_g_tpu/training/trainer.py`` for the two-stage run of
 NeRF SDS run, progressive resolutions included) and ``--stage gs`` with the
 default ``gs_type`` (the animatable avatar, seeded from a stage-1
 checkpoint through ``--render.from_nerf``, from the SMPL-X mesh without
-one, or warm-started from an earlier avatar through ``--optim.ckpt``).
+one, or warm-started from an earlier avatar through ``--optim.ckpt``); and
+for inference and evaluation: ``evaluate`` (the eval track, motion scenes
+with their camera tracks, the video background and its overlay export,
+PNGs and an mp4), ``full_eval`` with ``compute_r_precision``
+(``--log.eval_only``, step 3 of the script and ``scripts/inference_*.sh``)
+and the snapshots of a training run.
 
 The Trainer owns the host-side providers (pose prompt, camera sampler,
 timestep scheduler, checkpointer) and the device state: the field or the
@@ -27,11 +32,11 @@ every generator's state, so a resumed run draws what an uninterrupted one
 would.
 
 Not ported yet, and refused at construction where a flag asks for them:
-``evaluate`` / ``full_eval`` / snapshots (``utils/media.py``), ``pretrain``,
-``pretrain_nerf2gs``, ``export_mesh``, ``compute_r_precision``,
-``check`` / ``check_sd``, the vanilla and hash avatars, DMTet, the MLP /
-Gaussian / video backgrounds, scene composition and placement, SDXL,
-``batch_size > 1`` and tensor parallelism, the motion and vposer scenes.
+``pretrain``, ``pretrain_nerf2gs``, ``export_mesh``, ``check`` /
+``check_sd``, the vanilla and hash avatars, DMTet, the MLP and Gaussian
+backgrounds, scene composition and placement, SDXL, ``batch_size > 1`` and
+tensor parallelism, the vposer scene, and the multi-device frame sharding
+of ``evaluate``.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import ast
 import logging
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,15 +52,19 @@ from torch.profiler import record_function
 
 from .._device import resolve_device
 from ..configs import TrainConfig, paths, save_config
-from ..data.sampler import RandomCamera4Avatar
+from ..data.sampler import CyclicalCamera4Avatar, RandomCamera4Avatar
 from ..gaussian.densify import DensifyConfig
+from ..guidance.sds import resize_images
 from ..guidance.text_aug import TextAugmentation
 from ..guidance.time_prior import TimePrioritizedScheduler
 from ..human.keypoints import load_landmark_data, openpose_keypoints
-from ..human.prompt import SMPLPrompt
+from ..human.prompt import SMPLPrompt, load_hand_components
 from ..human.smplx_model import load_smplx_npz, make_synthetic_model
 from ..nerf.network import build_nerf
 from ..nerf.renderer import init_occupancy
+from ..system.background import COLOR_PRESETS, VideoBackground
+from ..utils.media import read_video, save_image, write_video
+from ..utils.overlay import overlay_frames_on_video
 from ..utils.timing import span
 from . import gs_trainer, nerf_trainer
 from .checkpoint import Checkpointer, load_pytree, resolve_ckpt_path
@@ -211,10 +220,6 @@ class Trainer:
             raise ValueError(f"log.platform {lg.platform!r}: the port runs "
                              "on 'cuda' (the default) or 'cpu'")
         refused = [
-            (lg.snapshot_interval or lg.evaluate_interval,
-             "evaluate / snapshots (log.snapshot_interval, "
-             "log.evaluate_interval; utils/media.py)"),
-            (lg.eval_only, "log.eval_only (full_eval)"),
             (lg.pretrain_only, "log.pretrain_only (pretrain)"),
             (lg.nerf2gs, "log.nerf2gs (pretrain_nerf2gs)"),
             (lg.nerf2mesh, "log.nerf2mesh (export_mesh)"),
@@ -226,7 +231,6 @@ class Trainer:
              f"nerf.backbone {cfg.nerf.backbone!r} (the hash / tiled grid)"),
             (r.use_mlp_background, "render.use_mlp_background"),
             (r.use_gs_background, "render.use_gs_background"),
-            (r.use_video_background, "render.use_video_background"),
             (r.avatar_scale is not None or r.avatar_transl is not None,
              "render.avatar_scale / avatar_transl (scene placement)"),
             (cfg.optim.ckpt_extra, "optim.ckpt_extra (scene composition)"),
@@ -359,18 +363,20 @@ class Trainer:
                 if cfg.prompt.observed_betas is None:
                     cfg.prompt.observed_betas = kid_vec
             landmarks = load_landmark_data(npz)
+            hand_components = load_hand_components(npz)
         else:
             assert cfg.log.debug, (
                 "SMPL-X npz not found under HUMAN_TEMPLATES; "
                 "pass --log.debug true to run with the synthetic body")
             logger.warning("debug: using the synthetic stick body")
             self.smpl = make_synthetic_model(device=self.device)
-            landmarks = None
+            landmarks, hand_components = None, None
         self.prompt = SMPLPrompt(
             cfg.prompt, self.smpl,
             cond_type=list(cfg.guide.controlnet_condition),
             height=512, width=512,   # the ControlNet's native condition
-            landmarks=landmarks, seed=cfg.optim.seed)
+            landmarks=landmarks, hand_components=hand_components,
+            seed=cfg.optim.seed)
 
     def _init_guidance(self):
         cfg = self.cfg
@@ -463,9 +469,15 @@ class Trainer:
         self.train_camera = RandomCamera4Avatar(
             cfg.data, self.train_res, self.train_res, seed=cfg.optim.seed,
             device=self.device)
+        self.eval_camera = CyclicalCamera4Avatar(
+            cfg.data, cfg.data.eval_h, cfg.data.eval_w, device=self.device)
+        self.test_camera = CyclicalCamera4Avatar(
+            cfg.data, cfg.data.test_h, cfg.data.test_w, device=self.device)
         kp = self._canonical_keypoints()
         if np.isfinite(kp[:, :18]).all():
-            self.train_camera.setup_camera_offset(kp)
+            for camera in (self.train_camera, self.eval_camera,
+                           self.test_camera):
+                camera.setup_camera_offset(kp)
 
     def _init_nerf(self):
         cfg = self.cfg
@@ -494,6 +506,8 @@ class Trainer:
                 logger.info("warm-started NeRF from %s", step_dir)
         self.grid = init_occupancy(cfg.nerf.grid_size, device=self.device)
         self._build_nerf_sds_step(self.train_res)
+        self.eval_render = nerf_trainer.make_eval_render(
+            self.nerf, cfg.data.eval_h, cfg.data.eval_w, device=self.device)
 
     def _build_nerf_sds_step(self, H: int):
         cfg = self.cfg
@@ -660,11 +674,12 @@ class Trainer:
             if not r.reset_nerf:
                 nerf_model = nerf
         forced_capacity = None
-        if nerf_step_dir is None and cfg.optim.ckpt \
-                and resolve_ckpt_path(cfg.optim.ckpt) is not None:
-            # sub-stage handoff without from_nerf: buffers sized like the
-            # checkpoint, whose tensors overwrite everything learnable below
-            raw = load_pytree(resolve_ckpt_path(cfg.optim.ckpt))
+        sizing_dir = self._sizing_checkpoint()
+        if nerf_step_dir is None and sizing_dir is not None:
+            # sub-stage handoff without from_nerf, or a resumed run: buffers
+            # sized like the checkpoint, whose tensors overwrite everything
+            # learnable below (or in load_checkpoint)
+            raw = load_pytree(sizing_dir)
             forced_capacity = raw["params"]["positions"].shape[0]
             rng = np.random.default_rng(cfg.optim.seed)
             cloud = torch.as_tensor(
@@ -711,6 +726,12 @@ class Trainer:
                 logger.info("warm-started avatar from %s", step_dir)
 
         self._build_avatar_step(self.train_res)
+        rk = dict(tile_size=r.tile_size, capacity=r.tile_capacity,
+                  chunk=r.chunk, device=self.device)
+        self.eval_render = gs_trainer.make_avatar_render(
+            self.avatar_model, cfg.data.eval_h, cfg.data.eval_w, **rk)
+        self.test_render = gs_trainer.make_avatar_render(
+            self.avatar_model, cfg.data.test_h, cfg.data.test_w, **rk)
         self.densify_cfg = DensifyConfig(
             grad_threshold=r.densify_grad_threshold,
             spatial_scale=spatial,
@@ -721,6 +742,19 @@ class Trainer:
         # the reference's 15k-iteration cadence scaled to this run
         self.densification_interval = r.densification_interval \
             or max(int(self.max_iteration * 100 / 15000), 1)
+
+    def _sizing_checkpoint(self) -> Optional[Path]:
+        """The step directory whose avatar sizes the buffers: the latest
+        checkpoint of this experiment under ``--optim.resume``, else
+        ``--optim.ckpt``'s; None without either."""
+        cfg = self.cfg
+        if cfg.optim.resume:
+            step_dir = resolve_ckpt_path(self.checkpointer.dir)
+            if step_dir is not None:
+                return step_dir
+        if cfg.optim.ckpt:
+            return resolve_ckpt_path(cfg.optim.ckpt)
+        return None
 
     def _build_avatar_step(self, H: int):
         self.sds_step_fn = gs_trainer.make_avatar_sds_step(
@@ -819,8 +853,6 @@ class Trainer:
 
     def _bg_color(self) -> torch.Tensor:
         if self.cfg.stage == "nerf":
-            from ..system.background import COLOR_PRESETS
-
             c = COLOR_PRESETS.get(self.cfg.nerf.bg_mode, (0.5, 0.5, 0.5))
             if self.cfg.nerf.rand_bg_prob \
                     and self.rng.random() < self.cfg.nerf.rand_bg_prob:
@@ -835,17 +867,18 @@ class Trainer:
 
     def train(self, on_step=None, prefetch: bool = True) -> None:
         """The loop; a runtime failure saves an emergency checkpoint and
-        re-raises (the eval render of the JAX trainer's handler is not
-        ported). ``on_step(step)`` runs on the main thread after each
-        step's update, before its logging and checkpoint;
-        ``prefetch=False`` builds each batch on the main thread just before
-        its step."""
+        renders the eval track, then re-raises (an error of the eval
+        raises in its place, chained to it). ``on_step(step)`` runs on the
+        main thread after each step's update, before its logging,
+        snapshots, evaluation and checkpoint; ``prefetch=False`` builds
+        each batch on the main thread just before its step."""
         try:
             self._train_loop(on_step, prefetch)
         except RuntimeError:
             logger.exception("training crashed at step %d — saving "
                              "emergency checkpoint", self.train_step)
             self.save_checkpoint()
+            self.evaluate()
             raise
 
     def _train_loop(self, on_step=None, prefetch: bool = True) -> None:
@@ -896,10 +929,12 @@ class Trainer:
             pool.shutdown(wait=True, cancel_futures=True)
 
     def _post_step_mutates(self, step: int) -> bool:
-        """Whether the step's post-step work must see the generators
-        before the next batch draws: a checkpoint saves their states."""
-        si = self.cfg.log.save_interval
-        return bool(si and step % si == 0)
+        """Whether the step's post-step work must run before the next batch
+        draws: a snapshot or an evaluation draws from the prompt and reads
+        the cameras, a checkpoint saves the generators' states."""
+        lg = self.cfg.log
+        return any(n and step % n == 0 for n in (
+            lg.snapshot_interval, lg.evaluate_interval, lg.save_interval))
 
     def _will_mutate_shared_state(self) -> bool:
         # a resolution switch rebuilds self.train_camera
@@ -916,6 +951,12 @@ class Trainer:
                         (time.time() - t0) / self.train_step,
                         "" if ovf is None
                         else " tile_overflow=%.4f" % float(ovf))
+        if cfg.log.snapshot_interval and \
+                self.train_step % cfg.log.snapshot_interval == 0:
+            self._snapshot(batch)
+        if cfg.log.evaluate_interval and \
+                self.train_step % cfg.log.evaluate_interval == 0:
+            self.evaluate()
         if cfg.log.save_interval and \
                 self.train_step % cfg.log.save_interval == 0:
             self.save_checkpoint()
@@ -986,6 +1027,251 @@ class Trainer:
                                         model=self.avatar_model)
         logger.info("densify @%d: %d -> %d alive", self.train_step,
                     n_before, int(self.state.avatar.alive.sum()))
+
+    # ------------------------------------------------------------------
+    # snapshots, evaluation, inference
+    # ------------------------------------------------------------------
+
+    def _snapshot(self, batch) -> None:
+        """The current model from the eval track's first camera, in the
+        batch's pose, and the batch's condition image, under
+        ``snapshots/train/``; with ``--guide.grad_viz`` the SDS gradient's
+        picture too. An error raises: nothing here may hide a failed
+        launch."""
+        cfg = self.cfg
+        d = self.exp_dir / "snapshots" / "train"
+        cam = self.eval_camera(0.0)
+        if cfg.stage == "gs":
+            img, _, _ = self.eval_render(
+                self.state.avatar, batch["smpl_inputs"], cam.extrinsic[0],
+                cam.intrinsics[0], cam.tanfov[0],
+                torch.zeros((cfg.data.eval_h, cfg.data.eval_w, 3),
+                            device=self.device))
+        else:
+            img, _, _ = self.eval_render(
+                self.grid, cam.c2w[0], cam.intrinsics[0],
+                torch.full((3,), 0.5, device=self.device))
+        save_image(str(d / f"{self.train_step:06d}_rgb.png"),
+                   torch.clamp(img, 0, 1).cpu().numpy())
+        if batch.get("cond_image") is not None:
+            save_image(str(d / f"{self.train_step:06d}_cond.png"),
+                       batch["cond_image"][0].float().cpu().numpy())
+        if cfg.guide.grad_viz:
+            self._snapshot_grad_viz(d, batch, img)
+
+    @torch.no_grad()
+    def _snapshot_grad_viz(self, d, batch, img) -> None:
+        """The latent SDS gradient of the snapshot's render: its per-pixel
+        magnitude and the VAE decode of the latents moved against it (the
+        direction SDS pulls toward)."""
+        g, gp = self.guidance, self.guidance_params
+        if img.shape[-1] != 3:
+            return
+        latents = g.encode_images(gp, img[None].to(batch["text"].dtype))
+        grad = g.latent_gradients(
+            gp, latents, batch["text"][:1], batch["uncond"][:1],
+            batch["t"][:1], cond_image=batch.get("cond_image"),
+            guidance_scale=batch.get("guidance_scale"),
+            generator=self.generator)
+        mag = torch.linalg.norm(grad[0], dim=-1)
+        mag = mag / torch.clamp(mag.max(), min=1e-8)
+        save_image(str(d / f"{self.train_step:06d}_gradmag.png"),
+                   mag.cpu().numpy())
+        target = gp.vae.decode(latents.float() - grad)
+        save_image(str(d / f"{self.train_step:06d}_gradtarget.png"),
+                   torch.clamp(target[0].float(), 0, 1).cpu().numpy())
+
+    def _eval_background(self, Hc: int, Wc: int, i: int, video_bg
+                         ) -> torch.Tensor:
+        """Frame ``i``'s background: the video's frame resized to the
+        render, else the eval color (stage 2: (Hc, Wc, 3); stage 1: (3,))."""
+        cfg = self.cfg
+        if video_bg is not None:
+            bg = video_bg.frames[i % video_bg.frames.shape[0]]
+            if tuple(bg.shape[:2]) != (Hc, Wc):
+                bg = resize_images(bg[None], Hc, Wc)[0]
+            return bg
+        if cfg.stage == "gs":
+            c = COLOR_PRESETS.get(cfg.data.eval_bg_mode, cfg.render.bg_color) \
+                if cfg.data.eval_bg_mode else cfg.render.bg_color
+            return torch.as_tensor(c, dtype=torch.float32,
+                                   device=self.device).expand(Hc, Wc, 3)
+        c = COLOR_PRESETS.get(cfg.data.eval_bg_mode or "gray",
+                              (0.5, 0.5, 0.5))
+        return torch.as_tensor(c, dtype=torch.float32, device=self.device)
+
+    def evaluate(self, size: Optional[int] = None,
+                 save_dir: Optional[Path] = None,
+                 use_test_res: bool = False) -> List[np.ndarray]:
+        """Render ``size`` frames of the eval track (the test resolution
+        with ``use_test_res``) and write them as PNGs and an mp4 under
+        ``results/step_<step>``; returns the (H, W, 3) frames in [0, 1].
+
+        A motion scene animates frame i of its sequence (frame 0 under
+        ``--data.eval_fix_animation``), any other scene draws a pose from
+        the prompt. The reenact / TRAM scenes take their own camera track
+        at its own size (not under ``--data.cameras cyclical``). A
+        ``--render.use_video_background`` ending in '.mp4' is read as the
+        background, and the avatar's RGBA is also laid over it at its own
+        size (``results/step_<step>_overlay.mp4``). Stage-2 frames on the
+        eval track render in chunks of at most 8 through
+        ``make_avatar_render_frames``: the sorted blend (B2) once a frame,
+        with no padded frames, since nothing here is compiled for a
+        static chunk length."""
+        cfg = self.cfg
+        size = size or cfg.data.eval_size
+        save_dir = Path(save_dir or (
+            self.exp_dir / (cfg.log.eval_dirname or "results")))
+        camera = self.test_camera if use_test_res else self.eval_camera
+        # stage 2's avatar render (stage 1 renders through its field below)
+        render = getattr(self, "test_render", None) if use_test_res \
+            else self.eval_render
+        H = cfg.data.test_h if use_test_res else cfg.data.eval_h
+        W = cfg.data.test_w if use_test_res else cfg.data.eval_w
+        rk = dict(tile_size=cfg.render.tile_size,
+                  capacity=cfg.render.tile_capacity, chunk=cfg.render.chunk,
+                  device=self.device)
+
+        predefined = self.prompt.camera_sequences is not None \
+            and cfg.data.cameras != "cyclical" and cfg.stage == "gs"
+        video_bg = None
+        vb = cfg.render.use_video_background
+        if vb and str(vb).endswith(".mp4"):
+            frames_arr = read_video(str(vb))
+            if frames_arr.size:
+                video_bg = VideoBackground(frames_arr, device=self.device)
+        reenact_render = None
+        overlay_rgba = [] if video_bg is not None else None
+        pending = [] if cfg.stage == "gs" and not predefined and size > 1 \
+            else None
+
+        def rgba(img, alpha):
+            return np.concatenate([torch.clamp(img, 0, 1).cpu().numpy(),
+                                   alpha.cpu().numpy()[..., None]], -1)
+
+        frames = []
+        with span("evaluate.render", self.device):
+            for i in range(size):
+                p = i / max(size, 1)
+                if self.prompt.scene_type == "motion":
+                    smpl_inputs, _ = self.prompt(
+                        frame_idx=0 if cfg.data.eval_fix_animation else i)
+                else:
+                    smpl_inputs, _ = self.prompt()
+                if predefined:
+                    cp = self.prompt.get_camera_params_from_sequences(i)
+                    extr, intr = cp["extrinsic"], cp["intrinsics"]
+                    tanfov = torch.tensor(cp["tanfov"], dtype=torch.float32,
+                                          device=self.device)
+                    Hc, Wc = cp["image_height"], cp["image_width"]
+                    if reenact_render is None:
+                        reenact_render = gs_trainer.make_avatar_render(
+                            self.avatar_model, Hc, Wc, **rk)
+                else:
+                    cam = camera(p)
+                    extr, intr = cam.extrinsic[0], cam.intrinsics[0]
+                    tanfov = cam.tanfov[0]
+                    Hc, Wc = H, W
+                bg = self._eval_background(Hc, Wc, i, video_bg)
+
+                if cfg.stage == "nerf":
+                    img, _, _ = self.eval_render(self.grid, cam.c2w[0],
+                                                 cam.intrinsics[0], bg)
+                elif pending is not None:
+                    pending.append((smpl_inputs, extr, intr, tanfov, bg))
+                    frames.append(None)   # filled by the chunked pass
+                    continue
+                else:
+                    r = reenact_render if predefined else render
+                    if overlay_rgba is not None:
+                        # over a transparent background, composited here;
+                        # the RGBA kept for the overlay export
+                        img0, alpha, _ = r(
+                            self.state.avatar, smpl_inputs, extr, intr,
+                            tanfov, torch.zeros((Hc, Wc, 3),
+                                                device=self.device))
+                        overlay_rgba.append(rgba(img0, alpha))
+                        img = img0 + (1.0 - alpha)[..., None] * bg
+                    else:
+                        img, _, _ = r(self.state.avatar, smpl_inputs, extr,
+                                      intr, tanfov, bg)
+                frames.append(torch.clamp(img, 0, 1).cpu().numpy())
+
+            if pending:
+                rf = gs_trainer.make_avatar_render_frames(
+                    self.avatar_model, H, W, **rk)
+                Fc = min(8, len(pending))
+                for s0 in range(0, len(pending), Fc):
+                    chunk = pending[s0: s0 + Fc]
+                    obs = type(chunk[0][0])(*[
+                        torch.stack(xs) for xs in zip(*[c[0] for c in chunk])])
+                    extr, intr, tf, bgs = (torch.stack([c[k] for c in chunk])
+                                           for k in range(1, 5))
+                    if overlay_rgba is not None:
+                        imgs, alphas, _ = rf(
+                            self.state.avatar, obs, extr, intr, tf,
+                            torch.zeros((H, W, 3), device=self.device))
+                        for j in range(len(chunk)):
+                            overlay_rgba.append(rgba(imgs[j], alphas[j]))
+                        imgs = imgs + (1.0 - alphas)[..., None] * bgs
+                    else:
+                        imgs, _, _ = rf(self.state.avatar, obs, extr, intr,
+                                        tf, bgs)
+                    imgs = torch.clamp(imgs, 0, 1).cpu().numpy()
+                    frames[s0: s0 + len(chunk)] = list(imgs)
+
+        with span("evaluate.write"):
+            step_dir = save_dir / f"step_{self.train_step:06d}"
+            if cfg.data.eval_save_image:
+                for i, f in enumerate(frames):
+                    save_image(str(step_dir / f"{i:04d}.png"), f)
+            if cfg.data.eval_save_video and len(frames) > 1:
+                write_video(str(step_dir) + ".mp4", frames,
+                            fps=cfg.data.eval_video_fps)
+            if overlay_rgba:
+                n = video_bg.frames.shape[0]
+                vid = [video_bg.frames[i % n].cpu().numpy()
+                       for i in range(len(overlay_rgba))]
+                overlay_frames_on_video(
+                    overlay_rgba, vid, str(step_dir) + "_overlay.mp4",
+                    fps=cfg.data.eval_video_fps, premultiplied=True)
+        return frames
+
+    def full_eval(self) -> List[np.ndarray]:
+        """``--log.eval_only``: ``data.full_eval_size`` frames at the test
+        resolution, then their R-Precision against the run's prompt."""
+        frames = self.evaluate(size=self.cfg.data.full_eval_size,
+                               use_test_res=True)
+        with span("trainer.r_precision", self.device):
+            score = self.compute_r_precision(frames)
+        if score is not None:
+            logger.info("CLIP R-Precision(top-1) vs view prompts: %.3f",
+                        score)
+        return frames
+
+    def compute_r_precision(self, frames) -> Optional[float]:
+        """The CLIP retrieval score of the frames against the run's prompt,
+        from the towers under ``<guidance weights>/clip_retrieval/``
+        (``utils/r_precision.py:load_r_precision``); None when that
+        directory holds no weights. With ``--log.debug`` the tiny random
+        towers and random ids exercise the path (the score means
+        nothing). Every other error raises."""
+        from ..utils import r_precision as RP
+
+        cfg = self.cfg
+        if cfg.log.debug:
+            rp = RP.make_tiny_r_precision(self.generator, device=self.device)
+            ids = np.asarray(self.rng.integers(1, 200, size=(len(frames),
+                                                             16)), np.int32)
+            return rp.retrieve(np.stack(frames), ids)
+        weights_dir = Path(cfg.guide.weights_dir or paths.GUIDANCE_WEIGHTS)
+        rp = RP.load_r_precision(weights_dir / "clip_retrieval",
+                                 device=self.device)
+        if rp is None:
+            logger.warning("R-Precision skipped: no CLIP weights under %s",
+                           weights_dir / "clip_retrieval")
+            return None
+        return rp.retrieve(np.stack(frames), [cfg.guide.text] * len(frames))
 
     # ------------------------------------------------------------------
     # checkpoints

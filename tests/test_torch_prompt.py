@@ -273,11 +273,17 @@ def test_smpl_prompt_matches_jax(scene):
     assert tpr._rng.bit_generator.state == jpr._rng.bit_generator.state
 
 
-def test_prompt_refuses_unported_scenes():
+def test_prompt_refuses_unported_scenes(tmp_path, monkeypatch):
+    """'vposer' refuses; a motion scene is ported and goes to its loader,
+    which raises for a file that is not there."""
+    from dreamwaltz_g_tpu_torch.configs import paths
+
     _, tbody = _bodies(num_vertices=300, num_joints=55)
-    for scene in ("vposer", "demo,talkshow"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TPr.SMPLPrompt(_pcfg(PromptConfig, scene), tbody)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        TPr.SMPLPrompt(_pcfg(PromptConfig, "vposer"), tbody)
+    monkeypatch.setattr(paths, "DEMO_MOTIONS", str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        TPr.SMPLPrompt(_pcfg(PromptConfig, "demo,talkshow"), tbody)
 
 
 @pytest.mark.parametrize("part", ["hands", "face", "head", "arms", "wrists",

@@ -226,11 +226,12 @@ def test_train_batch_matches_jax(tmp_path, stage):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--log.snapshot_interval", "10"], ["--log.evaluate_interval", "10"],
-    ["--log.eval_only", "true"], ["--log.pretrain_only", "true"],
+    ["--log.nerf2mesh", "true"], ["--log.nerf2gs", "true"],
+    ["--render.use_gs_background", "bg.ply"], ["--log.pretrain_only", "true"],
     ["--render.gs_type", "vanilla"], ["--nerf.dmtet", "true"],
     ["--render.use_mlp_background", "true"], ["--optim.batch_size", "2"],
-    ["--guide.diffusion", "sdxl10"], ["--prompt.scene", "vposer"]])
+    ["--guide.diffusion", "sdxl10"], ["--prompt.scene", "vposer"],
+    ["--log.check", "true"]])
 def test_unported_paths_refuse(tmp_path, flags):
     from dreamwaltz_g_tpu_torch.main import main
 
@@ -247,7 +248,10 @@ def _card_defaults():
     """The constructors the trainer calls, each without ``device=``."""
     from dreamwaltz_g_tpu_torch.configs import DataConfig, GuideConfig
     from dreamwaltz_g_tpu_torch.data.camera import to_screen
-    from dreamwaltz_g_tpu_torch.data.sampler import RandomCamera4Avatar
+    from dreamwaltz_g_tpu_torch.data.sampler import (
+        CyclicalCamera4Avatar,
+        RandomCamera4Avatar,
+    )
     from dreamwaltz_g_tpu_torch.guidance.sds import ScoreDistillation
     from dreamwaltz_g_tpu_torch.guidance.time_prior import (
         TimePrioritizedScheduler,
@@ -257,9 +261,22 @@ def _card_defaults():
     from dreamwaltz_g_tpu_torch.human.poses import canonical_body_pose
     from dreamwaltz_g_tpu_torch.human.prompt import parse_betas
     from dreamwaltz_g_tpu_torch.nerf.renderer import init_occupancy
+    from dreamwaltz_g_tpu_torch.system.background import VideoBackground
     from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+    from dreamwaltz_g_tpu_torch.utils import r_precision as RP
 
     return {
+        "VideoBackground": lambda: VideoBackground(
+            np.zeros((2, 8, 8, 3), np.float32)),
+        "RPrecision": lambda: RP.RPrecision(
+            RP.CLIPVisionModel(RP.tiny_vision_config()),
+            RP.CLIPTextTower(RP.tiny_text_config(), 16)),
+        "make_tiny_r_precision": lambda: RP.make_tiny_r_precision(
+            torch.Generator()),
+        "preprocess_images": lambda: RP.preprocess_images(
+            np.zeros((1, 8, 8, 3), np.float32), 4),
+        "CyclicalCamera4Avatar": lambda: CyclicalCamera4Avatar(
+            DataConfig(), 8, 8),
         "init_occupancy": lambda: init_occupancy(8),
         "make_schedule": lambda: make_schedule(),
         "to_screen": lambda: to_screen(1, 8, 8),
@@ -284,7 +301,11 @@ def _card_defaults():
                                   "TimePrioritizedScheduler",
                                   "RandomCamera4Avatar",
                                   "canonical_body_pose",
-                                  "conditions_to_batch", "Trainer"])
+                                  "conditions_to_batch", "Trainer",
+                                  "VideoBackground", "RPrecision",
+                                  "make_tiny_r_precision",
+                                  "preprocess_images",
+                                  "CyclicalCamera4Avatar"])
 def test_constructor_defaults_to_cuda(name):
     """Without ``device=`` (the trainer: without ``--log.platform``) each
     asks for CUDA, and on a machine without it raises instead of running

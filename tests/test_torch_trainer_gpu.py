@@ -268,3 +268,64 @@ def test_cli_chain_card_matches_cpu(tmp_path, monkeypatch):
         # entries whose reach is below half a step's update: there a
         # skipped or flipped update is seen
         assert moved > 0, f"stage {stage}: no entry holds Adam's update"
+
+
+TOL_B2 = 5e-3    # chip_smoke.py's TOL_RGB_ALPHA: B2 against its plain version
+
+
+def test_full_eval_card_matches_cpu(tmp_path, monkeypatch):
+    """``--log.eval_only`` on one tiny avatar checkpoint (trained on the
+    CPU, and written again under the card's experiment root without its
+    generator states, which are the CPU generators'; the demo motion's
+    eval draws nothing): a demo motion's 4 frames at 24 x 32 (partial
+    16-pixel tiles) through B2 on the card, once a frame, against the same
+    frames on the CPU, within B2's tolerance."""
+    import numpy as np
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dreamwaltz_g_tpu_torch.configs import paths
+    from dreamwaltz_g_tpu_torch.main import main
+    from dreamwaltz_g_tpu_torch.ops import blend
+    from dreamwaltz_g_tpu_torch.training.checkpoint import (
+        load_pytree,
+        resolve_ckpt_path,
+        save_pytree,
+    )
+    from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+
+    t = np.linspace(0, 1, 6, dtype=np.float32)[:, None]
+    np.save(tmp_path / "talkshow.npy",
+            0.3 * np.sin(t + np.arange(265, dtype=np.float32)))
+    monkeypatch.setattr(paths, "DEMO_MOTIONS", str(tmp_path))
+    main(["--stage", "gs", "--optim.iters", "1", "--log.save_interval", "1",
+          "--render.n_gaussians", "128"] + _tiny(tmp_path, "av", "cpu"))
+    step_dir = resolve_ckpt_path(tmp_path / "cpu" / "av")
+    tree = load_pytree(step_dir)
+    del tree["rng"]
+    save_pytree(tmp_path / "cuda" / "av" / "checkpoints" / step_dir.name,
+                tree)
+    frames = {}
+    evaluate = Trainer.evaluate
+
+    def record(self, *args, **kw):
+        out = evaluate(self, *args, **kw)
+        frames[self.device.type] = out
+        return out
+
+    monkeypatch.setattr(Trainer, "evaluate", record)
+    argv = ["--stage", "gs", "--log.eval_only", "true",
+            "--optim.resume", "true", "--prompt.scene", "demo,talkshow",
+            "--data.full_eval_size", "4", "--data.test_h", "24",
+            "--data.test_w", "32", "--render.tile_size", "16",
+            "--render.n_gaussians", "128"]
+    for platform in ("cuda", "cpu"):
+        blend.blend_sorted.launches = 0
+        main(argv + _tiny(tmp_path, "av", platform))
+        if platform == "cuda":
+            assert blend.blend_sorted.launches == 4
+    assert len(frames["cuda"]) == len(frames["cpu"]) == 4
+    for a, b in zip(frames["cuda"], frames["cpu"]):
+        assert a.shape == b.shape == (24, 32, 3)
+        assert float(np.abs(a - b).max()) <= TOL_B2
+    assert max(float(np.ptp(f)) for f in frames["cpu"]) > 0.05
