@@ -136,6 +136,21 @@ Phases, one JSON line each:
                    synthetic Motion-X-ReEnact sequence (30 frames of
                    720 x 1280 on its own cameras over its inpainted video,
                    the overlay mp4); counts set to 0 before each run and
+                   read after it;
+22. cli_modes   -- in the same directory, the CLI's other modes through
+                   ``dreamwaltz_g_tpu_torch.main.main`` at full width:
+                   ``scripts/pretrain_nerf.sh``'s arguments for 3 steps
+                   (no kernel; the checkpoint, and step 1.1's warm start
+                   from it equal to it to every bit), ``--log.nerf2gs``
+                   from step 1.2's field for 3 steps (B1 forward and
+                   backward once a step; the frozen field unchanged),
+                   ``--log.check --log.check_sd`` on step 2.3's avatar
+                   (the condition images and the 50-step DDIM samples;
+                   flash forwards equal to the models' structural count,
+                   no backward) and ``--log.nerf2mesh`` on step 1.2's field
+                   at resolution 128 (an OBJ with valid indices, its
+                   texture; the field queries' device time apart from the
+                   host's mesh work); counts set to 0 before each run and
                    read after it.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
@@ -2275,12 +2290,14 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
         check_two_stage(card, runs, handoff, warm, sequential)
         inference = cli_inference(dev, card, kernel_fns, tmp, argv, args,
                                   exp, times_ms)
+        free()
+        modes = cli_modes(dev, card, kernel_fns, tmp, argv, args, exp)
     finally:
         (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS, paths.DEMO_MOTIONS,
          paths.MOTIONX_REENACT_ROOT) = old_paths
         shutil.rmtree(tmp, ignore_errors=True)
     return {step: line["launches"] for step, line in runs.items()}, \
-        inference
+        inference, modes
 
 
 def check_two_stage(card, runs, handoff, warm, sequential):
@@ -2432,8 +2449,8 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
     1024^2) and its R-Precision with the full-size random towers; the
     restored avatar equal to 2.3's last checkpoint to every bit; 60 PNGs
     and an mp4 of 60 1024^2 frames; frames 0 and 59 rendered again after
-    the run, finite, covered and equal to their PNGs; B2 60 times, the
-    table blends and flash never.
+    the run, finite, covered and within one 8-bit level of their PNGs; B2
+    60 times, the table blends and flash never.
     (b) steps 1.2 and 2.3 for 2 steps with a snapshot every step and an
     evaluation every 2: 8 eval PNGs at 512^2 and the mp4, the snapshots;
     flash (15, 1) a step, the table blends (0, 0) / (1, 1), B2 0 in stage 1
@@ -2450,7 +2467,6 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
     import numpy as np
     import torch
 
-    from dreamwaltz_g_tpu_torch import main as M
     from dreamwaltz_g_tpu_torch.configs import paths
     from dreamwaltz_g_tpu_torch.data.motion.loaders import MotionXReEnact
     from dreamwaltz_g_tpu_torch.training.checkpoint import (
@@ -2462,7 +2478,6 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
         make_avatar_render_frames,
     )
     from dreamwaltz_g_tpu_torch.training.trainer import avatar_tree
-    from dreamwaltz_g_tpu_torch.utils import timing
     from dreamwaltz_g_tpu_torch.utils.media import (
         load_image,
         read_video,
@@ -2472,24 +2487,7 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
     out = tmp / "outputs"
 
     def drive(argv_):
-        """main.main(argv_) with the counts and timing spans; its fields."""
-        for fn in kernel_fns.values():
-            fn.launches = 0
-        timing.records.clear()
-        timing.enabled = True
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        try:
-            tr = M.main(argv_)
-            torch.cuda.synchronize()
-        finally:
-            timing.enabled = False
-        run = {"wall_s": time.perf_counter() - t0,
-               "launches": {k: fn.launches for k, fn in kernel_fns.items()},
-               "spans_ms": {k: timing.times(k) for k in timing.records},
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        return tr, run
+        return cli_drive(kernel_fns, argv_)
 
     def free():
         gc.collect()
@@ -2541,9 +2539,12 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
             rerender[i] = dict(
                 finite=bool(np.isfinite(img).all()),
                 coverage=float((alpha > 0.01).float().mean()),
-                png_max_diff=float(np.abs(
-                    to_uint8(img).astype(np.float32) / 255.0
-                    - load_image(str(pngs[i]))).max()) if len(pngs) > i else None,
+                # in 8-bit levels, counted as integers: a level's float32
+                # difference lies on either side of 1 / 255
+                png_max_levels=int(np.abs(
+                    to_uint8(img).astype(np.int16)
+                    - np.rint(load_image(str(pngs[i])) * 255.0).astype(
+                        np.int16)).max()) if len(pngs) > i else None,
                 image=img)
     # the render span's parts, after the counts: the prompt's draws (an
     # SMPL-X forward a frame) and one chunk of 8 frames through the frame
@@ -2670,7 +2671,7 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
              f"an mp4 of {a['mp4_frames']} x {a['mp4_size']}")
     for i, r in a["rerender"].items():
         if not r["finite"] or r["coverage"] <= 0.0 \
-                or r["png_max_diff"] is None or r["png_max_diff"] > 1 / 255:
+                or r["png_max_levels"] is None or r["png_max_levels"] > 1:
             fail(f"cli_inference step 3: frame {i} {r}")
     if a["frames_differ"] <= 0.0:
         fail("cli_inference step 3: frame 0 equals the last frame")
@@ -2698,6 +2699,339 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
         fail(f"cli_inference reenact: {c}")
     return {"step3": a["launches"], "reenact": c["launches"],
             **{f"{k}-evaluate": v["launches"] for k, v in b.items()}}
+
+
+def cli_drive(kernel_fns, argv_):
+    """``dreamwaltz_g_tpu_torch.main.main(argv_)`` with the counts set to 0
+    just before it and read just after, and the timing spans on; returns
+    (its result, its fields: wall s, launches, spans, peak memory)."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch import main as M
+    from dreamwaltz_g_tpu_torch.utils import timing
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    timing.records.clear()
+    timing.enabled = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        tr = M.main(argv_)
+        torch.cuda.synchronize()
+    finally:
+        timing.enabled = False
+    run = {"wall_s": time.perf_counter() - t0,
+           "launches": {k: fn.launches for k, fn in kernel_fns.items()},
+           "spans_ms": {k: timing.times(k) for k in timing.records},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return tr, run
+
+
+def flash_unet_launches(gparams, latent, nets):
+    """Flash launches of one CFG eps pass: every self-attention of the UNet
+    (down, mid, up) and, with ``nets`` = 2, of the ControlNet (down, mid),
+    whose tokens and head dimension lie in ``flash_domain``."""
+    cfg = gparams.unet.cfg
+    n = 0
+    last = len(cfg.block_out_channels) - 1
+    for i, ch in enumerate(cfg.block_out_channels):
+        tokens = (latent >> i) ** 2
+        d = ch // cfg.block_heads(ch)
+        if not flash_domain(tokens, d):
+            continue
+        depth = cfg.block_depth(i)
+        if cfg.attn_down[i]:
+            n += cfg.layers_per_block * depth * nets          # down blocks
+            n += (cfg.layers_per_block + 1) * depth           # up blocks
+        if i == last:
+            n += depth * nets                                 # mid block
+    return n
+
+
+def vae_flash_launches(gparams, latent):
+    """The VAE's mid-block attention (encoder's or decoder's: one each, at
+    the last block's width over the latent grid) in the flash domain."""
+    return int(flash_domain(latent * latent,
+                            gparams.vae.cfg.block_out_channels[-1]))
+
+
+def expected_check_sd_launches(gparams, latent, steps, n_control, n_plain):
+    """Flash forwards of ``_check_sd``: each sample ``steps`` CFG passes
+    (UNet + ControlNet for the ``n_control`` condition views, the UNet
+    alone for the ``n_plain`` guidance scales) and one VAE decode."""
+    vae = vae_flash_launches(gparams, latent)
+    return n_control * (steps * flash_unet_launches(gparams, latent, 2)
+                        + vae) \
+        + n_plain * (steps * flash_unet_launches(gparams, latent, 1) + vae)
+
+
+MODES_STEPS = 3     # pretrain and nerf2gs steps in phase cli_modes
+
+
+def obj_stats(path):
+    """Counts of an OBJ's vertices, UVs and faces, and whether every face's
+    vertex and UV index lies in range."""
+    nv = nvt = 0
+    faces = []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("v "):
+                nv += 1
+            elif line.startswith("vt "):
+                nvt += 1
+            elif line.startswith("f "):
+                faces.append([tuple(int(x) for x in c.split("/"))
+                              for c in line.split()[1:]])
+    ok = all(len(f) == 3 and all(1 <= v <= nv and 1 <= t <= nvt
+                                 for v, t in f) for f in faces)
+    return {"vertices": nv, "uvs": nvt, "faces": len(faces),
+            "indices_valid": ok}
+
+
+def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
+    """Phase ``cli_modes``, in ``cli_two_stage``'s directory after
+    ``cli_inference``: the CLI's other modes through
+    ``dreamwaltz_g_tpu_torch.main.main`` at full width, each run with the
+    counts set to 0 just before it and read just after.
+
+    (a) ``scripts/pretrain_nerf.sh``'s arguments for ``MODES_STEPS`` steps:
+    a checkpoint written, finite losses, the field moved, no kernel
+    launched; then a stage-1 ``Trainer`` warm-started from it
+    (``--optim.ckpt``, step 1.1's flag) holds its parameters to every bit.
+    (b) ``--log.nerf2gs`` from step 1.2's field for ``MODES_STEPS`` steps:
+    B1 forward and backward once a step, nothing else; finite losses; the
+    frozen field equal to its checkpoint to every bit; the avatar moved;
+    the field's target render timed beside the step.
+    (c) ``--log.check --log.check_sd`` on step 2.3's avatar with
+    ``--optim.iters 0`` (construction only) and the default 50-step DDIM
+    grid: the four condition images and the six samples written, finite
+    and not flat; flash forwards equal to ``expected_check_sd_launches``,
+    no backward, no blend.
+    (d) ``--log.nerf2mesh`` on step 1.2's field at the default resolution
+    128 and texture 1024: ``mesh.obj`` / ``.mtl`` / ``albedo.png``, faces
+    > 0, every index valid; the field queries' device time apart from the
+    host's mesh work. Each run prints one line (wall s, spans, launches,
+    peak memory and its own fields). Returns each run's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dreamwaltz_g_tpu_torch.configs import parse_args
+    from dreamwaltz_g_tpu_torch.guidance.sds import ScoreDistillation
+    from dreamwaltz_g_tpu_torch.training.checkpoint import (
+        load_pytree,
+        resolve_ckpt_path,
+    )
+    from dreamwaltz_g_tpu_torch.training.trainer import Trainer, avatar_tree
+    from dreamwaltz_g_tpu_torch.utils.media import load_image
+
+    out = tmp / "outputs"
+    quiet = {k: 0 for k in kernel_fns}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def differs(got, want, name):
+        if isinstance(got, dict):
+            return [n for k in got for n in differs(got[k], want[k],
+                                                    f"{name}.{k}")]
+        return [] if torch.equal(got, want) else [name]
+
+    def first_state(method, take):
+        """Wrap ``Trainer.<method>`` so that the built trainer's starting
+        tensors are copied by ``take(trainer)`` as it returns."""
+        orig = getattr(Trainer, method)
+        seen = {}
+
+        def wrapped(self):
+            orig(self)
+            seen.update(take(self))
+
+        return orig, wrapped, seen
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.detach().clone()
+                for k, v in tree.items()}
+
+    # -- (a) the NeRF pretrain, then step 1.1's warm start from it ---------
+    pre_exp = "pretrain/instant-ngp-adult-neutral"
+    orig, wrapped, start = first_state(
+        "_init_nerf", lambda t: {"nerf": clone(t.nerf.state_dict())})
+    Trainer._init_nerf = wrapped
+    try:
+        tr, a = cli_drive(kernel_fns, [
+            "--stage", "nerf", "--log.pretrain_only", "true",
+            "--log.exp_root", str(out), "--log.exp_name", pre_exp,
+            "--optim.iters", str(MODES_STEPS), "--data.train_w", "512",
+            "--data.train_h", "512", "--prompt.scene", "canonical",
+            "--guide.text", CLI_TEXT, "--log.snapshot_interval", "1"])
+    finally:
+        Trainer._init_nerf = orig
+    ckpt = resolve_ckpt_path(out / pre_exp)
+    saved = load_pytree(ckpt, map_location=dev)["params"] if ckpt else {}
+    spans = a["spans_ms"]
+    a.update(steps=tr.train_step, loss=list(tr.losses),
+             batch_ms=spans["trainer.pretrain_batch"],
+             step_ms=spans["trainer.pretrain_step"],
+             checkpoint=ckpt and ckpt.name,
+             moved=[k for k, v in tr.nerf.state_dict().items()
+                    if not torch.equal(v, start["nerf"][k])],
+             saved_differs=differs(clone(tr.nerf.state_dict()), saved,
+                                   "nerf") if ckpt else None)
+    tr = None
+    free()
+    t0 = time.perf_counter()
+    warm = Trainer(parse_args(argv("1.2", *args["1.2"], name="dancer/warm")
+                              + ["--optim.ckpt", str(out / pre_exp)]))
+    a["warm_start_differs"] = differs(clone(warm.nerf.state_dict()), saved,
+                                      "nerf")
+    a["warm_start_build_s"] = time.perf_counter() - t0
+    warm = None
+    free()
+
+    # -- (b) the nerf2gs distill from step 1.2's field ---------------------
+    orig, wrapped, start = first_state(
+        "_init_avatar", lambda t: {"avatar": clone(avatar_tree(
+            t.state.avatar, t.avatar_model))})
+    Trainer._init_avatar = wrapped
+    try:
+        tr, b = cli_drive(kernel_fns, argv(
+            "2.1", *args["2.1"], n=MODES_STEPS, name="dancer/nerf2gs")
+            + ["--log.nerf2gs", "true"])
+    finally:
+        Trainer._init_avatar = orig
+    field = load_pytree(resolve_ckpt_path(out / exp["1.2"]),
+                        map_location=dev)["params"]
+    spans = b["spans_ms"]
+    b.update(steps=tr.train_step, loss=list(tr.losses),
+             target_differs=differs(clone(tr._nerf_guidance[0].state_dict()),
+                                    field, "nerf"),
+             avatar_moved=[n for n in differs(
+                 clone(avatar_tree(tr.state.avatar, tr.avatar_model)),
+                 start["avatar"], "avatar")],
+             train_res=tr.train_res,
+             target_render_ms=[t[0] for t in spans["trainer.nerf2gs_target"]],
+             step_ms=[t[0] for t in spans["trainer.nerf2gs_step"]],
+             export_ms=spans["trainer.export"][0])
+    tr = None
+    free()
+
+    # -- (c) check / check_sd on step 2.3's avatar -------------------------
+    samples = []
+    orig_sample = ScoreDistillation.sample_images
+
+    def sample(self, *a_, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        img = orig_sample(self, *a_, **kw)
+        ev[1].record()
+        samples.append(dict(events=ev, finite=bool(torch.isfinite(img).all()),
+                            shape=list(img.shape),
+                            steps=kw["num_inference_steps"],
+                            controlnet=kw.get("cond_image") is not None))
+        return img
+
+    ScoreDistillation.sample_images = sample
+    try:
+        tr, c = cli_drive(kernel_fns, argv(
+            "2.3", *args["2.3"], n=0) + ["--optim.resume", "true",
+                                         "--log.check", "true",
+                                         "--log.check_sd", "true"])
+    finally:
+        ScoreDistillation.sample_images = orig_sample
+    torch.cuda.synchronize()
+    for s in samples:
+        ev = s.pop("events")
+        s["ms"] = ev[0].elapsed_time(ev[1])
+    check_dir = out / exp["2.3"] / "check"
+    files = {}
+    for f in sorted(check_dir.glob("*.png")):
+        img = load_image(str(f))
+        files[f.name] = {"std": float(img.std()),
+                         "finite": bool(np.isfinite(img).all()),
+                         "size": list(img.shape)}
+    gp = tr.guidance_params
+    latent = tr.guidance.latent_size
+    steps = tr.cfg.log.check_sd_steps
+    n_ctl = sum(s["controlnet"] for s in samples)
+    with torch.no_grad():
+        z = torch.randn((1, latent, latent, 4), device=dev)
+        decode_ms = cuda_ms(lambda: gp.vae.decode(z), 2)
+    spans = c["spans_ms"]
+    c.update(files=files, samples=samples, ddim_steps=steps,
+             latent=latent, vae_decode_ms=decode_ms,
+             ddim_ms_per_step=[(s["ms"] - decode_ms) / steps
+                               for s in samples],
+             check_sd_ms=spans["trainer.check_sd"][0],
+             expected_flash_fwd=expected_check_sd_launches(
+                 gp, latent, steps, n_ctl, len(samples) - n_ctl),
+             conditions=list(tr.cfg.guide.controlnet_condition),
+             guidance_scale=tr.cfg.guide.guidance_scale)
+    tr = gp = None
+    free()
+
+    # -- (d) nerf2mesh on step 1.2's field ---------------------------------
+    tr, dd = cli_drive(kernel_fns, argv("1.2", *args["1.2"], name=exp["1.2"])
+                       + ["--optim.resume", "true",
+                          "--log.nerf2mesh", "true"])
+    mesh = out / exp["1.2"] / "mesh"
+    spans = dd["spans_ms"]
+    q = spans.get("mesh.field_query", [])
+    total_dev, total_host = spans["trainer.export_mesh"][0]
+    query_host = sum(h for _, h in q)
+    march_dev, march_host = spans["mesh.marching_tets"][0]
+    dd.update(files=sorted(f.name for f in mesh.iterdir()),
+              obj=obj_stats(mesh / "mesh.obj"),
+              texture=list(load_image(str(mesh / "albedo.png")).shape),
+              resolution=tr.cfg.log.mesh_resolution,
+              texture_size=tr.cfg.log.mesh_texture_size,
+              field_query_device_ms=[d for d, _ in q],
+              field_query_host_ms=[h for _, h in q],
+              marching_tets_ms=[march_dev, march_host],
+              export_total_ms=[total_dev, total_host],
+              host_mesh_work_ms=total_host - query_host - march_host)
+    tr = None
+    free()
+
+    for run, line in (("pretrain", a), ("nerf2gs", b), ("check_sd", c),
+                      ("nerf2mesh", dd)):
+        emit(phase="cli_modes", run=run, **line, **card)
+    if a["steps"] != MODES_STEPS or a["checkpoint"] is None \
+            or not all(math.isfinite(x) for x in a["loss"]) \
+            or not a["moved"] or a["saved_differs"] \
+            or a["launches"] != quiet or a["warm_start_differs"]:
+        fail(f"cli_modes pretrain: {a}")
+    want_b = dict(quiet, blend_train_fwd=MODES_STEPS,
+                  blend_train_bwd=MODES_STEPS)
+    if b["steps"] != MODES_STEPS or b["launches"] != want_b \
+            or not all(math.isfinite(x) for x in b["loss"]) \
+            or b["target_differs"] or not b["avatar_moved"]:
+        fail(f"cli_modes nerf2gs: {b}, expected launches {want_b}")
+    azims = (0, 90, 180, 270)
+    scales = {7.5, float(c["guidance_scale"])}
+    want_files = {f"cond_{cond}_az{az}.png" for az in azims
+                  for cond in c["conditions"] if cond != "depth_raw"}
+    want_files |= {f"control_az{az}.png" for az in azims}
+    want_files |= {f"sd_{g:g}.png" for g in scales}
+    want_c = dict(quiet, flash_attn_fwd=c["expected_flash_fwd"])
+    if set(c["files"]) != want_files or c["launches"] != want_c \
+            or any(f["std"] <= 0.0 or not f["finite"]
+                   for f in c["files"].values()) \
+            or not all(s["finite"] for s in c["samples"]) \
+            or len(c["samples"]) != len(azims) + len(scales):
+        fail(f"cli_modes check_sd: {c}, expected files {sorted(want_files)}"
+             f" and launches {want_c}")
+    o = dd["obj"]
+    if dd["launches"] != quiet or o["faces"] <= 0 \
+            or not o["indices_valid"] \
+            or set(dd["files"]) != {"mesh.obj", "mesh.mtl", "albedo.png"}:
+        fail(f"cli_modes nerf2mesh: {dd}")
+    return {"pretrain": a["launches"], "nerf2gs": b["launches"],
+            "check_sd": c["launches"], "nerf2mesh": dd["launches"]}
 
 
 def _leaf_names(tree, name="avatar"):
@@ -3415,9 +3749,11 @@ def main():
     # -- the two-stage run through the port's CLI --------------------------
     guidance = gparams = step = tstate = None
     torch.cuda.empty_cache()
-    cli_runs, inference_runs = cli_two_stage(dev, card, train_fns, frame_ms)
+    cli_runs, inference_runs, mode_runs = cli_two_stage(dev, card, train_fns,
+                                                        frame_ms)
     cli = {name: sum(run[name] for run in list(cli_runs.values())
-                     + list(inference_runs.values()))
+                     + list(inference_runs.values())
+                     + list(mode_runs.values()))
            for name in train_fns}
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
@@ -3458,7 +3794,10 @@ def main():
               p_ms["blend_train_fwd"], bounds["blend_train_fwd"],
               kernel_ms=errs_avatar[4]["blend_train_fwd"],
               launches_by_path={"train": train_launches["blend_train_fwd"],
-                                "cli": cli["blend_train_fwd"]}),
+                                "cli": cli["blend_train_fwd"],
+                                "cli_modes": {
+                                    k: v["blend_train_fwd"]
+                                    for k, v in mode_runs.items()}}),
         entry("blend_train_bwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_bwd"] + cli["blend_train_bwd"],
@@ -3466,7 +3805,10 @@ def main():
               p_ms["blend_train_bwd"], bounds["blend_train_bwd"],
               kernel_ms=errs_avatar[4]["blend_train_bwd"],
               launches_by_path={"train": train_launches["blend_train_bwd"],
-                                "cli": cli["blend_train_bwd"]}),
+                                "cli": cli["blend_train_bwd"],
+                                "cli_modes": {
+                                    k: v["blend_train_bwd"]
+                                    for k, v in mode_runs.items()}}),
         entry("blend_tiles_eval", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:126",
               train_launches["blend_tiles_eval"],
@@ -3482,7 +3824,10 @@ def main():
               kernel_ms=f_fwd["fwd_kernel_ms"],
               launches_by_path={"train": train_launches["flash_attn_fwd"],
                                 "nerf_train": nerf_flash[0],
-                                "cli": cli["flash_attn_fwd"]},
+                                "cli": cli["flash_attn_fwd"],
+                                "cli_modes": {
+                                    k: v["flash_attn_fwd"]
+                                    for k, v in mode_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]

@@ -25,9 +25,12 @@ The pixel-gradient hooks (``make_pgc``, ``make_rgb_grad_hook``,
 the rendered image whose backward clips, normalizes or suppresses its
 gradient, as ``torch.autograd.Function``s.
 
+``sample_images`` walks a DDIM grid from pure noise through the same eps
+stack and decodes the latents: the ``--log.check_sd`` samples.
+
 Not ported yet: the csd / nfsd / ism / custom families, the denoise modes
-(z0, x0), ``sample_images`` and 4-channel latent renders
-(``latent_input``); asking for a family that is not ported raises.
+(z0, x0) and 4-channel latent renders (``latent_input``); asking for a
+family that is not ported raises.
 """
 from __future__ import annotations
 
@@ -147,6 +150,45 @@ class ScoreDistillation:
         eps_uncond, eps_text = eps[:B], eps[B:]
         return eps_uncond + guidance_scale * (eps_text - eps_uncond), \
             eps_uncond, eps_text
+
+    @torch.no_grad()
+    def sample_images(self, params: GuidanceParams, text_embeds,
+                      uncond_embeds,
+                      generator: Optional[torch.Generator] = None,
+                      num_inference_steps: int = 50, guidance_scale=None,
+                      cond_image=None, noise: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """Text -> image DDIM sampling from pure noise (the ``--log.check_sd``
+        export): ``num_inference_steps`` strides of ``T // steps`` from
+        ``T - stride`` down, each a CFG eps (through the ControlNet when
+        ``cond_image`` and a ControlNet are given) and ``schedule.ddim_step``
+        (alpha-bar 1 past t = 0, where a stride does not divide T), the
+        carry cast back to the embeddings' type each step; then the VAE
+        decode of the float32 latents. The noise (B, h, w, 4) is ``noise``
+        or a standard normal draw from ``generator``. Returns (B, H, W, 3)
+        images in [0, 1]."""
+        gs = self.guidance_scale if guidance_scale is None else guidance_scale
+        dt = text_embeds.dtype
+        dev = text_embeds.device
+        B = text_embeds.shape[0]
+        T = self.schedule.num_train_timesteps
+        stride = T // num_inference_steps
+        shape = (B, self.latent_size, self.latent_size, 4)
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass noise= or generator=")
+            noise = torch.randn(shape, generator=generator, device=dev,
+                                dtype=dt)
+        x = noise.to(dev, dt)
+        for i in range(num_inference_steps):
+            t_cur = torch.full((B,), T - stride - i * stride,
+                               dtype=torch.long, device=dev)
+            with layers.jax_promotion(self.jax_promotion):
+                eps, _, _ = self._cfg_eps(params, x, t_cur, text_embeds,
+                                          uncond_embeds, cond_image, gs)
+            x = self.schedule.ddim_step(x.float(), eps.float(), t_cur,
+                                        t_cur - stride).to(dt)
+        return params.vae.decode(x.float())
 
     def _weight(self, t: torch.Tensor) -> torch.Tensor:
         ac = self.schedule.alphas_cumprod[t]

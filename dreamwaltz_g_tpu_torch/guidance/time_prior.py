@@ -6,7 +6,8 @@ are torch tensors; timestep selection (``C``, ``PriorFunction``,
 ``WindowedAnnealing``, ``TimePrioritizedScheduler``) is host-side numpy,
 copied so that the same seed and config give the same integers as the JAX
 package; ``TimePrioritizedLR`` gives the 'ddpm' lr policy's per-timestep
-weights. ``draw_curves`` is not ported yet.
+weights; ``draw_curves`` plots the timestep schedule (matplotlib, imported
+when it is called).
 """
 from __future__ import annotations
 
@@ -366,3 +367,32 @@ class TimePrioritizedLR:
     def __call__(self, timestep) -> float:
         t = int(np.clip(int(timestep), 0, len(self.weights) - 1))
         return float(self.weights[t])
+
+
+def draw_curves(tp_scheduler: TimePrioritizedScheduler, max_iteration: int,
+                path: str, batch_probe: int = 1) -> str:
+    """Plot the timestep-annealing curve over training: the mean of
+    ``get_timestep`` at 200 steps (drawn from the scheduler's generator,
+    as the JAX package draws). Saves a PNG and returns the path. Raises
+    ``ImportError``, before any draw, when matplotlib is absent."""
+    import os
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    steps = np.linspace(1, max_iteration, 200).astype(int)
+    ts = [tp_scheduler.get_timestep(batch_probe, int(s), max_iteration).mean()
+          for s in steps]
+    fig, ax = plt.subplots(figsize=(6, 3.5))
+    ax.plot(steps, ts, lw=1.5)
+    ax.set_xlabel("train step")
+    ax.set_ylabel("sampled timestep t")
+    ax.set_title(f"{tp_scheduler.time_sampling} timestep schedule")
+    ax.set_ylim(0, tp_scheduler.T)
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path, dpi=110)
+    plt.close(fig)
+    return path

@@ -9,13 +9,15 @@ draw, the betas schedule and the condition fan-out. The numpy draws
 (canonical mixup, '-choice', a motion scene's random frame) come from a
 ``Generator`` seeded as the JAX package's, in its order; the pose draws,
 from ``jax.random`` keys there, come from a ``torch.Generator`` of the
-prompt's own here, or are handed in (``draws``). The 'vposer' sampler is
-not ported yet and raises.
+prompt's own here, or are handed in (``draws``). 'vposer' samples body
+poses only, through ``sample_body_fn`` when one is given (a
+``human/vposer.py`` decoder; the trainer, like the JAX trainer, hands none
+in) and from the scaled-normal prior otherwise.
 """
 from __future__ import annotations
 
 import ast
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -95,25 +97,30 @@ def get_smpl_inputs(
     training_ratio: float = 0.0,
     rng: Optional[np.random.Generator] = None,
     draws: Optional[Dict[str, torch.Tensor]] = None,
+    sample_body_fn: Optional[Callable] = None,
 ) -> SMPLXParams:
     """Pose-type dispatch: the canonical variants, 'canonical-choice',
-    'canonical-loop(2)', and 'random[-body,hand,expr]' with canonical-R
-    mixup. ``draws`` may hold 'uniform' (canonical-R's two) and the
-    normals of ``sample_random_pose``."""
+    'canonical-loop(2)', 'random[-body,hand,expr]' with canonical-R mixup,
+    and 'vposer' (body only; its body pose from ``sample_body_fn(generator,
+    batch_size)`` when given). ``draws`` may hold 'uniform' (canonical-R's
+    two) and the normals of ``sample_random_pose``."""
     rng = rng or np.random.default_rng()
     draws = draws or {}
-    if pose_type == "vposer":
-        raise NotImplementedError("the 'vposer' pose sampler is not ported "
-                                  "yet")
     if pose_type.startswith("random") and rng.random() < canonical_mixup_prob:
         pose_type = "canonical-R"
 
     dev = model.device
-    if pose_type.startswith("random"):
-        parts = tuple(pose_type.split("-")[-1].split(",")) \
-            if "-" in pose_type else ("body", "hand", "expr")
+    if pose_type == "vposer" or pose_type.startswith("random"):
+        if pose_type == "vposer":
+            parts = ("body",)
+        elif "-" in pose_type:
+            parts = tuple(pose_type.split("-")[-1].split(","))
+        else:
+            parts = ("body", "hand", "expr")
         p = sample_random_pose(model, generator, parts=parts,
                                batch_size=batch_size, normals=draws)
+        if "body" in parts and sample_body_fn is not None:
+            p = p._replace(body_pose=sample_body_fn(generator, batch_size))
     elif pose_type.startswith("canonical"):
         if pose_type == "canonical-choice":
             pose_type = str(rng.choice([
@@ -180,6 +187,7 @@ class SMPLPrompt:
         width: int = 512,
         landmarks: Optional[LandmarkData] = None,
         hand_components=None,
+        sample_body_fn: Optional[Callable] = None,
         seed: int = 0,
         _dataset=None,
     ):
@@ -190,8 +198,7 @@ class SMPLPrompt:
         self.height, self.width = height, width
         self.scene = cfg.scene
         self.scene_type = parse_scene_type(cfg.scene)
-        if cfg.scene == "vposer":
-            raise NotImplementedError("the 'vposer' scene is not ported yet")
+        self.sample_body_fn = sample_body_fn
         self.canonical_pose = cfg.canonical_pose
         self.canonical_mixup_prob = cfg.canonical_mixup_prob
         self.training_ratio = 0.0
@@ -272,7 +279,8 @@ class SMPLPrompt:
             p = get_smpl_inputs(
                 self.model, self.scene, self.generator,
                 canonical_mixup_prob=self.canonical_mixup_prob,
-                rng=self._rng, draws=draws)
+                rng=self._rng, draws=draws,
+                sample_body_fn=self.sample_body_fn)
         else:
             if self.observed_betas is not None \
                     and self.observed_betas.shape[0] > 1 \

@@ -7,6 +7,8 @@ Port of ``dreamwaltz_g_tpu/training/gs_trainer.py``:
   tile bin -> differentiable tile blend -> composite -> VAE encode ->
   ControlNet + UNet CFG -> SDS gradient -> backward (through the blend's
   backward kernel) -> Adam -> densification stats;
+* ``make_nerf2gs_step``: the NeRF -> 3DGS distillation, the same render
+  and backward against a frozen field's render with an L1 + DSSIM loss;
 * ``make_avatar_render`` / ``make_avatar_render_frames``: the eval renders,
   forward only, through the sorted tile blend.
 
@@ -14,8 +16,8 @@ Port of ``dreamwaltz_g_tpu/training/gs_trainer.py``:
   optimizer-moment reset on the rewritten slots.
 
 Not ported yet: the split and data/tensor-parallel steps, scene
-placement and the static background Gaussians in the step, the NeRF->3DGS
-distillation and the multi-device frame sharding.
+placement and the static background Gaussians in the step and the
+multi-device frame sharding.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from ..system.avatar import (
     place_gaussians,
     update_avatar_stats,
 )
+from .losses import image_reconstruction_loss
 from .optim import AvatarOptimizer, AvatarOptState, avatar_param_groups
 
 
@@ -176,6 +179,64 @@ def make_avatar_sds_step(
             "tile_overflow": out.overflow}
         return AvatarTrainState(new_avatar, tstate.opt_state,
                                 tstate.step + 1), metrics
+
+    return step
+
+
+def make_nerf2gs_step(
+    model: AvatarModel,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 16,
+    capacity: int = 512,
+    chunk: int = 64,
+    max_tiles_per_gaussian: int = 16,
+    lambda_dssim: float = 0.2,
+    device="cuda",
+) -> Callable:
+    """Distill a frozen NeRF's renders into the avatar: ``step(tstate,
+    observed_inputs, extrinsic, intrinsics, tanfov, background,
+    target_image, target_alpha)`` -> (tstate', {"loss"}).
+
+    The render of ``make_avatar_sds_step`` (animate -> project + ``dummy``
+    -> (T, K) bin -> the train blend's forward), the loss
+    ``image_reconstruction_loss(image * m, target * m)`` with ``m`` the
+    target's alpha (the field's foreground), backward (the blend's
+    backward kernel), the optimizer step and the densification stats from
+    the ``dummy``'s gradient and the radii. The target takes no gradient.
+    Ranges: ``nerf2gs_step.render``, ``.loss``, ``.backward``,
+    ``.optimizer_stats``."""
+    device = resolve_device(device)
+    H, W = image_height, image_width
+    raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
+                  max_tiles_per_gaussian=max_tiles_per_gaussian, mode="train")
+
+    def step(tstate: AvatarTrainState, observed_inputs: SMPLXParams,
+             extrinsic, intrinsics, tanfov, background, target_image,
+             target_alpha) -> tuple:
+        state = tstate.avatar
+        _check_device(state, device)
+        C = state.capacity
+        for leaf in _leaves(state, model):
+            leaf.grad = None
+        dummy = torch.zeros((C + model.n_mesh_points, 2), device=device,
+                            requires_grad=True)
+        with record_function("nerf2gs_step.render"):
+            image, out = _render_with_dummy(
+                model, state, state.params, observed_inputs, dummy,
+                extrinsic, intrinsics, tanfov, background, H, W, raster)
+        with record_function("nerf2gs_step.loss"):
+            m = target_alpha.detach()[..., None]
+            loss = image_reconstruction_loss(
+                image * m, target_image.detach() * m, lambda_dssim)
+        with record_function("nerf2gs_step.backward"):
+            loss.backward()
+        with record_function("nerf2gs_step.optimizer_stats"):
+            tstate.opt_state.step()
+            new_avatar = update_avatar_stats(state, dummy.grad[:C],
+                                             out.radii.detach()[:C])
+        return AvatarTrainState(new_avatar, tstate.opt_state,
+                                tstate.step + 1), {"loss": loss.detach()}
 
     return step
 

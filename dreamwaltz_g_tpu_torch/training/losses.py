@@ -1,10 +1,11 @@
-"""Stage-1 training losses: ray sparsity, the triplane volume-sparsity
-prior and the mesh-surface density guidance.
+"""Training losses: ray sparsity, the triplane volume-sparsity prior, the
+mesh-surface density guidance and the image reconstruction loss of the
+NeRF -> 3DGS distillation (L1 + DSSIM).
 
-Port of the first two parts of ``dreamwaltz_g_tpu/training/losses.py``.
+Port of the first three parts of ``dreamwaltz_g_tpu/training/losses.py``.
 The draws are handed in (``VolumeSparsityDraws``, the sigma-guidance
 points' faces and uniforms) or made from a ``torch.Generator``, so that a
-test can hand the port the JAX package's draws. The image, KNN and mesh
+test can hand the port the JAX package's draws. The KNN and mesh
 regularisers serve other paths and are not ported yet.
 """
 from __future__ import annotations
@@ -183,3 +184,49 @@ def sigma_margin_loss(model, pts: SigmaGuidancePoints, peak: float = 15.0,
         op_o = 1.0 - torch.exp(-delta * F.softplus(raw_o))
         return torch.mean((op_s - 1.0) ** 2) + torch.mean(op_o ** 2)
     raise ValueError(f"unknown sigma loss {loss_type!r}")
+
+
+# ---------------------------------------------------------------------------
+# Image reconstruction
+# ---------------------------------------------------------------------------
+
+def _gaussian_kernel(size: int = 11, sigma: float = 1.5, device=None
+                     ) -> torch.Tensor:
+    x = torch.arange(size, dtype=torch.float32, device=device) - size // 2
+    g = torch.exp(-(x ** 2) / (2 * sigma ** 2))
+    return g / g.sum()
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+         c1: float = 0.01 ** 2, c2: float = 0.03 ** 2) -> torch.Tensor:
+    """Mean SSIM of two (H, W, C) images in [0, 1] (the 3DGS formulation):
+    local statistics under a separable Gaussian window, two depthwise
+    ``F.conv2d`` passes (along W, then H) over zero-padded images, as the
+    JAX package's two 1-D convolutions of the zero-padded rows."""
+    k = _gaussian_kernel(window_size, device=img1.device).to(img1.dtype)
+    pad = window_size // 2
+
+    def blur(x):
+        C = x.shape[-1]
+        x = x.permute(2, 0, 1)[:, None]                  # (C, 1, H, W)
+        x = F.conv2d(x, k.view(1, 1, 1, -1), padding=(0, pad))
+        x = F.conv2d(x, k.view(1, 1, -1, 1), padding=(pad, 0))
+        return x[:, 0].permute(1, 2, 0).reshape(*x.shape[2:], C)
+
+    mu1, mu2 = blur(img1), blur(img2)
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    s1 = blur(img1 * img1) - mu1_sq
+    s2 = blur(img2 * img2) - mu2_sq
+    s12 = blur(img1 * img2) - mu12
+    ssim_map = ((2 * mu12 + c1) * (2 * s12 + c2)) \
+        / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2))
+    return torch.mean(ssim_map)
+
+
+def image_reconstruction_loss(image: torch.Tensor, gt_image: torch.Tensor,
+                              lambda_dssim: float = 0.2) -> torch.Tensor:
+    """(1 - lambda) L1 + lambda (1 - SSIM) of two (H, W, C) images: 0.8 L1
+    + 0.2 DSSIM by default."""
+    l1 = torch.mean(torch.abs(image - gt_image))
+    return (1.0 - lambda_dssim) * l1 \
+        + lambda_dssim * (1.0 - ssim(image, gt_image))

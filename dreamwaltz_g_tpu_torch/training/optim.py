@@ -41,10 +41,12 @@ Schedule = Union[float, Callable[[int], float]]
 def expon_lr(lr_init: float, lr_final: float, max_steps: int,
              lr_delay_steps: int = 0, lr_delay_mult: float = 1.0
              ) -> Callable[[int], float]:
-    """3DGS log-lerp learning rate with an optional delayed warmup."""
+    """3DGS log-lerp learning rate with an optional delayed warmup. A run
+    of 0 steps (``--optim.iters 0``: construction only) never takes a rate;
+    its schedule is read as a 1-step one's."""
 
     def schedule(step) -> float:
-        t = min(max(float(step) / max_steps, 0.0), 1.0)
+        t = min(max(float(step) / max(max_steps, 1), 0.0), 1.0)
         log_lerp = math.exp(math.log(max(lr_init, 1e-30)) * (1 - t)
                             + math.log(max(lr_final, 1e-30)) * t)
         if lr_delay_steps > 0:

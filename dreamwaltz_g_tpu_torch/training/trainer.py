@@ -10,7 +10,13 @@ for inference and evaluation: ``evaluate`` (the eval track, motion scenes
 with their camera tracks, the video background and its overlay export,
 PNGs and an mp4), ``full_eval`` with ``compute_r_precision``
 (``--log.eval_only``, step 3 of the script and ``scripts/inference_*.sh``)
-and the snapshots of a training run.
+and the snapshots of a training run; and for the CLI's other modes:
+``pretrain`` (``--log.pretrain_only``: the field fitted to the SMPL-X depth
+and mask, ``scripts/pretrain_nerf.sh``), ``pretrain_nerf2gs``
+(``--log.nerf2gs``: the avatar distilled from the frozen stage-1 field),
+``export_mesh`` (``--log.nerf2mesh``: the field as a textured mesh) and
+``check`` (``--log.check`` / ``--log.check_sd``: the condition images and
+DDIM samples of the frozen guidance, written at construction).
 
 The Trainer owns the host-side providers (pose prompt, camera sampler,
 timestep scheduler, checkpointer) and the device state: the field or the
@@ -32,11 +38,9 @@ every generator's state, so a resumed run draws what an uninterrupted one
 would.
 
 Not ported yet, and refused at construction where a flag asks for them:
-``pretrain``, ``pretrain_nerf2gs``, ``export_mesh``, ``check`` /
-``check_sd``, the vanilla and hash avatars, DMTet, the MLP and Gaussian
-backgrounds, scene composition and placement, SDXL, ``batch_size > 1`` and
-tensor parallelism, the vposer scene, and the multi-device frame sharding
-of ``evaluate``.
+the vanilla and hash avatars, DMTet, the MLP and Gaussian backgrounds,
+scene composition and placement, SDXL, ``batch_size > 1`` and tensor
+parallelism, and the multi-device frame sharding of ``evaluate``.
 """
 from __future__ import annotations
 
@@ -52,11 +56,12 @@ from torch.profiler import record_function
 
 from .._device import resolve_device
 from ..configs import TrainConfig, paths, save_config
+from ..data.camera import make_camera_batch
 from ..data.sampler import CyclicalCamera4Avatar, RandomCamera4Avatar
 from ..gaussian.densify import DensifyConfig
 from ..guidance.sds import resize_images
 from ..guidance.text_aug import TextAugmentation
-from ..guidance.time_prior import TimePrioritizedScheduler
+from ..guidance.time_prior import TimePrioritizedScheduler, draw_curves
 from ..human.keypoints import load_landmark_data, openpose_keypoints
 from ..human.prompt import SMPLPrompt, load_hand_components
 from ..human.smplx_model import load_smplx_npz, make_synthetic_model
@@ -208,6 +213,8 @@ class Trainer:
             self._init_nerf()
         else:
             self._init_avatar()
+        if cfg.log.check or cfg.log.check_sd:
+            self.check()
 
     def _refuse_unported(self):
         """The paths this slice does not port raise here, where their
@@ -220,10 +227,6 @@ class Trainer:
             raise ValueError(f"log.platform {lg.platform!r}: the port runs "
                              "on 'cuda' (the default) or 'cpu'")
         refused = [
-            (lg.pretrain_only, "log.pretrain_only (pretrain)"),
-            (lg.nerf2gs, "log.nerf2gs (pretrain_nerf2gs)"),
-            (lg.nerf2mesh, "log.nerf2mesh (export_mesh)"),
-            (lg.check or lg.check_sd, "log.check / log.check_sd"),
             (cfg.stage == "gs" and r.gs_type != "dreamwaltz-g",
              f"render.gs_type {r.gs_type!r}"),
             (cfg.nerf.dmtet, "nerf.dmtet (DMTet finetune)"),
@@ -506,6 +509,7 @@ class Trainer:
                 logger.info("warm-started NeRF from %s", step_dir)
         self.grid = init_occupancy(cfg.nerf.grid_size, device=self.device)
         self._build_nerf_sds_step(self.train_res)
+        self._build_pretrain_step(self.train_res)
         self.eval_render = nerf_trainer.make_eval_render(
             self.nerf, cfg.data.eval_h, cfg.data.eval_w, device=self.device)
 
@@ -522,6 +526,11 @@ class Trainer:
             bg_mode="nerf" if cfg.nerf.bg_mode == "nerf" else "color",
             ray_chunk=cfg.nerf.max_ray_batch, pgc=self.pgc,
             tp_lr_weights=self._tp_lr_weights, device=self.device)
+
+    def _build_pretrain_step(self, H: int):
+        self.pretrain_step_fn = nerf_trainer.make_pretrain_step(
+            self.nerf, H, H, num_steps=self.cfg.nerf.num_steps,
+            compact_steps=self.cfg.nerf.compact_steps, device=self.device)
 
     def _build_avatar_model(self):
         from ..human.deform import DeformNetwork
@@ -848,6 +857,7 @@ class Trainer:
     def _rebuild_train_step(self):
         if self.cfg.stage == "nerf":
             self._build_nerf_sds_step(self.train_res)
+            self._build_pretrain_step(self.train_res)
         else:
             self._build_avatar_step(self.train_res)
 
@@ -1027,6 +1037,191 @@ class Trainer:
                                         model=self.avatar_model)
         logger.info("densify @%d: %d -> %d alive", self.train_step,
                     n_before, int(self.state.avatar.alive.sum()))
+
+    def pretrain(self) -> None:
+        """``--log.pretrain_only``: fit the field to the SMPL-X body's depth
+        and mask (``scripts/pretrain_nerf.sh``; the human template that a
+        stage-1 run warm-starts from with ``--optim.ckpt``). Each step: a
+        training camera, the prompt's pose, its metric depth and mask at
+        the training resolution, the occupancy refresh on its cadence, one
+        ``make_pretrain_step`` update; a checkpoint at the end. With
+        ``--log.resume_pretrain`` (the default) an existing checkpoint of
+        the experiment is restored and nothing is trained. Spans:
+        ``trainer.pretrain_batch`` (camera, pose, depth raster) and
+        ``trainer.pretrain_step`` (occupancy refresh and update)."""
+        cfg = self.cfg
+        if cfg.stage != "nerf":
+            raise ValueError("log.pretrain_only needs --stage nerf")
+        if cfg.log.resume_pretrain:
+            try:
+                self.load_checkpoint()
+                logger.info("resume_pretrain: reusing checkpoint at step "
+                            "%d", self.train_step)
+                return
+            except FileNotFoundError:
+                pass
+        H = self.train_res
+        while self.train_step < self.max_iteration:
+            self.train_step += 1
+            with span("trainer.pretrain_batch", self.device):
+                cam, _ = self.train_camera(1)
+                _, smpl_outputs = self.prompt()
+                depth, mask = self.prompt.condition.render_depth(
+                    smpl_outputs, cam.extrinsic[0], cam.intrinsics[0], H, H,
+                    raw=True)
+            with span("trainer.pretrain_step", self.device):
+                self.grid = nerf_trainer.maybe_update_occupancy(
+                    self.state, self.grid, self.nerf,
+                    interval=cfg.nerf.update_extra_interval,
+                    density_thresh=cfg.nerf.density_thresh,
+                    generator=self.generator)
+                self.state, metrics = self.pretrain_step_fn(
+                    self.state, self.grid, cam.c2w[0], cam.intrinsics[0],
+                    torch.as_tensor(depth, dtype=torch.float32,
+                                    device=self.device),
+                    torch.as_tensor(mask, device=self.device),
+                    generator=self.generator)
+            if self.train_step % max(cfg.log.snapshot_interval, 1) == 0 \
+                    or self.train_step == 1:
+                loss = float(metrics["loss"])
+                self.losses.append(loss)
+                logger.info("pretrain %d/%d loss=%.5f", self.train_step,
+                            self.max_iteration, loss)
+        self.save_checkpoint()
+
+    def pretrain_nerf2gs(self) -> None:
+        """``--log.nerf2gs``: distill the frozen stage-1 field
+        (``--render.from_nerf``) into the avatar. Each step: a training
+        camera, the prompt's pose, the field's render from that camera
+        (``make_eval_render`` on a fresh all-occupied grid, over the
+        training background), one ``make_nerf2gs_step`` update (L1 + DSSIM
+        on the field's foreground); a checkpoint at the end. The field
+        takes no gradient and is never written. Spans:
+        ``trainer.nerf2gs_target`` and ``trainer.nerf2gs_step``."""
+        cfg = self.cfg
+        if cfg.stage != "gs" or self._nerf_guidance is None:
+            raise ValueError("nerf2gs needs --stage gs and --render.from_nerf "
+                             "pointing at a stage-1 checkpoint")
+        (nerf,) = self._nerf_guidance
+        H = self.train_res
+        grid = init_occupancy(cfg.nerf.grid_size, device=self.device)
+        nerf_render = nerf_trainer.make_eval_render(
+            nerf, H, H, num_steps=cfg.nerf.num_steps, device=self.device)
+        r = cfg.render
+        step_fn = gs_trainer.make_nerf2gs_step(
+            self.avatar_model, H, H, tile_size=r.tile_size,
+            capacity=r.tile_capacity, chunk=r.chunk, device=self.device)
+        while self.train_step < self.max_iteration:
+            self.train_step += 1
+            cam, _ = self.train_camera(1)
+            smpl_inputs, _ = self.prompt()
+            bg = self._bg_color()
+            with span("trainer.nerf2gs_target", self.device):
+                target, _, alpha = nerf_render(grid, cam.c2w[0],
+                                               cam.intrinsics[0], bg)
+            with span("trainer.nerf2gs_step", self.device):
+                self.state, metrics = step_fn(
+                    self.state, smpl_inputs, cam.extrinsic[0],
+                    cam.intrinsics[0], cam.tanfov[0], bg.expand(H, H, 3),
+                    target, alpha)
+            if self.train_step % max(cfg.log.snapshot_interval, 1) == 0 \
+                    or self.train_step == 1:
+                loss = float(metrics["loss"])
+                self.losses.append(loss)
+                logger.info("nerf2gs %d/%d loss=%.5f", self.train_step,
+                            self.max_iteration, loss)
+        self.save_checkpoint()
+
+    def export_mesh(self) -> str:
+        """``--log.nerf2mesh``: the stage-1 field as ``mesh/mesh.obj``,
+        ``mesh.mtl`` and ``albedo.png`` under the experiment (marching
+        tets at ``--log.mesh_resolution``, cleaned, decimated to
+        ``--log.mesh_decimate_target`` when > 0, UV-unwrapped, its albedo
+        baked at ``--log.mesh_texture_size``). Restore the field first
+        (``--optim.resume true``). Returns the OBJ's path."""
+        if self.cfg.stage != "nerf":
+            raise ValueError("log.nerf2mesh needs --stage nerf")
+        from ..nerf.mesh_export import export_textured_mesh
+
+        lg = self.cfg.log
+        with span("trainer.export_mesh", self.device):
+            out = export_textured_mesh(
+                self.nerf, str(self.exp_dir / "mesh"),
+                resolution=lg.mesh_resolution,
+                density_thresh=self.cfg.nerf.density_thresh,
+                decimate_target=lg.mesh_decimate_target,
+                texture_size=lg.mesh_texture_size)
+        logger.info("exported textured mesh to %s", out)
+        return out
+
+    def check(self) -> None:
+        """``--log.check``: sanity exports under ``check/`` before training:
+        the timestep schedule's curve (skipped with a warning when
+        matplotlib is absent, and in a 0-step run, which has no schedule)
+        and the condition images of a pose draw at azimuths 0, 90, 180 and
+        270 (the metric ``depth_raw`` pair is not an image and is skipped);
+        with ``--log.check_sd`` also the frozen guidance's DDIM samples
+        (``_check_sd``). Any other error raises."""
+        cfg = self.cfg
+        d = self.exp_dir / "check"
+        if self.max_iteration < 1:
+            logger.warning("timestep curve skipped: a run of %d steps has "
+                           "no schedule", self.max_iteration)
+        else:
+            try:
+                draw_curves(self.t_scheduler, self.max_iteration,
+                            str(d / "timestep_curve.png"))
+            except ImportError as e:
+                logger.warning("timestep curve export failed: %s", e)
+        _, smpl_outputs = self.prompt()
+        cond_arrays = {}
+        first = cfg.guide.controlnet_condition[0]
+        for azim in (0.0, 90.0, 180.0, 270.0):
+            cam = make_camera_batch(2.0, azim, 80.0, 60.0, self.cond_size,
+                                    self.cond_size, device=self.device)
+            for cond in cfg.guide.controlnet_condition:
+                img = self.prompt.get_cond_images(
+                    smpl_outputs, cam.extrinsic[0], cam.intrinsics[0],
+                    cond_type=cond, height=self.cond_size,
+                    width=self.cond_size)[0]
+                if isinstance(img, tuple):
+                    continue
+                save_image(str(d / f"cond_{cond}_az{int(azim)}.png"), img)
+                # the samples pair the ControlNet with the modality that
+                # training uses, controlnet_condition[0]
+                if cond == first:
+                    cond_arrays[azim] = np.asarray(img, np.float32) / 255.0
+        if cfg.log.check_sd:
+            self._check_sd(d, cond_arrays)
+        logger.info("sanity exports written to %s", d)
+
+    def _check_sd(self, d: Path, cond_arrays: Dict[float, np.ndarray]
+                  ) -> None:
+        """The frozen guidance's DDIM samples of the prompt's first view
+        text (``--log.check_sd_steps`` steps): with a ControlNet, one
+        sample per condition view (``control_az<azimuth>.png``), then one
+        without it at each guidance scale of {7.5, guide.guidance_scale}
+        (``sd_<scale>.png``); the noise from the trainer's generator."""
+        steps = self.cfg.log.check_sd_steps
+        g, gp = self.guidance, self.guidance_params
+        txt, unc = self.text_embeds[:1], self.uncond_embeds[:1]
+        with span("trainer.check_sd", self.device):
+            if gp.controlnet is not None:
+                for azim, cond in cond_arrays.items():
+                    img = g.sample_images(
+                        gp, txt, unc, self.generator,
+                        num_inference_steps=steps,
+                        cond_image=torch.as_tensor(
+                            cond, device=self.device)[None])
+                    save_image(str(d / f"control_az{int(azim)}.png"),
+                               img[0].float().cpu().numpy())
+            for gs_val in {7.5, float(self.cfg.guide.guidance_scale)}:
+                img = g.sample_images(gp, txt, unc, self.generator,
+                                      num_inference_steps=steps,
+                                      guidance_scale=gs_val)
+                save_image(str(d / f"sd_{gs_val:g}.png"),
+                           img[0].float().cpu().numpy())
+        logger.info("check_sd samples written to %s", d)
 
     # ------------------------------------------------------------------
     # snapshots, evaluation, inference

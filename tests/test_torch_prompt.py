@@ -274,13 +274,15 @@ def test_smpl_prompt_matches_jax(scene):
 
 
 def test_prompt_refuses_unported_scenes(tmp_path, monkeypatch):
-    """'vposer' refuses; a motion scene is ported and goes to its loader,
-    which raises for a file that is not there."""
+    """No scene refuses now: 'vposer' builds as a random scene (its poses
+    are held to the JAX package's in ``tests/test_torch_vposer.py``); a
+    motion scene goes to its loader, which raises for a file that is not
+    there."""
     from dreamwaltz_g_tpu_torch.configs import paths
 
     _, tbody = _bodies(num_vertices=300, num_joints=55)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TPr.SMPLPrompt(_pcfg(PromptConfig, "vposer"), tbody)
+    assert TPr.SMPLPrompt(_pcfg(PromptConfig, "vposer"),
+                          tbody).scene_type == "random"
     monkeypatch.setattr(paths, "DEMO_MOTIONS", str(tmp_path))
     with pytest.raises(FileNotFoundError):
         TPr.SMPLPrompt(_pcfg(PromptConfig, "demo,talkshow"), tbody)

@@ -226,13 +226,16 @@ def test_train_batch_matches_jax(tmp_path, stage):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--log.nerf2mesh", "true"], ["--log.nerf2gs", "true"],
-    ["--render.use_gs_background", "bg.ply"], ["--log.pretrain_only", "true"],
+    ["--nerf.backbone", "hashgrid"], ["--render.gs_type", "hash"],
+    ["--render.use_gs_background", "bg.ply"],
+    ["--render.avatar_scale", "1.0"],
     ["--render.gs_type", "vanilla"], ["--nerf.dmtet", "true"],
     ["--render.use_mlp_background", "true"], ["--optim.batch_size", "2"],
-    ["--guide.diffusion", "sdxl10"], ["--prompt.scene", "vposer"],
-    ["--log.check", "true"]])
+    ["--guide.diffusion", "sdxl10"], ["--optim.ckpt_extra", "other"],
+    ["--parallel.tp", "2"]])
 def test_unported_paths_refuse(tmp_path, flags):
+    """Each path the port does not have raises at construction, also in
+    the multi-prompt batch, which names the prompts that failed."""
     from dreamwaltz_g_tpu_torch.main import main
 
     base = ["--stage", "gs", "--log.debug", "true", "--log.platform", "cpu",
@@ -240,8 +243,9 @@ def test_unported_paths_refuse(tmp_path, flags):
             "--log.snapshot_interval", "0", "--log.evaluate_interval", "0"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(base + flags)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(base + ["--guide.text_set", "avatars"])
+    with pytest.raises(RuntimeError, match="1 prompt") as e:
+        main(base + flags + ["--guide.text_set", "demo,1-1"])
+    assert isinstance(e.value.__cause__, NotImplementedError)
 
 
 def _card_defaults():
