@@ -151,7 +151,16 @@ Phases, one JSON line each:
                    at resolution 128 (an OBJ with valid indices, its
                    texture; the field queries' device time apart from the
                    host's mesh work); counts set to 0 before each run and
-                   read after it.
+                   read after it;
+23. cli_geometry -- in the same directory, the trainer's other geometries
+                   through the CLI at full width, 3 steps each: the DMTet
+                   finetune from step 1.2's field (``tet_grid_size`` 128,
+                   512^2; then a resumed construction and one eval frame
+                   through B1's forward), the vanilla avatar from 2.1's
+                   arguments (densified at step 2, its opacities reset at
+                   step 3; then ``--log.eval_only`` over 8 1024^2 frames,
+                   B2 once a frame) and the hash avatar (then one eval
+                   frame); B1 (1, 1) and flash (15, 1) a step in each run.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -1677,6 +1686,28 @@ NERF_STAGE_RANGES = (("nerf.rays_occupancy", "rays_occupancy"),
                      ("nerf_step.optimizer", "optimizer"))
 
 
+# record_function ranges of make_dmtet_sds_step and of make_vanilla_sds_step
+DMTET_STAGE_RANGES = (("dmtet_step.extract", "extract"),
+                      ("dmtet_step.albedo_decode", "albedo_decode"),
+                      ("dmtet_step.render", "shade_splat_project"),
+                      ("rasterize.bin", "bin"),
+                      ("rasterize.blend", "blend_fwd_b1"),
+                      ("dmtet_step.guidance", "sds_loss"),
+                      ("sds.encode_images", "vae_encode"),
+                      ("sds.latent_gradients", "controlnet_unet_cfg"),
+                      ("dmtet_step.regularizers", "regularizers"),
+                      ("dmtet_step.backward", "backward"),
+                      ("dmtet_step.optimizer", "optimizer"))
+VANILLA_STAGE_RANGES = (("vanilla_step.render", "animate_project"),
+                        ("rasterize.bin", "bin"),
+                        ("rasterize.blend", "blend_fwd_b1"),
+                        ("vanilla_step.guidance", "sds_loss"),
+                        ("sds.encode_images", "vae_encode"),
+                        ("sds.latent_gradients", "controlnet_unet_cfg"),
+                        ("vanilla_step.backward", "backward"),
+                        ("vanilla_step.optimizer_stats", "optimizer_stats"))
+
+
 def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     """The stage-1 training path at the full width of step 1.2 of
     ``scripts/train_w_expr.sh``: a 512^2 render of ``NeRFConfig()``'s field
@@ -2036,7 +2067,8 @@ def cli_launches_per_step(stage2):
             "blend_sorted": 0, "blend_tiles_eval": 0}
 
 
-def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True):
+def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
+            stage_ranges=None):
     """One run of the port's CLI as ``dreamwaltz_g_tpu_torch.main.run``
     makes it: ``Trainer(parse_args(argv))``, ``check(trainer)`` when given,
     then ``train``, with the counts set to 0 just before the trainer is
@@ -2048,7 +2080,9 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True):
     (torch.profiler's schedule, stepped by ``on_step``), its launches
     counted apart, and then one batch build is profiled on the main
     thread; ``prefetch=False`` trains with each batch built on the main
-    thread before its step and profiles nothing. Returns its fields."""
+    thread before its step and profiles nothing. ``stage_ranges``: the
+    step's own ranges (the stage's default step's when None). Returns its
+    fields."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2058,8 +2092,9 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True):
     from dreamwaltz_g_tpu_torch.utils import timing
 
     stage = argv[argv.index("--stage") + 1]
-    ranges = CLI_RANGES + (NERF_STAGE_RANGES if stage == "nerf"
-                           else STAGE_RANGES)
+    if stage_ranges is None:
+        stage_ranges = NERF_STAGE_RANGES if stage == "nerf" else STAGE_RANGES
+    ranges = CLI_RANGES + stage_ranges
     line = {}
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     trace = kernels.BUILD_DIR / f"cli_{label}_trace.json"
@@ -2068,7 +2103,7 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True):
         prof.export_chrome_trace(str(trace))
         dev_ms, host_ms, named = stage_times(
             trace, ranges, recompute_in="nerf_step.backward"
-            if stage == "nerf" else None)
+            if stage_ranges is NERF_STAGE_RANGES else None)
         busy = sum(e.device_time_total for e in device_events(prof)) / 1e3
         return dict(wall_ms=wall, device_busy_ms=busy,
                     device_busy_share=busy / wall, stage_device_ms=dev_ms,
@@ -2162,7 +2197,8 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
     planes carried into the avatar with a difference of 0, the warm start
     of step 2.3 equal to step 2.1's last checkpoint to every bit. Returns
     the runs' launches and, from phase ``cli_inference`` (run after these
-    checks in the same directory), its runs' launches."""
+    checks in the same directory), its runs' launches, and those of the
+    phases ``cli_modes`` and ``cli_geometry`` after it."""
     import gc
     import shutil
     import tempfile
@@ -2292,12 +2328,14 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
                                   exp, times_ms)
         free()
         modes = cli_modes(dev, card, kernel_fns, tmp, argv, args, exp)
+        free()
+        geometry = cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp)
     finally:
         (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS, paths.DEMO_MOTIONS,
          paths.MOTIONX_REENACT_ROOT) = old_paths
         shutil.rmtree(tmp, ignore_errors=True)
     return {step: line["launches"] for step, line in runs.items()}, \
-        inference, modes
+        inference, modes, geometry
 
 
 def check_two_stage(card, runs, handoff, warm, sequential):
@@ -2835,12 +2873,6 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
         gc.collect()
         torch.cuda.empty_cache()
 
-    def differs(got, want, name):
-        if isinstance(got, dict):
-            return [n for k in got for n in differs(got[k], want[k],
-                                                    f"{name}.{k}")]
-        return [] if torch.equal(got, want) else [name]
-
     def first_state(method, take):
         """Wrap ``Trainer.<method>`` so that the built trainer's starting
         tensors are copied by ``take(trainer)`` as it returns."""
@@ -2880,14 +2912,14 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
              checkpoint=ckpt and ckpt.name,
              moved=[k for k, v in tr.nerf.state_dict().items()
                     if not torch.equal(v, start["nerf"][k])],
-             saved_differs=differs(clone(tr.nerf.state_dict()), saved,
+             saved_differs=_differs(clone(tr.nerf.state_dict()), saved,
                                    "nerf") if ckpt else None)
     tr = None
     free()
     t0 = time.perf_counter()
     warm = Trainer(parse_args(argv("1.2", *args["1.2"], name="dancer/warm")
                               + ["--optim.ckpt", str(out / pre_exp)]))
-    a["warm_start_differs"] = differs(clone(warm.nerf.state_dict()), saved,
+    a["warm_start_differs"] = _differs(clone(warm.nerf.state_dict()), saved,
                                       "nerf")
     a["warm_start_build_s"] = time.perf_counter() - t0
     warm = None
@@ -2908,9 +2940,9 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
                         map_location=dev)["params"]
     spans = b["spans_ms"]
     b.update(steps=tr.train_step, loss=list(tr.losses),
-             target_differs=differs(clone(tr._nerf_guidance[0].state_dict()),
+             target_differs=_differs(clone(tr._nerf_guidance[0].state_dict()),
                                     field, "nerf"),
-             avatar_moved=[n for n in differs(
+             avatar_moved=[n for n in _differs(
                  clone(avatar_tree(tr.state.avatar, tr.avatar_model)),
                  start["avatar"], "avatar")],
              train_res=tr.train_res,
@@ -3034,6 +3066,296 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
             "check_sd": c["launches"], "nerf2mesh": dd["launches"]}
 
 
+# phase cli_geometry: steps of each run, the vanilla run's cuts (a grad
+# threshold at which every visible slot clones or splits: at the default
+# of 100 the densifier never fires in 3 steps) and its eval frames
+GEOMETRY_STEPS = 3
+VANILLA_GRAD_THRESHOLD = 0.0
+VANILLA_EVAL_FRAMES = 8
+
+
+def _differs(got, want, name):
+    """Names of the tensors of tree ``got`` that differ from ``want``'s in
+    any bit (non-tensor leaves compared with ==)."""
+    if isinstance(got, dict):
+        return [n for k in got for n in _differs(got[k], want[k],
+                                                 f"{name}.{k}")]
+    if isinstance(got, (list, tuple)):
+        return [n for i, (g, w) in enumerate(zip(got, want))
+                for n in _differs(g, w, f"{name}[{i}]")]
+    import torch
+
+    if torch.is_tensor(got):
+        return [] if torch.equal(got, want.to(got.device)) else [name]
+    return [] if got == want else [name]
+
+
+def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
+    """Phase ``cli_geometry``, in ``cli_two_stage``'s directory after
+    ``cli_modes``: the trainer's other geometries through the port's CLI at
+    full width, each run with the counts set to 0 just before it and read
+    just after.
+
+    (a) DMTet: step 1.2's arguments + ``--nerf.dmtet true --optim.ckpt
+    <1.2's run>`` (512^2, ``tet_grid_size`` 128), ``GEOMETRY_STEPS``
+    steps, the last profiled by the step's ranges; the band's tets, the
+    valid triangles, each step's tile overflow, the albedo decode's peak
+    memory (its checkpointed chunks, forward and backward); then a resumed
+    construction whose restored field, sdf, deform and optimizers equal the
+    checkpoint to the bit, and one eval frame (B1's forward, no backward).
+    (b) vanilla: step 2.1's arguments + ``--render.gs_type vanilla`` with
+    densification at step 2 and the opacity reset at step 3 (grad threshold
+    ``VANILLA_GRAD_THRESHOLD``); then ``--log.eval_only --optim.resume``
+    over ``VANILLA_EVAL_FRAMES`` 1024^2 frames of step 3's scene (B2 once a
+    frame, no table blend), the restored avatar equal to the checkpoint.
+    (c) hash: step 2.1's arguments + ``--render.gs_type hash``, then one
+    eval frame (B2 once).
+
+    Every training step launches B1 (1, 1) and B4 (15, 1). Each run prints
+    a line. Returns each run's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dreamwaltz_g_tpu_torch.configs import parse_args
+    from dreamwaltz_g_tpu_torch.gaussian.model import logit32
+    from dreamwaltz_g_tpu_torch.training import dmtet_trainer, gs_trainer
+    from dreamwaltz_g_tpu_torch.training.checkpoint import (
+        load_pytree,
+        resolve_ckpt_path,
+    )
+    from dreamwaltz_g_tpu_torch.training.trainer import (
+        Trainer,
+        _opt_tree,
+        vanilla_tree,
+    )
+
+    out = tmp / "outputs"
+    n = GEOMETRY_STEPS
+    quiet = {k: 0 for k in kernel_fns}
+    per_step = cli_launches_per_step(True)
+    lines = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def recorder(seen):
+        """A ``check`` for ``cli_run``: keeps the trainer and wraps its
+        step to record each step's metrics."""
+        def check(tr):
+            seen["trainer"] = tr
+            fn = tr.sds_step_fn
+
+            def step(*a, **k):
+                st, m = fn(*a, **k)
+                seen.setdefault("metrics", []).append(
+                    {key: float(v) for key, v in m.items()})
+                return st, m
+
+            tr.sds_step_fn = step
+        return check
+
+    def eval_frames(tr, size, save_dir):
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        frames = tr.evaluate(size=size, save_dir=save_dir)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return dict(frames=len(frames), shape=list(frames[0].shape),
+                    finite=bool(all(np.isfinite(f).all() for f in frames)),
+                    ms_per_frame=ev[0].elapsed_time(ev[1]) / size,
+                    launches={k: fn.launches
+                              for k, fn in kernel_fns.items()})
+
+    # -- (a) the DMTet finetune from step 1.2's field ---------------------
+    dm_exp = "dancer/dmtet"
+    dm_argv = argv("1.2", *args["1.2"], n=n, name=dm_exp) + [
+        "--nerf.dmtet", "true", "--optim.ckpt", str(out / exp["1.2"])]
+    seen = {}
+
+    def dm_check(tr):
+        seen["seed"] = {k: v.detach().clone()
+                        for k, v in tr.state.dmtet._asdict().items()}
+        recorder(seen)(tr)
+
+    a = cli_run("dmtet", dm_argv, n, kernel_fns, check=dm_check,
+                stage_ranges=DMTET_STAGE_RANGES)
+    tr = seen.pop("trainer")
+    dm = tr.dmtet_model
+    with torch.no_grad():
+        soup = dm.extract(tr.state.dmtet)
+        centroids = torch.mean(soup.vertices, dim=1)
+    G = tr.cfg.nerf.tet_grid_size
+    a.update(tet_grid_size=G, tets=int(dm.tets.shape[0]),
+             tets_full_grid=6 * (G - 1) ** 3,
+             triangle_slots=int(soup.valid.shape[0]),
+             valid_triangles=int(soup.valid.sum()),
+             edges=int(tr._tet_edges.shape[0]),
+             deform_scale=dm.deform_scale,
+             tile_overflow=[m["tile_overflow"] for m in seen["metrics"]],
+             step_terms=seen["metrics"],
+             moved={k: not torch.equal(v, seen["seed"][k])
+                    for k, v in tr.state.dmtet._asdict().items()})
+    # the albedo decode alone, forward and backward through its
+    # checkpointed chunks, at the final surface's centroids
+    tr.nerf.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    dmtet_trainer.query_albedo(tr.nerf, centroids).sum().backward()
+    ev[1].record()
+    torch.cuda.synchronize()
+    a.update(albedo_decode_peak_gib=(torch.cuda.max_memory_allocated()
+                                     - base) / 2 ** 30,
+             albedo_decode_fwd_bwd_ms=ev[0].elapsed_time(ev[1]),
+             albedo_chunks=-(-centroids.shape[0]
+                             // dmtet_trainer.ALBEDO_CHUNK))
+    tr = soup = centroids = None
+    free()
+    # a resumed construction restores step n, then one eval frame
+    ckpt = resolve_ckpt_path(out / dm_exp)
+    saved = load_pytree(ckpt, map_location=dev)
+    t0 = time.perf_counter()
+    tr = Trainer(parse_args(dm_argv + ["--optim.resume", "true"]))
+    tr.load_checkpoint()
+    a["resume_s"] = time.perf_counter() - t0
+    a["restored_differs"] = _differs(
+        {"params": tr.nerf.state_dict(),
+         "dmtet": tr.state.dmtet._asdict(),
+         "opt_state": _opt_tree(tr.state.opt_state)},
+        {k: saved[k] for k in ("params", "dmtet", "opt_state")}, "dmtet")
+    a["eval"] = eval_frames(tr, 1, tmp / "geometry_eval" / "dmtet")
+    lines["dmtet"] = a
+    tr = saved = None
+    free()
+
+    # -- (b) the vanilla avatar, then its eval-only run --------------------
+    v_exp = "dancer/vanilla"
+    v_argv = argv("2.1", *args["2.1"], n=n, name=v_exp) + [
+        "--render.gs_type", "vanilla", "--render.use_densifier", "true",
+        "--render.densify_from_iter", "0",
+        "--render.densification_interval", "2",
+        "--render.densify_disable_reset", "false",
+        "--render.opacity_reset_interval", "3",
+        "--render.densify_grad_threshold", str(VANILLA_GRAD_THRESHOLD)]
+    events = []
+    densify_step, reset = gs_trainer.densify_step, \
+        gs_trainer.reset_vanilla_opacity
+
+    def densify_rec(state, cfg, *a_, **k):
+        before = int(state.alive.sum())
+        res = densify_step(state, cfg, *a_, **k)
+        events.append(dict(event="densify", alive_before=before,
+                           alive_after=int(res[0].alive.sum()),
+                           written=int(res[1].sum())))
+        return res
+
+    def reset_rec(tstate, value=0.01):
+        res = reset(tstate, value)
+        g = res.avatar.gaussians
+        logits = g.params.opacity_logit[:, 0].detach()
+        op = torch.sigmoid(logits)
+        # the clamp's bound through the same sigmoid kernel
+        bound = torch.sigmoid(torch.full_like(logits, logit32(value)))
+        events.append(dict(event="opacity_reset", value=value,
+                           bound=float(bound[0]),
+                           max_alive_opacity=float(op[g.alive].max()),
+                           within=bool((op <= bound)[g.alive].all())))
+        return res
+
+    gs_trainer.densify_step = densify_rec
+    gs_trainer.reset_vanilla_opacity = reset_rec
+    seen = {}
+    try:
+        b = cli_run("vanilla", v_argv, n, kernel_fns, check=recorder(seen),
+                    stage_ranges=VANILLA_STAGE_RANGES)
+    finally:
+        gs_trainer.densify_step = densify_step
+        gs_trainer.reset_vanilla_opacity = reset
+    tr = seen.pop("trainer")
+    b.update(capacity=tr.state.avatar.capacity,
+             alive=int(tr.state.avatar.gaussians.alive.sum()),
+             events=events, grad_threshold=VANILLA_GRAD_THRESHOLD,
+             tile_overflow=[m["tile_overflow"] for m in seen["metrics"]])
+    lines["vanilla"] = b
+    tr = None
+    free()
+    saved = load_pytree(resolve_ckpt_path(out / v_exp),
+                        map_location=dev)["params"]
+    tr, c = cli_drive(kernel_fns, v_argv + [
+        "--log.eval_only", "true", "--optim.resume", "true",
+        "--prompt.scene", "demo,talkshow", "--data.eval_elevation", "90",
+        "--data.eval_camera_track", "fixed",
+        "--data.full_eval_size", str(VANILLA_EVAL_FRAMES)])
+    step_dir = out / v_exp / "results" / f"step_{tr.train_step:06d}"
+    render_ms = c["spans_ms"]["evaluate.render"][0]
+    c.update(restored_differs=_differs(vanilla_tree(tr.state.avatar), saved,
+                                       "vanilla"),
+             pngs=len(list(step_dir.glob("*.png"))),
+             size=[tr.cfg.data.test_h, tr.cfg.data.test_w],
+             render_ms_per_frame=[x and x / VANILLA_EVAL_FRAMES
+                                  for x in render_ms])
+    lines["vanilla_eval"] = c
+    tr = saved = None
+    free()
+
+    # -- (c) the hash avatar, then one eval frame ---------------------------
+    h_argv = argv("2.1", *args["2.1"], n=n, name="dancer/hash") + [
+        "--render.gs_type", "hash"]
+    seen = {}
+    d = cli_run("hash", h_argv, n, kernel_fns, check=recorder(seen))
+    tr = seen.pop("trainer")
+    d.update(mesh_parts=len(tr.avatar_model.mesh_parts),
+             tile_overflow=[m["tile_overflow"] for m in seen["metrics"]],
+             eval=eval_frames(tr, 1, tmp / "geometry_eval" / "hash"))
+    lines["hash"] = d
+    tr = None
+    free()
+
+    for run, line in lines.items():
+        emit(phase="cli_geometry", run=run, **line, **card)
+    for run in ("dmtet", "vanilla", "hash"):
+        line = lines[run]
+        prof = line["profiled_step"]["launches"]
+        for name, k in per_step.items():
+            if line["launches"][name] != k * n or prof[name] != k:
+                fail(f"cli_geometry {run}: {name} launched "
+                     f"{line['launches'][name]} times in {n} steps "
+                     f"({prof[name]} in the profiled one), expected {k} a "
+                     "step")
+        if line["steps"] != n or len(line["loss"]) != n \
+                or not all(math.isfinite(x) for x in line["loss"]):
+            fail(f"cli_geometry {run}: {line['steps']} steps, losses "
+                 f"{line['loss']}")
+    one_fwd = dict(quiet, blend_train_fwd=1)
+    if not (0 < a["tets"] < 6 * a["tet_grid_size"] ** 3) \
+            or a["valid_triangles"] <= 0 or not all(a["moved"].values()) \
+            or a["restored_differs"] or a["eval"]["launches"] != one_fwd \
+            or not a["eval"]["finite"]:
+        fail(f"cli_geometry dmtet: {a}")
+    dens = [e for e in events if e["event"] == "densify"]
+    resets = [e for e in events if e["event"] == "opacity_reset"]
+    if len(dens) != 1 or dens[0]["written"] <= 0 or len(resets) != 1 \
+            or not resets[0]["within"]:
+        fail(f"cli_geometry vanilla: densify / reset events {events}")
+    want_c = dict(quiet, blend_sorted=VANILLA_EVAL_FRAMES)
+    if c["launches"] != want_c or c["restored_differs"] \
+            or c["pngs"] != VANILLA_EVAL_FRAMES:
+        fail(f"cli_geometry vanilla eval: {c}, expected launches {want_c}")
+    if d["eval"]["launches"] != dict(quiet, blend_sorted=1) \
+            or not d["eval"]["finite"] or d["mesh_parts"]:
+        fail(f"cli_geometry hash: {d}")
+    return {"dmtet": a["launches"], "dmtet_eval": a["eval"]["launches"],
+            "vanilla": b["launches"], "vanilla_eval": c["launches"],
+            "hash": d["launches"], "hash_eval": d["eval"]["launches"]}
+
+
 def _leaf_names(tree, name="avatar"):
     if not isinstance(tree, dict):
         return [name]
@@ -3120,7 +3442,7 @@ def device_events(prof):
     from torch.autograd import DeviceType
 
     ranges = {name for name, _ in STAGE_RANGES + NERF_STAGE_RANGES
-              + CLI_RANGES}
+              + DMTET_STAGE_RANGES + VANILLA_STAGE_RANGES + CLI_RANGES}
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in ranges]
 
@@ -3749,11 +4071,12 @@ def main():
     # -- the two-stage run through the port's CLI --------------------------
     guidance = gparams = step = tstate = None
     torch.cuda.empty_cache()
-    cli_runs, inference_runs, mode_runs = cli_two_stage(dev, card, train_fns,
-                                                        frame_ms)
+    cli_runs, inference_runs, mode_runs, geometry_runs = cli_two_stage(
+        dev, card, train_fns, frame_ms)
     cli = {name: sum(run[name] for run in list(cli_runs.values())
                      + list(inference_runs.values())
-                     + list(mode_runs.values()))
+                     + list(mode_runs.values())
+                     + list(geometry_runs.values()))
            for name in train_fns}
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
@@ -3786,7 +4109,10 @@ def main():
                                 "cli": cli["blend_sorted"],
                                 "cli_by_run": {
                                     k: v["blend_sorted"]
-                                    for k, v in inference_runs.items()}}),
+                                    for k, v in inference_runs.items()},
+                                "cli_geometry": {
+                                    k: v["blend_sorted"]
+                                    for k, v in geometry_runs.items()}}),
         entry("blend_train_fwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_fwd"] + cli["blend_train_fwd"],
@@ -3797,7 +4123,10 @@ def main():
                                 "cli": cli["blend_train_fwd"],
                                 "cli_modes": {
                                     k: v["blend_train_fwd"]
-                                    for k, v in mode_runs.items()}}),
+                                    for k, v in mode_runs.items()},
+                                "cli_geometry": {
+                                    k: v["blend_train_fwd"]
+                                    for k, v in geometry_runs.items()}}),
         entry("blend_train_bwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_bwd"] + cli["blend_train_bwd"],
@@ -3808,7 +4137,10 @@ def main():
                                 "cli": cli["blend_train_bwd"],
                                 "cli_modes": {
                                     k: v["blend_train_bwd"]
-                                    for k, v in mode_runs.items()}}),
+                                    for k, v in mode_runs.items()},
+                                "cli_geometry": {
+                                    k: v["blend_train_bwd"]
+                                    for k, v in geometry_runs.items()}}),
         entry("blend_tiles_eval", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:126",
               train_launches["blend_tiles_eval"],
@@ -3827,7 +4159,10 @@ def main():
                                 "cli": cli["flash_attn_fwd"],
                                 "cli_modes": {
                                     k: v["flash_attn_fwd"]
-                                    for k, v in mode_runs.items()}},
+                                    for k, v in mode_runs.items()},
+                                "cli_geometry": {
+                                    k: v["flash_attn_fwd"]
+                                    for k, v in geometry_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]
@@ -3849,7 +4184,10 @@ def main():
               kernel_ms=f_bwd["bwd_kernel_ms"],
               launches_by_path={"train": train_launches["flash_attn_bwd"],
                                 "nerf_train": nerf_flash[1],
-                                "cli": cli["flash_attn_bwd"]},
+                                "cli": cli["flash_attn_bwd"],
+                                "cli_geometry": {
+                                    k: v["flash_attn_bwd"]
+                                    for k, v in geometry_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": " + ".join(x["kernel"]
                                               for x in r["bwd_build"]),

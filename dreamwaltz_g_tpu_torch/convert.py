@@ -18,6 +18,10 @@ and ``sigma_scale``. ``nerf_checkpoint_from_numpy`` and
 ``avatar_checkpoint_from_numpy`` write either as a port checkpoint, which
 the CLI's ``--render.from_nerf`` / ``--optim.ckpt`` read.
 
+``dmtet_from_numpy`` takes a numpy JAX ``DMTetModel`` and ``DMTetParams``
+to the port's, and ``vanilla_state_from_numpy`` a numpy JAX
+``VanillaAvatarState`` (its ``GaussianState`` and LBS weights).
+
 ``unet_from_flax``, ``controlnet_from_flax``, ``vae_from_flax`` and
 ``clip_text_from_flax`` load the Flax parameter trees of the JAX guidance
 models and text tower (as numpy) into the port's modules, whose names are
@@ -157,6 +161,45 @@ def avatar_state_from_numpy(tree, model: AvatarModel,
         max_radii=t(tree.max_radii),
         vertex_indices=None if vidx is None else t(vidx),
     )
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    dtype = bool if a.dtype == bool else \
+        np.int64 if a.dtype.kind in "iu" else np.float32
+    return torch.as_tensor(np.array(a, dtype), device=device)
+
+
+def dmtet_from_numpy(model_tree, params_tree, device="cuda"):
+    """The port's (``DMTetModel``, ``DMTetParams``) from the JAX pair as
+    numpy (the grid's vertices, tets, bound and deform scale; sdf and
+    deform)."""
+    from .nerf.dmtet import DMTetModel, DMTetParams
+
+    device = resolve_device(device)
+    model = DMTetModel(verts=_tensor(model_tree.verts, device),
+                       tets=_tensor(model_tree.tets, device),
+                       bound=float(model_tree.bound),
+                       deform_scale=float(model_tree.deform_scale))
+    return model, DMTetParams(sdf=_tensor(params_tree.sdf, device),
+                              deform=_tensor(params_tree.deform, device))
+
+
+def vanilla_state_from_numpy(tree, device="cuda"):
+    """The port's ``VanillaAvatarState`` from a numpy JAX one."""
+    from .gaussian.model import GaussianParams, GaussianState
+    from .system.vanilla import VanillaAvatarState
+
+    device = resolve_device(device)
+    g = tree.gaussians
+    return VanillaAvatarState(
+        gaussians=GaussianState(
+            params=GaussianParams(*[_tensor(a, device) for a in g.params]),
+            alive=_tensor(g.alive, device),
+            grad_accum=_tensor(g.grad_accum, device),
+            grad_denom=_tensor(g.grad_denom, device),
+            max_radii=_tensor(g.max_radii, device)),
+        lbs_weights=_tensor(tree.lbs_weights, device))
 
 
 def nerf_checkpoint_from_numpy(tree, nerf_cfg, ckpt_dir):

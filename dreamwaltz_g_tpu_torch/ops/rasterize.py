@@ -396,6 +396,36 @@ def rasterize_projected(
                         depth=out[..., CH], radii=g.radius, overflow=overflow)
 
 
+def rasterize(
+    means3d: torch.Tensor,
+    quats: torch.Tensor,
+    scales: torch.Tensor,
+    opacities: torch.Tensor,
+    colors: torch.Tensor,
+    viewmatrix: torch.Tensor,
+    intrinsics: torch.Tensor,
+    image_height: int,
+    image_width: int,
+    alive: Optional[torch.Tensor] = None,
+    tanfov: Optional[torch.Tensor] = None,
+    tile_size: int = 32,
+    capacity: int = 1024,
+    chunk: int = 128,
+    max_tiles_per_gaussian: int = 8,
+    mode: str = "train",
+) -> RasterOutput:
+    """One-call rasterization from 3D Gaussian parameters: covariance ->
+    project -> ``rasterize_projected`` (``mode`` as there; the JAX
+    function's ``pallas_mode``)."""
+    cov3d = covariance3d(quats, scales)
+    g2d = project_gaussians(
+        means3d, cov3d, opacities, colors, viewmatrix, intrinsics,
+        image_height, image_width, tanfov=tanfov, alive=alive)
+    return rasterize_projected(g2d, image_height, image_width, tile_size,
+                               capacity, chunk, max_tiles_per_gaussian,
+                               mode=mode)
+
+
 def rasterize_reference(
     g: Gaussians2D, image_height: int, image_width: int,
     alpha_clip: float = 0.999, min_alpha: float = 1.0 / 255.0,

@@ -14,6 +14,13 @@ Port of ``dreamwaltz_g_tpu/training/gs_trainer.py``:
 
 * ``densify``: clone/split/prune of the unconstrained set with the
   optimizer-moment reset on the rewritten slots.
+* The vanilla avatar (``--render.gs_type vanilla``): ``VanillaTrainState``,
+  ``make_vanilla_sds_step`` (animate_vanilla -> project + ``dummy`` ->
+  (T, K) bin -> the train blend, B1 forward and backward -> guidance ->
+  the six Adam groups -> ``gaussian.densify.update_stats``),
+  ``densify_vanilla`` (children copy their parent's LBS weights),
+  ``reset_vanilla_opacity`` and ``make_vanilla_render`` (the sorted blend,
+  B2).
 
 Not ported yet: the split and data/tensor-parallel steps, scene
 placement and the static background Gaussians in the step and the
@@ -27,7 +34,13 @@ import torch
 from torch.profiler import record_function
 
 from .._device import resolve_device
-from ..gaussian.densify import DensifyConfig, reset_opt_slots
+from ..gaussian.densify import (
+    DensifyConfig,
+    densify_step,
+    reset_opacity,
+    reset_opt_slots,
+    update_stats,
+)
 from ..guidance.sds import GuidanceParams, ScoreDistillation
 from ..human.smplx_model import SMPLXParams
 from ..ops import rasterize as R
@@ -42,8 +55,18 @@ from ..system.avatar import (
     place_gaussians,
     update_avatar_stats,
 )
+from ..system.vanilla import (
+    VanillaAvatarModel,
+    VanillaAvatarState,
+    animate_vanilla,
+)
 from .losses import image_reconstruction_loss
-from .optim import AvatarOptimizer, AvatarOptState, avatar_param_groups
+from .optim import (
+    AvatarOptimizer,
+    AvatarOptState,
+    GaussianOptimizer,
+    avatar_param_groups,
+)
 
 
 def _person(observed_inputs: SMPLXParams, i: int) -> SMPLXParams:
@@ -348,3 +371,156 @@ def make_avatar_render_frames(model: AvatarModel, image_height: int,
         return torch.stack(images), torch.stack(alphas), torch.stack(depths)
 
     return render_frames
+
+
+# ---------------------------------------------------------------------------
+# The vanilla avatar
+# ---------------------------------------------------------------------------
+
+class VanillaTrainState(NamedTuple):
+    avatar: VanillaAvatarState
+    opt_state: AvatarOptState
+    step: int
+
+
+def init_vanilla_train_state(state: VanillaAvatarState,
+                             tx: GaussianOptimizer) -> VanillaTrainState:
+    """The six ``GaussianParams`` tensors become leaves that take a
+    gradient, under one Adam over their groups; step 0. The LBS weights
+    stay fixed."""
+    for t in state.gaussians.params:
+        t.requires_grad_(True)
+    return VanillaTrainState(avatar=state,
+                             opt_state=tx.init(state.gaussians.params),
+                             step=0)
+
+
+def _check_vanilla_device(state: VanillaAvatarState,
+                          device: torch.device) -> None:
+    got = state.gaussians.params.means.device
+    if got.type != device.type or device.index not in (None, got.index):
+        raise ValueError(f"avatar state is on {got}, the render on {device}")
+
+
+def make_vanilla_sds_step(
+    model: VanillaAvatarModel,
+    guidance: ScoreDistillation,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 16,
+    capacity: int = 512,
+    chunk: int = 64,
+    max_tiles_per_gaussian: int = 16,
+    lambda_guidance: float = 1.0,
+    pgc: Optional[Callable] = None,
+    device="cuda",
+) -> Callable:
+    """One SDS step on the vanilla avatar: ``step(tstate, gparams,
+    observed_inputs, extrinsic, intrinsics, tanfov, background,
+    text_embeds, uncond_embeds, t, campos=None, noise=None,
+    cond_image=None, guidance_scale=None, generator=None)`` -> (tstate',
+    {"loss", "sds_loss", "tile_overflow"}).
+
+    ``animate_vanilla`` (SH colors toward ``campos``, the DC term without
+    one, as the trainer calls it) -> project, with a zero ``dummy`` on the
+    screen-space means -> (T, K) bin -> the train blend (B1) ->
+    composite -> ``pgc`` -> guidance -> backward (B1's backward) -> the
+    optimizer step on the ``GaussianParams`` leaves in place ->
+    ``update_stats`` from the dummy's gradient and the radii. Ranges:
+    ``vanilla_step.render``, ``.guidance``, ``.backward``,
+    ``.optimizer_stats``."""
+    device = resolve_device(device)
+    H, W = image_height, image_width
+    raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
+                  max_tiles_per_gaussian=max_tiles_per_gaussian, mode="train")
+
+    def step(tstate: VanillaTrainState, gparams: GuidanceParams,
+             observed_inputs: SMPLXParams, extrinsic, intrinsics, tanfov,
+             background, text_embeds, uncond_embeds, t, campos=None,
+             noise: Optional[torch.Tensor] = None, cond_image=None,
+             guidance_scale=None,
+             generator: Optional[torch.Generator] = None) -> tuple:
+        vstate = tstate.avatar
+        _check_vanilla_device(vstate, device)
+        C = vstate.capacity
+        tstate.opt_state.zero_grad()
+        dummy = torch.zeros((C, 2), device=device, requires_grad=True)
+        with record_function("vanilla_step.render"):
+            gs = animate_vanilla(model, vstate, observed_inputs,
+                                 campos=campos)
+            cov3d = R.covariance3d(gs.quats, gs.scales)
+            g2d = R.project_gaussians(
+                gs.positions, cov3d, gs.opacities, gs.colors, extrinsic,
+                intrinsics, H, W, tanfov=tanfov, alive=gs.alive)
+            g2d = g2d._replace(means2d=g2d.means2d + dummy)
+            out = R.rasterize_projected(g2d, H, W, **raster)
+            image = out.image + (1.0 - out.alpha)[..., None] * background
+            if pgc is not None and image.shape[-1] == 3:
+                image = pgc(image)
+        with record_function("vanilla_step.guidance"):
+            sds = guidance(gparams, image[None], text_embeds, uncond_embeds,
+                           t, noise=noise, cond_image=cond_image,
+                           guidance_scale=guidance_scale, generator=generator)
+        loss = lambda_guidance * sds["loss"]
+        with record_function("vanilla_step.backward"):
+            loss.backward()
+        with record_function("vanilla_step.optimizer_stats"):
+            tstate.opt_state.step()
+            gstate = update_stats(vstate.gaussians, dummy.grad[:C],
+                                  out.radii.detach()[:C])
+        metrics: Dict[str, torch.Tensor] = {
+            "loss": loss.detach(), "sds_loss": sds["loss"].detach(),
+            "tile_overflow": out.overflow}
+        return VanillaTrainState(vstate._replace(gaussians=gstate),
+                                 tstate.opt_state, tstate.step + 1), metrics
+
+    return step
+
+
+def densify_vanilla(tstate: VanillaTrainState, cfg: DensifyConfig,
+                    generator: Optional[torch.Generator] = None,
+                    offsets=None) -> VanillaTrainState:
+    """Clone / split / prune on the vanilla avatar's Gaussians (in place on
+    the optimizer's leaves), the children copying their parent's LBS
+    weights, then the moments zeroed on the written slots, in place."""
+    vstate = tstate.avatar
+    gstate, written, extras = densify_step(
+        vstate.gaussians, cfg, generator,
+        extra_attrs={"lbs": vstate.lbs_weights}, offsets=offsets)
+    opt_state = reset_opt_slots(tstate.opt_state, written)
+    return VanillaTrainState(
+        vstate._replace(gaussians=gstate, lbs_weights=extras["lbs"]),
+        opt_state, tstate.step)
+
+
+def reset_vanilla_opacity(tstate: VanillaTrainState, value: float = 0.01
+                          ) -> VanillaTrainState:
+    """The periodic opacity reset (opacity is a parameter here), in place;
+    the optimizer's moments are kept, as in the JAX package."""
+    reset_opacity(tstate.avatar.gaussians, value)
+    return tstate
+
+
+def make_vanilla_render(model: VanillaAvatarModel, image_height: int,
+                        image_width: int, tile_size: int = 16,
+                        capacity: int = 512, chunk: int = 64,
+                        max_tiles_per_gaussian: int = 16,
+                        device="cuda") -> Callable:
+    """Eval render of the vanilla avatar, the call of
+    ``make_avatar_render``'s: ``render(state, observed_inputs, extrinsic,
+    intrinsics, tanfov, background)`` -> (image (H, W, 3), alpha (H, W),
+    depth (H, W)), through the sorted blend (B2), the DC colors."""
+    device = resolve_device(device)
+    H, W = image_height, image_width
+    raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
+                  max_tiles_per_gaussian=max_tiles_per_gaussian, mode="eval")
+
+    @torch.no_grad()
+    def render(state: VanillaAvatarState, observed_inputs: SMPLXParams,
+               extrinsic, intrinsics, tanfov, background):
+        _check_vanilla_device(state, device)
+        gs = animate_vanilla(model, state, observed_inputs)
+        return _render_gaussians(gs, extrinsic, intrinsics, tanfov,
+                                 background, H, W, raster)
+
+    return render

@@ -1,21 +1,26 @@
 """Training losses: ray sparsity, the triplane volume-sparsity prior, the
-mesh-surface density guidance and the image reconstruction loss of the
-NeRF -> 3DGS distillation (L1 + DSSIM).
+mesh-surface density guidance, the image reconstruction loss of the
+NeRF -> 3DGS distillation (L1 + DSSIM), the KNN offset / scale
+regularisers and the mesh regularisers.
 
-Port of the first three parts of ``dreamwaltz_g_tpu/training/losses.py``.
-The draws are handed in (``VolumeSparsityDraws``, the sigma-guidance
-points' faces and uniforms) or made from a ``torch.Generator``, so that a
-test can hand the port the JAX package's draws. The KNN and mesh
-regularisers serve other paths and are not ported yet.
+Port of ``dreamwaltz_g_tpu/training/losses.py``. The draws are handed in
+(``VolumeSparsityDraws``, the sigma-guidance points' faces and uniforms)
+or made from a ``torch.Generator``, so that a test can hand the port the
+JAX package's draws. As in the JAX package, no trainer path calls
+``KnnRegularizer``, ``normal_consistency_loss`` or
+``laplacian_smoothing_loss``: the DMTet step regularises its surface with
+``nerf/dmtet.py``'s static-shape twins.
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.mesh import sample_mesh_surface, vertex_normals
+from ..ops.mesh import knn, sample_mesh_surface, vertex_normals
 
 
 # ---------------------------------------------------------------------------
@@ -230,3 +235,86 @@ def image_reconstruction_loss(image: torch.Tensor, gt_image: torch.Tensor,
     l1 = torch.mean(torch.abs(image - gt_image))
     return (1.0 - lambda_dssim) * l1 \
         + lambda_dssim * (1.0 - ssim(image, gt_image))
+
+
+# ---------------------------------------------------------------------------
+# KNN offset / scale regularisers
+# ---------------------------------------------------------------------------
+
+class KnnRegularizer(NamedTuple):
+    """A static KNN structure over anchor vertices; penalises offsets that
+    project past half the neighbour distance and scales past it."""
+
+    knn_vectors: torch.Tensor  # (N, K, 3) anchor -> neighbour
+    knn_norms: torch.Tensor    # (N, K)
+
+    @staticmethod
+    def build(vertices: torch.Tensor, k: int = 5) -> "KnnRegularizer":
+        _, idx = knn(vertices, vertices, k + 1)
+        idx = idx[:, 1:]  # drop self
+        vec = vertices[idx] - vertices[:, None, :]
+        return KnnRegularizer(
+            knn_vectors=vec,
+            knn_norms=torch.clamp(torch.linalg.norm(vec, dim=-1), min=1e-8))
+
+    def offset_loss(self, offsets: torch.Tensor) -> torch.Tensor:
+        proj = torch.einsum("nc,nkc->nk", offsets, self.knn_vectors) \
+            / self.knn_norms
+        err = torch.clamp(proj / self.knn_norms - 0.5, min=0.0)
+        return torch.sum(torch.mean(err, dim=-1))
+
+    def scale_loss(self, scales: torch.Tensor) -> torch.Tensor:
+        s = torch.max(scales, dim=-1).values[:, None]
+        err = torch.clamp(s / self.knn_norms - 1.0, min=0.0)
+        return torch.sum(torch.mean(err, dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# Mesh regularisers
+# ---------------------------------------------------------------------------
+
+def normal_consistency_loss(vertices: torch.Tensor, faces: torch.Tensor,
+                            face_adjacency: torch.Tensor) -> torch.Tensor:
+    """Mean 1 - cos between the normals of adjacent faces;
+    ``face_adjacency`` (A, 2) pairs of face ids sharing an edge."""
+    faces = torch.as_tensor(faces, device=vertices.device).long()
+    adj = torch.as_tensor(face_adjacency, device=vertices.device).long()
+    tri = vertices[faces]
+    n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                        min=1e-12)
+    return torch.mean(1.0 - torch.sum(n[adj[:, 0]] * n[adj[:, 1]], dim=-1))
+
+
+def laplacian_smoothing_loss(vertices: torch.Tensor, faces: torch.Tensor
+                             ) -> torch.Tensor:
+    """Uniform Laplacian: the mean of |v - mean(neighbours)|^2 over the
+    vertices of some face."""
+    faces = torch.as_tensor(faces, device=vertices.device).long()
+    V = vertices.shape[0]
+    dev = vertices.device
+    deg = torch.zeros((V,), device=dev).index_add(
+        0, faces.reshape(-1), torch.full((faces.numel(),), 2.0, device=dev))
+    nbr = torch.zeros((V, 3), device=dev)
+    for a, b in ((0, 1), (1, 2), (2, 0)):
+        nbr = nbr.index_add(0, faces[:, a], vertices[faces[:, b]])
+        nbr = nbr.index_add(0, faces[:, b], vertices[faces[:, a]])
+    mean_nbr = nbr / torch.clamp(deg[:, None], min=1.0)
+    lap = torch.where(deg[:, None] > 0, vertices - mean_nbr,
+                      torch.zeros_like(vertices))
+    return torch.mean(torch.sum(lap ** 2, dim=-1))
+
+
+def face_adjacency_from_faces(faces: np.ndarray) -> np.ndarray:
+    """On the host: (A, 2) pairs of faces sharing an edge, in the order
+    the edges are first met (the first two faces of each edge)."""
+    edge_map = collections.defaultdict(list)
+    f = np.asarray(faces)
+    for fi in range(f.shape[0]):
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            key = tuple(sorted((int(f[fi, a]), int(f[fi, b]))))
+            edge_map[key].append(fi)
+    pairs = [tuple(v[:2]) for v in edge_map.values() if len(v) >= 2]
+    if not pairs:
+        return np.zeros((0, 2), np.int64)
+    return np.asarray(pairs, np.int64)

@@ -2,15 +2,16 @@
 stage-1 NeRF's Adam / AdamW / Adan over its encoder, MLP and background
 groups.
 
-Port of ``dreamwaltz_g_tpu/training/optim.py`` but for
-``build_gaussian_optimizer``. The JAX package partitions a parameter tree
-into labelled groups with ``optax.multi_transform``.
+Port of ``dreamwaltz_g_tpu/training/optim.py``. The JAX package partitions
+a parameter tree into labelled groups with ``optax.multi_transform``.
 
 * Stage 2: ``build_avatar_optimizer`` returns the labels with their
   learning rates, and ``AvatarOptimizer.init`` builds one
   ``torch.optim.Adam`` over the groups of an avatar's tensors and network
   weights. A group frozen by the config is left out: its tensors get no
-  update at all.
+  update at all. ``build_gaussian_optimizer`` does the same for the
+  vanilla avatar's six ``GaussianParams`` groups
+  (``GaussianOptimizer.init``).
 * Stage 1: ``build_nerf_optimizer`` returns a ``NeRFOptimizer`` of one
   update rule a group (``adam`` / ``adamw`` as optax computes them,
   ``adan`` as the JAX package's transform does), optionally behind a
@@ -150,6 +151,49 @@ def build_avatar_optimizer(cfg: RenderConfig, max_steps: int,
                               cfg.betas_lr),
         "smpl_tpl": cfg.lbs_lr,
         "smpl_vt": cfg.lbs_lr * 10.0,
+    })
+
+
+#: the vanilla avatar's labels, one a ``GaussianParams`` field
+GAUSSIAN_LABELS = {"means": "pos", "sh_dc": "dc", "sh_rest": "rest",
+                   "opacity_logit": "opacity", "log_scales": "scale",
+                   "quats": "quat"}
+
+
+@dataclass
+class GaussianOptimizer:
+    """Learning rate (a float or a schedule over the update count) of each
+    of the six ``GaussianParams`` labels."""
+
+    lrs: Dict[str, Schedule]
+
+    def init(self, params) -> AvatarOptState:
+        groups, schedules = [], []
+        for name, label in GAUSSIAN_LABELS.items():
+            lr = self.lrs[label]
+            groups.append({"params": [getattr(params, name)],
+                           "lr": lr(0) if callable(lr) else lr,
+                           "name": label})
+            schedules.append(lr)
+        adam = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-15)
+        return AvatarOptState(adam=adam, schedules=schedules)
+
+
+def build_gaussian_optimizer(cfg: RenderConfig, max_steps: int,
+                             spatial_scale: float = 1.0
+                             ) -> GaussianOptimizer:
+    """The vanilla 3DGS groups: means (exponential decay x
+    spatial_scale), the DC color at ``feature_lr``, the rest of the SH at
+    ``feature_lr / 20``, opacity, scales and rotations; Adam b1 0.9, b2
+    0.999, eps 1e-15."""
+    return GaussianOptimizer({
+        "pos": expon_lr(cfg.position_lr_init * spatial_scale,
+                        cfg.position_lr_final * spatial_scale, max_steps),
+        "dc": cfg.feature_lr,
+        "rest": cfg.feature_lr / 20.0,
+        "opacity": cfg.opacity_lr,
+        "scale": cfg.scaling_lr,
+        "quat": cfg.rotation_lr,
     })
 
 

@@ -16,7 +16,13 @@ and mask, ``scripts/pretrain_nerf.sh``), ``pretrain_nerf2gs``
 (``--log.nerf2gs``: the avatar distilled from the frozen stage-1 field),
 ``export_mesh`` (``--log.nerf2mesh``: the field as a textured mesh) and
 ``check`` (``--log.check`` / ``--log.check_sd``: the condition images and
-DDIM samples of the frozen guidance, written at construction).
+DDIM samples of the frozen guidance, written at construction); and for
+the other geometries: ``--stage nerf --nerf.dmtet true`` (the DMTet
+finetune of ``training/dmtet_trainer.py``, its tet grid seeded from the
+warm-started field) and ``--stage gs --render.gs_type vanilla`` (plain
+Gaussians rigged by LBS, ``system/vanilla.py``) or ``hash`` (the avatar's
+scales and rotations from an MLP over the field encoding, no mesh parts),
+each through training, checkpoints, snapshots and evaluation.
 
 The Trainer owns the host-side providers (pose prompt, camera sampler,
 timestep scheduler, checkpointer) and the device state: the field or the
@@ -38,7 +44,7 @@ every generator's state, so a resumed run draws what an uninterrupted one
 would.
 
 Not ported yet, and refused at construction where a flag asks for them:
-the vanilla and hash avatars, DMTet, the MLP and Gaussian backgrounds,
+the hash / tiled grid backbones, the MLP and Gaussian backgrounds,
 scene composition and placement, SDXL, ``batch_size > 1`` and tensor
 parallelism, and the multi-device frame sharding of ``evaluate``.
 """
@@ -121,35 +127,55 @@ def avatar_tree(state, model) -> dict:
 
 
 @torch.no_grad()
+def _copy_into(dst, src, name):
+    """Copy the tensors of tree ``src`` into tree ``dst`` in place; keys
+    and shapes must match."""
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"{name}: keys {sorted(src)} vs {sorted(dst)}")
+        for k in dst:
+            _copy_into(dst[k], src[k], f"{name}.{k}")
+    elif dst is None or src is None:
+        if (dst is None) != (src is None):
+            raise ValueError(f"{name}: present on one side only")
+    else:
+        if tuple(dst.shape) != tuple(src.shape):
+            raise ValueError(f"{name}: checkpoint {tuple(src.shape)} vs "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+
+
+@torch.no_grad()
 def load_avatar_tree(state, model, tree: dict) -> None:
     """Copy a tree of ``avatar_tree`` into ``state`` and ``model`` in place
     (the optimizer keeps its references); shapes must match."""
     cur = avatar_tree(state, model)
-
-    def put(dst, src, name):
-        if isinstance(dst, dict):
-            if set(dst) != set(src):
-                raise ValueError(f"{name}: keys {sorted(src)} vs "
-                                 f"{sorted(dst)}")
-            for k in dst:
-                put(dst[k], src[k], f"{name}.{k}")
-        elif dst is None or src is None:
-            if (dst is None) != (src is None):
-                raise ValueError(f"{name}: present on one side only")
-        else:
-            if tuple(dst.shape) != tuple(src.shape):
-                raise ValueError(f"{name}: checkpoint {tuple(src.shape)} vs "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(src)
-
     for k in cur:
         if k not in ("color_mlp", "sq_net"):
-            put(cur[k], tree[k], k)
+            _copy_into(cur[k], tree[k], k)
     model.color_mlp.load_state_dict(tree["color_mlp"])
     model.sq_net.load_state_dict(tree["sq_net"])
 
 
+def vanilla_tree(state) -> dict:
+    """The vanilla avatar's tensors: its ``GaussianParams`` fields, the
+    alive mask, the statistics and the LBS weights."""
+    g = state.gaussians
+    return {**g.params._asdict(), "alive": g.alive,
+            "grad_accum": g.grad_accum, "grad_denom": g.grad_denom,
+            "max_radii": g.max_radii, "lbs_weights": state.lbs_weights}
+
+
+@torch.no_grad()
+def load_vanilla_tree(state, tree: dict) -> None:
+    """Copy a tree of ``vanilla_tree`` into ``state`` in place."""
+    _copy_into(vanilla_tree(state), tree, "vanilla")
+
+
 def _opt_tree(opt_state) -> dict:
+    if isinstance(opt_state, tuple):     # the DMTet finetune's pair
+        return {"nerf": _opt_tree(opt_state[0]),
+                "dmtet": _opt_tree(opt_state[1])}
     if isinstance(opt_state, nerf_trainer.NeRFOptState):
         return {label: state for label, (_, _, state)
                 in opt_state.groups.items()}
@@ -158,6 +184,10 @@ def _opt_tree(opt_state) -> dict:
 
 @torch.no_grad()
 def _load_opt_tree(opt_state, tree: dict) -> None:
+    if isinstance(opt_state, tuple):
+        _load_opt_tree(opt_state[0], tree["nerf"])
+        _load_opt_tree(opt_state[1], tree["dmtet"])
+        return
     if isinstance(opt_state, nerf_trainer.NeRFOptState):
         for label, (_, _, state) in opt_state.groups.items():
             for k, v in tree[label].items():
@@ -202,6 +232,7 @@ class Trainer:
         self.losses = []
         self.neg_embeds = None
         self.export_stats: Dict[str, Any] = {}
+        self.dmtet_model = None
 
         self._warn_unsupported_knobs()
         self._init_human()
@@ -227,9 +258,6 @@ class Trainer:
             raise ValueError(f"log.platform {lg.platform!r}: the port runs "
                              "on 'cuda' (the default) or 'cpu'")
         refused = [
-            (cfg.stage == "gs" and r.gs_type != "dreamwaltz-g",
-             f"render.gs_type {r.gs_type!r}"),
-            (cfg.nerf.dmtet, "nerf.dmtet (DMTet finetune)"),
             (cfg.nerf.backbone != "triplane",
              f"nerf.backbone {cfg.nerf.backbone!r} (the hash / tiled grid)"),
             (r.use_mlp_background, "render.use_mlp_background"),
@@ -508,13 +536,51 @@ class Trainer:
                     self.nerf.load_state_dict(raw["params"])
                 logger.info("warm-started NeRF from %s", step_dir)
         self.grid = init_occupancy(cfg.nerf.grid_size, device=self.device)
+        self.dmtet_model = None
+        if cfg.nerf.dmtet:
+            # the DMTet finetune: the tet grid seeded from the (warm-
+            # started) field; the surface and the field train by SDS
+            from . import dmtet_trainer
+
+            with span("trainer.init_dmtet", self.device):
+                self.dmtet_model, dparams, self._tet_edges = \
+                    dmtet_trainer.init_dmtet(
+                        self.nerf, int(cfg.nerf.tet_grid_size),
+                        density_thresh=cfg.nerf.density_thresh)
+            self._tx_dmtet = dmtet_trainer.build_dmtet_optimizer(
+                cfg.nerf, self.max_iteration)
+            self.state = dmtet_trainer.init_train_state(
+                self.nerf, dparams, self.tx, self._tx_dmtet)
+            logger.info("DMTet finetune: %d tets in the surface band "
+                        "(grid %d)", self.dmtet_model.tets.shape[0],
+                        cfg.nerf.tet_grid_size)
         self._build_nerf_sds_step(self.train_res)
         self._build_pretrain_step(self.train_res)
-        self.eval_render = nerf_trainer.make_eval_render(
-            self.nerf, cfg.data.eval_h, cfg.data.eval_w, device=self.device)
+        if self.dmtet_model is not None:
+            from . import dmtet_trainer
+
+            r = cfg.render
+            self.eval_render = dmtet_trainer.make_dmtet_eval_render(
+                self.nerf, self.dmtet_model, cfg.data.eval_h,
+                cfg.data.eval_w, tile_size=r.tile_size,
+                capacity=r.tile_capacity, chunk=r.chunk, device=self.device)
+        else:
+            self.eval_render = nerf_trainer.make_eval_render(
+                self.nerf, cfg.data.eval_h, cfg.data.eval_w,
+                device=self.device)
 
     def _build_nerf_sds_step(self, H: int):
         cfg = self.cfg
+        if getattr(self, "dmtet_model", None) is not None:
+            from . import dmtet_trainer
+
+            r = cfg.render
+            self.sds_step_fn = dmtet_trainer.make_dmtet_sds_step(
+                self.nerf, self.dmtet_model, self._tet_edges, self.guidance,
+                H, H, cfg.nerf, lambda_guidance=cfg.guide.lambda_guidance,
+                pgc=self.pgc, tile_size=r.tile_size,
+                capacity=r.tile_capacity, chunk=r.chunk, device=self.device)
+            return
         self.sds_step_fn = nerf_trainer.make_nerf_sds_step(
             self.nerf, self.guidance, H, H, cfg.nerf,
             num_steps=cfg.nerf.num_steps,
@@ -541,8 +607,13 @@ class Trainer:
         cfg = self.cfg
         r = cfg.render
         enc_cfg = enc_cfg_from_nerf(cfg.nerf)
+        # 'hash': no mesh-bound parts; the scales and rotations come from
+        # an MLP over the field encoding in place of the deform net
+        hash_mode = r.gs_type == "hash"
         mesh_parts = {}
-        if self.smpl.num_vertices < 1000:
+        if hash_mode:
+            pass
+        elif self.smpl.num_vertices < 1000:
             # the synthetic debug body has no semantic tables: bind the top
             # of the chain as 'face'
             faces = self.smpl.faces
@@ -576,10 +647,13 @@ class Trainer:
             nerf_bound=cfg.nerf.bound,
             color_mlp=SigmaMLP(enc_cfg.output_dim, hidden=64, num_layers=3,
                                out_channels=out_ch, device=self.device),
-            sq_net=DeformNetwork(
+            sq_net=SigmaMLP(enc_cfg.output_dim, hidden=64, num_layers=3,
+                            out_channels=7, device=self.device)
+            if hash_mode else DeformNetwork(
                 xyz_input_ch=enc_cfg.output_dim
                 if r.use_nerf_encoded_position else None,
                 device=self.device),
+            hash_mode=hash_mode,
             mesh_parts=mesh_parts,
             init_scale=r.init_scale,
             max_scale=r.max_scale,
@@ -654,11 +728,99 @@ class Trainer:
         st["points"] = int(pc.points.shape[0])
         return pc
 
+    def _load_stage1_field(self, step_dir):
+        """The stage-1 checkpoint's field, frozen."""
+        cfg = self.cfg
+        nerf = build_nerf(
+            cfg.nerf, with_background=cfg.nerf.bg_mode == "nerf"
+            or cfg.nerf.bg_radius > 0, device=self.device)
+        raw = load_pytree(step_dir, map_location=self.device)
+        with torch.no_grad():
+            nerf.load_state_dict(raw["params"])
+        return nerf.requires_grad_(False)
+
+    def _init_vanilla_avatar(self):
+        """``--render.gs_type vanilla``: plain Gaussians rigged by LBS,
+        seeded from the stage-1 field's cloud (``--render.from_nerf``) or
+        from the SMPL-X mesh, warm-started from ``--optim.ckpt``; the six
+        Adam groups of ``build_gaussian_optimizer``; densification and the
+        periodic opacity reset on the trainer's cadence."""
+        from ..system.vanilla import VanillaAvatarModel, init_vanilla_avatar
+        from .optim import build_gaussian_optimizer
+
+        cfg = self.cfg
+        r = cfg.render
+        self._nerf_guidance = None
+        self.avatar_model = VanillaAvatarModel(
+            smpl=self.smpl, canonical_inputs=self.prompt.canonical_inputs,
+            max_scale=r.max_scale)
+        colors = seed_scales = None
+        nerf_step_dir = resolve_ckpt_path(r.from_nerf) if r.from_nerf \
+            else None
+        if nerf_step_dir is not None:
+            nerf = self._load_stage1_field(nerf_step_dir)
+            with span("trainer.export", self.device):
+                pc = self._export_cloud(nerf)
+            cloud = torch.as_tensor(pc.points, device=self.device)
+            if pc.colors is not None:
+                colors = torch.as_tensor(pc.colors, dtype=torch.float32,
+                                         device=self.device)
+        else:
+            cloud, colors, seed_scales = self._seed_cloud()
+        capacity = min(r.n_gaussians,
+                       max(2 * cloud.shape[0], cloud.shape[0] + 1024))
+        with span("trainer.init_avatar_state", self.device):
+            vstate = init_vanilla_avatar(
+                self.avatar_model, cloud, colors=colors, capacity=capacity,
+                sh_levels=r.sh_levels,
+                init_scale=seed_scales if seed_scales is not None
+                else r.init_scale,
+                init_opacity=r.init_opacity,
+                lbs_weight_smooth=r.lbs_weight_smooth,
+                lbs_weight_smooth_K=r.lbs_weight_smooth_K,
+                lbs_weight_smooth_N=r.lbs_weight_smooth_N)
+        self.export_stats["capacity"] = capacity
+        spatial = r.spatial_scale or 1.0
+        self.tx = build_gaussian_optimizer(r, self.max_iteration,
+                                           spatial_scale=spatial)
+        self.state = gs_trainer.init_vanilla_train_state(vstate, self.tx)
+        if cfg.optim.ckpt:
+            step_dir = resolve_ckpt_path(cfg.optim.ckpt)
+            if step_dir is not None:
+                restored = load_pytree(step_dir, map_location=self.device)
+                load_vanilla_tree(self.state.avatar, restored["params"])
+                logger.info("warm-started vanilla avatar from %s", step_dir)
+        self._build_avatar_step(self.train_res)
+        rk = dict(tile_size=r.tile_size, capacity=r.tile_capacity,
+                  chunk=r.chunk, device=self.device)
+        self.eval_render = gs_trainer.make_vanilla_render(
+            self.avatar_model, cfg.data.eval_h, cfg.data.eval_w, **rk)
+        self.test_render = gs_trainer.make_vanilla_render(
+            self.avatar_model, cfg.data.test_h, cfg.data.test_w, **rk)
+        self._init_densify_cadence(spatial)
+
+    def _init_densify_cadence(self, spatial: float):
+        r = self.cfg.render
+        self.densify_cfg = DensifyConfig(
+            grad_threshold=r.densify_grad_threshold,
+            spatial_scale=spatial,
+            min_opacity=r.densify_min_opacity,
+            enable_clone=not r.densify_disable_clone,
+            enable_split=not r.densify_disable_split,
+            enable_prune=not r.densify_disable_prune)
+        # the reference's 15k-iteration cadence scaled to this run
+        self.densification_interval = r.densification_interval \
+            or max(int(self.max_iteration * 100 / 15000), 1)
+        self.opacity_reset_interval = r.opacity_reset_interval \
+            or max(int(self.max_iteration * 3000 / 15000), 1)
+
     def _init_avatar(self):
         from ..system import avatar as A
 
         cfg = self.cfg
         r = cfg.render
+        if r.gs_type == "vanilla":
+            return self._init_vanilla_avatar()
         self.avatar_model = self._build_avatar_model()
         self._nerf_guidance = None
         nerf_model = None
@@ -668,13 +830,7 @@ class Trainer:
         if nerf_step_dir is not None:
             # the stage-1 handoff: the checkpoint's field -> its point cloud
             # and the continued encoder tables and head
-            nerf = build_nerf(
-                cfg.nerf, with_background=cfg.nerf.bg_mode == "nerf"
-                or cfg.nerf.bg_radius > 0, device=self.device)
-            raw = load_pytree(nerf_step_dir, map_location=self.device)
-            with torch.no_grad():
-                nerf.load_state_dict(raw["params"])
-            nerf.requires_grad_(False)
+            nerf = self._load_stage1_field(nerf_step_dir)
             with span("trainer.export", self.device):
                 pc = self._export_cloud(nerf)
             cloud = torch.as_tensor(pc.points, device=self.device)
@@ -741,16 +897,7 @@ class Trainer:
             self.avatar_model, cfg.data.eval_h, cfg.data.eval_w, **rk)
         self.test_render = gs_trainer.make_avatar_render(
             self.avatar_model, cfg.data.test_h, cfg.data.test_w, **rk)
-        self.densify_cfg = DensifyConfig(
-            grad_threshold=r.densify_grad_threshold,
-            spatial_scale=spatial,
-            min_opacity=r.densify_min_opacity,
-            enable_clone=not r.densify_disable_clone,
-            enable_split=not r.densify_disable_split,
-            enable_prune=not r.densify_disable_prune)
-        # the reference's 15k-iteration cadence scaled to this run
-        self.densification_interval = r.densification_interval \
-            or max(int(self.max_iteration * 100 / 15000), 1)
+        self._init_densify_cadence(spatial)
 
     def _sizing_checkpoint(self) -> Optional[Path]:
         """The step directory whose avatar sizes the buffers: the latest
@@ -766,9 +913,11 @@ class Trainer:
         return None
 
     def _build_avatar_step(self, H: int):
-        self.sds_step_fn = gs_trainer.make_avatar_sds_step(
-            self.avatar_model, self.guidance, H, H,
-            **self._common_step_kwargs())
+        make = gs_trainer.make_vanilla_sds_step \
+            if self.cfg.render.gs_type == "vanilla" \
+            else gs_trainer.make_avatar_sds_step
+        self.sds_step_fn = make(self.avatar_model, self.guidance, H, H,
+                                **self._common_step_kwargs())
 
     # ------------------------------------------------------------------
     # data assembly (host side; the prefetch worker runs it)
@@ -975,7 +1124,17 @@ class Trainer:
         cfg = self.cfg
         cam = batch["cam"]
         with record_function("trainer.step"):
-            if cfg.stage == "nerf":
+            if self.dmtet_model is not None:
+                # no occupancy grid and no sigma guidance: the surface is
+                # the density structure now
+                self.state, metrics = self.sds_step_fn(
+                    self.state, self.guidance_params, cam.extrinsic[0],
+                    cam.intrinsics[0], cam.c2w[0][:3, 3], self._bg_color(),
+                    batch["text"], batch["uncond"], batch["t"],
+                    generator=self.generator,
+                    cond_image=batch["cond_image"],
+                    guidance_scale=batch["guidance_scale"])
+            elif cfg.stage == "nerf":
                 self.grid = nerf_trainer.maybe_update_occupancy(
                     self.state, self.grid, self.nerf,
                     interval=cfg.nerf.update_extra_interval,
@@ -1021,22 +1180,41 @@ class Trainer:
         in_window = r.densify_from_iter <= self.train_step \
             and (r.densify_until_iter is None
                  or self.train_step < r.densify_until_iter)
-        if not in_window or self.train_step % self.densification_interval:
+        if not in_window:
             return
-        dcfg = self.densify_cfg
-        if r.enable_grad_prune:
-            # grad-prune holds for the first third of the window; the mode
-            # flips off only after the first event past the boundary
-            until = r.densify_until_iter or self.max_iteration
-            window = (until - r.densify_from_iter) / 3
-            dcfg = dcfg._replace(
-                grad_prune=self.train_step - self.densification_interval
-                <= r.densify_from_iter + window)
-        n_before = int(self.state.avatar.alive.sum())
-        self.state = gs_trainer.densify(self.state, dcfg, self.generator,
-                                        model=self.avatar_model)
-        logger.info("densify @%d: %d -> %d alive", self.train_step,
-                    n_before, int(self.state.avatar.alive.sum()))
+        vanilla = r.gs_type == "vanilla"
+        if self.train_step % self.densification_interval == 0:
+            dcfg = self.densify_cfg
+            if r.enable_grad_prune:
+                # grad-prune holds for the first third of the window; the
+                # mode flips off only after the first event past the
+                # boundary
+                until = r.densify_until_iter or self.max_iteration
+                window = (until - r.densify_from_iter) / 3
+                dcfg = dcfg._replace(
+                    grad_prune=self.train_step - self.densification_interval
+                    <= r.densify_from_iter + window)
+            def alive():
+                a = self.state.avatar
+                return int((a.gaussians if vanilla else a).alive.sum())
+
+            n_before = alive()
+            if vanilla:
+                self.state = gs_trainer.densify_vanilla(self.state, dcfg,
+                                                        self.generator)
+            else:
+                self.state = gs_trainer.densify(self.state, dcfg,
+                                                self.generator,
+                                                model=self.avatar_model)
+            logger.info("densify @%d: %d -> %d alive", self.train_step,
+                        n_before, alive())
+        # the periodic opacity reset: vanilla only, where opacity is a
+        # parameter
+        if vanilla and not r.densify_disable_reset \
+                and self.train_step % self.opacity_reset_interval == 0:
+            self.state = gs_trainer.reset_vanilla_opacity(
+                self.state, value=self.densify_cfg.opacity_reset_value)
+            logger.info("opacity reset @%d", self.train_step)
 
     def pretrain(self) -> None:
         """``--log.pretrain_only``: fit the field to the SMPL-X body's depth
@@ -1242,6 +1420,10 @@ class Trainer:
                 cam.intrinsics[0], cam.tanfov[0],
                 torch.zeros((cfg.data.eval_h, cfg.data.eval_w, 3),
                             device=self.device))
+        elif self.dmtet_model is not None:
+            img, _, _ = self.eval_render(
+                self.state, cam.c2w[0], cam.intrinsics[0],
+                torch.full((3,), 0.5, device=self.device))
         else:
             img, _, _ = self.eval_render(
                 self.grid, cam.c2w[0], cam.intrinsics[0],
@@ -1337,8 +1519,9 @@ class Trainer:
                 video_bg = VideoBackground(frames_arr, device=self.device)
         reenact_render = None
         overlay_rgba = [] if video_bg is not None else None
+        # the vanilla avatar renders frame by frame, as in the JAX package
         pending = [] if cfg.stage == "gs" and not predefined and size > 1 \
-            else None
+            and cfg.render.gs_type != "vanilla" else None
 
         def rgba(img, alpha):
             return np.concatenate([torch.clamp(img, 0, 1).cpu().numpy(),
@@ -1360,8 +1543,11 @@ class Trainer:
                                           device=self.device)
                     Hc, Wc = cp["image_height"], cp["image_width"]
                     if reenact_render is None:
-                        reenact_render = gs_trainer.make_avatar_render(
-                            self.avatar_model, Hc, Wc, **rk)
+                        make = gs_trainer.make_vanilla_render \
+                            if cfg.render.gs_type == "vanilla" \
+                            else gs_trainer.make_avatar_render
+                        reenact_render = make(self.avatar_model, Hc, Wc,
+                                              **rk)
                 else:
                     cam = camera(p)
                     extr, intr = cam.extrinsic[0], cam.intrinsics[0]
@@ -1369,7 +1555,10 @@ class Trainer:
                     Hc, Wc = H, W
                 bg = self._eval_background(Hc, Wc, i, video_bg)
 
-                if cfg.stage == "nerf":
+                if self.dmtet_model is not None:
+                    img, _, _ = self.eval_render(self.state, cam.c2w[0],
+                                                 cam.intrinsics[0], bg)
+                elif cfg.stage == "nerf":
                     img, _, _ = self.eval_render(self.grid, cam.c2w[0],
                                                  cam.intrinsics[0], bg)
                 elif pending is not None:
@@ -1492,12 +1681,21 @@ class Trainer:
         self.generator.set_state(tree["torch"]["trainer"].cpu())
         self.prompt.generator.set_state(tree["torch"]["prompt"].cpu())
 
+    def _avatar_params_tree(self) -> dict:
+        if self.cfg.render.gs_type == "vanilla":
+            return vanilla_tree(self.state.avatar)
+        return avatar_tree(self.state.avatar, self.avatar_model)
+
     def save_checkpoint(self) -> None:
+        """The state, the optimizer, the step and the generators; a DMTet
+        finetune's sdf and deform under "dmtet"."""
         if self.cfg.stage == "nerf":
             params = self.nerf.state_dict()
             extra = {"grid": self.grid._asdict()}
+            if self.dmtet_model is not None:
+                extra["dmtet"] = self.state.dmtet._asdict()
         else:
-            params = avatar_tree(self.state.avatar, self.avatar_model)
+            params = self._avatar_params_tree()
             extra = {}
         tree = {"params": params, "opt_state": _opt_tree(self.state.opt_state),
                 "step": self.train_step, "rng": self._rng_tree(), **extra}
@@ -1515,6 +1713,11 @@ class Trainer:
                 self.nerf.load_state_dict(restored["params"])
             if "grid" in restored:
                 self.grid = type(self.grid)(**restored["grid"])
+            if self.dmtet_model is not None:
+                _copy_into(self.state.dmtet._asdict(), restored["dmtet"],
+                           "dmtet")
+        elif self.cfg.render.gs_type == "vanilla":
+            load_vanilla_tree(self.state.avatar, restored["params"])
         else:
             load_avatar_tree(self.state.avatar, self.avatar_model,
                              restored["params"])

@@ -18,6 +18,11 @@
   view indices and parts equal, the 16^2 pose canvases equal on at least
   99.9% of their pixels (none differs on these inputs).
 * Unported paths refuse at construction.
+* The other geometries through ``main``: the DMTet finetune (the twin of
+  ``tests/test_dmtet_train.py``'s CLI test), the vanilla avatar with
+  densification and the opacity reset, and the hash avatar, each for 2
+  steps: a resumed run equals an uninterrupted one to the bit (one CPU
+  thread), and ``evaluate`` renders finite frames.
 """
 import shlex
 
@@ -226,10 +231,9 @@ def test_train_batch_matches_jax(tmp_path, stage):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--nerf.backbone", "hashgrid"], ["--render.gs_type", "hash"],
+    ["--nerf.backbone", "hashgrid"],
     ["--render.use_gs_background", "bg.ply"],
     ["--render.avatar_scale", "1.0"],
-    ["--render.gs_type", "vanilla"], ["--nerf.dmtet", "true"],
     ["--render.use_mlp_background", "true"], ["--optim.batch_size", "2"],
     ["--guide.diffusion", "sdxl10"], ["--optim.ckpt_extra", "other"],
     ["--parallel.tp", "2"]])
@@ -385,3 +389,96 @@ def test_timing_spans_time_the_handoff(tmp_path):
     with timing.span("off"):
         pass
     assert timing.records == {}
+
+
+def _geometry_args(tmp_path, geometry, name, save_interval):
+    common = ["--optim.iters", "2", "--log.save_interval", str(save_interval),
+              "--log.max_keep_ckpts", "0", "--data.eval_size", "2",
+              "--data.train_w", "16", "--data.train_h", "16"]
+    if geometry == "dmtet":
+        extra = ["--stage", "nerf", "--nerf.dmtet", "true",
+                 "--nerf.tet_grid_size", "12",
+                 "--nerf.density_prior", "gaussian",
+                 "--nerf.density_thresh", "2.0", "--nerf.bound", "1.0",
+                 "--render.tile_size", "8", "--render.tile_capacity", "256",
+                 "--render.chunk", "64", "--nerf.lr_policy", "cosine"]
+    else:
+        extra = ["--stage", "gs", "--render.gs_type", geometry,
+                 "--render.n_gaussians", "96", "--prompt.scene",
+                 "canonical-R", "--render.use_densifier", "true",
+                 "--render.densify_from_iter", "1",
+                 "--render.densification_interval", "1",
+                 "--render.densify_grad_threshold", "0",
+                 "--render.densify_min_opacity", "0.5",
+                 "--render.densify_disable_reset", "false",
+                 "--render.opacity_reset_interval", "2"]
+    return common + extra + _tiny_common(tmp_path, name)
+
+
+def _flat(tree, name=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{name}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{name}[{i}]")
+    else:
+        yield name, tree
+
+
+@pytest.mark.parametrize("geometry", ["dmtet", "vanilla", "hash"])
+def test_geometry_cli_trains_resumes_and_evaluates(tmp_path, geometry):
+    """Two steps in one run, against one step, a checkpoint, a fresh
+    trainer restoring it (``--optim.resume``) and one more step: the model
+    (the field and sdf / deform, or the avatar), the optimizers' states
+    and every generator equal to the bit. Then ``evaluate`` writes finite
+    frames and ``_snapshot`` its PNG."""
+    from dreamwaltz_g_tpu_torch.main import main
+    from dreamwaltz_g_tpu_torch.training.trainer import _opt_tree
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        whole = main(_geometry_args(tmp_path, geometry, "whole", 0))
+        first = main(_geometry_args(tmp_path, geometry, "split", 1))
+        assert first.checkpointer.all_steps() == [1, 2]
+        (tmp_path / "split" / "checkpoints" / "step_00000002").rename(
+            tmp_path / "step_2_aside")
+        resumed = main(_geometry_args(tmp_path, geometry, "split", 0)
+                       + ["--optim.resume", "true"])
+    finally:
+        torch.set_num_threads(threads)
+    assert resumed.train_step == whole.train_step == 2
+    assert len(whole.losses) == 2 and np.isfinite(whole.losses).all()
+    assert resumed.losses == whole.losses[1:]
+    if geometry == "dmtet":
+        from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+
+        assert 0 < whole.dmtet_model.tets.shape[0] < 6 * 11 ** 3
+        seed = Trainer(parse_args(_geometry_args(tmp_path, geometry, "seed",
+                                                 0))).state.dmtet
+        assert not torch.equal(whole.state.dmtet.sdf, seed.sdf)
+        assert whole.state.dmtet.deform.abs().max() > 0 == seed.deform.abs(
+        ).max()
+    for tr in (whole, resumed):
+        if geometry == "dmtet":
+            model = {"nerf": tr.nerf.state_dict(),
+                     "dmtet": tr.state.dmtet._asdict()}
+        else:
+            model = tr._avatar_params_tree()
+        tr.tree = {"model": model, "opt": _opt_tree(tr.state.opt_state),
+                   "rng": tr._rng_tree()}
+    got, want = dict(_flat(resumed.tree)), dict(_flat(whole.tree))
+    assert got.keys() == want.keys()
+    for k in want:
+        if torch.is_tensor(want[k]):
+            assert torch.equal(got[k], want[k]), k
+        else:
+            assert got[k] == want[k], k
+    frames = whole.evaluate(save_dir=tmp_path / "ev")
+    assert len(frames) == 2
+    for f in frames:
+        assert f.shape == (16, 16, 3) and np.isfinite(f).all()
+    whole._snapshot(whole._train_batch(3))
+    assert (whole.exp_dir / "snapshots" / "train" / "000002_rgb.png") \
+        .is_file()
