@@ -2001,12 +2001,13 @@ def write_guidance(root, dev):
     (root / "tokenizer" / "merges.txt").write_text("#version: 0.2\n")
 
 
-def fit_template(npz, ckpt_dir, dev):
+def fit_template(npz, ckpt_dir, dev, cfg=None):
     """The stand-in for step 1.1's output (itself warm-started from the
-    human-template NeRF): ``NeRFConfig()``'s field fitted to the canonical
-    body, density 50 within ``TEMPLATE_SHELL`` of a vertex and 0.05
-    elsewhere (a log-density regression on 400k fixed points, half near
-    the body), saved as a port checkpoint. Returns its fit numbers."""
+    human-template NeRF): the field of ``cfg`` (``NeRFConfig()`` when None)
+    fitted to the canonical body, density 50 within ``TEMPLATE_SHELL`` of a
+    vertex and 0.05 elsewhere (a log-density regression on 400k fixed
+    points, half near the body), saved as a port checkpoint. Returns its
+    fit numbers."""
     import torch
 
     from dreamwaltz_g_tpu_torch.configs import NeRFConfig
@@ -2023,7 +2024,7 @@ def fit_template(npz, ckpt_dir, dev):
     with torch.no_grad():
         verts = smplx_forward(smpl, canonical_params(smpl)).vertices[0]
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    cfg = NeRFConfig()
+    cfg = cfg or NeRFConfig()
     field = build_nerf(cfg, generator=gen, device=dev)
     n = 200_000
     near = verts[torch.randint(0, verts.shape[0], (n,), generator=gen,
@@ -2330,12 +2331,14 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
         modes = cli_modes(dev, card, kernel_fns, tmp, argv, args, exp)
         free()
         geometry = cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp)
+        free()
+        scene = cli_scene(dev, card, kernel_fns, tmp, argv, args, exp)
     finally:
         (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS, paths.DEMO_MOTIONS,
          paths.MOTIONX_REENACT_ROOT) = old_paths
         shutil.rmtree(tmp, ignore_errors=True)
     return {step: line["launches"] for step, line in runs.items()}, \
-        inference, modes, geometry
+        inference, modes, geometry, scene
 
 
 def check_two_stage(card, runs, handoff, warm, sequential):
@@ -3356,6 +3359,401 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
             "hash": d["launches"], "hash_eval": d["eval"]["launches"]}
 
 
+SCENE_STEPS = 3          # steps of each training run of phase cli_scene
+SCENE_BG_GAUSSIANS = 200_000
+SCENE_SHELL_RADIUS = 4.0  # beyond every training and eval camera
+SCENE_EVAL_FRAMES = 4
+GRID_STEPS = 3           # grid stage 2; stage 1 runs 2, unprofiled
+REFERENCE_POINTS = 100_000
+# record_function ranges of make_avatar_sds_step_split -> stage
+SPLIT_STAGE_RANGES = (("split_step.render_encode", "render_encode"),
+                      ("split_step.latent_gradients", "controlnet_unet_cfg"),
+                      ("split_step.render", "render_encode_again"),
+                      ("rasterize.bin", "bin"),
+                      ("rasterize.blend", "blend_fwd_b1"),
+                      ("split_step.backward", "backward"),
+                      ("split_step.optimizer_stats", "optimizer_stats"))
+
+
+def write_scene_ply(path, n):
+    """A seeded trained-3DGS PLY of ``n`` Gaussians on a shell of radius
+    ``SCENE_SHELL_RADIUS`` (+-5%) around the avatar, the size of a small
+    captured scene: DC colors, no higher bands, scales ~0.03."""
+    import numpy as np
+
+    from dreamwaltz_g_tpu_torch.utils.point_cloud import save_gaussian_ply
+
+    rng = np.random.default_rng(SEED + 16)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = SCENE_SHELL_RADIUS * (1.0 + 0.05 * rng.uniform(-1, 1, size=(n, 1)))
+    return save_gaussian_ply(
+        str(path), d * r, rng.normal(size=(n, 3)), None,
+        rng.normal(size=n) + 1.0,
+        np.full((n, 3), -3.5) + 0.2 * rng.normal(size=(n, 3)),
+        rng.normal(size=(n, 4)))
+
+
+def write_reference_pth(path, model, n):
+    """A seeded ``.pth`` in the reference's checkpoint wrapper and scene key
+    layout for ``model`` (an ``AvatarModel`` on a grid field): ``n``
+    Gaussians near the template's vertices with their LBS weights, the flat
+    hash tables, the sigma MLP and the deform net with its three heads
+    (``layers.{i}``, ``gaussian_warp`` / ``_rotation`` / ``_scaling``); the
+    mesh parts keep their initial binding."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 17)
+    enc = model.enc_cfg
+    rows = sum(enc.level_table_size(lv) for lv in range(enc.num_levels))
+    v = model.smpl.v_template.cpu().numpy()
+    pick = rng.integers(0, v.shape[0], n)
+    q = rng.normal(size=(n, 4))
+    sd = {"avatar._positions": v[pick] + 0.01 * rng.normal(size=(n, 3)),
+          "avatar._scales": np.full((n, 3), -5.0) + 0.3 * rng.normal(
+              size=(n, 3)),
+          "avatar._quaternions": q / np.linalg.norm(q, axis=1,
+                                                    keepdims=True),
+          "avatar._lbs_weights":
+              model.smpl.lbs_weights.cpu().numpy()[pick],
+          "avatar.nerf_encoder.embeddings": 0.1 * rng.normal(
+              size=(rows, enc.level_dim)),
+          "avatar._betas": 0.3 * rng.normal(size=(10,))}
+
+    def dense(prefix, lin, scale=1.0):
+        o, i = lin.weight.shape
+        sd[f"{prefix}.weight"] = scale * rng.normal(size=(o, i)) / np.sqrt(i)
+        sd[f"{prefix}.bias"] = np.zeros(o)
+
+    for i in range(model.color_mlp.num_layers):
+        dense(f"avatar.nerf_opacity_and_color_net.net.{i}",
+              getattr(model.color_mlp, f"dense_{i}"))
+    for i in range(model.sq_net.depth):
+        dense(f"avatar.deform_model.layers.{i}",
+              getattr(model.sq_net, f"dense_{i}"))
+    for ours, theirs in (("head_offset", "gaussian_warp"),
+                         ("head_quat", "gaussian_rotation"),
+                         ("head_scale", "gaussian_scaling")):
+        dense(f"avatar.deform_model.{theirs}", getattr(model.sq_net, ours),
+              scale=1e-3)
+    torch.save({"train_step": 15000, "checkpoints": ["step_015000.pth"],
+                "model": {k: torch.as_tensor(np.asarray(a, np.float32))
+                          for k, a in sd.items()}}, str(path))
+    return path
+
+
+def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
+    """Phase ``cli_scene``, in ``cli_two_stage``'s directory after
+    ``cli_geometry``: the scene options, the grid backbone and a converted
+    reference avatar through the port's CLI at full width, each run with
+    the counts set to 0 just before it and read just after.
+
+    Step 2.1's arguments go without the LBS smoothing here.
+
+    (a) MLP background: step 2.1's arguments + ``--render.use_mlp_background
+    true`` (the split step), ``SCENE_STEPS`` steps saved at the last two;
+    then ``main`` restores the last but one and trains the last again. Both
+    runs under ``torch.use_deterministic_algorithms`` (the gathers'
+    backward and the blends' panel sums then add in one order), so the
+    resumed step-3 checkpoint equals the uninterrupted one to every bit,
+    "background" (the net and its Adan state) included; the net moved.
+    (b) Gaussian background: step 2.1's arguments + ``--render.
+    use_gs_background`` (``SCENE_BG_GAUSSIANS`` Gaussians on a shell,
+    written with ``save_gaussian_ply``) + ``--render.avatar_scale`` /
+    ``avatar_transl``; each step's tile overflow, then one eval frame with
+    the background and one without it (B2 once each) with their overflow.
+    (c) Composition: ``--log.eval_only`` on (b)'s run with
+    ``--optim.ckpt_extra`` naming (a)'s and a translation for each avatar,
+    ``SCENE_EVAL_FRAMES`` frames of the demo motion (one person: the ported
+    motion loaders tile none), B2 once a frame; the extra avatar restored
+    to every bit.
+    (d) Grid: step 1.2's arguments + ``--nerf.backbone tiledgrid`` (16
+    levels, 2^19 tables, F = 2, 2048 x bound) from a grid template fitted
+    like ``fit_template``'s, 2 steps unprofiled, then the handoff and step
+    2.1 on it, ``GRID_STEPS`` steps; the tables carried into the avatar
+    with a difference of 0.
+    (e) A seeded reference ``.pth`` (``REFERENCE_POINTS`` Gaussians on (d)'s
+    avatar model) through ``convert_reference`` and one 1024^2 eval frame
+    (B2 once).
+
+    Checks: B1 (2, 1) and B4 (fused + the VAE's second encode, 1) every
+    split step; B1 (1, 1) and B4 (15, 1) every fused stage-2 step, B1 (0,
+    0) in stage 1; B2 once an eval frame and no other kernel. Returns each
+    run's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dreamwaltz_g_tpu_torch import convert_reference as CR
+    from dreamwaltz_g_tpu_torch.configs import NeRFConfig, paths
+    from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch
+    from dreamwaltz_g_tpu_torch.ops import rasterize as R
+    from dreamwaltz_g_tpu_torch.training import gs_trainer
+    from dreamwaltz_g_tpu_torch.training.checkpoint import (
+        load_pytree,
+        resolve_ckpt_path,
+    )
+    from dreamwaltz_g_tpu_torch.training.trainer import avatar_tree
+
+    out = tmp / "outputs"
+    n = SCENE_STEPS
+    quiet = {k: 0 for k in kernel_fns}
+    lines, runs = {}, {}
+    # step 2.1's arguments without the LBS smoothing (10 s a construction,
+    # held by cli_two_stage's 2.1 run)
+    args = dict(args, **{"2.1": args["2.1"] + (
+        "--render.lbs_weight_smooth", "false")})
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def recorder(seen):
+        """A ``check`` for ``cli_run``: keeps the trainer, its background
+        net's weights as built, the split step's flash forwards from the
+        guidance's structure, and wraps its step to record each step's
+        tile overflow."""
+        def check(tr):
+            seen["trainer"] = tr
+            if tr.bg_net is not None:
+                seen["bg_seed"] = {k: v.detach().clone() for k, v
+                                   in tr.bg_net.state_dict().items()}
+            seen["vae_flash"] = vae_flash_launches(
+                tr.guidance_params, tr.guidance.latent_size)
+            fn = tr.sds_step_fn
+            seen["step_fn"] = fn.__qualname__.split(".")[0]
+
+            def step(*a, **k):
+                res = fn(*a, **k)
+                seen.setdefault("overflow", []).append(
+                    float(res[-1]["tile_overflow"]))
+                return res
+
+            tr.sds_step_fn = step
+        return check
+
+    def counted(fn, *a, **k):
+        for f in kernel_fns.values():
+            f.launches = 0
+        res = fn(*a, **k)
+        torch.cuda.synchronize()
+        return res, {name: f.launches for name, f in kernel_fns.items()}
+
+    overflows = []
+    rasterize = R.rasterize_projected
+
+    def rasterize_rec(*a, **k):
+        o = rasterize(*a, **k)
+        overflows.append(float(o.overflow))
+        return o
+
+    paths.DEMO_MOTIONS = str(tmp / "motions")
+    write_demo_motion(tmp / "motions")
+
+    # -- (a) the MLP background: the split step, resumed to the bit ---------
+    mlp_exp = "scene/mlp_bg"
+    mlp_argv = argv("2.1", *args["2.1"], n=n, name=mlp_exp) + [
+        "--render.use_mlp_background", "true",
+        "--log.save_interval", str(n - 1), "--log.max_keep_ckpts", "0"]
+    seen = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a = cli_run("mlp_bg", mlp_argv, n, kernel_fns, check=recorder(seen),
+                    stage_ranges=SPLIT_STAGE_RANGES)
+        tr = seen.pop("trainer")
+        a.update(step_fn=seen["step_fn"],
+                 tile_overflow=seen.pop("overflow"),
+                 bg_moved={k: not torch.equal(v, seen["bg_seed"][k])
+                           for k, v in tr.bg_net.state_dict().items()},
+                 deterministic=True)
+        split = dict(cli_launches_per_step(True), blend_train_fwd=2,
+                     flash_attn_fwd=FLASH_PER_STEP[0] + seen["vae_flash"])
+        tr = None
+        free()
+        ckpts = out / mlp_exp / "checkpoints"
+        (ckpts / f"step_{n:08d}").rename(tmp / "mlp_bg_last_aside")
+        _, r = cli_drive(kernel_fns, mlp_argv + ["--optim.resume", "true"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    r["resumed_differs"] = _differs(
+        load_pytree(ckpts / f"step_{n:08d}"),
+        load_pytree(tmp / "mlp_bg_last_aside"), "checkpoint")
+    r["background_tensors"] = len(_leaf_names(
+        load_pytree(ckpts / f"step_{n:08d}")["background"]))
+    lines["mlp_bg"], lines["mlp_bg_resumed"] = a, r
+    runs["mlp_bg"], runs["mlp_bg_resumed"] = a["launches"], r["launches"]
+    free()
+
+    # -- (b) the Gaussian background with the placement ---------------------
+    ply = write_scene_ply(tmp / "scene_bg.ply", SCENE_BG_GAUSSIANS)
+    gs_exp = "scene/gs_bg"
+    gs_argv = argv("2.1", *args["2.1"], n=n, name=gs_exp) + [
+        "--render.use_gs_background", str(ply),
+        "--render.avatar_scale", "0.9",
+        "--render.avatar_transl", "[0.0, 0.0, 0.1]"]
+    seen = {}
+    b = cli_run("gs_bg", gs_argv, n, kernel_fns, check=recorder(seen))
+    tr = seen.pop("trainer")
+    b["tile_overflow"] = seen.pop("overflow")
+    cfg = tr.cfg
+    cam = tr.eval_camera(0.0)
+    bg = torch.zeros((cfg.data.eval_h, cfg.data.eval_w, 3), device=dev)
+    view = (tr.prompt.canonical_inputs, cam.extrinsic[0], cam.intrinsics[0],
+            cam.tanfov[0], bg)
+    plain = gs_trainer.make_avatar_render(
+        tr.avatar_model, cfg.data.eval_h, cfg.data.eval_w,
+        tile_size=cfg.render.tile_size, capacity=cfg.render.tile_capacity,
+        chunk=cfg.render.chunk, placement=tr._placement(), device=dev)
+    R.rasterize_projected = rasterize_rec
+    try:
+        with_bg, l_bg = counted(tr.eval_render, tr.state.avatar, *view)
+        without, l_plain = counted(plain, tr.state.avatar, *view)
+    finally:
+        R.rasterize_projected = rasterize
+    b.update(background_gaussians=int(
+        tr._static_bg_gaussians().positions.shape[0]),
+        placement=[float(tr._placement()[0]),
+                   [float(x) for x in tr._placement()[1]]],
+        eval_size=[cfg.data.eval_h, cfg.data.eval_w],
+        render_overflow={"with_background": overflows[0],
+                         "avatar_alone": overflows[1]},
+        render_alpha_mean={"with_background": float(with_bg[1].mean()),
+                           "avatar_alone": float(without[1].mean())},
+        render_launches={"with_background": l_bg, "avatar_alone": l_plain})
+    lines["gs_bg"] = b
+    runs["gs_bg"] = b["launches"]
+    tr = with_bg = without = plain = None
+    free()
+
+    # -- (c) composition: (b)'s avatar with (a)'s, each placed ----------------
+    tr, c = cli_drive(kernel_fns, gs_argv + [
+        "--log.eval_only", "true", "--optim.resume", "true",
+        "--optim.ckpt_extra", str(out / mlp_exp),
+        "--render.avatar_transl", "[[0.35, 0.0, 0.1], [-0.35, 0.0, 0.1]]",
+        "--prompt.scene", "demo,talkshow",
+        "--data.full_eval_size", str(SCENE_EVAL_FRAMES)])
+    step_dir = out / gs_exp / "results" / f"step_{tr.train_step:06d}"
+    c.update(extra_avatars=len(tr.extra_states),
+             extra_differs=_differs(
+                 avatar_tree(tr.extra_states[0], tr.extra_models[0]),
+                 load_pytree(resolve_ckpt_path(out / mlp_exp),
+                             map_location=dev)["params"], "extra"),
+             pngs=len(list(step_dir.glob("*.png"))),
+             size=[tr.cfg.data.test_h, tr.cfg.data.test_w],
+             render_ms_per_frame=[
+                 x and x / SCENE_EVAL_FRAMES
+                 for x in c["spans_ms"]["evaluate.render"][0]])
+    lines["composition"] = c
+    runs["composition"] = c["launches"]
+    tr = None
+    free()
+
+    # -- (d) the tiled grid: step 1.2 on a fitted grid, then the handoff ----
+    grid = ["--nerf.backbone", "tiledgrid"]
+    template = tmp / "grid_template"
+    fit = fit_template(str(tmp / "human_templates" / "smplx"
+                           / "SMPLX_NEUTRAL_2020.npz"),
+                       template / "checkpoints" / "step_00000000", dev,
+                       cfg=NeRFConfig(backbone="tiledgrid"))
+    g1_exp, g2_exp = "scene/grid-1.2", "scene/grid-2.1"
+    # unprofiled: a profile of a stage-1 grid step takes ~70 s to export
+    # and read (its ~52k launches a level)
+    d1 = cli_run("grid-1.2", argv("1.2", *args["1.2"], n=2, name=g1_exp)
+                 + grid + ["--optim.ckpt", str(template)],
+                 2, kernel_fns, prefetch=False)
+    d1["template"] = fit
+    free()
+    carried, seen = {}, {}
+
+    def check_tables(tr):
+        stage1 = load_pytree(resolve_ckpt_path(out / g1_exp),
+                             map_location=dev)["params"]["tables"]
+        enc = tr.state.avatar.params.encoder
+        carried.update(shape=list(enc.tables.shape),
+                       levels=tr.avatar_model.enc_cfg.num_levels,
+                       max_abs_diff=float((enc.tables.detach() - stage1)
+                                          .abs().max()))
+        recorder(seen)(tr)
+
+    d2 = cli_run("grid-2.1", argv("2.1", *args["2.1"], n=GRID_STEPS,
+                                  name=g2_exp)
+                 + grid + ["--render.from_nerf", str(out / g1_exp)],
+                 GRID_STEPS, kernel_fns, check=check_tables)
+    tr = seen.pop("trainer")
+    d2.update(carried=carried, tile_overflow=seen.pop("overflow"))
+    lines["grid-1.2"], lines["grid-2.1"] = d1, d2
+    runs["grid-1.2"], runs["grid-2.1"] = d1["launches"], d2["launches"]
+
+    # -- (e) a reference checkpoint converted and rendered --------------------
+    model = tr.avatar_model
+    tr = None
+    free()
+    t0 = time.perf_counter()
+    pth = write_reference_pth(tmp / "reference_step_015000.pth", model,
+                              REFERENCE_POINTS)
+    state = CR.convert_avatar_checkpoint(CR.load_torch_checkpoint(str(pth)),
+                                         model, device=dev)
+    convert_s = time.perf_counter() - t0
+    at = state.params.positions[:REFERENCE_POINTS].mean(0).tolist()
+    rc = make_camera_batch(2.5, 0.0, 85.0, 50.0, H, W, at_vector=(at,),
+                           device=dev)
+    render = gs_trainer.make_avatar_render(model, H, W, device=dev, **RASTER)
+    (img, alpha, _), e_launches = counted(
+        render, state, model.canonical_inputs, rc.extrinsic[0],
+        rc.intrinsics[0], rc.tanfov[0], torch.ones((H, W, 3), device=dev))
+    e = dict(points=REFERENCE_POINTS, capacity=state.capacity,
+             pth_bytes=pth.stat().st_size, convert_s=convert_s,
+             size=[H, W], launches=e_launches,
+             alpha_mean=float(alpha.mean()),
+             finite=bool(torch.isfinite(img).all()))
+    lines["reference"] = e
+    runs["reference"] = e_launches
+    state = img = alpha = model = None
+    free()
+
+    for run, line in lines.items():
+        emit(phase="cli_scene", run=run, **line, **card)
+    fused = cli_launches_per_step(True)
+    for run, per, k in (("mlp_bg", split, n), ("gs_bg", fused, n),
+                        ("grid-1.2", cli_launches_per_step(False), 2),
+                        ("grid-2.1", fused, GRID_STEPS)):
+        line = lines[run]
+        prof = line.get("profiled_step", {"launches": per})["launches"]
+        for name, want in per.items():
+            if line["launches"][name] != want * k or prof[name] != want:
+                fail(f"cli_scene {run}: {name} launched "
+                     f"{line['launches'][name]} times in {k} steps "
+                     f"({prof[name]} in the profiled one), expected {want} "
+                     "a step")
+        if line["steps"] != k or len(line["loss"]) != k \
+                or not all(math.isfinite(x) for x in line["loss"]):
+            fail(f"cli_scene {run}: {line['steps']} steps, losses "
+                 f"{line['loss']}")
+    if r["launches"] != split or r["resumed_differs"] \
+            or a["step_fn"] != "make_avatar_sds_step_split" \
+            or not a["bg_moved"] or not all(a["bg_moved"].values()):
+        fail(f"cli_scene mlp_bg: resumed {r}, background moved "
+             f"{a['bg_moved']}, expected launches {split}")
+    one = dict(quiet, blend_sorted=1)
+    if b["render_launches"] != {"with_background": one,
+                                "avatar_alone": one} \
+            or b["background_gaussians"] != SCENE_BG_GAUSSIANS \
+            or not b["render_alpha_mean"]["with_background"] \
+            > b["render_alpha_mean"]["avatar_alone"]:
+        fail(f"cli_scene gs_bg: {b}")
+    want_c = dict(quiet, blend_sorted=SCENE_EVAL_FRAMES)
+    if c["launches"] != want_c or c["extra_differs"] \
+            or c["extra_avatars"] != 1 or c["pngs"] != SCENE_EVAL_FRAMES:
+        fail(f"cli_scene composition: {c}, expected launches {want_c}")
+    if carried.get("max_abs_diff") != 0.0 or carried["levels"] != 16:
+        fail(f"cli_scene grid: the tables carried into stage 2 {carried}")
+    if e["launches"] != one or not e["finite"] or e["alpha_mean"] <= 0.0:
+        fail(f"cli_scene reference: {e}")
+    return runs
+
+
 def _leaf_names(tree, name="avatar"):
     if not isinstance(tree, dict):
         return [name]
@@ -3442,7 +3840,8 @@ def device_events(prof):
     from torch.autograd import DeviceType
 
     ranges = {name for name, _ in STAGE_RANGES + NERF_STAGE_RANGES
-              + DMTET_STAGE_RANGES + VANILLA_STAGE_RANGES + CLI_RANGES}
+              + DMTET_STAGE_RANGES + VANILLA_STAGE_RANGES
+              + SPLIT_STAGE_RANGES + CLI_RANGES}
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in ranges]
 
@@ -4071,12 +4470,13 @@ def main():
     # -- the two-stage run through the port's CLI --------------------------
     guidance = gparams = step = tstate = None
     torch.cuda.empty_cache()
-    cli_runs, inference_runs, mode_runs, geometry_runs = cli_two_stage(
-        dev, card, train_fns, frame_ms)
+    cli_runs, inference_runs, mode_runs, geometry_runs, scene_runs = \
+        cli_two_stage(dev, card, train_fns, frame_ms)
     cli = {name: sum(run[name] for run in list(cli_runs.values())
                      + list(inference_runs.values())
                      + list(mode_runs.values())
-                     + list(geometry_runs.values()))
+                     + list(geometry_runs.values())
+                     + list(scene_runs.values()))
            for name in train_fns}
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
@@ -4112,7 +4512,10 @@ def main():
                                     for k, v in inference_runs.items()},
                                 "cli_geometry": {
                                     k: v["blend_sorted"]
-                                    for k, v in geometry_runs.items()}}),
+                                    for k, v in geometry_runs.items()},
+                                "cli_scene": {
+                                    k: v["blend_sorted"]
+                                    for k, v in scene_runs.items()}}),
         entry("blend_train_fwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_fwd"] + cli["blend_train_fwd"],
@@ -4126,7 +4529,10 @@ def main():
                                     for k, v in mode_runs.items()},
                                 "cli_geometry": {
                                     k: v["blend_train_fwd"]
-                                    for k, v in geometry_runs.items()}}),
+                                    for k, v in geometry_runs.items()},
+                                "cli_scene": {
+                                    k: v["blend_train_fwd"]
+                                    for k, v in scene_runs.items()}}),
         entry("blend_train_bwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_bwd"] + cli["blend_train_bwd"],
@@ -4140,7 +4546,10 @@ def main():
                                     for k, v in mode_runs.items()},
                                 "cli_geometry": {
                                     k: v["blend_train_bwd"]
-                                    for k, v in geometry_runs.items()}}),
+                                    for k, v in geometry_runs.items()},
+                                "cli_scene": {
+                                    k: v["blend_train_bwd"]
+                                    for k, v in scene_runs.items()}}),
         entry("blend_tiles_eval", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:126",
               train_launches["blend_tiles_eval"],
@@ -4162,7 +4571,10 @@ def main():
                                     for k, v in mode_runs.items()},
                                 "cli_geometry": {
                                     k: v["flash_attn_fwd"]
-                                    for k, v in geometry_runs.items()}},
+                                    for k, v in geometry_runs.items()},
+                                "cli_scene": {
+                                    k: v["flash_attn_fwd"]
+                                    for k, v in scene_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]
@@ -4187,7 +4599,10 @@ def main():
                                 "cli": cli["flash_attn_bwd"],
                                 "cli_geometry": {
                                     k: v["flash_attn_bwd"]
-                                    for k, v in geometry_runs.items()}},
+                                    for k, v in geometry_runs.items()},
+                                "cli_scene": {
+                                    k: v["flash_attn_bwd"]
+                                    for k, v in scene_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": " + ".join(x["kernel"]
                                               for x in r["bwd_build"]),

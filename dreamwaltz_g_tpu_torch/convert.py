@@ -8,12 +8,13 @@ loads the two networks' Flax weights into ``model.color_mlp`` and
 * Flax ``Dense`` kernels are (in, out): they land transposed in
   ``nn.Linear.weight``. Layer names (``dense_i``, ``head_offset``,
   ``head_scale``, ``head_quat``, ``branch_w``, ``branch_v``) map one to one.
-* Triplane planes (3, R, R, F) keep their layout.
+* Triplane planes (3, R, R, F) and grid tables (L, T_max, F) keep their
+  layout.
 * ``MeshBindingParams`` and the per-slot arrays copy across.
 
 ``nerf_state_from_numpy(tree, model)`` loads the JAX ``NeRFParams`` (as
-numpy) into the port's ``NeRFModel``: the triplane planes (and the
-``dual_enc`` sigma planes), the sigma / albedo heads, the background MLP
+numpy) into the port's ``NeRFModel``: the triplane planes or grid
+tables (and the ``dual_enc`` sigma encoder), the sigma / albedo heads, the background MLP
 and ``sigma_scale``. ``nerf_checkpoint_from_numpy`` and
 ``avatar_checkpoint_from_numpy`` write either as a port checkpoint, which
 the CLI's ``--render.from_nerf`` / ``--optim.ckpt`` read.
@@ -55,7 +56,7 @@ import torch
 from torch import nn
 
 from ._device import resolve_device
-from .nerf.encoder import TriplaneParams
+from .nerf.encoder import GridEncoderParams, TriplaneParams
 from .system.avatar import (
     AvatarModel,
     AvatarParams,
@@ -96,12 +97,12 @@ def nerf_state_from_numpy(tree, model) -> None:
                              f"{tuple(dst.shape)}")
         dst.copy_(a)
 
-    if not hasattr(tree.encoder, "planes"):
-        raise NotImplementedError(
-            "only triplane field encoders are ported; got "
-            f"{type(tree.encoder).__name__}")
-    put(model.planes, tree.encoder.planes, "planes")
-    pairs = (("encoder_sigma", "planes_sigma"), ("sigma_mlp", "sigma_mlp"),
+    name = model.enc_name
+    if tree.encoder._fields != (name,):
+        raise ValueError(f"the tree's encoder is {type(tree.encoder).__name__}"
+                         f", the model's holds {name!r}")
+    put(getattr(model, name), tree.encoder[0], name)
+    pairs = (("encoder_sigma", name + "_sigma"), ("sigma_mlp", "sigma_mlp"),
              ("albedo_mlp", "albedo_mlp"), ("bg_mlp", "bg_mlp"),
              ("sigma_scale", "sigma_scale"))
     for jax_name, name in pairs:
@@ -113,9 +114,12 @@ def nerf_state_from_numpy(tree, model) -> None:
         if isinstance(dst, nn.Module):
             load_flax_dense_params(dst, src)
         elif jax_name == "encoder_sigma":
-            put(dst, src.planes, name)
+            put(dst, src[0], name)
         else:
             put(dst, src, name)
+
+
+_ENCODER_PARAMS = {("planes",): TriplaneParams, ("tables",): GridEncoderParams}
 
 
 def avatar_state_from_numpy(tree, model: AvatarModel,
@@ -131,10 +135,6 @@ def avatar_state_from_numpy(tree, model: AvatarModel,
         return torch.as_tensor(np.array(a, dtype), device=device)
 
     p = tree.params
-    if not hasattr(p.encoder, "planes"):
-        raise NotImplementedError(
-            "only triplane field encoders are ported; got "
-            f"{type(p.encoder).__name__}")
     for net, flax_params in ((model.color_mlp, p.color_mlp),
                              (model.sq_net, p.sq_net)):
         net.to(device)
@@ -144,7 +144,7 @@ def avatar_state_from_numpy(tree, model: AvatarModel,
         log_scales=t(p.log_scales),
         quats=t(p.quats),
         lbs_weights=t(p.lbs_weights),
-        encoder=TriplaneParams(planes=t(p.encoder.planes)),
+        encoder=_ENCODER_PARAMS[p.encoder._fields](t(p.encoder[0])),
         mesh={name: MeshBindingParams(bary_coords=t(m.bary_coords),
                                       vertex_coords=t(m.vertex_coords),
                                       scales=t(m.scales))

@@ -72,7 +72,7 @@ def export_point_cloud(
     (above the threshold) and ``kept_cells`` (after the filter)."""
     bound = bound or model.bound
     r = resolution
-    dev = model.planes.device
+    dev = model.device
     xs = (torch.arange(r, dtype=torch.float32, device=dev) + 0.5) / r \
         * 2 * bound - bound
     C = model.color_channels

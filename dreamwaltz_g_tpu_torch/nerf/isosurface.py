@@ -67,7 +67,7 @@ def marching_tets(verts: torch.Tensor, sdf: torch.Tensor,
     slots a tet. Each cut edge's point is ``va + (vb - va) * t`` with
     ``t = sa / (sa - sb)`` clipped to [0, 1] (0.5 on a flat edge), in the
     JAX package's order of operations, so that the same inputs weld to the
-    same vertices."""
+    same vertices, and with its gradient at the clip's bounds."""
     dev = verts.device
     tets = tets.to(dev, torch.long)
     tv = verts[tets]                                   # (Tt, 4, 3)
@@ -83,7 +83,11 @@ def marching_tets(verts: torch.Tensor, sdf: torch.Tensor,
     t = torch.where(flat, sa / torch.where(flat, denom,
                                            torch.ones_like(denom)),
                     torch.full_like(denom, 0.5))
-    t = torch.clamp(t, 0.0, 1.0)
+    # jnp.clip's maximum / minimum: at t exactly 0 or 1 (an SDF exactly 0
+    # at a vertex) the gradient splits in half between t and the bound,
+    # where torch.clamp would pass all of it
+    t = torch.minimum(torch.maximum(t, torch.zeros_like(t)),
+                      torch.ones_like(t))
     edge_pts = va + (vb - va) * t[..., None]           # (Tt, 6, 3)
 
     table = torch.as_tensor(_TRI_TABLE, device=dev)[case]
@@ -152,7 +156,7 @@ def export_mesh(model, resolution: int = 128, density_thresh: float = 10.0,
     host once and compacted there, then the albedo at the vertices (its
     first 3 channels). Queries run on the field's device in chunks of
     ``chunk`` points."""
-    dev = model.planes.device
+    dev = model.device
     bound = bound or model.bound
     verts_np, tets_np = make_tet_grid(resolution, bound)
     verts = torch.as_tensor(verts_np, device=dev)

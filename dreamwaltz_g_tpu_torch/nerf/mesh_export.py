@@ -403,7 +403,7 @@ def bake_albedo(model, verts: np.ndarray, faces: np.ndarray,
     pts = xyz[mask]
     if len(pts):
         cols = field_query(lambda p: model.density(p)[1], torch.as_tensor(
-            pts, dtype=torch.float32, device=model.planes.device), chunk)
+            pts, dtype=torch.float32, device=model.device), chunk)
         tex[mask] = _latent_to_rgb(cols.cpu().numpy())[:, :3]
 
     return inpaint_texture(tex, mask, iters=inpaint_iters)

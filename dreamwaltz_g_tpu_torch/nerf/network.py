@@ -1,17 +1,18 @@
-"""NeRF networks: the field (triplane + MLP heads), density activations and
-priors, and the ray-direction background MLP.
+"""NeRF networks: the field (an encoder + MLP heads), density activations
+and priors, and the ray-direction background MLP.
 
 Port of ``dreamwaltz_g_tpu/nerf/network.py``. Layer names (``dense_0`` ...)
 are Flax's, so converted weights map one to one; Flax ``Dense`` kernels are
 (in, out) and land transposed in ``nn.Linear.weight``.
 
 ``NeRFModel`` holds its own weights (the JAX package keeps them in a
-``NeRFParams`` tree beside a static model): the triplane ``planes`` (and,
-for ``dual_enc``, ``planes_sigma``), the ``sigma_mlp`` head (and, for
-``dual_mlp`` / ``dual_enc``, the ``albedo_mlp``), the ``bg_mlp`` and, for
-the ``scaling`` activation, ``sigma_scale``. Its methods ``encode``,
-``density`` and ``background`` are the JAX methods without the ``params``
-argument. The triplane is the only backbone ported.
+``NeRFParams`` tree beside a static model): the encoder's tensor, the
+triplane ``planes`` or the grid's ``tables`` after ``--nerf.backbone``
+(and, for ``dual_enc``, ``planes_sigma`` / ``tables_sigma``), the
+``sigma_mlp`` head (and, for ``dual_mlp`` / ``dual_enc``, the
+``albedo_mlp``), the ``bg_mlp`` and, for the ``scaling`` activation,
+``sigma_scale``. Its methods ``encode``, ``density`` and ``background``
+are the JAX methods without the ``params`` argument.
 """
 from __future__ import annotations
 
@@ -21,10 +22,13 @@ import torch
 from torch import nn
 
 from .encoder import (
+    GridEncoderParams,
+    TriplaneConfig,
     TriplaneParams,
     enc_cfg_from_nerf,
+    encode_any,
     frequency_encode,
-    triplane_encode,
+    init_encoder_any,
 )
 
 # std of a unit normal truncated to [-2, 2] (Flax's variance_scaling divisor)
@@ -136,9 +140,16 @@ class NeRFModel(nn.Module):
         self.cfg = cfg
         self.enc_cfg = enc_cfg = enc_cfg_from_nerf(cfg)
         C = self.color_channels
-        shape = (3, enc_cfg.resolution, enc_cfg.resolution,
-                 enc_cfg.feature_dim)
-        self.planes = nn.Parameter(torch.zeros(shape, device=device))
+        if isinstance(enc_cfg, TriplaneConfig):
+            self.enc_name, self._params_type = "planes", TriplaneParams
+            shape = (3, enc_cfg.resolution, enc_cfg.resolution,
+                     enc_cfg.feature_dim)
+        else:
+            self.enc_name, self._params_type = "tables", GridEncoderParams
+            shape = (enc_cfg.num_levels, enc_cfg.max_table_size,
+                     enc_cfg.level_dim)
+        self.register_parameter(self.enc_name, nn.Parameter(
+            torch.zeros(shape, device=device)))
         D = enc_cfg.output_dim
         if self.structure == "shared_mlp":
             self.sigma_mlp = SigmaMLP(D, 64, 3, 1 + C, device=device)
@@ -148,8 +159,10 @@ class NeRFModel(nn.Module):
             self.albedo_mlp = SigmaMLP(D, 64, 3, C, device=device)
         else:
             raise ValueError(f"unknown nerf structure {self.structure!r}")
-        self.planes_sigma = nn.Parameter(torch.zeros(shape, device=device)) \
-            if self.structure == "dual_enc" else None
+        self.register_parameter(
+            self.enc_name + "_sigma",
+            nn.Parameter(torch.zeros(shape, device=device))
+            if self.structure == "dual_enc" else None)
         self.bg_mlp = BackgroundMLP(device=device) if with_background \
             else None
         self.sigma_scale = nn.Parameter(torch.zeros((), device=device)) \
@@ -168,18 +181,29 @@ class NeRFModel(nn.Module):
         return 4 if self.cfg.nerf_type == "latent" else 3
 
     @property
-    def encoder(self) -> TriplaneParams:
-        return TriplaneParams(planes=self.planes)
+    def encoder(self):
+        """The encoder's tables as the JAX parameter tuple
+        (``TriplaneParams`` or ``GridEncoderParams``)."""
+        return self._params_type(getattr(self, self.enc_name))
+
+    @property
+    def encoder_sigma(self):
+        """``dual_enc``'s sigma encoder, or None."""
+        t = getattr(self, self.enc_name + "_sigma")
+        return None if t is None else self._params_type(t)
+
+    @property
+    def device(self) -> torch.device:
+        return getattr(self, self.enc_name).device
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's initialisers, drawn from ``generator``: planes
-        N(0, 0.1^2), dense kernels truncated LeCun normal, biases and
-        ``sigma_scale`` 0."""
+        N(0, 0.1^2) or grid tables U(-1e-4, 1e-4), dense kernels truncated
+        LeCun normal, biases and ``sigma_scale`` 0."""
         with torch.no_grad():
-            for p in (self.planes, self.planes_sigma):
-                if p is not None:
-                    p.copy_(torch.randn(p.shape, generator=generator,
-                                        device=p.device) * 0.1)
+            for enc in (self.encoder, self.encoder_sigma):
+                if enc is not None:
+                    enc[0].copy_(init_encoder_any(self.enc_cfg, generator)[0])
             for mlp in (self.sigma_mlp, self.bg_mlp, self.albedo_mlp):
                 if mlp is not None:
                     mlp.reset_parameters(generator)
@@ -187,8 +211,7 @@ class NeRFModel(nn.Module):
                 self.sigma_scale.zero_()
 
     def encode(self, positions: torch.Tensor) -> torch.Tensor:
-        return triplane_encode(self.encoder, self.enc_cfg, positions,
-                               self.bound)
+        return encode_any(self.encoder, self.enc_cfg, positions, self.bound)
 
     def density(self, positions: torch.Tensor):
         """(sigma (...,), albedo (..., C)) at (..., 3) world positions."""
@@ -197,8 +220,8 @@ class NeRFModel(nn.Module):
             out = self.sigma_mlp(h)
             raw, alb = out[..., 0], out[..., 1:]
         elif self.structure == "dual_enc":
-            h_sig = triplane_encode(TriplaneParams(self.planes_sigma),
-                                    self.enc_cfg, positions, self.bound)
+            h_sig = encode_any(self.encoder_sigma, self.enc_cfg, positions,
+                               self.bound)
             raw = self.sigma_mlp(h_sig)[..., 0]
             alb = self.albedo_mlp(h)
         else:                             # dual_mlp: shared encoding

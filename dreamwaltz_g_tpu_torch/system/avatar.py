@@ -32,7 +32,7 @@ from ..gaussian.densify import DensifyConfig, allocate_slots
 from ..human.deform import DeformNetwork
 from ..human.glbs import GLBSTransforms, glbs_transforms
 from ..human.smplx_model import SMPLXModelData, SMPLXParams, smplx_forward
-from ..nerf.encoder import TriplaneParams, encode_any, init_encoder_any
+from ..nerf.encoder import encode_any, init_encoder_any
 from ..nerf.network import SigmaMLP
 from ..ops.mesh import (
     NearestTriangles,
@@ -80,7 +80,8 @@ class AvatarParams(NamedTuple):
     log_scales: torch.Tensor    # (C, 3)
     quats: torch.Tensor         # (C, 4)
     lbs_weights: torch.Tensor   # (C, J)
-    encoder: object             # field tables (TriplaneParams)
+    encoder: object             # field tables (TriplaneParams or
+    #                             GridEncoderParams)
     mesh: Dict[str, MeshBindingParams]
     extra_betas: torch.Tensor   # (n_betas,)
     smpl_learn: Dict[str, torch.Tensor]  # learnable SMPL-X template copies
@@ -117,7 +118,7 @@ class AvatarModel:
 
     smpl: SMPLXModelData
     canonical_inputs: SMPLXParams
-    enc_cfg: object  # TriplaneConfig
+    enc_cfg: object  # TriplaneConfig or GridEncoderConfig
     nerf_bound: float
     color_mlp: SigmaMLP
     sq_net: Union[DeformNetwork, SigmaMLP]  # SigmaMLP(out=7) in hash mode
@@ -350,8 +351,9 @@ def init_avatar_state(
     from ``generator`` (seed 0 on ``device`` by default).
 
     ``nerf_model`` (a stage-1 ``NeRFModel``, the JAX function's
-    ``nerf_params``) continues the stage-1 field: its plane tables are
-    copied verbatim into the avatar's encoder and its sigma / albedo head
+    ``nerf_params``) continues the stage-1 field: its encoder's tables
+    (the triplane's planes or the grid's tables) are copied verbatim into
+    the avatar's encoder and its sigma / albedo head
     into ``model.color_mlp``; only the deform net is drawn."""
     device = resolve_device(device)
     if model.smpl.device != device:
@@ -404,7 +406,8 @@ def init_avatar_state(
     for net in nets:
         net.to(device)
     if nerf_model is not None:
-        encoder = TriplaneParams(planes=nerf_model.planes.detach().clone())
+        encoder = type(nerf_model.encoder)(
+            nerf_model.encoder[0].detach().clone())
         model.color_mlp.load_state_dict(nerf_model.sigma_mlp.state_dict())
         nets = (model.sq_net,)
     else:

@@ -11,7 +11,7 @@ Gaussians straight on the screen for the blend kernels' tests.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -25,11 +25,16 @@ from .guidance.unet import UNet2DCondition, sd15_unet_config, tiny_unet_config
 from .guidance.vae import AutoencoderKL, sd_vae_config, tiny_vae_config
 from .human.deform import DeformNetwork
 from .human.smplx_model import SMPLXParams, default_params, make_synthetic_model
-from .nerf.encoder import TriplaneConfig
+from .nerf.encoder import GridEncoderConfig, TriplaneConfig
 from .nerf.network import SigmaMLP
 from .ops import rasterize as R
 from .ops.blend import PATCH_H, PATCH_W, footprint_boxes, pack_rows
 from .system import avatar as A
+
+
+# the JAX fixture's default field: a 4-level tiled grid, 2^8 tables
+TINY_GRID = GridEncoderConfig(num_levels=4, level_dim=2, base_resolution=4,
+                              desired_resolution=32, log2_hashmap_size=8)
 
 
 class TinyAvatarSetup(NamedTuple):
@@ -44,7 +49,8 @@ def tiny_avatar_setup(capacity: int = 128, n_points: int = 64,
                       num_betas: int = 3, num_expr: int = 2,
                       seed: int = 0, mesh_part: Optional[str] = "face",
                       part_triangles: int = 10, n_per_triangle: int = 3,
-                      enc_cfg: Optional[TriplaneConfig] = None,
+                      enc_cfg: Union[TriplaneConfig, GridEncoderConfig,
+                                     None] = None,
                       mlp_hidden: int = 32, mlp_layers: int = 2,
                       deform_depth: int = 2, deform_width: int = 32,
                       prune_dists_close_to_mesh: Optional[float] = None,
@@ -53,8 +59,9 @@ def tiny_avatar_setup(capacity: int = 128, n_points: int = 64,
 
     ``mesh_part`` names one part bound to the ``part_triangles`` highest
     triangles at ``n_per_triangle`` Gaussians each (None: no part). The
-    defaults are the JAX fixture's sizes; its default hash-grid field is
-    not ported, so the field here is a triplane (16^2 x 8 by default)."""
+    defaults are the JAX fixture's sizes, but the field here is a triplane
+    (16^2 x 8) by default; ``enc_cfg`` takes a ``TriplaneConfig`` or a
+    ``GridEncoderConfig`` (``TINY_GRID`` is the JAX fixture's grid)."""
     device = resolve_device(device)
     smpl = make_synthetic_model(num_vertices=num_vertices,
                                 num_joints=num_joints, num_betas=num_betas,

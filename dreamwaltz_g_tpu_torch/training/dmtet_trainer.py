@@ -57,7 +57,7 @@ def init_dmtet(nerf: NeRFModel, resolution: int,
     band of tets within ``band_dilate`` rings of the seeded surface.
     Returns (model, params, unique edges (E, 2)), on the field's
     device."""
-    dev = nerf.planes.device
+    dev = nerf.device
     model = DMTetModel.create(resolution=resolution,
                               bound=bound or nerf.bound, device=dev)
     model, dparams = model.init_from_nerf(nerf, density_thresh=density_thresh,
@@ -109,7 +109,7 @@ def query_albedo(nerf: NeRFModel, pts: torch.Tensor,
 
 
 def _check_device(model: NeRFModel, device: torch.device) -> None:
-    got = model.planes.device
+    got = model.device
     if got.type != device.type or device.index not in (None, got.index):
         raise ValueError(f"the field is on {got}, the step on {device}")
 

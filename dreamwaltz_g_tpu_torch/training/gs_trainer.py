@@ -22,9 +22,19 @@ Port of ``dreamwaltz_g_tpu/training/gs_trainer.py``:
   ``reset_vanilla_opacity`` and ``make_vanilla_render`` (the sorted blend,
   B2).
 
-Not ported yet: the split and data/tensor-parallel steps, scene
-placement and the static background Gaussians in the step and the
-multi-device frame sharding.
+* ``make_avatar_sds_step_split``: the step as render -> encode, the
+  latent gradient, then a re-render with that gradient injected and
+  differentiated; with ``bg_net`` (the MLP background,
+  ``--render.use_mlp_background``) the background's weights train with
+  the avatar under their own Adan.
+
+Every SDS step and render takes ``placement`` (the scene's
+``(avatar_scale, avatar_transl)``) and ``static_gaussians`` (the frozen
+Gaussian background, appended after the avatar, so the densification
+statistics keep slicing ``[:C]``).
+
+Not ported yet: the data/tensor-parallel steps and the multi-device frame
+sharding.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from ..gaussian.densify import (
 from ..guidance.sds import GuidanceParams, ScoreDistillation
 from ..human.smplx_model import SMPLXParams
 from ..ops import rasterize as R
+from ..system.background import BackgroundMLPNet, mlp_background_image
 from ..system.avatar import (
     AvatarModel,
     AvatarState,
@@ -62,6 +73,7 @@ from ..system.vanilla import (
 )
 from .losses import image_reconstruction_loss
 from .optim import (
+    Adan,
     AvatarOptimizer,
     AvatarOptState,
     GaussianOptimizer,
@@ -112,14 +124,30 @@ def init_avatar_train_state(state: AvatarState, tx: AvatarOptimizer,
                             opt_state=tx.init(state.params, model), step=0)
 
 
+def _place_and_merge(gs: GaussiansOut, dummy: torch.Tensor, placement,
+                     static_gaussians):
+    """The scene's placement, then the frozen background Gaussians after
+    the avatar's, ``dummy`` padded with zeros to their count."""
+    if placement is not None:
+        gs = place_gaussians(gs, *placement)
+    if static_gaussians is not None:
+        gs = merge_gaussians(gs, static_gaussians)
+        dummy = torch.cat([dummy, torch.zeros(
+            (static_gaussians.positions.shape[0], 2), dtype=dummy.dtype,
+            device=dummy.device)])
+    return gs, dummy
+
+
 def _render_with_dummy(model: AvatarModel, state: AvatarState, params,
                        observed_inputs, dummy, extrinsic, intrinsics, tanfov,
-                       background, H: int, W: int, raster: dict, pgc=None):
-    """Animate + project (+ ``dummy`` on means2d) + rasterize + composite.
-    ``pgc``: optional identity-forward hook on the composited 3-channel
-    image that reshapes its gradient (pixel-gradient clipping). Returns
-    (image (H, W, 3), RasterOutput)."""
+                       background, H: int, W: int, raster: dict, pgc=None,
+                       placement=None, static_gaussians=None):
+    """Animate (+ placement, + the static Gaussians) + project (+ ``dummy``
+    on means2d) + rasterize + composite. ``pgc``: optional identity-forward
+    hook on the composited 3-channel image that reshapes its gradient
+    (pixel-gradient clipping). Returns (image (H, W, 3), RasterOutput)."""
     gs = animate(model, state._replace(params=params), observed_inputs)
+    gs, dummy = _place_and_merge(gs, dummy, placement, static_gaussians)
     cov3d = R.covariance3d(gs.quats, gs.scales)
     g2d = R.project_gaussians(
         gs.positions, cov3d, gs.opacities, gs.colors, extrinsic, intrinsics,
@@ -143,6 +171,8 @@ def make_avatar_sds_step(
     max_tiles_per_gaussian: int = 16,
     lambda_guidance: float = 1.0,
     pgc: Optional[Callable] = None,
+    placement=None,
+    static_gaussians: Optional[GaussiansOut] = None,
     device="cuda",
 ) -> Callable:
     """One avatar SDS step: ``step(tstate, gparams, observed_inputs,
@@ -185,7 +215,8 @@ def make_avatar_sds_step(
             image, out = _render_with_dummy(
                 model, state, state.params, observed_inputs, dummy,
                 extrinsic, intrinsics, tanfov, background, H, W, raster,
-                pgc=pgc)
+                pgc=pgc, placement=placement,
+                static_gaussians=static_gaussians)
         with record_function("sds_step.guidance"):
             sds = guidance(gparams, image[None], text_embeds, uncond_embeds,
                            t, noise=noise, cond_image=cond_image,
@@ -373,6 +404,136 @@ def make_avatar_render_frames(model: AvatarModel, image_height: int,
     return render_frames
 
 
+class BackgroundTrainState(NamedTuple):
+    """The MLP background's net (its weights take a gradient) and the state
+    of its update rule."""
+
+    net: BackgroundMLPNet
+    opt_state: dict
+
+
+def init_background_train_state(net: BackgroundMLPNet,
+                                tx: Adan) -> BackgroundTrainState:
+    params = list(net.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    return BackgroundTrainState(net=net, opt_state=tx.init(params))
+
+
+def make_avatar_sds_step_split(
+    model: AvatarModel,
+    guidance: ScoreDistillation,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 16,
+    capacity: int = 512,
+    chunk: int = 64,
+    max_tiles_per_gaussian: int = 8,
+    lambda_guidance: float = 1.0,
+    bg_net: Optional[BackgroundMLPNet] = None,
+    bg_tx: Optional[Adan] = None,
+    pgc: Optional[Callable] = None,
+    placement=None,
+    static_gaussians: Optional[GaussiansOut] = None,
+    device="cuda",
+) -> Callable:
+    """The avatar SDS step in three parts: ``step(tstate, gparams,
+    observed_inputs, extrinsic, intrinsics, tanfov, background,
+    text_embeds, uncond_embeds, t, noise=None, cond_image=None,
+    guidance_scale=None, generator=None, bg_state=None, c2w=None)`` ->
+    (tstate', {"loss", "tile_overflow"}).
+
+    (A) render -> VAE encode without a graph; (B) the frozen guidance's
+    latent gradient; (C) render and encode again, ``loss = lambda *
+    sum(latents * grad) / B`` in float32, backward, the optimizer step and
+    the statistics. The result is the fused step's with the render and
+    the encode run twice: the table blend (B1) twice forward and once
+    backward, the VAE's attention (B4) twice forward.
+
+    With ``bg_net`` / ``bg_tx`` the background is the net's image at the
+    camera ``c2w`` (``background`` is not read); the net's weights take
+    their gradient in (C) and ``bg_tx`` (the trainer's Adan) updates them
+    in place. The step then takes ``bg_state`` (a
+    ``BackgroundTrainState``) and ``c2w`` and returns (tstate',
+    bg_state', metrics). The default ``max_tiles_per_gaussian`` is 8, the
+    JAX step's. Ranges: ``split_step.render_encode``,
+    ``.latent_gradients``, ``.render``, ``.backward``,
+    ``.optimizer_stats``."""
+    device = resolve_device(device)
+    H, W = image_height, image_width
+    raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
+                  max_tiles_per_gaussian=max_tiles_per_gaussian, mode="train")
+
+    def image_latents(gparams, state, observed_inputs, dummy, extrinsic,
+                      intrinsics, tanfov, background, c2w, dt):
+        if bg_net is not None:
+            background = mlp_background_image(bg_net, c2w, intrinsics, H, W)
+        image, out = _render_with_dummy(
+            model, state, state.params, observed_inputs, dummy, extrinsic,
+            intrinsics, tanfov, background, H, W, raster, pgc=pgc,
+            placement=placement, static_gaussians=static_gaussians)
+        return guidance.encode_images(gparams, image[None].to(dt)), out
+
+    def step(tstate: AvatarTrainState, gparams: GuidanceParams,
+             observed_inputs: SMPLXParams, extrinsic, intrinsics, tanfov,
+             background, text_embeds, uncond_embeds, t,
+             noise: Optional[torch.Tensor] = None, cond_image=None,
+             guidance_scale=None,
+             generator: Optional[torch.Generator] = None,
+             bg_state: Optional[BackgroundTrainState] = None,
+             c2w: Optional[torch.Tensor] = None) -> tuple:
+        if bg_net is not None and (bg_state is None or c2w is None):
+            raise ValueError("the trainable-background step needs bg_state "
+                             "and c2w")
+        state = tstate.avatar
+        _check_device(state, device)
+        C = state.capacity
+        view = (extrinsic, intrinsics, tanfov, background, c2w,
+                text_embeds.dtype)
+        dummy = torch.zeros((C + model.n_mesh_points, 2), device=device)
+        with torch.no_grad(), record_function("split_step.render_encode"):
+            latents, _ = image_latents(gparams, state, observed_inputs,
+                                       dummy, *view)
+        with record_function("split_step.latent_gradients"):
+            glat = guidance.latent_gradients(
+                gparams, latents, text_embeds, uncond_embeds, t,
+                noise=noise, cond_image=cond_image,
+                guidance_scale=guidance_scale, generator=generator)
+        for leaf in _leaves(state, model):
+            leaf.grad = None
+        if bg_net is not None:
+            bg_net.zero_grad(set_to_none=True)
+        dummy.requires_grad_(True)
+        with record_function("split_step.render"):
+            latents, out = image_latents(gparams, state, observed_inputs,
+                                         dummy, *view)
+            loss = lambda_guidance * torch.sum(
+                latents.float() * glat) / latents.shape[0]
+        with record_function("split_step.backward"):
+            loss.backward()
+        with record_function("split_step.optimizer_stats"):
+            tstate.opt_state.step()
+            if bg_net is not None:
+                params = list(bg_net.parameters())
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                         for p in params]
+                with torch.no_grad():
+                    for p, u in zip(params, bg_tx.update(
+                            grads, bg_state.opt_state, params)):
+                        p.add_(u)
+            new_avatar = update_avatar_stats(state, dummy.grad[:C],
+                                             out.radii.detach()[:C])
+        metrics: Dict[str, torch.Tensor] = {
+            "loss": loss.detach(), "tile_overflow": out.overflow}
+        new_tstate = AvatarTrainState(new_avatar, tstate.opt_state,
+                                      tstate.step + 1)
+        if bg_net is not None:
+            return new_tstate, bg_state, metrics
+        return new_tstate, metrics
+
+    return step
+
+
 # ---------------------------------------------------------------------------
 # The vanilla avatar
 # ---------------------------------------------------------------------------
@@ -413,6 +574,8 @@ def make_vanilla_sds_step(
     max_tiles_per_gaussian: int = 16,
     lambda_guidance: float = 1.0,
     pgc: Optional[Callable] = None,
+    placement=None,
+    static_gaussians: Optional[GaussiansOut] = None,
     device="cuda",
 ) -> Callable:
     """One SDS step on the vanilla avatar: ``step(tstate, gparams,
@@ -448,11 +611,13 @@ def make_vanilla_sds_step(
         with record_function("vanilla_step.render"):
             gs = animate_vanilla(model, vstate, observed_inputs,
                                  campos=campos)
+            gs, dm = _place_and_merge(gs, dummy, placement,
+                                      static_gaussians)
             cov3d = R.covariance3d(gs.quats, gs.scales)
             g2d = R.project_gaussians(
                 gs.positions, cov3d, gs.opacities, gs.colors, extrinsic,
                 intrinsics, H, W, tanfov=tanfov, alive=gs.alive)
-            g2d = g2d._replace(means2d=g2d.means2d + dummy)
+            g2d = g2d._replace(means2d=g2d.means2d + dm)
             out = R.rasterize_projected(g2d, H, W, **raster)
             image = out.image + (1.0 - out.alpha)[..., None] * background
             if pgc is not None and image.shape[-1] == 3:
@@ -505,11 +670,15 @@ def make_vanilla_render(model: VanillaAvatarModel, image_height: int,
                         image_width: int, tile_size: int = 16,
                         capacity: int = 512, chunk: int = 64,
                         max_tiles_per_gaussian: int = 16,
+                        placement=None,
+                        static_gaussians: Optional[GaussiansOut] = None,
                         device="cuda") -> Callable:
     """Eval render of the vanilla avatar, the call of
     ``make_avatar_render``'s: ``render(state, observed_inputs, extrinsic,
     intrinsics, tanfov, background)`` -> (image (H, W, 3), alpha (H, W),
-    depth (H, W)), through the sorted blend (B2), the DC colors."""
+    depth (H, W)), through the sorted blend (B2), the DC colors, placed
+    and merged with the static Gaussians as the step is; ``extra_states``
+    is taken and not read, as in the JAX package."""
     device = resolve_device(device)
     H, W = image_height, image_width
     raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
@@ -517,9 +686,14 @@ def make_vanilla_render(model: VanillaAvatarModel, image_height: int,
 
     @torch.no_grad()
     def render(state: VanillaAvatarState, observed_inputs: SMPLXParams,
-               extrinsic, intrinsics, tanfov, background):
+               extrinsic, intrinsics, tanfov, background,
+               extra_states: tuple = ()):
         _check_vanilla_device(state, device)
         gs = animate_vanilla(model, state, observed_inputs)
+        if placement is not None:
+            gs = place_gaussians(gs, *placement)
+        if static_gaussians is not None:
+            gs = merge_gaussians(gs, static_gaussians)
         return _render_gaussians(gs, extrinsic, intrinsics, tanfov,
                                  background, H, W, raster)
 

@@ -57,7 +57,7 @@ def init_train_state(model: NeRFModel, tx: NeRFOptimizer) -> NeRFTrainState:
 
 
 def _check_device(model: NeRFModel, device: torch.device) -> None:
-    got = model.planes.device
+    got = model.device
     if got.type != device.type or device.index not in (None, got.index):
         raise ValueError(f"the field is on {got}, the step on {device}")
 

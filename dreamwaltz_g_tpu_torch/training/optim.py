@@ -380,12 +380,12 @@ def nerf_lr_schedule(policy: str, base: float, max_steps: int,
 
 
 def nerf_param_groups(model) -> Dict[str, List[torch.Tensor]]:
-    """{label: [parameters]} of a ``NeRFModel``: the plane tables
-    "encoder", the heads and ``sigma_scale`` "mlp", the background MLP
-    "bg"."""
+    """{label: [parameters]} of a ``NeRFModel``: the encoder's planes or
+    grid tables "encoder", the heads and ``sigma_scale`` "mlp", the
+    background MLP "bg"."""
     groups: Dict[str, List[torch.Tensor]] = {}
     for name, p in model.named_parameters():
-        label = "encoder" if name.startswith("planes") else \
+        label = "encoder" if name.startswith(model.enc_name) else \
             "bg" if name.startswith("bg_mlp.") else "mlp"
         groups.setdefault(label, []).append(p)
     return groups

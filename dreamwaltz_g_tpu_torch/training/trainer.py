@@ -43,10 +43,20 @@ the prompt's own generator, on the prefetch worker. A checkpoint carries
 every generator's state, so a resumed run draws what an uninterrupted one
 would.
 
+The scene options: ``--render.use_mlp_background`` (the ray-direction
+MLP background, trained with the avatar under its own Adan through the
+split step, ``gs_trainer.make_avatar_sds_step_split``, rendered at the
+eval camera by ``evaluate`` and saved in the checkpoint under
+"background"), ``--render.use_gs_background`` (a trained-3DGS PLY merged
+after the avatar into every step and render), ``--render.avatar_scale`` /
+``avatar_transl`` (the scene placement) and ``--optim.ckpt_extra`` (a
+second avatar from another run's checkpoint, composed into the renders).
+The field's backbone is ``--nerf.backbone`` triplane, hashgrid or
+tiledgrid.
+
 Not ported yet, and refused at construction where a flag asks for them:
-the hash / tiled grid backbones, the MLP and Gaussian backgrounds,
-scene composition and placement, SDXL, ``batch_size > 1`` and tensor
-parallelism, and the multi-device frame sharding of ``evaluate``.
+SDXL, ``batch_size > 1`` and tensor parallelism, and the multi-device
+frame sharding of ``evaluate``.
 """
 from __future__ import annotations
 
@@ -113,7 +123,7 @@ def avatar_tree(state, model) -> dict:
     return {
         "positions": p.positions, "log_scales": p.log_scales,
         "quats": p.quats, "lbs_weights": p.lbs_weights,
-        "planes": p.encoder.planes,
+        **p.encoder._asdict(),    # "planes" or the grid's "tables"
         "mesh": {k: {"bary_coords": m.bary_coords,
                      "vertex_coords": m.vertex_coords, "scales": m.scales}
                  for k, m in p.mesh.items()},
@@ -233,6 +243,10 @@ class Trainer:
         self.neg_embeds = None
         self.export_stats: Dict[str, Any] = {}
         self.dmtet_model = None
+        self.extra_states = ()
+        self.extra_models = ()
+        self.bg_state = None   # the MLP background's BackgroundTrainState
+        self.bg_net = None
 
         self._warn_unsupported_knobs()
         self._init_human()
@@ -251,20 +265,13 @@ class Trainer:
         """The paths this slice does not port raise here, where their
         flag is set."""
         cfg = self.cfg
-        r, g, lg = cfg.render, cfg.guide, cfg.log
+        g, lg = cfg.guide, cfg.log
         if cfg.stage not in ("nerf", "gs"):
             raise ValueError(f"unknown stage {cfg.stage!r}")
         if lg.platform not in (None, "cuda", "gpu", "cpu"):
             raise ValueError(f"log.platform {lg.platform!r}: the port runs "
                              "on 'cuda' (the default) or 'cpu'")
         refused = [
-            (cfg.nerf.backbone != "triplane",
-             f"nerf.backbone {cfg.nerf.backbone!r} (the hash / tiled grid)"),
-            (r.use_mlp_background, "render.use_mlp_background"),
-            (r.use_gs_background, "render.use_gs_background"),
-            (r.avatar_scale is not None or r.avatar_transl is not None,
-             "render.avatar_scale / avatar_transl (scene placement)"),
-            (cfg.optim.ckpt_extra, "optim.ckpt_extra (scene composition)"),
             (str(g.diffusion).startswith("sdxl"), "SDXL guidance"),
             (cfg.optim.batch_size > 1 or cfg.parallel.tp > 1,
              "batch_size > 1 and tensor parallelism"),
@@ -365,7 +372,34 @@ class Trainer:
         return dict(lambda_guidance=self.cfg.guide.lambda_guidance,
                     pgc=self.pgc, tile_size=r.tile_size,
                     capacity=r.tile_capacity, chunk=r.chunk,
+                    placement=self._placement(),
+                    static_gaussians=self._static_bg_gaussians(),
                     device=self.device)
+
+    def _placement(self):
+        """The scene placement of ``--render.avatar_scale`` /
+        ``avatar_transl`` (Python literals: a scalar or per-avatar list,
+        a 3-vector or per-avatar list of them), or None."""
+        r = self.cfg.render
+        if r.avatar_scale is None and r.avatar_transl is None:
+            return None
+        sc = None if r.avatar_scale is None else np.asarray(
+            ast.literal_eval(str(r.avatar_scale)), np.float32)
+        tr = None if r.avatar_transl is None else np.asarray(
+            ast.literal_eval(str(r.avatar_transl)), np.float32)
+        return (sc, tr)
+
+    def _static_bg_gaussians(self):
+        """The frozen Gaussian background of ``--render.use_gs_background``
+        (a trained-3DGS PLY), read once; None without the flag."""
+        if not self.cfg.render.use_gs_background:
+            return None
+        if getattr(self, "_gs_bg_cache", None) is None:
+            from ..system.background import load_gaussian_background
+
+            self._gs_bg_cache = load_gaussian_background(
+                self.cfg.render.use_gs_background, device=self.device)
+        return self._gs_bg_cache
 
     # ------------------------------------------------------------------
     # builders
@@ -792,7 +826,9 @@ class Trainer:
                 logger.info("warm-started vanilla avatar from %s", step_dir)
         self._build_avatar_step(self.train_res)
         rk = dict(tile_size=r.tile_size, capacity=r.tile_capacity,
-                  chunk=r.chunk, device=self.device)
+                  chunk=r.chunk, placement=self._placement(),
+                  static_gaussians=self._static_bg_gaussians(),
+                  device=self.device)
         self.eval_render = gs_trainer.make_vanilla_render(
             self.avatar_model, cfg.data.eval_h, cfg.data.eval_w, **rk)
         self.test_render = gs_trainer.make_vanilla_render(
@@ -890,9 +926,25 @@ class Trainer:
                         f"this configuration (capacity / mesh parts): {e}")
                 logger.info("warm-started avatar from %s", step_dir)
 
+        if r.use_mlp_background:
+            # the trainable background: its own Adan beside the avatar's
+            from ..system.background import BackgroundMLPNet
+            from .optim import adan
+
+            self.bg_net = BackgroundMLPNet(device=self.device)
+            self.bg_net.reset_parameters(self.generator)
+            self.bg_tx = adan(1e-3, eps=1e-8, weight_decay=2e-5,
+                              max_grad_norm=5.0)
+            self.bg_state = gs_trainer.init_background_train_state(
+                self.bg_net, self.bg_tx)
         self._build_avatar_step(self.train_res)
+        if cfg.optim.ckpt_extra:
+            self._load_extra_avatar(cfg.optim.ckpt_extra)
         rk = dict(tile_size=r.tile_size, capacity=r.tile_capacity,
-                  chunk=r.chunk, device=self.device)
+                  chunk=r.chunk, extra_models=self.extra_models,
+                  placement=self._placement(),
+                  static_gaussians=self._static_bg_gaussians(),
+                  device=self.device)
         self.eval_render = gs_trainer.make_avatar_render(
             self.avatar_model, cfg.data.eval_h, cfg.data.eval_w, **rk)
         self.test_render = gs_trainer.make_avatar_render(
@@ -912,12 +964,42 @@ class Trainer:
             return resolve_ckpt_path(cfg.optim.ckpt)
         return None
 
+    def _load_extra_avatar(self, ckpt) -> None:
+        """Scene composition: a second avatar from another run's port
+        checkpoint (its step directory or experiment), buffers sized like
+        it, the tensors and networks restored."""
+        from ..system import avatar as A
+
+        step_dir = resolve_ckpt_path(ckpt)
+        if step_dir is None:
+            return
+        raw = load_pytree(step_dir, map_location=self.device)
+        cap2 = raw["params"]["positions"].shape[0]
+        rng = np.random.default_rng(self.cfg.optim.seed + 7)
+        cloud2 = torch.as_tensor(rng.normal(size=(cap2, 3)) * 0.2,
+                                 dtype=torch.float32, device=self.device)
+        model2 = self._build_avatar_model()
+        state2 = A.init_avatar_state(
+            model2, cloud2, self.generator, capacity=cap2,
+            prune_dists_close_to_mesh=None, device=self.device)
+        load_avatar_tree(state2, model2, raw["params"])
+        self.extra_states = (state2,)
+        self.extra_models = (model2,)
+        logger.info("loaded extra avatar from %s", step_dir)
+
     def _build_avatar_step(self, H: int):
-        make = gs_trainer.make_vanilla_sds_step \
-            if self.cfg.render.gs_type == "vanilla" \
-            else gs_trainer.make_avatar_sds_step
-        self.sds_step_fn = make(self.avatar_model, self.guidance, H, H,
-                                **self._common_step_kwargs())
+        kw = self._common_step_kwargs()
+        if self.cfg.render.gs_type == "vanilla":
+            make = gs_trainer.make_vanilla_sds_step
+        elif self.bg_state is not None:
+            # the trainable background's host: the split step (on the card
+            # only then; the JAX trainer also takes it on a TPU without
+            # --optim.fused_step)
+            make = gs_trainer.make_avatar_sds_step_split
+            kw.update(bg_net=self.bg_net, bg_tx=self.bg_tx)
+        else:
+            make = gs_trainer.make_avatar_sds_step
+        self.sds_step_fn = make(self.avatar_model, self.guidance, H, H, **kw)
 
     # ------------------------------------------------------------------
     # data assembly (host side; the prefetch worker runs it)
@@ -1161,13 +1243,18 @@ class Trainer:
             else:
                 bg = self._bg_color().expand(self.train_res, self.train_res,
                                              3)
-                self.state, metrics = self.sds_step_fn(
-                    self.state, self.guidance_params, batch["smpl_inputs"],
-                    cam.extrinsic[0], cam.intrinsics[0], cam.tanfov[0], bg,
-                    batch["text"], batch["uncond"], batch["t"][:1],
-                    cond_image=batch["cond_image"],
-                    guidance_scale=batch["guidance_scale"],
-                    generator=self.generator)
+                args = (self.state, self.guidance_params,
+                        batch["smpl_inputs"], cam.extrinsic[0],
+                        cam.intrinsics[0], cam.tanfov[0], bg, batch["text"],
+                        batch["uncond"], batch["t"][:1])
+                kw = dict(cond_image=batch["cond_image"],
+                          guidance_scale=batch["guidance_scale"],
+                          generator=self.generator)
+                if self.bg_state is not None:
+                    self.state, self.bg_state, metrics = self.sds_step_fn(
+                        *args, bg_state=self.bg_state, c2w=cam.c2w[0], **kw)
+                else:
+                    self.state, metrics = self.sds_step_fn(*args, **kw)
                 self._maybe_densify()
         return metrics
 
@@ -1419,7 +1506,7 @@ class Trainer:
                 self.state.avatar, batch["smpl_inputs"], cam.extrinsic[0],
                 cam.intrinsics[0], cam.tanfov[0],
                 torch.zeros((cfg.data.eval_h, cfg.data.eval_w, 3),
-                            device=self.device))
+                            device=self.device), self.extra_states)
         elif self.dmtet_model is not None:
             img, _, _ = self.eval_render(
                 self.state, cam.c2w[0], cam.intrinsics[0],
@@ -1458,16 +1545,24 @@ class Trainer:
         save_image(str(d / f"{self.train_step:06d}_gradtarget.png"),
                    torch.clamp(target[0].float(), 0, 1).cpu().numpy())
 
-    def _eval_background(self, Hc: int, Wc: int, i: int, video_bg
-                         ) -> torch.Tensor:
+    def _eval_background(self, Hc: int, Wc: int, i: int, video_bg,
+                         cam=None) -> torch.Tensor:
         """Frame ``i``'s background: the video's frame resized to the
-        render, else the eval color (stage 2: (Hc, Wc, 3); stage 1: (3,))."""
+        render, else the MLP background at the eval camera ``cam`` (None on
+        a predefined camera track: the eval color then), else the eval
+        color (stage 2: (Hc, Wc, 3); stage 1: (3,))."""
         cfg = self.cfg
         if video_bg is not None:
             bg = video_bg.frames[i % video_bg.frames.shape[0]]
             if tuple(bg.shape[:2]) != (Hc, Wc):
                 bg = resize_images(bg[None], Hc, Wc)[0]
             return bg
+        if self.bg_state is not None and cam is not None:
+            from ..system.background import mlp_background_image
+
+            with torch.no_grad():
+                return mlp_background_image(self.bg_net, cam.c2w[0],
+                                            cam.intrinsics[0], Hc, Wc)
         if cfg.stage == "gs":
             c = COLOR_PRESETS.get(cfg.data.eval_bg_mode, cfg.render.bg_color) \
                 if cfg.data.eval_bg_mode else cfg.render.bg_color
@@ -1519,9 +1614,12 @@ class Trainer:
                 video_bg = VideoBackground(frames_arr, device=self.device)
         reenact_render = None
         overlay_rgba = [] if video_bg is not None else None
-        # the vanilla avatar renders frame by frame, as in the JAX package
+        # the vanilla avatar and a composed scene render frame by frame, as
+        # in the JAX package; the chunked frames take neither the placement
+        # nor the Gaussian background, as the JAX package's do not
         pending = [] if cfg.stage == "gs" and not predefined and size > 1 \
-            and cfg.render.gs_type != "vanilla" else None
+            and cfg.render.gs_type != "vanilla" \
+            and not self.extra_states else None
 
         def rgba(img, alpha):
             return np.concatenate([torch.clamp(img, 0, 1).cpu().numpy(),
@@ -1543,17 +1641,23 @@ class Trainer:
                                           device=self.device)
                     Hc, Wc = cp["image_height"], cp["image_width"]
                     if reenact_render is None:
-                        make = gs_trainer.make_vanilla_render \
-                            if cfg.render.gs_type == "vanilla" \
-                            else gs_trainer.make_avatar_render
-                        reenact_render = make(self.avatar_model, Hc, Wc,
-                                              **rk)
+                        # the camera track's render composes the extra
+                        # avatars, unplaced and without the Gaussian
+                        # background, as the JAX package's does
+                        reenact_render = \
+                            gs_trainer.make_vanilla_render(
+                                self.avatar_model, Hc, Wc, **rk) \
+                            if cfg.render.gs_type == "vanilla" else \
+                            gs_trainer.make_avatar_render(
+                                self.avatar_model, Hc, Wc,
+                                extra_models=self.extra_models, **rk)
                 else:
                     cam = camera(p)
                     extr, intr = cam.extrinsic[0], cam.intrinsics[0]
                     tanfov = cam.tanfov[0]
                     Hc, Wc = H, W
-                bg = self._eval_background(Hc, Wc, i, video_bg)
+                bg = self._eval_background(Hc, Wc, i, video_bg,
+                                           None if predefined else cam)
 
                 if self.dmtet_model is not None:
                     img, _, _ = self.eval_render(self.state, cam.c2w[0],
@@ -1573,12 +1677,13 @@ class Trainer:
                         img0, alpha, _ = r(
                             self.state.avatar, smpl_inputs, extr, intr,
                             tanfov, torch.zeros((Hc, Wc, 3),
-                                                device=self.device))
+                                                device=self.device),
+                            self.extra_states)
                         overlay_rgba.append(rgba(img0, alpha))
                         img = img0 + (1.0 - alpha)[..., None] * bg
                     else:
                         img, _, _ = r(self.state.avatar, smpl_inputs, extr,
-                                      intr, tanfov, bg)
+                                      intr, tanfov, bg, self.extra_states)
                 frames.append(torch.clamp(img, 0, 1).cpu().numpy())
 
             if pending:
@@ -1688,7 +1793,8 @@ class Trainer:
 
     def save_checkpoint(self) -> None:
         """The state, the optimizer, the step and the generators; a DMTet
-        finetune's sdf and deform under "dmtet"."""
+        finetune's sdf and deform under "dmtet", the MLP background's
+        weights and Adan state under "background"."""
         if self.cfg.stage == "nerf":
             params = self.nerf.state_dict()
             extra = {"grid": self.grid._asdict()}
@@ -1697,6 +1803,9 @@ class Trainer:
         else:
             params = self._avatar_params_tree()
             extra = {}
+        if self.bg_state is not None:
+            extra["background"] = {"net": self.bg_net.state_dict(),
+                                   "opt": self.bg_state.opt_state}
         tree = {"params": params, "opt_state": _opt_tree(self.state.opt_state),
                 "step": self.train_step, "rng": self._rng_tree(), **extra}
         self.checkpointer.save(self.train_step, tree)
@@ -1722,6 +1831,17 @@ class Trainer:
             load_avatar_tree(self.state.avatar, self.avatar_model,
                              restored["params"])
         _load_opt_tree(self.state.opt_state, restored["opt_state"])
+        if self.bg_state is not None and "background" in restored:
+            bg = restored["background"]
+            self.bg_net.load_state_dict(bg["net"])
+            opt = self.bg_state.opt_state
+            with torch.no_grad():
+                for k, v in bg["opt"].items():
+                    if isinstance(v, list):
+                        for dst, src in zip(opt[k], v):
+                            dst.copy_(src)
+                    else:
+                        opt[k] = v
         self.state = self.state._replace(step=self.train_step)
         if "rng" in restored:
             self._load_rng_tree(restored["rng"])

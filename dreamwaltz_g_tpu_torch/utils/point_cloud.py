@@ -1,10 +1,10 @@
 """Point cloud container and PLY IO.
 
-Port of ``BasicPointCloud``, ``save_ply`` and ``load_ply`` from
-``dreamwaltz_g_tpu/utils/point_cloud.py``: binary little-endian PLY in
-numpy, the same bytes as the JAX package writes. The trained-3DGS PLY
-reader / writer (``load_gaussian_ply``, ``save_gaussian_ply``) is not
-ported yet.
+Port of ``dreamwaltz_g_tpu/utils/point_cloud.py``: ``BasicPointCloud``,
+``save_ply`` / ``load_ply``, and the trained-3DGS layout's
+``load_gaussian_ply`` / ``save_gaussian_ply`` (the Gaussian background's
+input): binary little-endian PLY in numpy, the same bytes as the JAX
+package writes.
 """
 from __future__ import annotations
 
@@ -88,3 +88,71 @@ def load_ply(path: str) -> BasicPointCloud:
         colors = np.stack([rec["red"], rec["green"], rec["blue"]],
                           -1).astype(np.float32) / 255.0
     return BasicPointCloud(points=pts, colors=colors, normals=normals)
+
+
+def load_gaussian_ply(path: str, max_sh_degree: int = 3):
+    """Read a trained-3DGS PLY (x/y/z, f_dc_*, f_rest_*, opacity, scale_*,
+    rot_*) into raw parameter arrays (the
+    ``--render.use_gs_background`` input).
+
+    Returns a dict: positions (N,3), sh_dc (N,3), sh_rest (N,K,3) or None,
+    opacity_logit (N,), log_scales (N,3), quats (N,4) — all in the PLY's
+    raw (pre-activation) parameterization."""
+    rec, names = _read_ply_records(path)
+    pts = np.stack([rec["x"], rec["y"], rec["z"]], -1).astype(np.float32)
+    n = pts.shape[0]
+    sh_dc = np.stack([rec[f"f_dc_{i}"] for i in range(3)],
+                     -1).astype(np.float32)
+    rest_names = sorted((m for m in names if m.startswith("f_rest_")),
+                        key=lambda m: int(m.split("_")[-1]))
+    sh_rest = None
+    if rest_names:
+        flat = np.stack([rec[m] for m in rest_names], -1).astype(np.float32)
+        k = flat.shape[1] // 3
+        # 3DGS layout: channel-major (3, K) per point
+        sh_rest = flat.reshape(n, 3, k).transpose(0, 2, 1)
+    opacity = rec["opacity"].astype(np.float32)
+    log_scales = np.stack([rec[f"scale_{i}"] for i in range(3)],
+                          -1).astype(np.float32)
+    quats = np.stack([rec[f"rot_{i}"] for i in range(4)],
+                     -1).astype(np.float32)
+    return {"positions": pts, "sh_dc": sh_dc, "sh_rest": sh_rest,
+            "opacity_logit": opacity, "log_scales": log_scales,
+            "quats": quats}
+
+
+def save_gaussian_ply(path: str, positions, sh_dc, sh_rest, opacity_logit,
+                      log_scales, quats) -> str:
+    """Write the standard trained-3DGS PLY layout (field order x/y/z nx/ny/nz
+    f_dc_* f_rest_* opacity scale_* rot_*)."""
+    os.makedirs(osp.dirname(path) or ".", exist_ok=True)
+    positions = np.asarray(positions, np.float32)
+    n = positions.shape[0]
+    cols = [("x", positions[:, 0]), ("y", positions[:, 1]),
+            ("z", positions[:, 2]),
+            ("nx", np.zeros(n, np.float32)), ("ny", np.zeros(n, np.float32)),
+            ("nz", np.zeros(n, np.float32))]
+    sh_dc = np.asarray(sh_dc, np.float32)
+    cols += [(f"f_dc_{i}", sh_dc[:, i]) for i in range(3)]
+    if sh_rest is not None and np.asarray(sh_rest).size:
+        r = np.asarray(sh_rest, np.float32)          # (N, K, 3)
+        flat = r.transpose(0, 2, 1).reshape(n, -1)   # channel-major
+        cols += [(f"f_rest_{i}", flat[:, i]) for i in range(flat.shape[1])]
+    cols.append(("opacity", np.asarray(opacity_logit,
+                                       np.float32).reshape(n)))
+    ls = np.asarray(log_scales, np.float32)
+    cols += [(f"scale_{i}", ls[:, i]) for i in range(3)]
+    q = np.asarray(quats, np.float32)
+    cols += [(f"rot_{i}", q[:, i]) for i in range(4)]
+
+    rec = np.empty(n, dtype=np.dtype([(name, "f4") for name, _ in cols]))
+    for name, arr in cols:
+        rec[name] = arr
+    header = ["ply", "format binary_little_endian 1.0",
+              f"element vertex {n}"]
+    header += [f"property float {name}" for name, _ in cols]
+    header.append("end_header")
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(rec.tobytes())
+    return path

@@ -25,6 +25,7 @@ from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch as tcamera
 from dreamwaltz_g_tpu_torch.human.smplx_model import SMPLXParams as TParams
 from dreamwaltz_g_tpu_torch.system import avatar as TA
 from dreamwaltz_g_tpu_torch.training import gs_trainer as TG
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the issue's end-to-end tolerance: float32 chains through SMPL-X, GLBS, the

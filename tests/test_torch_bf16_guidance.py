@@ -38,6 +38,7 @@ from dreamwaltz_g_tpu.guidance.sds import GuidanceParams as JGP
 from dreamwaltz_g_tpu_torch import convert
 from dreamwaltz_g_tpu_torch import tests_support as tts
 from dreamwaltz_g_tpu_torch.guidance import layers as TL
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 LATENT = 8
 GUIDANCE = 50.0

@@ -24,6 +24,7 @@ from dreamwaltz_g_tpu_torch.ops import blend_train as BT
 from dreamwaltz_g_tpu_torch.ops import rasterize as R
 from dreamwaltz_g_tpu_torch.ops.blend import footprint_boxes, patch_keep
 from dreamwaltz_g_tpu_torch.utils.transforms import quat_normalize
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 MIN_ALPHA = 1.0 / 255.0
 MA32 = float(np.float32(MIN_ALPHA))

@@ -20,6 +20,7 @@ from dreamwaltz_g_tpu.utils.transforms import quat_normalize
 from dreamwaltz_g_tpu_torch.ops import blend_train as BT
 from dreamwaltz_g_tpu_torch.ops import rasterize as TR
 from dreamwaltz_g_tpu_torch.ops.blend import _tile, pack_rows
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 H = W = 32
 TS, CAP, CHUNK = 16, 64, 32

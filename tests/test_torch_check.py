@@ -47,6 +47,7 @@ from dreamwaltz_g_tpu_torch.configs import parse_args
 from dreamwaltz_g_tpu_torch.main import main
 from dreamwaltz_g_tpu_torch.training.trainer import Trainer
 from dreamwaltz_g_tpu_torch.utils.media import load_image
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 LATENT = 16          # the tiny VAE doubles: 32^2 images
 IMAGE_TOL_OF_MAX = 1e-4

@@ -27,6 +27,7 @@ from dreamwaltz_g_tpu_torch.guidance import clip_text as TCT
 from dreamwaltz_g_tpu_torch.guidance import convert as TCV
 from dreamwaltz_g_tpu_torch.guidance.unet import tiny_unet_config
 from dreamwaltz_g_tpu_torch.guidance.vae import tiny_vae_config
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 REL_TOL = 1e-5
 PROMPTS = ["a photo of a person, dancing!", "Hello hello  world",

@@ -28,6 +28,7 @@ from dreamwaltz_g_tpu_torch.gaussian import densify as TD
 from dreamwaltz_g_tpu_torch.system import avatar as TA
 from dreamwaltz_g_tpu_torch.training import gs_trainer as TG
 from dreamwaltz_g_tpu_torch.training import optim as TO
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 TOL = 1e-6
 PER_SLOT = ("positions", "log_scales", "quats", "lbs_weights")

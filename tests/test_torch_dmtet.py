@@ -41,6 +41,7 @@ from dreamwaltz_g_tpu_torch.nerf import dmtet as TD
 from dreamwaltz_g_tpu_torch.nerf import network as TN
 from dreamwaltz_g_tpu_torch.nerf.isosurface import TriangleSoup
 from dreamwaltz_g_tpu_torch.training import losses as TL
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 FIELD = dict(triplane_resolution=16, triplane_dim=8, bound=1.0,
              density_prior="gaussian")

@@ -47,6 +47,7 @@ from tests.torch_jax_pairs import (
     tiny_guidance_pair,
     update_close,
 )
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 FIELD = dict(triplane_resolution=16, triplane_dim=8, bound=1.0,
              density_prior="gaussian")

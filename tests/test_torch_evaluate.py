@@ -38,6 +38,7 @@ from dreamwaltz_g_tpu_torch.convert import (
     nerf_state_from_numpy,
 )
 from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 ATOL = 5e-3
 RASTER = ["--render.tile_size", "8", "--render.tile_capacity", "64",

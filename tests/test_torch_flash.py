@@ -19,6 +19,7 @@ from dreamwaltz_g_tpu.guidance import layers as JL
 from dreamwaltz_g_tpu_torch import convert
 from dreamwaltz_g_tpu_torch.guidance import flash as FL
 from dreamwaltz_g_tpu_torch.guidance import layers as TL
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 TOL_OUT = 1e-5
 TOL_GRAD = 1e-4

@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from dreamwaltz_g_tpu.guidance import layers as JL
 from dreamwaltz_g_tpu_torch.guidance import flash as FL
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 TOL_OUT = 1e-5
 TOL_GRAD = 1e-4

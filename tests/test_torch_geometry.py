@@ -17,6 +17,7 @@ from dreamwaltz_g_tpu_torch.human import glbs as tglbs
 from dreamwaltz_g_tpu_torch.human import smplx_model as tsmplx
 from dreamwaltz_g_tpu_torch.ops import mesh as tmesh
 from dreamwaltz_g_tpu_torch.utils import transforms as ttf
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 # float32 rounding of a few chained products: 1e-6 for unit-scale rotation
 # algebra, 1e-5 for the SMPL-X chain (55 composed transforms at most)

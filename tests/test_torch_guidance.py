@@ -19,6 +19,7 @@ from dreamwaltz_g_tpu_torch import convert
 from dreamwaltz_g_tpu_torch import tests_support as tts
 from dreamwaltz_g_tpu_torch.guidance import layers as TL
 from dreamwaltz_g_tpu_torch.guidance import time_prior as TT
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 # float32 through a dozen convolutions, GroupNorms and attentions; the two
 # frameworks sum in different orders (observed differences ~1e-6)

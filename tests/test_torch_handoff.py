@@ -40,6 +40,7 @@ from dreamwaltz_g_tpu_torch.ops import mesh as TM
 from dreamwaltz_g_tpu_torch.system import avatar as TA
 from dreamwaltz_g_tpu_torch.training import checkpoint as CK
 from dreamwaltz_g_tpu_torch.utils import point_cloud as TP
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 FIELD = dict(triplane_resolution=16, triplane_dim=8, bound=1.0)
 RES = 24

@@ -44,6 +44,7 @@ from tests.torch_jax_pairs import (
     sds_noise,
     tiny_guidance_pair,
 )
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 BODY = dict(num_vertices=120, num_joints=6, num_betas=3, num_expr=2, seed=0)
 LATENT = 16

@@ -26,6 +26,7 @@ from dreamwaltz_g_tpu_torch.configs import GuideConfig
 from dreamwaltz_g_tpu_torch.guidance import sds as TS
 from dreamwaltz_g_tpu_torch.guidance import time_prior as TT
 from dreamwaltz_g_tpu_torch.human import openpose as TP
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 HOOK_TOL = 1e-6
 RESIZE_TOL = 2e-6

@@ -15,6 +15,7 @@ from dreamwaltz_g_tpu.utils import media as JM
 from dreamwaltz_g_tpu.utils import overlay as JO
 from dreamwaltz_g_tpu_torch.utils import media as TM
 from dreamwaltz_g_tpu_torch.utils import overlay as TO
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 
 def _img(shape, seed=0, lo=-0.2, hi=1.2):

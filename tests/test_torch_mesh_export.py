@@ -42,6 +42,7 @@ from dreamwaltz_g_tpu_torch.configs import NeRFConfig
 from dreamwaltz_g_tpu_torch.nerf import isosurface as TI
 from dreamwaltz_g_tpu_torch.nerf import mesh_export as TM
 from dreamwaltz_g_tpu_torch.nerf import network as TN
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 FIELD_TOL = 1e-5
 WELD_TOL = 2e-5

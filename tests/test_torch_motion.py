@@ -33,6 +33,7 @@ from dreamwaltz_g_tpu_torch.data import motion as TM
 from dreamwaltz_g_tpu_torch.data.motion import loaders as TL
 from dreamwaltz_g_tpu_torch.human import prompt as TPr
 from dreamwaltz_g_tpu_torch.human import smplx_model as TX
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 TOL = 1e-5
 

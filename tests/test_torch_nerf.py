@@ -38,6 +38,7 @@ from dreamwaltz_g_tpu_torch.nerf import renderer as TR
 from dreamwaltz_g_tpu_torch.ops import mesh as TM
 from dreamwaltz_g_tpu_torch.training import losses as TLo
 from dreamwaltz_g_tpu_torch.training import optim as TO
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 FWD_TOL = 1e-5
 GRAD_TOL_OF_MAX = 1e-4

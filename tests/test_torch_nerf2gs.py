@@ -53,6 +53,7 @@ from dreamwaltz_g_tpu_torch.ops import blend_train as BT
 from dreamwaltz_g_tpu_torch.training import gs_trainer as TG
 from dreamwaltz_g_tpu_torch.training import losses as TLo
 from dreamwaltz_g_tpu_torch.training import optim as TO
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 H = W = 32
 RASTER = dict(tile_size=16, capacity=64, chunk=32)

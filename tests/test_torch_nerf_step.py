@@ -64,6 +64,7 @@ from dreamwaltz_g_tpu_torch.training import nerf_trainer as TT
 from dreamwaltz_g_tpu_torch.training.losses import (SigmaGuidancePoints,
                                                     VolumeSparsityDraws)
 from dreamwaltz_g_tpu_torch.training.optim import build_nerf_optimizer
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 H = W = 32
 LATENT = 16                 # the tiny VAE halves: a 32^2 render
@@ -246,7 +247,8 @@ def case(request):
 def _pairs(model, tree):
     """(name, torch parameter, JAX array in torch layout) for every
     weight of the field."""
-    out = [("planes", model.planes, tree.encoder.planes)]
+    out = [(model.enc_name, getattr(model, model.enc_name),
+            tree.encoder[0])]
     for mlp in ("sigma_mlp", "bg_mlp"):
         for lname, lin in getattr(model, mlp).named_children():
             leaf = getattr(tree, mlp)["params"][lname]

@@ -15,6 +15,7 @@ from dreamwaltz_g_tpu_torch.convert import load_flax_dense_params
 from dreamwaltz_g_tpu_torch.human.deform import DeformNetwork as TDeform
 from dreamwaltz_g_tpu_torch.nerf import encoder as tenc
 from dreamwaltz_g_tpu_torch.nerf.network import SigmaMLP as TSigma
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 ATOL = 1e-5
 
@@ -40,8 +41,15 @@ def test_triplane_encode_matches_jax(reduce):
 
 
 def test_encode_any_refuses_unported_grid():
-    with pytest.raises(NotImplementedError):
-        tenc.encode_any(None, jenc.GridEncoderConfig(), torch.zeros(1, 3))
+    """The grid is ported: ``encode_any`` dispatches a
+    ``GridEncoderConfig`` to ``grid_encode``, as the JAX function does
+    (``test_torch_grid.py`` holds the grid to the JAX one)."""
+    cfg = tenc.GridEncoderConfig(num_levels=2, log2_hashmap_size=8,
+                                 desired_resolution=32)
+    params = tenc.init_grid_encoder(cfg, torch.Generator().manual_seed(0))
+    x = torch.rand(7, 3)
+    assert torch.equal(tenc.encode_any(params, cfg, x),
+                       tenc.grid_encode(params, cfg, x))
 
 
 def test_frequency_encode_matches_jax():

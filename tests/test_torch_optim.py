@@ -15,6 +15,7 @@ from dreamwaltz_g_tpu_torch import tests_support as tts
 from dreamwaltz_g_tpu_torch.configs import RenderConfig
 from dreamwaltz_g_tpu_torch.convert import avatar_state_from_numpy
 from dreamwaltz_g_tpu_torch.training import optim as TO
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 # float32 Adam in both, the same formula summed in another order: the
 # parameters agree to float32 rounding of values ~1 (~1e-7)

@@ -46,6 +46,7 @@ from dreamwaltz_g_tpu_torch.human import prompt as TPr
 from dreamwaltz_g_tpu_torch.human import semantics as TSe
 from dreamwaltz_g_tpu_torch.human import smplx_model as TX
 from dreamwaltz_g_tpu_torch.ops import raycast as TR
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 TOL = 1e-5
 

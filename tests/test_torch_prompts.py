@@ -19,6 +19,7 @@ from dreamwaltz_g_tpu.configs import prompts as JP
 from dreamwaltz_g_tpu_torch import main as TM
 from dreamwaltz_g_tpu_torch.configs import parse_args
 from dreamwaltz_g_tpu_torch.configs import prompts as TP
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 ROOT = Path(__file__).resolve().parents[1]
 

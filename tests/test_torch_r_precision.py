@@ -23,6 +23,7 @@ from dreamwaltz_g_tpu_torch.guidance.clip_text import (
     tiny_text_config,
 )
 from dreamwaltz_g_tpu_torch.utils import r_precision as T
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 TOL = 1e-5
 

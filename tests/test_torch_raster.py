@@ -13,6 +13,7 @@ from dreamwaltz_g_tpu.ops import rasterize as JR
 from dreamwaltz_g_tpu.utils.transforms import quat_normalize
 from dreamwaltz_g_tpu_torch.ops import blend as TB
 from dreamwaltz_g_tpu_torch.ops import rasterize as TR
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 
 def _scene(rng, n, spread=0.5, scale=0.05, opacity=(0.3, 0.95)):

@@ -20,6 +20,8 @@ A second case runs the whole step with the pixel-gradient hook set
 both packages, the length gate lowered to the 256 tokens of the tiny UNet's
 and VAE's attention: the JAX side through its interpreted TPU kernel, the
 port through the flash wrapper's plain version. Same envelope."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +51,7 @@ from dreamwaltz_g_tpu_torch.guidance import sds as TS
 from dreamwaltz_g_tpu_torch.ops import blend_train as BT
 from dreamwaltz_g_tpu_torch.training import gs_trainer as TG
 from dreamwaltz_g_tpu_torch.training import optim as TO
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 H = W = 32
 LATENT = 16                  # the tiny VAE halves: a 32^2 render
@@ -75,9 +78,14 @@ def _np_tree(tree):
 HOOK = dict(grad_rgb_clip=True, grad_rgb_norm=True)
 
 
-def _make_case(guide_fields=None):
+def _make_case(guide_fields=None, flash=False):
     """The JAX step's results and the port's twin inputs; ``guide_fields``
-    selects the pixel-gradient hook of the JAX render."""
+    selects the pixel-gradient hook of the JAX render. With ``flash`` the
+    JAX step runs with ``FLASH_ATTENTION = "on"`` (the length gate at the
+    tiny models' 256 tokens) through the interpreted TPU kernel; the
+    guidance's Flax init runs outside that mode (an init run through the
+    interpreter, eagerly, hung in its kernel on a loaded machine; the init
+    draws the same weights either way)."""
     jpgc = None if guide_fields is None else JS.build_pixel_grad_hook(
         JGuideConfig(**guide_fields))
     jset = jts.tiny_avatar_setup(enc_cfg=JTriplane(resolution=16,
@@ -123,9 +131,18 @@ def _make_case(guide_fields=None):
                   inputs["t"], key, cond_image=inputs["cond"])
         return sds["loss"], (out.radii, out.alpha)
 
-    (loss, (radii, alpha)), (grads, dgrad) = jax.jit(jax.value_and_grad(
-        loss_fn, argnums=(0, 1), has_aux=True))(
-        state.params, jnp.zeros((C + M, 2), jnp.float32))
+    old = (JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ)
+    interpret = pltpu.force_tpu_interpret_mode() if flash \
+        else contextlib.nullcontext()
+    if flash:
+        JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ = "on", 256
+    try:
+        with interpret:
+            (loss, (radii, alpha)), (grads, dgrad) = jax.jit(
+                jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))(
+                state.params, jnp.zeros((C + M, 2), jnp.float32))
+    finally:
+        JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ = old
     assert float(alpha.max()) > 0.5          # the body covers pixels
     tx = JO.build_avatar_optimizer(JRenderConfig(), MAX_STEPS)
     upd, _ = tx.update(grads, tx.init(state.params), state.params)
@@ -162,13 +179,7 @@ def flash_case():
     """The JAX step with the pixel-gradient hook and the interpreted TPU
     flash kernel in the tiny UNet (256 tokens, d = 16) and VAE (256
     tokens, d = 64)."""
-    old = (JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ)
-    JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ = "on", 256
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            return _make_case(HOOK)
-    finally:
-        JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ = old
+    return _make_case(HOOK, flash=True)
 
 
 def _fields(params, model):

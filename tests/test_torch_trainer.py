@@ -33,6 +33,7 @@ import torch
 from dreamwaltz_g_tpu.configs import parse_args as jparse
 from dreamwaltz_g_tpu.configs import to_dict as jto_dict
 from dreamwaltz_g_tpu_torch.configs import parse_args, to_dict
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 SCRIPT = "scripts/train_w_expr.sh"
 
@@ -239,12 +240,23 @@ def test_train_batch_matches_jax(tmp_path, stage):
     ["--parallel.tp", "2"]])
 def test_unported_paths_refuse(tmp_path, flags):
     """Each path the port does not have raises at construction, also in
-    the multi-prompt batch, which names the prompts that failed."""
+    the multi-prompt batch, which names the prompts that failed. The scene
+    options and the grid backbones are ported: their flags pass the
+    check (the CLI tests of ``test_torch_scene.py`` and
+    ``test_torch_grid.py`` run them)."""
     from dreamwaltz_g_tpu_torch.main import main
+    from dreamwaltz_g_tpu_torch.training.trainer import Trainer
 
     base = ["--stage", "gs", "--log.debug", "true", "--log.platform", "cpu",
             "--log.exp_root", str(tmp_path), "--log.exp_name", "x",
             "--log.snapshot_interval", "0", "--log.evaluate_interval", "0"]
+    if flags[0] in ("--nerf.backbone", "--render.use_gs_background",
+                    "--render.avatar_scale", "--render.use_mlp_background",
+                    "--optim.ckpt_extra"):
+        tr = Trainer.__new__(Trainer)
+        tr.cfg = parse_args(base + flags)
+        tr._refuse_unported()
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(base + flags)
     with pytest.raises(RuntimeError, match="1 prompt") as e:

@@ -53,6 +53,7 @@ from tests.torch_jax_pairs import (
     tiny_guidance_pair,
     update_close,
 )
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 VAL_TOL = 1e-5
 BODY = dict(num_vertices=120, num_joints=6, num_betas=3, num_expr=2, seed=0)

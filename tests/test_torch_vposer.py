@@ -25,6 +25,7 @@ from dreamwaltz_g_tpu_torch.configs import PromptConfig
 from dreamwaltz_g_tpu_torch.human import prompt as TPr
 from dreamwaltz_g_tpu_torch.human import smplx_model as TX
 from dreamwaltz_g_tpu_torch.human import vposer as TV
+import tests.torch_threads  # noqa: F401  (per-worker threads)
 
 TOL = 1e-5
 AA_TOL = 2e-5
