@@ -33,10 +33,10 @@ Phases, one JSON line each:
                    plain versions, each kernel's device ms alone (with its
                    launches' median, min and max) and build facts, and the
                    per-tile work as for B2;
-10. kernel_flash -- flash attention (B4) forward at the eight shapes the
+10. kernel_flash -- flash attention (B4) forward at the sixteen shapes the
                    training paths give it (bf16, and float32 for the tiny
                    step and the float32-guidance step), and backward at the
-                   four that are differentiated, against the plain versions;
+                   six that are differentiated, against the plain versions;
 11. small_train -- one SDS step of the tiny avatar, with its mesh part,
                    and the tiny guidance with its ControlNet, attention
                    through flash (``FLASH_ATTENTION = "on"``) and the
@@ -92,8 +92,8 @@ Phases, one JSON line each:
                    ``scripts/train_w_expr.sh``: ``NeRFConfig()``'s field
                    rendered at 512^2, the SD1.5-size bf16 guidance of phase
                    13 under ``FLASH_ATTENTION = "auto"``, sigma guidance on
-                   5,000 body points a step; counts set to 0, 3 warm-up and
-                   10 steps through ``make_nerf_sds_step`` with the
+                   5,000 body points a step; counts set to 0, 2 warm-up and
+                   5 steps through ``make_nerf_sds_step`` with the
                    occupancy cadence and one forced refresh, counts read
                    (flash forward and backward each step as the models'
                    structure gives, no blend kernel, no library
@@ -114,7 +114,7 @@ Phases, one JSON line each:
                    card's UNet, pose ControlNet, VAE and CLIP text tower
                    with random weights in diffusers layout, written to a
                    temporary directory, and a field fitted to the body
-                   standing in for step 1.1's output; 4, 4 and 3 steps,
+                   standing in for step 1.1's output; 3 steps each,
                    the last of each run profiled; counts set to 0 before
                    each run and read after it (flash (15, 1) a step, the
                    table blends (0, 0) in stage 1 and (1, 1) in stage 2);
@@ -145,7 +145,7 @@ Phases, one JSON line each:
                    from step 1.2's field for 3 steps (B1 forward and
                    backward once a step; the frozen field unchanged),
                    ``--log.check --log.check_sd`` on step 2.3's avatar
-                   (the condition images and the 50-step DDIM samples;
+                   (the condition images and the 25-step DDIM samples;
                    flash forwards equal to the models' structural count,
                    no backward) and ``--log.nerf2mesh`` on step 1.2's field
                    at resolution 128 (an OBJ with valid indices, its
@@ -160,7 +160,30 @@ Phases, one JSON line each:
                    arguments (densified at step 2, its opacities reset at
                    step 3; then ``--log.eval_only`` over 8 1024^2 frames,
                    B2 once a frame) and the hash avatar (then one eval
-                   frame); B1 (1, 1) and flash (15, 1) a step in each run.
+                   frame); B1 (1, 1) and flash (15, 1) a step in each run;
+24. cli_scene   -- the scene options (the MLP background's split step and
+                   its resume, the Gaussian background with placement,
+                   composition), a grid backbone and a converted reference
+                   avatar, through the CLI at full width;
+25. cli_guidance -- the guidance's other loss families and denoise modes
+                   through the CLI with the SD1.5 card: 3 stage-2 steps of
+                   each of custom, csd, nfsd, ism, z0, z0_final, x0 and
+                   x0_final from step 2.1's avatar, a stage-1 csd run and a
+                   DMTet nfsd run; flash launches a step against the
+                   family's structural count from each step's own
+                   timestep (no backward for the x0 modes), finite nonzero
+                   losses and gradients, csd's mix against progress;
+26. cli_cards   -- ``--guide.diffusion sd21`` (768^2, v prediction) and
+                   ``sdxl10`` (1024^2, the 2.6B UNet, CLIP-L + bigG, the
+                   pose ControlNet on the XL config) at full width: each
+                   card's diffusers directory written in float16 and
+                   removed after its run, 3 stage-2 steps (the last
+                   profiled by range), one eval frame, flash launches a
+                   step from the card's structure, peak memory.
+
+The flash shapes of phases 25 and 26 (the single-branch passes at batch 1,
+SDXL's and SD2.1-768's UNet levels and VAE mid blocks) are held against
+the plain versions and timed with the others (phases 10 and 14).
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -257,7 +280,12 @@ TOL_STATS_FLIPS = 5e-3
 # The full-width step gives it the three bf16 shapes (UNet and ControlNet
 # under CFG at 64^2 and 32^2 latents, the VAE encoder's mid block, which is
 # differentiated); the tiny step the first two float32 ones; the full-width
-# step with the guidance in float32 (phase ``train_f32``) the last three
+# step with the guidance in float32 (phase ``train_f32``) the next three;
+# then the guidance's other paths (phases ``cli_guidance`` and
+# ``cli_cards``): the single-branch passes of csd / nfsd / ISM at SD1.5's
+# two shapes, SDXL's UNet and ControlNet at 64^2 and 32^2 (64-wide heads)
+# and its VAE mid block at a 1024^2 render, SD2.1-768's UNet at 96^2 and
+# 48^2 and its VAE mid block at a 768^2 render
 FLASH_SHAPES = (((2, 4096, 8, 40), "bf16", False),
                 ((2, 1024, 8, 80), "bf16", False),
                 ((1, 4096, 1, 512), "bf16", True),
@@ -265,7 +293,15 @@ FLASH_SHAPES = (((2, 4096, 8, 40), "bf16", False),
                 ((1, 1024, 1, 64), "f32", True),
                 ((2, 4096, 8, 40), "f32", False),
                 ((2, 1024, 8, 80), "f32", False),
-                ((1, 4096, 1, 512), "f32", True))
+                ((1, 4096, 1, 512), "f32", True),
+                ((1, 4096, 8, 40), "bf16", False),
+                ((1, 1024, 8, 80), "bf16", False),
+                ((2, 4096, 10, 64), "bf16", False),
+                ((2, 1024, 20, 64), "bf16", False),
+                ((1, 16384, 1, 512), "bf16", True),
+                ((2, 9216, 5, 64), "bf16", False),
+                ((2, 2304, 10, 64), "bf16", False),
+                ((1, 9216, 1, 512), "bf16", True))
 # kernel vs plain version (float32 scores) on the same card inputs.
 # float32: 1e-5 absolute on the output, 1e-4 of each gradient's largest
 # entry, the JAX package's own for its TPU kernel. bf16: the kernel rounds
@@ -1511,7 +1547,7 @@ TOL_CLIP_REL = 1e-5
 # at 512^2) on the NeRF defaults
 NERF_H = NERF_W = 512
 NERF_MAX_STEPS = 5000
-NERF_WARMUP, NERF_STEPS = 3, 10
+NERF_WARMUP, NERF_STEPS = 2, 5
 SIGMA_POINTS = 5000
 
 
@@ -1719,10 +1755,10 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     the volume-sparsity prior at 3e-3, and the SD1.5-size bf16 guidance
     under ``FLASH_ATTENTION = "auto"`` with the scheduler's timesteps and
     guidance scales and the text tower's embeddings. Counts set to 0, then
-    3 warm-up and 10 timed steps with ``maybe_update_occupancy`` before
+    2 warm-up and 5 timed steps with ``maybe_update_occupancy`` before
     each (it refreshes at step 0) and one refresh forced between the two
     runs; counts read. Then one profiled step (phase ``nerf_profile``).
-    Returns the flash launches of the 13 steps."""
+    Returns the flash launches of the 7 steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1904,13 +1940,15 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
 CLI_TEXT = "a DSLR photo of a dancer in a red dress"
 # steps of each run of scripts/train_w_expr.sh driven here: the first is a
 # warm-up, the last is profiled, the ones between are timed
-CLI_STEPS = {"1.2": 4, "2.1": 4, "2.3": 3}
+CLI_STEPS = {"1.2": 3, "2.1": 3, "2.3": 3}
 CLI_PARTS = "hands,face"
 # the trainer's host-side ranges around its batch build and its step
 CLI_RANGES = (("trainer.batch", "batch_build"),
               ("trainer.condition", "condition_render"),
               ("trainer.step", "step"))
-CLI_SEQUENTIAL_STEPS = 2
+CLI_SEQUENTIAL_STEPS = 1
+# the steps whose short run without the prefetch worker follows their run
+CLI_SEQUENTIAL = ("2.3",)
 TEMPLATE_FIT_STEPS = 300
 TEMPLATE_SIGMA_IN, TEMPLATE_SIGMA_OUT = 50.0, 0.05
 TEMPLATE_SHELL = 0.05   # a point within this of a vertex lies in the body
@@ -2166,8 +2204,8 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
     line["steps"] = trainer.train_step
     line["loss"] = list(trainer.losses)
     last = n_steps - 1 if prefetch else n_steps
-    line["s_per_step"] = events[1].elapsed_time(events[last]) / 1e3 \
-        / (last - 1)
+    line["s_per_step"] = None if last < 2 else \
+        events[1].elapsed_time(events[last]) / 1e3 / (last - 1)
     if prefetch:
         line["profiled_step"] = dict(step=n_steps,
                                      launches=window["launches"],
@@ -2190,9 +2228,10 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
     in diffusers layout (both written to a temporary directory the phase
     deletes; step 1.2 warm-starts from a field fitted to the body, standing
     in for step 1.1's output), each run with its script arguments plus
-    ``--optim.iters N`` and a save interval of N, then a short run of the
-    same step without the prefetch worker (its own experiment directory,
-    ``CLI_SEQUENTIAL_STEPS`` + 1 steps). Checks: finite losses,
+    ``--optim.iters N`` and a save interval of N, then, for the steps of
+    ``CLI_SEQUENTIAL``, a short run of the same step without the prefetch
+    worker (its own experiment directory, ``CLI_SEQUENTIAL_STEPS`` + 1
+    steps). Checks: finite losses,
     flash (15, 1) a step in every run and in its profiled step, the table
     blends (0, 0) in stage 1 and (1, 1) a step in stage 2, the stage-1
     planes carried into the avatar with a difference of 0, the warm start
@@ -2310,6 +2349,8 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
                                  CLI_STEPS[step], kernel_fns,
                                  check=checks.get(step))
             free()
+            if step not in CLI_SEQUENTIAL:
+                continue
             # the same step's own short run without the prefetch worker
             n = CLI_SEQUENTIAL_STEPS + 1
             sequential[step] = cli_run(
@@ -2333,12 +2374,16 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
         geometry = cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp)
         free()
         scene = cli_scene(dev, card, kernel_fns, tmp, argv, args, exp)
+        free()
+        guidance = cli_guidance(dev, card, kernel_fns, tmp, argv, args, exp)
+        free()
+        cards = cli_cards(dev, card, kernel_fns, tmp, argv, args, exp)
     finally:
         (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS, paths.DEMO_MOTIONS,
          paths.MOTIONX_REENACT_ROOT) = old_paths
         shutil.rmtree(tmp, ignore_errors=True)
     return {step: line["launches"] for step, line in runs.items()}, \
-        inference, modes, geometry, scene
+        inference, modes, geometry, scene, guidance, cards
 
 
 def check_two_stage(card, runs, handoff, warm, sequential):
@@ -2809,6 +2854,7 @@ def expected_check_sd_launches(gparams, latent, steps, n_control, n_plain):
 
 
 MODES_STEPS = 3     # pretrain and nerf2gs steps in phase cli_modes
+CHECK_SD_STEPS = 25  # DDIM steps of each check_sd sample in phase cli_modes
 
 
 def obj_stats(path):
@@ -2846,8 +2892,8 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
     frozen field equal to its checkpoint to every bit; the avatar moved;
     the field's target render timed beside the step.
     (c) ``--log.check --log.check_sd`` on step 2.3's avatar with
-    ``--optim.iters 0`` (construction only) and the default 50-step DDIM
-    grid: the four condition images and the six samples written, finite
+    ``--optim.iters 0`` (construction only) and a ``CHECK_SD_STEPS``-step
+    DDIM grid: the four condition images and the six samples written, finite
     and not flat; flash forwards equal to ``expected_check_sd_launches``,
     no backward, no blend.
     (d) ``--log.nerf2mesh`` on step 1.2's field at the default resolution
@@ -2975,7 +3021,9 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
         tr, c = cli_drive(kernel_fns, argv(
             "2.3", *args["2.3"], n=0) + ["--optim.resume", "true",
                                          "--log.check", "true",
-                                         "--log.check_sd", "true"])
+                                         "--log.check_sd", "true",
+                                         "--log.check_sd_steps",
+                                         str(CHECK_SD_STEPS)])
     finally:
         ScoreDistillation.sample_images = orig_sample
     torch.cuda.synchronize()
@@ -3470,7 +3518,7 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
     to every bit.
     (d) Grid: step 1.2's arguments + ``--nerf.backbone tiledgrid`` (16
     levels, 2^19 tables, F = 2, 2048 x bound) from a grid template fitted
-    like ``fit_template``'s, 2 steps unprofiled, then the handoff and step
+    like ``fit_template``'s, 1 step unprofiled, then the handoff and step
     2.1 on it, ``GRID_STEPS`` steps; the tables carried into the avatar
     with a difference of 0.
     (e) A seeded reference ``.pth`` (``REFERENCE_POINTS`` Gaussians on (d)'s
@@ -3660,9 +3708,9 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
     g1_exp, g2_exp = "scene/grid-1.2", "scene/grid-2.1"
     # unprofiled: a profile of a stage-1 grid step takes ~70 s to export
     # and read (its ~52k launches a level)
-    d1 = cli_run("grid-1.2", argv("1.2", *args["1.2"], n=2, name=g1_exp)
+    d1 = cli_run("grid-1.2", argv("1.2", *args["1.2"], n=1, name=g1_exp)
                  + grid + ["--optim.ckpt", str(template)],
-                 2, kernel_fns, prefetch=False)
+                 1, kernel_fns, prefetch=False)
     d1["template"] = fit
     free()
     carried, seen = {}, {}
@@ -3717,7 +3765,7 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
         emit(phase="cli_scene", run=run, **line, **card)
     fused = cli_launches_per_step(True)
     for run, per, k in (("mlp_bg", split, n), ("gs_bg", fused, n),
-                        ("grid-1.2", cli_launches_per_step(False), 2),
+                        ("grid-1.2", cli_launches_per_step(False), 1),
                         ("grid-2.1", fused, GRID_STEPS)):
         line = lines[run]
         prof = line.get("profiled_step", {"launches": per})["launches"]
@@ -3754,6 +3802,412 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
     return runs
 
 
+# -- the guidance's other paths (phases cli_guidance and cli_cards) ---------
+GUIDANCE_STEPS = 3        # steps of a profiled run (cli_guidance, cli_cards)
+# the families whose last step phase cli_guidance profiles; the others, and
+# its stage-1 and DMTet runs, train 2 steps without the prefetch worker and
+# unprofiled (a stage-1 step's profile takes ~30 s of host time)
+GUIDANCE_PROFILED = ("custom", "ism")
+SHORT_STEPS = 2
+GUIDANCE_FAMILIES = ("custom", "csd", "nfsd", "ism", "z0", "z0_final", "x0",
+                     "x0_final")
+ISM_XS_INV_STEPS = 5      # the guidance's default, which the loaders keep
+CARD_RES = {"sd21": 768, "sdxl10": 1024}   # each card's native render
+
+
+def family_flash_launches(gparams, latent, family, t, denoise_timesteps,
+                          neg):
+    """Flash launches (forward, backward) of one SDS step of ``family`` at
+    timestep ``t``, from the models' structure: each eps pass (a CFG pass or
+    a single branch: the same layers, the ControlNet's too) launches
+    ``flash_unet_launches``; csd / nfsd add the negative branch's pass, ISM
+    its ``ISM_XS_INV_STEPS`` inversion passes and the pass at t_prev, the
+    *_final modes one CFG pass for each grid step below t's (t // stride);
+    the VAE encode's mid block once forward and, but for the x0 modes
+    (a pixel-space loss), once backward; the x0 modes also decode the
+    target (one more forward)."""
+    nets = 1 if gparams.controlnet is None else 2
+    unet = flash_unet_launches(gparams, latent, nets)
+    vae = vae_flash_launches(gparams, latent)
+    passes = 1
+    if family in ("csd", "nfsd") and neg:
+        passes += 1
+    if family == "ism":
+        passes += ISM_XS_INV_STEPS + 1
+    if family.endswith("_final"):
+        passes += t // (1000 // denoise_timesteps)
+    pixel = family.startswith("x0")
+    return passes * unet + vae * (2 if pixel else 1), 0 if pixel else vae
+
+
+def family_recorder(seen):
+    """A ``check`` for ``cli_run``: keeps the trainer, wraps its step to
+    record each step's timestep and progress, and its guidance's
+    ``latent_gradients`` to keep each latent gradient's norm (a device
+    scalar, read after the run)."""
+    def check(tr):
+        seen["trainer"] = tr
+        fn = tr.sds_step_fn
+        seen["step_fn"] = fn.__qualname__.split(".")[0]
+        t_at = 9 if tr.cfg.stage == "gs" else 8
+
+        def step(*a, **k):
+            seen.setdefault("t", []).append(int(a[t_at].reshape(-1)[0]))
+            seen.setdefault("progress", []).append(k.get("progress"))
+            return fn(*a, **k)
+
+        tr.sds_step_fn = step
+        lg = tr.guidance.latent_gradients
+
+        def latent_gradients(*a, **k):
+            g = lg(*a, **k)
+            seen.setdefault("grad_norm", []).append(g.norm())
+            return g
+
+        tr.guidance.latent_gradients = latent_gradients
+    return check
+
+
+def trained_grads(tr):
+    """(largest |gradient| over the trained tensors, all finite) after the
+    trainer's last step: the avatar's leaves, or the field's weights and,
+    in the DMTet finetune, the SDF and the deformation."""
+    from dreamwaltz_g_tpu_torch.training import gs_trainer
+
+    if tr.cfg.stage == "gs":
+        leaves = gs_trainer._leaves(tr.state.avatar, tr.avatar_model)
+    else:
+        leaves = list(tr.nerf.parameters())
+        if tr.dmtet_model is not None:
+            leaves += list(tr.state.dmtet)
+    grads = [p.grad for p in leaves if p.grad is not None]
+    if not grads:
+        return 0.0, False
+    return max(float(g.abs().max()) for g in grads), \
+        all(bool(g.isfinite().all()) for g in grads)
+
+
+def family_run(label, run_argv, kernel_fns, family, stage_ranges=None,
+               profiled=True):
+    """One run of ``family`` through ``cli_run`` with ``family_recorder``:
+    ``GUIDANCE_STEPS`` steps, the last profiled, or with ``profiled`` False
+    ``SHORT_STEPS`` steps without the prefetch worker; its line with the
+    expected flash launches of each step (from the step's own timestep)
+    beside the counted ones, the losses and the gradients. ``run_argv``
+    ends in ``--optim.iters`` / ``--log.save_interval`` for the steps.
+    Returns (line, trainer)."""
+    seen = {}
+    steps = GUIDANCE_STEPS if profiled else SHORT_STEPS
+    run_argv = run_argv + ["--optim.iters", str(steps),
+                           "--log.save_interval", str(steps)]
+    line = cli_run(label, run_argv, steps, kernel_fns,
+                   check=family_recorder(seen), stage_ranges=stage_ranges,
+                   prefetch=profiled)
+    tr = seen.pop("trainer")
+    g = tr.guidance
+    per_step = [family_flash_launches(
+        tr.guidance_params, g.latent_size, family, t, g.denoise_timesteps,
+        tr.neg_embeds is not None) for t in seen["t"]]
+    grad_max, grad_finite = trained_grads(tr)
+    line.update(
+        family=family, loss_type=g.loss_type, timesteps=seen["t"],
+        progress=seen["progress"],
+        latent_grad_norm=[float(x) for x in seen.get("grad_norm", [])],
+        neg_embeds=None if tr.neg_embeds is None
+        else list(tr.neg_embeds.shape),
+        flash_per_step_expected=per_step,
+        flash_expected=[sum(p[0] for p in per_step),
+                        sum(p[1] for p in per_step)],
+        flash_counted=[line["launches"]["flash_attn_fwd"],
+                       line["launches"]["flash_attn_bwd"]],
+        grad_abs_max=grad_max, grad_finite=grad_finite,
+        step_fn=seen["step_fn"])
+    return line, tr
+
+
+def check_family_line(phase, label, line, stage2=True):
+    """The checks of one family run: the step count, finite nonzero losses
+    and gradients, flash launches a step equal to the expected (the
+    profiled last step's too), the table blends once a step in stage 2
+    and in the DMTet finetune."""
+    n = line["steps"]
+    prof = line.get("profiled_step", {}).get("launches")
+    last = line["flash_per_step_expected"][-1]
+    blend = int(stage2)
+    if n != len(line["timesteps"]) or len(line["loss"]) != n \
+            or n not in (GUIDANCE_STEPS, SHORT_STEPS) \
+            or not all(math.isfinite(x) and x != 0.0 for x in line["loss"]):
+        fail(f"{phase} {label}: {n} steps, losses {line['loss']}")
+    if not line["grad_finite"] or not line["grad_abs_max"] > 0.0:
+        fail(f"{phase} {label}: gradients finite {line['grad_finite']}, "
+             f"largest {line['grad_abs_max']}")
+    if line["flash_counted"] != line["flash_expected"] or (
+            prof is not None and [prof["flash_attn_fwd"],
+                                  prof["flash_attn_bwd"]] != list(last)):
+        fail(f"{phase} {label}: flash launched {line['flash_counted']} "
+             f"({prof and [prof['flash_attn_fwd'], prof['flash_attn_bwd']]}"
+             f" in the profiled step), expected {line['flash_expected']} "
+             f"({last}) from the steps' timesteps {line['timesteps']}")
+    if line["launches"]["blend_train_fwd"] != blend * n \
+            or line["launches"]["blend_train_bwd"] != blend * n \
+            or line["launches"]["blend_sorted"] != 0:
+        fail(f"{phase} {label}: blends {line['launches']}")
+
+
+def cli_guidance(dev, card, kernel_fns, tmp, argv, args, exp):
+    """Phase ``cli_guidance``, in ``cli_two_stage``'s directory after
+    ``cli_scene``: the guidance's other loss families and denoise modes
+    through the port's CLI at the full width of ``scripts/train_w_expr.sh``
+    with the SD1.5 card, each run with the counts set to 0 just before it
+    and read just after.
+
+    (a) Stage 2 on the hybrid avatar, warm-started from step 2.1 with step
+    2.3's arguments, each ``--guide.sds_loss_type`` of
+    ``GUIDANCE_FAMILIES`` (``--guide.sds_weight_type ism`` for ism;
+    ``--guide.denoise_timesteps`` at its default 50): those of
+    ``GUIDANCE_PROFILED`` ``GUIDANCE_STEPS`` steps with the last
+    profiled, the others ``SHORT_STEPS``. (b) Stage 1 with csd (step
+    1.2's arguments), ``SHORT_STEPS``: the negative branch and
+    ``progress`` through ``make_nerf_sds_step``. (c) The DMTet finetune
+    from step 1.2's field with nfsd, ``SHORT_STEPS``.
+
+    Each run prints s/step, its flash launches a step against
+    ``family_flash_launches`` from each step's own timestep (x0: none
+    backward), finite nonzero losses and gradients, and for csd the
+    three-term mix's weights from each step's progress. Returns each run's
+    launches."""
+    import gc
+
+    import torch
+
+    out = tmp / "outputs"
+    lines, runs = {}, {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for family in GUIDANCE_FAMILIES:
+        extra = ["--guide.sds_loss_type", family]
+        if family == "ism":
+            extra += ["--guide.sds_weight_type", "ism"]
+        line, tr = family_run(
+            family, argv("2.3", *args["2.3"], name=f"guidance/{family}")
+            + extra, kernel_fns, family,
+            profiled=family in GUIDANCE_PROFILED)
+        if family == "csd":
+            line["csd_mix"] = [[-0.5 * p, -1.0 + 0.5 * p]
+                               for p in line["progress"]]
+        tr = None
+        lines[family], runs[family] = line, line["launches"]
+        free()
+    line, tr = family_run(
+        "nerf_csd", argv("1.2", *args["1.2"], name="guidance/nerf_csd")
+        + ["--guide.sds_loss_type", "csd"], kernel_fns, "csd",
+        profiled=False)
+    line["csd_mix"] = [[-0.5 * p, -1.0 + 0.5 * p] for p in line["progress"]]
+    tr = None
+    lines["nerf_csd"], runs["nerf_csd"] = line, line["launches"]
+    free()
+    line, tr = family_run(
+        "dmtet_nfsd", argv("1.2", *args["1.2"], name="guidance/dmtet_nfsd")
+        + ["--nerf.dmtet", "true", "--optim.ckpt", str(out / exp["1.2"]),
+           "--guide.sds_loss_type", "nfsd"], kernel_fns, "nfsd",
+        profiled=False)
+    tr = None
+    lines["dmtet_nfsd"], runs["dmtet_nfsd"] = line, line["launches"]
+    free()
+
+    for run, line in lines.items():
+        emit(phase="cli_guidance", run=run, **line, **card)
+    for run, line in lines.items():
+        check_family_line("cli_guidance", run, line,
+                          stage2=run != "nerf_csd")
+        n = line["steps"]
+        want = [k / n for k in range(1, n + 1)]
+        if line["progress"] != want:
+            fail(f"cli_guidance {run}: progress {line['progress']}, "
+                 f"expected {want}")
+        if (line["neg_embeds"] is not None) != (line["family"]
+                                                in ("csd", "nfsd")):
+            fail(f"cli_guidance {run}: negative branch {line['neg_embeds']}")
+        if line["family"] in GUIDANCE_FAMILIES[:4] and (
+                len(line["latent_grad_norm"]) != line["steps"]
+                or not all(math.isfinite(x) and x > 0
+                           for x in line["latent_grad_norm"])):
+            fail(f"cli_guidance {run}: latent gradient norms "
+                 f"{line['latent_grad_norm']}")
+    for run in ("csd", "nerf_csd"):
+        mix = lines[run]["csd_mix"]
+        if any(b[0] >= a[0] or b[1] <= a[1] for a, b in zip(mix, mix[1:])):
+            fail(f"cli_guidance {run}: the mix {mix} does not move with "
+                 "progress")
+    for run in ("x0", "x0_final"):
+        if lines[run]["flash_counted"][1] != 0:
+            fail(f"cli_guidance {run}: {lines[run]['flash_counted'][1]} "
+                 "flash backward launches in a pixel-space loss")
+    return runs
+
+
+def write_tokenizer(tok_dir):
+    """A BPE vocabulary of the 256 byte symbols, their word ends and the two
+    special tokens ("!" is id 0, SD2.x's pad)."""
+    from dreamwaltz_g_tpu_torch.guidance.clip_text import _bytes_to_unicode
+
+    symbols = list(_bytes_to_unicode().values())
+    vocab = symbols + [s + "</w>" for s in symbols] \
+        + ["<|startoftext|>", "<|endoftext|>"]
+    tok_dir.mkdir(parents=True)
+    (tok_dir / "vocab.json").write_text(
+        json.dumps({t: i for i, t in enumerate(vocab)}))
+    (tok_dir / "merges.txt").write_text("#version: 0.2\n")
+
+
+def write_card(root, dev, name):
+    """Card ``name``'s diffusers directory with random weights from the
+    seed, every tensor float16 in ``torch.save`` files: sd21 (the SD2.x
+    UNet and pose ControlNet, the VAE, the ViT-H tower) or sdxl10 (the
+    SDXL UNet and a pose ControlNet on its config, the VAE, CLIP-L and bigG
+    with its projection), and the tokenizer folders. Returns (bytes
+    written, parameters, seconds to build the weights on the card, seconds
+    to write them)."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch import tests_support
+    from dreamwaltz_g_tpu_torch.guidance.clip_text import (
+        CLIPTextModel,
+        clip_h_config,
+    )
+    from dreamwaltz_g_tpu_torch.guidance.layers import build
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f16 = torch.float16
+    if name == "sd21":
+        _, gp = tests_support.sd21_guidance(SEED, device=dev, dtype=f16)
+        h = build(lambda: CLIPTextModel(clip_h_config()), dev, f16)
+        h.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        towers = {"text_encoder": h}
+    else:
+        _, gp, (c1, c2) = tests_support.sdxl_guidance(SEED, device=dev,
+                                                      dtype=f16)
+        towers = {"text_encoder": c1, "text_encoder_2": c2}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    modules = {"unet": gp.unet, "controlnet_pose": gp.controlnet,
+               "vae": gp.vae, **towers}
+    n_params = 0
+    for folder, module in modules.items():
+        (root / folder).mkdir(parents=True)
+        file = "pytorch_model.bin" if folder.startswith("text") \
+            else "diffusion_pytorch_model.bin"
+        state = {k: v.to(f16).cpu() for k, v in module.state_dict().items()}
+        n_params += sum(v.numel() for v in state.values())
+        torch.save(state, root / folder / file)
+        state = None
+    for folder in ("tokenizer", "tokenizer_2") if name == "sdxl10" \
+            else ("tokenizer",):
+        write_tokenizer(root / folder)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    return nbytes, n_params, build_s, write_s
+
+
+def cli_cards(dev, card, kernel_fns, tmp, argv, args, exp):
+    """Phase ``cli_cards``, in ``cli_two_stage``'s directory after
+    ``cli_guidance``: the SD2.x and SDXL cards through the port's CLI at
+    their full widths. For each of ``--guide.diffusion sd21`` (v
+    prediction, 96^2 latents, 768^2 renders) and ``sdxl10`` (the 2.6B
+    UNet, CLIP-L + bigG, the pose ControlNet on the XL config, 128^2
+    latents, 1024^2 renders): its diffusers directory written in float16
+    under the phase's directory (the bytes, the build and write seconds),
+    ``GUIDANCE_STEPS`` stage-2 steps with step 2.3's arguments
+    (``--guide.weights_dir`` naming the directory; the load is part of the
+    trainer's construction, ``build_s``), the profiled last step's device
+    ms by range, its peak memory, one eval frame (B2 once), then the
+    directory removed. Checks as ``cli_guidance``'s: flash launches a step
+    from the card's structure (``expected_flash_launches``), the table
+    blends once a step, finite nonzero losses and gradients, the card's
+    guidance (its class, latent grid, prediction type, the XL pooled
+    embeddings). Returns each run's launches."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    lines, runs = {}, {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for name, res in CARD_RES.items():
+        root = tmp / f"card_{name}"
+        try:
+            nbytes, n_params, build_s, write_s = write_card(root, dev, name)
+            free()
+            line, tr = family_run(
+                name, argv("2.3", *args["2.3"], name=f"cards/{name}")
+                + ["--guide.diffusion", name, "--guide.weights_dir",
+                   str(root), "--data.train_w", str(res), "--data.train_h",
+                   str(res)], kernel_fns, "sds")
+            g = tr.guidance
+            line.update(
+                dir_bytes=nbytes, dir_params=n_params,
+                weights_build_s=build_s, write_s=write_s,
+                guidance=type(g).__name__, latent_size=g.latent_size,
+                prediction_type=g.prediction_type, train_res=tr.train_res,
+                pooled=None if getattr(g, "pooled_text", None) is None
+                else [list(g.pooled_text.shape),
+                      list(g.pooled_uncond.shape)],
+                unet_params=sum(p.numel() for p in
+                                tr.guidance_params.unet.parameters()),
+                controlnet_params=sum(
+                    p.numel() for p in
+                    tr.guidance_params.controlnet.parameters()))
+            for f in kernel_fns.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            frames = tr.evaluate(size=1)
+            ev[1].record()
+            torch.cuda.synchronize()
+            line["eval"] = dict(
+                ms=ev[0].elapsed_time(ev[1]), shape=list(frames[0].shape),
+                finite=bool(np.isfinite(frames[0]).all()),
+                launches={k: f.launches for k, f in kernel_fns.items()})
+            tr = None
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        lines[name] = line
+        runs[name] = {k: line["launches"][k] + line["eval"]["launches"][k]
+                      for k in kernel_fns}
+        free()
+    for run, line in lines.items():
+        emit(phase="cli_cards", run=run, **line, **card)
+    quiet = {k: 0 for k in kernel_fns}
+    want = {"sd21": ("ScoreDistillation", 96, "v_prediction"),
+            "sdxl10": ("ScoreDistillationXL", 128, "epsilon")}
+    for run, line in lines.items():
+        check_family_line("cli_cards", run, line)
+        got = (line["guidance"], line["latent_size"],
+               line["prediction_type"])
+        if got != want[run] or line["train_res"] != CARD_RES[run] \
+                or (run == "sdxl10") != (line["pooled"] is not None):
+            fail(f"cli_cards {run}: guidance {got}, render "
+                 f"{line['train_res']}, pooled {line['pooled']}")
+        if line["eval"]["launches"] != dict(quiet, blend_sorted=1) \
+                or not line["eval"]["finite"]:
+            fail(f"cli_cards {run}: eval {line['eval']}")
+    if not lines["sdxl10"]["unet_params"] > 2.5e9:
+        fail(f"cli_cards sdxl10: a {lines['sdxl10']['unet_params']}-"
+             "parameter UNet is not SDXL-base's")
+    return runs
+
+
 def _leaf_names(tree, name="avatar"):
     if not isinstance(tree, dict):
         return [name]
@@ -3767,6 +4221,8 @@ STAGE_RANGES = (("sds_step.render", "animate_project"),
                 ("sds_step.guidance", "sds_loss"),
                 ("sds.encode_images", "vae_encode"),
                 ("sds.latent_gradients", "controlnet_unet_cfg"),
+                ("sds.denoise", "denoise_cfg"),
+                ("sds.decode", "vae_decode"),
                 ("sds_step.backward", "backward"),
                 ("sds_step.optimizer_stats", "optimizer_stats"))
 
@@ -4470,13 +4926,16 @@ def main():
     # -- the two-stage run through the port's CLI --------------------------
     guidance = gparams = step = tstate = None
     torch.cuda.empty_cache()
-    cli_runs, inference_runs, mode_runs, geometry_runs, scene_runs = \
-        cli_two_stage(dev, card, train_fns, frame_ms)
+    (cli_runs, inference_runs, mode_runs, geometry_runs, scene_runs,
+     guidance_runs, card_runs) = cli_two_stage(dev, card, train_fns,
+                                               frame_ms)
     cli = {name: sum(run[name] for run in list(cli_runs.values())
                      + list(inference_runs.values())
                      + list(mode_runs.values())
                      + list(geometry_runs.values())
-                     + list(scene_runs.values()))
+                     + list(scene_runs.values())
+                     + list(guidance_runs.values())
+                     + list(card_runs.values()))
            for name in train_fns}
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
@@ -4515,7 +4974,13 @@ def main():
                                     for k, v in geometry_runs.items()},
                                 "cli_scene": {
                                     k: v["blend_sorted"]
-                                    for k, v in scene_runs.items()}}),
+                                    for k, v in scene_runs.items()},
+                                "cli_guidance": {
+                                    k: v["blend_sorted"]
+                                    for k, v in guidance_runs.items()},
+                                "cli_cards": {
+                                    k: v["blend_sorted"]
+                                    for k, v in card_runs.items()}}),
         entry("blend_train_fwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_fwd"] + cli["blend_train_fwd"],
@@ -4532,7 +4997,13 @@ def main():
                                     for k, v in geometry_runs.items()},
                                 "cli_scene": {
                                     k: v["blend_train_fwd"]
-                                    for k, v in scene_runs.items()}}),
+                                    for k, v in scene_runs.items()},
+                                "cli_guidance": {
+                                    k: v["blend_train_fwd"]
+                                    for k, v in guidance_runs.items()},
+                                "cli_cards": {
+                                    k: v["blend_train_fwd"]
+                                    for k, v in card_runs.items()}}),
         entry("blend_train_bwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_bwd"] + cli["blend_train_bwd"],
@@ -4549,7 +5020,13 @@ def main():
                                     for k, v in geometry_runs.items()},
                                 "cli_scene": {
                                     k: v["blend_train_bwd"]
-                                    for k, v in scene_runs.items()}}),
+                                    for k, v in scene_runs.items()},
+                                "cli_guidance": {
+                                    k: v["blend_train_bwd"]
+                                    for k, v in guidance_runs.items()},
+                                "cli_cards": {
+                                    k: v["blend_train_bwd"]
+                                    for k, v in card_runs.items()}}),
         entry("blend_tiles_eval", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:126",
               train_launches["blend_tiles_eval"],
@@ -4574,7 +5051,13 @@ def main():
                                     for k, v in geometry_runs.items()},
                                 "cli_scene": {
                                     k: v["flash_attn_fwd"]
-                                    for k, v in scene_runs.items()}},
+                                    for k, v in scene_runs.items()},
+                                "cli_guidance": {
+                                    k: v["flash_attn_fwd"]
+                                    for k, v in guidance_runs.items()},
+                                "cli_cards": {
+                                    k: v["flash_attn_fwd"]
+                                    for k, v in card_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]
@@ -4602,7 +5085,13 @@ def main():
                                     for k, v in geometry_runs.items()},
                                 "cli_scene": {
                                     k: v["flash_attn_bwd"]
-                                    for k, v in scene_runs.items()}},
+                                    for k, v in scene_runs.items()},
+                                "cli_guidance": {
+                                    k: v["flash_attn_bwd"]
+                                    for k, v in guidance_runs.items()},
+                                "cli_cards": {
+                                    k: v["flash_attn_bwd"]
+                                    for k, v in card_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": " + ".join(x["kernel"]
                                               for x in r["bwd_build"]),

@@ -13,8 +13,9 @@ row keeps its diagonal, so padding never masks a whole row.
 
 ``CLIPTokenizer`` (BPE over ``vocab.json`` / ``merges.txt``) and
 ``HashTokenizer`` (zlib ids, for random-weight models) are pure Python and
-give the JAX package's ids. ``clip_h_config`` / ``clip_bigg_config`` (the
-SD2 / SDXL towers) are not ported yet.
+give the JAX package's ids. ``clip_h_config`` is SD2.x's tower (OpenCLIP
+ViT-H, 23 layers, gelu), ``clip_bigg_config`` SDXL's second (OpenCLIP
+ViT-bigG, 32 layers, a 1280-wide projection of the pooled output).
 """
 from __future__ import annotations
 
@@ -47,6 +48,20 @@ class CLIPTextConfig(NamedTuple):
 def tiny_text_config() -> CLIPTextConfig:
     return CLIPTextConfig(vocab_size=256, hidden_size=32, num_layers=2,
                           num_heads=2, max_length=16)
+
+
+def clip_h_config() -> CLIPTextConfig:
+    """OpenCLIP ViT-H text tower, SD2.x's text encoder (1024 wide, the 23
+    layers diffusers ships, gelu)."""
+    return CLIPTextConfig(hidden_size=1024, num_layers=23, num_heads=16,
+                          activation="gelu")
+
+
+def clip_bigg_config() -> CLIPTextConfig:
+    """OpenCLIP ViT-bigG text tower, SDXL's ``text_encoder_2`` (gelu, a
+    1280-wide projection)."""
+    return CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20,
+                          activation="gelu", projection_dim=1280)
 
 
 def _quick_gelu(x):

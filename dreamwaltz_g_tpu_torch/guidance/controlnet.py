@@ -3,18 +3,26 @@
 Port of ``dreamwaltz_g_tpu/guidance/controlnet.py``: a copy of the UNet
 encoder and mid block, a small conv stack embedding the condition image to
 latent resolution, and zero-initialised 1x1 convs on every skip output.
-NHWC at ``forward``; the SDXL ``addition_embed`` branch is not ported.
+NHWC at ``forward``; on an ``addition_embed`` config (SDXL) the pooled
+embeddings and the size / crop ids join the time embedding, as in the
+UNet.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .layers import Conv2d, TimestepEmbedding, model_input, timestep_embedding
-from .unet import UNetConfig, UNetMidBlock, _down_path
+from .layers import Conv2d, TimestepEmbedding, model_input
+from .unet import (
+    UNetConfig,
+    UNetMidBlock,
+    _down_path,
+    addition_embedding,
+    time_conditioning,
+)
 
 
 class ControlNetConditioningEmbedding(nn.Module):
@@ -49,6 +57,7 @@ class ControlNet(nn.Module):
         chs = cfg.block_out_channels
         ch0 = chs[0]
         self.time_embedding = TimestepEmbedding(ch0, ch0 * 4)
+        self.add_embedding = addition_embedding(cfg)
         self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.controlnet_cond_embedding = ControlNetConditioningEmbedding(
             ch0, cond_block_channels)
@@ -71,17 +80,18 @@ class ControlNet(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor, cond_image: torch.Tensor,
                 conditioning_scale: float = 1.0, guess_mode: bool = False,
+                pooled_embeds: Optional[torch.Tensor] = None,
+                add_time_ids: Optional[torch.Tensor] = None,
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        """sample (B, h, w, 4), cond_image (B, 8h, 8w, 3) in [0, 1].
-        Returns the NHWC down residuals (one per UNet skip) and the mid
-        residual. ``guess_mode``: residual scales ramp logspace(-1, 0)
-        shallow -> deep."""
-        cfg = self.cfg
+        """sample (B, h, w, 4), cond_image (B, 8h, 8w, 3) in [0, 1];
+        ``pooled_embeds`` (B, Dp) and ``add_time_ids`` (B, 6) on an
+        ``addition_embed`` config. Returns the NHWC down residuals (one per
+        UNet skip) and the mid residual. ``guess_mode``: residual scales
+        ramp logspace(-1, 0) shallow -> deep."""
         dt = self.conv_in.weight.dtype
         context = model_input(context, dt)
-        temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
-                                  downscale_freq_shift=cfg.freq_shift)
-        temb = self.time_embedding(model_input(temb, dt))
+        temb = time_conditioning(self, timesteps, dt, pooled_embeds,
+                                 add_time_ids)
 
         x = self.conv_in(model_input(sample, dt).permute(0, 3, 1, 2))
         x = x + self.controlnet_cond_embedding(

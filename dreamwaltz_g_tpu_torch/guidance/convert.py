@@ -18,9 +18,19 @@ rename of the ControlNet's keys is not copied.
   appended to the tokenizer and to the text tower's embedding table.
 * ``load_guidance``: a diffusers-format model directory (``unet/``,
   ``vae/``, ``text_encoder/``, ``tokenizer/``, ``controlnet_pose/`` or
-  ``controlnet/``) -> (ScoreDistillation, GuidanceParams, text_embed_fn).
-  The SD1.x cards are ported; the SD2.x and HumanNorm cards raise until
-  their UNet configs are.
+  ``controlnet/``) -> (ScoreDistillation, GuidanceParams, text_embed_fn),
+  for every card of ``MODEL_FAMILIES``: SD1.x, the HumanNorm finetunes
+  (SD1.5's architecture), SD2.x (the ViT-H tower, its tokenizer padding
+  with "!", id 0; the 768-v cards with v-prediction and 96^2 latents).
+* ``load_guidance_xl``: a diffusers SDXL directory (``unet/``, ``vae/``,
+  ``text_encoder/`` CLIP-L, ``text_encoder_2/`` bigG with its projection,
+  ``tokenizer/``, and a ``controlnet_*/`` ControlNet on the XL config) ->
+  (ScoreDistillationXL, GuidanceParams, text_embed_fn), where
+  ``text_embed_fn(texts)`` -> (embeds (N, 77, 2048), pooled (N, 1280)): the
+  two towers' penultimate states side by side and tower 2's projected
+  pooled output. Both towers take ``tokenizer/``'s ids (``tokenizer_2/``
+  is not read), as the JAX loader tokenizes both with its one
+  tokenizer.
 """
 from __future__ import annotations
 
@@ -239,8 +249,8 @@ def merge_concept(clip_module: nn.Module, tokenizer, path: str):
 # A diffusers-format model directory
 # ---------------------------------------------------------------------------
 
-# model cards (the JAX package's MODEL_FAMILIES): the SD1.5-architecture
-# ones are ported
+# model cards (the JAX package's MODEL_FAMILIES): (UNet architecture, text
+# tower, latent grid, prediction type)
 MODEL_FAMILIES = {
     "sd14": dict(arch="sd15", text="clip_l", latent=64, pred="epsilon"),
     "sd15": dict(arch="sd15", text="clip_l", latent=64, pred="epsilon"),
@@ -253,18 +263,14 @@ MODEL_FAMILIES = {
     "sd20": dict(arch="sd21", text="clip_h", latent=96, pred="v_prediction"),
     "sd21": dict(arch="sd21", text="clip_h", latent=96, pred="v_prediction"),
 }
-_PORTED_CARDS = ("sd14", "sd15")
 
 
 def _family(model: str) -> dict:
     fam = MODEL_FAMILIES.get(model)
     if fam is None:
         raise KeyError(f"unknown model card {model!r}; known: "
-                       f"{sorted(MODEL_FAMILIES)}")
-    if model not in _PORTED_CARDS:
-        raise NotImplementedError(
-            f"model card {model!r} is not ported yet; ported: "
-            f"{_PORTED_CARDS}")
+                       f"{sorted(MODEL_FAMILIES)} + sdxl10 "
+                       "(load_guidance_xl)")
     return fam
 
 
@@ -327,6 +333,7 @@ def load_guidance(
     guidance_scale: float = 50.0,
     controlnet_scale: float = 1.0,
     guidance_rescale: float = 0.0,
+    denoise_timesteps: int = 50,
     model: str = "sd15",
     lora_name: Optional[str] = None,
     lora_scale: float = 1.0,
@@ -347,56 +354,32 @@ def load_guidance(
     The UNet, ControlNet and VAE are built frozen in ``dtype`` on
     ``device``; the text tower in float32. Returns (ScoreDistillation,
     GuidanceParams, text_embed_fn), where ``text_embed_fn(list[str])`` ->
-    (N, 77, D) float32 runs the frozen tower. The JAX function's
-    ``denoise_timesteps`` feeds the denoise modes, which are not ported."""
-    from .clip_text import CLIPTextConfig, CLIPTextModel, CLIPTokenizer
-    from .controlnet import ControlNet
-    from .layers import build
+    (N, 77, D) float32 runs the frozen tower. ``denoise_timesteps`` is the
+    z0 / x0 modes' grid."""
+    from .clip_text import CLIPTextConfig, clip_h_config
     from .sds import GuidanceParams, ScoreDistillation
     from .time_prior import make_schedule
-    from .unet import UNet2DCondition, sd15_unet_config
-    from .vae import AutoencoderKL, sd_vae_config
+    from .unet import sd15_unet_config, sd21_unet_config
+    from .vae import sd_vae_config
 
     device = resolve_device(device)
     fam = _family(model)
-    cfgs = dict(unet=sd15_unet_config(), vae=sd_vae_config(),
-                text=CLIPTextConfig(),
+    cfgs = dict(unet=sd21_unet_config() if fam["arch"] == "sd21"
+                else sd15_unet_config(), vae=sd_vae_config(),
+                text=clip_h_config() if fam["text"] == "clip_h"
+                else CLIPTextConfig(),
                 cond_block_channels=(16, 32, 96, 256),
                 latent_size=fam["latent"])
     cfgs.update(configs or {})
-
-    def component(name):
-        return load_torch_state_dict(_weights_file(osp.join(weights_dir,
-                                                            name)))
-
-    unet = build(lambda: UNet2DCondition(cfgs["unet"]), device, dtype)
-    load_state_dict_into(unet, component("unet"))
-    if lora_name:
-        lpath = lora_name if osp.isfile(lora_name) else \
-            osp.join(weights_dir, "lora", lora_name)
-        _, n_merged, leftover = merge_lora_into_params(
-            unet, load_torch_state_dict(lpath), scale=lora_scale)
-        logger.info("merged LoRA %s into the UNet: %d layers (%d entries "
-                    "not mergeable)", lora_name, n_merged, len(leftover))
-    vae = build(lambda: AutoencoderKL(cfgs["vae"]), device, dtype)
-    load_state_dict_into(vae, component("vae"))
-
-    cn = None
-    if use_controlnet:
-        for cand in ("controlnet_pose", "controlnet"):
-            if osp.isdir(osp.join(weights_dir, cand)):
-                cn = build(lambda: ControlNet(cfgs["unet"],
-                                              cfgs["cond_block_channels"]),
-                           device, dtype)
-                load_state_dict_into(cn, component(cand))
-                break
-
-    clip = build(lambda: CLIPTextModel(cfgs["text"]), device, torch.float32)
-    load_state_dict_into(clip, component("text_encoder"))
-    tok_dir = osp.join(weights_dir, "tokenizer")
-    tokenizer = CLIPTokenizer(osp.join(tok_dir, "vocab.json"),
-                              osp.join(tok_dir, "merges.txt"),
-                              max_length=cfgs["text"].max_length)
+    unet, vae, cn = _load_models(
+        weights_dir, cfgs, ("controlnet_pose", "controlnet"),
+        use_controlnet, lora_name, lora_scale, device, dtype)
+    clip = _load_tower(weights_dir, "text_encoder", cfgs["text"], device)
+    tokenizer = _tokenizer(weights_dir, cfgs["text"])
+    if fam["text"] == "clip_h":
+        # SD2.x pads with "!" (id 0), not EOS, as the card's tokenizer
+        # config sets pad_token
+        tokenizer.pad_id = 0
     if concept_name:
         cpath = concept_name
         if not osp.isfile(cpath):
@@ -415,6 +398,120 @@ def load_guidance(
         schedule=make_schedule(device=device), loss_type=loss_type,
         weight_type=weight_type, guidance_scale=guidance_scale,
         controlnet_scale=controlnet_scale, guidance_rescale=guidance_rescale,
+        denoise_timesteps=denoise_timesteps,
         latent_size=cfgs["latent_size"], prediction_type=fam["pred"])
+    return sd, GuidanceParams(unet=unet, vae=vae, controlnet=cn), \
+        text_embed_fn
+
+
+def _component(weights_dir: str, name: str) -> Dict[str, np.ndarray]:
+    return load_torch_state_dict(_weights_file(osp.join(weights_dir, name)))
+
+
+def _load_models(weights_dir, cfgs, controlnets, use_controlnet, lora_name,
+                 lora_scale, device, dtype):
+    """The UNet (with the LoRA merged), the VAE and, when
+    ``use_controlnet``, the first of the ``controlnets`` folders there,
+    frozen in ``dtype`` on ``device``."""
+    from .controlnet import ControlNet
+    from .layers import build
+    from .unet import UNet2DCondition
+    from .vae import AutoencoderKL
+
+    unet = build(lambda: UNet2DCondition(cfgs["unet"]), device, dtype)
+    load_state_dict_into(unet, _component(weights_dir, "unet"))
+    if lora_name:
+        lpath = lora_name if osp.isfile(lora_name) else \
+            osp.join(weights_dir, "lora", lora_name)
+        _, n_merged, leftover = merge_lora_into_params(
+            unet, load_torch_state_dict(lpath), scale=lora_scale)
+        logger.info("merged LoRA %s into the UNet: %d layers (%d entries "
+                    "not mergeable)", lora_name, n_merged, len(leftover))
+    vae = build(lambda: AutoencoderKL(cfgs["vae"]), device, dtype)
+    load_state_dict_into(vae, _component(weights_dir, "vae"))
+    cn = None
+    if use_controlnet:
+        for cand in controlnets:
+            if osp.isdir(osp.join(weights_dir, cand)):
+                cn = build(lambda: ControlNet(cfgs["unet"],
+                                              cfgs["cond_block_channels"]),
+                           device, dtype)
+                load_state_dict_into(cn, _component(weights_dir, cand))
+                break
+    return unet, vae, cn
+
+
+def _load_tower(weights_dir, name, cfg, device):
+    from .clip_text import CLIPTextModel
+    from .layers import build
+
+    clip = build(lambda: CLIPTextModel(cfg), device, torch.float32)
+    return load_state_dict_into(clip, _component(weights_dir, name))
+
+
+def _tokenizer(weights_dir, cfg):
+    from .clip_text import CLIPTokenizer
+
+    tok_dir = osp.join(weights_dir, "tokenizer")
+    return CLIPTokenizer(osp.join(tok_dir, "vocab.json"),
+                         osp.join(tok_dir, "merges.txt"),
+                         max_length=cfg.max_length)
+
+
+def load_guidance_xl(
+    weights_dir: str,
+    loss_type: str = "sds",
+    weight_type: str = "sjc",
+    guidance_scale: float = 50.0,
+    guidance_rescale: float = 0.0,
+    denoise_timesteps: int = 50,
+    use_controlnet: bool = False,
+    controlnet_scale: float = 1.0,
+    guess_mode: bool = False,
+    lora_name: Optional[str] = None,
+    lora_scale: float = 1.0,
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+    configs: Optional[dict] = None,
+):
+    """The SDXL guidance stack from a diffusers SDXL directory (module
+    docstring). The ControlNet, when ``use_controlnet``, is the first
+    ``controlnet_*/`` folder in sorted order (the JAX loader's first
+    ``controlnet_*_xl`` file), built on the XL UNet config. ``configs``
+    replaces the model configs (keys ``unet``, ``vae``, ``text``,
+    ``text_2``, ``cond_block_channels``, ``latent_size``), for small
+    models. Returns (ScoreDistillationXL, GuidanceParams, text_embed_fn);
+    the caller sets the guidance's ``pooled_text`` / ``pooled_uncond``."""
+    import glob
+
+    from .clip_text import CLIPTextConfig, clip_bigg_config
+    from .sds import GuidanceParams
+    from .sdxl import ScoreDistillationXL, xl_text_embed_fn
+    from .time_prior import make_schedule
+    from .unet import sdxl_unet_config
+    from .vae import sd_vae_config
+
+    device = resolve_device(device)
+    cfgs = dict(unet=sdxl_unet_config(), vae=sd_vae_config(),
+                text=CLIPTextConfig(), text_2=clip_bigg_config(),
+                cond_block_channels=(16, 32, 96, 256), latent_size=128)
+    cfgs.update(configs or {})
+    controlnets = [osp.basename(p) for p in sorted(
+        glob.glob(osp.join(weights_dir, "controlnet_*"))) if osp.isdir(p)]
+    unet, vae, cn = _load_models(weights_dir, cfgs, controlnets,
+                                 use_controlnet, lora_name, lora_scale,
+                                 device, dtype)
+    clip1 = _load_tower(weights_dir, "text_encoder", cfgs["text"], device)
+    clip2 = _load_tower(weights_dir, "text_encoder_2", cfgs["text_2"],
+                        device)
+    text_embed_fn = xl_text_embed_fn(_tokenizer(weights_dir, cfgs["text"]),
+                                     clip1, clip2, device)
+    sd = ScoreDistillationXL(
+        schedule=make_schedule(device=device), loss_type=loss_type,
+        weight_type=weight_type, guidance_scale=guidance_scale,
+        guidance_rescale=guidance_rescale,
+        denoise_timesteps=denoise_timesteps,
+        latent_size=cfgs["latent_size"], controlnet_scale=controlnet_scale,
+        guess_mode=guess_mode)
     return sd, GuidanceParams(unet=unet, vae=vae, controlnet=cn), \
         text_embed_fn

@@ -1,17 +1,35 @@
 """Score Distillation Sampling.
 
-Port of the score-family core of ``dreamwaltz_g_tpu/guidance/sds.py``:
-render -> VAE encode (gradients flow) -> add noise at timestep t -> frozen
-UNet (+ ControlNet) eps prediction with classifier-free guidance -> the
-``sds`` / ``sjc`` / ``sjc-red`` gradient -> weighting -> latent guards ->
-``loss = sum(latents * grad) / B``, whose gradient with respect to the
-latents is ``grad / B`` (the SpecifyGradient trick).
+Port of ``dreamwaltz_g_tpu/guidance/sds.py``: render -> VAE encode
+(gradients flow) -> add noise at timestep t -> frozen UNet (+ ControlNet)
+eps prediction with classifier-free guidance -> a loss family's gradient
+-> weighting -> latent guards -> ``loss = sum(latents * grad) / B``, whose
+gradient with respect to the latents is ``grad / B`` (the SpecifyGradient
+trick).
+
+The families (``loss_type``):
+
+* score families ``sds`` / ``sjc`` / ``sjc-red`` (the CFG'd score less the
+  noise, or the score itself), ``custom`` (the raw condition delta),
+  ``csd`` (the condition delta; with ``progress`` and ``neg_embeds`` the
+  annealed three-term mix of the text, null and negative scores), ``nfsd``
+  (the domain term switches at t = 200) and ``ism`` (Interval Score
+  Matching: a DDIM inversion of the clean latents in ``ism_xs_delta_t``
+  strides to t - delta, then one step of the annealed delta to t);
+* denoise modes ``z0`` / ``z0_final`` (a latent-space loss against the
+  denoised latents: one DDIM step on the ``denoise_timesteps`` grid, or
+  the whole walk down it) and ``x0`` / ``x0_final`` (the same target
+  decoded, a pixel-space loss: the VAE is outside the gradient's path).
 
 The modules hold their own weights, so ``GuidanceParams`` carries the three
 modules where the JAX package carries their parameter trees. The noise
-comes from an explicit ``noise=`` tensor or a ``torch.Generator``. Each
-model runs in its weights' type: at bfloat16 the UNet and the ControlNet
-see bfloat16 noisy latents and a bfloat16 time embedding, and compute in
+comes from an explicit ``noise=`` tensor or a ``torch.Generator``; each
+path takes the one draw it uses (the JAX functions draw the score
+families' and ISM's noise from the first half of ``key``'s split, the
+``z0`` target's in ``latent_gradients`` from the second, and
+``__call__``'s ``z0`` / ``x0`` target's from ``key`` itself). Each model
+runs in its weights' type: at bfloat16 the UNet and the ControlNet see
+bfloat16 noisy latents and a bfloat16 time embedding, and compute in
 bfloat16. The JAX package does not: its float32 schedule promotes the
 noised latents to float32 (``add_noise``), its float32 time embedding stays
 float32 through the bf16 ``Dense`` layers, and Flax promotes every layer to
@@ -20,6 +38,9 @@ stay float32, the eps stack runs under ``layers.jax_promotion``); the
 default keeps bfloat16, the card's path, a difference by design whose gap
 ``tests/test_torch_bf16_guidance.py`` measures and bounds.
 
+``latent_input`` (Latent-NeRF): the render's 4 channels are the latents,
+resized to the latent grid and not encoded.
+
 The pixel-gradient hooks (``make_pgc``, ``make_rgb_grad_hook``,
 ``make_pgc_suppress``, ``build_pixel_grad_hook``) are identity functions on
 the rendered image whose backward clips, normalizes or suppresses its
@@ -27,10 +48,6 @@ gradient, as ``torch.autograd.Function``s.
 
 ``sample_images`` walks a DDIM grid from pure noise through the same eps
 stack and decodes the latents: the ``--log.check_sd`` samples.
-
-Not ported yet: the csd / nfsd / ism / custom families, the denoise modes
-(z0, x0) and 4-channel latent renders (``latent_input``); asking for a
-family that is not ported raises.
 """
 from __future__ import annotations
 
@@ -45,8 +62,10 @@ from torch.profiler import record_function
 from . import layers
 from .time_prior import DiffusionSchedule, make_schedule
 
-#: the loss families ported so far
-LOSS_TYPES = ("sds", "sjc", "sjc-red")
+#: the score families and the denoise modes (module docstring)
+SCORE_TYPES = ("sds", "sjc", "sjc-red", "custom", "csd", "nfsd", "ism")
+DENOISE_TYPES = ("z0", "z0_final", "x0", "x0_final")
+LOSS_TYPES = SCORE_TYPES + DENOISE_TYPES
 
 
 def resize_images(images: torch.Tensor, height: int, width: int
@@ -85,8 +104,19 @@ class ScoreDistillation:
     grad_latent_clip_scale: float = 3.0
     grad_latent_norm: bool = False
     grad_latent_nan_to_num: bool = True
+    # ISM's two-phase DDIM inversion: phase 1 inverts x0 -> x_{t - delta}
+    # in xs_delta_t strides, phase 2 takes one step of the annealed delta
+    # to t; delta anneals delta_t_start -> delta_t over the first
+    # warmup_frac of the run
+    ism_delta_t: int = 80
+    ism_delta_t_start: int = 100
+    ism_xs_delta_t: int = 200
+    ism_xs_inv_steps: int = 5
+    ism_warmup_frac: float = 0.3
+    denoise_timesteps: int = 50       # the z0 / x0 modes' inference grid
     prediction_type: str = "epsilon"  # or 'v_prediction'
     latent_size: int = 64
+    latent_input: bool = False        # 4-channel renders are the latents
     # False keeps a render whose size the UNet takes natively (the VAE's
     # input size, or a square 768) instead of resizing it
     input_interpolate: bool = True
@@ -96,10 +126,13 @@ class ScoreDistillation:
     def __post_init__(self):
         if self.loss_type not in LOSS_TYPES:
             raise NotImplementedError(
-                f"loss_type {self.loss_type!r} is not ported; ported: "
-                f"{LOSS_TYPES}")
+                f"unknown loss_type {self.loss_type!r}; known: {LOSS_TYPES}")
         if self.schedule is None:
             self.schedule = make_schedule()
+
+    @property
+    def is_denoising_mode(self) -> bool:
+        return self.loss_type in DENOISE_TYPES
 
     def encode_images(self, params: GuidanceParams, images: torch.Tensor
                       ) -> torch.Tensor:
@@ -108,8 +141,20 @@ class ScoreDistillation:
         (``latent_size`` x the VAE's downsampling factor) is resized to it
         first, bilinearly and antialiased when it shrinks, as
         ``jax.image.resize`` does; with ``input_interpolate=False`` a
-        square 768 render is kept and encodes to 96^2 latents."""
-        B, H, W, _ = images.shape
+        square 768 render is kept and encodes to 96^2 latents. With
+        ``latent_input`` the (B, H, W, 4) render is the latents: it is only
+        resized to the latent grid (kept at a square ``latent_size`` or 96
+        without ``input_interpolate``)."""
+        B, H, W, C = images.shape
+        if self.latent_input:
+            if C != 4:
+                raise ValueError("latent_input expects 4-channel renders, "
+                                 f"got {C}")
+            ls = self.latent_size
+            if (H != ls or W != ls) and (
+                    self.input_interpolate or H != W or H not in (ls, 96)):
+                images = resize_images(images, ls, ls)
+            return images
         target = self.latent_size * 2 ** (
             len(params.vae.cfg.block_out_channels) - 1)
         if (H != target or W != target) and (
@@ -204,6 +249,22 @@ class ScoreDistillation:
             raise NotImplementedError(self.weight_type)
         return w[:, None, None, None]
 
+    def _noise(self, like: torch.Tensor, noise, generator) -> torch.Tensor:
+        """``noise`` in ``like``'s type, or a standard normal draw of its
+        shape from ``generator``."""
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass noise= or generator=")
+            noise = torch.randn(like.shape, generator=generator,
+                                device=like.device, dtype=like.dtype)
+        return noise.to(like.device, like.dtype)
+
+    def _noised(self, lat_sg, noise, t):
+        """q(x_t | x_0) in float32, then in the embeddings' type unless
+        ``jax_promotion`` (the JAX schedule's float32 promotion)."""
+        x = self.schedule.add_noise(lat_sg.float(), noise.float(), t)
+        return x if self.jax_promotion else x.to(lat_sg.dtype)
+
     def __call__(
         self,
         params: GuidanceParams,
@@ -215,20 +276,108 @@ class ScoreDistillation:
         cond_image: Optional[torch.Tensor] = None,   # (B, 8h, 8w, 3)
         guidance_scale: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
+        neg_embeds: Optional[torch.Tensor] = None,   # csd / nfsd branch
+        progress=None,                 # step / max_iteration in [0, 1]
     ) -> Dict[str, torch.Tensor]:
         """Returns 'loss' (a float32 scalar: backprop this), 'gradients',
-        'latents' and 'target'."""
+        'latents' and 'target'. ``noise`` is the one draw the family uses
+        (module docstring). The x0 modes' loss is on the (resized) input
+        pixels against the decoded denoised latents: the VAE's encode and
+        decode run without a graph."""
+        dt = text_embeds.dtype
+        t = t.to(images.device).long()
+        if self.loss_type in ("x0", "x0_final"):
+            B = images.shape[0]
+            side = self.latent_size * 2 ** (
+                len(params.vae.cfg.block_out_channels) - 1)
+            inputs = images.to(dt)
+            if inputs.shape[1:3] != (side, side):
+                inputs = resize_images(inputs, side, side)
+            with torch.no_grad():
+                with record_function("sds.encode_images"):
+                    latents = params.vae.encode(inputs)
+                with record_function("sds.denoise"):
+                    lat_sg = latents.to(dt)
+                    x0 = self._denoised_latents(
+                        params, lat_sg, text_embeds, uncond_embeds, t,
+                        self._noise(lat_sg, noise, generator), cond_image,
+                        guidance_scale)
+                with record_function("sds.decode"):
+                    target = params.vae.decode(x0).float()
+            src = inputs.float()
+            loss = 0.5 * torch.sum((src - target) ** 2) / B
+            return {"loss": loss, "gradients": (src - target).detach(),
+                    "latents": latents, "target": target}
+
         with record_function("sds.encode_images"):
-            latents = self.encode_images(params,
-                                         images.to(text_embeds.dtype))
+            latents = self.encode_images(params, images.to(dt))
+        if self.loss_type in ("z0", "z0_final"):
+            with torch.no_grad(), record_function("sds.denoise"):
+                lat_sg = latents.detach().to(dt)
+                x0 = self._denoised_latents(
+                    params, lat_sg, text_embeds, uncond_embeds, t,
+                    self._noise(lat_sg, noise, generator), cond_image,
+                    guidance_scale)
+            target = x0.float()
+            src = latents.float()
+            loss = 0.5 * torch.sum((src - target) ** 2) / latents.shape[0]
+            return {"loss": loss, "gradients": (src - target).detach(),
+                    "latents": latents, "target": target}
+
         with record_function("sds.latent_gradients"):
             grad = self.latent_gradients(
                 params, latents.detach(), text_embeds, uncond_embeds, t,
                 noise=noise, cond_image=cond_image,
-                guidance_scale=guidance_scale, generator=generator)
+                guidance_scale=guidance_scale, generator=generator,
+                neg_embeds=neg_embeds, progress=progress)
         loss = torch.sum(latents.float() * grad) / latents.shape[0]
         return {"loss": loss, "gradients": grad, "latents": latents,
                 "target": latents.detach().float() - grad}
+
+    @torch.no_grad()
+    def _denoised_latents(self, params, lat_sg, text_embeds, uncond_embeds,
+                          t, noise, cond_image, guidance_scale):
+        """The denoise modes' target (float32): noise to t, a CFG eps at t
+        snapped down to the ``denoise_timesteps`` grid, one DDIM step to
+        the predicted x0; the ``*_final`` modes instead walk the rest of
+        the grid down to t = 0 (masked, for each element, to the steps
+        below its t). A grid step that no element of the batch takes is
+        skipped: the JAX loop runs it and keeps every element as it was."""
+        gs = self.guidance_scale if guidance_scale is None else guidance_scale
+        latents_noisy = self._noised(lat_sg, noise, t)
+        T = self.schedule.num_train_timesteps
+        stride = T // self.denoise_timesteps
+        t_grid = torch.div(t, stride, rounding_mode="floor") * stride
+        with layers.jax_promotion(self.jax_promotion):
+            eps_hat, _, _ = self._cfg_eps(
+                params, latents_noisy, t_grid, text_embeds, uncond_embeds,
+                cond_image, gs)
+        x_t = latents_noisy.float()
+        if not self.loss_type.endswith("_final"):
+            return self.schedule.pred_x0_from_eps(x_t, eps_hat.float(),
+                                                  t_grid)
+        x = self.schedule.ddim_step(x_t, eps_hat.float(), t_grid,
+                                    t_grid - stride)
+        top = int(t_grid.max())
+        for i in range(self.denoise_timesteps):
+            cur = T - stride - i * stride    # T - s, T - 2s, ..., 0
+            if cur >= top:
+                continue
+            cur_b = torch.full_like(t_grid, cur)
+            with layers.jax_promotion(self.jax_promotion):
+                eps, _, _ = self._cfg_eps(
+                    params, self._model_in(x, text_embeds.dtype), cur_b,
+                    text_embeds, uncond_embeds, cond_image, gs)
+            x_next = self.schedule.ddim_step(x, eps.float(), cur_b,
+                                             cur_b - stride)
+            take = (cur_b < t_grid).reshape((-1,) + (1,) * (x.ndim - 1))
+            x = torch.where(take, x_next, x)
+        return x
+
+    def _model_in(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """A float32 DDIM carry as the eps stack's input: in the
+        embeddings' type unless ``jax_promotion``."""
+        return x if self.jax_promotion else x.to(dt)
 
     @torch.no_grad()
     def latent_gradients(
@@ -242,33 +391,77 @@ class ScoreDistillation:
         cond_image: Optional[torch.Tensor] = None,
         guidance_scale: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
+        neg_embeds: Optional[torch.Tensor] = None,
+        progress=None,
     ) -> torch.Tensor:
         """The frozen forward-only half of SDS: eps predictions -> weighted,
         guarded latent gradient (float32). The noise is ``noise`` or, when
-        that is None, a standard normal draw from ``generator``."""
+        that is None, a standard normal draw from ``generator``: the score
+        families' (and ISM's) noise, or the ``z0`` modes' target noise.
+        ``progress`` (step / max_iteration) drives csd's annealed mix and
+        ISM's delta warm-up; ``neg_embeds`` is the negative prompt's
+        branch of csd and nfsd. The x0 modes are pixel-space: use
+        ``__call__``."""
         gs = self.guidance_scale if guidance_scale is None else guidance_scale
         dt = text_embeds.dtype
         lat_sg = lat_sg.to(dt)
-        if noise is None:
-            if generator is None:
-                raise ValueError("pass noise= or generator=")
-            noise = torch.randn(lat_sg.shape, generator=generator,
-                                device=lat_sg.device, dtype=dt)
-        noise = noise.to(dt)
+        noise = self._noise(lat_sg, noise, generator)
         t = t.to(lat_sg.device).long()
-        latents_noisy = self.schedule.add_noise(lat_sg.float(), noise.float(), t)
-        if not self.jax_promotion:
-            latents_noisy = latents_noisy.to(dt)
+        lt = self.loss_type
+        if lt in ("x0", "x0_final"):
+            raise ValueError("the x0 modes are pixel-space: use __call__, "
+                             "not latent_gradients")
+        if lt in ("z0", "z0_final"):
+            x0 = self._denoised_latents(params, lat_sg, text_embeds,
+                                        uncond_embeds, t, noise, cond_image,
+                                        gs)
+            return lat_sg.float() - x0
 
-        with layers.jax_promotion(self.jax_promotion):
-            eps_hat, _, eps_text = self._cfg_eps(
-                params, latents_noisy, t, text_embeds, uncond_embeds,
-                cond_image, gs)
-        if self.guidance_rescale > 0.0:
-            eps_hat = _rescale_noise_cfg(eps_hat, eps_text,
-                                         self.guidance_rescale)
-        # sjc-red keeps the full CFG'd score as the gradient
-        grad = eps_hat if self.loss_type == "sjc-red" else eps_hat - noise
+        def eps1(x, tt, ctx):
+            with layers.jax_promotion(self.jax_promotion):
+                return self._eps(params, self._model_in(x, dt), tt, ctx,
+                                 cond_image)
+
+        def cfg(x, tt):
+            with layers.jax_promotion(self.jax_promotion):
+                return self._cfg_eps(params, self._model_in(x, dt), tt,
+                                     text_embeds, uncond_embeds, cond_image,
+                                     gs)
+
+        if lt == "ism":
+            grad = self._ism(lat_sg, noise, t, progress, eps1, cfg,
+                             uncond_embeds)
+        else:
+            latents_noisy = self._noised(lat_sg, noise, t)
+            eps_hat, eps_uncond, eps_text = cfg(latents_noisy, t)
+            if lt in ("sds", "sjc", "sjc-red"):
+                if self.guidance_rescale > 0.0:
+                    eps_hat = _rescale_noise_cfg(eps_hat, eps_text,
+                                                 self.guidance_rescale)
+                # sjc-red keeps the full CFG'd score as the gradient
+                grad = eps_hat if lt == "sjc-red" else eps_hat - noise
+            elif lt == "custom":
+                # the raw condition delta, no CFG scale
+                grad = eps_text - eps_uncond
+                if self.guidance_rescale > 0.0:
+                    grad = _rescale_noise_cfg(grad, eps_text,
+                                              self.guidance_rescale)
+            elif lt == "csd":
+                if progress is None or neg_embeds is None:
+                    grad = eps_text - eps_uncond
+                else:
+                    eps_neg = eps1(latents_noisy, t, neg_embeds)
+                    # progress in the compute type, as the JAX package
+                    p = torch.tensor(float(progress), dtype=dt)
+                    a, b = float(-0.5 * p), float(-1.0 + 0.5 * p)
+                    grad = eps_text + a * eps_uncond + b * eps_neg
+            else:   # nfsd
+                if neg_embeds is None:
+                    raise ValueError("nfsd needs neg_embeds")
+                eps_neg = eps1(latents_noisy, t, neg_embeds)
+                late = (t >= 200).reshape(-1, 1, 1, 1)
+                delta = torch.where(late, eps_uncond - eps_neg, eps_uncond)
+                grad = delta + gs * (eps_text - eps_uncond)
         grad = grad.float() * self._weight(t)
 
         # latent-gradient guards
@@ -285,6 +478,35 @@ class ScoreDistillation:
         if self.grad_latent_nan_to_num:
             grad = torch.nan_to_num(grad)
         return grad.float()
+
+    def _ism(self, lat_sg, noise, t, progress, eps1, cfg, uncond_embeds):
+        """Interval Score Matching's gradient: phase 1 noises the clean
+        latents to ``start`` and DDIM-inverts them with the null branch in
+        ``ism_xs_delta_t`` strides up to t_prev = t - delta (the strides
+        past t_prev recompose x unchanged, as the JAX loop's do); phase 2
+        takes one inversion step to t; grad = eps_cfg(x_t, t) -
+        eps_uncond(x_{t_prev}, t_prev). delta anneals from
+        ``ism_delta_t_start`` to ``ism_delta_t`` over the first
+        ``ism_warmup_frac`` of the run (``progress``), computed in float32
+        as the JAX package does."""
+        p = torch.tensor(0.0 if progress is None else float(progress),
+                         dtype=torch.float32)
+        rate = 1.0 - torch.clamp(p / self.ism_warmup_frac, max=1.0)
+        cur_delta = int(self.ism_delta_t + torch.ceil(
+            rate * (self.ism_delta_t_start - self.ism_delta_t)))
+        t_prev = torch.clamp(t - cur_delta, min=0)
+        cur = torch.clamp(
+            t_prev - self.ism_xs_delta_t * self.ism_xs_inv_steps, min=0)
+        x = self.schedule.add_noise(lat_sg.float(), noise.float(), cur)
+        for _ in range(self.ism_xs_inv_steps):
+            eps_u = eps1(x, cur, uncond_embeds)
+            nxt = torch.minimum(cur + self.ism_xs_delta_t, t_prev)
+            x = self.schedule.ddim_step(x, eps_u.float(), cur, nxt)
+            cur = nxt
+        eps_prev = eps1(x, t_prev, uncond_embeds)
+        xs_t = self.schedule.ddim_step(x, eps_prev.float(), t_prev, t)
+        eps_hat, _, _ = cfg(xs_t, t)
+        return eps_hat - eps_prev
 
 
 def _rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,

@@ -2,10 +2,14 @@
 
 Port of ``dreamwaltz_g_tpu/guidance/unet.py`` with ControlNet residual
 injection (additive down/mid residuals). ``sd15_unet_config()`` matches the
-released SD1.5 weights, ``tiny_unet_config()`` the tests' tiny UNet. The
-SDXL ``addition_embed`` branch is not ported. The model runs in its weights'
-type: inputs are cast to it at ``forward`` (under ``layers.jax_promotion``
-they keep their own, as in the JAX package).
+released SD1.5 weights, ``sd21_unet_config()`` SD2.x's (1024-wide context,
+64-wide heads), ``sdxl_unet_config()`` SDXL-base's (three levels, 10
+transformer layers at the deepest, the ``addition_embed`` 'text_time'
+conditioning: the pooled text embedding and the six size / crop ids
+embedded into the time embedding), ``tiny_unet_config()`` the tests' tiny
+UNet. The model runs in its weights' type: inputs are cast to it at
+``forward`` (under ``layers.jax_promotion`` they keep their own, as in the
+JAX package).
 """
 from __future__ import annotations
 
@@ -42,6 +46,9 @@ class UNetConfig(NamedTuple):
     attn_down: Tuple[bool, ...] = (True, True, True, False)
     freq_shift: float = 0.0
     head_dim: Optional[int] = None     # fixed per-head width (SD2.x / SDXL)
+    addition_embed: bool = False       # SDXL's 'text_time' conditioning
+    addition_time_embed_dim: int = 256
+    addition_pooled_dim: int = 1280    # the pooled text embedding's width
 
     def block_heads(self, out_ch: int) -> int:
         if self.head_dim is not None:
@@ -56,6 +63,27 @@ class UNetConfig(NamedTuple):
 
 def sd15_unet_config() -> UNetConfig:
     return UNetConfig()
+
+
+def sd21_unet_config() -> UNetConfig:
+    """SD2.x (stable-diffusion-2[-1][-base]): the OpenCLIP ViT-H context
+    (1024) and 64-wide heads (5 / 10 / 20 / 20 a level). The 768-v cards
+    are v-prediction models (``ScoreDistillation(prediction_type=
+    'v_prediction', latent_size=96)``)."""
+    return UNetConfig(cross_attention_dim=1024, head_dim=64)
+
+
+def sdxl_unet_config() -> UNetConfig:
+    """SDXL-base (stable-diffusion-xl-base-1.0)."""
+    return UNetConfig(
+        block_out_channels=(320, 640, 1280),
+        layers_per_block=2,
+        cross_attention_dim=2048,
+        transformer_depth=(1, 2, 10),
+        attn_down=(False, True, True),
+        head_dim=64,
+        addition_embed=True,
+    )
 
 
 def tiny_unet_config() -> UNetConfig:
@@ -141,6 +169,39 @@ class CrossAttnUpBlock(nn.Module):
         return x
 
 
+def addition_embedding(cfg: UNetConfig) -> Optional[TimestepEmbedding]:
+    """SDXL's ``add_embedding`` (None without ``addition_embed``)."""
+    if not cfg.addition_embed:
+        return None
+    return TimestepEmbedding(
+        cfg.addition_pooled_dim + 6 * cfg.addition_time_embed_dim,
+        cfg.block_out_channels[0] * 4)
+
+
+def time_conditioning(module: nn.Module, timesteps: torch.Tensor,
+                      dt: torch.dtype, pooled_embeds=None,
+                      add_time_ids=None) -> torch.Tensor:
+    """The UNet's / ControlNet's time embedding, plus, with
+    ``addition_embed``, ``add_embedding`` of [pooled (B, Dp), the
+    sinusoidal embedding of each of the six ids (B, 6 * dim)]."""
+    cfg = module.cfg
+    temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                              downscale_freq_shift=cfg.freq_shift)
+    temb = module.time_embedding(model_input(temb, dt))
+    if cfg.addition_embed:
+        if pooled_embeds is None or add_time_ids is None:
+            raise ValueError("addition_embed needs pooled_embeds and "
+                             "add_time_ids")
+        B = pooled_embeds.shape[0]
+        ids = timestep_embedding(
+            add_time_ids.reshape(-1), cfg.addition_time_embed_dim,
+            downscale_freq_shift=cfg.freq_shift).reshape(B, -1)
+        aug = torch.cat([model_input(pooled_embeds, dt),
+                         model_input(ids, dt)], dim=-1)
+        temb = temb + module.add_embedding(aug)
+    return temb
+
+
 def _down_path(cfg: UNetConfig):
     """The encoder half shared by the UNet and the ControlNet: conv_in's
     width, the down blocks, and the channels of every skip in push order."""
@@ -167,6 +228,7 @@ class UNet2DCondition(nn.Module):
         chs = cfg.block_out_channels
         ch0 = chs[0]
         self.time_embedding = TimestepEmbedding(ch0, ch0 * 4)
+        self.add_embedding = addition_embedding(cfg)
         self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.down_blocks, skip_chs = _down_path(cfg)
         self.mid_block = UNetMidBlock(cfg, chs[-1])
@@ -185,13 +247,14 @@ class UNet2DCondition(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor,
                 down_residuals: Optional[Sequence[torch.Tensor]] = None,
-                mid_residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        cfg = self.cfg
+                mid_residual: Optional[torch.Tensor] = None,
+                pooled_embeds: Optional[torch.Tensor] = None,   # (B, Dp)
+                add_time_ids: Optional[torch.Tensor] = None,    # (B, 6)
+                ) -> torch.Tensor:
         dt = self.conv_in.weight.dtype
         context = model_input(context, dt)
-        temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
-                                  downscale_freq_shift=cfg.freq_shift)
-        temb = self.time_embedding(model_input(temb, dt))
+        temb = time_conditioning(self, timesteps, dt, pooled_embeds,
+                                 add_time_ids)
 
         x = self.conv_in(model_input(sample, dt).permute(0, 3, 1, 2))
         skips = [x]

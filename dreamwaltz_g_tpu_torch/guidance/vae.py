@@ -2,13 +2,13 @@
 
 Port of ``dreamwaltz_g_tpu/guidance/vae.py``. ``encode`` gives the mean of
 the latent distribution times the 0.18215 scaling factor (SDS uses the
-mode; the JAX package's optional sampling is not ported). Images and
+mode), or a sample of it when given ``noise=`` or a ``generator``. Images and
 latents are NHWC at ``encode`` / ``decode``; names are diffusers' (the
 ``quant_conv`` pair at the top level).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -132,13 +132,25 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(2 * L, 2 * L, 1)
         self.post_quant_conv = nn.Conv2d(L, L, 1)
 
-    def encode(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images in [0, 1] -> (B, h, w, 4) scaled latents (the
-        distribution's mode), in the weights' type."""
+    def encode(self, images: torch.Tensor,
+               noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, 3) images in [0, 1] -> (B, h, w, 4) scaled latents, in
+        the weights' type: the distribution's mode, or, with ``noise``
+        (B, h, w, 4) or a ``generator`` to draw it from, the posterior
+        sample ``mean + exp(0.5 clip(logvar, -30, 20)) * noise``."""
         x = images.to(self.quant_conv.weight.dtype) * 2.0 - 1.0
         moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
-        mean = moments[:, :self.cfg.latent_channels]
-        return (mean * self.cfg.scaling_factor).permute(0, 2, 3, 1)
+        L = self.cfg.latent_channels
+        mean = moments[:, :L].permute(0, 2, 3, 1)
+        if noise is not None or generator is not None:
+            if noise is None:
+                noise = torch.randn(mean.shape, generator=generator,
+                                    device=mean.device)
+            logvar = moments[:, L:].permute(0, 2, 3, 1)
+            std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+            mean = mean + std * noise.to(mean.device, mean.dtype)
+        return mean * self.cfg.scaling_factor
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """(B, h, w, 4) scaled latents -> (B, H, W, 3) images in [0, 1]."""

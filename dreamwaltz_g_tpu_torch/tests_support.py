@@ -1,12 +1,14 @@
 """Synthetic avatar and guidance fixtures for tests and chip runs.
 
-Port of ``tiny_avatar_setup`` and ``tiny_guidance`` from
-``dreamwaltz_g_tpu/tests_support.py``. ``tiny_avatar_setup`` takes sizes,
+Port of ``tiny_avatar_setup``, ``tiny_guidance`` and ``tiny_guidance_xl``
+from ``dreamwaltz_g_tpu/tests_support.py``. ``tiny_avatar_setup`` takes sizes,
 so the same builder makes the few-vertex test avatar and the full-width one
 that ``chip_smoke.py`` trains and renders; the body and the point cloud come
 from numpy draws identical to the JAX package's. ``sd15_guidance`` builds
 the SD1.5-size UNet, ControlNet and VAE with random weights from a seed,
-straight into their type on their device. ``screen_gaussians`` places 2D
+straight into their type on their device; ``sd21_guidance`` and
+``sdxl_guidance`` the SD2.x and SDXL-base stacks likewise (SDXL with its
+two text towers). ``screen_gaussians`` places 2D
 Gaussians straight on the screen for the blend kernels' tests.
 """
 from __future__ import annotations
@@ -21,7 +23,14 @@ from .guidance.controlnet import ControlNet
 from .guidance.layers import build
 from .guidance.sds import GuidanceParams, ScoreDistillation
 from .guidance.time_prior import make_schedule
-from .guidance.unet import UNet2DCondition, sd15_unet_config, tiny_unet_config
+from .guidance.unet import (
+    UNet2DCondition,
+    UNetConfig,
+    sd15_unet_config,
+    sd21_unet_config,
+    sdxl_unet_config,
+    tiny_unet_config,
+)
 from .guidance.vae import AutoencoderKL, sd_vae_config, tiny_vae_config
 from .human.deform import DeformNetwork
 from .human.smplx_model import SMPLXParams, default_params, make_synthetic_model
@@ -142,6 +151,85 @@ def sd15_guidance(seed: int = 0, with_controlnet: bool = True,
                        (16, 32, 96, 256), seed, with_controlnet, device, dtype)
     return ScoreDistillation(schedule=make_schedule(device=device),
                              latent_size=64, guidance_scale=50.0), params
+
+
+def sd21_guidance(seed: int = 0, with_controlnet: bool = True,
+                  latent_size: int = 96, device="cuda",
+                  dtype=torch.bfloat16):
+    """The SD2.x-size stack (``sd21_unet_config`` UNet and ControlNet,
+    ``sd_vae_config`` VAE, CFG scale 50) with random weights from ``seed``;
+    at the 768-v cards' 96^2 latents it predicts v. Returns
+    (ScoreDistillation, GuidanceParams)."""
+    device = resolve_device(device)
+    params = _guidance(sd21_unet_config(), sd_vae_config(),
+                       (16, 32, 96, 256), seed, with_controlnet, device, dtype)
+    return ScoreDistillation(
+        schedule=make_schedule(device=device), latent_size=latent_size,
+        guidance_scale=50.0, prediction_type="v_prediction"
+        if latent_size == 96 else "epsilon"), params
+
+
+def _towers(cfgs, seed, device):
+    """Text towers of ``cfgs`` in float32, random from ``seed`` + i."""
+    from .guidance.clip_text import CLIPTextModel
+
+    towers = []
+    for i, cfg in enumerate(cfgs):
+        tower = build(lambda cfg=cfg: CLIPTextModel(cfg), device,
+                      torch.float32)
+        tower.reset_parameters(
+            torch.Generator(device=device).manual_seed(seed + i))
+        towers.append(tower)
+    return towers
+
+
+def tiny_guidance_xl(seed: int = 0, latent_size: int = 8, device="cuda",
+                     dtype=torch.float32):
+    """A randomly initialised tiny SDXL-style stack (the JAX fixture's
+    sizes: the addition-embed UNet on a 56-wide context, the tiny VAE, no
+    ControlNet) with a tiny dual text tower over hash ids. Returns
+    (ScoreDistillationXL, GuidanceParams, text_embed_fn), ``text_embed_fn``
+    giving (embeds (N, 16, 56), pooled (N, 24)) in float32."""
+    from .guidance.clip_text import HashTokenizer, tiny_text_config
+    from .guidance.sdxl import ScoreDistillationXL, xl_text_embed_fn
+
+    device = resolve_device(device)
+    tcfg1 = tiny_text_config()
+    tcfg2 = tiny_text_config()._replace(projection_dim=24, hidden_size=24)
+    ucfg = UNetConfig(block_out_channels=(32, 64), layers_per_block=1,
+                      cross_attention_dim=tcfg1.hidden_size
+                      + tcfg2.hidden_size, num_heads=2,
+                      attn_down=(True, False), addition_embed=True,
+                      addition_pooled_dim=tcfg2.projection_dim,
+                      addition_time_embed_dim=8)
+    params = _guidance(ucfg, tiny_vae_config(), (16, 32), seed, False,
+                       device, dtype)
+    clip1, clip2 = _towers((tcfg1, tcfg2), seed + 1, device)
+    tok = HashTokenizer(vocab_size=tcfg1.vocab_size,
+                        max_length=tcfg1.max_length)
+    sd = ScoreDistillationXL(schedule=make_schedule(device=device),
+                             latent_size=latent_size, guidance_scale=7.5)
+    return sd, params, xl_text_embed_fn(tok, clip1, clip2, device)
+
+
+def sdxl_guidance(seed: int = 0, with_controlnet: bool = True,
+                  device="cuda", dtype=torch.bfloat16):
+    """The SDXL-base stack (``sdxl_unet_config`` UNet and a pose ControlNet
+    on the same config, ``sd_vae_config`` VAE, 128^2 latents, CFG scale 50)
+    in ``dtype`` and its two text towers (CLIP-L, bigG with its projection)
+    in float32, random from ``seed``. Returns (ScoreDistillationXL,
+    GuidanceParams, (clip_l, clip_bigg))."""
+    from .guidance.clip_text import CLIPTextConfig, clip_bigg_config
+    from .guidance.sdxl import ScoreDistillationXL
+
+    device = resolve_device(device)
+    params = _guidance(sdxl_unet_config(), sd_vae_config(),
+                       (16, 32, 96, 256), seed, with_controlnet, device, dtype)
+    towers = _towers((CLIPTextConfig(), clip_bigg_config()), seed + 1,
+                     device)
+    sd = ScoreDistillationXL(schedule=make_schedule(device=device),
+                             latent_size=128, guidance_scale=50.0)
+    return sd, params, tuple(towers)
 
 
 def screen_gaussians(n: int, height: int, width: int, seed: int = 0,

@@ -123,6 +123,7 @@ def make_dmtet_sds_step(
     image_width: int,
     nerf_cfg,
     lambda_guidance: float = 1.0,
+    neg_embeds=None,
     ambient_ratio: float = 1.0,
     pgc=None,
     tile_size: int = 32,
@@ -134,7 +135,7 @@ def make_dmtet_sds_step(
     """One DMTet SDS step: ``step(tstate, gparams, extrinsic, intrinsics,
     campos, bg_color, text_embeds, uncond_embeds, t, light_noise=None,
     noise=None, generator=None, cond_image=None, guidance_scale=None,
-    shading="albedo")`` -> (tstate', {"loss", "sds_loss",
+    shading="albedo", progress=None)`` -> (tstate', {"loss", "sds_loss",
     "mesh_normal_loss", "mesh_laplacian_loss", "tile_overflow"}).
 
     Extract the surface -> albedo at the centroids -> shade (the light
@@ -144,8 +145,8 @@ def make_dmtet_sds_step(
     Draws not handed in come from ``generator``: the light's (3,) normal
     first, then the SDS noise. ``nerf_cfg.lock_geo`` stops the gradient
     into sdf / deform and skips their update (their moments stay as they
-    are). The JAX step's ``neg_embeds`` and ``progress`` feed guidance
-    families that are not ported."""
+    are). ``neg_embeds`` (the csd / nfsd negative branch) and the step's
+    ``progress`` (step / max_iteration) go to the guidance."""
     device = resolve_device(device)
     H, W = image_height, image_width
     lock_geo = bool(getattr(nerf_cfg, "lock_geo", False))
@@ -158,7 +159,7 @@ def make_dmtet_sds_step(
              intrinsics, campos, bg_color, text_embeds, uncond_embeds, t,
              light_noise=None, noise=None,
              generator: Optional[torch.Generator] = None, cond_image=None,
-             guidance_scale=None, shading: str = "albedo"):
+             guidance_scale=None, shading: str = "albedo", progress=None):
         _check_device(nerf, device)
         opt_n, opt_d = tstate.opt_state
         opt_n.zero_grad()
@@ -190,7 +191,8 @@ def make_dmtet_sds_step(
             sds = guidance(gparams, img[None], text_embeds, uncond_embeds, t,
                            noise=noise, cond_image=cond_image,
                            guidance_scale=guidance_scale,
-                           generator=generator)
+                           generator=generator, neg_embeds=neg_embeds,
+                           progress=progress)
         loss = lambda_guidance * sds["loss"]
         metrics = {"sds_loss": sds["loss"].detach(),
                    "tile_overflow": out.overflow}

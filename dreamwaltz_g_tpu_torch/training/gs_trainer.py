@@ -28,7 +28,10 @@ Port of ``dreamwaltz_g_tpu/training/gs_trainer.py``:
   ``--render.use_mlp_background``) the background's weights train with
   the avatar under their own Adan.
 
-Every SDS step and render takes ``placement`` (the scene's
+Every SDS step constructor takes ``neg_embeds`` (the negative prompt's
+branch of the csd / nfsd families) and every SDS step ``progress`` (step
+/ max_iteration: csd's annealed mix, ISM's delta warm-up), both handed to
+the guidance. Every SDS step and render takes ``placement`` (the scene's
 ``(avatar_scale, avatar_transl)``) and ``static_gaussians`` (the frozen
 Gaussian background, appended after the avatar, so the densification
 statistics keep slicing ``[:C]``).
@@ -170,6 +173,7 @@ def make_avatar_sds_step(
     chunk: int = 64,
     max_tiles_per_gaussian: int = 16,
     lambda_guidance: float = 1.0,
+    neg_embeds: Optional[torch.Tensor] = None,
     pgc: Optional[Callable] = None,
     placement=None,
     static_gaussians: Optional[GaussiansOut] = None,
@@ -177,8 +181,8 @@ def make_avatar_sds_step(
 ) -> Callable:
     """One avatar SDS step: ``step(tstate, gparams, observed_inputs,
     extrinsic, intrinsics, tanfov, background, text_embeds, uncond_embeds,
-    t, noise=None, cond_image=None, guidance_scale=None, generator=None)``
-    -> (tstate', {"loss", "sds_loss", "tile_overflow"}).
+    t, noise=None, cond_image=None, guidance_scale=None, generator=None,
+    progress=None)`` -> (tstate', {"loss", "sds_loss", "tile_overflow"}).
 
     One eager pass: render, encode with the graph kept, the guidance's
     latent gradient under no_grad (noise from ``noise=`` or
@@ -202,7 +206,7 @@ def make_avatar_sds_step(
              background, text_embeds, uncond_embeds, t,
              noise: Optional[torch.Tensor] = None, cond_image=None,
              guidance_scale=None,
-             generator: Optional[torch.Generator] = None,
+             generator: Optional[torch.Generator] = None, progress=None,
              ) -> tuple:
         state = tstate.avatar
         _check_device(state, device)
@@ -220,7 +224,8 @@ def make_avatar_sds_step(
         with record_function("sds_step.guidance"):
             sds = guidance(gparams, image[None], text_embeds, uncond_embeds,
                            t, noise=noise, cond_image=cond_image,
-                           guidance_scale=guidance_scale, generator=generator)
+                           guidance_scale=guidance_scale, generator=generator,
+                           neg_embeds=neg_embeds, progress=progress)
         loss = lambda_guidance * sds["loss"]
         with record_function("sds_step.backward"):
             loss.backward()
@@ -430,6 +435,7 @@ def make_avatar_sds_step_split(
     chunk: int = 64,
     max_tiles_per_gaussian: int = 8,
     lambda_guidance: float = 1.0,
+    neg_embeds: Optional[torch.Tensor] = None,
     bg_net: Optional[BackgroundMLPNet] = None,
     bg_tx: Optional[Adan] = None,
     pgc: Optional[Callable] = None,
@@ -479,7 +485,7 @@ def make_avatar_sds_step_split(
              background, text_embeds, uncond_embeds, t,
              noise: Optional[torch.Tensor] = None, cond_image=None,
              guidance_scale=None,
-             generator: Optional[torch.Generator] = None,
+             generator: Optional[torch.Generator] = None, progress=None,
              bg_state: Optional[BackgroundTrainState] = None,
              c2w: Optional[torch.Tensor] = None) -> tuple:
         if bg_net is not None and (bg_state is None or c2w is None):
@@ -498,7 +504,8 @@ def make_avatar_sds_step_split(
             glat = guidance.latent_gradients(
                 gparams, latents, text_embeds, uncond_embeds, t,
                 noise=noise, cond_image=cond_image,
-                guidance_scale=guidance_scale, generator=generator)
+                guidance_scale=guidance_scale, generator=generator,
+                neg_embeds=neg_embeds, progress=progress)
         for leaf in _leaves(state, model):
             leaf.grad = None
         if bg_net is not None:
@@ -573,6 +580,7 @@ def make_vanilla_sds_step(
     chunk: int = 64,
     max_tiles_per_gaussian: int = 16,
     lambda_guidance: float = 1.0,
+    neg_embeds: Optional[torch.Tensor] = None,
     pgc: Optional[Callable] = None,
     placement=None,
     static_gaussians: Optional[GaussiansOut] = None,
@@ -602,7 +610,8 @@ def make_vanilla_sds_step(
              background, text_embeds, uncond_embeds, t, campos=None,
              noise: Optional[torch.Tensor] = None, cond_image=None,
              guidance_scale=None,
-             generator: Optional[torch.Generator] = None) -> tuple:
+             generator: Optional[torch.Generator] = None,
+             progress=None) -> tuple:
         vstate = tstate.avatar
         _check_vanilla_device(vstate, device)
         C = vstate.capacity
@@ -625,7 +634,8 @@ def make_vanilla_sds_step(
         with record_function("vanilla_step.guidance"):
             sds = guidance(gparams, image[None], text_embeds, uncond_embeds,
                            t, noise=noise, cond_image=cond_image,
-                           guidance_scale=guidance_scale, generator=generator)
+                           guidance_scale=guidance_scale, generator=generator,
+                           neg_embeds=neg_embeds, progress=progress)
         loss = lambda_guidance * sds["loss"]
         with record_function("vanilla_step.backward"):
             loss.backward()

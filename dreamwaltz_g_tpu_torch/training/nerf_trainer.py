@@ -187,6 +187,7 @@ def make_nerf_sds_step(
     nerf_cfg,
     num_steps: int = 96,
     lambda_guidance: float = 1.0,
+    neg_embeds=None,
     lambda_sigma: float = 1.0,
     sigma_peak: float = 15.0,
     sigma_loss_type: str = "margin",
@@ -203,14 +204,14 @@ def make_nerf_sds_step(
     ``step(tstate, grid, gparams, cam_c2w, cam_intr, bg_color, text_embeds,
     uncond_embeds, t, jitter=None, noise=None, vs_draws=None,
     generator=None, cond_image=None, guidance_scale=None, sigma_pts=None,
-    use_sigma=False, pdf_u=None)`` -> (tstate', {"loss", "sds_loss",
-    "sparsity_loss"[, "sigma_loss"]}). A draw not handed in comes from
-    ``generator``: the jitter (``jitter_shape``), then the volume-sparsity
-    draws, then the SDS noise. ``tp_lr_weights`` (T,): the 'ddpm' lr
+    use_sigma=False, pdf_u=None, progress=None)`` -> (tstate', {"loss",
+    "sds_loss", "sparsity_loss"[, "sigma_loss"]}). A draw not handed in
+    comes from ``generator``: the jitter (``jitter_shape``), then the
+    volume-sparsity draws, then the SDS noise. ``tp_lr_weights`` (T,): the 'ddpm' lr
     policy's per-timestep weights, applied to this step's updates at
     ``t[0]``. ``pgc``: the pixel-gradient hook on the 3-channel render.
-    The JAX step's ``neg_embeds`` and ``progress`` feed guidance families
-    that are not ported."""
+    ``neg_embeds`` (the csd / nfsd negative branch) and the step's
+    ``progress`` (step / max_iteration) go to the guidance."""
     device = resolve_device(device)
     H, W = image_height, image_width
     vs_weight = _vs_weight(nerf_cfg)
@@ -226,7 +227,7 @@ def make_nerf_sds_step(
              generator: Optional[torch.Generator] = None, cond_image=None,
              guidance_scale=None,
              sigma_pts: Optional[SigmaGuidancePoints] = None,
-             use_sigma: bool = False, pdf_u=None):
+             use_sigma: bool = False, pdf_u=None, progress=None):
         _check_device(model, device)
         tstate.opt_state.zero_grad()
         if jitter is None:
@@ -275,7 +276,8 @@ def make_nerf_sds_step(
             sds = guidance(gparams, img[None], text_embeds, uncond_embeds, t,
                            noise=noise, cond_image=cond_image,
                            guidance_scale=guidance_scale,
-                           generator=generator)
+                           generator=generator, neg_embeds=neg_embeds,
+                           progress=progress)
         loss = lambda_guidance * sds["loss"] + reg
         with record_function("nerf_step.backward"):
             loss.backward()

@@ -54,9 +54,17 @@ second avatar from another run's checkpoint, composed into the renders).
 The field's backbone is ``--nerf.backbone`` triplane, hashgrid or
 tiledgrid.
 
+The guidance: every ``--guide.sds_loss_type`` of the JAX package (the
+csd / nfsd negative branch from ``--guide.negative_text``, ``progress``
+from the batch into every step; the x0 modes take the fused stage-2 step
+even with the MLP background, which then is not trained, as in the JAX
+trainer) and every ``--guide.diffusion`` card (SD1.x, the HumanNorm
+finetunes, SD2.x and ``sdxl*``, the last through ``load_guidance_xl``
+with the pooled embeddings of the prompt's first view).
+
 Not ported yet, and refused at construction where a flag asks for them:
-SDXL, ``batch_size > 1`` and tensor parallelism, and the multi-device
-frame sharding of ``evaluate``.
+``batch_size > 1`` and tensor parallelism, and the multi-device frame
+sharding of ``evaluate``.
 """
 from __future__ import annotations
 
@@ -272,7 +280,6 @@ class Trainer:
             raise ValueError(f"log.platform {lg.platform!r}: the port runs "
                              "on 'cuda' (the default) or 'cpu'")
         refused = [
-            (str(g.diffusion).startswith("sdxl"), "SDXL guidance"),
             (cfg.optim.batch_size > 1 or cfg.parallel.tp > 1,
              "batch_size > 1 and tensor parallelism"),
         ]
@@ -370,7 +377,7 @@ class Trainer:
         agree."""
         r = self.cfg.render
         return dict(lambda_guidance=self.cfg.guide.lambda_guidance,
-                    pgc=self.pgc, tile_size=r.tile_size,
+                    neg_embeds=self.neg_embeds, pgc=self.pgc, tile_size=r.tile_size,
                     capacity=r.tile_capacity, chunk=r.chunk,
                     placement=self._placement(),
                     static_gaussians=self._static_bg_gaussians(),
@@ -452,44 +459,85 @@ class Trainer:
             if cfg.prompt.text_augmentation else "suffix",
             angle_front=cfg.prompt.angle_front,
             angle_overhead=cfg.prompt.angle_overhead)
+        # the model card: 'sdxl*' takes the XL stack (two text towers, the
+        # pooled embeddings)
+        is_xl = str(g.diffusion).startswith("sdxl")
         weights_dir = Path(g.weights_dir or paths.GUIDANCE_WEIGHTS)
         dtype = guidance_dtype(g.dtype)
+        texts = list(self.view_prompt.texts)
+        three_way = g.sds_loss_type in ("csd", "nfsd")
+        self.neg_embeds = None
         if (weights_dir / "unet").is_dir():
-            from ..guidance.convert import load_guidance
+            from ..guidance.convert import load_guidance, load_guidance_xl
 
-            self.guidance, self.guidance_params, text_embed_fn = \
-                load_guidance(
-                    str(weights_dir), use_controlnet=g.use_controlnet,
-                    loss_type=g.sds_loss_type, weight_type=g.sds_weight_type,
-                    guidance_scale=g.guidance_scale,
-                    controlnet_scale=g.controlnet_scale,
-                    guidance_rescale=g.guidance_rescale, model=g.diffusion,
-                    lora_name=g.lora_name, lora_scale=g.lora_scale,
-                    concept_name=g.concept_name, device=self.device,
-                    dtype=dtype)
+            common = dict(
+                loss_type=g.sds_loss_type, weight_type=g.sds_weight_type,
+                guidance_scale=g.guidance_scale,
+                controlnet_scale=g.controlnet_scale,
+                guidance_rescale=g.guidance_rescale,
+                denoise_timesteps=g.denoise_timesteps,
+                use_controlnet=g.use_controlnet, lora_name=g.lora_name,
+                lora_scale=g.lora_scale, device=self.device, dtype=dtype)
             uncond = g.negative_text if g.use_negative_text else g.null_text
-            self.text_embeds = text_embed_fn(list(self.view_prompt.texts))
-            self.uncond_embeds = text_embed_fn([uncond])
+            if is_xl:
+                self.guidance, self.guidance_params, text_embed_fn = \
+                    load_guidance_xl(str(weights_dir), **common)
+                self.text_embeds, pooled_t = text_embed_fn(texts)
+                self.uncond_embeds, pooled_u = text_embed_fn([uncond])
+                # the view variants share the base prompt's pooled
+                # embedding (the view suffix lives in the context tokens)
+                self.guidance.pooled_text = pooled_t[:1]
+                self.guidance.pooled_uncond = pooled_u[:1]
+                if three_way:
+                    self.neg_embeds, _ = text_embed_fn([g.negative_text])
+            else:
+                self.guidance, self.guidance_params, text_embed_fn = \
+                    load_guidance(str(weights_dir), model=g.diffusion,
+                                  concept_name=g.concept_name, **common)
+                self.text_embeds = text_embed_fn(texts)
+                self.uncond_embeds = text_embed_fn([uncond])
+                if three_way:
+                    self.neg_embeds = text_embed_fn([g.negative_text])
         else:
             assert cfg.log.debug, (
                 f"guidance weights not found at {weights_dir} (a diffusers "
                 "model directory with unet/); pass --log.debug true")
             logger.warning("debug: using tiny randomly-initialized guidance")
-            from ..tests_support import tiny_guidance
+            if is_xl:
+                from ..tests_support import tiny_guidance_xl
 
-            self.guidance, self.guidance_params = tiny_guidance(
-                cfg.optim.seed, with_controlnet=g.use_controlnet,
-                device=self.device, dtype=dtype)
+                self.guidance, self.guidance_params, text_embed_fn = \
+                    tiny_guidance_xl(cfg.optim.seed, device=self.device,
+                                     dtype=dtype)
+                self.text_embeds, pooled_t = text_embed_fn(texts)
+                self.uncond_embeds, pooled_u = text_embed_fn([g.null_text])
+                self.guidance.pooled_text = pooled_t[:1]
+                self.guidance.pooled_uncond = pooled_u[:1]
+            else:
+                from ..tests_support import tiny_guidance
+
+                self.guidance, self.guidance_params = tiny_guidance(
+                    cfg.optim.seed, with_controlnet=g.use_controlnet,
+                    device=self.device, dtype=dtype)
+                D = self.guidance_params.unet.cfg.cross_attention_dim
+                self.text_embeds = torch.randn(
+                    (len(texts), 4, D), generator=self.generator,
+                    device=self.device) * 0.02
+                self.uncond_embeds = torch.zeros((1, 4, D),
+                                                 device=self.device)
             self.guidance.loss_type = g.sds_loss_type
             self.guidance.weight_type = g.sds_weight_type
             self.guidance.guidance_scale = g.guidance_scale
             self.guidance.guidance_rescale = g.guidance_rescale
-            D = self.guidance_params.unet.cfg.cross_attention_dim
-            V = len(self.view_prompt.texts)
-            self.text_embeds = torch.randn(
-                (V, 4, D), generator=self.generator,
-                device=self.device) * 0.02
-            self.uncond_embeds = torch.zeros((1, 4, D), device=self.device)
+            self.guidance.denoise_timesteps = g.denoise_timesteps
+            if three_way:
+                # the debug negative branch: a random context of the
+                # prompt's length (the JAX trainer's debug draw)
+                D = self.guidance_params.unet.cfg.cross_attention_dim
+                L = self.text_embeds.shape[1]
+                self.neg_embeds = torch.randn(
+                    (1, L, D), generator=self.generator,
+                    device=self.device) * 0.02
         self._cast_guidance_dtype()
         self.guidance.input_interpolate = g.input_interpolate
         from ..guidance.sds import build_pixel_grad_hook
@@ -503,12 +551,18 @@ class Trainer:
         self.cond_size = self.guidance.latent_size * vae_factor
 
     def _cast_guidance_dtype(self):
-        """The text embeddings in the guidance's compute type
-        (``guide.dtype``, bf16 by default); the UNet, ControlNet and VAE
-        are built in it."""
+        """The text embeddings (the negative branch's and the XL pooled
+        ones too) in the guidance's compute type (``guide.dtype``, bf16 by
+        default); the UNet, ControlNet and VAE are built in it."""
         dt = guidance_dtype(self.cfg.guide.dtype)
         self.text_embeds = self.text_embeds.to(dt)
         self.uncond_embeds = self.uncond_embeds.to(dt)
+        if self.neg_embeds is not None:
+            self.neg_embeds = self.neg_embeds.to(dt)
+        for name in ("pooled_text", "pooled_uncond"):
+            if getattr(self.guidance, name, None) is not None:
+                setattr(self.guidance, name,
+                        getattr(self.guidance, name).to(dt))
 
     def _canonical_keypoints(self) -> np.ndarray:
         return openpose_keypoints(
@@ -612,13 +666,14 @@ class Trainer:
             self.sds_step_fn = dmtet_trainer.make_dmtet_sds_step(
                 self.nerf, self.dmtet_model, self._tet_edges, self.guidance,
                 H, H, cfg.nerf, lambda_guidance=cfg.guide.lambda_guidance,
-                pgc=self.pgc, tile_size=r.tile_size,
+                neg_embeds=self.neg_embeds, pgc=self.pgc, tile_size=r.tile_size,
                 capacity=r.tile_capacity, chunk=r.chunk, device=self.device)
             return
         self.sds_step_fn = nerf_trainer.make_nerf_sds_step(
             self.nerf, self.guidance, H, H, cfg.nerf,
             num_steps=cfg.nerf.num_steps,
             lambda_guidance=cfg.guide.lambda_guidance,
+            neg_embeds=self.neg_embeds,
             lambda_sigma=cfg.lambda_sigma_sigma,
             sigma_peak=cfg.sigma_guidance_peak,
             sigma_loss_type=cfg.sigma_loss_type,
@@ -991,7 +1046,7 @@ class Trainer:
         kw = self._common_step_kwargs()
         if self.cfg.render.gs_type == "vanilla":
             make = gs_trainer.make_vanilla_sds_step
-        elif self.bg_state is not None:
+        elif self._split_step():
             # the trainable background's host: the split step (on the card
             # only then; the JAX trainer also takes it on a TPU without
             # --optim.fused_step)
@@ -1000,6 +1055,14 @@ class Trainer:
         else:
             make = gs_trainer.make_avatar_sds_step
         self.sds_step_fn = make(self.avatar_model, self.guidance, H, H, **kw)
+
+    def _split_step(self) -> bool:
+        """Whether the avatar trains through the split step: with the MLP
+        background, but for the x0 modes, whose pixel-space loss has no
+        latent gradient to split on; they take the fused step, and the
+        background then is not trained (the JAX trainer's routing)."""
+        return self.bg_state is not None \
+            and not self.cfg.guide.sds_loss_type.startswith("x0")
 
     # ------------------------------------------------------------------
     # data assembly (host side; the prefetch worker runs it)
@@ -1215,7 +1278,8 @@ class Trainer:
                     batch["text"], batch["uncond"], batch["t"],
                     generator=self.generator,
                     cond_image=batch["cond_image"],
-                    guidance_scale=batch["guidance_scale"])
+                    guidance_scale=batch["guidance_scale"],
+                    progress=batch["progress"])
             elif cfg.stage == "nerf":
                 self.grid = nerf_trainer.maybe_update_occupancy(
                     self.state, self.grid, self.nerf,
@@ -1239,7 +1303,8 @@ class Trainer:
                     generator=self.generator,
                     cond_image=batch["cond_image"],
                     guidance_scale=batch["guidance_scale"],
-                    sigma_pts=sigma_pts, use_sigma=use_sigma)
+                    sigma_pts=sigma_pts, use_sigma=use_sigma,
+                    progress=batch["progress"])
             else:
                 bg = self._bg_color().expand(self.train_res, self.train_res,
                                              3)
@@ -1249,8 +1314,9 @@ class Trainer:
                         batch["uncond"], batch["t"][:1])
                 kw = dict(cond_image=batch["cond_image"],
                           guidance_scale=batch["guidance_scale"],
-                          generator=self.generator)
-                if self.bg_state is not None:
+                          generator=self.generator,
+                          progress=batch["progress"])
+                if self._split_step():
                     self.state, self.bg_state, metrics = self.sds_step_fn(
                         *args, bg_state=self.bg_state, c2w=cam.c2w[0], **kw)
                 else:
@@ -1531,12 +1597,18 @@ class Trainer:
         g, gp = self.guidance, self.guidance_params
         if img.shape[-1] != 3:
             return
+        if g.loss_type.startswith("x0"):
+            # pixel-space: no latent gradient (the JAX trainer's snapshot
+            # fails on it and logs a warning)
+            logger.warning("grad_viz: the x0 modes have no latent gradient")
+            return
         latents = g.encode_images(gp, img[None].to(batch["text"].dtype))
         grad = g.latent_gradients(
             gp, latents, batch["text"][:1], batch["uncond"][:1],
             batch["t"][:1], cond_image=batch.get("cond_image"),
             guidance_scale=batch.get("guidance_scale"),
-            generator=self.generator)
+            generator=self.generator, neg_embeds=self.neg_embeds,
+            progress=batch.get("progress"))
         mag = torch.linalg.norm(grad[0], dim=-1)
         mag = mag / torch.clamp(mag.max(), min=1e-8)
         save_image(str(d / f"{self.train_step:06d}_gradmag.png"),

@@ -280,8 +280,8 @@ def test_load_guidance_round_trip(tmp_path):
     """``load_guidance`` over a diffusers-format directory written from the
     port's own tiny modules: every tensor back to the bit (the bf16 UNet's
     as bf16), the text embedding function equal to the tower on the
-    tokenizer's ids, the LoRA and concept merges applied, and the unported
-    cards refused."""
+    tokenizer's ids, the LoRA and concept merges applied, an SD2.x card
+    read under the same configs, and an unknown card refused."""
     vpath, mpath, n_vocab = _write_bpe(tmp_path)
     tcfg = TCT.tiny_text_config()._replace(vocab_size=n_vocab)
     _, gp = tts.tiny_guidance(3, with_controlnet=True, device="cpu")
@@ -321,7 +321,13 @@ def test_load_guidance_round_trip(tmp_path):
     assert not torch.equal(lgp2.unet.state_dict()[key],
                            lgp.unet.state_dict()[key])
     assert embed2(["a <sks>"]).shape == (1, tcfg.max_length, 32)
-    with pytest.raises(NotImplementedError, match="sd21"):
-        TCV.load_guidance(str(root), model="sd21", device="cpu")
+    # an SD2.x card reads the same directory under the tiny configs: v
+    # prediction, 96^2 latents, the ViT-H tokenizer's "!" padding
+    sd21, _, embed21 = TCV.load_guidance(
+        str(root), model="sd21", configs=dict(configs, latent_size=96),
+        device="cpu")
+    assert (sd21.prediction_type, sd21.latent_size) == ("v_prediction", 96)
+    tok.pad_id = 0
+    assert torch.equal(embed21(texts), clip(torch.as_tensor(tok(texts))))
     with pytest.raises(KeyError):
         TCV.load_guidance(str(root), model="sdxx", device="cpu")

@@ -68,8 +68,19 @@ def _close(got, want, tol=VAL_TOL):
     assert float(np.abs(got - want).max()) <= tol * peak
 
 
+# the csd family's annealed mix: the negative branch and the run's progress
+CSD = dict(loss_type="csd", progress=0.4)
+
+
 @pytest.fixture(scope="module")
 def case():
+    return _make_case()
+
+
+def _make_case(family=None):
+    """The JAX step's results and the port's twin inputs; ``family`` (e.g.
+    ``CSD``) sets the loss family and the step's ``progress``, with a
+    negative branch drawn here."""
     jnerf = JN.build_nerf(JNeRFConfig(**FIELD), with_background=False)
     params = jnerf.init(jax.random.PRNGKey(0))
     jdm, jdp, jedges = JDT.init_dmtet(jnerf, params, RES,
@@ -82,6 +93,14 @@ def case():
              unc=np.zeros((1, 4, 32), np.float32),
              t=np.array([500], np.int32),
              bg=np.asarray([0.2, 0.4, 0.6], np.float32))
+    fam = {}
+    if family is not None:
+        import dataclasses
+
+        jsd = dataclasses.replace(jsd, loss_type=family["loss_type"])
+        tsd = dataclasses.replace(tsd, loss_type=family["loss_type"])
+        x["neg"] = rng.normal(size=(1, 4, 32)).astype(np.float32)
+        fam = dict(neg_embeds=x["neg"], progress=family["progress"])
     key = jax.random.PRNGKey(3)
     k_light, k_sds = jax.random.split(key)
     x["light_noise"] = np.asarray(jax.random.normal(k_light, (3,)))
@@ -100,7 +119,7 @@ def case():
                                      jc.intrinsics[0], H, W,
                                      max_tiles_per_gaussian=8, **RASTER)
         img = out.image + (1.0 - out.alpha)[..., None] * x["bg"]
-        sds = jsd(jgp, img[None], x["txt"], x["unc"], x["t"], k_sds)
+        sds = jsd(jgp, img[None], x["txt"], x["unc"], x["t"], k_sds, **fam)
         nc = JD.soup_normal_consistency(soup)
         lap = JD.tet_laplacian_loss(
             jdm.verts + jnp.tanh(dp.deform) * jdm.deform_scale, jedges)
@@ -137,13 +156,15 @@ def case():
             TDT.build_dmtet_optimizer(tcfg, MAX_STEPS))
         step = TDT.make_dmtet_sds_step(
             tnerf, dm, T(np.asarray(jedges)), tsd, H, W, tcfg,
-            ambient_ratio=AMBIENT, device="cpu", **RASTER)
+            ambient_ratio=AMBIENT, device="cpu",
+            neg_embeds=T(x["neg"]) if "neg" in x else None, **RASTER)
         return tnerf, dm, tstate, step
 
     port = dict(fresh=fresh, gp=tgp, cam=(tc.extrinsic[0], tc.intrinsics[0],
                                           tc.c2w[0][:3, 3]),
                 c2w=tc.c2w[0], intr=tc.intrinsics[0],
-                x={k: T(v) for k, v in x.items()})
+                x={k: T(v) for k, v in x.items()},
+                progress=None if family is None else family["progress"])
     return jax_out, port
 
 
@@ -168,7 +189,8 @@ def _run(port, **cfg):
     launches = (BT.blend_train_fwd.launches, BT.blend_train_bwd.launches)
     new, metrics = step(tstate, port["gp"], *port["cam"], x["bg"], x["txt"],
                         x["unc"], x["t"], light_noise=x["light_noise"],
-                        noise=x["noise"], shading=SHADING)
+                        noise=x["noise"], shading=SHADING,
+                        progress=port["progress"])
     assert (BT.blend_train_fwd.launches,
             BT.blend_train_bwd.launches) == launches   # CPU: plain versions
     return tnerf, tstate, new, metrics
@@ -201,6 +223,12 @@ def test_dmtet_step_matches_jax(case):
     for (name, leaf, g), (_, _, want) in zip(grads, news):
         grad_close(name, leaf.grad.numpy(), g)
         update_close(name, leaf.detach().numpy(), want, g)
+
+
+def test_dmtet_step_csd_with_progress_matches_jax():
+    """The same step on the csd family's annealed mix: the constructor's
+    ``neg_embeds`` and the step's ``progress`` reach the guidance."""
+    test_dmtet_step_matches_jax(_make_case(CSD))
 
 
 def test_lock_geo_freezes_the_geometry(case):

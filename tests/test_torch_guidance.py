@@ -211,8 +211,13 @@ def test_sds_gradients_and_loss_match_jax(stacks, loss_type, weight_type,
 
 
 def test_unported_loss_families_raise():
+    """Every family of the JAX package constructs; a name outside them
+    raises."""
     from dreamwaltz_g_tpu_torch.guidance.sds import ScoreDistillation
 
     for lt in ("csd", "nfsd", "ism", "custom", "z0", "x0"):
+        ScoreDistillation(loss_type=lt, schedule=TT.make_schedule(
+            device="cpu"))
+    for lt in ("csd2", "x0-final", "SDS"):
         with pytest.raises(NotImplementedError):
             ScoreDistillation(loss_type=lt)

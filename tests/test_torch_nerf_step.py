@@ -120,7 +120,14 @@ def _field(cfg_fields):
     return jcfg, jmodel, params, grid, tmodel, tgrid
 
 
-def _make_case(name):
+# the csd family's annealed mix: the negative branch and the run's progress
+CSD = dict(loss_type="csd", progress=0.4)
+
+
+def _make_case(name, family=None):
+    """The case's JAX results and the port's twin inputs; ``family`` (e.g.
+    ``CSD``) sets the loss family and the step's ``progress``, with a
+    negative branch drawn here."""
     c = CASES[name]
     fields = dict(FIELD, detach_bg_weights_sum=c["detach"])
     jcfg, jmodel, params, grid, tmodel, tgrid = _field(fields)
@@ -140,6 +147,13 @@ def _make_case(name):
              unc=np.zeros((1, 4, 32), f32), t=np.array([600], np.int32),
              cond=rng.uniform(size=(1, H, W, 3)).astype(f32),
              bg=np.array([0.3, 0.5, 0.7], f32))
+    fam = {}
+    if family is not None:
+        import dataclasses
+
+        jsd = dataclasses.replace(jsd, loss_type=family["loss_type"])
+        x["neg"] = rng.normal(size=(1, 4, 32)).astype(f32)
+        fam = dict(neg_embeds=x["neg"], progress=family["progress"])
     key = jax.random.PRNGKey(3)
     k_render, k_sds, k_vs = jax.random.split(key, 3)
     b = jcfg.bound
@@ -172,7 +186,7 @@ def _make_case(name):
         if jpgc is not None:
             img = jpgc(img, jax.lax.stop_gradient(wsum)[..., None])
         sds = jsd(jgp, img[None], x["txt"], x["unc"], x["t"], k_sds,
-                  cond_image=x["cond"])
+                  cond_image=x["cond"], **fam)
         terms = jnp.sum(jnp.abs(jax.lax.stop_gradient(sds["latents"])
                                 * sds["gradients"]))
         loss = sds["loss"] + JLo.sparsity_loss(wsum.reshape(-1), jcfg, 0,
@@ -216,6 +230,8 @@ def _make_case(name):
 
     tsd, tgp = tts.tiny_guidance(1, with_controlnet=True, latent_size=LATENT,
                                  device="cpu")
+    if family is not None:
+        tsd.loss_type = family["loss_type"]
     convert.unet_from_flax(tgp.unet, trees["unet"])
     convert.vae_from_flax(tgp.vae, trees["vae"])
     convert.controlnet_from_flax(tgp.controlnet, trees["controlnet"])
@@ -235,7 +251,8 @@ def _make_case(name):
         tp_lr_weights=None if weights is None else T(
             TimePrioritizedLR(tsd.schedule).weights),
         pgc=None if c["hook"] is None else TS.build_pixel_grad_hook(
-            GuideConfig(**c["hook"])))
+            GuideConfig(**c["hook"])),
+        progress=None if family is None else family["progress"])
     return c, jax_out, port
 
 
@@ -284,12 +301,14 @@ def test_nerf_sds_step_matches_jax(case, monkeypatch):
     step = TT.make_nerf_sds_step(
         model, port["sd"], H, W, port["cfg"], num_steps=STEPS,
         max_iteration=MAX_IT, bg_mode="nerf", ray_chunk=c["ray_chunk"],
-        pgc=port["pgc"], tp_lr_weights=port["tp_lr_weights"], device="cpu")
+        pgc=port["pgc"], tp_lr_weights=port["tp_lr_weights"],
+        neg_embeds=port["x"].get("neg"), device="cpu")
     x = port["x"]
     new, metrics = step(tstate, port["grid"], port["gp"], *port["cam"],
                         x["bg"], x["txt"], x["unc"], x["t"],
                         cond_image=x["cond"], sigma_pts=port["sigma_pts"],
-                        use_sigma=True, **port["draws"])
+                        use_sigma=True, progress=port["progress"],
+                        **port["draws"])
     assert new.step == 1
     for k in ("loss", "sigma_loss"):
         np.testing.assert_allclose(float(metrics[k]), jax_out[k],
@@ -312,6 +331,13 @@ def test_nerf_sds_step_matches_jax(case, monkeypatch):
                                    np.asarray(want)[sure], rtol=1e-6,
                                    atol=1e-6, err_msg=name)
         assert not torch.equal(p.detach(), before[id(p)]), name
+
+
+def test_nerf_sds_step_csd_with_progress_matches_jax(monkeypatch):
+    """The "plain" case on the csd family's annealed mix: the constructor's
+    ``neg_embeds`` and the step's ``progress`` reach the guidance."""
+    test_nerf_sds_step_matches_jax(_make_case("plain", family=CSD),
+                                   monkeypatch)
 
 
 def test_pretrain_step_matches_jax():

@@ -78,9 +78,15 @@ def _np_tree(tree):
 HOOK = dict(grad_rgb_clip=True, grad_rgb_norm=True)
 
 
-def _make_case(guide_fields=None, flash=False):
+# the csd family's annealed mix: the negative branch and the run's progress
+CSD = dict(loss_type="csd", progress=0.4)
+
+
+def _make_case(guide_fields=None, flash=False, family=None):
     """The JAX step's results and the port's twin inputs; ``guide_fields``
-    selects the pixel-gradient hook of the JAX render. With ``flash`` the
+    selects the pixel-gradient hook of the JAX render; ``family`` (e.g.
+    ``CSD``) the loss family and the step's ``progress``, with a negative
+    branch drawn here. With ``flash`` the
     JAX step runs with ``FLASH_ATTENTION = "on"`` (the length gate at the
     tiny models' 256 tokens) through the interpreted TPU kernel; the
     guidance's Flax init runs outside that mode (an init run through the
@@ -113,6 +119,13 @@ def _make_case(guide_fields=None, flash=False):
         t=np.array([500], np.int32),
         cond=rng.uniform(size=(1, H, W, 3)).astype(f32),
         bg=rng.uniform(size=(H, W, 3)).astype(f32))
+    fam = {}
+    if family is not None:
+        import dataclasses
+
+        jsd = dataclasses.replace(jsd, loss_type=family["loss_type"])
+        inputs["neg"] = rng.normal(size=(1, 4, 32)).astype(f32)
+        fam = dict(neg_embeds=inputs["neg"], progress=family["progress"])
     key = jax.random.PRNGKey(3)
     k_noise, _ = jax.random.split(key)
     inputs["noise"] = np.asarray(jax.random.normal(
@@ -128,7 +141,7 @@ def _make_case(guide_fields=None, flash=False):
             jc.extrinsic[0], jc.intrinsics[0], jc.tanfov[0],
             jnp.asarray(inputs["bg"]), H, W, RASTER, pgc=jpgc)
         sds = jsd(jgp, image[None], inputs["txt"], inputs["unc"],
-                  inputs["t"], key, cond_image=inputs["cond"])
+                  inputs["t"], key, cond_image=inputs["cond"], **fam)
         return sds["loss"], (out.radii, out.alpha)
 
     old = (JL.FLASH_ATTENTION, JL.FLASH_MIN_SEQ)
@@ -155,6 +168,8 @@ def _make_case(guide_fields=None, flash=False):
     tset = tts.tiny_avatar_setup(device="cpu")
     tsd, tgp = tts.tiny_guidance(1, with_controlnet=True, latent_size=LATENT,
                                  device="cpu")
+    if family is not None:
+        tsd.loss_type = family["loss_type"]
     convert.unet_from_flax(tgp.unet, trees["unet"])
     convert.vae_from_flax(tgp.vae, trees["vae"])
     convert.controlnet_from_flax(tgp.controlnet, trees["controlnet"])
@@ -165,7 +180,8 @@ def _make_case(guide_fields=None, flash=False):
                 cam=(tc.extrinsic[0], tc.intrinsics[0], tc.tanfov[0]),
                 inputs={k: T(v) for k, v in inputs.items()},
                 fresh=lambda: avatar_state_from_numpy(tree, tset.model,
-                                                      device="cpu"))
+                                                      device="cpu"),
+                progress=None if family is None else family["progress"])
     return jax_out, port
 
 
@@ -255,6 +271,13 @@ def test_sds_step_matches_jax(case):
     _check_step(*case)
 
 
+def test_sds_step_csd_with_progress_matches_jax():
+    """The same step on the csd family's annealed three-term mix: the
+    constructor's ``neg_embeds`` and the step's ``progress`` reach the
+    guidance (the JAX step's loss takes both)."""
+    _check_step(*_make_case(family=CSD))
+
+
 def test_sds_step_with_flash_and_pixel_hook_matches_jax(flash_case,
                                                         monkeypatch):
     """The same, with ``pgc`` set and ``FLASH_ATTENTION = "on"`` on both
@@ -284,11 +307,13 @@ def _check_step(jax_out, port, pgc=None):
     tx = TO.build_avatar_optimizer(RenderConfig(), MAX_STEPS)
     tstate = TG.init_avatar_train_state(port["fresh"](), tx, model)
     step = TG.make_avatar_sds_step(model, port["sd"], H, W, pgc=pgc,
-                                   device="cpu", **RASTER)
+                                   neg_embeds=x.get("neg"), device="cpu",
+                                   **RASTER)
     launches = (BT.blend_train_fwd.launches, BT.blend_train_bwd.launches)
     new, metrics = step(tstate, port["gp"], port["observed"], *port["cam"],
                         x["bg"], x["txt"], x["unc"], x["t"],
-                        noise=x["noise"], cond_image=x["cond"])
+                        noise=x["noise"], cond_image=x["cond"],
+                        progress=port["progress"])
     assert (BT.blend_train_fwd.launches,
             BT.blend_train_bwd.launches) == launches   # CPU: plain versions
     assert new.step == 1 and tstate.opt_state.count == 1

@@ -241,9 +241,10 @@ def test_train_batch_matches_jax(tmp_path, stage):
 def test_unported_paths_refuse(tmp_path, flags):
     """Each path the port does not have raises at construction, also in
     the multi-prompt batch, which names the prompts that failed. The scene
-    options and the grid backbones are ported: their flags pass the
-    check (the CLI tests of ``test_torch_scene.py`` and
-    ``test_torch_grid.py`` run them)."""
+    options, the grid backbones and the SDXL card are ported: their flags
+    pass the check (the CLI tests of ``test_torch_scene.py``,
+    ``test_torch_grid.py`` and ``test_torch_guidance_cli.py`` run
+    them)."""
     from dreamwaltz_g_tpu_torch.main import main
     from dreamwaltz_g_tpu_torch.training.trainer import Trainer
 
@@ -252,7 +253,7 @@ def test_unported_paths_refuse(tmp_path, flags):
             "--log.snapshot_interval", "0", "--log.evaluate_interval", "0"]
     if flags[0] in ("--nerf.backbone", "--render.use_gs_background",
                     "--render.avatar_scale", "--render.use_mlp_background",
-                    "--optim.ckpt_extra"):
+                    "--optim.ckpt_extra", "--guide.diffusion"):
         tr = Trainer.__new__(Trainer)
         tr.cfg = parse_args(base + flags)
         tr._refuse_unported()
