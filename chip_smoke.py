@@ -32,11 +32,15 @@ Phases, one JSON line each:
                    (through ``_blend_dispatch(mode="eval")``) against their
                    plain versions, each kernel's device ms alone (with its
                    launches' median, min and max) and build facts, and the
-                   per-tile work as for B2;
-10. kernel_flash -- flash attention (B4) forward at the sixteen shapes the
+                   per-tile work as for B2; then ``kernel_train_views``: B1
+                   forward and backward at V = 4 views (the avatar at four
+                   cameras, 4 x 256 tiles, K = 1024: the multi-view step's
+                   one launch each) against their plain versions, with
+                   their ms, device ms alone, plain ms and bounds;
+10. kernel_flash -- flash attention (B4) forward at the nineteen shapes the
                    training paths give it (bf16, and float32 for the tiny
                    step and the float32-guidance step), and backward at the
-                   six that are differentiated, against the plain versions;
+                   seven that are differentiated, against the plain versions;
 11. small_train -- one SDS step of the tiny avatar, with its mesh part,
                    and the tiny guidance with its ControlNet, attention
                    through flash (``FLASH_ATTENTION = "on"``) and the
@@ -115,7 +119,8 @@ Phases, one JSON line each:
                    with random weights in diffusers layout, written to a
                    temporary directory, and a field fitted to the body
                    standing in for step 1.1's output; 3 steps each,
-                   the last of each run profiled; counts set to 0 before
+                   the last of 2.1's and 2.3's runs profiled (stage 1's
+                   breakdown is ``nerf_profile``'s); counts set to 0 before
                    each run and read after it (flash (15, 1) a step, the
                    table blends (0, 0) in stage 1 and (1, 1) in stage 2);
                    losses, s/step, peak memory, busy share, the device ms
@@ -145,7 +150,7 @@ Phases, one JSON line each:
                    from step 1.2's field for 3 steps (B1 forward and
                    backward once a step; the frozen field unchanged),
                    ``--log.check --log.check_sd`` on step 2.3's avatar
-                   (the condition images and the 25-step DDIM samples;
+                   (the condition images and the 10-step DDIM samples;
                    flash forwards equal to the models' structural count,
                    no backward) and ``--log.nerf2mesh`` on step 1.2's field
                    at resolution 128 (an OBJ with valid indices, its
@@ -166,9 +171,10 @@ Phases, one JSON line each:
                    composition), a grid backbone and a converted reference
                    avatar, through the CLI at full width;
 25. cli_guidance -- the guidance's other loss families and denoise modes
-                   through the CLI with the SD1.5 card: 3 stage-2 steps of
-                   each of custom, csd, nfsd, ism, z0, z0_final, x0 and
-                   x0_final from step 2.1's avatar, a stage-1 csd run and a
+                   through the CLI with the SD1.5 card: stage-2 steps of
+                   each of custom (3, the last profiled), csd, nfsd, ism,
+                   z0, z0_final, x0 and x0_final (2 each) from step 2.1's
+                   avatar, a stage-1 csd run and a
                    DMTet nfsd run; flash launches a step against the
                    family's structural count from each step's own
                    timestep (no backward for the x0 modes), finite nonzero
@@ -179,9 +185,20 @@ Phases, one JSON line each:
                    card's diffusers directory written in float16 and
                    removed after its run, 3 stage-2 steps (the last
                    profiled by range), one eval frame, flash launches a
-                   step from the card's structure, peak memory.
+                   step from the card's structure, peak memory;
+27. cli_multiview -- multi-view SDS (``--optim.batch_size 4``) through the
+                   CLI at full width: the hybrid avatar with a pose a view
+                   (3 steps, the last profiled), the MLP background, the
+                   vanilla avatar and stage 1 (2 steps each), each beside
+                   the same configuration's s/step at one view (steps 2.3's
+                   and 1.2's runs of phase 20, else its own 2-step run); finite
+                   losses, every optimizer group's gradient finite and
+                   nonzero, B1 (1, 1) a stage-2 step at V = 4, flash (15, 1)
+                   a step with the UNet's and the ControlNet's at the CFG
+                   batch 8 and the VAE's D = 512 forward and backward at
+                   batch 4; s/step, peak memory and the one-view s/step.
 
-The flash shapes of phases 25 and 26 (the single-branch passes at batch 1,
+The flash shapes of phases 25, 26 and 27 (the single-branch passes at batch 1,
 SDXL's and SD2.1-768's UNet levels and VAE mid blocks) are held against
 the plain versions and timed with the others (phases 10 and 14).
 
@@ -285,7 +302,9 @@ TOL_STATS_FLIPS = 5e-3
 # ``cli_cards``): the single-branch passes of csd / nfsd / ISM at SD1.5's
 # two shapes, SDXL's UNet and ControlNet at 64^2 and 32^2 (64-wide heads)
 # and its VAE mid block at a 1024^2 render, SD2.1-768's UNet at 96^2 and
-# 48^2 and its VAE mid block at a 768^2 render
+# 48^2 and its VAE mid block at a 768^2 render; then the multi-view step's
+# (phase ``cli_multiview``, 4 views): the UNet and ControlNet at the CFG
+# batch 8, the VAE mid block at batch 4, differentiated
 FLASH_SHAPES = (((2, 4096, 8, 40), "bf16", False),
                 ((2, 1024, 8, 80), "bf16", False),
                 ((1, 4096, 1, 512), "bf16", True),
@@ -301,7 +320,10 @@ FLASH_SHAPES = (((2, 4096, 8, 40), "bf16", False),
                 ((1, 16384, 1, 512), "bf16", True),
                 ((2, 9216, 5, 64), "bf16", False),
                 ((2, 2304, 10, 64), "bf16", False),
-                ((1, 9216, 1, 512), "bf16", True))
+                ((1, 9216, 1, 512), "bf16", True),
+                ((8, 4096, 8, 40), "bf16", False),
+                ((8, 1024, 8, 80), "bf16", False),
+                ((4, 4096, 1, 512), "bf16", True))
 # kernel vs plain version (float32 scores) on the same card inputs.
 # float32: 1e-5 absolute on the output, 1e-4 of each gradient's largest
 # entry, the JAX package's own for its TPU kernel. bf16: the kernel rounds
@@ -765,6 +787,79 @@ def compare_train_blend(label, args, values, tiles_x, build):
         fail(f"{label}: blend_tiles_eval disagrees with its plain version")
     return (max(e_fwd[0], e_fwd[1]), errs_bwd["max_abs_err_bwd"], e_eval,
             stats, alone)
+
+
+def compare_train_blend_views(label, args, tiles_x):
+    """B1 forward and backward at V views (one launch each, as the
+    multi-view step makes them) against their plain versions on the same
+    card inputs, as ``compare_train_blend`` holds one view: the forward
+    under both stop rules, the backward through ``hold_bwd``. Returns
+    {kernel: dict(ms, plain_ms, kernel_ms alone, bound, ...)} and the
+    worst forward and backward errors."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.ops import blend_train as BT
+    from dreamwaltz_g_tpu_torch.ops.blend import _tile, _untile
+
+    tl, tc, packed = args
+    V = tl.shape[0]
+    ts, chunk = TRAIN_RASTER["tile_size"], TRAIN_RASTER["chunk"]
+    kw = dict(chunk=chunk)
+    out, saved = BT.blend_train_fwd(tl, tc, packed, ts, tiles_x, **kw)
+    stats = {}
+    ref, ckpt = BT.blend_tiles_train_reference_fwd(
+        tl, tc, packed, ts, tiles_x, stats=stats, **kw)
+    ref_px, _ = BT.blend_tiles_train_reference_fwd(
+        tl, tc, packed, ts, tiles_x, stop="pixel", **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{label}: blend_train_fwd output not finite")
+    dmax = float(packed[..., 11].abs().max())    # the depth lane
+    got = _untile(out, 5, TRAIN_H, TRAIN_W, ts)
+    e_fwd = [0.0, 0.0, 0.0]
+    for r in (ref, ref_px):
+        err = (got - _untile(r, 5, TRAIN_H, TRAIN_W, ts)).abs()
+        e_fwd = [max(e_fwd[0], float(err[..., :3].max())),
+                 max(e_fwd[1], float(err[..., 4].max())),
+                 max(e_fwd[2], float(err[..., 3].max()))]
+    gen = torch.Generator(device=out.device).manual_seed(SEED)
+    g = _tile(torch.randn((V, TRAIN_H, TRAIN_W, 5), generator=gen,
+                          device=out.device), ts)
+    d = BT.blend_train_bwd(tl, tc, packed, saved, g, ts, tiles_x, **kw)
+    torch.cuda.synchronize()
+    errs_bwd = hold_bwd(label, tl, tc, packed, d, g, ts, tiles_x, **kw)
+    stats.update(tile_work(tl, tc, packed, ts, tiles_x, stats["reached"]))
+    bounds = table_bounds(args, stats)
+    fwd_call = lambda: BT.blend_train_fwd(tl, tc, packed, ts, tiles_x, **kw)
+    bwd_call = lambda: BT.blend_train_bwd(tl, tc, packed, saved, g, ts,
+                                          tiles_x, **kw)
+    rows = {}
+    for name, call, plain, pattern in (
+            ("blend_train_fwd", fwd_call,
+             lambda: BT.blend_tiles_train_reference_fwd(
+                 tl, tc, packed, ts, tiles_x, **kw), "blend_fwd_kernel<true>"),
+            ("blend_train_bwd", bwd_call,
+             lambda: BT.blend_tiles_train_reference_bwd(
+                 tl, tc, packed, ckpt, g, ts, tiles_x, **kw), "blend_bwd")):
+        rows[name] = dict(
+            views=V, tiles=int(tl.shape[1]), K=int(tl.shape[2]),
+            ms=cuda_ms(call, 10),
+            kernel_ms=named_ms(kernel_device_ms(call, 10)[1], pattern),
+            plain_ms=cuda_ms(plain, 2), bound=bounds[name])
+    emit(phase="kernel_train_views", input=label, views=V,
+         max_abs_err_fwd_rgb=e_fwd[0], max_abs_err_fwd_alpha=e_fwd[1],
+         max_abs_err_fwd_depth=e_fwd[2], max_depth=dmax, **errs_bwd,
+         tol_rgb_alpha=TOL_RGB_ALPHA, tol_depth=TOL_DEPTH_REL * dmax,
+         grad_rtol=GRAD_RTOL, grad_atol_of_max=GRAD_ATOL_OF_MAX,
+         pairs=stats["pairs"], blended_pairs=stats["blended"],
+         entries=int(tc.sum()), rows=rows,
+         **{k: v for k, v in stats.items() if k not in ("pairs", "blended",
+                                                         "reached")})
+    if max(e_fwd[0], e_fwd[1]) > TOL_RGB_ALPHA or \
+            e_fwd[2] > TOL_DEPTH_REL * dmax:
+        fail(f"{label}: blend_train_fwd disagrees with its plain version")
+    check_bwd(label, errs_bwd)
+    return rows, max(e_fwd[0], e_fwd[1]), errs_bwd["max_abs_err_bwd"]
 
 
 def cull_ops_ms(stats, ops_per_blended):
@@ -1947,6 +2042,9 @@ CLI_RANGES = (("trainer.batch", "batch_build"),
               ("trainer.condition", "condition_render"),
               ("trainer.step", "step"))
 CLI_SEQUENTIAL_STEPS = 1
+# the steps whose run profiles nothing: stage 1's step breakdown is phase
+# nerf_profile's, and its profiled CLI step cost ~35 s of host time
+CLI_UNPROFILED = ("1.2",)
 # the steps whose short run without the prefetch worker follows their run
 CLI_SEQUENTIAL = ("2.3",)
 TEMPLATE_FIT_STEPS = 300
@@ -2107,7 +2205,7 @@ def cli_launches_per_step(stage2):
 
 
 def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
-            stage_ranges=None):
+            stage_ranges=None, with_profile=True):
     """One run of the port's CLI as ``dreamwaltz_g_tpu_torch.main.run``
     makes it: ``Trainer(parse_args(argv))``, ``check(trainer)`` when given,
     then ``train``, with the counts set to 0 just before the trainer is
@@ -2119,9 +2217,9 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
     (torch.profiler's schedule, stepped by ``on_step``), its launches
     counted apart, and then one batch build is profiled on the main
     thread; ``prefetch=False`` trains with each batch built on the main
-    thread before its step and profiles nothing. ``stage_ranges``: the
-    step's own ranges (the stage's default step's when None). Returns its
-    fields."""
+    thread before its step and profiles nothing; ``with_profile=False``
+    keeps the worker and profiles nothing. ``stage_ranges``: the step's own
+    ranges (the stage's default step's when None). Returns its fields."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2149,12 +2247,13 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
                     stage_host_ms=host_ms, named_kernels_ms=named)
 
     events, window = {}, {}
+    profiled = prefetch and with_profile
 
     def on_step(k):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events[k] = ev
-        if not prefetch:
+        if not profiled:
             return
         if k == n_steps - 1:       # the profiled step starts
             torch.cuda.synchronize()
@@ -2188,7 +2287,7 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
                               repeat=1),
             on_trace_ready=lambda p: window.update(
                 line=profile_line(p, window["wall"]))) \
-            if prefetch else contextlib.nullcontext()
+            if profiled else contextlib.nullcontext()
         t0 = time.perf_counter()
         with profiler as prof:
             trainer.train(on_step=on_step, prefetch=prefetch)
@@ -2203,10 +2302,13 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
     line["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     line["steps"] = trainer.train_step
     line["loss"] = list(trainer.losses)
-    last = n_steps - 1 if prefetch else n_steps
+    last = n_steps - 1 if profiled else n_steps
     line["s_per_step"] = None if last < 2 else \
         events[1].elapsed_time(events[last]) / 1e3 / (last - 1)
-    if prefetch:
+    # each timed step's own s, from step 2
+    line["step_s"] = [events[k - 1].elapsed_time(events[k]) / 1e3
+                      for k in range(2, last + 1)]
+    if profiled:
         line["profiled_step"] = dict(step=n_steps,
                                      launches=window["launches"],
                                      **window["line"])
@@ -2228,7 +2330,8 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
     in diffusers layout (both written to a temporary directory the phase
     deletes; step 1.2 warm-starts from a field fitted to the body, standing
     in for step 1.1's output), each run with its script arguments plus
-    ``--optim.iters N`` and a save interval of N, then, for the steps of
+    ``--optim.iters N`` and a save interval of N (the last step profiled
+    but in ``CLI_UNPROFILED``'s runs), then, for the steps of
     ``CLI_SEQUENTIAL``, a short run of the same step without the prefetch
     worker (its own experiment directory, ``CLI_SEQUENTIAL_STEPS`` + 1
     steps). Checks: finite losses,
@@ -2238,7 +2341,7 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
     of step 2.3 equal to step 2.1's last checkpoint to every bit. Returns
     the runs' launches and, from phase ``cli_inference`` (run after these
     checks in the same directory), its runs' launches, and those of the
-    phases ``cli_modes`` and ``cli_geometry`` after it."""
+    phases after it."""
     import gc
     import shutil
     import tempfile
@@ -2347,7 +2450,8 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
         for step in CLI_STEPS:
             runs[step] = cli_run(step, argv(step, *args[step]),
                                  CLI_STEPS[step], kernel_fns,
-                                 check=checks.get(step))
+                                 check=checks.get(step),
+                                 with_profile=step not in CLI_UNPROFILED)
             free()
             if step not in CLI_SEQUENTIAL:
                 continue
@@ -2378,12 +2482,16 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
         guidance = cli_guidance(dev, card, kernel_fns, tmp, argv, args, exp)
         free()
         cards = cli_cards(dev, card, kernel_fns, tmp, argv, args, exp)
+        free()
+        multiview = cli_multiview(dev, card, kernel_fns, tmp, argv, args,
+                                  exp, {"hybrid": runs["2.3"],
+                                        "nerf": runs["1.2"]})
     finally:
         (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS, paths.DEMO_MOTIONS,
          paths.MOTIONX_REENACT_ROOT) = old_paths
         shutil.rmtree(tmp, ignore_errors=True)
     return {step: line["launches"] for step, line in runs.items()}, \
-        inference, modes, geometry, scene, guidance, cards
+        inference, modes, geometry, scene, guidance, cards, multiview
 
 
 def check_two_stage(card, runs, handoff, warm, sequential):
@@ -2854,7 +2962,7 @@ def expected_check_sd_launches(gparams, latent, steps, n_control, n_plain):
 
 
 MODES_STEPS = 3     # pretrain and nerf2gs steps in phase cli_modes
-CHECK_SD_STEPS = 25  # DDIM steps of each check_sd sample in phase cli_modes
+CHECK_SD_STEPS = 10  # DDIM steps of each check_sd sample in phase cli_modes
 
 
 def obj_stats(path):
@@ -2887,7 +2995,8 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
     a checkpoint written, finite losses, the field moved, no kernel
     launched; then a stage-1 ``Trainer`` warm-started from it
     (``--optim.ckpt``, step 1.1's flag) holds its parameters to every bit.
-    (b) ``--log.nerf2gs`` from step 1.2's field for ``MODES_STEPS`` steps:
+    (b) ``--log.nerf2gs`` from step 1.2's field for ``MODES_STEPS`` steps
+    (step 2.1's arguments without the LBS smoothing):
     B1 forward and backward once a step, nothing else; finite losses; the
     frozen field equal to its checkpoint to every bit; the avatar moved;
     the field's target render timed beside the step.
@@ -2916,6 +3025,10 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
     from dreamwaltz_g_tpu_torch.utils.media import load_image
 
     out = tmp / "outputs"
+    # step 2.1's arguments without the LBS smoothing (10 s a construction,
+    # held by cli_two_stage's 2.1 run)
+    args = dict(args, **{"2.1": args["2.1"] + (
+        "--render.lbs_weight_smooth", "false")})
     quiet = {k: 0 for k in kernel_fns}
 
     def free():
@@ -3154,7 +3267,8 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
     memory (its checkpointed chunks, forward and backward); then a resumed
     construction whose restored field, sdf, deform and optimizers equal the
     checkpoint to the bit, and one eval frame (B1's forward, no backward).
-    (b) vanilla: step 2.1's arguments + ``--render.gs_type vanilla`` with
+    (b) vanilla: step 2.1's arguments (without the LBS smoothing, as in
+    (c)) + ``--render.gs_type vanilla`` with
     densification at step 2 and the opacity reset at step 3 (grad threshold
     ``VANILLA_GRAD_THRESHOLD``); then ``--log.eval_only --optim.resume``
     over ``VANILLA_EVAL_FRAMES`` 1024^2 frames of step 3's scene (B2 once a
@@ -3183,6 +3297,10 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
     )
 
     out = tmp / "outputs"
+    # step 2.1's arguments without the LBS smoothing (10 s a construction,
+    # held by cli_two_stage's 2.1 run)
+    args = dict(args, **{"2.1": args["2.1"] + (
+        "--render.lbs_weight_smooth", "false")})
     n = GEOMETRY_STEPS
     quiet = {k: 0 for k in kernel_fns}
     per_step = cli_launches_per_step(True)
@@ -3806,8 +3924,8 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
 GUIDANCE_STEPS = 3        # steps of a profiled run (cli_guidance, cli_cards)
 # the families whose last step phase cli_guidance profiles; the others, and
 # its stage-1 and DMTet runs, train 2 steps without the prefetch worker and
-# unprofiled (a stage-1 step's profile takes ~30 s of host time)
-GUIDANCE_PROFILED = ("custom", "ism")
+# unprofiled (a stage-1 step's profile takes ~30 s of host time, ISM's ~20)
+GUIDANCE_PROFILED = ("custom",)
 SHORT_STEPS = 2
 GUIDANCE_FAMILIES = ("custom", "csd", "nfsd", "ism", "z0", "z0_final", "x0",
                      "x0_final")
@@ -4208,6 +4326,227 @@ def cli_cards(dev, card, kernel_fns, tmp, argv, args, exp):
     return runs
 
 
+MV_BATCH = 4              # --optim.batch_size of phase cli_multiview
+MV_STEPS = 3              # its hybrid run's steps, the last profiled
+MV_SHORT_STEPS = 2        # its other runs', and each run's B = 1 twin's
+# the optimizer groups a run's step does not reach by design: the vanilla
+# avatar's higher SH bands (the multi-view step renders the DC colors, as
+# the JAX DP step does), and the field's background MLP under step 1.2's
+# --nerf.bg_mode gray (a constant colour is composited)
+MV_UNREACHED = {"vanilla": {"rest"}, "nerf": {"bg"}}
+DP_STAGE_RANGES = (("dp_step.render", "animate_project"),
+                   ("rasterize.bin", "bin"),
+                   ("rasterize.blend", "blend_fwd_b1"),
+                   ("dp_step.guidance", "sds_loss"),
+                   ("sds.encode_images", "vae_encode"),
+                   ("sds.latent_gradients", "controlnet_unet_cfg"),
+                   ("sds.denoise", "denoise_cfg"),
+                   ("sds.decode", "vae_decode"),
+                   ("dp_step.backward", "backward"),
+                   ("dp_step.optimizer_stats", "optimizer_stats"))
+
+
+def launch_recorder(seen):
+    """Wrap the blend and flash libraries' launch functions
+    (``ops.blend_train._launch``, ``guidance.flash._launch``, which the
+    wrappers call once a launch and which count nothing) so that each
+    launch appends (kernel, the leading dimension of its first operand:
+    the views of a table blend, the batch of a flash call, and a flash
+    call's head dimension). Returns the function that restores them."""
+    from dreamwaltz_g_tpu_torch.guidance import flash as FL
+    from dreamwaltz_g_tpu_torch.ops import blend_train as BT
+
+    bt, fl = BT._launch, FL._launch
+
+    def bt_launch(fn_name, *args):
+        seen.append((fn_name, int(args[0].shape[0]), None))
+        return bt(fn_name, *args)
+
+    def fl_launch(fn_name, dev, *args):
+        seen.append((fn_name, int(args[0].shape[0]), int(args[0].shape[-1])))
+        return fl(fn_name, dev, *args)
+
+    BT._launch, FL._launch = bt_launch, fl_launch
+
+    def restore():
+        BT._launch, FL._launch = bt, fl
+    return restore
+
+
+def group_grads(tr):
+    """{optimizer group: [largest |gradient|, all finite]} after the
+    trainer's last step: the avatar's Adam groups, the field's groups, the
+    MLP background's weights as "background"."""
+    if tr.cfg.stage == "gs":
+        groups = {g["name"]: g["params"]
+                  for g in tr.state.opt_state.adam.param_groups}
+    else:
+        groups = {k: v[0] for k, v in tr.state.opt_state.groups.items()}
+    if tr.bg_net is not None:
+        groups["background"] = list(tr.bg_net.parameters())
+    out = {}
+    for name, params in groups.items():
+        grads = [p.grad for p in params if p.grad is not None]
+        out[name] = [max((float(g.abs().max()) for g in grads), default=0.0),
+                     all(bool(g.isfinite().all()) for g in grads)]
+    return out
+
+
+def cli_multiview(dev, card, kernel_fns, tmp, argv, args, exp, b1_runs):
+    """Phase ``cli_multiview``, in ``cli_two_stage``'s directory after
+    ``cli_cards``: multi-view SDS (``--optim.batch_size MV_BATCH``) through
+    the port's CLI at the full width of ``scripts/train_w_expr.sh`` with
+    the SD1.5 card and the default triplane field, each run with the
+    counts set to 0 just before it and read just after.
+
+    (a) Stage 2, hybrid avatar, step 2.3's arguments (512^2) with
+    ``--data.per_view_poses true``: ``MV_STEPS`` steps, the last profiled
+    by the multi-view step's ranges. (b) The same with
+    ``--render.use_mlp_background true``, (c) ``--render.gs_type vanilla``
+    from step 1.2's field (2.1's arguments without the LBS-weight
+    smoothing), (d) stage 1 with step 1.2's arguments (512^2),
+    each ``MV_SHORT_STEPS`` steps. Each configuration's B = 1 step stands
+    beside the B-view one, step 2 of each (``b1_step2_s``; step 2 / B is
+    the per-view cost of a B-view step, printed, not claimed): from
+    ``b1_runs``' lines where the phase before ran the same configuration
+    (step 2.3's and 1.2's runs of ``cli_two_stage``), else from its own
+    ``MV_SHORT_STEPS``-step run.
+
+    Checks, per B-view run: finite losses; every optimizer group's
+    gradient finite and nonzero (but ``MV_UNREACHED``'s); B1 one forward and
+    one backward launch a stage-2 step, each at V = MV_BATCH views; B4
+    forward launches a step equal ``expected_flash_launches``, those of the
+    UNet and the ControlNet at the CFG batch 2 x MV_BATCH, the VAE's D =
+    512 forward and backward at MV_BATCH. Returns each run's launches."""
+    import gc
+    from collections import Counter
+
+    import torch
+
+    B = MV_BATCH
+    runs, lines = {}, {}
+    # each run's arguments for n steps into experiment ``name``
+    configs = {
+        "hybrid": (lambda n, name: argv("2.3", *args["2.3"], n=n, name=name)
+                   + ["--data.per_view_poses", "true"], MV_STEPS, True),
+        "mlp_background": (lambda n, name: argv(
+            "2.3", *args["2.3"], n=n, name=name)
+            + ["--render.use_mlp_background", "true"], MV_SHORT_STEPS,
+            False),
+        # without 2.1's LBS-weight smoothing (10 s of each construction)
+        "vanilla": (lambda n, name: argv("2.1", *args["2.1"], n=n, name=name)
+                    + ["--render.gs_type", "vanilla",
+                       "--render.lbs_weight_smooth", "false"],
+                    MV_SHORT_STEPS, False),
+        "nerf": (lambda n, name: argv("1.2", *args["1.2"], n=n, name=name),
+                 MV_SHORT_STEPS, False)}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    for run, (run_argv, n, profiled) in configs.items():
+        t_run = time.perf_counter()
+        stage2 = run != "nerf"
+        seen, box = [], {}
+        restore = launch_recorder(seen)
+        try:
+            line = cli_run(
+                f"multiview_{run}", run_argv(n, f"multiview/{run}")
+                + ["--optim.batch_size", str(B)], n, kernel_fns,
+                check=lambda tr: box.update(tr=tr), prefetch=profiled,
+                stage_ranges=DP_STAGE_RANGES if stage2 else None)
+        finally:
+            restore()
+        tr = box.pop("tr")
+        gp, latent = tr.guidance_params, tr.guidance.latent_size
+        line.update(batch_size=B, step_fn=tr.sds_step_fn.__qualname__,
+                    group_grads=group_grads(tr),
+                    flash_per_step_expected=list(expected_flash_launches(
+                        gp, latent)),
+                    flash_cfg_per_step=flash_unet_launches(
+                        gp, latent, 1 if gp.controlnet is None else 2),
+                    vae_flash=[vae_flash_launches(gp, latent),
+                               gp.vae.cfg.block_out_channels[-1]],
+                    launch_shapes=sorted(
+                        [list(k) + [v] for k, v in Counter(seen).items()],
+                        key=str))
+        tr = None
+        free()
+        # the same configuration at one view
+        one = b1_runs.get(run)
+        if one is None:
+            one = cli_run(f"multiview_{run}_b1",
+                          run_argv(MV_SHORT_STEPS, f"multiview/{run}-b1")
+                          + ["--optim.batch_size", "1"], MV_SHORT_STEPS,
+                          kernel_fns, prefetch=False)
+            free()
+            runs[run] = {k: line["launches"][k] + one["launches"][k]
+                         for k in line["launches"]}
+        else:
+            runs[run] = dict(line["launches"])
+        line["b1"] = {k: one[k] for k in ("s_per_step", "step_s",
+                                          "peak_mem_gib", "loss",
+                                          "launches")}
+        line["b1"]["own_run"] = run not in b1_runs
+        # the same step of both runs (the B-view run times step 2 alone)
+        line["b1_step2_s"] = one["step_s"][0]
+        line["s_per_view_at_b"] = line["step_s"][0] / B
+        line["wall_s_with_b1"] = time.perf_counter() - t_run
+        lines[run] = line
+    phase_s = time.perf_counter() - t_phase
+    for run, line in lines.items():
+        emit(phase="cli_multiview", run=run, phase_s=phase_s, **line, **card)
+    for run, line in lines.items():
+        stage2 = run != "nerf"
+        n = line["steps"]
+        fwd, bwd = line["flash_per_step_expected"]
+        cfg_per_step = line["flash_cfg_per_step"]
+        vae, d_vae = line["vae_flash"]
+        shapes = {(k, b, d): c for k, b, d, c in line["launch_shapes"]}
+        if n != len(line["loss"]) or not all(math.isfinite(x)
+                                             for x in line["loss"]):
+            fail(f"cli_multiview {run}: {n} steps, losses {line['loss']}")
+        bad = {g: v for g, v in line["group_grads"].items()
+               if not v[1] or (v[0] <= 0.0
+                               and g not in MV_UNREACHED.get(run, ()))}
+        if bad:
+            fail(f"cli_multiview {run}: group gradients {bad}")
+        want_blend = {("blend_train_fwd_f32", B, None): n,
+                      ("blend_train_bwd_f32", B, None): n} if stage2 else {}
+        got_blend = {k: c for k, c in shapes.items()
+                     if k[0].startswith("blend")}
+        if got_blend != want_blend:
+            fail(f"cli_multiview {run}: table blend launches {got_blend}, "
+                 f"expected {want_blend}")
+        f_fwd = sum(c for k, c in shapes.items() if k[0] == "flash_attn_fwd")
+        f_bwd = sum(c for k, c in shapes.items() if k[0] == "flash_attn_bwd")
+        cfg_batch = sum(c for k, c in shapes.items()
+                        if k[0] == "flash_attn_fwd" and k[1] == 2 * B)
+        if [f_fwd, f_bwd] != [fwd * n, bwd * n] \
+                or cfg_batch != cfg_per_step * n \
+                or shapes.get(("flash_attn_fwd", B, d_vae), 0) != vae * n \
+                or shapes.get(("flash_attn_bwd", B, d_vae), 0) != vae * n:
+            fail(f"cli_multiview {run}: flash launches {shapes}, expected "
+                 f"{[fwd, bwd]} a step: the UNet's and the ControlNet's "
+                 f"{cfg_per_step} at batch {2 * B}, the VAE's {vae} at "
+                 f"D = {d_vae}, batch {B}")
+        if [line["launches"]["flash_attn_fwd"],
+                line["launches"]["flash_attn_bwd"]] != [f_fwd, f_bwd]:
+            fail(f"cli_multiview {run}: counts {line['launches']} against "
+                 f"the recorded launches {shapes}")
+        prof = line.get("profiled_step", {}).get("launches")
+        if prof is not None and (
+                [prof["flash_attn_fwd"], prof["flash_attn_bwd"]]
+                != [fwd, bwd] or prof["blend_train_fwd"] != int(stage2)
+                or prof["blend_train_bwd"] != int(stage2)):
+            fail(f"cli_multiview {run}: profiled step launches {prof}")
+        if not line["step_fn"].endswith("_dp.<locals>.step"):
+            fail(f"cli_multiview {run}: trained by {line['step_fn']}")
+    return runs
+
+
 def _leaf_names(tree, name="avatar"):
     if not isinstance(tree, dict):
         return [name]
@@ -4297,7 +4636,7 @@ def device_events(prof):
 
     ranges = {name for name, _ in STAGE_RANGES + NERF_STAGE_RANGES
               + DMTET_STAGE_RANGES + VANILLA_STAGE_RANGES
-              + SPLIT_STAGE_RANGES + CLI_RANGES}
+              + SPLIT_STAGE_RANGES + DP_STAGE_RANGES + CLI_RANGES}
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in ranges]
 
@@ -4605,6 +4944,23 @@ def main():
                                          TRAIN_RASTER)
         errs_scene = compare_train_blend("random_200k_512", s_args, s_values,
                                          tiles_x, train_build)
+        # the multi-view step's shape: the avatar at MV_BATCH cameras, one
+        # launch each way for all the views
+        vcams = make_camera_batch(
+            [2.5] * MV_BATCH, [360.0 * v / MV_BATCH for v in range(MV_BATCH)],
+            [85.0] * MV_BATCH, [50.0] * MV_BATCH, TRAIN_H, TRAIN_W,
+            at_vector=((0.0, 0.7, 0.0),), device=dev)
+        views = [panel_args(R.project_gaussians(
+            gs0.positions, R.covariance3d(gs0.quats, gs0.scales),
+            gs0.opacities, gs0.colors, vcams.extrinsic[v],
+            vcams.intrinsics[v], TRAIN_H, TRAIN_W, tanfov=vcams.tanfov[v],
+            alive=gs0.alive), TRAIN_H, TRAIN_W, TRAIN_RASTER)[0]
+            for v in range(MV_BATCH)]
+        v_args = tuple(torch.cat(x).contiguous() for x in zip(*views))
+        del views
+        views_rows, e_views_fwd, e_views_bwd = compare_train_blend_views(
+            f"avatar_512_v{MV_BATCH}", v_args, tiles_x)
+        del v_args
 
     # -- flash attention against its plain version at the paths' shapes ----
     from dreamwaltz_g_tpu_torch.configs import GuideConfig
@@ -4927,15 +5283,16 @@ def main():
     guidance = gparams = step = tstate = None
     torch.cuda.empty_cache()
     (cli_runs, inference_runs, mode_runs, geometry_runs, scene_runs,
-     guidance_runs, card_runs) = cli_two_stage(dev, card, train_fns,
-                                               frame_ms)
+     guidance_runs, card_runs, multiview_runs) = cli_two_stage(
+        dev, card, train_fns, frame_ms)
     cli = {name: sum(run[name] for run in list(cli_runs.values())
                      + list(inference_runs.values())
                      + list(mode_runs.values())
                      + list(geometry_runs.values())
                      + list(scene_runs.values())
                      + list(guidance_runs.values())
-                     + list(card_runs.values()))
+                     + list(card_runs.values())
+                     + list(multiview_runs.values()))
            for name in train_fns}
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
@@ -4980,13 +5337,18 @@ def main():
                                     for k, v in guidance_runs.items()},
                                 "cli_cards": {
                                     k: v["blend_sorted"]
-                                    for k, v in card_runs.items()}}),
+                                    for k, v in card_runs.items()},
+                                "cli_multiview": {
+                                    k: v["blend_sorted"]
+                                    for k, v in multiview_runs.items()}}),
         entry("blend_train_fwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_fwd"] + cli["blend_train_fwd"],
-              max(errs_avatar[0], errs_scene[0]), k_ms["blend_train_fwd"],
+              max(errs_avatar[0], errs_scene[0], e_views_fwd),
+              k_ms["blend_train_fwd"],
               p_ms["blend_train_fwd"], bounds["blend_train_fwd"],
               kernel_ms=errs_avatar[4]["blend_train_fwd"],
+              by_views=views_rows["blend_train_fwd"],
               launches_by_path={"train": train_launches["blend_train_fwd"],
                                 "cli": cli["blend_train_fwd"],
                                 "cli_modes": {
@@ -5003,13 +5365,18 @@ def main():
                                     for k, v in guidance_runs.items()},
                                 "cli_cards": {
                                     k: v["blend_train_fwd"]
-                                    for k, v in card_runs.items()}}),
+                                    for k, v in card_runs.items()},
+                                "cli_multiview": {
+                                    k: v["blend_train_fwd"]
+                                    for k, v in multiview_runs.items()}}),
         entry("blend_train_bwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_bwd"] + cli["blend_train_bwd"],
-              max(errs_avatar[1], errs_scene[1]), k_ms["blend_train_bwd"],
+              max(errs_avatar[1], errs_scene[1], e_views_bwd),
+              k_ms["blend_train_bwd"],
               p_ms["blend_train_bwd"], bounds["blend_train_bwd"],
               kernel_ms=errs_avatar[4]["blend_train_bwd"],
+              by_views=views_rows["blend_train_bwd"],
               launches_by_path={"train": train_launches["blend_train_bwd"],
                                 "cli": cli["blend_train_bwd"],
                                 "cli_modes": {
@@ -5026,7 +5393,10 @@ def main():
                                     for k, v in guidance_runs.items()},
                                 "cli_cards": {
                                     k: v["blend_train_bwd"]
-                                    for k, v in card_runs.items()}}),
+                                    for k, v in card_runs.items()},
+                                "cli_multiview": {
+                                    k: v["blend_train_bwd"]
+                                    for k, v in multiview_runs.items()}}),
         entry("blend_tiles_eval", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:126",
               train_launches["blend_tiles_eval"],
@@ -5057,7 +5427,10 @@ def main():
                                     for k, v in guidance_runs.items()},
                                 "cli_cards": {
                                     k: v["flash_attn_fwd"]
-                                    for k, v in card_runs.items()}},
+                                    for k, v in card_runs.items()},
+                                "cli_multiview": {
+                                    k: v["flash_attn_fwd"]
+                                    for k, v in multiview_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]
@@ -5091,7 +5464,10 @@ def main():
                                     for k, v in guidance_runs.items()},
                                 "cli_cards": {
                                     k: v["flash_attn_bwd"]
-                                    for k, v in card_runs.items()}},
+                                    for k, v in card_runs.items()},
+                                "cli_multiview": {
+                                    k: v["flash_attn_bwd"]
+                                    for k, v in multiview_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": " + ".join(x["kernel"]
                                               for x in r["bwd_build"]),

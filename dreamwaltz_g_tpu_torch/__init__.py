@@ -27,5 +27,8 @@ Ported so far:
   the NeRF SDS step (rays -> occupancy grid -> compacted samples ->
   triplane field -> composite -> the same guidance, flash attention
   included -> regularisers -> Adam / AdamW / Adan), with the pretrain step
-  and the eval render.
+  and the eval render;
+* the trainer and its CLI (``main.py``), inference and evaluation, and
+  multi-view SDS (``parallel/dp.py``: B views a step through one blend
+  launch each way and one guidance call), as ``ROADMAP.md`` lists them.
 """

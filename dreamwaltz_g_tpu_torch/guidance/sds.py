@@ -23,7 +23,8 @@ The families (``loss_type``):
 
 The modules hold their own weights, so ``GuidanceParams`` carries the three
 modules where the JAX package carries their parameter trees. The noise
-comes from an explicit ``noise=`` tensor or a ``torch.Generator``; each
+comes from an explicit ``noise=`` tensor or a ``torch.Generator`` (or one
+a batch element, a view's own); each
 path takes the one draw it uses (the JAX functions draw the score
 families' and ISM's noise from the first half of ``key``'s split, the
 ``z0`` target's in ``latent_gradients`` from the second, and
@@ -251,12 +252,21 @@ class ScoreDistillation:
 
     def _noise(self, like: torch.Tensor, noise, generator) -> torch.Tensor:
         """``noise`` in ``like``'s type, or a standard normal draw of its
-        shape from ``generator``."""
+        shape from ``generator``: one ``torch.Generator`` for the batch, or
+        a sequence of one a batch element (each view's own draw)."""
         if noise is None:
             if generator is None:
                 raise ValueError("pass noise= or generator=")
-            noise = torch.randn(like.shape, generator=generator,
-                                device=like.device, dtype=like.dtype)
+            if not isinstance(generator, (list, tuple)):
+                noise = torch.randn(like.shape, generator=generator,
+                                    device=like.device, dtype=like.dtype)
+            else:
+                if len(generator) != like.shape[0]:
+                    raise ValueError(f"{len(generator)} generators for a "
+                                     f"batch of {like.shape[0]}")
+                noise = torch.cat([torch.randn(
+                    (1,) + like.shape[1:], generator=g, device=like.device,
+                    dtype=like.dtype) for g in generator])
         return noise.to(like.device, like.dtype)
 
     def _noised(self, lat_sg, noise, t):
@@ -466,11 +476,16 @@ class ScoreDistillation:
 
         # latent-gradient guards
         if self.grad_latent_clip:
+            # each batch element's own statistic: a batch of views clips
+            # as the JAX package's per-view calls do
             g = torch.nan_to_num(grad)
-            nz = torch.clamp(torch.sum(g.abs() > 0), min=1)
-            std = torch.sqrt(torch.sum(g * g) / nz) \
+            axes = tuple(range(1, g.ndim))
+            nz = torch.clamp(torch.sum(g.abs() > 0, dim=axes, keepdim=True),
+                             min=1)
+            std = torch.sqrt(torch.sum(g * g, dim=axes, keepdim=True) / nz) \
                 * self.grad_latent_clip_scale
-            grad = torch.nan_to_num(torch.clamp(grad, -std, std))
+            grad = torch.nan_to_num(torch.minimum(torch.maximum(grad, -std),
+                                                  std))
         if self.grad_latent_norm:
             g = torch.nan_to_num(grad)
             n = torch.sqrt(torch.sum(g * g, dim=(1, 2, 3), keepdim=True))

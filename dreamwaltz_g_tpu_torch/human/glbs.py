@@ -9,6 +9,9 @@ weights:
 * ``J_shape_offset`` -- per-joint translation (J_shaped - J_template)
 * ``J_pose_rigid``   -- per-joint SE(3) = A
 * ``G_transl_offset`` -- global translation
+
+``skin_points_by_joint_weights`` skins arbitrary points by (N, J) joint
+weights through ``J_pose_rigid``.
 """
 from __future__ import annotations
 
@@ -105,3 +108,18 @@ def glbs_transforms(
         J_pose_rigid=J_pose_rigid,
         G_transl_offset=G_transl_offset,
     )
+
+
+def skin_points_by_joint_weights(
+    transforms: GLBSTransforms,
+    points: torch.Tensor,
+    joint_weights: torch.Tensor,
+    transl: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Skin (N, 3) points with (N, J) joint weights: ``(W.A) p + transl``,
+    the GLBS core (the per-point weighted ``J_pose_rigid``)."""
+    out = transforms.J_pose_rigid.transform_points(points,
+                                                   weights=joint_weights)
+    if transl is not None:
+        out = out + transl
+    return out

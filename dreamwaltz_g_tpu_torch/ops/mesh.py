@@ -3,8 +3,8 @@ and vertex normals.
 
 Port of ``dreamwaltz_g_tpu/ops/mesh.py``: setup-time ops of avatar
 initialisation and of stage 1's sigma guidance, the queries as chunked
-brute force over dense (chunk x F) distance tiles. ``triangle_frames`` is
-not ported yet.
+brute force over dense (chunk x F) distance tiles, and the per-triangle
+frames of the mesh-bound Gaussians (``triangle_frames``).
 """
 from __future__ import annotations
 
@@ -175,3 +175,27 @@ def vertex_normals(vertices: torch.Tensor, faces) -> torch.Tensor:
         vn = vn.index_add(0, faces[:, k], fn)
     return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True),
                             min=1e-12)
+
+
+def triangle_frames(vertices: torch.Tensor, faces):
+    """Per-triangle orthonormal frame and edge sizes, the basis of the
+    mesh-bound Gaussians' scales and orientations. Returns (R (F, 3, 3),
+    columns (e1_hat, e2_perp_hat, normal); sizes (F, 3): |e1|, the height
+    of e2 off e1, and their mean); norms clamped at 1e-12."""
+    faces = torch.as_tensor(faces, device=vertices.device).long()
+    tri = vertices[faces]
+    e1 = tri[:, 1] - tri[:, 0]
+    e2 = tri[:, 2] - tri[:, 0]
+    n = torch.linalg.cross(e1, e2)
+
+    def unit(x):
+        return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True),
+                               min=1e-12)
+
+    n_hat, x_hat = unit(n), unit(e1)
+    y_hat = torch.linalg.cross(n_hat, x_hat)
+    R = torch.stack([x_hat, y_hat, n_hat], dim=-1)
+    s1 = torch.linalg.norm(e1, dim=-1)
+    s2 = torch.abs(torch.sum(e2 * y_hat, dim=-1))
+    sizes = torch.stack([s1, s2, 0.5 * (s1 + s2)], dim=-1)
+    return R, sizes

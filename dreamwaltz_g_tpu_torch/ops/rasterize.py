@@ -12,7 +12,8 @@ Port of ``dreamwaltz_g_tpu/ops/rasterize.py``:
 3. **blend**: each tile composites its entries front to back. The render
    takes ``ops/blend.py:blend_sorted`` (B2); training the differentiable
    ``ops/blend_train.py:blend_tiles_train`` (B1 forward and backward); each
-   is a CUDA kernel on the card.
+   is a CUDA kernel on the card. ``rasterize_projected_views`` blends B
+   views of one set through one B1 launch with a leading view dimension.
 """
 from __future__ import annotations
 
@@ -394,6 +395,50 @@ def rasterize_projected(
         raise ValueError(f"mode must be 'train' or 'eval', got {mode!r}")
     return RasterOutput(image=out[..., :CH], alpha=out[..., CH + 1],
                         depth=out[..., CH], radii=g.radius, overflow=overflow)
+
+
+def rasterize_projected_views(
+    views,
+    image_height: int,
+    image_width: int,
+    tile_size: int = 32,
+    capacity: int = 1024,
+    chunk: int = 128,
+    max_tiles_per_gaussian: int = 8,
+) -> RasterOutput:
+    """B views of one Gaussian set (a sequence of B ``Gaussians2D`` of the
+    same N), each binned into its own (T, K) table, then blended through
+    one differentiable train blend with a leading view dimension V = B: on
+    the card one B1 forward and one B1 backward launch for all views, as
+    the JAX package's ``vmap`` over its blend batches the kernel's grid.
+    Returns a ``RasterOutput`` with the view dimension leading: image (B,
+    H, W, CH), alpha and depth (B, H, W), radii (B, N), overflow (B,)."""
+    CH = views[0].colors.shape[-1]
+    with record_function("rasterize.bin"):
+        bins = [bin_gaussians(
+            g.means2d.detach(), g.radius.detach(), g.depth.detach(), g.mask,
+            image_height, image_width, tile_size, capacity,
+            max_tiles_per_gaussian) for g in views]
+    tile_lists, tile_counts, overflow = (torch.stack(x) for x in zip(*bins))
+
+    def values(g):
+        return torch.cat([g.colors, g.depth[:, None], torch.ones(
+            (g.colors.shape[0], 1), dtype=g.colors.dtype,
+            device=g.colors.device)], -1)
+
+    with record_function("rasterize.blend"):
+        out = blend_tiles_train(
+            tile_lists, tile_counts,
+            torch.stack([g.means2d for g in views]),
+            torch.stack([g.conic for g in views]),
+            torch.stack([g.opacity * g.mask.to(g.opacity.dtype)
+                         for g in views]),
+            torch.stack([values(g) for g in views]),
+            image_height, image_width, tile_size=tile_size, chunk=chunk)
+    return RasterOutput(image=out[..., :CH], alpha=out[..., CH + 1],
+                        depth=out[..., CH],
+                        radii=torch.stack([g.radius for g in views]),
+                        overflow=overflow)
 
 
 def rasterize(

@@ -36,8 +36,8 @@ the guidance. Every SDS step and render takes ``placement`` (the scene's
 Gaussian background, appended after the avatar, so the densification
 statistics keep slicing ``[:C]``).
 
-Not ported yet: the data/tensor-parallel steps and the multi-device frame
-sharding.
+The B-view (multi-view) steps are ``parallel/dp.py``'s. Not ported yet:
+tensor parallelism and the multi-device frame sharding.
 """
 from __future__ import annotations
 
@@ -425,6 +425,19 @@ def init_background_train_state(net: BackgroundMLPNet,
     return BackgroundTrainState(net=net, opt_state=tx.init(params))
 
 
+def background_update(net: BackgroundMLPNet, tx: Adan,
+                      bg_state: BackgroundTrainState) -> None:
+    """One ``tx`` step of the background's weights on their ``.grad`` (None
+    counts as 0), in place."""
+    params = list(net.parameters())
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    with torch.no_grad():
+        for p, u in zip(params, tx.update(grads, bg_state.opt_state,
+                                          params)):
+            p.add_(u)
+
+
 def make_avatar_sds_step_split(
     model: AvatarModel,
     guidance: ScoreDistillation,
@@ -521,13 +534,7 @@ def make_avatar_sds_step_split(
         with record_function("split_step.optimizer_stats"):
             tstate.opt_state.step()
             if bg_net is not None:
-                params = list(bg_net.parameters())
-                grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                         for p in params]
-                with torch.no_grad():
-                    for p, u in zip(params, bg_tx.update(
-                            grads, bg_state.opt_state, params)):
-                        p.add_(u)
+                background_update(bg_net, bg_tx, bg_state)
             new_avatar = update_avatar_stats(state, dummy.grad[:C],
                                              out.radii.detach()[:C])
         metrics: Dict[str, torch.Tensor] = {

@@ -62,9 +62,18 @@ trainer) and every ``--guide.diffusion`` card (SD1.x, the HumanNorm
 finetunes, SD2.x and ``sdxl*``, the last through ``load_guidance_xl``
 with the pooled embeddings of the prompt's first view).
 
+Multi-view SDS (``--optim.batch_size B > 1``, stage 1 and every stage-2
+``gs_type``, the MLP background included): each step draws B cameras, B
+view texts, B timesteps and B condition images (each from its own pose
+with ``--data.per_view_poses``) and trains through the B-view steps of
+``parallel/dp.py``, the JAX trainer's DP step constructors on one device;
+each view draws its noise and its render's jitter from a generator of its
+own, seeded from ``_view_rng``. ``--nerf.dmtet`` runs single-view.
+
 Not ported yet, and refused at construction where a flag asks for them:
-``batch_size > 1`` and tensor parallelism, and the multi-device frame
-sharding of ``evaluate``.
+tensor parallelism (``--parallel.tp > 1``), the multi-card launch (a
+process group of more than one rank), and the multi-device frame sharding
+of ``evaluate``.
 """
 from __future__ import annotations
 
@@ -88,7 +97,8 @@ from ..guidance.text_aug import TextAugmentation
 from ..guidance.time_prior import TimePrioritizedScheduler, draw_curves
 from ..human.keypoints import load_landmark_data, openpose_keypoints
 from ..human.prompt import SMPLPrompt, load_hand_components
-from ..human.smplx_model import load_smplx_npz, make_synthetic_model
+from ..human.smplx_model import (SMPLXParams, load_smplx_npz,
+                                 make_synthetic_model)
 from ..nerf.network import build_nerf
 from ..nerf.renderer import init_occupancy
 from ..system.background import COLOR_PRESETS, VideoBackground
@@ -243,6 +253,13 @@ class Trainer:
         self.rng = np.random.default_rng(cfg.optim.seed)
         # _train_batch's own: it runs on the prefetch worker
         self._batch_rng = np.random.default_rng(cfg.optim.seed + 7919)
+        # the seeds of each multi-view step's per-view generators
+        self._view_rng = np.random.default_rng(cfg.optim.seed + 104729)
+        self.batch_size = cfg.optim.batch_size
+        # the data axis: one process, so every view runs here (dp = 1)
+        from ..parallel.mesh import resolve_dp
+
+        self.dp = resolve_dp(int(cfg.parallel.dp or -1), 1, self.batch_size)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.optim.seed)
         self.max_iteration = cfg.optim.iters
@@ -279,13 +296,22 @@ class Trainer:
         if lg.platform not in (None, "cuda", "gpu", "cpu"):
             raise ValueError(f"log.platform {lg.platform!r}: the port runs "
                              "on 'cuda' (the default) or 'cpu'")
+        import torch.distributed as dist
+
         refused = [
-            (cfg.optim.batch_size > 1 or cfg.parallel.tp > 1,
-             "batch_size > 1 and tensor parallelism"),
+            (cfg.parallel.tp > 1, "tensor parallelism (--parallel.tp > 1)"),
+            (dist.is_available() and dist.is_initialized()
+             and dist.get_world_size() > 1,
+             "the multi-card launch (a process group of several ranks)"),
         ]
         for cond, what in refused:
             if cond:
                 _not_ported(what)
+        if cfg.optim.batch_size < 1:
+            raise ValueError(f"optim.batch_size {cfg.optim.batch_size} < 1")
+        if cfg.stage == "nerf" and cfg.nerf.dmtet \
+                and cfg.optim.batch_size > 1:
+            raise ValueError("--nerf.dmtet runs single-view (batch_size=1)")
 
     def _warn_unsupported_knobs(self):
         """Knobs parsed for reference-CLI compatibility that have no effect,
@@ -669,7 +695,10 @@ class Trainer:
                 neg_embeds=self.neg_embeds, pgc=self.pgc, tile_size=r.tile_size,
                 capacity=r.tile_capacity, chunk=r.chunk, device=self.device)
             return
-        self.sds_step_fn = nerf_trainer.make_nerf_sds_step(
+        make = nerf_trainer.make_nerf_sds_step
+        if self.batch_size > 1:
+            from ..parallel.dp import make_nerf_sds_step_dp as make
+        self.sds_step_fn = make(
             self.nerf, self.guidance, H, H, cfg.nerf,
             num_steps=cfg.nerf.num_steps,
             lambda_guidance=cfg.guide.lambda_guidance,
@@ -1044,7 +1073,19 @@ class Trainer:
 
     def _build_avatar_step(self, H: int):
         kw = self._common_step_kwargs()
-        if self.cfg.render.gs_type == "vanilla":
+        if self.batch_size > 1:
+            # the B-view steps, the JAX trainer's DP steps (their tile
+            # cap of 8 a Gaussian: its trainer does not pass one)
+            from ..parallel import dp
+
+            kw.update(per_view_poses=self.cfg.data.per_view_poses)
+            if self.cfg.render.gs_type == "vanilla":
+                make = dp.make_vanilla_sds_step_dp
+            else:
+                make = dp.make_avatar_sds_step_dp
+                kw.update(bg_net=self.bg_net,
+                          bg_tx=getattr(self, "bg_tx", None))
+        elif self.cfg.render.gs_type == "vanilla":
             make = gs_trainer.make_vanilla_sds_step
         elif self._split_step():
             # the trainable background's host: the split step (on the card
@@ -1060,8 +1101,9 @@ class Trainer:
         """Whether the avatar trains through the split step: with the MLP
         background, but for the x0 modes, whose pixel-space loss has no
         latent gradient to split on; they take the fused step, and the
-        background then is not trained (the JAX trainer's routing)."""
-        return self.bg_state is not None \
+        background then is not trained (the JAX trainer's routing). The
+        B-view step trains the background itself."""
+        return self.bg_state is not None and self.batch_size == 1 \
             and not self.cfg.guide.sds_loss_type.startswith("x0")
 
     # ------------------------------------------------------------------
@@ -1069,56 +1111,85 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _train_batch(self, step: Optional[int] = None) -> Dict[str, Any]:
-        """One training draw for ``step``: camera, pose, condition image,
-        view text, timestep, guidance scale and progress. ``step`` is the
-        step the batch is for: the worker builds step N + 1's while the
-        card runs step N."""
+        """One training draw for ``step``: B = ``--optim.batch_size``
+        cameras and view texts, the pose (one a view with
+        ``--data.per_view_poses`` in stage gs, drawn at ``batch_idx = step
+        * B + i``), the B condition images (each from its view's pose), B
+        timesteps, the guidance scale and the progress, in the JAX
+        trainer's order. ``step`` is the step the batch is for: the worker
+        builds step N + 1's while the card runs step N."""
         if step is None:
             step = self.train_step
         cfg = self.cfg
+        B = self.batch_size
         with record_function("trainer.batch"):
             rpi = cfg.data.random_pose_iter
+            per_view = cfg.data.per_view_poses and B > 1 \
+                and cfg.stage == "gs"
             if rpi and self.prompt.scene_type == "random" \
                     and getattr(self, "_pose_cache", None) is not None \
                     and step % rpi != 0:
-                smpl_inputs, smpl_outputs = self._pose_cache
+                smpl_inputs, smpl_outputs, view_outputs = self._pose_cache
+            elif per_view:
+                draws = [self.prompt(batch_idx=step * B + i)
+                         for i in range(B)]
+                smpl_inputs = SMPLXParams(*[
+                    torch.cat(xs) for xs in zip(*[d[0] for d in draws])])
+                view_outputs = [d[1] for d in draws]
+                smpl_outputs = view_outputs[0]
+                self._pose_cache = (smpl_inputs, smpl_outputs, view_outputs)
             else:
                 smpl_inputs, smpl_outputs = self.prompt(batch_idx=step)
-                self._pose_cache = (smpl_inputs, smpl_outputs)
+                view_outputs = None
+                self._pose_cache = (smpl_inputs, smpl_outputs, None)
 
             # --render.always_animate=false in the plain canonical scene:
-            # the render observes the canonical pose, the conditions and
-            # text the sampled one
+            # the render observes the canonical pose (one a view), the
+            # conditions and text the sampled one
             render_inputs = smpl_inputs
             if cfg.stage == "gs" and not cfg.render.always_animate \
                     and cfg.prompt.scene == "canonical":
-                render_inputs = self.prompt.canonical_inputs
+                n = smpl_inputs.body_pose.shape[0]
+                render_inputs = SMPLXParams(*[
+                    x.expand((n,) + x.shape[1:])
+                    for x in self.prompt.canonical_inputs])
 
-            cam, part = self.train_camera(1)
-            view_idx = int(self.view_prompt(
-                cam.azimuth.cpu().numpy(), cam.elevation.cpu().numpy(),
-                part)[0])
+            cams, parts, view_indices = [], [], []
+            for _ in range(B):
+                cam, part = self.train_camera(1)
+                cams.append(cam)
+                parts.append(part)
+                view_indices.append(int(self.view_prompt(
+                    cam.azimuth.cpu().numpy(), cam.elevation.cpu().numpy(),
+                    part)[0]))
+            cam = cams[0] if B == 1 else type(cams[0])(*[
+                torch.cat(xs) if torch.is_tensor(xs[0]) else xs[0]
+                for xs in zip(*cams)])
         cond_image = None
         if cfg.guide.use_controlnet:
             with record_function("trainer.condition"):
                 imgs = self.prompt.get_cond_images_batch(
-                    [smpl_outputs], cam.extrinsic, cam.intrinsics,
+                    view_outputs or [smpl_outputs] * B, cam.extrinsic,
+                    cam.intrinsics,
                     cond_type=cfg.guide.controlnet_condition[0],
                     height=self.cond_size, width=self.cond_size)
                 cond_image = torch.as_tensor(
                     np.stack([np.asarray(im, np.float32) / 255.0
                               for im in imgs]), device=self.device)
         if cfg.guide.sds_loss_type == "ism":
-            t = self.t_scheduler.get_ism_timestep(1, step,
+            t = self.t_scheduler.get_ism_timestep(B, step,
                                                   self.max_iteration)
         else:
-            t = self.t_scheduler.get_timestep(1, step, self.max_iteration)
+            t = self.t_scheduler.get_timestep(B, step, self.max_iteration)
         gs_scale = self.t_scheduler.get_guidance_scale(step,
                                                        self.max_iteration)
-        return dict(cam=cam, part=part, view_idx=view_idx,
+        return dict(cam=cam, part=parts[0], view_idx=view_indices[0],
+                    view_indices=view_indices,
                     smpl_inputs=render_inputs, cond_image=cond_image,
-                    text=self.text_embeds[view_idx][None],
-                    uncond=self.uncond_embeds[:1],
+                    text=torch.stack([self.text_embeds[i]
+                                      for i in view_indices]),
+                    uncond=self.uncond_embeds[:1].expand(
+                        B, *self.uncond_embeds.shape[1:]),
                     t=torch.as_tensor(np.asarray(t), device=self.device),
                     guidance_scale=float(gs_scale),
                     progress=step / max(self.max_iteration, 1))
@@ -1296,15 +1367,43 @@ class Trainer:
                         noise_range=cfg.sigma_noise_range,
                         surface_thickness=cfg.sigma_surface_thickness,
                         generator=self.generator)
-                self.state, metrics = self.sds_step_fn(
-                    self.state, self.grid, self.guidance_params,
-                    cam.c2w[0], cam.intrinsics[0], self._bg_color(),
-                    batch["text"], batch["uncond"], batch["t"],
-                    generator=self.generator,
-                    cond_image=batch["cond_image"],
-                    guidance_scale=batch["guidance_scale"],
-                    sigma_pts=sigma_pts, use_sigma=use_sigma,
-                    progress=batch["progress"])
+                kw = dict(cond_image=batch["cond_image"],
+                          guidance_scale=batch["guidance_scale"],
+                          sigma_pts=sigma_pts, use_sigma=use_sigma,
+                          progress=batch["progress"])
+                if self.batch_size > 1:
+                    # a background colour and a generator a view
+                    B = self.batch_size
+                    bg = torch.stack([self._bg_color() for _ in range(B)])
+                    self.state, metrics = self.sds_step_fn(
+                        self.state, self.grid, self.guidance_params,
+                        cam.c2w, cam.intrinsics, bg, batch["text"],
+                        batch["uncond"], batch["t"],
+                        generator=self._view_generators(B), **kw)
+                else:
+                    self.state, metrics = self.sds_step_fn(
+                        self.state, self.grid, self.guidance_params,
+                        cam.c2w[0], cam.intrinsics[0], self._bg_color(),
+                        batch["text"], batch["uncond"], batch["t"],
+                        generator=self.generator, **kw)
+            elif self.batch_size > 1:
+                B = self.batch_size
+                bg = self._bg_color().expand(B, self.train_res,
+                                             self.train_res, 3)
+                args = (self.state, self.guidance_params,
+                        batch["smpl_inputs"], cam.extrinsic, cam.intrinsics,
+                        cam.tanfov, bg, batch["text"], batch["uncond"],
+                        batch["t"])
+                kw = dict(cond_image=batch["cond_image"],
+                          guidance_scale=batch["guidance_scale"],
+                          generator=self._view_generators(B),
+                          progress=batch["progress"])
+                if self.bg_state is not None:
+                    self.state, self.bg_state, metrics = self.sds_step_fn(
+                        *args, bg_state=self.bg_state, c2w=cam.c2w, **kw)
+                else:
+                    self.state, metrics = self.sds_step_fn(*args, **kw)
+                self._maybe_densify()
             else:
                 bg = self._bg_color().expand(self.train_res, self.train_res,
                                              3)
@@ -1323,6 +1422,13 @@ class Trainer:
                     self.state, metrics = self.sds_step_fn(*args, **kw)
                 self._maybe_densify()
         return metrics
+
+    def _view_generators(self, B: int) -> List[torch.Generator]:
+        """One generator a view for a multi-view step (the JAX trainer's
+        ``jax.random.split(key, B)``), seeded from ``_view_rng``."""
+        seeds = self._view_rng.integers(0, 2 ** 62, size=B)
+        return [torch.Generator(device=self.device).manual_seed(int(x))
+                for x in seeds]
 
     def _maybe_densify(self):
         """Clone / split / prune every ``densification_interval`` steps in
@@ -1568,8 +1674,10 @@ class Trainer:
         d = self.exp_dir / "snapshots" / "train"
         cam = self.eval_camera(0.0)
         if cfg.stage == "gs":
+            # the first view's pose (a multi-view batch may hold one a view)
+            obs = SMPLXParams(*[x[:1] for x in batch["smpl_inputs"]])
             img, _, _ = self.eval_render(
-                self.state.avatar, batch["smpl_inputs"], cam.extrinsic[0],
+                self.state.avatar, obs, cam.extrinsic[0],
                 cam.intrinsics[0], cam.tanfov[0],
                 torch.zeros((cfg.data.eval_h, cfg.data.eval_w, 3),
                             device=self.device), self.extra_states)
@@ -1605,7 +1713,8 @@ class Trainer:
         latents = g.encode_images(gp, img[None].to(batch["text"].dtype))
         grad = g.latent_gradients(
             gp, latents, batch["text"][:1], batch["uncond"][:1],
-            batch["t"][:1], cond_image=batch.get("cond_image"),
+            batch["t"][:1], cond_image=None if batch.get("cond_image") is None
+            else batch["cond_image"][:1],
             guidance_scale=batch.get("guidance_scale"),
             generator=self.generator, neg_embeds=self.neg_embeds,
             progress=batch.get("progress"))
@@ -1842,6 +1951,7 @@ class Trainer:
         return {
             "numpy": {name: g.bit_generator.state for name, g in (
                 ("trainer", self.rng), ("batch", self._batch_rng),
+                ("views", self._view_rng),
                 ("camera", self.train_camera.rng),
                 ("scheduler", self.t_scheduler.rng),
                 ("prompt", self.prompt._rng))},
@@ -1851,10 +1961,12 @@ class Trainer:
 
     def _load_rng_tree(self, tree: dict) -> None:
         for name, g in (("trainer", self.rng), ("batch", self._batch_rng),
+                        ("views", self._view_rng),
                         ("camera", self.train_camera.rng),
                         ("scheduler", self.t_scheduler.rng),
                         ("prompt", self.prompt._rng)):
-            g.bit_generator.state = tree["numpy"][name]
+            if name in tree["numpy"]:
+                g.bit_generator.state = tree["numpy"][name]
         self.generator.set_state(tree["torch"]["trainer"].cpu())
         self.prompt.generator.set_state(tree["torch"]["prompt"].cpu())
 

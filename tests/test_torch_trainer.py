@@ -17,7 +17,8 @@
   guidance's Flax init). Cameras within 1e-5, timesteps, guidance scales,
   view indices and parts equal, the 16^2 pose canvases equal on at least
   99.9% of their pixels (none differs on these inputs).
-* Unported paths refuse at construction.
+* Unported paths refuse at construction, and the DMTet finetune with
+  ``--optim.batch_size > 1``.
 * The other geometries through ``main``: the DMTet finetune (the twin of
   ``tests/test_dmtet_train.py``'s CLI test), the vanilla avatar with
   densification and the opacity reset, and the hash avatar, each for 2
@@ -237,14 +238,18 @@ def test_train_batch_matches_jax(tmp_path, stage):
     ["--render.avatar_scale", "1.0"],
     ["--render.use_mlp_background", "true"], ["--optim.batch_size", "2"],
     ["--guide.diffusion", "sdxl10"], ["--optim.ckpt_extra", "other"],
-    ["--parallel.tp", "2"]])
+    ["--parallel.tp", "2"],
+    ["--stage", "nerf", "--nerf.dmtet", "true", "--optim.batch_size", "2"]])
 def test_unported_paths_refuse(tmp_path, flags):
     """Each path the port does not have raises at construction, also in
-    the multi-prompt batch, which names the prompts that failed. The scene
-    options, the grid backbones and the SDXL card are ported: their flags
-    pass the check (the CLI tests of ``test_torch_scene.py``,
-    ``test_torch_grid.py`` and ``test_torch_guidance_cli.py`` run
-    them)."""
+    the multi-prompt batch, which names the prompts that failed: tensor
+    parallelism is not ported, and the DMTet finetune runs single-view
+    (the JAX trainer asserts it). The scene options, the grid backbones,
+    the SDXL card and multi-view SDS (``--optim.batch_size 2``) are
+    ported: their flags pass the check (the CLI tests of
+    ``test_torch_scene.py``, ``test_torch_grid.py``,
+    ``test_torch_guidance_cli.py`` and ``test_torch_trainer_multiview.py``
+    run them)."""
     from dreamwaltz_g_tpu_torch.main import main
     from dreamwaltz_g_tpu_torch.training.trainer import Trainer
 
@@ -253,16 +258,19 @@ def test_unported_paths_refuse(tmp_path, flags):
             "--log.snapshot_interval", "0", "--log.evaluate_interval", "0"]
     if flags[0] in ("--nerf.backbone", "--render.use_gs_background",
                     "--render.avatar_scale", "--render.use_mlp_background",
-                    "--optim.ckpt_extra", "--guide.diffusion"):
+                    "--optim.ckpt_extra", "--guide.diffusion",
+                    "--optim.batch_size"):
         tr = Trainer.__new__(Trainer)
         tr.cfg = parse_args(base + flags)
         tr._refuse_unported()
         return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    exc, match = (ValueError, "single-view") if "--nerf.dmtet" in flags \
+        else (NotImplementedError, "not ported yet")
+    with pytest.raises(exc, match=match):
         main(base + flags)
     with pytest.raises(RuntimeError, match="1 prompt") as e:
         main(base + flags + ["--guide.text_set", "demo,1-1"])
-    assert isinstance(e.value.__cause__, NotImplementedError)
+    assert isinstance(e.value.__cause__, exc)
 
 
 def _card_defaults():

@@ -41,9 +41,12 @@ def _seeded(tree, rng):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
-def tiny_guidance_pair(latent: int, seed: int = 0):
+def tiny_guidance_pair(latent: int, seed: int = 0,
+                       with_controlnet: bool = False):
     """(JAX ScoreDistillation, its GuidanceParams, the port's, its
-    GuidanceParams): the tiny UNet and VAE, no ControlNet, float32."""
+    GuidanceParams): the tiny UNet and VAE, float32; ``with_controlnet``
+    adds the tiny ControlNet (two condition blocks), its zero convolutions
+    seeded like every other weight, so that it reaches the UNet."""
     ucfg = jtiny_unet()
     unet, vae = JUNet(ucfg), JVAE(jtiny_vae())
     key = jax.random.PRNGKey(seed)
@@ -55,14 +58,26 @@ def tiny_guidance_pair(latent: int, seed: int = 0):
                                        jnp.zeros((1,), jnp.int32), ctx), rng),
         "vae": _seeded(jax.eval_shape(
             lambda k: vae.init(k, image_size=2 * latent), key), rng)}
-    jsd = JSD(unet=unet, vae=vae, controlnet=None, latent_size=latent,
+    cn = None
+    if with_controlnet:
+        from dreamwaltz_g_tpu.guidance.controlnet import ControlNet as JCN
+
+        cn = JCN(ucfg, cond_block_channels=(16, 32))
+        trees["controlnet"] = _seeded(jax.eval_shape(
+            cn.init, key, lat, jnp.zeros((1,), jnp.int32), ctx,
+            jnp.zeros((1, 2 * latent, 2 * latent, 3))), rng)
+    jsd = JSD(unet=unet, vae=vae, controlnet=cn, latent_size=latent,
               guidance_scale=7.5)
     jgp = JGP(unet=jax.tree_util.tree_map(jnp.asarray, trees["unet"]),
               vae=jax.tree_util.tree_map(jnp.asarray, trees["vae"]),
-              controlnet=None)
-    tsd, tgp = tts.tiny_guidance(seed, latent_size=latent, device="cpu")
+              controlnet=None if cn is None else jax.tree_util.tree_map(
+                  jnp.asarray, trees["controlnet"]))
+    tsd, tgp = tts.tiny_guidance(seed, with_controlnet=with_controlnet,
+                                 latent_size=latent, device="cpu")
     convert.unet_from_flax(tgp.unet, trees["unet"])
     convert.vae_from_flax(tgp.vae, trees["vae"])
+    if with_controlnet:
+        convert.controlnet_from_flax(tgp.controlnet, trees["controlnet"])
     return jsd, jgp, tsd, tgp
 
 
