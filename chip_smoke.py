@@ -37,10 +37,11 @@ Phases, one JSON line each:
                    cameras, 4 x 256 tiles, K = 1024: the multi-view step's
                    one launch each) against their plain versions, with
                    their ms, device ms alone, plain ms and bounds;
-10. kernel_flash -- flash attention (B4) forward at the nineteen shapes the
-                   training paths give it (bf16, and float32 for the tiny
-                   step and the float32-guidance step), and backward at the
-                   seven that are differentiated, against the plain versions;
+10. kernel_flash -- flash attention (B4) forward at the twenty-one shapes
+                   the training paths give it (bf16, and float32 for the
+                   tiny step and the float32-guidance step), and backward
+                   at the seven that are differentiated, against the plain
+                   versions;
 11. small_train -- one SDS step of the tiny avatar, with its mesh part,
                    and the tiny guidance with its ControlNet, attention
                    through flash (``FLASH_ATTENTION = "on"``) and the
@@ -96,8 +97,8 @@ Phases, one JSON line each:
                    ``scripts/train_w_expr.sh``: ``NeRFConfig()``'s field
                    rendered at 512^2, the SD1.5-size bf16 guidance of phase
                    13 under ``FLASH_ATTENTION = "auto"``, sigma guidance on
-                   5,000 body points a step; counts set to 0, 2 warm-up and
-                   5 steps through ``make_nerf_sds_step`` with the
+                   5,000 body points a step; counts set to 0, 1 warm-up and
+                   4 steps through ``make_nerf_sds_step`` with the
                    occupancy cadence and one forced refresh, counts read
                    (flash forward and backward each step as the models'
                    structure gives, no blend kernel, no library
@@ -118,7 +119,8 @@ Phases, one JSON line each:
                    card's UNet, pose ControlNet, VAE and CLIP text tower
                    with random weights in diffusers layout, written to a
                    temporary directory, and a field fitted to the body
-                   standing in for step 1.1's output; 3 steps each,
+                   standing in for step 1.1's output; 2 steps of 1.2 and 3
+                   of 2.1 and 2.3,
                    the last of 2.1's and 2.3's runs profiled (stage 1's
                    breakdown is ``nerf_profile``'s); counts set to 0 before
                    each run and read after it (flash (15, 1) a step, the
@@ -195,12 +197,30 @@ Phases, one JSON line each:
                    losses, every optimizer group's gradient finite and
                    nonzero, B1 (1, 1) a stage-2 step at V = 4, flash (15, 1)
                    a step with the UNet's and the ControlNet's at the CFG
-                   batch 8 and the VAE's D = 512 forward and backward at
-                   batch 4; s/step, peak memory and the one-view s/step.
+                   batch 4; s/step, peak memory and the one-view s/step;
+28. cli_multicard -- the multi-card half on two ranks that share the card
+                   (spawned processes in a ``gloo`` group, card 0 in each),
+                   each building the trainer as a ``torchrun`` rank: step
+                   2.1 at B = 2 over the data axis against the one-process
+                   B = 2 run (losses, every group's gradient, the ranks'
+                   states equal, rank 0 alone writing), step 2.1 at
+                   ``--parallel.tp 2`` against tp = 1 (a bound from the
+                   bf16 step's own distance from float32, shown to catch
+                   the row-parallel bias added on both ranks; flash at half
+                   the heads), step 1.2 at B = 2 (the grid and state equal
+                   on both ranks), step 3 over the ranks against the
+                   one-process frames (one 8-bit level; B2 once a frame in
+                   all; PNGs and mp4 once; the float frames' distance and a
+                   one-process repeat printed), the Gaussian-sharded render
+                   of a 1024^2 frame against its row blocks rendered in one
+                   process, and step 2.1 at torchrun's defaults (one view:
+                   the ranks are replicas, their states equal); then B2 on
+                   a rank's 512 x 1024 row block against its plain version.
 
-The flash shapes of phases 25, 26 and 27 (the single-branch passes at batch 1,
-SDXL's and SD2.1-768's UNet levels and VAE mid blocks) are held against
-the plain versions and timed with the others (phases 10 and 14).
+The flash shapes of phases 25, 26, 27 and 28 (the single-branch passes at
+batch 1, SDXL's and SD2.1-768's UNet levels and VAE mid blocks, the
+tensor-parallel halves) are held against the plain versions and timed with
+the others (phases 10 and 14).
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -304,7 +324,9 @@ TOL_STATS_FLIPS = 5e-3
 # and its VAE mid block at a 1024^2 render, SD2.1-768's UNet at 96^2 and
 # 48^2 and its VAE mid block at a 768^2 render; then the multi-view step's
 # (phase ``cli_multiview``, 4 views): the UNet and ControlNet at the CFG
-# batch 8, the VAE mid block at batch 4, differentiated
+# batch 8, the VAE mid block at batch 4, differentiated; then the
+# tensor-parallel step's (phase ``cli_multicard``, tp = 2): the UNet and
+# ControlNet with half the heads on each rank
 FLASH_SHAPES = (((2, 4096, 8, 40), "bf16", False),
                 ((2, 1024, 8, 80), "bf16", False),
                 ((1, 4096, 1, 512), "bf16", True),
@@ -323,7 +345,9 @@ FLASH_SHAPES = (((2, 4096, 8, 40), "bf16", False),
                 ((1, 9216, 1, 512), "bf16", True),
                 ((8, 4096, 8, 40), "bf16", False),
                 ((8, 1024, 8, 80), "bf16", False),
-                ((4, 4096, 1, 512), "bf16", True))
+                ((4, 4096, 1, 512), "bf16", True),
+                ((2, 4096, 4, 40), "bf16", False),
+                ((2, 1024, 4, 80), "bf16", False))
 # kernel vs plain version (float32 scores) on the same card inputs.
 # float32: 1e-5 absolute on the output, 1e-4 of each gradient's largest
 # entry, the JAX package's own for its TPU kernel. bf16: the kernel rounds
@@ -1642,7 +1666,7 @@ TOL_CLIP_REL = 1e-5
 # at 512^2) on the NeRF defaults
 NERF_H = NERF_W = 512
 NERF_MAX_STEPS = 5000
-NERF_WARMUP, NERF_STEPS = 2, 5
+NERF_WARMUP, NERF_STEPS = 1, 4
 SIGMA_POINTS = 5000
 
 
@@ -1850,7 +1874,7 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     the volume-sparsity prior at 3e-3, and the SD1.5-size bf16 guidance
     under ``FLASH_ATTENTION = "auto"`` with the scheduler's timesteps and
     guidance scales and the text tower's embeddings. Counts set to 0, then
-    2 warm-up and 5 timed steps with ``maybe_update_occupancy`` before
+    1 warm-up and 4 timed steps with ``maybe_update_occupancy`` before
     each (it refreshes at step 0) and one refresh forced between the two
     runs; counts read. Then one profiled step (phase ``nerf_profile``).
     Returns the flash launches of the 7 steps."""
@@ -2035,7 +2059,7 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
 CLI_TEXT = "a DSLR photo of a dancer in a red dress"
 # steps of each run of scripts/train_w_expr.sh driven here: the first is a
 # warm-up, the last is profiled, the ones between are timed
-CLI_STEPS = {"1.2": 3, "2.1": 3, "2.3": 3}
+CLI_STEPS = {"1.2": 2, "2.1": 3, "2.3": 3}
 CLI_PARTS = "hands,face"
 # the trainer's host-side ranges around its batch build and its step
 CLI_RANGES = (("trainer.batch", "batch_build"),
@@ -2341,7 +2365,7 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
     of step 2.3 equal to step 2.1's last checkpoint to every bit. Returns
     the runs' launches and, from phase ``cli_inference`` (run after these
     checks in the same directory), its runs' launches, and those of the
-    phases after it."""
+    phases after it (``cli_multicard``'s with its row-block line)."""
     import gc
     import shutil
     import tempfile
@@ -2486,12 +2510,16 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
         multiview = cli_multiview(dev, card, kernel_fns, tmp, argv, args,
                                   exp, {"hybrid": runs["2.3"],
                                         "nerf": runs["1.2"]})
+        free()
+        multicard = cli_multicard(dev, card, kernel_fns, tmp, argv, args,
+                                  exp)
     finally:
         (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS, paths.DEMO_MOTIONS,
          paths.MOTIONX_REENACT_ROOT) = old_paths
         shutil.rmtree(tmp, ignore_errors=True)
     return {step: line["launches"] for step, line in runs.items()}, \
-        inference, modes, geometry, scene, guidance, cards, multiview
+        inference, modes, geometry, scene, guidance, cards, multiview, \
+        multicard
 
 
 def check_two_stage(card, runs, handoff, warm, sequential):
@@ -4547,6 +4575,1036 @@ def cli_multiview(dev, card, kernel_fns, tmp, argv, args, exp, b1_runs):
     return runs
 
 
+MC_STEPS = 2              # steps of each two-rank training run of cli_multicard
+MC_FRAMES = 8             # frames of its two-rank eval (a multiple of 2)
+MC_JOIN_SECONDS = 600     # the two ranks' join deadline
+# the tp = 2 check: the row-parallel layers' biases drawn N(0, MC_BIAS_STD)
+# in every run (the random cards' are 0), so that one added on both ranks
+# shows. The bound for the bf16 partial sums: tp = 2 rounds each rank's
+# partial product of a row-parallel layer to bf16 and sums the two in bf16,
+# where tp = 1 rounds one product; the same step at tp = 1 with each
+# row-parallel product split so (``mc_split_row_parallel``) measures what
+# that rounding alone moves the loss and the image gradient, and the tp = 2
+# step's distance from the tp = 1 step is held to MC_TP_FACTOR times it
+# (the column-parallel products' own half-width GEMMs may round otherwise
+# too), at least MC_TP_FACTOR bf16 units of the loss / the gradient's norm
+MC_BIAS_STD = 0.1
+MC_TP_FACTOR = 2.0
+BF16_UNIT = 2.0 ** -8
+MC_ROW_BIASES = ("to_out.0.bias", "net.2.bias")
+# ... at CFG scale 1: at the card's default 50 the two branches' difference,
+# amplified 50 times, is bf16 rounding noise with random weights, and any
+# change of rounding (tp = 2's, or float32's) moves the gradient as much as
+# a wrong bias would
+MC_TP_GUIDANCE = ["--guide.guidance_scale", "1",
+                  "--guide.guidance_adjust", "constant"]
+
+
+class MCPerViewGuidance:
+    """The guidance called once a view, with that view's inputs and
+    generator, as each rank of the data axis calls it; the loss the views'
+    mean. In bf16 the guidance's batch shape changes its rounding, and CFG
+    50 amplifies that beyond the B-view envelope (on an H100 a
+    one-process run that batches the views read 9-52 times the envelope
+    against the ranks), so the one-process reference of (a) computes each
+    view as a rank does."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, gparams, images, text, uncond, t, noise=None,
+                 cond_image=None, guidance_scale=None, generator=None,
+                 neg_embeds=None, progress=None):
+        def view(x, i):
+            return x if x is None or isinstance(x, (float, int)) \
+                else x[i:i + 1]
+
+        outs = [self.inner(gparams, images[i:i + 1], text[i:i + 1],
+                           uncond[i:i + 1], t[i:i + 1],
+                           noise=view(noise, i),
+                           cond_image=view(cond_image, i),
+                           guidance_scale=guidance_scale,
+                           generator=view(generator, i)
+                           if isinstance(generator, (list, tuple))
+                           else generator,
+                           neg_embeds=view(neg_embeds, i), progress=progress)
+                for i in range(images.shape[0])]
+        return {"loss": sum(o["loss"] for o in outs) / len(outs)}
+
+
+def mc_blockwise_render(gs, camera, H, W, raster, D):
+    """The sharded render's arithmetic in one process: the frame projected
+    whole, each of the D row blocks (``shard_render.row_block``) binned and
+    blended through B2 and composited over its slice of the background,
+    the blocks stacked. The whole frame's render differs from it by design
+    (a row block clips a large splat's tiles to the per-Gaussian cap, and
+    keys its depths over the block's Gaussians, so it drops other entries
+    of a full tile, as the JAX package's sharded render does)."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.ops import rasterize as R
+    from dreamwaltz_g_tpu_torch.parallel.shard_render import row_block
+
+    extrinsic, intrinsics, tanfov, bg = camera
+    Hd = -(-H // D)
+    Hd = -(-Hd // raster["tile_size"]) * raster["tile_size"]
+    g = R.project_gaussians(gs.positions, R.covariance3d(gs.quats, gs.scales),
+                            gs.opacities, gs.colors, extrinsic, intrinsics,
+                            Hd * D, W, tanfov=tanfov, alive=gs.alive)
+    bg = torch.cat([bg, bg.new_zeros((Hd * D - H,) + bg.shape[1:])])
+    parts = []
+    for r in range(D):
+        out = R.rasterize_projected(row_block(g, r * Hd, Hd), Hd, W,
+                                    mode="eval", **raster)
+        img = out.image + (1.0 - out.alpha)[..., None] \
+            * bg[r * Hd:(r + 1) * Hd]
+        parts.append((img, out.alpha, out.depth))
+    return tuple(torch.cat(xs)[:H] for xs in zip(*parts))
+
+
+def mc_render_errors(got, want):
+    """Max |got - want| of (image, alpha, depth), and the largest depth."""
+    return dict(max_abs_err_rgb=float((got[0] - want[0]).abs().max()),
+                max_abs_err_alpha=float((got[1] - want[1]).abs().max()),
+                max_abs_err_depth=float((got[2] - want[2]).abs().max()),
+                max_depth=float(want[2].abs().max()))
+
+
+def mc_seed_row_biases(gparams):
+    """The row-parallel biases of the UNet and the ControlNet from the seed
+    (``MC_BIAS_STD``), the same on every rank and in every run."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 19)
+    with torch.no_grad():
+        for net in (gparams.unet, gparams.controlnet):
+            if net is None:
+                continue
+            for name, p in net.named_parameters():
+                if name.endswith(MC_ROW_BIASES):
+                    p.copy_(MC_BIAS_STD * torch.randn(p.shape, generator=gen))
+
+
+def mc_snapshot(tr):
+    """The avatar's tensors, the optimizer's state and the generators of a
+    stage-2 trainer, to restore with ``mc_restore``."""
+    from dreamwaltz_g_tpu_torch.training.trainer import _opt_tree, avatar_tree
+
+    tree = avatar_tree(tr.state.avatar, tr.avatar_model)
+    return (tr.state, mc_clone(tree), copy_tree(_opt_tree(tr.state.opt_state)),
+            tr._rng_tree())
+
+
+def mc_restore(tr, snap):
+    from dreamwaltz_g_tpu_torch.training.trainer import (
+        _load_opt_tree,
+        load_avatar_tree,
+    )
+
+    state, tree, opt, rng = snap
+    load_avatar_tree(state.avatar, tr.avatar_model, tree)
+    tr.state = state
+    _load_opt_tree(tr.state.opt_state, opt)
+    tr._load_rng_tree(rng)
+
+
+def mc_clone(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: mc_clone(v) for k, v in tree.items()}
+    return tree.detach().clone() if torch.is_tensor(tree) else tree
+
+
+@contextlib.contextmanager
+def mc_split_row_parallel(gparams, tp=2):
+    """Within: every row-parallel product of the UNet and the ControlNet
+    (``to_out.0``, ``ff.net.2``) computed as tensor parallelism over ``tp``
+    ranks computes it, in one process: the input's columns split as
+    ``parallel/tp.py`` splits them (by heads, by feed-forward columns),
+    each part's product rounded to the weights' type, the parts summed in
+    it, the bias added once."""
+    import torch.nn.functional as F
+
+    from dreamwaltz_g_tpu_torch.guidance import layers as L
+    from dreamwaltz_g_tpu_torch.parallel.tp import split_range
+
+    def split(lin, cuts):
+        def forward(x):
+            x, w, b = L.promote(x, lin.weight, lin.bias)
+            y = sum(F.linear(x[..., lo:hi], w[:, lo:hi])
+                    for lo, hi in cuts)
+            return y if b is None else y + b
+        return forward
+
+    patched = []
+    for net in (gparams.unet, gparams.controlnet):
+        for m in [] if net is None else net.modules():
+            if isinstance(m, L.Attention):
+                lin, cuts = m.to_out[0], [
+                    tuple(c * m.head_dim for c in split_range(m.heads, tp, r))
+                    for r in range(tp)]
+            elif isinstance(m, L.FeedForwardGEGLU):
+                lin = m.net[2]
+                cuts = [split_range(lin.weight.shape[1], tp, r)
+                        for r in range(tp)]
+            else:
+                continue
+            lin.forward = split(lin, cuts)
+            patched.append(lin)
+    try:
+        yield len(patched)
+    finally:
+        for lin in patched:
+            del lin.forward
+
+
+def mc_digest(tensors):
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        b = t.detach().contiguous().view(-1).view(torch.uint8)
+        h.update(b.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mc_tree_tensors(tree):
+    """The tensors of a nested dict / list tree, in key order."""
+    import torch
+
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str)
+                for t in mc_tree_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in mc_tree_tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def mc_state_digests(tr):
+    """{"state": the model's and the optimizer's, "grid": the occupancy
+    grid's (stage 1)} digests of a trainer."""
+    from dreamwaltz_g_tpu_torch.training.trainer import _opt_tree
+
+    model = tr.nerf.state_dict() if tr.cfg.stage == "nerf" \
+        else tr._avatar_params_tree()
+    out = {"state": mc_digest(mc_tree_tensors(
+        {"model": model, "opt": _opt_tree(tr.state.opt_state)}))}
+    if tr.cfg.stage == "nerf":
+        out["grid"] = mc_digest(mc_tree_tensors(tr.grid._asdict()))
+    return out
+
+
+def mc_group_grads(tr):
+    """{optimizer group: its gradients flattened and concatenated, float32
+    on the CPU} of a stage-2 trainer's last step."""
+    import torch
+
+    out = {}
+    for g in tr.state.opt_state.adam.param_groups:
+        grads = [p.grad.reshape(-1).float() for p in g["params"]
+                 if p.grad is not None]
+        if grads:
+            out[g["name"]] = torch.cat(grads).cpu()
+    return out
+
+
+def mc_train(argv, kernel_fns, n_steps, grads_at=None, per_view=False):
+    """``Trainer(parse_args(argv))`` then ``train``, the counts set to 0
+    just before and read just after; CUDA events at each step's end give
+    s/step from step 1's end on; with ``grads_at`` the optimizer groups'
+    gradients of that step; with ``per_view`` the guidance called once a
+    view (``MCPerViewGuidance``). Returns (the trainer, its fields)."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.configs import parse_args
+    from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+
+    events, grads = {}, {}
+
+    def on_step(k):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[k] = ev
+        if k == grads_at:
+            grads.update(mc_group_grads(tr))
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = Trainer(parse_args(argv))
+    if per_view:
+        tr.guidance = MCPerViewGuidance(tr.guidance)
+        tr._rebuild_train_step()
+    build_s = time.perf_counter() - t0
+    tr.train(on_step=on_step, prefetch=False)
+    torch.cuda.synchronize()
+    line = dict(build_s=build_s, wall_s=time.perf_counter() - t0,
+                launches={k: fn.launches for k, fn in kernel_fns.items()},
+                loss=list(tr.losses), steps=tr.train_step,
+                s_per_step=None if n_steps < 2 else
+                events[1].elapsed_time(events[n_steps]) / 1e3
+                / (n_steps - 1), grads=grads)
+    return tr, line
+
+
+def mc_first_step(tr, kernel_fns, image_grads):
+    """Step 1 of a built trainer as its loop runs it (the batch for step 1,
+    then ``_train_one``), its image gradient caught by a pixel hook set
+    before the steps' build: returns the loss, the image gradient (float32
+    on the CPU) and the launches."""
+    import torch
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    image_grads.clear()
+    tr.train_step = 1
+    tr.prompt.training_ratio = tr.train_camera.training_ratio = \
+        1 / tr.max_iteration
+    metrics = tr._train_one(tr._train_batch(1))
+    torch.cuda.synchronize()
+    return dict(loss=float(metrics["loss"]),
+                image_grad=torch.stack(image_grads).float().cpu(),
+                launches={k: fn.launches for k, fn in kernel_fns.items()})
+
+
+def mc_catch_image_grad(tr, image_grads):
+    """Chain a hook before the trainer's pixel hook that keeps each view's
+    image gradient, and rebuild the step with it."""
+    inner = tr.pgc
+
+    def pgc(img):
+        img.register_hook(lambda g: image_grads.append(g.detach().clone()))
+        return img if inner is None else inner(img)
+
+    tr.pgc = pgc
+    tr._rebuild_train_step()
+
+
+def mc_kernel_fns():
+    from dreamwaltz_g_tpu_torch.guidance import flash as FL
+    from dreamwaltz_g_tpu_torch.ops import blend_train as BT
+    from dreamwaltz_g_tpu_torch.ops.blend import blend_sorted
+
+    return {"blend_sorted": blend_sorted,
+            "blend_train_fwd": BT.blend_train_fwd,
+            "blend_train_bwd": BT.blend_train_bwd,
+            "blend_tiles_eval": BT.blend_tiles_eval_panels,
+            "flash_attn_fwd": FL.flash_attn_fwd,
+            "flash_attn_bwd": FL.flash_attn_bwd}
+
+
+def mc_writers():
+    """Count the trainer's file writes in this process: the config, the
+    images, the videos, the checkpoints (each still written)."""
+    from dreamwaltz_g_tpu_torch.training import trainer as T
+    from dreamwaltz_g_tpu_torch.training.checkpoint import Checkpointer
+
+    counts = {"config": 0, "image": 0, "video": 0, "checkpoint": 0}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    T.save_config = counted("config", T.save_config)
+    T.save_image = counted("image", T.save_image)
+    T.write_video = counted("video", T.write_video)
+    Checkpointer.save = counted("checkpoint", Checkpointer.save)
+    return counts
+
+
+@contextlib.contextmanager
+def mc_keep_frames(store):
+    """Keep the float frames (before their 8-bit PNGs) of every
+    ``Trainer.evaluate`` in ``store`` while the block runs."""
+    from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+
+    inner = Trainer.evaluate
+
+    def evaluate(self, *a, **kw):
+        frames = inner(self, *a, **kw)
+        store.extend(frames)
+        return frames
+
+    Trainer.evaluate = evaluate
+    try:
+        yield store
+    finally:
+        Trainer.evaluate = inner
+
+
+def mc_levels(x):
+    """A float frame's 8-bit levels, as ``save_image`` quantises it."""
+    import numpy as np
+
+    return np.rint(np.clip(np.asarray(x, np.float64), 0, 1) * 255.0)
+
+
+def mc_repeat_frames(tr, n, raster):
+    """Where (d)'s 8-bit flips come from, in one process: each of the
+    restored avatar's first ``n`` test poses animated twice, the frame
+    rendered from each animation and once more from the first; then the
+    same with the mesh parts' vertex normals (``avatar._vertex_normals``,
+    an ``index_add`` that adds with atomics on the card) summed on the
+    host. Returns, for both runs, each pose's animated elements that differ
+    between the two animations, whether the two renders of one animation
+    are equal to the bit, and the two animations' frames' largest
+    difference and the pixels whose 8-bit level differs."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.system import avatar as AV
+    from dreamwaltz_g_tpu_torch.training import gs_trainer
+
+    H, W = tr.cfg.data.test_h, tr.cfg.data.test_w
+    cam = tr.test_camera(0.0)
+    bg = torch.full((H, W, 3), 0.5, device=tr.device)
+    camera = (cam.extrinsic[0], cam.intrinsics[0], cam.tanfov[0], bg)
+    rast = dict(raster, mode="eval")
+
+    def run():
+        out = dict(gaussians_differ=[], same_animation_equal=[],
+                   frame_max_abs=[], level_flips_px=[])
+        for i in range(n):
+            obs, _ = tr.prompt(frame_idx=i)
+            g1 = AV.animate(tr.avatar_model, tr.state.avatar, obs)
+            g2 = AV.animate(tr.avatar_model, tr.state.avatar, obs)
+            out["gaussians_differ"].append(sum(
+                int((a != b).sum()) for a, b in zip(g1, g2)))
+            f1, f1b, f2 = (gs_trainer._render_gaussians(
+                g, *camera, H, W, rast)[0].clamp(0, 1).cpu().numpy()
+                for g in (g1, g1, g2))
+            out["same_animation_equal"].append(bool((f1 == f1b).all()))
+            out["frame_max_abs"].append(float(abs(f1 - f2).max()))
+            out["level_flips_px"].append(int(
+                (mc_levels(f1) != mc_levels(f2)).any(-1).sum()))
+        return out
+
+    inner = AV._vertex_normals
+
+    def host_normals(vertex_coords, triangles):
+        return inner(vertex_coords.cpu(), triangles).to(vertex_coords.device)
+
+    with torch.no_grad():
+        card = run()
+        AV._vertex_normals = host_normals
+        try:
+            host = run()
+        finally:
+            AV._vertex_normals = inner
+    return {"card_normals": card, "host_normals": host}
+
+
+def mc_rank(rank, world, port, spec):
+    """One rank of phase ``cli_multicard`` (spawned; module docstring of
+    the phase): a ``gloo`` group of ``world`` ranks on card 0."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        out = mc_rank_runs(rank, spec)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, f"{spec['out']}/rank{rank}.pt")
+
+
+def mc_rank_runs(rank, spec):
+    """The rank's runs (a)-(f) of phase ``cli_multicard``."""
+    import logging
+
+    import torch
+
+    from dreamwaltz_g_tpu_torch import main as M
+    from dreamwaltz_g_tpu_torch.configs import parse_args, paths
+    from dreamwaltz_g_tpu_torch.guidance import flash as FL
+    from dreamwaltz_g_tpu_torch.guidance import layers as L
+    from dreamwaltz_g_tpu_torch.parallel import make_mesh
+    from dreamwaltz_g_tpu_torch.parallel.shard_render import (
+        make_sharded_render,
+    )
+    from dreamwaltz_g_tpu_torch.system.avatar import animate
+    from dreamwaltz_g_tpu_torch.training import gs_trainer
+    from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+    from dreamwaltz_g_tpu_torch.utils import timing
+
+    (paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS,
+     paths.DEMO_MOTIONS) = spec["paths"]
+    fns = mc_kernel_fns()
+    writes = mc_writers()
+    out = {}
+
+    # (a) step 2.1 at B = 2 over the data axis
+    tr, a = mc_train(spec["argv"]["a"], fns, MC_STEPS, grads_at=1)
+    a["digests"] = mc_state_digests(tr)
+    if rank:
+        a["grads"] = None
+    out["a"] = a
+    tr = None
+    torch.cuda.empty_cache()
+
+    # (b) step 2.1 at tp = 2: one step, then the same step from the same
+    # state with the row-parallel bias added on both ranks
+    seen = []
+    fl_launch = FL._launch
+
+    def record(fn_name, d, *args):
+        seen.append((fn_name, tuple(args[0].shape)))
+        return fl_launch(fn_name, d, *args)
+
+    tr = Trainer(parse_args(spec["argv"]["b"]))
+    mc_seed_row_biases(tr.guidance_params)
+    grads = []
+    mc_catch_image_grad(tr, grads)
+    snap = mc_snapshot(tr)
+    FL._launch = record
+    try:
+        b = mc_first_step(tr, fns, grads)
+    finally:
+        FL._launch = fl_launch
+    b["flash_shapes"] = sorted({s: seen.count(s) for s in set(seen)}.items(),
+                               key=str)
+    b["heads"] = sorted({m.heads for m in tr.guidance_params.unet.modules()
+                         if isinstance(m, L.Attention)})
+    b["expected_flash"] = list(expected_flash_launches(
+        tr.guidance_params, tr.guidance.latent_size))
+    # the same step from the same state, the bias added on both ranks
+    mc_restore(tr, snap)
+    row_parallel = L.row_parallel
+
+    def both_ranks_bias(linear, x, group):
+        return L.reduce_from_model(linear(x), group)
+
+    L.row_parallel = both_ranks_bias
+    try:
+        mutated = mc_first_step(tr, fns, grads)
+    finally:
+        L.row_parallel = row_parallel
+    b["mutated"] = {k: mutated[k] for k in ("loss", "image_grad")}
+    out["b"] = b
+    tr = None
+    torch.cuda.empty_cache()
+
+    # (c) step 1.2 at B = 2, one step (its occupancy refresh included)
+    tr, c = mc_train(spec["argv"]["c"], fns, 1)
+    c["digests"] = mc_state_digests(tr)
+    out["c"] = c
+    tr = None
+    torch.cuda.empty_cache()
+
+    # (f) step 2.1 at torchrun's defaults (one view, tp = 1): the two ranks
+    # are replicas of one data index, their gradients averaged
+    tr, f = mc_train(spec["argv"]["f"], fns, 1)
+    f["digests"] = mc_state_digests(tr)
+    out["f"] = f
+    tr = None
+    torch.cuda.empty_cache()
+
+    # (d) step 3 over the two ranks
+    for fn in fns.values():
+        fn.launches = 0
+    timing.records.clear()
+    timing.enabled = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with mc_keep_frames([]) as frames:
+            tr = M.run(parse_args(spec["argv"]["d"]))
+            torch.cuda.synchronize()
+    finally:
+        timing.enabled = False
+    out["d"] = dict(wall_s=time.perf_counter() - t0,
+                    launches={k: fn.launches for k, fn in fns.items()},
+                    render_ms=timing.times("evaluate.render"),
+                    frames=None if rank else frames)
+
+    # (e) the sharded render of the restored avatar's first test frame, at
+    # the trainer's raster settings
+    cfg = tr.cfg
+    Hs, Ws = cfg.data.test_h, cfg.data.test_w
+    raster = dict(tile_size=cfg.render.tile_size,
+                  capacity=cfg.render.tile_capacity, chunk=cfg.render.chunk,
+                  max_tiles_per_gaussian=16)
+    obs, _ = tr.prompt(frame_idx=0)
+    cam = tr.test_camera(0.0)
+    bg = torch.full((Hs, Ws, 3), 0.5, device=tr.device)
+    with torch.no_grad():
+        gs = animate(tr.avatar_model, tr.state.avatar, obs)
+        args = (gs.positions, gs.quats, gs.scales, gs.opacities, gs.colors,
+                gs.alive, cam.extrinsic[0], cam.intrinsics[0],
+                cam.tanfov[0], bg)
+        render = make_sharded_render(make_mesh(device=tr.device), Hs, Ws,
+                                     **raster)
+        fns["blend_sorted"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, alpha, depth = render(*args)
+        torch.cuda.synchronize()
+        e_ms = (time.perf_counter() - t0) * 1e3
+        e_launches = fns["blend_sorted"].launches
+        blocks = mc_blockwise_render(gs, args[6:], Hs, Ws, raster, D=2)
+        whole = gs_trainer._render_gaussians(gs, *args[6:], Hs, Ws,
+                                             dict(raster, mode="eval"))
+    out["e"] = dict(
+        launches=e_launches, wall_ms=e_ms, resolution=[Hs, Ws],
+        n_gaussians=int(gs.positions.shape[0]),
+        coverage=float((alpha > 0.01).float().mean()),
+        finite=bool(torch.isfinite(img).all()),
+        blockwise=mc_render_errors((img, alpha, depth), blocks),
+        whole_frame=mc_render_errors((img, alpha, depth), whole))
+    tr = None
+    from dreamwaltz_g_tpu_torch.main import logger
+
+    out["writes"] = dict(writes, log_file=any(
+        isinstance(h, logging.FileHandler) for h in logger.handlers))
+    return out
+
+
+def copy_tree(tree):
+    import copy
+
+    return copy.deepcopy(tree)
+
+
+def mc_start(spec, world=2):
+    """Spawn the ranks of phase ``cli_multicard``; ``mc_join`` waits for
+    them with a join deadline (``MC_JOIN_SECONDS`` from now)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(mc_rank, args=(world, port, spec),
+                             nprocs=world, join=False, start_method="spawn")
+    return ctx, time.monotonic() + MC_JOIN_SECONDS
+
+
+def mc_join(ctx, deadline, spec, world=2):
+    """Wait for the ranks; a rank that misses the deadline is killed and
+    the phase fails. Returns each rank's results."""
+    import torch
+
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                fail(f"cli_multicard: the ranks missed the "
+                     f"{MC_JOIN_SECONDS} s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return [torch.load(f"{spec['out']}/rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def mc_span_ms(spans):
+    """The ms of ``utils/timing.py`` spans: the device's where recorded,
+    else the host's."""
+    return sum(host if dev is None else dev for dev, host in spans)
+
+
+def mc_envelope(got, want):
+    """The largest |got - want| over the B-view envelope's bound (2e-3
+    relative + 2e-4 of the largest |want|): at most 1 holds."""
+    bound = GRAD_RTOL * want.abs() + GRAD_ATOL_OF_MAX * want.abs().max()
+    return float(((got - want).abs() / bound.clamp_min(1e-30)).max())
+
+
+def mc_rel(got, want):
+    """The relative L2 distance of ``got`` from ``want``."""
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def mc_row_block(tr, raster, D=2):
+    """Rank 0's row block of the sharded render of the restored avatar's
+    first test frame (``Hd`` x W): the wrapper's arguments, its size."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.ops import rasterize as R
+    from dreamwaltz_g_tpu_torch.parallel.shard_render import row_block
+    from dreamwaltz_g_tpu_torch.system.avatar import animate
+
+    Hs, Ws = tr.cfg.data.test_h, tr.cfg.data.test_w
+    Hd = -(-Hs // D)
+    Hd = -(-Hd // raster["tile_size"]) * raster["tile_size"]
+    obs, _ = tr.prompt(frame_idx=0)
+    cam = tr.test_camera(0.0)
+    with torch.no_grad():
+        gs = animate(tr.avatar_model, tr.state.avatar, obs)
+        g = R.project_gaussians(
+            gs.positions, R.covariance3d(gs.quats, gs.scales),
+            gs.opacities, gs.colors, cam.extrinsic[0], cam.intrinsics[0],
+            Hd * D, Ws, tanfov=cam.tanfov[0], alive=gs.alive)
+        args, _ = blend_inputs(row_block(g, 0, Hd), raster["tile_size"],
+                               raster["capacity"],
+                               raster["max_tiles_per_gaussian"], Hd, Ws)
+    return args, Hd, Ws
+
+
+def cli_multicard(dev, card, kernel_fns, tmp, argv, args, exp):
+    """Phase ``cli_multicard``, in ``cli_two_stage``'s directory after
+    ``cli_multiview``: the multi-card half through the port's CLI at full
+    width on two ranks that share the one card (``torch.multiprocessing``
+    spawned processes, a ``gloo`` group, card 0 in each; NCCL refuses two
+    ranks on one device), each rank building ``Trainer(parse_args(argv))``
+    / ``main.run`` as a ``torchrun`` rank would, with its counts set to 0
+    just before each run and read just after. Its times are of two ranks
+    on one card: no scaling figures.
+
+    (a) Step 2.1 at ``--optim.batch_size 2`` (dp = 2), ``MC_STEPS`` steps,
+    against the one-process B = 2 run from the same seed (run here, its
+    guidance called once a view as a rank calls it: ``MCPerViewGuidance``):
+    step 1's loss within 1e-4 relative and each optimizer group's step-1
+    gradient within the B-view envelope (2e-3 relative + 2e-4 of the
+    largest), both from the same state (the later steps start from states
+    that Adam's first update, +-lr a parameter, parts where a gradient is
+    near 0, and CFG 50 amplifies that in bf16: printed, not held); B1 (1,
+    1) and flash
+    (15, 1) a step on each rank; the ranks' states equal to the bit; only
+    rank 0 wrote (config, log, checkpoint).
+    (b) Step 2.1 at ``--parallel.tp 2`` (dp = 1), step 1, the row-parallel
+    biases seeded (``MC_BIAS_STD``), CFG scale 1 (``MC_TP_GUIDANCE``),
+    against the same step at tp = 1
+    through the multi-view step on a one-rank mesh (run here): the tp = 2
+    loss and image gradient within ``MC_TP_FACTOR`` times the distance
+    that the partial sums' bf16 rounding alone gives (the tp = 1 step with
+    each row-parallel product split as tp = 2 splits it,
+    ``mc_split_row_parallel``, from the same state); the same step with
+    the bias added on both ranks falls outside it; flash's forwards on
+    each rank at half the heads, as many as ``expected_flash_launches``.
+    (c) Step 1.2 at B = 2, one step with its occupancy refresh: the grid
+    and the state equal on both ranks to the bit.
+    (d) Step 3 (``--log.eval_only``) at 1024^2, ``MC_FRAMES`` frames over
+    the two ranks, against the one-process ``full_eval`` (run here): every
+    frame's PNG within one 8-bit level, counted as integers; B2 once a
+    frame in all; the PNGs and the mp4 written once, by rank 0. Printed
+    beside it: the float frames' distance before quantisation, and the
+    same poses animated and rendered twice in one process
+    (``mc_repeat_frames``), with the mesh parts' vertex normals summed on
+    the card and on the host.
+    (e) ``make_sharded_render`` of the restored avatar's first 1024^2 test
+    frame at D = 2, the trainer's raster settings, against the same render
+    in one process (``mc_blockwise_render``: the frame projected whole, its
+    two row blocks blended there) within B2's plain-version tolerance, B2
+    once a rank; its distance from the whole frame's render, which differs
+    by design, printed.
+    (f) Step 2.1 at ``torchrun``'s defaults (one view, tp = 1), one step:
+    the two ranks are replicas of one data index through the multi-view
+    step, their gradients averaged; their states equal to the bit (and
+    the trainer's own check at the checkpoint raises otherwise), B1 (1, 1)
+    and flash (15, 1) on each rank.
+    Then B2 on rank 0's 512 x 1024 row block
+    against its plain version, with its times and bound. Returns each
+    run's launches (the ranks' and the one-process runs'). The ranks start
+    first and the one-process runs go on beside them, so every time here
+    is of a shared card."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dreamwaltz_g_tpu_torch.configs import parse_args, paths
+    from dreamwaltz_g_tpu_torch.ops.blend import (
+        blend_sorted,
+        blend_sorted_reference,
+    )
+    from dreamwaltz_g_tpu_torch.parallel import make_mesh_2d
+    from dreamwaltz_g_tpu_torch.training.trainer import Trainer
+    from dreamwaltz_g_tpu_torch.utils.media import load_image
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = tmp / "outputs"
+    no_smooth = ["--render.lbs_weight_smooth", "false"]
+    step3 = ["--log.exp_root", str(out), "--log.exp_name", exp["2.3"],
+             "--predefined_body_parts", CLI_PARTS, "--stage", "gs",
+             "--log.eval_only", "true", "--optim.resume", "true",
+             "--prompt.scene", "demo,talkshow",
+             "--data.eval_elevation", "90",
+             "--data.eval_camera_track", "fixed",
+             "--data.full_eval_size", str(MC_FRAMES)]
+    argvs = {
+        "a": argv("2.1", *args["2.1"], n=MC_STEPS, name="multicard/dp2")
+        + no_smooth + ["--optim.batch_size", "2"],
+        "b": argv("2.1", *args["2.1"], n=1, name="multicard/tp2")
+        + no_smooth + MC_TP_GUIDANCE + ["--parallel.tp", "2"],
+        "c": argv("1.2", *args["1.2"], n=1,
+                  name="multicard/nerf-dp2") + ["--optim.batch_size", "2"],
+        "d": step3 + ["--log.eval_dirname", "multicard"],
+        "f": argv("2.1", *args["2.1"], n=1, name="multicard/replicas2")
+        + no_smooth}
+    runs, line = {}, {}
+    t_phase = time.perf_counter()
+    # the two ranks start first; the one-process runs go on beside them
+    rank_dir = tmp / "multicard_ranks"
+    rank_dir.mkdir()
+    spec = dict(out=str(rank_dir), argv=argvs, paths=(
+        paths.HUMAN_TEMPLATES, paths.GUIDANCE_WEIGHTS, paths.DEMO_MOTIONS))
+    ctx, deadline = mc_start(spec)
+
+    # -- the one-process runs ------------------------------------------
+    tr, one_a = mc_train(argv("2.1", *args["2.1"], n=MC_STEPS,
+                              name="multicard/dp2-one")
+                         + no_smooth + ["--optim.batch_size", "2"],
+                         kernel_fns, MC_STEPS, grads_at=1, per_view=True)
+    runs["dp2_one"] = one_a["launches"]
+    tr = None
+    free()
+    # tp = 1 through the multi-view step on a one-rank mesh, then the same
+    # step from the same state with the row-parallel products split
+    tr = Trainer(parse_args(argv("2.1", *args["2.1"], n=1,
+                                 name="multicard/tp1") + no_smooth
+                            + MC_TP_GUIDANCE))
+    tr.mesh = make_mesh_2d(1, 1, device=dev)
+    mc_seed_row_biases(tr.guidance_params)
+    grads = []
+    mc_catch_image_grad(tr, grads)
+    snap = mc_snapshot(tr)
+    one_b = {"tp1": mc_first_step(tr, kernel_fns, grads)}
+    mc_restore(tr, snap)
+    with mc_split_row_parallel(tr.guidance_params) as n_split:
+        one_b["split"] = mc_first_step(tr, kernel_fns, grads)
+    runs["tp1"] = one_b["tp1"]["launches"]
+    runs["tp1_split"] = one_b["split"]["launches"]
+    snap = tr = None
+    free()
+    with mc_keep_frames([]) as frames_one:
+        tr, one_d = cli_drive(kernel_fns, step3 + ["--log.eval_dirname",
+                                                   "multicard-one"])
+    runs["eval_one"] = one_d["launches"]
+    raster = dict(tile_size=tr.cfg.render.tile_size,
+                  capacity=tr.cfg.render.tile_capacity,
+                  chunk=tr.cfg.render.chunk, max_tiles_per_gaussian=16)
+    repeat = mc_repeat_frames(tr, MC_FRAMES, raster)
+    block_args, Hd, Wd = mc_row_block(tr, raster)
+    tr = None
+    free()
+
+    # -- the two ranks ---------------------------------------------------
+    ranks = mc_join(ctx, deadline, spec)
+    ranks_s = time.perf_counter() - t_phase
+    shutil.rmtree(rank_dir, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        for k in "acdf":
+            runs[f"{k}_rank{r}"] = res[k]["launches"]
+        runs[f"b_rank{r}"] = {k: res["b"]["launches"][k] for k in
+                              res["b"]["launches"]}
+        runs[f"e_rank{r}"] = {k: int(k == "blend_sorted")
+                              * res["e"]["launches"] for k in kernel_fns}
+
+    # -- (a) -------------------------------------------------------------
+    a0 = ranks[0]["a"]
+    per_step = {k: [r["a"]["launches"][k] / MC_STEPS for r in ranks]
+                for k in ("blend_train_fwd", "blend_train_bwd",
+                          "flash_attn_fwd", "flash_attn_bwd")}
+    grad_err = {g: mc_envelope(a0["grads"][g], w)
+                for g, w in one_a["grads"].items() if w.abs().max() > 0}
+    line["a"] = dict(
+        argv_extra=["--optim.batch_size", "2"], dp=2, tp=1,
+        loss=[r["a"]["loss"] for r in ranks], loss_one=one_a["loss"],
+        step1_loss_rel_err=abs(a0["loss"][0] - one_a["loss"][0])
+        / max(abs(one_a["loss"][0]), 1e-30),
+        grad_envelope_ratio=grad_err,
+        groups=sorted(one_a["grads"]), launches_per_step=per_step,
+        s_per_step=[r["a"]["s_per_step"] for r in ranks],
+        s_per_step_one=one_a["s_per_step"],
+        build_s=[r["a"]["build_s"] for r in ranks],
+        states_equal=ranks[0]["a"]["digests"] == ranks[1]["a"]["digests"])
+    # -- (b) -------------------------------------------------------------
+    b0 = ranks[0]["b"]
+    bf, sp = one_b["tp1"], one_b["split"]
+    bound_loss = MC_TP_FACTOR * max(abs(sp["loss"] - bf["loss"]),
+                                    BF16_UNIT * abs(bf["loss"]))
+    bound_grad = MC_TP_FACTOR * max(mc_rel(sp["image_grad"],
+                                           bf["image_grad"]), BF16_UNIT)
+
+    def tp_err(res):
+        return dict(loss=abs(res["loss"] - bf["loss"]),
+                    image_grad_rel=mc_rel(res["image_grad"],
+                                          bf["image_grad"]))
+
+    line["b"] = dict(
+        argv_extra=["--parallel.tp", "2"], dp=1, tp=2,
+        loss=[r["b"]["loss"] for r in ranks], loss_tp1=bf["loss"],
+        loss_tp1_split=sp["loss"], split_layers=n_split,
+        tp1_split_vs_tp1=dict(loss=abs(sp["loss"] - bf["loss"]),
+                              image_grad_rel=mc_rel(sp["image_grad"],
+                                                    bf["image_grad"])),
+        bound=dict(loss=bound_loss, image_grad_rel=bound_grad),
+        tp2=[tp_err(r["b"]) for r in ranks],
+        mutated=[tp_err(r["b"]["mutated"]) for r in ranks],
+        heads=[r["b"]["heads"] for r in ranks],
+        flash_shapes=[r["b"]["flash_shapes"] for r in ranks],
+        flash_expected=b0["expected_flash"],
+        launches=[r["b"]["launches"] for r in ranks])
+    # -- (c) -------------------------------------------------------------
+    line["c"] = dict(
+        argv_extra=["--optim.batch_size", "2"], dp=2, tp=1,
+        loss=[r["c"]["loss"] for r in ranks],
+        wall_s=[r["c"]["wall_s"] for r in ranks],
+        digests=[r["c"]["digests"] for r in ranks],
+        launches=[r["c"]["launches"] for r in ranks])
+    # -- (f) -------------------------------------------------------------
+    line["f"] = dict(
+        argv_extra=[], dp=1, tp=1, replicas=2,
+        loss=[r["f"]["loss"] for r in ranks],
+        build_s=[r["f"]["build_s"] for r in ranks],
+        wall_s=[r["f"]["wall_s"] for r in ranks],
+        launches=[r["f"]["launches"] for r in ranks],
+        states_equal=ranks[0]["f"]["digests"] == ranks[1]["f"]["digests"])
+    # -- (d) -------------------------------------------------------------
+    results = out / exp["2.3"]
+    two = sorted((results / "multicard").rglob("*.png"))
+    one = sorted((results / "multicard-one").rglob("*.png"))
+    levels = [int(np.abs(np.rint(load_image(str(p)) * 255.0)
+                         - np.rint(load_image(str(q)) * 255.0)).max())
+              for p, q in zip(two, one)]
+    line["d"] = dict(
+        frames=MC_FRAMES, resolution=[1024, 1024], pngs=[len(two), len(one)],
+        mp4=len(list((results / "multicard").glob("*.mp4"))),
+        max_level_diff=levels,
+        blend_sorted=[r["d"]["launches"]["blend_sorted"] for r in ranks],
+        ms_per_frame=[mc_span_ms(r["d"]["render_ms"]) / MC_FRAMES
+                      for r in ranks],
+        ms_per_frame_one=mc_span_ms(one_d["spans_ms"]["evaluate.render"])
+        / MC_FRAMES, wall_s=[r["d"]["wall_s"] for r in ranks],
+        float_max_abs=[float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                       for a, b in zip(ranks[0]["d"]["frames"], frames_one)],
+        level_flips_px=[int((mc_levels(a) != mc_levels(b)).any(-1).sum())
+                        for a, b in zip(ranks[0]["d"]["frames"],
+                                        frames_one)],
+        repeat_one_process=repeat)
+    ranks[0]["d"]["frames"] = frames_one = None
+    # -- (e) and the row block ---------------------------------------------
+    line["e"] = [r["e"] for r in ranks]
+    bkw = dict(tile_size=raster["tile_size"], chunk=raster["chunk"],
+               capacity=raster["capacity"])
+    err, stats = compare_blend(f"row_block_{Hd}x{Wd}", block_args, None,
+                               height=Hd, width=Wd)
+    s_idx, seg_start, counts, means2d, conic, op, values = block_args
+    n = means2d.shape[0]
+    nbytes = (4 * int(counts.sum()) + 4 * 2 * seg_start.numel()
+              + 4 * n * (2 + 3 + 1 + values.shape[1])
+              + 4 * Hd * Wd * values.shape[1])
+    ops, ops_ms = cull_ops_ms(stats, OPS_PER_BLENDED_PAIR)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    line["row_block"] = dict(
+        shape=[Hd, Wd], max_abs_err=err,
+        ms=cuda_ms(lambda: blend_sorted(*block_args, Hd, Wd, **bkw), 20),
+        kernel_ms=named_ms(kernel_device_ms(
+            lambda: blend_sorted(*block_args, Hd, Wd, **bkw), 20)[1],
+            "blend_sorted_kernel"),
+        plain_ms=cuda_ms(lambda: blend_sorted_reference(
+            *block_args, Hd, Wd, **bkw), 3),
+        bytes=nbytes, ops=ops, bytes_ms=b_ms, ops_ms=ops_ms,
+        bound_ms=max(b_ms, ops_ms),
+        bound_by="bytes" if b_ms >= ops_ms else "operations",
+        library_ms=None)
+    block_args = None
+    free()
+    writes = [r["writes"] for r in ranks]
+    emit(phase="cli_multicard", ranks=2,
+         note="two gloo ranks share one card: times are not scaling figures",
+         ranks_wall_s=ranks_s, phase_s=time.perf_counter() - t_phase,
+         writes=writes, **line, **card)
+
+    # -- checks ------------------------------------------------------------
+    la = line["a"]
+    if not la["states_equal"]:
+        fail(f"cli_multicard (a): the ranks' states differ: "
+             f"{[r['a']['digests'] for r in ranks]}")
+    if la["step1_loss_rel_err"] > 1e-4 or not all(
+            math.isfinite(x) for x in a0["loss"]):
+        fail(f"cli_multicard (a): losses {la['loss']} against the "
+             f"one-process {la['loss_one']}")
+    if sorted(grad_err) != sorted(g for g, w in one_a["grads"].items()
+                                  if w.abs().max() > 0) or not grad_err \
+            or max(grad_err.values()) > 1.0:
+        fail(f"cli_multicard (a): group gradients outside the envelope "
+             f"{grad_err}")
+    if any(v != [1.0, 1.0] for k, v in per_step.items()
+           if k.startswith("blend")) or per_step["flash_attn_fwd"] != [
+            float(FLASH_PER_STEP[0])] * 2 or per_step["flash_attn_bwd"] != [
+            float(FLASH_PER_STEP[1])] * 2:
+        fail(f"cli_multicard (a): launches a step {per_step}")
+    lb = line["b"]
+    for r, (e, m) in enumerate(zip(lb["tp2"], lb["mutated"])):
+        if e["loss"] > bound_loss or e["image_grad_rel"] > bound_grad:
+            fail(f"cli_multicard (b): rank {r}'s tp = 2 step {e} outside "
+                 f"the bound {lb['bound']}")
+        if m["loss"] <= bound_loss and m["image_grad_rel"] <= bound_grad:
+            fail(f"cli_multicard (b): the bias added on both ranks stays "
+                 f"inside the bound: {m} against {lb['bound']}")
+    fwd_exp, bwd_exp = lb["flash_expected"]
+    for r, res in enumerate(ranks):
+        shapes = dict(res["b"]["flash_shapes"])
+        fwd = sum(c for (name, _), c in shapes.items()
+                  if name == "flash_attn_fwd")
+        tp_shapes = {s for (name, s) in shapes
+                     if name == "flash_attn_fwd" and s[-1] in (40, 80)}
+        if res["b"]["launches"]["flash_attn_fwd"] != fwd_exp \
+                or fwd != fwd_exp or res["b"]["launches"][
+                    "flash_attn_bwd"] != bwd_exp \
+                or tp_shapes != {(2, 4096, 4, 40), (2, 1024, 4, 80)}:
+            fail(f"cli_multicard (b): rank {r}'s flash launches {shapes}, "
+                 f"expected {lb['flash_expected']} at 4 heads a rank")
+    lf = line["f"]
+    if not lf["states_equal"] or not all(
+            math.isfinite(x) for r in lf["loss"] for x in r):
+        fail(f"cli_multicard (f): the replicas' states differ or their "
+             f"losses {lf['loss']} are not finite: "
+             f"{[r['f']['digests'] for r in ranks]}")
+    per_step_f = [{k: r[k] for k in ("blend_train_fwd", "blend_train_bwd",
+                                     "flash_attn_fwd", "flash_attn_bwd")}
+                  for r in lf["launches"]]
+    if any(p != {"blend_train_fwd": 1, "blend_train_bwd": 1,
+                 "flash_attn_fwd": FLASH_PER_STEP[0],
+                 "flash_attn_bwd": FLASH_PER_STEP[1]} for p in per_step_f):
+        fail(f"cli_multicard (f): launches of its one step {per_step_f}")
+    lc = line["c"]
+    if lc["digests"][0] != lc["digests"][1]:
+        fail(f"cli_multicard (c): the ranks' grids or states differ "
+             f"{lc['digests']}")
+    if not all(math.isfinite(x) for r in lc["loss"] for x in r):
+        fail(f"cli_multicard (c): losses {lc['loss']}")
+    ld = line["d"]
+    if ld["pngs"] != [MC_FRAMES, MC_FRAMES] or ld["mp4"] != 1 \
+            or max(levels) > 1 or sum(ld["blend_sorted"]) != MC_FRAMES:
+        fail(f"cli_multicard (d): {ld}")
+    for r, e in enumerate(line["e"]):
+        b = e["blockwise"]
+        if not e["finite"] or e["launches"] != 1 or e["coverage"] <= 0.0 \
+                or max(b["max_abs_err_rgb"], b["max_abs_err_alpha"]) \
+                > TOL_RGB_ALPHA \
+                or b["max_abs_err_depth"] > TOL_DEPTH_REL * b["max_depth"]:
+            fail(f"cli_multicard (e): rank {r}'s sharded render {e}")
+    w0, w1 = writes
+    if any(w1.values()) or not w0["log_file"] or w0["config"] != 5 \
+            or w0["checkpoint"] < 3 or w0["image"] != MC_FRAMES \
+            or w0["video"] != 1:
+        fail(f"cli_multicard: writes by rank {writes}, expected rank 0 "
+             f"alone: 5 configs (one a trainer), the checkpoints of (a), "
+             f"(c) and (f), {MC_FRAMES} PNGs and 1 mp4")
+    return runs, line["row_block"]
+
+
 def _leaf_names(tree, name="avatar"):
     if not isinstance(tree, dict):
         return [name]
@@ -5283,7 +6341,8 @@ def main():
     guidance = gparams = step = tstate = None
     torch.cuda.empty_cache()
     (cli_runs, inference_runs, mode_runs, geometry_runs, scene_runs,
-     guidance_runs, card_runs, multiview_runs) = cli_two_stage(
+     guidance_runs, card_runs, multiview_runs,
+     (multicard_runs, row_block)) = cli_two_stage(
         dev, card, train_fns, frame_ms)
     cli = {name: sum(run[name] for run in list(cli_runs.values())
                      + list(inference_runs.values())
@@ -5292,7 +6351,8 @@ def main():
                      + list(scene_runs.values())
                      + list(guidance_runs.values())
                      + list(card_runs.values())
-                     + list(multiview_runs.values()))
+                     + list(multiview_runs.values())
+                     + list(multicard_runs.values()))
            for name in train_fns}
 
     def entry(name, source, replaces, launches, err, ms, plain, bound,
@@ -5320,7 +6380,7 @@ def main():
               kernel_ms, plain_ms,
               {"bound_ms": bound_ms,
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"},
-              kernel_ms=alone_ms["avatar"],
+              kernel_ms=alone_ms["avatar"], row_block=row_block,
               launches_by_path={"render": launches["blend_sorted"],
                                 "cli": cli["blend_sorted"],
                                 "cli_by_run": {
@@ -5340,7 +6400,10 @@ def main():
                                     for k, v in card_runs.items()},
                                 "cli_multiview": {
                                     k: v["blend_sorted"]
-                                    for k, v in multiview_runs.items()}}),
+                                    for k, v in multiview_runs.items()},
+                                "cli_multicard": {
+                                    k: v["blend_sorted"]
+                                    for k, v in multicard_runs.items()}}),
         entry("blend_train_fwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_fwd"] + cli["blend_train_fwd"],
@@ -5368,7 +6431,10 @@ def main():
                                     for k, v in card_runs.items()},
                                 "cli_multiview": {
                                     k: v["blend_train_fwd"]
-                                    for k, v in multiview_runs.items()}}),
+                                    for k, v in multiview_runs.items()},
+                                "cli_multicard": {
+                                    k: v["blend_train_fwd"]
+                                    for k, v in multicard_runs.items()}}),
         entry("blend_train_bwd", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:579",
               train_launches["blend_train_bwd"] + cli["blend_train_bwd"],
@@ -5396,7 +6462,10 @@ def main():
                                     for k, v in card_runs.items()},
                                 "cli_multiview": {
                                     k: v["blend_train_bwd"]
-                                    for k, v in multiview_runs.items()}}),
+                                    for k, v in multiview_runs.items()},
+                                "cli_multicard": {
+                                    k: v["blend_train_bwd"]
+                                    for k, v in multicard_runs.items()}}),
         entry("blend_tiles_eval", train_src,
               "dreamwaltz_g_tpu/ops/pallas_blend.py:126",
               train_launches["blend_tiles_eval"],
@@ -5430,7 +6499,10 @@ def main():
                                     for k, v in card_runs.items()},
                                 "cli_multiview": {
                                     k: v["flash_attn_fwd"]
-                                    for k, v in multiview_runs.items()}},
+                                    for k, v in multiview_runs.items()},
+                                "cli_multicard": {
+                                    k: v["flash_attn_fwd"]
+                                    for k, v in multicard_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"]
                          + (" + " + r["build"]["combine"]["kernel"]
@@ -5467,7 +6539,10 @@ def main():
                                     for k, v in card_runs.items()},
                                 "cli_multiview": {
                                     k: v["flash_attn_bwd"]
-                                    for k, v in multiview_runs.items()}},
+                                    for k, v in multiview_runs.items()},
+                                "cli_multicard": {
+                                    k: v["flash_attn_bwd"]
+                                    for k, v in multicard_runs.items()}},
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": " + ".join(x["kernel"]
                                               for x in r["bwd_build"]),

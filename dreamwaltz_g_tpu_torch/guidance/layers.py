@@ -20,6 +20,16 @@ head dimensions outside the kernel's domain stay on the einsum path. There
 is no compile probe: on a CUDA tensor the kernel launches or the call
 raises.
 
+Tensor parallelism (``parallel/tp.py``): an ``Attention`` or a GEGLU
+feed-forward whose ``tp_group`` is set holds its rank's slice of the
+weights. Its input enters through ``copy_to_model`` (forward identity,
+backward all-reduce of the gradient over the model group) and its
+row-parallel output leaves through ``reduce_from_model`` (forward
+all-reduce, backward identity), the output bias added once after the sum:
+the image gradient stays whole for the families that differentiate
+through the stack. Self-attention then runs this rank's heads, through the
+flash kernel where the gate takes it. With no group set nothing changes.
+
 Types: by default a model runs in its weights' type, its inputs cast to it
 (``model_input``). Under ``jax_promotion()`` the inputs keep their own
 types and each ``Linear``, ``Conv2d``, ``GroupNorm`` and ``LayerNorm`` of
@@ -121,6 +131,57 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Forward identity; backward all-reduce over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward all-reduce over the model group; backward identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """A column-parallel layer's input (module docstring)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel layer's summed output (module docstring)."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def row_parallel(linear: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``linear(x)`` of a row-parallel layer: this rank's partial product,
+    all-reduced over ``group``, then the (replicated) bias, once."""
+    x, w, b = promote(x, linear.weight, linear.bias)
+    y = reduce_from_model(F.linear(x, w), group)
+    return y if b is None else y + b
+
+
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: float = 10000.0,
                        flip_sin_to_cos: bool = True,
@@ -200,8 +261,14 @@ class Attention(nn.Module):
         self.to_k = Linear(context_dim, inner, bias=False)
         self.to_v = Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, inner)])
+        self.tp_group = None
 
     def forward(self, x, context=None):
+        tp = self.tp_group
+        if tp is not None:
+            x = copy_to_model(x, tp)
+            if context is not None:
+                context = copy_to_model(context, tp)
         context = x if context is None else context
         B, Nq, _ = x.shape
         Nk = context.shape[1]
@@ -216,6 +283,8 @@ class Attention(nn.Module):
             attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(
                 B, Nq, H * D)
+        if tp is not None:
+            return row_parallel(self.to_out[0], out, tp)
         return self.to_out[0](out)
 
 
@@ -234,10 +303,17 @@ class FeedForwardGEGLU(nn.Module):
         inner = dim * mult
         self.net = nn.ModuleList([_GEGLUProj(dim, inner), nn.Identity(),
                                   Linear(inner, dim)])
+        self.tp_group = None
 
     def forward(self, x):
+        tp = self.tp_group
+        if tp is not None:
+            x = copy_to_model(x, tp)
         a, g = self.net[0].proj(x).chunk(2, dim=-1)
-        return self.net[2](a * F.gelu(g, approximate="tanh"))
+        h = a * F.gelu(g, approximate="tanh")
+        if tp is not None:
+            return row_parallel(self.net[2], h, tp)
+        return self.net[2](h)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -11,6 +11,13 @@ distilled from a frozen stage-1 field), ``--log.nerf2mesh`` to
 ``--guide.text_set`` runs every prompt of a set (``run_multiple``). Runs on
 the card unless ``--log.platform cpu``.
 
+Several cards: under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` in the environment, ``WORLD_SIZE`` > 1) ``main`` starts the
+default process group when none is started yet, ``nccl`` on card
+``LOCAL_RANK`` (``gloo`` under ``--log.platform cpu``), and every rank runs
+the trainer (``training/trainer.py``: the (data, model) mesh, rank 0
+writing). A group that already exists is used as it is.
+
 Usage:
     python -m dreamwaltz_g_tpu_torch.main --stage nerf --guide.text "a wizard" \\
         --log.exp_name wiz/nerf
@@ -23,11 +30,15 @@ Usage:
         --log.pretrain_only true --log.exp_name pretrain/adult_neutral
     python -m dreamwaltz_g_tpu_torch.main --guide.text_set demo,1-3 \\
         --stage nerf --log.exp_name batch/@/nerf
+    torchrun --nproc_per_node 2 -m dreamwaltz_g_tpu_torch.main --stage gs \\
+        --optim.batch_size 2 --render.from_nerf outputs/wiz/nerf \\
+        --guide.text "a wizard" --log.exp_name wiz/gs
 """
 from __future__ import annotations
 
 import copy
 import logging
+import os
 import sys
 
 from .configs import TrainConfig, parse_args
@@ -86,8 +97,32 @@ def run_multiple(cfg: TrainConfig) -> list:
     return trainers
 
 
+def init_distributed(cfg: TrainConfig) -> None:
+    """Start the default process group of a ``torchrun`` launch (module
+    docstring): nothing without one, with a group already started, or at
+    ``WORLD_SIZE`` 1. On the card the rank's device is set before its
+    first launch; a rank without CUDA raises."""
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or "RANK" not in os.environ or dist.is_initialized():
+        return
+    if cfg.log.platform == "cpu":
+        dist.init_process_group("gloo")
+        return
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: a rank of a torchrun "
+                           "launch runs on its card (--log.platform cpu "
+                           "for the CPU)")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl", device_id=torch.device("cuda", local))
+
+
 def main(argv=None):
     cfg = parse_args(argv if argv is not None else sys.argv[1:])
+    init_distributed(cfg)
     if cfg.guide.text_set:
         return run_multiple(cfg)
     return run(cfg)
@@ -95,3 +130,7 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()

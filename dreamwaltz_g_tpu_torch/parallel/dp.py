@@ -23,10 +23,19 @@ batched:
   sparsity points) and its own occupancy compaction, the regularisers
   inside each view's loss and the sigma loss once outside the mean.
 
-With a process group of world W > 1 each rank runs its B / W views
-(``mesh.shard_batch``), every gradient (the ``dummy``'s too) is
-all-reduced to the ranks' mean and the radii to their maximum, and every
-rank takes the same optimizer step. At W = 1 no collective is launched.
+On a (data, model) mesh (``mesh.make_mesh_2d``; ``mesh=``, else
+``mesh.make_mesh()``, the data axis of every rank) each model group runs
+its B / dp views (``mesh.shard_batch`` by the data index), the guidance
+sharded over the model group (``parallel/tp.py``: its layers hold the
+group), every gradient (the ``dummy``'s too) is all-reduced to the mean
+over every rank and the radii to their maximum, and every rank takes the
+same optimizer step. The ranks of a model group compute the same views,
+so the mean over every rank is the mean over the data axis, and it leaves
+the group's replicas equal to the bit (the render's backward adds in no
+fixed order on the card). With fewer views than model groups the spare
+groups are replicas; the trainer takes these steps whenever it runs on
+several ranks, a single view included. At dp = 1 and tp = 2 the step is
+one view on two ranks. With a single rank no collective is launched.
 
 Randomness: ``noise`` (B, h, w, 4), the stage-1 ``jitter`` / ``pdf_u`` (B,
 ...) and ``vs_draws`` (a list of B) are handed in, or drawn from
@@ -42,7 +51,6 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 from torch.profiler import record_function
 
 from .._device import resolve_device
@@ -80,7 +88,13 @@ from ..training.nerf_trainer import (
     _vs_weight,
     jitter_shape,
 )
-from .mesh import DataMesh, make_mesh, shard_batch
+from .mesh import (
+    DataMesh,
+    all_reduce_max,
+    all_reduce_mean,
+    make_mesh,
+    shard_batch,
+)
 
 
 def _view_generator(generator, i: int):
@@ -94,29 +108,6 @@ def _expand(embeds: Optional[torch.Tensor], B: int):
     if embeds is None or embeds.shape[0] == B:
         return embeds
     return embeds.expand(B, *embeds.shape[1:])
-
-
-def _all_reduce_mean(mesh: DataMesh, tensors) -> None:
-    """Every rank's tensors replaced by the ranks' mean, in place, in one
-    collective; nothing at W = 1."""
-    tensors = [t for t in tensors if t is not None]
-    if mesh.world == 1 or not tensors:
-        return
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
-    flat /= mesh.world
-    i = 0
-    for t in tensors:
-        n = t.numel()
-        t.copy_(flat[i:i + n].reshape(t.shape))
-        i += n
-
-
-def _all_reduce_max(mesh: DataMesh, t: torch.Tensor) -> torch.Tensor:
-    if mesh.world > 1:
-        t = t.contiguous()
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
-    return t
 
 
 def _grads(params):
@@ -176,7 +167,7 @@ def make_avatar_sds_step_dp(
     bg_tx=None,
     placement=None,
     static_gaussians=None,
-    group=None,
+    mesh: Optional[DataMesh] = None,
     device="cuda",
 ) -> Callable:
     """The B-view avatar SDS step: ``step(tstate, gparams,
@@ -191,14 +182,15 @@ def make_avatar_sds_step_dp(
     ``bg_net`` / ``bg_tx`` each view composites the MLP background at its
     own rays (``c2w`` (B, 4, 4); ``background`` is not read), the net's
     view-mean gradient takes a step of its Adan, and the step returns
-    (tstate', bg_state', metrics). ``group``: the process group of the
-    data axis (module docstring). Ranges: ``dp_step.render``,
-    ``.guidance``, ``.backward``, ``.optimizer_stats``."""
+    (tstate', bg_state', metrics). ``mesh``: the (data, model) mesh, else
+    the data axis of every rank (module docstring). Ranges:
+    ``dp_step.render``, ``.guidance``, ``.backward``,
+    ``.optimizer_stats``."""
     device = resolve_device(device)
     H, W = image_height, image_width
     raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
                   max_tiles_per_gaussian=max_tiles_per_gaussian)
-    mesh = make_mesh(group, device)
+    mesh = mesh if mesh is not None else make_mesh(device=device)
 
     def step(tstate: AvatarTrainState, gparams: GuidanceParams,
              observed_inputs: SMPLXParams, extrinsic, intrinsics, tanfov,
@@ -254,18 +246,18 @@ def make_avatar_sds_step_dp(
             loss.backward()
         with record_function("dp_step.optimizer_stats"):
             bg_params = [] if bg_net is None else list(bg_net.parameters())
-            _all_reduce_mean(mesh, _grads(leaves) + _grads(bg_params)
+            all_reduce_mean(_grads(leaves) + _grads(bg_params)
                              + [dummy.grad])
             tstate.opt_state.step()
             if bg_net is not None:
                 background_update(bg_net, bg_tx, bg_state)
-            radii = _all_reduce_max(mesh, out.radii.detach().amax(0))
+            radii = all_reduce_max(out.radii.detach().amax(0))
             new_avatar = update_avatar_stats(state, dummy.grad[:C],
                                              radii[:C])
         metrics: Dict[str, torch.Tensor] = {
             "loss": loss.detach(), "sds_loss": sds["loss"].detach(),
             "tile_overflow": out.overflow.mean()}
-        _all_reduce_mean(mesh, list(metrics.values()))
+        all_reduce_mean(list(metrics.values()))
         new_tstate = AvatarTrainState(new_avatar, tstate.opt_state,
                                       tstate.step + 1)
         if bg_net is not None:
@@ -290,7 +282,7 @@ def make_vanilla_sds_step_dp(
     pgc: Optional[Callable] = None,
     placement=None,
     static_gaussians=None,
-    group=None,
+    mesh: Optional[DataMesh] = None,
     device="cuda",
 ) -> Callable:
     """``make_avatar_sds_step_dp`` on the vanilla avatar: ``step(tstate,
@@ -304,7 +296,7 @@ def make_vanilla_sds_step_dp(
     H, W = image_height, image_width
     raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
                   max_tiles_per_gaussian=max_tiles_per_gaussian)
-    mesh = make_mesh(group, device)
+    mesh = mesh if mesh is not None else make_mesh(device=device)
 
     def step(tstate: VanillaTrainState, gparams: GuidanceParams,
              observed_inputs: SMPLXParams, extrinsic, intrinsics, tanfov,
@@ -346,16 +338,16 @@ def make_vanilla_sds_step_dp(
         with record_function("dp_step.backward"):
             loss.backward()
         with record_function("dp_step.optimizer_stats"):
-            _all_reduce_mean(mesh, _grads(_adam_params(tstate.opt_state))
+            all_reduce_mean(_grads(_adam_params(tstate.opt_state))
                              + [dummy.grad])
             tstate.opt_state.step()
-            radii = _all_reduce_max(mesh, out.radii.detach().amax(0))
+            radii = all_reduce_max(out.radii.detach().amax(0))
             gstate = update_stats(vstate.gaussians, dummy.grad[:C],
                                   radii[:C])
         metrics: Dict[str, torch.Tensor] = {
             "loss": loss.detach(), "sds_loss": sds["loss"].detach(),
             "tile_overflow": out.overflow.mean()}
-        _all_reduce_mean(mesh, list(metrics.values()))
+        all_reduce_mean(list(metrics.values()))
         return VanillaTrainState(vstate._replace(gaussians=gstate),
                                  tstate.opt_state, tstate.step + 1), metrics
 
@@ -379,7 +371,7 @@ def make_nerf_sds_step_dp(
     ray_chunk: int = 0,
     pgc=None,
     tp_lr_weights=None,
-    group=None,
+    mesh: Optional[DataMesh] = None,
     device="cuda",
 ) -> Callable:
     """The B-view stage-1 step: ``step(tstate, grid, gparams, cam_c2w (B, 4,
@@ -404,7 +396,7 @@ def make_nerf_sds_step_dp(
     if tp_lr_weights is not None:
         tp_lr_weights = torch.as_tensor(tp_lr_weights, dtype=torch.float32,
                                         device=device)
-    mesh = make_mesh(group, device)
+    mesh = mesh if mesh is not None else make_mesh(device=device)
 
     def step(tstate: NeRFTrainState, grid: OccupancyGrid,
              gparams: GuidanceParams, cam_c2w, cam_intr, bg_color,
@@ -480,14 +472,14 @@ def make_nerf_sds_step_dp(
         with record_function("nerf_step.backward"):
             loss.backward()
         with record_function("nerf_step.optimizer"):
-            _all_reduce_mean(mesh, _grads(model.parameters()))
+            all_reduce_mean(_grads(model.parameters()))
             scale = None
             if tp_lr_weights is not None:
                 scale = tp_lr_weights[torch.clamp(
                     t_all, 0, tp_lr_weights.shape[0] - 1)].mean()
             tstate.opt_state.step(scale)
         metrics.update(loss=loss.detach(), sds_loss=sds["loss"].detach())
-        _all_reduce_mean(mesh, list(metrics.values()))
+        all_reduce_mean(list(metrics.values()))
         return NeRFTrainState(model, tstate.opt_state, tstate.step + 1), \
             metrics
 

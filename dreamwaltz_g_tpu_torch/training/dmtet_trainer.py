@@ -35,6 +35,7 @@ from ..nerf.dmtet import (
     unique_tet_edges,
 )
 from ..nerf.network import NeRFModel
+from ..parallel.mesh import all_reduce_mean
 from .optim import Adam, NeRFOptimizer, NeRFOptState, nerf_lr_schedule
 
 #: rows of a checkpointed albedo-decode chunk (the last one zero-padded)
@@ -208,6 +209,11 @@ def make_dmtet_sds_step(
                 metrics["mesh_laplacian_loss"] = lap.detach()
         with record_function("dmtet_step.backward"):
             loss.backward()
+            # several ranks run this one view alike: the mean of their
+            # gradients keeps their states equal to the bit
+            all_reduce_mean([p.grad for o in (opt_n, opt_d)
+                             for params, _, _ in o.groups.values()
+                             for p in params])
         with record_function("dmtet_step.optimizer"):
             opt_n.step()
             if not lock_geo:

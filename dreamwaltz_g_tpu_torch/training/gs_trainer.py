@@ -36,8 +36,8 @@ the guidance. Every SDS step and render takes ``placement`` (the scene's
 Gaussian background, appended after the avatar, so the densification
 statistics keep slicing ``[:C]``).
 
-The B-view (multi-view) steps are ``parallel/dp.py``'s. Not ported yet:
-tensor parallelism and the multi-device frame sharding.
+The B-view (multi-view) steps are ``parallel/dp.py``'s; the frames of
+``make_avatar_render_frames(mesh=...)`` split over the data axis.
 """
 from __future__ import annotations
 
@@ -371,14 +371,22 @@ def make_avatar_render_frames(model: AvatarModel, image_height: int,
                               image_width: int, tile_size: int = 16,
                               capacity: int = 512, chunk: int = 64,
                               max_tiles_per_gaussian: int = 16,
-                              placement=None, device="cuda") -> Callable:
+                              mesh=None, placement=None,
+                              device="cuda") -> Callable:
     """Frame-batched animation render: ``render_frames(state,
     observed_frames, extrinsic, intrinsics, tanfov, background)`` renders F
     frames, one after another.
 
     observed_frames: SMPLXParams stacked (F, 1, ...); extrinsic (F, 4, 4);
     intrinsics (F, 3, 3); tanfov (F,); background (H, W, 3) shared or
-    (F, H, W, 3). Returns (F, H, W, 3) images + (F, H, W) alpha/depth."""
+    (F, H, W, 3). Returns (F, H, W, 3) images + (F, H, W) alpha/depth.
+
+    With ``mesh`` (the data axis of ``parallel/mesh.py``, D ranks), each
+    rank renders its contiguous F / D frames and the frames are gathered,
+    so every rank returns all F (F must be a multiple of D; the trainer
+    pads its last chunk)."""
+    from ..parallel.mesh import gather_batch, shard_batch
+
     device = resolve_device(device)
     H, W = image_height, image_width
     raster = dict(tile_size=tile_size, capacity=capacity, chunk=chunk,
@@ -388,6 +396,22 @@ def make_avatar_render_frames(model: AvatarModel, image_height: int,
     def render_frames(state: AvatarState, observed_frames: SMPLXParams,
                       extrinsic, intrinsics, tanfov, background):
         _check_device(state, device)
+        if mesh is not None and mesh.world > 1:
+            F = extrinsic.shape[0]
+            if F % mesh.world:
+                raise ValueError(f"frame batch {F} must be a multiple of "
+                                 f"the mesh size {mesh.world}")
+            if background.ndim == 3:
+                background = background.expand(F, *background.shape)
+            out = render_local(state, *shard_batch(
+                (observed_frames, extrinsic, intrinsics, tanfov,
+                 background), mesh))
+            return tuple(gather_batch(x, mesh) for x in out)
+        return render_local(state, observed_frames, extrinsic, intrinsics,
+                            tanfov, background)
+
+    def render_local(state, observed_frames, extrinsic, intrinsics, tanfov,
+                     background):
         F = extrinsic.shape[0]
         images, alphas, depths = [], [], []
         for f in range(F):

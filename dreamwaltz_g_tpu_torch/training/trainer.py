@@ -66,14 +66,26 @@ Multi-view SDS (``--optim.batch_size B > 1``, stage 1 and every stage-2
 ``gs_type``, the MLP background included): each step draws B cameras, B
 view texts, B timesteps and B condition images (each from its own pose
 with ``--data.per_view_poses``) and trains through the B-view steps of
-``parallel/dp.py``, the JAX trainer's DP step constructors on one device;
-each view draws its noise and its render's jitter from a generator of its
-own, seeded from ``_view_rng``. ``--nerf.dmtet`` runs single-view.
+``parallel/dp.py``, the JAX trainer's DP step constructors; each view
+draws its noise and its render's jitter from a generator of its own,
+seeded from ``_view_rng``. ``--nerf.dmtet`` runs single-view (on several
+ranks its step averages their gradients too).
 
-Not ported yet, and refused at construction where a flag asks for them:
-tensor parallelism (``--parallel.tp > 1``), the multi-card launch (a
-process group of more than one rank), and the multi-device frame sharding
-of ``evaluate``.
+Several cards: one process a card in one ``torch.distributed`` group
+(``main.py`` starts it under ``torchrun``). Several ranks train through
+those steps on the (data, model) mesh of ``parallel/mesh.py`` (the JAX
+trainer's ``_train_mesh_and_gshard``): each model group takes B / dp
+views, the guidance's Megatron weights split over the model group
+(``parallel/tp.py``). Every rank draws the same host randomness (the
+numpy generators, the trainer's generator, each view's generator), so the
+views are drawn whole and sliced, and the occupancy refresh, the
+densifier and the snapshots agree on every rank; a step's gradients are
+all-reduced, so the states stay equal (one view at tp = 1 too: the ranks
+are then replicas of one data index), and each checkpoint raises unless
+they do. ``evaluate`` splits the eval track's frames over the ranks (the
+JAX eval mesh). Rank 0 alone writes: the config, the log file,
+checkpoints, snapshots, the check images, the mesh export and the eval
+PNGs and videos; every rank reads a resumed checkpoint.
 """
 from __future__ import annotations
 
@@ -127,10 +139,6 @@ def guidance_dtype(name: str) -> torch.dtype:
     'fp32' / 'f32', bf16 otherwise ('fp16' included), as the JAX
     trainer's ``_cast_guidance_dtype`` casts."""
     return torch.float32 if name in ("fp32", "f32") else torch.bfloat16
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 # -- the torch checkpoint trees ---------------------------------------------
@@ -238,14 +246,24 @@ class Trainer:
         self.device = resolve_device(
             "cuda" if cfg.log.platform in (None, "cuda", "gpu")
             else cfg.log.platform)
+        import torch.distributed as dist
+
+        self.world, self.rank = (dist.get_world_size(), dist.get_rank()) \
+            if dist.is_available() and dist.is_initialized() else (1, 0)
+        # rank 0 writes every file; the other ranks compute alike
+        self.is_writer = self.rank == 0
         self.exp_dir = Path(cfg.log.exp_dir)
         self.exp_dir.mkdir(parents=True, exist_ok=True)
-        save_config(cfg, self.exp_dir / "config.json")
+        if self.is_writer:
+            save_config(cfg, self.exp_dir / "config.json")
         if not logger.handlers:
-            logger.setLevel(logging.INFO)
+            logger.setLevel(logging.INFO if self.is_writer
+                            else logging.WARNING)
             fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-            for h in (logging.StreamHandler(),
-                      logging.FileHandler(self.exp_dir / "log.txt")):
+            handlers = [logging.StreamHandler()]
+            if self.is_writer:
+                handlers.append(logging.FileHandler(self.exp_dir / "log.txt"))
+            for h in handlers:
                 h.setFormatter(fmt)
                 logger.addHandler(h)
             logger.propagate = False
@@ -256,10 +274,8 @@ class Trainer:
         # the seeds of each multi-view step's per-view generators
         self._view_rng = np.random.default_rng(cfg.optim.seed + 104729)
         self.batch_size = cfg.optim.batch_size
-        # the data axis: one process, so every view runs here (dp = 1)
-        from ..parallel.mesh import resolve_dp
-
-        self.dp = resolve_dp(int(cfg.parallel.dp or -1), 1, self.batch_size)
+        self.tp = max(int(cfg.parallel.tp or 1), 1)
+        self.mesh = self._train_mesh()
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.optim.seed)
         self.max_iteration = cfg.optim.iters
@@ -287,31 +303,43 @@ class Trainer:
             self.check()
 
     def _refuse_unported(self):
-        """The paths this slice does not port raise here, where their
-        flag is set."""
+        """The flag combinations the JAX trainer asserts against raise
+        here."""
         cfg = self.cfg
-        g, lg = cfg.guide, cfg.log
+        lg = cfg.log
         if cfg.stage not in ("nerf", "gs"):
             raise ValueError(f"unknown stage {cfg.stage!r}")
         if lg.platform not in (None, "cuda", "gpu", "cpu"):
             raise ValueError(f"log.platform {lg.platform!r}: the port runs "
                              "on 'cuda' (the default) or 'cpu'")
-        import torch.distributed as dist
-
-        refused = [
-            (cfg.parallel.tp > 1, "tensor parallelism (--parallel.tp > 1)"),
-            (dist.is_available() and dist.is_initialized()
-             and dist.get_world_size() > 1,
-             "the multi-card launch (a process group of several ranks)"),
-        ]
-        for cond, what in refused:
-            if cond:
-                _not_ported(what)
         if cfg.optim.batch_size < 1:
             raise ValueError(f"optim.batch_size {cfg.optim.batch_size} < 1")
         if cfg.stage == "nerf" and cfg.nerf.dmtet \
-                and cfg.optim.batch_size > 1:
-            raise ValueError("--nerf.dmtet runs single-view (batch_size=1)")
+                and (cfg.optim.batch_size > 1 or cfg.parallel.tp > 1):
+            raise ValueError("--nerf.dmtet runs single-view without tensor "
+                             "parallelism (batch_size=1, parallel.tp=1)")
+
+    def _train_mesh(self):
+        """The (data, model) mesh of the multi-view steps when
+        ``--parallel.tp > 1``, ``--optim.batch_size > 1`` or the process
+        group holds several ranks, else None (the JAX trainer's
+        ``_train_mesh_and_gshard``): tp must divide the ranks, ``self.dp``
+        is ``--parallel.dp`` (-1: every data group) resolved against the
+        ranks / tp data groups and the batch. Several ranks always take
+        the mesh, so that a single view's ranks are replicas whose
+        gradients the step averages: the JAX package's one controller has
+        one state, and ranks that stepped alone would part (the card's
+        render backward adds in no fixed order)."""
+        from ..parallel.mesh import make_mesh_2d, resolve_dp
+
+        if self.world % self.tp:
+            raise ValueError(f"parallel.tp={self.tp} must divide the "
+                             f"{self.world} ranks")
+        self.dp = resolve_dp(int(self.cfg.parallel.dp or -1),
+                             self.world // self.tp, self.batch_size)
+        if self.batch_size == 1 and self.tp == 1 and self.world == 1:
+            return None
+        return make_mesh_2d(self.dp, self.tp, self.device)
 
     def _warn_unsupported_knobs(self):
         """Knobs parsed for reference-CLI compatibility that have no effect,
@@ -565,6 +593,11 @@ class Trainer:
                     (1, L, D), generator=self.generator,
                     device=self.device) * 0.02
         self._cast_guidance_dtype()
+        if self.tp > 1:
+            # the UNet's and the ControlNet's Megatron weights: this rank's
+            from ..parallel.tp import shard_guidance_params
+
+            shard_guidance_params(self.guidance_params, self.mesh)
         self.guidance.input_interpolate = g.input_interpolate
         from ..guidance.sds import build_pixel_grad_hook
 
@@ -696,8 +729,11 @@ class Trainer:
                 capacity=r.tile_capacity, chunk=r.chunk, device=self.device)
             return
         make = nerf_trainer.make_nerf_sds_step
-        if self.batch_size > 1:
+        kw = {}
+        if self.mesh is not None:
             from ..parallel.dp import make_nerf_sds_step_dp as make
+
+            kw = dict(mesh=self.mesh)
         self.sds_step_fn = make(
             self.nerf, self.guidance, H, H, cfg.nerf,
             num_steps=cfg.nerf.num_steps,
@@ -709,7 +745,7 @@ class Trainer:
             max_iteration=self.max_iteration,
             bg_mode="nerf" if cfg.nerf.bg_mode == "nerf" else "color",
             ray_chunk=cfg.nerf.max_ray_batch, pgc=self.pgc,
-            tp_lr_weights=self._tp_lr_weights, device=self.device)
+            tp_lr_weights=self._tp_lr_weights, device=self.device, **kw)
 
     def _build_pretrain_step(self, H: int):
         self.pretrain_step_fn = nerf_trainer.make_pretrain_step(
@@ -1073,12 +1109,13 @@ class Trainer:
 
     def _build_avatar_step(self, H: int):
         kw = self._common_step_kwargs()
-        if self.batch_size > 1:
+        if self.mesh is not None:
             # the B-view steps, the JAX trainer's DP steps (their tile
             # cap of 8 a Gaussian: its trainer does not pass one)
             from ..parallel import dp
 
-            kw.update(per_view_poses=self.cfg.data.per_view_poses)
+            kw.update(per_view_poses=self.cfg.data.per_view_poses,
+                      mesh=self.mesh)
             if self.cfg.render.gs_type == "vanilla":
                 make = dp.make_vanilla_sds_step_dp
             else:
@@ -1103,7 +1140,7 @@ class Trainer:
         latent gradient to split on; they take the fused step, and the
         background then is not trained (the JAX trainer's routing). The
         B-view step trains the background itself."""
-        return self.bg_state is not None and self.batch_size == 1 \
+        return self.bg_state is not None and self.mesh is None \
             and not self.cfg.guide.sds_loss_type.startswith("x0")
 
     # ------------------------------------------------------------------
@@ -1371,7 +1408,7 @@ class Trainer:
                           guidance_scale=batch["guidance_scale"],
                           sigma_pts=sigma_pts, use_sigma=use_sigma,
                           progress=batch["progress"])
-                if self.batch_size > 1:
+                if self.mesh is not None:
                     # a background colour and a generator a view
                     B = self.batch_size
                     bg = torch.stack([self._bg_color() for _ in range(B)])
@@ -1386,7 +1423,7 @@ class Trainer:
                         cam.c2w[0], cam.intrinsics[0], self._bg_color(),
                         batch["text"], batch["uncond"], batch["t"],
                         generator=self.generator, **kw)
-            elif self.batch_size > 1:
+            elif self.mesh is not None:
                 B = self.batch_size
                 bg = self._bg_color().expand(B, self.train_res,
                                              self.train_res, 3)
@@ -1581,6 +1618,8 @@ class Trainer:
         from ..nerf.mesh_export import export_textured_mesh
 
         lg = self.cfg.log
+        if not self.is_writer:
+            return str(self.exp_dir / "mesh" / "mesh.obj")
         with span("trainer.export_mesh", self.device):
             out = export_textured_mesh(
                 self.nerf, str(self.exp_dir / "mesh"),
@@ -1604,7 +1643,7 @@ class Trainer:
         if self.max_iteration < 1:
             logger.warning("timestep curve skipped: a run of %d steps has "
                            "no schedule", self.max_iteration)
-        else:
+        elif self.is_writer:
             try:
                 draw_curves(self.t_scheduler, self.max_iteration,
                             str(d / "timestep_curve.png"))
@@ -1623,7 +1662,7 @@ class Trainer:
                     width=self.cond_size)[0]
                 if isinstance(img, tuple):
                     continue
-                save_image(str(d / f"cond_{cond}_az{int(azim)}.png"), img)
+                self._save_image(d / f"cond_{cond}_az{int(azim)}.png", img)
                 # the samples pair the ControlNet with the modality that
                 # training uses, controlnet_condition[0]
                 if cond == first:
@@ -1650,14 +1689,14 @@ class Trainer:
                         num_inference_steps=steps,
                         cond_image=torch.as_tensor(
                             cond, device=self.device)[None])
-                    save_image(str(d / f"control_az{int(azim)}.png"),
-                               img[0].float().cpu().numpy())
+                    self._save_image(d / f"control_az{int(azim)}.png",
+                                     img[0].float().cpu().numpy())
             for gs_val in {7.5, float(self.cfg.guide.guidance_scale)}:
                 img = g.sample_images(gp, txt, unc, self.generator,
                                       num_inference_steps=steps,
                                       guidance_scale=gs_val)
-                save_image(str(d / f"sd_{gs_val:g}.png"),
-                           img[0].float().cpu().numpy())
+                self._save_image(d / f"sd_{gs_val:g}.png",
+                                 img[0].float().cpu().numpy())
         logger.info("check_sd samples written to %s", d)
 
     # ------------------------------------------------------------------
@@ -1689,11 +1728,11 @@ class Trainer:
             img, _, _ = self.eval_render(
                 self.grid, cam.c2w[0], cam.intrinsics[0],
                 torch.full((3,), 0.5, device=self.device))
-        save_image(str(d / f"{self.train_step:06d}_rgb.png"),
-                   torch.clamp(img, 0, 1).cpu().numpy())
+        self._save_image(d / f"{self.train_step:06d}_rgb.png",
+                         torch.clamp(img, 0, 1).cpu().numpy())
         if batch.get("cond_image") is not None:
-            save_image(str(d / f"{self.train_step:06d}_cond.png"),
-                       batch["cond_image"][0].float().cpu().numpy())
+            self._save_image(d / f"{self.train_step:06d}_cond.png",
+                             batch["cond_image"][0].float().cpu().numpy())
         if cfg.guide.grad_viz:
             self._snapshot_grad_viz(d, batch, img)
 
@@ -1720,11 +1759,17 @@ class Trainer:
             progress=batch.get("progress"))
         mag = torch.linalg.norm(grad[0], dim=-1)
         mag = mag / torch.clamp(mag.max(), min=1e-8)
-        save_image(str(d / f"{self.train_step:06d}_gradmag.png"),
-                   mag.cpu().numpy())
+        self._save_image(d / f"{self.train_step:06d}_gradmag.png",
+                         mag.cpu().numpy())
         target = gp.vae.decode(latents.float() - grad)
-        save_image(str(d / f"{self.train_step:06d}_gradtarget.png"),
-                   torch.clamp(target[0].float(), 0, 1).cpu().numpy())
+        self._save_image(d / f"{self.train_step:06d}_gradtarget.png",
+                         torch.clamp(target[0].float(), 0, 1).cpu().numpy())
+
+    def _save_image(self, path: Path, img) -> None:
+        """``save_image`` on rank 0; the other ranks computed the same
+        image and write nothing."""
+        if self.is_writer:
+            save_image(str(path), img)
 
     def _eval_background(self, Hc: int, Wc: int, i: int, video_bg,
                          cam=None) -> torch.Tensor:
@@ -1868,11 +1913,21 @@ class Trainer:
                 frames.append(torch.clamp(img, 0, 1).cpu().numpy())
 
             if pending:
+                eval_mesh = self._eval_mesh(len(pending))
                 rf = gs_trainer.make_avatar_render_frames(
-                    self.avatar_model, H, W, **rk)
-                Fc = min(8, len(pending))
+                    self.avatar_model, H, W, mesh=eval_mesh, **rk)
+                if eval_mesh is None:
+                    Fc = min(8, len(pending))
+                else:
+                    # a multiple of D, at most 8 frames a rank a chunk
+                    D = eval_mesh.world
+                    Fc = min(8 * D, -(-len(pending) // D) * D)
                 for s0 in range(0, len(pending), Fc):
                     chunk = pending[s0: s0 + Fc]
+                    n = len(chunk)
+                    if eval_mesh is not None:
+                        # the last chunk padded with its last frame
+                        chunk = chunk + [chunk[-1]] * (Fc - n)
                     obs = type(chunk[0][0])(*[
                         torch.stack(xs) for xs in zip(*[c[0] for c in chunk])])
                     extr, intr, tf, bgs = (torch.stack([c[k] for c in chunk])
@@ -1881,15 +1936,17 @@ class Trainer:
                         imgs, alphas, _ = rf(
                             self.state.avatar, obs, extr, intr, tf,
                             torch.zeros((H, W, 3), device=self.device))
-                        for j in range(len(chunk)):
+                        for j in range(n):
                             overlay_rgba.append(rgba(imgs[j], alphas[j]))
                         imgs = imgs + (1.0 - alphas)[..., None] * bgs
                     else:
                         imgs, _, _ = rf(self.state.avatar, obs, extr, intr,
                                         tf, bgs)
-                    imgs = torch.clamp(imgs, 0, 1).cpu().numpy()
-                    frames[s0: s0 + len(chunk)] = list(imgs)
+                    imgs = torch.clamp(imgs[:n], 0, 1).cpu().numpy()
+                    frames[s0: s0 + n] = list(imgs)
 
+        if not self.is_writer:
+            return frames
         with span("evaluate.write"):
             step_dir = save_dir / f"step_{self.train_step:06d}"
             if cfg.data.eval_save_image:
@@ -1906,6 +1963,20 @@ class Trainer:
                     overlay_rgba, vid, str(step_dir) + "_overlay.mp4",
                     fps=cfg.data.eval_video_fps, premultiplied=True)
         return frames
+
+    def _eval_mesh(self, n_frames: int):
+        """The frame-parallel eval's data axis (the JAX eval mesh): D = the
+        ranks, or ``--parallel.dp`` when it is set and smaller, when D > 1
+        and at least D frames are pending, else None. Rank r renders as
+        data index r % D; a list ``all_gather`` over every rank brings the
+        frames back."""
+        from ..parallel.mesh import make_mesh_2d
+
+        req = int(self.cfg.parallel.dp or -1)
+        D = self.world if req < 0 else min(req, self.world)
+        if D <= 1 or n_frames < D:
+            return None
+        return make_mesh_2d(D, 1, self.device)
 
     def full_eval(self) -> List[np.ndarray]:
         """``--log.eval_only``: ``data.full_eval_size`` frames at the test
@@ -1992,8 +2063,49 @@ class Trainer:
                                    "opt": self.bg_state.opt_state}
         tree = {"params": params, "opt_state": _opt_tree(self.state.opt_state),
                 "step": self.train_step, "rng": self._rng_tree(), **extra}
+        if self.world > 1:
+            self._check_ranks_agree(tree)
+        if not self.is_writer:
+            return
         self.checkpointer.save(self.train_step, tree)
         logger.info("saved checkpoint at step %d", self.train_step)
+
+    def _check_ranks_agree(self, tree) -> None:
+        """Every rank holds the same checkpoint tree, to the bit: each
+        tensor's words (4-byte types) or bytes summed as integers on each
+        rank, the sums' maximum and minimum over the ranks compared (two
+        all-reduces). Logged; a difference raises on every rank, since
+        rank 0 alone writes the checkpoint and the frame-parallel eval
+        renders from every rank's state."""
+        import torch.distributed as dist
+
+        sums = []
+
+        def walk(x):
+            if isinstance(x, dict):
+                for v in x.values():
+                    walk(v)
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    walk(v)
+            elif torch.is_tensor(x) and x.numel():
+                x = x.detach().contiguous().view(-1)
+                x = x.view(torch.int32) if x.element_size() == 4 \
+                    else x.view(torch.uint8)
+                sums.append(x.long().sum().to(self.device))
+        walk([tree[k] for k in ("params", "opt_state", "grid", "dmtet",
+                                "background") if k in tree])
+        hi = torch.stack(sums)
+        lo = -hi
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MAX)
+        differ = int((hi != -lo).sum())
+        if differ:
+            raise RuntimeError(
+                f"step {self.train_step}: the {self.world} ranks' states "
+                f"differ in {differ} of {len(sums)} tensors")
+        logger.info("step %d: the %d ranks' states agree (%d tensors)",
+                    self.train_step, self.world, len(sums))
 
     def load_checkpoint(self, step: Optional[int] = None) -> None:
         """Restore the state, the optimizer, the step and the generators

@@ -157,7 +157,9 @@ def test_render_frames_match_single_renders(pair):
 
 
 def test_package_imports_no_jax():
-    """Importing every module of the port pulls in neither JAX nor the JAX
+    """Importing every module of the port (the multi-card ones among them:
+    the launch, the mesh, the multi-view steps, the tensor-parallel
+    guidance and the sharded render) pulls in neither JAX nor the JAX
     package, and ``chip_smoke.py`` (whose imports sit inside its functions)
     names neither in any import."""
     import ast
@@ -179,11 +181,17 @@ def test_package_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dreamwaltz_g_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))\n")
+        "print(' '.join(m for m in sys.modules "
+        "if m.startswith(pkg.__name__)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    imported = set(out.stdout.split())
+    assert len(imported) >= 15
+    # the multi-card modules among them
+    assert {f"dreamwaltz_g_tpu_torch.{m}" for m in (
+        "main", "parallel.mesh", "parallel.dp", "parallel.tp",
+        "parallel.shard_render")} <= imported
 
 
 def _entry_points():

@@ -60,14 +60,18 @@ def _setup():
     return tset, ts, sd, gp, cam, x
 
 
-def _run(group_world):
-    """One step; returns what a rank holds after it, as numpy."""
+def _run(group_world, replicas=False):
+    """One step; returns what a rank holds after it, as numpy. With
+    ``replicas`` the mesh has one data index, so every rank runs both
+    views."""
     from dreamwaltz_g_tpu_torch.parallel.dp import make_avatar_sds_step_dp
+    from dreamwaltz_g_tpu_torch.parallel.mesh import make_mesh_2d
     from dreamwaltz_g_tpu_torch.training import gs_trainer as TG
 
     tset, ts, sd, gp, cam, x = _setup()
+    mesh = make_mesh_2d(1, 1, device="cpu") if replicas else None
     step = make_avatar_sds_step_dp(tset.model, sd, H, W, device="cpu",
-                                   **RASTER)
+                                   mesh=mesh, **RASTER)
     new, metrics = step(ts, gp, tset.observed, cam.extrinsic,
                         cam.intrinsics, cam.tanfov, x["bg"], x["txt"],
                         x["unc"], x["t"], noise=x["noise"])
@@ -82,7 +86,7 @@ def _run(group_world):
         max_radii=new.avatar.max_radii.numpy().copy())
 
 
-def _rank(rank, port, out_dir):
+def _rank(rank, port, out_dir, replicas=False):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
@@ -90,7 +94,7 @@ def _rank(rank, port, out_dir):
                             world_size=2, rank=rank)
     try:
         np.save(os.path.join(out_dir, f"rank{rank}.npy"),
-                np.array(_run(2), dtype=object), allow_pickle=True)
+                np.array(_run(2, replicas), dtype=object), allow_pickle=True)
     finally:
         dist.destroy_process_group()
 
@@ -112,7 +116,19 @@ def _close(got, want, name, floor=1e-30):
 
 
 def test_two_ranks_equal_one_process(tmp_path):
-    ctx = mp.start_processes(_rank, args=(_free_port(), str(tmp_path)),
+    _check_ranks(tmp_path, replicas=False)
+
+
+def test_replica_ranks_equal_one_process(tmp_path):
+    """On a mesh of one data index (``--parallel.dp 1`` on two ranks) both
+    ranks run both views, their gradients averaged too: the replicas stay
+    equal to the bit."""
+    _check_ranks(tmp_path, replicas=True)
+
+
+def _check_ranks(tmp_path, replicas):
+    ctx = mp.start_processes(_rank, args=(_free_port(), str(tmp_path),
+                                          replicas),
                              nprocs=2, join=False, start_method="spawn")
     deadline = time.monotonic() + JOIN_SECONDS
     try:
@@ -163,7 +179,8 @@ def test_data_axis_helpers():
     with pytest.raises(ValueError, match="must divide"):
         M.resolve_dp(-1, 4, 6)
     one = M.make_mesh(device="cpu")
-    assert (one.world, one.rank, one.shape) == (1, 0, {M.DATA_AXIS: 1})
+    assert (one.world, one.rank, one.shape) == (
+        1, 0, {M.DATA_AXIS: 1, M.MODEL_AXIS: 1})
     x = torch.arange(8.0).reshape(4, 2)
     assert M.shard_batch(x, one) is x and M.replicate(x, one) is x
     two = M.DataMesh(world=2, rank=1, device=torch.device("cpu"))

@@ -241,10 +241,11 @@ def test_train_batch_matches_jax(tmp_path, stage):
     ["--parallel.tp", "2"],
     ["--stage", "nerf", "--nerf.dmtet", "true", "--optim.batch_size", "2"]])
 def test_unported_paths_refuse(tmp_path, flags):
-    """Each path the port does not have raises at construction, also in
-    the multi-prompt batch, which names the prompts that failed: tensor
-    parallelism is not ported, and the DMTet finetune runs single-view
-    (the JAX trainer asserts it). The scene options, the grid backbones,
+    """Each flag combination the JAX trainer asserts against raises at
+    construction, also in the multi-prompt batch, which names the prompts
+    that failed: tensor parallelism over more ranks than the process group
+    holds (tp must divide the ranks), and the DMTet finetune with several
+    views (it runs single-view). The scene options, the grid backbones,
     the SDXL card and multi-view SDS (``--optim.batch_size 2``) are
     ported: their flags pass the check (the CLI tests of
     ``test_torch_scene.py``, ``test_torch_grid.py``,
@@ -265,7 +266,7 @@ def test_unported_paths_refuse(tmp_path, flags):
         tr._refuse_unported()
         return
     exc, match = (ValueError, "single-view") if "--nerf.dmtet" in flags \
-        else (NotImplementedError, "not ported yet")
+        else (ValueError, "must divide the 1 ranks")
     with pytest.raises(exc, match=match):
         main(base + flags)
     with pytest.raises(RuntimeError, match="1 prompt") as e:
