@@ -7,7 +7,7 @@ Phases, one JSON line each:
 
 1. device       -- CUDA present (else exit 2), card name and power limit;
 2. build        -- compile every CUDA kernel of the port from ``csrc/``
-                   (three sources), one ``nvcc`` per source, all started
+                   (four sources), one ``nvcc`` per source, all started
                    together;
 3. avatar       -- build the full-width avatar on the card;
 4. kernel       -- ``blend_sorted`` (B2) against its plain version on the
@@ -41,7 +41,11 @@ Phases, one JSON line each:
                    the training paths give it (bf16, and float32 for the
                    tiny step and the float32-guidance step), and backward
                    at the seven that are differentiated, against the plain
-                   versions;
+                   versions; the bf16 forward at D = 64 is the Hopper
+                   kernel's (``csrc/flash_fwd_hopper.cu``), and the 64-wide
+                   instantiation of ``csrc/flash_attn.cu``'s row-split
+                   forward, which the main path no longer takes, is held
+                   and timed beside it as its yardstick;
 11. small_train -- one SDS step of the tiny avatar, with its mesh part,
                    and the tiny guidance with its ControlNet, attention
                    through flash (``FLASH_ATTENTION = "on"``) and the
@@ -209,9 +213,9 @@ Phases, one JSON line each:
                    the row-parallel bias added on both ranks; flash at half
                    the heads), step 1.2 at B = 2 (the grid and state equal
                    on both ranks), step 3 over the ranks against the
-                   one-process frames (one 8-bit level; B2 once a frame in
-                   all; PNGs and mp4 once; the float frames' distance and a
-                   one-process repeat printed), the Gaussian-sharded render
+                   one-process frames (equal to the bit; B2 once a frame
+                   in all; PNGs and mp4 once; a one-process repeat of the
+                   animation equal to the bit), the Gaussian-sharded render
                    of a 1024^2 frame against its row blocks rendered in one
                    process, and step 2.1 at torchrun's defaults (one view:
                    the ranks are replicas, their states equal); then B2 on
@@ -973,41 +977,62 @@ def flash_bound(shape, kind, backward):
                 bound_by="bytes" if b_ms >= o_ms else "operations")
 
 
+def hopper_shape(shape, kind):
+    """Whether the forward at ``shape`` and ``kind`` is the Hopper
+    kernel's (bf16 at D = 64, ``flash._fwd_route``)."""
+    return kind == "bf16" and shape[-1] == 64
+
+
 def compare_flash(dev):
     """B4 forward at every shape of ``FLASH_SHAPES`` and backward where the
-    path differentiates it, against the plain versions on the same inputs.
-    Returns the worst error of each kernel relative to its tolerance's
-    scale. No input outlives its shape's check: the training phases' peak
-    memory is the step's own."""
+    path differentiates it, against the plain versions on the same inputs;
+    at the Hopper kernel's shapes also the 64-wide row-split forward of
+    ``csrc/flash_attn.cu`` (its yardstick, off the main path). Returns the
+    worst error of each forward kernel (``fwd``: flash_attn.cu's on the
+    main path, ``hopper``, ``rows64``) and of the backward. No input
+    outlives its shape's check: the training phases' peak memory is the
+    step's own."""
     import torch
 
     from dreamwaltz_g_tpu_torch.guidance import flash as FL
 
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "hopper": 0.0, "rows64": 0.0, "bwd": 0.0}
     for shape, kind, backward in FLASH_SHAPES:
         q, k, v, g = flash_inputs(dev, shape, kind)
         out, lse = FL.flash_attn_fwd(q, k, v)
         torch.cuda.synchronize()
         qf, kf, vf = q.float(), k.float(), v.float()
         ref, ref_lse = FL.flash_attention_plain(qf, kf, vf)
-        if not bool(torch.isfinite(out).all()):
-            fail(f"flash forward {shape}: output not finite")
-        err = (out.float() - ref).abs()
-        e_out = float(err.max())
-        e_lse = float((lse - ref_lse).abs().max())
         if kind == "bf16":
             # per element: 2^-9 (sum_j p_j |v_j| + |out|)
             tol = TOL_FLASH_BF16_OUT * (
                 FL.flash_attention_plain(qf, kf, vf.abs())[0] + ref.abs())
         else:
             tol = torch.full_like(ref, TOL_FLASH_F32_OUT)
-        line = dict(shape=list(shape), type=kind, max_abs_err_out=e_out,
+        hopper = hopper_shape(shape, kind)
+        line = dict(shape=list(shape), type=kind,
+                    kernel="flash_fwd_hopper" if hopper else "flash_attn_fwd",
                     tol_out_min=float(tol.min()), tol_out_max=float(tol.max()),
-                    max_err_out_of_tol=float((err / tol).max()),
-                    max_abs_err_lse=e_lse, max_abs_out=float(ref.abs().max()),
+                    max_abs_out=float(ref.abs().max()),
                     mean_abs_out=float(ref.abs().mean()))
-        worst["fwd"] = max(worst["fwd"], e_out)
-        bad = bool((err > tol).any()) or e_lse > 1e-4
+        held = [("hopper" if hopper else "fwd", out, lse)]
+        if hopper:
+            held.append(("rows64", *FL._fwd_flash_attn(q, k, v, dev)))
+            torch.cuda.synchronize()
+        bad = False
+        for name, o, o_lse in held:
+            if not bool(torch.isfinite(o).all()):
+                fail(f"flash forward {shape} ({name}): output not finite")
+            err = (o.float() - ref).abs()
+            e_out = float(err.max())
+            e_lse = float((o_lse - ref_lse).abs().max())
+            pre = "rows64_" if name == "rows64" else ""
+            line.update({f"{pre}max_abs_err_out": e_out,
+                         f"{pre}max_err_out_of_tol": float((err / tol).max()),
+                         f"{pre}max_abs_err_lse": e_lse})
+            worst[name] = max(worst[name], e_out)
+            bad = bad or bool((err > tol).any()) or e_lse > 1e-4
+        held = o = o_lse = None
         if backward:
             grads = FL.flash_attn_bwd(q, k, v, out, lse, g)
             torch.cuda.synchronize()
@@ -1195,17 +1220,25 @@ def f32_family(facts, families):
     fail(f"no ptxas entry for any of {families}")
 
 
-def flash_fwd_build(log, shape, kind):
+def flash_fwd_build(logs, shape, kind, rows64=False):
     """The forward instantiation that ``shape`` runs: its template (tile
     width, then warps and key tile and ring stages, or key tile and ring
     stages; float32: tile width, D-split warps, row groups, key tile and
     ring stages), registers and spills, dynamic shared memory, threads and
-    resident blocks an SM (``kernel_build``). The wide forward (bf16,
-    D > 128) adds its combine kernel's facts under ``combine``."""
+    resident blocks an SM (``kernel_build``), from the build ``logs`` by
+    library. The Hopper kernel (bf16, D = 64) has no template, and with
+    ``rows64`` the row-split forward's 64-wide instantiation stands in its
+    place. The wide forward (bf16, D > 128) adds its combine kernel's facts
+    under ``combine``."""
     from dreamwaltz_g_tpu_torch import kernels
 
+    if hopper_shape(shape, kind) and not rows64:
+        return kernel_build(
+            ptxas_facts(logs["flash_fwd_hopper"]),
+            kernels.load("flash_fwd_hopper").flash_fwd_hopper_info, shape,
+            kind, 0, "flash_fwd_hopper_kernel", lambda *_: True)
     fn = kernels.load("flash_attn").flash_attn_fwd_info
-    facts = ptxas_facts(log)
+    facts = ptxas_facts(logs["flash_attn"])
     wide = kind == "bf16" and shape[-1] > 128
     family = f32_family(facts, F32_FWD_FAMILIES) if kind != "bf16" else \
         "flash_fwd_rows_kernel" if not wide else "flash_fwd_wide_kernel"
@@ -1258,15 +1291,17 @@ def launch_median(spread):
     return sum(x["median"] for x in spread.values())
 
 
-def flash_times(dev, build_log):
+def flash_times(dev, logs):
     """Per shape: the kernels' ms beside the plain versions', the einsum
     path's and the library call's, and the bounds. For the forward, and the
     backward where the path differentiates it, also the kernels' own device
     ms (profiler: the mean over the calls, and each kernel's launches'
     median, min and max), the rate 4 (10 backward) B H N^2 D / that mean,
-    its share of the bound, and the build facts of each kernel. Each
-    shape's inputs are made again from the seed (``flash_inputs``), out and
-    lse by the kernel, as in ``compare_flash``."""
+    its share of the bound, and the build facts of each kernel (``logs``:
+    the build logs by library). At the Hopper kernel's shapes the 64-wide
+    row-split forward (its yardstick) is timed beside it under ``rows64``.
+    Each shape's inputs are made again from the seed (``flash_inputs``),
+    out and lse by the kernel, as in ``compare_flash``."""
     import torch
 
     from dreamwaltz_g_tpu_torch.guidance import flash as FL
@@ -1287,11 +1322,21 @@ def flash_times(dev, build_log):
                 fwd_kernel_launch_median_ms=launch_median(spread),
                 fwd_tflops=bound["ops"] / dev_ms / 1e9,
                 fwd_share_of_bound=bound["bound_ms"] / dev_ms,
-                build=flash_fwd_build(build_log, shape, kind),
+                build=flash_fwd_build(logs, shape, kind),
                 fwd_plain_ms=cuda_ms(
                     lambda: FL.flash_attention_plain(q, k, v), 3),
                 fwd_einsum_ms=cuda_ms(lambda: einsum_attention(q, k, v), 5),
                 fwd_bound=bound)
+            if hopper_shape(shape, kind):
+                r_ms, r_by, r_spread = kernel_device_ms(
+                    lambda: FL._fwd_flash_attn(q, k, v, dev), 20,
+                    spread=True)
+                row["rows64"] = dict(
+                    kernel_ms=r_ms, kernel_ms_by_name=r_by,
+                    kernel_launch_ms=r_spread,
+                    kernel_launch_median_ms=launch_median(r_spread),
+                    share_of_bound=bound["bound_ms"] / r_ms,
+                    build=flash_fwd_build(logs, shape, kind, rows64=True))
             if backward:
                 bwd_bound = flash_bound(shape, kind, True)
                 bwd_dev_ms, bwd_by_kernel, bwd_spread = kernel_device_ms(
@@ -1306,7 +1351,8 @@ def flash_times(dev, build_log):
                     bwd_kernel_launch_median_ms=launch_median(bwd_spread),
                     bwd_tflops=bwd_bound["ops"] / bwd_dev_ms / 1e9,
                     bwd_share_of_bound=bwd_bound["bound_ms"] / bwd_dev_ms,
-                    bwd_build=flash_bwd_build(build_log, shape, kind),
+                    bwd_build=flash_bwd_build(logs["flash_attn"], shape,
+                                              kind),
                     bwd_plain_ms=cuda_ms(
                         lambda: FL.flash_attention_plain_bwd(
                             q, k, v, out, lse, g), 3),
@@ -2223,9 +2269,16 @@ def cli_launches_per_step(stage2):
     """Each kernel's launches a trainer step: flash as the SD1.5-size
     stack's structure gives, the table blends once a step in stage 2."""
     return {"flash_attn_fwd": FLASH_PER_STEP[0],
-            "flash_attn_bwd": FLASH_PER_STEP[1],
+            "flash_attn_bwd": FLASH_PER_STEP[1], "flash_fwd_hopper": 0,
             "blend_train_fwd": int(stage2), "blend_train_bwd": int(stage2),
             "blend_sorted": 0, "blend_tiles_eval": 0}
+
+
+# the flash forward's kernels, whose launches a profiled step counts by
+# name: the Hopper kernel (bf16, D = 64), the row-split and wide bf16
+# forwards and the float32 forward
+FLASH_FWD_KERNELS = ("flash_fwd_hopper_kernel", "flash_fwd_rows_kernel",
+                     "flash_fwd_wide_kernel", "flash_fwd_tf32_kernel")
 
 
 def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
@@ -2265,10 +2318,15 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
         dev_ms, host_ms, named = stage_times(
             trace, ranges, recompute_in="nerf_step.backward"
             if stage_ranges is NERF_STAGE_RANGES else None)
-        busy = sum(e.device_time_total for e in device_events(prof)) / 1e3
+        events = device_events(prof)
+        busy = sum(e.device_time_total for e in events) / 1e3
         return dict(wall_ms=wall, device_busy_ms=busy,
                     device_busy_share=busy / wall, stage_device_ms=dev_ms,
-                    stage_host_ms=host_ms, named_kernels_ms=named)
+                    stage_host_ms=host_ms, named_kernels_ms=named,
+                    flash_fwd_kernel_launches={
+                        family: sum(e.count for e in events
+                                    if family in e.key)
+                        for family in FLASH_FWD_KERNELS})
 
     events, window = {}, {}
     profiled = prefetch and with_profile
@@ -2877,7 +2935,8 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
 
     emit(phase="cli_inference", step3=a, in_training=b, reenact=c, **card)
     quiet = {"blend_train_fwd": 0, "blend_train_bwd": 0,
-             "blend_tiles_eval": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+             "blend_tiles_eval": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
+             "flash_fwd_hopper": 0}
     for label, run, n_b2 in (("step 3", a, n_full),
                              ("reenact", c, REENACT_FRAMES)):
         want_l = dict(quiet, blend_sorted=n_b2)
@@ -2951,17 +3010,18 @@ def cli_drive(kernel_fns, argv_):
     return tr, run
 
 
-def flash_unet_launches(gparams, latent, nets):
+def flash_unet_launches(gparams, latent, nets, width=None):
     """Flash launches of one CFG eps pass: every self-attention of the UNet
     (down, mid, up) and, with ``nets`` = 2, of the ControlNet (down, mid),
-    whose tokens and head dimension lie in ``flash_domain``."""
+    whose tokens and head dimension lie in ``flash_domain`` (and, with
+    ``width``, whose head dimension is ``width``)."""
     cfg = gparams.unet.cfg
     n = 0
     last = len(cfg.block_out_channels) - 1
     for i, ch in enumerate(cfg.block_out_channels):
         tokens = (latent >> i) ** 2
         d = ch // cfg.block_heads(ch)
-        if not flash_domain(tokens, d):
+        if not flash_domain(tokens, d) or width not in (None, d):
             continue
         depth = cfg.block_depth(i)
         if cfg.attn_down[i]:
@@ -2989,8 +3049,8 @@ def expected_check_sd_launches(gparams, latent, steps, n_control, n_plain):
         + n_plain * (steps * flash_unet_launches(gparams, latent, 1) + vae)
 
 
-MODES_STEPS = 3     # pretrain and nerf2gs steps in phase cli_modes
-CHECK_SD_STEPS = 10  # DDIM steps of each check_sd sample in phase cli_modes
+MODES_STEPS = 2     # pretrain and nerf2gs steps in phase cli_modes
+CHECK_SD_STEPS = 5  # DDIM steps of each check_sd sample in phase cli_modes
 
 
 def obj_stats(path):
@@ -3553,11 +3613,11 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
             "hash": d["launches"], "hash_eval": d["eval"]["launches"]}
 
 
-SCENE_STEPS = 3          # steps of each training run of phase cli_scene
+SCENE_STEPS = 2          # steps of each training run of phase cli_scene
 SCENE_BG_GAUSSIANS = 200_000
 SCENE_SHELL_RADIUS = 4.0  # beyond every training and eval camera
 SCENE_EVAL_FRAMES = 4
-GRID_STEPS = 3           # grid stage 2; stage 1 runs 2, unprofiled
+GRID_STEPS = 2           # grid stage 2; stage 1 runs 2, unprofiled
 REFERENCE_POINTS = 100_000
 # record_function ranges of make_avatar_sds_step_split -> stage
 SPLIT_STAGE_RANGES = (("split_step.render_encode", "render_encode"),
@@ -3949,7 +4009,7 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
 
 
 # -- the guidance's other paths (phases cli_guidance and cli_cards) ---------
-GUIDANCE_STEPS = 3        # steps of a profiled run (cli_guidance, cli_cards)
+GUIDANCE_STEPS = 2        # steps of a profiled run (cli_guidance, cli_cards)
 # the families whose last step phase cli_guidance profiles; the others, and
 # its stage-1 and DMTet runs, train 2 steps without the prefetch worker and
 # unprofiled (a stage-1 step's profile takes ~30 s of host time, ISM's ~20)
@@ -3959,6 +4019,10 @@ GUIDANCE_FAMILIES = ("custom", "csd", "nfsd", "ism", "z0", "z0_final", "x0",
                      "x0_final")
 ISM_XS_INV_STEPS = 5      # the guidance's default, which the loaders keep
 CARD_RES = {"sd21": 768, "sdxl10": 1024}   # each card's native render
+# each card's 64-wide self-attention forwards a step, all on the Hopper
+# kernel: SD2.1-768's UNet 10 + ControlNet 4 at 96^2 and 48^2, SDXL's UNet
+# 70 + ControlNet 34 at 64^2 and 32^2 (its 128^2 level has no attention)
+CARD_HOPPER_PER_STEP = {"sd21": 14, "sdxl10": 104}
 
 
 def family_flash_launches(gparams, latent, family, t, denoise_timesteps,
@@ -4033,6 +4097,14 @@ def trained_grads(tr):
         all(bool(g.isfinite().all()) for g in grads)
 
 
+def flash_counted(launches):
+    """(forwards, backwards) of flash in a launch count: the forward's two
+    kernels (``flash_attn_fwd``, and ``flash_fwd_hopper`` for bf16 at
+    D = 64) together."""
+    return [launches["flash_attn_fwd"] + launches.get("flash_fwd_hopper", 0),
+            launches["flash_attn_bwd"]]
+
+
 def family_run(label, run_argv, kernel_fns, family, stage_ranges=None,
                profiled=True):
     """One run of ``family`` through ``cli_run`` with ``family_recorder``:
@@ -4064,8 +4136,7 @@ def family_run(label, run_argv, kernel_fns, family, stage_ranges=None,
         flash_per_step_expected=per_step,
         flash_expected=[sum(p[0] for p in per_step),
                         sum(p[1] for p in per_step)],
-        flash_counted=[line["launches"]["flash_attn_fwd"],
-                       line["launches"]["flash_attn_bwd"]],
+        flash_counted=flash_counted(line["launches"]),
         grad_abs_max=grad_max, grad_finite=grad_finite,
         step_fn=seen["step_fn"])
     return line, tr
@@ -4088,12 +4159,11 @@ def check_family_line(phase, label, line, stage2=True):
         fail(f"{phase} {label}: gradients finite {line['grad_finite']}, "
              f"largest {line['grad_abs_max']}")
     if line["flash_counted"] != line["flash_expected"] or (
-            prof is not None and [prof["flash_attn_fwd"],
-                                  prof["flash_attn_bwd"]] != list(last)):
+            prof is not None and flash_counted(prof) != list(last)):
         fail(f"{phase} {label}: flash launched {line['flash_counted']} "
-             f"({prof and [prof['flash_attn_fwd'], prof['flash_attn_bwd']]}"
-             f" in the profiled step), expected {line['flash_expected']} "
-             f"({last}) from the steps' timesteps {line['timesteps']}")
+             f"({prof and flash_counted(prof)} in the profiled step), "
+             f"expected {line['flash_expected']} ({last}) from the steps' "
+             f"timesteps {line['timesteps']}")
     if line["launches"]["blend_train_fwd"] != blend * n \
             or line["launches"]["blend_train_bwd"] != blend * n \
             or line["launches"]["blend_sorted"] != 0:
@@ -4300,7 +4370,12 @@ def cli_cards(dev, card, kernel_fns, tmp, argv, args, exp):
                    str(root), "--data.train_w", str(res), "--data.train_h",
                    str(res)], kernel_fns, "sds")
             g = tr.guidance
+            nets = 1 if tr.guidance_params.controlnet is None else 2
             line.update(
+                hopper_per_step=flash_unet_launches(
+                    tr.guidance_params, g.latent_size, nets, width=64),
+                unet_flash_per_step=flash_unet_launches(
+                    tr.guidance_params, g.latent_size, nets),
                 dir_bytes=nbytes, dir_params=n_params,
                 weights_build_s=build_s, write_s=write_s,
                 guidance=type(g).__name__, latent_size=g.latent_size,
@@ -4339,6 +4414,19 @@ def cli_cards(dev, card, kernel_fns, tmp, argv, args, exp):
             "sdxl10": ("ScoreDistillationXL", 128, "epsilon")}
     for run, line in lines.items():
         check_family_line("cli_cards", run, line)
+        # every 64-wide forward on the Hopper kernel, none on the row-split
+        n, prof = line["hopper_per_step"], line["profiled_step"]
+        by_name = prof["flash_fwd_kernel_launches"]
+        if n != CARD_HOPPER_PER_STEP[run] or n != line["unet_flash_per_step"] \
+                or line["launches"]["flash_fwd_hopper"] != n * line["steps"] \
+                or prof["launches"]["flash_fwd_hopper"] != n \
+                or by_name["flash_fwd_hopper_kernel"] != n \
+                or by_name["flash_fwd_rows_kernel"] != 0:
+            fail(f"cli_cards {run}: {n} 64-wide forwards a step (expected "
+                 f"{CARD_HOPPER_PER_STEP[run]}), Hopper launches "
+                 f"{line['launches']['flash_fwd_hopper']} in "
+                 f"{line['steps']} steps, the profiled step's kernels "
+                 f"{by_name}")
         got = (line["guidance"], line["latent_size"],
                line["prediction_type"])
         if got != want[run] or line["train_res"] != CARD_RES[run] \
@@ -4898,7 +4986,8 @@ def mc_kernel_fns():
             "blend_train_bwd": BT.blend_train_bwd,
             "blend_tiles_eval": BT.blend_tiles_eval_panels,
             "flash_attn_fwd": FL.flash_attn_fwd,
-            "flash_attn_bwd": FL.flash_attn_bwd}
+            "flash_attn_bwd": FL.flash_attn_bwd,
+            "flash_fwd_hopper": FL.flash_fwd_hopper}
 
 
 def mc_writers():
@@ -4950,15 +5039,15 @@ def mc_levels(x):
 
 
 def mc_repeat_frames(tr, n, raster):
-    """Where (d)'s 8-bit flips come from, in one process: each of the
+    """Whether one process repeats itself, as (d) needs: each of the
     restored avatar's first ``n`` test poses animated twice, the frame
-    rendered from each animation and once more from the first; then the
-    same with the mesh parts' vertex normals (``avatar._vertex_normals``,
-    an ``index_add`` that adds with atomics on the card) summed on the
-    host. Returns, for both runs, each pose's animated elements that differ
-    between the two animations, whether the two renders of one animation
-    are equal to the bit, and the two animations' frames' largest
-    difference and the pixels whose 8-bit level differs."""
+    rendered from each animation and once more from the first. The mesh
+    parts' vertex normals are summed in a fixed order
+    (``ops.mesh.sum_at_vertices``), so nothing differs. Returns each
+    pose's animated elements that differ between the two animations,
+    whether the two renders of one animation are equal to the bit, and the
+    two animations' frames' largest difference and the pixels whose 8-bit
+    level differs."""
     import torch
 
     from dreamwaltz_g_tpu_torch.system import avatar as AV
@@ -4970,9 +5059,9 @@ def mc_repeat_frames(tr, n, raster):
     camera = (cam.extrinsic[0], cam.intrinsics[0], cam.tanfov[0], bg)
     rast = dict(raster, mode="eval")
 
-    def run():
-        out = dict(gaussians_differ=[], same_animation_equal=[],
-                   frame_max_abs=[], level_flips_px=[])
+    out = dict(gaussians_differ=[], same_animation_equal=[],
+               frame_max_abs=[], level_flips_px=[])
+    with torch.no_grad():
         for i in range(n):
             obs, _ = tr.prompt(frame_idx=i)
             g1 = AV.animate(tr.avatar_model, tr.state.avatar, obs)
@@ -4986,21 +5075,7 @@ def mc_repeat_frames(tr, n, raster):
             out["frame_max_abs"].append(float(abs(f1 - f2).max()))
             out["level_flips_px"].append(int(
                 (mc_levels(f1) != mc_levels(f2)).any(-1).sum()))
-        return out
-
-    inner = AV._vertex_normals
-
-    def host_normals(vertex_coords, triangles):
-        return inner(vertex_coords.cpu(), triangles).to(vertex_coords.device)
-
-    with torch.no_grad():
-        card = run()
-        AV._vertex_normals = host_normals
-        try:
-            host = run()
-        finally:
-            AV._vertex_normals = inner
-    return {"card_normals": card, "host_normals": host}
+    return out
 
 
 def mc_rank(rank, world, port, spec):
@@ -5290,12 +5365,11 @@ def cli_multicard(dev, card, kernel_fns, tmp, argv, args, exp):
     and the state equal on both ranks to the bit.
     (d) Step 3 (``--log.eval_only``) at 1024^2, ``MC_FRAMES`` frames over
     the two ranks, against the one-process ``full_eval`` (run here): every
-    frame's PNG within one 8-bit level, counted as integers; B2 once a
-    frame in all; the PNGs and the mp4 written once, by rank 0. Printed
-    beside it: the float frames' distance before quantisation, and the
-    same poses animated and rendered twice in one process
-    (``mc_repeat_frames``), with the mesh parts' vertex normals summed on
-    the card and on the host.
+    frame's PNG equal to the bit (0 levels), counted as integers; B2 once a
+    frame in all; the PNGs and the mp4 written once, by rank 0; the float
+    frames' distance before quantisation printed. Beside it the same poses
+    animated and rendered twice in one process (``mc_repeat_frames``):
+    no element of the two animations may differ.
     (e) ``make_sharded_render`` of the restored avatar's first 1024^2 test
     frame at D = 2, the trainer's raster settings, against the same render
     in one process (``mc_blockwise_render``: the frame projected whole, its
@@ -5585,8 +5659,11 @@ def cli_multicard(dev, card, kernel_fns, tmp, argv, args, exp):
     if not all(math.isfinite(x) for r in lc["loss"] for x in r):
         fail(f"cli_multicard (c): losses {lc['loss']}")
     ld = line["d"]
+    rep = ld["repeat_one_process"]
     if ld["pngs"] != [MC_FRAMES, MC_FRAMES] or ld["mp4"] != 1 \
-            or max(levels) > 1 or sum(ld["blend_sorted"]) != MC_FRAMES:
+            or max(levels) != 0 or sum(ld["blend_sorted"]) != MC_FRAMES \
+            or any(rep["gaussians_differ"]) or max(rep["frame_max_abs"]) \
+            or not all(rep["same_animation_equal"]):
         fail(f"cli_multicard (d): {ld}")
     for r, e in enumerate(line["e"]):
         b = e["blockwise"]
@@ -6086,7 +6163,8 @@ def main():
                  "blend_train_bwd": BT.blend_train_bwd,
                  "blend_tiles_eval": BT.blend_tiles_eval_panels,
                  "flash_attn_fwd": FL.flash_attn_fwd,
-                 "flash_attn_bwd": FL.flash_attn_bwd}
+                 "flash_attn_bwd": FL.flash_attn_bwd,
+                 "flash_fwd_hopper": FL.flash_fwd_hopper}
     for fn in train_fns.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -6115,7 +6193,8 @@ def main():
     want = {"blend_train_fwd": n_steps, "blend_train_bwd": n_steps,
             "blend_sorted": 0, "blend_tiles_eval": 0,
             "flash_attn_fwd": flash_per_step[0] * n_steps,
-            "flash_attn_bwd": flash_per_step[1] * n_steps}
+            "flash_attn_bwd": flash_per_step[1] * n_steps,
+            "flash_fwd_hopper": 0}
     for name, n in want.items():
         if train_launches[name] != n:
             fail(f"{name} launched {train_launches[name]} times in "
@@ -6178,7 +6257,7 @@ def main():
                 lambda: BT.blend_tiles_eval_reference(*kargs, ts_, tiles_x),
                 3)}
     bounds = table_bounds(t_args, errs_avatar[3])
-    flash_rows = flash_times(dev, logs["flash_attn"])
+    flash_rows = flash_times(dev, logs)
 
     # the same run with einsum attention ("off"), the (B, H, N, N) scores
     # in device memory: its step time and its peak memory beside flash's
@@ -6366,10 +6445,26 @@ def main():
 
     # a flash entry's ms, plain_ms, bound_ms and library_ms are those of the
     # shape that does most of a step's work in that kernel: (2, 4096, 8, 40)
-    # forward, (1, 4096, 1, 512) backward; every shape stands in by_shape
+    # forward, (1, 4096, 1, 512) backward, (2, 4096, 10, 64) the Hopper
+    # forward (SDXL's 64^2 level); every shape stands in by_shape
     flash_src = "dreamwaltz_g_tpu_torch/csrc/flash_attn.cu"
     flash_replaces = "dreamwaltz_g_tpu/guidance/layers.py:153"
     f_fwd, _, f_bwd = flash_rows[:3]
+    hopper_rows = [r for r in flash_rows if hopper_shape(r["shape"],
+                                                         r["type"])]
+    h_fwd = next(r for r in hopper_rows if r["shape"] == [2, 4096, 10, 64])
+
+    def by_path(name):
+        # a kernel's launches in each path that can launch it
+        return {"train": train_launches[name], "cli": cli[name],
+                **{phase: {k: v[name] for k, v in runs.items()}
+                   for phase, runs in (("cli_modes", mode_runs),
+                                       ("cli_geometry", geometry_runs),
+                                       ("cli_scene", scene_runs),
+                                       ("cli_guidance", guidance_runs),
+                                       ("cli_cards", card_runs),
+                                       ("cli_multiview", multiview_runs),
+                                       ("cli_multicard", multicard_runs))}}
 
     train_src = "dreamwaltz_g_tpu_torch/csrc/blend_train.cu"
     print(json.dumps({"kernels": [
@@ -6514,7 +6609,32 @@ def main():
                          "einsum_ms": r["fwd_einsum_ms"],
                          "bound_ms": r["fwd_bound"]["bound_ms"],
                          "library_ms": r["library"]["fwd_ms"]}
-                        for r in flash_rows]),
+                        for r in flash_rows
+                        if not hopper_shape(r["shape"], r["type"])]),
+        entry("flash_fwd_hopper",
+              "dreamwaltz_g_tpu_torch/csrc/flash_fwd_hopper.cu",
+              flash_replaces,
+              train_launches["flash_fwd_hopper"] + cli["flash_fwd_hopper"],
+              flash_err["hopper"],
+              h_fwd["fwd_ms"], h_fwd["fwd_plain_ms"], h_fwd["fwd_bound"],
+              library=h_fwd["library"]["fwd_ms"], shape=h_fwd["shape"],
+              kernel_ms=h_fwd["fwd_kernel_ms"],
+              launches_by_path=by_path("flash_fwd_hopper"),
+              by_shape=[{"shape": r["shape"], "type": r["type"],
+                         "kernel": r["build"]["kernel"],
+                         "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
+                         "kernel_ms": r["fwd_kernel_ms"],
+                         "kernel_launch_median_ms":
+                             r["fwd_kernel_launch_median_ms"],
+                         "share_of_bound": r["fwd_share_of_bound"],
+                         "rows64_kernel": r["rows64"]["build"]["kernel"],
+                         "rows64_kernel_ms": r["rows64"]["kernel_ms"],
+                         "rows64_kernel_launch_median_ms":
+                             r["rows64"]["kernel_launch_median_ms"],
+                         "rows64_max_abs_err": flash_err["rows64"],
+                         "bound_ms": r["fwd_bound"]["bound_ms"],
+                         "library_ms": r["library"]["fwd_ms"]}
+                        for r in hopper_rows]),
         entry("flash_attn_bwd", flash_src, flash_replaces,
               train_launches["flash_attn_bwd"] + nerf_flash[1]
               + cli["flash_attn_bwd"],

@@ -40,9 +40,9 @@
 //    Columns D..DP-1 of Q and of every stage are zeroed once at block start.
 //    A D that is not a multiple of 8, or a view that is not 16-byte
 //    aligned, loads element by element, synchronously, into the same ring.
-//  * Blocks of 8 warps (128 query rows) at tile widths 48 and 80, 4 warps at
-//    128 (`with_rows_config`); `flash_attn_fwd_info` reports each one's
-//    shared memory, registers and resident blocks an SM.
+//  * Blocks of 8 warps (128 query rows) at tile widths 48 and 80, 4 warps
+//    at 64 and 128 (`with_rows_config`); `flash_attn_fwd_info` reports each
+//    one's shared memory, registers and resident blocks an SM.
 //
 // bf16 forward, D > 128 (the VAE encoder's mid block, (1, 4096, 1, 512),
 // once a training step; 256 and 384 run zero-padded in the 512-wide tile):
@@ -2078,9 +2078,10 @@ cudaError_t launch_fwd_rows(const bf16* q, const bf16* k, const bf16* v,
                             bool vec, cudaStream_t stream) {
   using L = RowFwdSmem<DP, WARPS, BN_ROWS, STAGES>;
   auto kernel = flash_fwd_rows_kernel<DP, WARPS, BN_ROWS, STAGES>;
-  cudaError_t err = cudaFuncSetAttribute(
+  // once for this instantiation, not on every launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   dim3 grid(N / L::BM, H, B);
   kernel<<<grid, 32 * WARPS, L::bytes, stream>>>(
       q, k, v, out, lse, N, H, D, sq, sk, sv, scale * 1.4426950408889634f,
@@ -2094,10 +2095,15 @@ struct RowsConfig {
 };
 
 // the row-split forward's instantiation for a head dimension D <= 128
-// (tile width, warps, ring stages), handed to f
+// (tile width, warps, ring stages), handed to f. At width 64 (off the main
+// path since bf16 D = 64 takes csrc/flash_fwd_hopper.cu) 4 warps and 2
+// stages fit 4 blocks an SM (128 registers, 46,080 B): 0.36 ms at
+// (2, 4096, 10, 64) against 0.45 for 8 warps and 3 stages, 1 block an SM
+// at 130 registers (NVIDIA H100 80GB HBM3, 700 W, launch medians)
 template <typename F>
 cudaError_t with_rows_config(int D, F&& f) {
   if (D <= 48) return f(RowsConfig<48, 8, 3>{});
+  if (D <= 64) return f(RowsConfig<64, 4, 2>{});
   if (D <= 80) return f(RowsConfig<80, 8, 3>{});
   return f(RowsConfig<128, 4, 2>{});
 }

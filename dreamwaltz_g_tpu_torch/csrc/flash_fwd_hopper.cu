@@ -1,0 +1,624 @@
+// Flash self-attention forward at head dimension 64 in bf16, for sm_90a:
+// TMA copies, wgmma products and warp-specialised warpgroups.
+//
+// Replaces, at D = 64 in bf16, the forward of the TPU kernel behind
+// dreamwaltz_g_tpu/guidance/layers.py:153 `_flash_kernel` (pallas_call
+// :167): out = softmax(Q K^T / sqrt(64)) V over (B, N, H, 64) and the
+// (B, H, N) float32 lse = row max + log(row sum) of the scaled scores, in
+// natural log. SDXL's and SD2.x's heads are 64 wide; the other widths stay
+// with csrc/flash_attn.cu. The arithmetic is the row-split forward's there:
+// float32 scores and softmax, each exponent one FFMA (scale log2 e folded
+// in) and one ex2.approx, each probability rounded to bf16 once and the
+// output once, so guidance/flash.py's plain versions are its twins.
+//
+// Bound on this card: operations, 4 B H N^2 64 for the two products at the
+// tensor cores' 989 TFLOP/s (0.087 ms at SDXL's (2, 4096, 10, 64); NVIDIA
+// H100 80GB HBM3 at its 700 W limit), but the B H N^2 exponentials, at 16
+// ex2 a clock an SM, set a floor of the same size (~0.09 ms there at
+// ~1.75 GHz): at D = 64 a key costs as much on the special-function units
+// as on the tensor cores, and the design keeps both busy at once.
+//
+// Design:
+//  * A block owns 128 query rows of one (batch, head): three warpgroups,
+//    one producer and two consumers of 64 rows each. Grid (N / 128, H, B);
+//    N is a multiple of 128 under the modules' flash gate.
+//  * The producer's first thread issues every copy as a TMA load: the Q
+//    tile once, then 128-key tiles of K and V (16 KB each) into a ring of
+//    STAGES stages, each stage with its own K-full, V-full and empty
+//    mbarrier, so the scores of a tile start before its V lands. The
+//    producer gives its registers to the consumers (setmaxnreg).
+//  * A 64-wide bf16 row is 128 bytes, the TMA's and wgmma's 128-byte
+//    swizzle exactly: every tile lands swizzled, with no padding and no
+//    bank conflicts, and the products read it from shared memory through
+//    descriptors. The tensor maps (4-D: D, H, N, B, by the tensors' own
+//    strides) are encoded on the host through CUDA's entry-point query and
+//    cached by (pointer, shape, strides); they reach the kernel as
+//    __grid_constant__ parameters.
+//  * S = Q K^T: wgmma m64n128k16, Q and K K-major from shared memory, four
+//    k-steps. The softmax runs on the accumulator in registers (a row's 128
+//    scores over a quad of lanes), and P, rounded to bf16 in registers, is
+//    the A operand of O += P V: wgmma m64n64k16, V from shared memory with
+//    the transpose bit (its rows are keys), eight k-steps.
+//  * Overlap comes from the two consumers: while one runs its softmax on
+//    the special-function units, the other's products run on the tensor
+//    cores. Within a consumer the products and the softmax take turns: an
+//    overlapped loop (tile i's S issued before tile i - 1's P V is done)
+//    was serialised by ptxas (its C7513 note) in every form tried, and was
+//    no faster (PERF.md, section 6), nor was a ping-pong of the two
+//    consumers on named barriers.
+//  * A wait that never ends traps (a launch error) instead of hanging the
+//    card.
+//
+// The C functions launch on the given stream, do not synchronise or
+// allocate, and return cudaGetLastError() (or an error code of their own
+// above cudaError_t's range).
+#include <cuda.h>  // CUtensorMap and its enums; no -lcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <mutex>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int HD = 64;        // head dimension
+constexpr int BM = 128;       // query rows a block
+constexpr int BN = 128;       // keys a tile
+constexpr int STAGES = 2;     // K / V ring
+constexpr int THREADS = 384;  // a producer and two consumer warpgroups
+constexpr int TILE = BN * HD * 2;  // bytes of a K or V tile, and of Q
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+// byte offsets from a 1024-byte aligned base: Q, the K ring, the V ring,
+// then the barriers (Q full; K full, V full and empty for each stage)
+constexpr int OFF_Q = 0;
+constexpr int OFF_K = OFF_Q + TILE;
+constexpr int OFF_V = OFF_K + STAGES * TILE;
+constexpr int OFF_BAR = OFF_V + STAGES * TILE;
+constexpr int N_BARS = 1 + 3 * STAGES;
+// dynamic shared memory a block: the layout and the base's alignment slack
+constexpr int SMEM_BYTES = OFF_BAR + 8 * N_BARS + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of copies to complete
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed (parity 1 on a fresh
+// barrier passes at once); traps after ~2^24 polls, well past any wait the
+// pipeline can have
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (int polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (polls > (1 << 24)) __trap();
+  }
+}
+
+// box {64, 1, 128, 1} of a 4-D map at (0, h, n, b) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int n, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(0), "r"(h), "r"(n), "r"(b)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units) and the layout type in bits 62-63.
+// K-major (Q, K): rows of 128 bytes, 8-row groups 1024 bytes apart (the
+// stride offset), the leading offset unused. MN-major (V under the transpose
+// bit): the 8-key groups 1024 bytes apart; N = 64 is one swizzle atom wide,
+// so the leading offset is unused too. A k-step moves the start address:
+// 32 bytes along a K-major row, 16 rows (2048 bytes) down V.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most `n` committed groups of this warpgroup are in flight
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
+}
+
+// keep the compiler from moving register reads or writes of `r` across
+// this point (the products write and read them asynchronously)
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// d (64 x 128, float32) (+)= A B: A 64 x 16 and B 16 x 128 from shared
+// memory through their descriptors, both K-major; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, float32) += A B: A 64 x 16 from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B 16 x 64 from shared memory through its
+// descriptor, MN-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+}
+
+// ---------------------------------------------------------------------------
+// the online softmax of one key tile
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// over the 4 lanes of a quad, which hold one accumulator row between them
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// A warp's 16 rows of a tile's scores s as the m64n128 accumulator holds
+// them (lane 4 g + t: s[4 j .. 4 j + 1] row g, keys 8 j + 2 t and + 1;
+// s[4 j + 2 .. 4 j + 3] row g + 8). m: the running row maxima in the log2
+// domain of the scaled scores; l: this lane's partial row sums. The tile's
+// P = 2^(scale_log2 s - m) comes back as the A fragments of P V's 8 k-steps
+// (the accumulator layout of keys 16 k .. 16 k + 15 is the A layout), each
+// value rounded to bf16 once; alpha = 2^(m_old - m_new) for O, l rescaled.
+__device__ __forceinline__ void softmax_tile(const float (&s)[64],
+                                             uint32_t (&pa)[8][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY}, neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the first tile: m = -inf, so alpha = 2^-inf = 0
+    float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float p0 = ex2(fmaf(s[4 * j], scale_log2, neg_m[0]));
+    float p1 = ex2(fmaf(s[4 * j + 1], scale_log2, neg_m[0]));
+    float p2 = ex2(fmaf(s[4 * j + 2], scale_log2, neg_m[1]));
+    float p3 = ex2(fmaf(s[4 * j + 3], scale_log2, neg_m[1]));
+    sum[0] += p0 + p1;
+    sum[1] += p2 + p3;
+    pa[j / 2][2 * (j & 1)] = pack_bf16(p0, p1);
+    pa[j / 2][2 * (j & 1) + 1] = pack_bf16(p2, p3);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+struct Ring {
+  uint32_t base;  // the 1024-byte aligned start of the layout
+  __device__ uint32_t q() const { return base + OFF_Q; }
+  __device__ uint32_t k(int s) const { return base + OFF_K + s * TILE; }
+  __device__ uint32_t v(int s) const { return base + OFF_V + s * TILE; }
+  __device__ uint32_t q_full() const { return base + OFF_BAR; }
+  __device__ uint32_t k_full(int s) const {
+    return base + OFF_BAR + 8 * (1 + s);
+  }
+  __device__ uint32_t v_full(int s) const {
+    return base + OFF_BAR + 8 * (1 + STAGES + s);
+  }
+  __device__ uint32_t empty(int s) const {
+    return base + OFF_BAR + 8 * (1 + 2 * STAGES + s);
+  }
+};
+
+// the producer's one thread: Q, then each key tile's K and V into the ring
+// once the consumers have released its stage
+__device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int n_tiles,
+                                        int b, int h, int q0) {
+  mbar_expect_tx(r.q_full(), TILE);
+  tma_load(r.q(), tq, r.q_full(), h, q0, b);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(r.empty(s), ((i / STAGES) & 1) ^ 1);
+    mbar_expect_tx(r.k_full(s), TILE);
+    tma_load(r.k(s), tk, r.k_full(s), h, i * BN, b);
+    mbar_expect_tx(r.v_full(s), TILE);
+    tma_load(r.v(s), tv, r.v_full(s), h, i * BN, b);
+  }
+}
+
+// one consumer warpgroup's 64 query rows: rows q0 + 64 c ..
+__device__ __forceinline__ void consume(const Ring& r, bf16* __restrict__ out,
+                                        float* __restrict__ lse, int N,
+                                        int H, int n_tiles, int b, int h,
+                                        int q0, float scale_log2) {
+  const int c = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint64_t dq = sw128_desc(r.q() + c * 64 * HD * 2);
+
+  float s[64], o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float alpha[2];
+  uint32_t pa[8][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  // S = Q K^T of the stage's key tile, issued (the caller commits)
+  auto issue_s = [&](int stage) {
+    const uint64_t dk = sw128_desc(r.k(stage));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+  };
+  // O += P V of the stage's key tile, issued (the caller commits)
+  auto issue_pv = [&](int stage) {
+    const uint64_t dv = sw128_desc(r.v(stage));
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_m64n64k16_rs(o, pa[kk], dv + (2048 >> 4) * kk);
+  };
+
+  mbar_wait(r.q_full(), 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    mbar_wait(r.k_full(st), ph);
+    wgmma_fence();
+    issue_s(st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_tile(s, pa, m, l, alpha, scale_log2);
+    rescale(o, alpha);
+    mbar_wait(r.v_full(st), ph);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_pv(st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    // one lane a warp: the 8 consumer warps release the stage together
+    if (lane == 0) mbar_arrive(r.empty(st));
+  }
+
+  // out and lse are contiguous (B, N, H, 64) and (B, H, N); lse is the
+  // natural log: (m + log2 l) ln 2
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    inv[i] = 1.f / l[i];
+  }
+  const int row = q0 + 64 * c + 16 * warp + g;
+  bf16* o_lo = out + (((long long)b * N + row) * H + h) * HD;
+  bf16* o_hi = o_lo + (long long)8 * H * HD;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = 8 * j + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(o_lo + d) =
+        __floats2bfloat162_rn(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(o_hi + d) =
+        __floats2bfloat162_rn(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
+  }
+  if (t == 0) {
+    float* lse_row = lse + ((long long)b * H + h) * N + row;
+    lse_row[0] = (m[0] + log2f(l[0])) * 0.69314718055994531f;
+    lse_row[8] = (m[1] + log2f(l[1])) * 0.69314718055994531f;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        int N, int H, float scale_log2) {
+  extern __shared__ unsigned char smem[];
+  const Ring r{(smem_u32(smem) + 1023) & ~1023u};
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int n_tiles = N / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(r.q_full(), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(r.k_full(s), 1);
+      mbar_init(r.v_full(s), 1);
+      mbar_init(r.empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // no block-wide barrier below: the producer's idle threads leave
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) produce(r, &tq, &tk, &tv, n_tiles, b, h, q0);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    consume(r, out, lse, N, H, n_tiles, b, h, q0, scale_log2);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps, launch
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query (the
+// library links no libcuda); null where CUDA lacks it
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// error codes beyond cudaError_t's range
+#define FLASH_BAD_SHAPE 100001
+#define FLASH_TMA_ENCODE 100002
+#define FLASH_NO_ENCODER 100003
+
+struct MapKey {
+  const void* p;
+  int B, N, H;
+  long long sb, sn, sh;
+  bool operator==(const MapKey& o) const {
+    return p == o.p && B == o.B && N == o.N && H == o.H && sb == o.sb &&
+           sn == o.sn && sh == o.sh;
+  }
+};
+
+// the tensor maps encoded so far, by (pointer, shape, strides): a training
+// step's allocator hands the same buffers out step after step, and an
+// encode costs about as much host time as a small call's kernel
+constexpr int MAP_CACHE = 64;
+struct {
+  MapKey key[MAP_CACHE];
+  CUtensorMap map[MAP_CACHE];
+  int count = 0, next = 0;
+  std::mutex mutex;
+} maps;
+
+// a (B, N, H, 64) bf16 tensor with element strides (sb, sn, sh) and unit
+// stride along D as a 4-D map (64, H, N, B) of {64, 1, 128, 1} boxes with
+// the 128-byte swizzle; 0 or an error code
+int tensor_map(CUtensorMap* map, const void* p, int B, int N, int H,
+               long long sb, long long sn, long long sh) {
+  const MapKey key{p, B, N, H, sb, sn, sh};
+  std::lock_guard<std::mutex> lock(maps.mutex);
+  for (int i = 0; i < maps.count; ++i)
+    if (maps.key[i] == key) {
+      *map = maps.map[i];
+      return 0;
+    }
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return FLASH_NO_ENCODER;
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)H, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {HD, 1, BN, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return FLASH_TMA_ENCODE;
+  int slot = maps.count < MAP_CACHE ? maps.count++ : maps.next;
+  maps.next = (slot + 1) % MAP_CACHE;
+  maps.key[slot] = key;
+  maps.map[slot] = *map;
+  return 0;
+}
+
+// what TMA takes: a 16-byte aligned base and strides of whole 16 bytes
+bool tma_ok(const void* p, long long sb, long long sn, long long sh) {
+  return (uintptr_t)p % 16 == 0 && sb % 8 == 0 && sn % 8 == 0 && sh % 8 == 0;
+}
+
+}  // namespace
+
+// q, k, v: (B, N, H, 64) bf16 with element strides (b, n, h), unit stride
+// along D, 16-byte aligned bases and strides of whole 16 bytes (else
+// FLASH_BAD_SHAPE); out contiguous (B, N, H, 64) bf16; lse contiguous
+// (B, H, N) float32. N must be a multiple of 128.
+extern "C" int flash_fwd_hopper(const void* q, const void* k, const void* v,
+                                void* out, float* lse, int B, int N, int H,
+                                int D, long long sqb, long long sqn,
+                                long long sqh, long long skb, long long skn,
+                                long long skh, long long svb, long long svn,
+                                long long svh, void* stream_) {
+  if (D != HD || N < BN || N % BN || B < 1 || H < 1 ||
+      !tma_ok(q, sqb, sqn, sqh) || !tma_ok(k, skb, skn, skh) ||
+      !tma_ok(v, svb, svn, svh))
+    return FLASH_BAD_SHAPE;
+  CUtensorMap mq, mk, mv;
+  int rc = tensor_map(&mq, q, B, N, H, sqb, sqn, sqh);
+  if (!rc) rc = tensor_map(&mk, k, B, N, H, skb, skn, skh);
+  if (!rc) rc = tensor_map(&mv, v, B, N, H, svb, svn, svh);
+  if (rc) return rc;
+  // once a process, not on every launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_hopper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (attr != cudaSuccess) return attr;
+  flash_fwd_hopper_kernel<<<dim3(N / BM, H, B), THREADS, SMEM_BYTES,
+                            (cudaStream_t)stream_>>>(
+      mq, mk, mv, (bf16*)out, lse, N, H,
+      1.4426950408889634f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
+// The kernel's launch facts for head dimension D and the type is_bf16,
+// part 0 (the one kernel; FLASH_BAD_SHAPE elsewhere), in flash_attn.cu's
+// flash_attn_fwd_info order: {tile width, threads, query rows a block,
+// dynamic shared-memory bytes, resident blocks an SM, registers a thread,
+// local-memory bytes a thread}
+extern "C" int flash_fwd_hopper_info(int D, int is_bf16, int part,
+                                     int* info) {
+  if (D != HD || !is_bf16 || part != 0) return FLASH_BAD_SHAPE;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_hopper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, flash_fwd_hopper_kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, flash_fwd_hopper_kernel, THREADS, SMEM_BYTES);
+  const int facts[7] = {HD,     THREADS,      BM,
+                        SMEM_BYTES, blocks, attr.numRegs,
+                        (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) info[i] = facts[i];
+  return err;
+}

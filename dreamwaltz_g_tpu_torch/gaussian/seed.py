@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from ..ops.mesh import knn, sample_mesh_surface
+from ..ops.mesh import face_normals_at_vertices, knn, sample_mesh_surface
 
 
 def seed_positions(kind: str, generator: Optional[torch.Generator],
@@ -81,12 +81,8 @@ def seed_scales_radius(positions: torch.Tensor, vertices: torch.Tensor,
 
 def _vertex_normals(vertices: torch.Tensor, faces) -> torch.Tensor:
     """Area-weighted vertex normals (the JAX seeding's own, not
-    ``ops.mesh.vertex_normals``' mean of unit face normals)."""
-    faces = torch.as_tensor(faces, device=vertices.device).long()
-    tri = vertices[faces]
-    fn = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
-    vn = torch.zeros_like(vertices)
-    for k in range(3):
-        vn = vn.index_add(0, faces[:, k], fn)
+    ``ops.mesh.vertex_normals``' mean of unit face normals), summed in a
+    fixed order."""
+    vn = face_normals_at_vertices(vertices, faces)
     return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True),
                             min=1e-20)

@@ -4,7 +4,12 @@ without the N x N scores in device memory.
 Port of the kernel path of ``dreamwaltz_g_tpu/guidance/layers.py``
 (``_flash_kernel`` / ``flash_self_attention``, TPU kernel B4). On CUDA
 tensors ``flash_attn_fwd`` / ``flash_attn_bwd`` launch the hand-written
-kernels of ``csrc/flash_attn.cu`` (bf16 through the tensor cores; float32
+kernels of ``csrc/flash_attn.cu``, but for the bf16 forward at D = 64
+(SDXL's and SD2.x's heads), which ``_fwd_route`` sends to
+``flash_fwd_hopper`` (``csrc/flash_fwd_hopper.cu``: TMA copies and wgmma
+products, the same roundings; a D = 64 view that TMA cannot describe
+raises). Each of the two forward wrappers counts its own launches. bf16
+runs through the tensor cores; float32
 through them too, each product as three TF32 products, whose plain twins
 are ``flash_attention_tf32_plain`` and ``flash_attention_tf32_plain_bwd``;
 scores and softmax stay in registers and K and V stream through a ring of
@@ -249,8 +254,13 @@ def _check(name: str, q, k, v) -> torch.device:
     return dev
 
 
+#: the kernel library of each launch function
+_LIBRARY = {"flash_attn_fwd": "flash_attn", "flash_attn_bwd": "flash_attn",
+            "flash_fwd_hopper": "flash_fwd_hopper"}
+
+
 def _launch(fn_name: str, dev: torch.device, *args) -> None:
-    fn = getattr(kernels.load("flash_attn"), fn_name)
+    fn = getattr(kernels.load(_LIBRARY[fn_name]), fn_name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[a.data_ptr() if torch.is_tensor(a) else a for a in args],
@@ -263,12 +273,20 @@ def _strides(*tensors):
     return [s for t in tensors for s in t.stride()[:3]]
 
 
-def flash_attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward: (out (B, N, H, D) in q's type, contiguous; lse (B, H, N)
-    float32). Kernel on CUDA tensors, plain version on CPU tensors."""
-    dev = _check("flash_attn_fwd", q, k, v)
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v)
+def _fwd_route(D: int, dtype: torch.dtype) -> str:
+    """The forward kernel's launch function for head dimension ``D`` in
+    ``dtype``: ``flash_fwd_hopper`` for bf16 at D = 64 (the Hopper design,
+    ``csrc/flash_fwd_hopper.cu``), ``flash_attn_fwd`` (``csrc/
+    flash_attn.cu``: the row-split, wide and float32 forwards) for every
+    other pair."""
+    return "flash_fwd_hopper" if dtype == torch.bfloat16 and D == 64 \
+        else "flash_attn_fwd"
+
+
+def _fwd_flash_attn(q, k, v, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/flash_attn.cu``'s forward for any (D, type) it takes (at
+    D = 64 in bf16 its 64-wide row-split instantiation), launched and not
+    counted: ``flash_attn_fwd`` counts its own calls of it."""
     B, N, H, D = q.shape
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=dev)
@@ -282,6 +300,48 @@ def flash_attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
                                device=dev)
     _launch("flash_attn_fwd", dev, q, k, v, out, lse, o_part, lse_part, B, N,
             H, D, *_strides(q, k, v), int(bf16), splits)
+    return out, lse
+
+
+def flash_fwd_hopper(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 forward at D = 64 (``flash_attn_fwd``'s outputs) through
+    ``csrc/flash_fwd_hopper.cu``; the plain version on CPU tensors. Raises
+    on another type or width, and on a view whose base is not 16-byte
+    aligned or whose strides are not whole 16 bytes (what a TMA tensor map
+    cannot describe): there is no other kernel to fall back to."""
+    dev = _check("flash_fwd_hopper", q, k, v)
+    B, N, H, D = q.shape
+    if q.dtype != torch.bfloat16 or D != 64:
+        raise ValueError(f"flash_fwd_hopper: bf16 at D = 64 only, not "
+                         f"{q.dtype} at D = {D}")
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(
+                f"flash_fwd_hopper: {n} (strides {t.stride()}, base "
+                f"{t.data_ptr() % 16} bytes past 16) is not a view a TMA "
+                "tensor map takes: a 16-byte aligned base and strides of "
+                "whole 16 bytes")
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    _launch("flash_fwd_hopper", dev, q, k, v, out, lse, B, N, H, D,
+            *_strides(q, k, v))
+    flash_fwd_hopper.launches += 1
+    return out, lse
+
+
+def flash_attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward: (out (B, N, H, D) in q's type, contiguous; lse (B, H, N)
+    float32). Kernel on CUDA tensors, plain version on CPU tensors; bf16 at
+    D = 64 goes to ``flash_fwd_hopper`` (``_fwd_route``), which counts that
+    launch, every other call to ``csrc/flash_attn.cu``, counted here."""
+    dev = _check("flash_attn_fwd", q, k, v)
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if _fwd_route(q.shape[-1], q.dtype) == "flash_fwd_hopper":
+        return flash_fwd_hopper(q, k, v)
+    out, lse = _fwd_flash_attn(q, k, v, dev)
     flash_attn_fwd.launches += 1
     return out, lse
 
@@ -323,6 +383,7 @@ def flash_attn_bwd(q, k, v, out, lse, d_out
 
 flash_attn_fwd.launches = 0
 flash_attn_bwd.launches = 0
+flash_fwd_hopper.launches = 0
 
 
 class FlashSelfAttention(torch.autograd.Function):

@@ -43,6 +43,10 @@ SIGNATURES = {
         "flash_attn_fwd_info": [_I, _I, _I, _P],
         "flash_attn_bwd_info": [_I, _I, _I, _P],
     },
+    "flash_fwd_hopper": {
+        "flash_fwd_hopper": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_P],
+        "flash_fwd_hopper_info": [_I, _I, _I, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -5,11 +5,18 @@ Port of ``dreamwaltz_g_tpu/ops/mesh.py``: setup-time ops of avatar
 initialisation and of stage 1's sigma guidance, the queries as chunked
 brute force over dense (chunk x F) distance tiles, and the per-triangle
 frames of the mesh-bound Gaussians (``triangle_frames``).
+
+Every sum of face values at the vertices (the three kinds of vertex
+normals) is ``sum_at_vertices``: a gather through a table built once on
+the host (``corner_table``) and a sum in a fixed order. An ``index_add``
+adds with atomics on the card, in no fixed order, so the same mesh could
+give normals that differ in the last bits from call to call.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -162,17 +169,82 @@ def sample_mesh_surface(vertices: torch.Tensor, faces, n: int,
     return pts, fidx
 
 
-def vertex_normals(vertices: torch.Tensor, faces) -> torch.Tensor:
-    """Per-vertex unit normals: the mean of the adjacent faces' unit
-    normals (trimesh's ``vertex_normals``)."""
+def corner_table(faces, n_vertices: int) -> np.ndarray:
+    """The (face, corner)s at each vertex, in a fixed order: an
+    (n_vertices, K) int64 table of flat ids ``3 f + c`` (``faces[f, c]`` is
+    the vertex), ascending along each row, K the most corners at one
+    vertex, rows padded with ``3 F``, which ``sum_at_vertices`` reads as a
+    zero row. Built on the host with numpy; ``faces`` (F, 3)."""
+    faces = np.asarray(faces, np.int64)
+    flat = faces.reshape(-1)
+    if flat.size and (flat.min() < 0 or flat.max() >= n_vertices):
+        raise ValueError(f"faces name vertices outside 0..{n_vertices - 1}")
+    counts = np.bincount(flat, minlength=n_vertices)
+    order = np.argsort(flat, kind="stable")     # by vertex, then flat id
+    slot = np.arange(flat.size) - (np.cumsum(counts) - counts)[flat[order]]
+    table = np.full((n_vertices, max(int(counts.max(initial=0)), 1)),
+                    flat.size, np.int64)
+    table[flat[order], slot] = order
+    return table
+
+
+# corner tables by (vertex count, faces' bytes), for face arrays that come
+# without one (the SMPL-X faces of stage 1's sigma guidance and of the
+# seeding); a mesh part keeps its own (``system.avatar``)
+_TABLES: Dict[tuple, np.ndarray] = {}
+_CACHED = 32
+
+
+def cached_corner_table(faces, n_vertices: int) -> np.ndarray:
+    """``corner_table(faces, n_vertices)``, built once for each face array
+    and vertex count (the faces on the host, or a tensor copied there)."""
+    faces = np.ascontiguousarray(
+        faces.detach().cpu().numpy() if torch.is_tensor(faces) else faces,
+        np.int64)
+    key = (n_vertices, faces.shape, faces.tobytes())
+    table = _TABLES.get(key)
+    if table is None:
+        if len(_TABLES) >= _CACHED:
+            _TABLES.pop(next(iter(_TABLES)))
+        table = _TABLES[key] = corner_table(faces, n_vertices)
+    return table
+
+
+def sum_at_vertices(face_values: torch.Tensor, table: np.ndarray
+                    ) -> torch.Tensor:
+    """(V, C): for each vertex the sum of ``face_values`` (F, C) over its
+    (face, corner)s in ``table``'s order (``corner_table``), as a gather
+    and a sum over the padded axis, the pad reading a zero row. No atomics:
+    the same inputs give the same bits from call to call on any device
+    (the gather's gradient still scatters with atomics on the card)."""
+    faces = torch.as_tensor(table // 3, device=face_values.device)
+    padded = torch.cat([face_values,
+                        face_values.new_zeros((1,) + face_values.shape[1:])])
+    return padded[faces].sum(1)
+
+
+def face_normals_at_vertices(vertices: torch.Tensor, faces,
+                             unit: bool = False, table=None) -> torch.Tensor:
+    """(V, 3) sum of the faces' normals at each vertex
+    (``sum_at_vertices``): the cross products (area-weighted) or, with
+    ``unit``, each normalised first (norm clamped at 1e-12). ``table``:
+    the faces' ``corner_table`` where the caller keeps it (else cached
+    here)."""
+    if table is None:
+        table = cached_corner_table(faces, vertices.shape[0])
     faces = torch.as_tensor(faces, device=vertices.device).long()
     tri = vertices[faces]
-    fn = torch.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
-    fn = fn / torch.clamp(torch.linalg.norm(fn, dim=-1, keepdim=True),
-                          min=1e-12)
-    vn = torch.zeros_like(vertices)
-    for k in range(3):
-        vn = vn.index_add(0, faces[:, k], fn)
+    fn = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    if unit:
+        fn = fn / torch.clamp(torch.linalg.norm(fn, dim=-1, keepdim=True),
+                              min=1e-12)
+    return sum_at_vertices(fn, table)
+
+
+def vertex_normals(vertices: torch.Tensor, faces) -> torch.Tensor:
+    """Per-vertex unit normals: the mean of the adjacent faces' unit
+    normals (trimesh's ``vertex_normals``), summed in a fixed order."""
+    vn = face_normals_at_vertices(vertices, faces, unit=True)
     return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True),
                             min=1e-12)
 

@@ -36,6 +36,8 @@ from ..nerf.encoder import encode_any, init_encoder_any
 from ..nerf.network import SigmaMLP
 from ..ops.mesh import (
     NearestTriangles,
+    corner_table,
+    face_normals_at_vertices,
     find_nearest_triangles,
     interpolate_vertex_attributes,
     knn,
@@ -67,6 +69,7 @@ class MeshBindingStatic(NamedTuple):
     points_to_triangles: np.ndarray  # (M,)
     points_to_vertices: np.ndarray  # (M, 3) local ids
     n_per_triangle: int
+    corners: np.ndarray             # (Vp, K) corner_table(triangles)
 
 
 class MeshBindingParams(NamedTuple):
@@ -191,6 +194,7 @@ def make_mesh_binding_static(
         points_to_triangles=p2t,
         points_to_vertices=local_tris[p2t],
         n_per_triangle=n_per_triangle,
+        corners=corner_table(local_tris, len(vertex_indices)),
     )
 
 
@@ -451,16 +455,14 @@ def init_avatar_state(
 # Forward / animate
 # ---------------------------------------------------------------------------
 
-def _vertex_normals(vertex_coords: torch.Tensor,
-                    triangles: np.ndarray) -> torch.Tensor:
-    """Area-weighted per-vertex normals of a part submesh."""
-    tris = torch.as_tensor(triangles, device=vertex_coords.device)
-    tri = vertex_coords[tris]
-    fn = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
-    vn = torch.zeros_like(vertex_coords)
-    for k in range(3):
-        vn = vn.index_add(0, tris[:, k], fn)
-    return safe_normalize(vn)
+def _vertex_normals(vertex_coords: torch.Tensor, triangles: np.ndarray,
+                    corners: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Area-weighted per-vertex normals of a part submesh, summed in a
+    fixed order (``ops.mesh.sum_at_vertices``, through the part's
+    ``corners`` table), so that one pose animates to the same bits every
+    time."""
+    return safe_normalize(face_normals_at_vertices(
+        vertex_coords, triangles, table=corners))
 
 
 def _mesh_part_gaussians(
@@ -492,7 +494,7 @@ def _mesh_part_gaussians(
 
     # triangle-frame scales/quaternions in the observed pose
     p2v = torch.as_tensor(st.points_to_vertices, device=dev)
-    vn = _vertex_normals(obs_verts, st.triangles)
+    vn = _vertex_normals(obs_verts, st.triangles, st.corners)
     point_bary = bary.reshape(-1, 3)
     normals = torch.einsum("nk,nkc->nc", point_bary, vn[p2v])
     v0 = safe_normalize(normals)

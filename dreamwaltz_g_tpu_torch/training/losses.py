@@ -154,8 +154,9 @@ def make_sigma_guidance_points(
     pts, fidx, bary = sample_mesh_surface(vertices, faces, num_points,
                                           generator=generator, fidx=fidx,
                                           u=u, return_bary=True)
+    vn = vertex_normals(vertices, faces)
     faces = torch.as_tensor(faces, device=vertices.device).long()
-    vn = vertex_normals(vertices, faces)[faces[fidx]]          # (N, 3, 3)
+    vn = vn[faces[fidx]]                                       # (N, 3, 3)
     n = torch.einsum("nk,nkd->nd", bary, vn)
     n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
                         min=1e-12)

@@ -39,7 +39,7 @@ def _grads_close(got, want, tol):
 
 
 @pytest.mark.parametrize("shape", [(1, 256, 2, 40), (1, 256, 1, 64),
-                                   (1, 128, 1, 256)])
+                                   (1, 256, 2, 64), (1, 128, 1, 256)])
 def test_flash_self_attention_matches_jax_kernel(shape):
     """Forward and the three gradients, port vs the interpreted TPU
     kernel."""
@@ -53,11 +53,12 @@ def test_flash_self_attention_matches_jax_kernel(shape):
         jgrads = jax.grad(loss, argnums=(0, 1, 2))(
             *map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (torch.as_tensor(x).requires_grad_(True) for x in (q, k, v))
-    before = (FL.flash_attn_fwd.launches, FL.flash_attn_bwd.launches)
+    counts = (FL.flash_attn_fwd, FL.flash_attn_bwd, FL.flash_fwd_hopper)
+    before = [f.launches for f in counts]
     out = FL.flash_self_attention(tq, tk, tv)
     (out * torch.as_tensor(g)).sum().backward()
     # CPU tensors take the plain versions: no launch is counted
-    assert (FL.flash_attn_fwd.launches, FL.flash_attn_bwd.launches) == before
+    assert [f.launches for f in counts] == before
     assert float(np.abs(out.detach().numpy() - np.asarray(jout)).max()) \
         <= TOL_OUT
     _grads_close([tq.grad, tk.grad, tv.grad], jgrads, TOL_GRAD)
@@ -345,3 +346,37 @@ def test_bf16_roundings_against_the_forward_limits(peaked):
         assert 1.0 < ratio <= 2.0
     else:
         assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [16, 40, 64, 80, 128, 512])
+def test_forward_route_names_the_hopper_kernel_for_bf16_at_64_only(D, dtype):
+    """``_fwd_route``: the bf16 forward at D = 64 (SDXL's and SD2.x's heads)
+    is ``flash_fwd_hopper``'s (``csrc/flash_fwd_hopper.cu``); every other
+    (D, type) stays with ``flash_attn_fwd`` (``csrc/flash_attn.cu``)."""
+    hopper = D == 64 and dtype == torch.bfloat16
+    assert FL._fwd_route(D, dtype) == (
+        "flash_fwd_hopper" if hopper else "flash_attn_fwd")
+    assert FL._LIBRARY[FL._fwd_route(D, dtype)] == (
+        "flash_fwd_hopper" if hopper else "flash_attn")
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 80),
+                                     (torch.float32, 64)])
+def test_hopper_wrapper_takes_the_plain_version_on_the_cpu_or_raises(dtype,
+                                                                       D):
+    """``flash_fwd_hopper`` on CPU tensors: the plain version at bf16
+    D = 64, a ValueError for any other pair; no launch counted."""
+    q, k, v = (torch.as_tensor(x).to(dtype)
+               for x in _qkvg((1, 128, 2, D), 3)[:3])
+    before = FL.flash_fwd_hopper.launches
+    if dtype == torch.bfloat16 and D == 64:
+        out, lse = FL.flash_fwd_hopper(q, k, v)
+        ref, ref_lse = FL.flash_attention_plain(q, k, v)
+        assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    else:
+        with pytest.raises(ValueError, match="bf16 at D = 64 only"):
+            FL.flash_fwd_hopper(q, k, v)
+    assert FL.flash_fwd_hopper.launches == before

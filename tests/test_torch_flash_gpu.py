@@ -19,16 +19,20 @@ inputs:
   gradients round P, dS and the result likewise and are held to 2^-6 of
   each gradient's largest entry.
 
-The bf16 kernels have tile widths 48, 80, 128 and 512; the head dimensions
-below cover each width exactly (80, 128, 512) and zero-padded (16, 24 and
-40 in 48, 64 in 80, 256 and 384 in 512). D = 20 and a view that is not
-16-byte aligned take the element-wise tile load. The row-split forward
-(D <= 128) streams 64-key tiles through a ring of 3 shared-memory stages (2
-at D > 80): N = 128 has fewer key tiles than stages; every N (a multiple of
-128) gives an even count of tiles, and N = 1280's 20 end part-way round the
-3-stage ring, N = 1152's 18 at its end. The wide forward (D > 128) takes
-64 query rows a block, splits the keys in two ranges of 32-key tiles
-through a 2-stage ring and merges the ranges in a second kernel: N = 128
+The bf16 kernels have tile widths 48, 64, 80, 128 and 512; the head
+dimensions below cover each width exactly (80, 128, 512) and zero-padded
+(16, 24 and 40 in 48, 256 and 384 in 512). D = 20 and a view that is not
+16-byte aligned take the element-wise tile load. The bf16 forward at
+D = 64 is the Hopper kernel's (``csrc/flash_fwd_hopper.cu``: 128 query
+rows a block over two consumer warpgroups, 128-key tiles through a 2-stage
+TMA ring); it raises on a view TMA cannot describe. The row-split forward
+(D <= 128) streams 64-key tiles through a ring of 3 shared-memory stages
+(2 at 64 and above 80): N = 128 has fewer key tiles than stages; every N
+(a multiple of 128) gives an even count of tiles, and N = 1280's 20 end
+part-way round the 3-stage ring, N = 1152's 18 at its end. The wide
+forward (D > 128) takes 64 query rows a block, splits the keys in two
+ranges of 32-key tiles through a 2-stage ring and merges the ranges in a
+second kernel: N = 128
 gives each range 2 tiles, N = 4096 64, and B H > 1 puts several heads and
 batches in one grid. A late dominant key makes every row's maximum arrive
 in the last tile (of the second key range, or of the first), and the
@@ -153,7 +157,7 @@ def test_kernel_takes_views_of_a_fused_projection(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [40, 80, 128])
+@pytest.mark.parametrize("D", [40, 64, 80, 128])
 def test_bf16_rescales_when_the_max_arrives_in_the_last_tile(D):
     """q scaled x8 with a positive first component, and the last key along
     that component: every row's largest score is its last, so each row's
@@ -212,9 +216,12 @@ def test_bf16_wide_lse_and_the_backward_from_its_outputs():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (2, 1024, 8, 80),
-                                   (1, 4096, 1, 512)])
+                                   (1, 4096, 1, 512), (2, 4096, 10, 64),
+                                   (2, 1024, 20, 64), (2, 9216, 5, 64),
+                                   (2, 2304, 10, 64)])
 def test_bf16_at_the_training_steps_shapes_from_a_cold_cache(shape):
-    """The UNet's, the ControlNet's and the VAE's shapes, forward only. They
+    """The UNet's, the ControlNet's and the VAE's shapes, and SDXL's and
+    SD2.1-768's 64-wide levels (the Hopper kernel's), forward only. They
     fill the card with blocks, and the inputs are evicted from the 50 MB L2
     first, so the first copies of every resident block queue on device
     memory together: a read of a ring stage before its copies land shows
@@ -494,3 +501,67 @@ def test_f32_takes_a_view_that_is_not_16_byte_aligned(D):
                   .view(B, N, H, D) for i in range(4))
     assert q.data_ptr() % 16 != 0
     _hold(q, k, v, g.contiguous())
+
+
+@pytest.mark.gpu
+def test_hopper_forward_over_one_key_tile():
+    """N = 128: one key tile, the Q tile's only one; the ring's first
+    stage alone, every row's max in it."""
+    dev = _card()
+    q, k, v, _ = _qkv(dev, (2, 128, 3, 64), torch.bfloat16, seed=21)
+    _hold_fwd(q, k, v)
+
+
+@pytest.mark.gpu
+def test_hopper_forward_takes_a_fused_projection_or_raises():
+    """q, k, v as (B, N, H, 64) views of one (B, N, 3 H 64) projection
+    (strides of whole 16 bytes, 16-byte aligned bases): the Hopper kernel
+    takes them. The same views 8 bytes into their buffer are not 16-byte
+    aligned, which a TMA tensor map cannot describe: the forward raises,
+    with no other kernel to fall back to."""
+    dev = _card()
+    B, N, H, D = 2, 1024, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(23)
+    flat = torch.randn(B * N * 3 * H * D + 4, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    fused = flat[:B * N * 3 * H * D].view(B, N, 3 * H * D)
+    q, k, v = (x.reshape(B, N, H, D) for x in fused.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    before = FL.flash_fwd_hopper.launches
+    _hold_fwd(q, k, v)
+    assert FL.flash_fwd_hopper.launches == before + 1
+    shifted = flat[4:].view(B, N, 3 * H * D)
+    q, k, v = (x.reshape(B, N, H, D) for x in shifted.chunk(3, dim=-1))
+    assert q.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="TMA"):
+        FL.flash_attn_fwd(q, k, v)
+    assert FL.flash_fwd_hopper.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_hopper_launch_is_counted_under_its_own_name():
+    """A bf16 forward at D = 64 counts one launch on ``flash_fwd_hopper``
+    and none on ``flash_attn_fwd``, and the profiler sees one
+    ``flash_fwd_hopper_kernel`` and no row-split kernel; the autograd
+    function's backward stays ``flash_attn_bwd``'s."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    q, k, v, g = _qkv(dev, (1, 1024, 2, 64), torch.bfloat16, seed=25)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    FL.flash_attn_fwd.launches = FL.flash_attn_bwd.launches = 0
+    FL.flash_fwd_hopper.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = FL.flash_self_attention(q, k, v)
+        torch.cuda.synchronize()
+    out.backward(g)
+    assert (FL.flash_fwd_hopper.launches, FL.flash_attn_fwd.launches,
+            FL.flash_attn_bwd.launches) == (1, 0, 1)
+    launched = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+    assert sum(c for n, c in launched.items()
+               if "flash_fwd_hopper_kernel" in n) == 1
+    assert not any("flash_fwd_rows_kernel" in n for n in launched)
