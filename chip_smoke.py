@@ -96,7 +96,8 @@ Phases, one JSON line each:
                    flash ``"on"``, rays in checkpointed chunks, sigma
                    guidance, volume sparsity and the background MLP: on the
                    CPU (plain versions) and on the card (kernels), from the
-                   same field, grid and draws;
+                   same field, grid and draws, and a second card run equal
+                   to the first to the bit;
 18. nerf_train  -- the stage-1 path at the full width of step 1.2 of
                    ``scripts/train_w_expr.sh``: ``NeRFConfig()``'s field
                    rendered at 512^2, the SD1.5-size bf16 guidance of phase
@@ -106,8 +107,12 @@ Phases, one JSON line each:
                    occupancy cadence and one forced refresh, counts read
                    (flash forward and backward each step as the models'
                    structure gives, no blend kernel, no library
-                   attention); then ``nerf_profile``: device ms by the
-                   step's own ranges, busy share, top kernels;
+                   attention); then ``nerf_repeat``: the first step again
+                   from a copy of its field, grid and generator, its loss,
+                   gradients, updated weights and occupancy against the
+                   first run's to the bit (reported); then
+                   ``nerf_profile``: device ms by the step's own ranges,
+                   busy share, top kernels;
 19. train_f32   -- the same step with the UNet, ControlNet and VAE in
                    float32 (the JAX package's ``guide.dtype = "fp32"``): the
                    bf16 stack freed, counts set to 0, 1 warm-up and 3 steps
@@ -115,8 +120,13 @@ Phases, one JSON line each:
                    forwards and 1 backward a step), 1 + 2 steps with einsum
                    attention, one profiled step; step ms, the float32 flash
                    kernels' device ms a step, busy share, peak memory;
-20. cli_assets / cli_two_stage -- ``scripts/train_w_expr.sh`` steps 1.2,
-                   2.1 and 2.3 through the port's CLI in-process
+20. cli_assets / cli_two_stage -- steps 1.2, 2.1 and 2.3 of the port's
+                   ``dreamwaltz_g_tpu_torch/scripts/train_w_expr.sh``, their
+                   argvs recorded off the script (``cli_twin``: the script
+                   run under ``bash`` with a ``python`` that records its
+                   command lines) with the experiment, steps and warm
+                   start replaced and each run's argv printed
+                   (``cli_argv``), through the port's CLI in-process
                    (``dreamwaltz_g_tpu_torch.main.main``) at full width:
                    the synthetic SMPL-X-sized body (with landmark tables
                    and a segmentation of hands and head) and the SD1.5
@@ -131,8 +141,10 @@ Phases, one JSON line each:
                    table blends (0, 0) in stage 1 and (1, 1) in stage 2);
                    losses, s/step, peak memory, busy share, the device ms
                    of the trainer's batch build, condition render and
-                   step; the handoff's export (dense cells before and
-                   after the isolated-cell filter, points, capacity), its
+                   step; the handoff's 400^3 export of step 1.2's field
+                   twice, equal to the bit; the handoff's export (dense
+                   cells before and after the isolated-cell filter,
+                   points, capacity), its
                    LBS smoothing ms, the stage-1 planes carried verbatim,
                    and step 2.3's warm start equal to step 2.1's last
                    checkpoint to every bit;
@@ -141,16 +153,22 @@ Phases, one JSON line each:
                    step 3 of the script (``--log.eval_only``: 60 frames of
                    a synthetic TalkSHOW demo motion at 1024^2 through B2,
                    their PNGs, mp4 and R-Precision with full-size random
-                   CLIP towers), steps 1.2 and 2.3 for 2 steps with a
-                   snapshot every step and an evaluation every 2, and
-                   ``scripts/inference_reenact.sh``'s command on a
+                   CLIP towers; then ``r_precision_twin``: the port's
+                   ``scripts/eval_r_precision.py`` over 8 of the PNGs on
+                   the card, held against the CPU), steps 1.2 and 2.3 for
+                   2 steps with a snapshot every step and an evaluation
+                   every 2, and
+                   the port's ``scripts/inference_reenact.sh`` call on a
                    synthetic Motion-X-ReEnact sequence (30 frames of
                    720 x 1280 on its own cameras over its inpainted video,
                    the overlay mp4); counts set to 0 before each run and
-                   read after it;
+                   read after it; then ``compare_backbones``: the port's
+                   ``scripts/compare_backbones.py --backbone both`` and
+                   ``rescore_backbone_state.py`` on its state file (finite
+                   rows, non-empty clouds);
 22. cli_modes   -- in the same directory, the CLI's other modes through
                    ``dreamwaltz_g_tpu_torch.main.main`` at full width:
-                   ``scripts/pretrain_nerf.sh``'s arguments for 3 steps
+                   the port's ``scripts/pretrain_nerf.sh`` call for 2 steps
                    (no kernel; the checkpoint, and step 1.1's warm start
                    from it equal to it to every bit), ``--log.nerf2gs``
                    from step 1.2's field for 3 steps (B1 forward and
@@ -226,9 +244,10 @@ batch 1, SDXL's and SD2.1-768's UNet levels and VAE mid blocks, the
 tensor-parallel halves) are held against the plain versions and timed with
 the others (phases 10 and 14).
 
-Then the kernels line, the ``nvidia-smi`` name/power-limit line, and the
-last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
-script exits non-zero and prints no result. The avatar is the synthetic
+Then the kernels line, the script's wall time (``wall``), the
+``nvidia-smi`` name/power-limit line, and the last line
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+exits non-zero and prints no result. The avatar is the synthetic
 SMPL-X-sized body (10,475 vertices, 55 joints) with random weights from a
 seed: 180k points in a 200k-slot buffer, a 256^2 x 32 triplane, the
 trainer's decode heads, 6,000 hand-bound mesh Gaussians. The guidance,
@@ -1772,7 +1791,8 @@ def small_nerf_train(dev):
     rays march in checkpointed chunks of 1,000 (4,096 rays); sigma
     guidance, volume sparsity, ray sparsity and the background MLP are on.
     The loss within 1e-3 relative, every gradient in ``grad_error``'s
-    envelope."""
+    envelope; a second card run from the same state equal to the first to
+    the bit (loss, metrics and every gradient)."""
     import copy
 
     import torch
@@ -1788,6 +1808,7 @@ def small_nerf_train(dev):
         init_occupancy,
         update_occupancy,
     )
+    from dreamwaltz_g_tpu_torch.scripts.repeat_check import differ
     from dreamwaltz_g_tpu_torch.training import nerf_trainer as NT
     from dreamwaltz_g_tpu_torch.training.losses import (
         make_sigma_guidance_points,
@@ -1824,7 +1845,7 @@ def small_nerf_train(dev):
     FL.flash_attn_fwd.launches = FL.flash_attn_bwd.launches = 0
     runs = {}
     try:
-        for label, d in (("cpu", cpu), ("card", dev)):
+        for label, d in (("cpu", cpu), ("card", dev), ("card_again", dev)):
             model = copy.deepcopy(field).to(d)
             tx = build_nerf_optimizer(cfg, NERF_MAX_STEPS)
             ts = NT.init_train_state(model, tx)
@@ -1849,6 +1870,10 @@ def small_nerf_train(dev):
         TL.FLASH_ATTENTION = flash_setting
     flash_launches = [FL.flash_attn_fwd.launches, FL.flash_attn_bwd.launches]
     (m_cpu, g_cpu), (m_gpu, g_gpu) = runs["cpu"], runs["card"]
+    m_again, g_again = runs["card_again"]
+    repeat = dict(differ([t for k in g_gpu for t in g_again[k]],
+                           [t for k in g_gpu for t in g_gpu[k]]),
+                  metrics_equal=m_again == m_gpu)
     loss_rel = abs(m_gpu["loss"] - m_cpu["loss"]) / max(abs(m_cpu["loss"]),
                                                          1e-30)
     e_abs, e_rel, excess = grad_error(
@@ -1861,7 +1886,11 @@ def small_nerf_train(dev):
                                    for k in g_cpu},
          occupied_share=float(grid.occupied.float().mean()),
          flash_attention="on", flash_launches_fwd_bwd=flash_launches,
-         ray_chunk=chunk, rays=S * S, tol_loss=TOL_STEP_LOSS)
+         ray_chunk=chunk, rays=S * S, tol_loss=TOL_STEP_LOSS,
+         card_repeat=repeat)
+    if repeat["differing"] or not repeat["metrics_equal"]:
+        fail(f"tiny NeRF step: two card runs from the same state part: "
+             f"{repeat}")
     if min(flash_launches) <= 0:
         fail(f"tiny NeRF step: the card launched no flash kernel: "
              f"{flash_launches}")
@@ -1922,8 +1951,14 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     guidance scales and the text tower's embeddings. Counts set to 0, then
     1 warm-up and 4 timed steps with ``maybe_update_occupancy`` before
     each (it refreshes at step 0) and one refresh forced between the two
-    runs; counts read. Then one profiled step (phase ``nerf_profile``).
+    runs; counts read. Then the first step again, from a copy of its
+    field, grid and generator state with its timestep and guidance scale
+    (phase ``nerf_repeat``: loss, gradients, updated weights and occupancy
+    against the first run's, to the bit, reported and not held), and one
+    profiled step (phase ``nerf_profile``).
     Returns the flash launches of the 7 steps."""
+    import copy
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1943,6 +1978,7 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
         init_occupancy,
         update_occupancy,
     )
+    from dreamwaltz_g_tpu_torch.scripts.repeat_check import differ
     from dreamwaltz_g_tpu_torch.training import nerf_trainer as NT
     from dreamwaltz_g_tpu_torch.training.losses import (
         make_sigma_guidance_points,
@@ -1980,25 +2016,46 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     sched = TimePrioritizedScheduler(GuideConfig(), seed=SEED)
     timesteps, scales, occupied = [], [], []
 
-    def run_step(tstate, grid):
+    def run_step(tstate, grid, replay=None):
         """The trainer's stage-1 iteration: the occupancy cadence, the
-        step's sigma points, the scheduler, the step."""
+        step's sigma points, the scheduler, the step. ``replay``: the
+        field, step and scheduler values of a run to repeat."""
         i = tstate.step
+        field_, step_ = (field, step) if replay is None \
+            else (replay["field"], replay["step"])
         grid = NT.maybe_update_occupancy(
-            tstate, grid, field, interval=cfg.update_extra_interval,
+            tstate, grid, field_, interval=cfg.update_extra_interval,
             density_thresh=cfg.density_thresh, generator=gen)
         pts = make_sigma_guidance_points(verts, smpl.faces, SIGMA_POINTS,
                                          generator=gen)
-        t = sched.get_timestep(1, i + 1, NERF_MAX_STEPS)
-        gs = sched.get_guidance_scale(i + 1, NERF_MAX_STEPS)
-        timesteps.append(int(t[0]))
-        scales.append(gs)
-        tstate, metrics = step(
+        if replay is None:
+            t = sched.get_timestep(1, i + 1, NERF_MAX_STEPS)
+            gs = sched.get_guidance_scale(i + 1, NERF_MAX_STEPS)
+            timesteps.append(int(t[0]))
+            scales.append(gs)
+        else:
+            t, gs = [replay["timestep"]], replay["scale"]
+        tstate, metrics = step_(
             tstate, grid, gparams, cams.c2w[i], cams.intrinsics[i], bg,
             txt, unc, torch.as_tensor(t, device=dev), generator=gen,
             cond_image=canvases[i], guidance_scale=gs, sigma_pts=pts,
             use_sigma=True)
         return tstate, grid, metrics
+
+    def first_step(grid, metrics, field_):
+        """What a repeat of the first step must give to the bit."""
+        return dict(loss={k: float(v) for k, v in metrics.items()},
+                    occupied=grid.occupied.clone(),
+                    density=grid.density.clone(),
+                    grads=[torch.zeros(0) if p.grad is None
+                           else p.grad.detach().clone()
+                           for p in field_.parameters()],
+                    params=[p.detach().clone()
+                            for p in field_.parameters()])
+
+    # the first step again, later, from a copy of the same state
+    replay = dict(field=copy.deepcopy(field), grid=grid,
+                  gen=gen.get_state())
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_calls = []
@@ -2029,6 +2086,8 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
             n0 = [kernel_fns[k].launches for k in ("flash_attn_fwd",
                                                    "flash_attn_bwd")]
             tstate, grid, metrics = run_step(tstate, grid)
+            if i == 0:
+                first = first_step(grid, metrics, field)
             per_step.append([kernel_fns[k].launches - n0[j] for j, k in
                              enumerate(("flash_attn_fwd", "flash_attn_bwd"))])
             losses.append({k: float(v) for k, v in metrics.items()})
@@ -2069,6 +2128,40 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
              f"move: {moved}")
     if torch.equal(grid.occupied, grid0) or len(set(occupied)) < 2:
         fail(f"stage-1 step: the occupancy grid did not change: {occupied}")
+
+    # -- the first step again from a copy of its state: equal to the bit --
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rfield = replay["field"]
+    replay.update(step=NT.make_nerf_sds_step(
+        rfield, guidance, NERF_H, NERF_W, cfg, num_steps=cfg.num_steps,
+        max_iteration=NERF_MAX_STEPS, bg_mode="color",
+        ray_chunk=cfg.max_ray_batch, device=dev),
+        timestep=timesteps[0], scale=scales[0])
+    gen_now = gen.get_state()
+    gen.set_state(replay["gen"])
+    _, rgrid, rmetrics = run_step(NT.init_train_state(
+        rfield, build_nerf_optimizer(cfg, NERF_MAX_STEPS)), replay["grid"],
+        replay=replay)
+    again = first_step(rgrid, rmetrics, rfield)
+    gen.set_state(gen_now)
+    torch.cuda.synchronize()
+    repeat = {k: differ(again[k], first[k]) for k in ("grads", "params")}
+    repeat.update(
+        occupancy=differ([again["occupied"], again["density"]],
+                           [first["occupied"], first["density"]]),
+        loss_equal=again["loss"] == first["loss"], loss=first["loss"],
+        loss_again=again["loss"], seconds=time.perf_counter() - t0)
+    # reported, not held: a replay has parted from its first run by an ulp
+    # in a fraction of the gradients, rarely (ROADMAP.md queue C item 5)
+    repeat["equal"] = repeat["loss_equal"] and not any(
+        repeat[k]["differing"] for k in ("grads", "params", "occupancy"))
+    repeat["differing_params"] = [
+        n for (n, _), a, b in zip(rfield.named_parameters(), again["grads"],
+                                  first["grads"])
+        if differ([a], [b])["differing"]]
+    emit(phase="nerf_repeat", **repeat, **card)
+    del replay, rfield, first, again
 
     # -- one profiled step: device ms by the step's own ranges ------------
     torch.cuda.synchronize()
@@ -2305,6 +2398,7 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
     from dreamwaltz_g_tpu_torch.training.trainer import Trainer
     from dreamwaltz_g_tpu_torch.utils import timing
 
+    emit(phase="cli_argv", run=label, argv=list(argv))
     stage = argv[argv.index("--stage") + 1]
     if stage_ranges is None:
         stage_ranges = NERF_STAGE_RANGES if stage == "nerf" else STAGE_RANGES
@@ -2405,6 +2499,66 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
     return line
 
 
+def export_repeat(exp_dir, argv_, dev):
+    """The stage-1 -> stage-2 handoff's export of ``exp_dir``'s field
+    (``Trainer._export_cloud``'s arguments under ``argv_``: the 400^3 grid,
+    the density threshold, the isolated-cell filter, the subsample) twice
+    from the same checkpoint; its points, colours and counts compared to
+    the bit."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.configs import parse_args
+    from dreamwaltz_g_tpu_torch.nerf import export
+    from dreamwaltz_g_tpu_torch.nerf.network import build_nerf
+    from dreamwaltz_g_tpu_torch.scripts.repeat_check import differ
+    from dreamwaltz_g_tpu_torch.training.checkpoint import (
+        load_pytree,
+        resolve_ckpt_path,
+    )
+
+    cfg = parse_args(argv_)
+    field = build_nerf(cfg.nerf, with_background=cfg.nerf.bg_mode == "nerf"
+                       or cfg.nerf.bg_radius > 0, device=dev)
+    with torch.no_grad():
+        field.load_state_dict(load_pytree(resolve_ckpt_path(exp_dir),
+                                          map_location=dev)["params"])
+    clouds, seconds = [], []
+    for _ in range(2):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc = export.export_point_cloud(
+            field, resolution=cfg.render.nerf_resolution,
+            density_thresh=cfg.nerf.density_thresh,
+            max_points=cfg.render.n_gaussians,
+            min_neighbors=cfg.nerf.export_min_neighbors, stats=stats)
+        seconds.append(time.perf_counter() - t0)
+        clouds.append((stats, [torch.from_numpy(pc.points),
+                               torch.from_numpy(pc.colors)]))
+    (s0, c0), (s1, c1) = clouds
+    line = dict(resolution=cfg.render.nerf_resolution, stats=s0,
+                points=int(c0[0].shape[0]), stats_equal=s0 == s1,
+                seconds=seconds, **differ(c1, c0))
+    if not line["stats_equal"] or line["differing"] or not line["points"]:
+        fail(f"the 400^3 export of one field parts between two runs: "
+             f"{line}")
+    return line
+
+
+def twin_argvs(script, *script_args):
+    """The port's CLI calls that ``dreamwaltz_g_tpu_torch/scripts/<script>``
+    makes with ``script_args``: the script run under ``bash`` with a
+    ``python`` that records its argv and exits 0
+    (``scripts/record.py:main_calls``), each argv after ``-m
+    dreamwaltz_g_tpu_torch.main``."""
+    from dreamwaltz_g_tpu_torch.scripts.record import main_calls
+
+    calls = main_calls(script, *script_args)
+    emit(phase="cli_twin", script=f"dreamwaltz_g_tpu_torch/scripts/{script}",
+         script_args=list(script_args), calls=calls)
+    return calls
+
+
 def cli_two_stage(dev, card, kernel_fns, times_ms):
     """Phase ``cli_two_stage``: ``scripts/train_w_expr.sh`` steps 1.2, 2.1
     and 2.3 through the port's CLI in-process, at full width on the
@@ -2432,6 +2586,7 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
     import torch
 
     from dreamwaltz_g_tpu_torch.configs import paths
+    from dreamwaltz_g_tpu_torch.scripts.record import replace_flags
     from dreamwaltz_g_tpu_torch.training.checkpoint import (
         load_pytree,
         resolve_ckpt_path,
@@ -2470,29 +2625,27 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
 
         out = tmp / "outputs"
         exp = {k: f"dancer/{k}" for k in CLI_STEPS}
+        # the script's calls: steps 1.1, 1.2, 2.1, 2.2, 2.3 and 3
+        twin = dict(zip(("1.1", "1.2", "2.1", "2.2", "2.3", "3"),
+                        twin_argvs("train_w_expr.sh", CLI_TEXT)))
+        # each step's warm start: step 1.1's output is the fitted template
+        links = {"1.2": ("--optim.ckpt", template),
+                 "2.1": ("--render.from_nerf", out / exp["1.2"]),
+                 "2.3": ("--optim.ckpt", out / exp["2.1"])}
 
         def argv(step, *extra, n=None, name=None):
+            """The script's call of ``step`` with its experiment, steps and
+            warm start replaced, the intervals, and ``extra``."""
             n = n or CLI_STEPS[step]
-            return ["--guide.text", CLI_TEXT, "--log.exp_root", str(out),
-                    "--log.exp_name", name or exp[step],
-                    "--predefined_body_parts", CLI_PARTS,
-                    "--optim.iters", str(n), "--log.save_interval", str(n),
-                    "--log.snapshot_interval", "0",
-                    "--log.evaluate_interval", "0"] + list(extra)
+            flag, path = links[step]
+            return replace_flags(twin[step], {
+                "--log.exp_root": out, "--log.exp_name": name or exp[step],
+                "--optim.iters": n, flag: path}) + [
+                "--log.save_interval", str(n), "--log.snapshot_interval",
+                "0", "--log.evaluate_interval", "0"] + list(extra)
 
-        args = {
-            "1.2": ("--optim.ckpt", str(template), "--stage", "nerf",
-                    "--nerf.bg_mode", "gray", "--prompt.scene", "canonical",
-                    "--data.train_w", "512", "--data.train_h", "512",
-                    "--use_sigma_guidance", "true"),
-            "2.1": ("--render.from_nerf", str(out / exp["1.2"]),
-                    "--stage", "gs", "--prompt.scene", "canonical",
-                    "--render.learn_hand_betas", "true",
-                    "--render.lbs_weight_smooth", "true",
-                    "--render.bg_color", "(0.5,0.5,0.5)"),
-            "2.3": ("--optim.ckpt", str(out / exp["2.1"]), "--stage", "gs",
-                    "--prompt.scene", "random-body,hand,expr",
-                    "--render.bg_color", "(0.5,0.5,0.5)")}
+        # the later phases' own arguments of each step, on top of argv's
+        args = {step: () for step in CLI_STEPS}
         carried, warm = {}, {}
 
         # 2.1: the avatar seeded from 1.2's field
@@ -2535,6 +2688,11 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
                                  check=checks.get(step),
                                  with_profile=step not in CLI_UNPROFILED)
             free()
+            if step == "1.2":
+                # the handoff's export of this field, twice, to the bit
+                runs[step]["export_repeat"] = export_repeat(
+                    out / exp["1.2"], argv("2.1"), dev)
+                free()
             if step not in CLI_SEQUENTIAL:
                 continue
             # the same step's own short run without the prefetch worker
@@ -2554,6 +2712,8 @@ def cli_two_stage(dev, card, kernel_fns, times_ms):
         check_two_stage(card, runs, handoff, warm, sequential)
         inference = cli_inference(dev, card, kernel_fns, tmp, argv, args,
                                   exp, times_ms)
+        free()
+        backbone_tool(tmp, card)
         free()
         modes = cli_modes(dev, card, kernel_fns, tmp, argv, args, exp)
         free()
@@ -2749,6 +2909,7 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
 
     from dreamwaltz_g_tpu_torch.configs import paths
     from dreamwaltz_g_tpu_torch.data.motion.loaders import MotionXReEnact
+    from dreamwaltz_g_tpu_torch.scripts.record import replace_flags
     from dreamwaltz_g_tpu_torch.training.checkpoint import (
         load_pytree,
         resolve_ckpt_path,
@@ -2780,12 +2941,9 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
                                   tmp / "guidance" / "tokenizer", dev)
     paths.DEMO_MOTIONS = str(tmp / "motions")
     assets_s = time.perf_counter() - t0
-    step3 = ["--log.exp_root", str(out), "--log.exp_name", exp["2.3"],
-             "--predefined_body_parts", CLI_PARTS, "--stage", "gs",
-             "--log.eval_only", "true", "--optim.resume", "true",
-             "--prompt.scene", "demo,talkshow",
-             "--data.eval_elevation", "90",
-             "--data.eval_camera_track", "fixed"]
+    # the script's step 3 on step 2.3's experiment
+    step3 = replace_flags(twin_argvs("train_w_expr.sh", CLI_TEXT)[-1], {
+        "--log.exp_root": out, "--log.exp_name": exp["2.3"]})
     ckpt = resolve_ckpt_path(out / exp["2.3"])
     want = load_pytree(ckpt, map_location=dev)["params"]
     tr, a = drive(step3)
@@ -2870,6 +3028,10 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
     tr = None
     free()
 
+    # the R-Precision tool over eight of these renders, card against CPU
+    r_precision_twin(pngs, tmp / "guidance" / "clip_retrieval", tmp, dev,
+                     card)
+
     # -- (b) evaluation and snapshots inside training ---------------------
     b = {}
     for step in ("1.2", "2.3"):
@@ -2901,13 +3063,14 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
     paths.MOTIONX_REENACT_ROOT = str(tmp / "reenact")
     bg_path = MotionXReEnact(str(tmp / "reenact")).extract_video(
         REENACT_SEQ, str(tmp / "reenact_bg" / f"{REENACT_SEQ}.mp4"))
-    tr, c = drive(["--stage", "gs", "--log.eval_only", "true",
-                   "--optim.resume", "true", "--log.exp_root", str(out),
-                   "--log.exp_name", exp["2.3"],
-                   "--prompt.scene", f"motionx_reenact,{REENACT_SEQ}",
-                   "--render.use_video_background", bg_path,
-                   "--predefined_body_parts", CLI_PARTS,
-                   "--data.full_eval_size", str(REENACT_FRAMES)])
+    # the script's call, plus what this avatar and sequence need: the
+    # avatar's body parts, the sequence's length and its inpainted video
+    tr, c = drive(replace_flags(
+        twin_argvs("inference_reenact.sh", exp["2.3"], REENACT_SEQ)[0], {
+            "--log.exp_root": out, "--log.exp_name": exp["2.3"],
+            "--render.use_video_background": bg_path,
+            "--predefined_body_parts": CLI_PARTS,
+            "--data.full_eval_size": REENACT_FRAMES}))
     step_dir = results / f"step_{tr.train_step:06d}"
     shots = [load_image(str(step_dir / f"{i:04d}.png"))
              for i in range(REENACT_FRAMES)]
@@ -2982,6 +3145,102 @@ def cli_inference(dev, card, kernel_fns, tmp, argv, args, exp, times_ms):
             **{f"{k}-evaluate": v["launches"] for k, v in b.items()}}
 
 
+# eight prompts for the R-Precision tool's eight renders
+R_PRECISION_PROMPTS = (
+    "a DSLR photo of a dancer in a red dress",
+    "a wizard in a blue robe with a long white beard",
+    "an astronaut in a white space suit",
+    "a knight in silver armour holding a sword",
+    "a chef in a white jacket and a tall hat",
+    "a firefighter in a yellow coat and helmet",
+    "a ballerina in a pink tutu",
+    "a samurai in black armour")
+TOL_R_PRECISION = 1e-5    # of the largest similarity, card against CPU
+# steps of each backbone in the backbone tool's run (phase
+# compare_backbones): its first steps leave no cell above the density
+# threshold, and so an empty cloud
+BACKBONE_ITERS = 100
+BACKBONE_RES = 64
+
+
+def r_precision_twin(pngs, weights_dir, tmp, dev, card):
+    """Phase ``r_precision_twin``: ``scripts/eval_r_precision.py`` over
+    eight of step 3's renders named after ``R_PRECISION_PROMPTS`` with the
+    retrieval towers in ``weights_dir``: its entry point on the card (the
+    printed line), then ``score`` on the card and on the CPU from the same
+    files, held together (similarities within ``TOL_R_PRECISION`` of the
+    largest, top-1 and top-5 equal)."""
+    import shutil
+
+    from dreamwaltz_g_tpu_torch.scripts import eval_r_precision as E
+    from dreamwaltz_g_tpu_torch.utils.r_precision import load_r_precision
+
+    t0 = time.perf_counter()
+    renders = tmp / "r_precision_renders"
+    renders.mkdir()
+    for i, png in enumerate(pngs[:len(R_PRECISION_PROMPTS)]):
+        shutil.copy(png, renders / f"{i:03d}.png")
+    prompts = tmp / "r_precision_prompts.txt"
+    prompts.write_text("\n".join(R_PRECISION_PROMPTS) + "\n")
+    line = E.main(["--renders", str(renders), "--prompts", str(prompts),
+                   "--weights", str(weights_dir)])
+    images, kept = E.load_images(renders, R_PRECISION_PROMPTS)
+    texts = [R_PRECISION_PROMPTS[i] for i in kept]
+    got = E.score(load_r_precision(weights_dir, device=dev), images, texts)
+    want = E.score(load_r_precision(weights_dir, device="cpu"), images,
+                   texts)
+    err = float(abs(got["sims"] - want["sims"]).max())
+    rel = err / float(abs(want["sims"]).max())
+    out = dict(line=line, n=len(images), image_size=list(images[0].shape),
+               top1=[got["top1"], want["top1"]],
+               top5=[got["top5"], want["top5"]], max_abs_err=err,
+               max_err_of_max=rel, tol_of_max=TOL_R_PRECISION,
+               seconds=time.perf_counter() - t0)
+    emit(phase="r_precision_twin", **out, **card)
+    if len(images) != len(R_PRECISION_PROMPTS) \
+            or line["n"] != len(images) or rel > TOL_R_PRECISION \
+            or got["top1"] != want["top1"] or got["top5"] != want["top5"] \
+            or (line["top1"], line["top5"]) != (got["top1"], got["top5"]):
+        fail(f"the R-Precision tool: card against CPU {out}")
+    return out
+
+
+def backbone_tool(tmp, card):
+    """Phase ``compare_backbones``: ``scripts/compare_backbones.py
+    --backbone both`` through its entry point on the card, at
+    ``BACKBONE_ITERS`` steps and ``BACKBONE_RES``^2, writing its rows and
+    its state file in ``tmp``; then ``rescore_backbone_state`` on that file
+    (the triplane's, the last trained). Every row finite, each backbone's
+    cloud non-empty, the rescore's row at the run's ``export_min_neighbors``
+    equal to the run's."""
+    from dreamwaltz_g_tpu_torch.scripts import compare_backbones as CB
+    from dreamwaltz_g_tpu_torch.scripts import rescore_backbone_state as RB
+
+    t0 = time.perf_counter()
+    state = tmp / "backbones_state.pt"
+    rows = CB.main(["--backbone", "both", "--iters", str(BACKBONE_ITERS),
+                    "--res", str(BACKBONE_RES), "--out",
+                    str(tmp / "backbones.jsonl"), "--state-file", str(state),
+                    "--chunk", str(BACKBONE_ITERS)])
+    train_s = time.perf_counter() - t0
+    min_nb = CB.backbone_config("triplane").export_min_neighbors
+    rescored = RB.main([str(state), "--backbone", "triplane",
+                        "--min-neighbors", str(min_nb)])
+    out = dict(rows=rows, rescored=rescored, compare_s=train_s,
+               seconds=time.perf_counter() - t0)
+    emit(phase="compare_backbones", **out, **card)
+    trained = [r for r in rows if "backbone" in r]
+    keys = ("cloud_to_mesh_rms", "mesh_to_cloud_rms", "n_cloud_points")
+    if len(trained) != 2 or len(rows) != 3 or not all(
+            math.isfinite(v) for r in rows for v in r.values()
+            if isinstance(v, float)) \
+            or min(r["n_cloud_points"] for r in trained) <= 0 \
+            or {k: rescored[0][k] for k in keys} \
+            != {k: trained[1][k] for k in keys}:
+        fail(f"the backbone tool: {out}")
+    return out
+
+
 def cli_drive(kernel_fns, argv_):
     """``dreamwaltz_g_tpu_torch.main.main(argv_)`` with the counts set to 0
     just before it and read just after, and the timing spans on; returns
@@ -2991,6 +3250,7 @@ def cli_drive(kernel_fns, argv_):
     from dreamwaltz_g_tpu_torch import main as M
     from dreamwaltz_g_tpu_torch.utils import timing
 
+    emit(phase="cli_argv", argv=list(argv_))
     for fn in kernel_fns.values():
         fn.launches = 0
     timing.records.clear()
@@ -3105,6 +3365,7 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
 
     from dreamwaltz_g_tpu_torch.configs import parse_args
     from dreamwaltz_g_tpu_torch.guidance.sds import ScoreDistillation
+    from dreamwaltz_g_tpu_torch.scripts.record import replace_flags
     from dreamwaltz_g_tpu_torch.training.checkpoint import (
         load_pytree,
         resolve_ckpt_path,
@@ -3145,12 +3406,11 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
         "_init_nerf", lambda t: {"nerf": clone(t.nerf.state_dict())})
     Trainer._init_nerf = wrapped
     try:
-        tr, a = cli_drive(kernel_fns, [
-            "--stage", "nerf", "--log.pretrain_only", "true",
-            "--log.exp_root", str(out), "--log.exp_name", pre_exp,
-            "--optim.iters", str(MODES_STEPS), "--data.train_w", "512",
-            "--data.train_h", "512", "--prompt.scene", "canonical",
-            "--guide.text", CLI_TEXT, "--log.snapshot_interval", "1"])
+        tr, a = cli_drive(kernel_fns, replace_flags(
+            twin_argvs("pretrain_nerf.sh")[0], {
+                "--log.exp_root": out, "--log.exp_name": pre_exp,
+                "--optim.iters": MODES_STEPS}) + [
+            "--log.snapshot_interval", "1"])
     finally:
         Trainer._init_nerf = orig
     ckpt = resolve_ckpt_path(out / pre_exp)
@@ -5779,6 +6039,7 @@ def device_events(prof):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -6674,6 +6935,7 @@ def main():
                          "library_ms": r["library"]["bwd_ms"]}
                         for r in flash_rows if "bwd_ms" in r]),
     ]}), flush=True)
+    emit(phase="wall", seconds=time.perf_counter() - t_start, **card)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

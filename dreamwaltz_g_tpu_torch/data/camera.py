@@ -1,7 +1,8 @@
 """Camera math with the reference's coordinate conventions.
 
-Port of ``dreamwaltz_g_tpu/data/camera.py`` but for the camera wireframe
-drawings:
+Port of ``dreamwaltz_g_tpu/data/camera.py``; the camera wireframe
+drawings (``camera_wireframes``, ``draw_camera_viz``) are debugging aids
+that stay on the host in numpy and OpenCV. Conventions:
 
 * world is y-up; the spherical camera position is
   ``(r sin(elev) sin(azim), r cos(elev), r sin(elev) cos(azim))`` with the
@@ -197,3 +198,84 @@ def make_camera_batch(
         image_height=image_height,
         image_width=image_width,
     )
+
+
+# frustum wire colour by view direction index (default, front, side, back,
+# side, overhead, bottom)
+_DIR_COLORS = (
+    (0, 0, 0), (255, 0, 0), (0, 255, 0), (0, 0, 255),
+    (255, 255, 0), (255, 0, 255), (0, 255, 255),
+)
+
+
+def camera_wireframes(c2w, dirs=None, size: float = 0.2,
+                      draw_axis: bool = True):
+    """Line segments drawing a batch of camera poses: an 8-segment frustum
+    pyramid a camera, coloured by its view direction index (``dirs``, (B,)
+    into the 7 colours; none: 0), and with ``draw_axis`` its local x, y and
+    z axes at lengths 0.5, 0.5 and 5 in red, green and blue. ``c2w``:
+    (B, 4, 4) or (4, 4), array-like. Returns (segments (S, 2, 3) float32,
+    colours (S, 3) uint8)."""
+    import numpy as np
+
+    c2w = np.asarray(c2w, np.float32)
+    if c2w.ndim == 2:
+        c2w = c2w[None]
+    if dirs is None:
+        dirs = np.zeros((c2w.shape[0],), np.int8)
+    segs, colors = [], []
+    for pose, d in zip(c2w, np.asarray(dirs)):
+        pos = pose[:3, 3]
+        r, u, f = pose[:3, 0], pose[:3, 1], pose[:3, 2]
+        a = pos + size * r + size * u + size * f
+        b = pos - size * r + size * u + size * f
+        c = pos - size * r - size * u + size * f
+        e = pos + size * r - size * u + size * f
+        quad = [[pos, a], [pos, b], [pos, c], [pos, e],
+                [a, b], [b, c], [c, e], [e, a]]
+        segs += quad
+        colors += [_DIR_COLORS[int(d) % 7]] * len(quad)
+        if draw_axis:
+            for axis, scale, col in ((0, 0.5, (255, 0, 0)),
+                                     (1, 0.5, (0, 255, 0)),
+                                     (2, 5.0, (0, 0, 255))):
+                segs.append([pos, pos + scale * pose[:3, axis]])
+                colors.append(col)
+    return np.asarray(segs, np.float32), np.asarray(colors, np.uint8)
+
+
+def draw_camera_viz(c2w, dirs=None, smpl_vertices=None, size: float = 0.2,
+                    image_size: int = 512, plane: str = "xz"):
+    """The camera rig of ``camera_wireframes`` (and, when given, the body's
+    vertices as grey dots) drawn orthographically onto a white square
+    canvas, projected onto the world axes ``plane`` names ('xz' from
+    above, 'xy' from the front). Returns (image_size, image_size, 3) uint8
+    RGB; reverse the channels before ``cv2.imwrite``."""
+    import cv2
+    import numpy as np
+
+    segs, colors = camera_wireframes(c2w, dirs=dirs, size=size)
+    ax = {"x": 0, "y": 1, "z": 2}
+    i, j = ax[plane[0]], ax[plane[1]]
+    pts = segs.reshape(-1, 3)[:, [i, j]]
+    sv = None
+    if smpl_vertices is not None:
+        sv = np.asarray(smpl_vertices, np.float32).reshape(-1, 3)[:, [i, j]]
+        pts = np.concatenate([pts, sv], axis=0)
+    lo = pts.min(axis=0) - 0.2
+    hi = pts.max(axis=0) + 0.2
+    scale = (image_size - 1) / max(float((hi - lo).max()), 1e-6)
+
+    def to_px(p):
+        q = (p - lo) * scale
+        return (int(round(float(q[0]))),
+                image_size - 1 - int(round(float(q[1]))))
+
+    img = np.full((image_size, image_size, 3), 255, np.uint8)
+    if sv is not None:
+        for p in sv:
+            cv2.circle(img, to_px(p), 1, (80, 80, 80), -1)
+    for (p0, p1), col in zip(segs[:, :, [i, j]], colors):
+        cv2.line(img, to_px(p0), to_px(p1), tuple(int(x) for x in col), 1,
+                 cv2.LINE_AA)
+    return img

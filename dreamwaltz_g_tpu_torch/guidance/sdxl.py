@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from .._device import resolve_device
 from .sds import GuidanceParams, ScoreDistillation
 
 
@@ -33,11 +34,11 @@ def xl_text_embed_fn(tokenizer, clip1, clip2, device):
 
 
 def make_add_time_ids(batch: int, orig_size=(1024, 1024), crop=(0, 0),
-                      target_size=(1024, 1024), device="cpu"
+                      target_size=(1024, 1024), device="cuda"
                       ) -> torch.Tensor:
     """(B, 6) float32 SDXL micro-conditioning ids."""
     ids = torch.tensor([*orig_size, *crop, *target_size],
-                       dtype=torch.float32, device=device)
+                       dtype=torch.float32, device=resolve_device(device))
     return ids.expand(batch, 6)
 
 

@@ -46,6 +46,14 @@ def joint_template(model: SMPLXModelData) -> torch.Tensor:
     return model.J_regressor @ model.v_template
 
 
+# the SMPL-X template arrays that ``overrides`` may replace with learnable
+# copies
+LEARNABLE_TEMPLATE_KEYS = (
+    "v_template", "shapedirs", "posedirs", "expr_dirs",
+    "lbs_weights", "J_regressor",
+)
+
+
 def glbs_transforms(
     model: SMPLXModelData,
     params: SMPLXParams,
@@ -55,7 +63,8 @@ def glbs_transforms(
 ) -> GLBSTransforms:
     """The named transform decomposition for one parameter batch; (J, ...)
     and (V, ...) transforms when B == 1. ``overrides`` swaps SMPL-X template
-    arrays for learnable copies (``v_template``, ``shapedirs``, ...)."""
+    arrays (a subset of ``LEARNABLE_TEMPLATE_KEYS``) for learnable
+    copies."""
     ov = overrides or {}
 
     def arr(name):

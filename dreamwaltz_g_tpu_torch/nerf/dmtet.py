@@ -15,6 +15,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..ops import rasterize as R
 from ..utils.transforms import matrix_to_quat, safe_normalize
 from .isosurface import TriangleSoup, make_tet_grid, marching_tets
@@ -33,7 +34,8 @@ class DMTetModel(NamedTuple):
 
     @staticmethod
     def create(resolution: int = 64, bound: float = 1.0,
-               deform_scale: float = 0.45, device="cpu") -> "DMTetModel":
+               deform_scale: float = 0.45, device="cuda") -> "DMTetModel":
+        device = resolve_device(device)
         v, t = make_tet_grid(resolution, bound)
         return DMTetModel(
             verts=torch.as_tensor(v, device=device),

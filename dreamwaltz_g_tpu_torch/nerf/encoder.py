@@ -289,3 +289,9 @@ def frequency_encode(x: torch.Tensor, degree: int = 6,
         out.append(torch.sin(s))
         out.append(torch.cos(s))
     return torch.cat(out, dim=-1)
+
+
+def freq_output_dim(input_dim: int, degree: int = 6,
+                    include_input: bool = True) -> int:
+    """The width of ``frequency_encode``'s output."""
+    return input_dim * (2 * degree + (1 if include_input else 0))

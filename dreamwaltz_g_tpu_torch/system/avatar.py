@@ -333,6 +333,43 @@ def effective_offset_flags(model: AvatarModel) -> Tuple[bool, bool, bool]:
             model.use_vertex_pose_offsets or model.hash_mode)
 
 
+def _attach_cloud(model: AvatarModel, point_cloud: torch.Tensor,
+                  keep: torch.Tensor, prune_dists_close_to_mesh,
+                  smooth: bool, smooth_K: int, smooth_N: int):
+    """The cloud's nearest canonical triangles, the prune near the mesh
+    parts, the LBS-weight transfer and the inverse LBS. Returns (zero-pose
+    positions, LBS weights, the kept mask, the nearest vertices)."""
+    device = point_cloud.device
+    smpl_out = smplx_forward(model.smpl, model.canonical_inputs)
+    verts = smpl_out.vertices[0]
+    faces = torch.as_tensor(model.smpl.faces, device=device)
+
+    nearest = find_nearest_triangles(point_cloud, verts, faces)
+
+    if prune_dists_close_to_mesh is not None:
+        for part_name, part in model.mesh_parts.items():
+            # hands get a 10x threshold
+            thr = prune_dists_close_to_mesh * (10.0 if part_name == "hands" else 1.0)
+            part_tri = torch.as_tensor(part.triangle_indices, device=device)
+            close = torch.isin(nearest.triangle_indices, part_tri) \
+                & (nearest.sq_dists < thr ** 2)
+            keep = keep & ~close
+
+    lbs_w = initialize_lbs_weights(
+        model.smpl, nearest, point_cloud, smooth=smooth, smooth_K=smooth_K,
+        smooth_N=smooth_N)
+
+    canonical_tr = glbs_transforms(model.smpl, model.canonical_inputs)
+    vso, jso, vpo = effective_offset_flags(model)
+    zero_pose_positions = inverse_lbs(
+        canonical_tr, point_cloud, lbs_w,
+        use_vertex_shape_offsets=vso,
+        use_joint_shape_offsets=jso,
+        use_vertex_pose_offsets=vpo,
+        vertex_indices=nearest.vertex_indices)
+    return zero_pose_positions, lbs_w, keep, nearest.vertex_indices
+
+
 @torch.no_grad()
 def init_avatar_state(
     model: AvatarModel,
@@ -346,6 +383,7 @@ def init_avatar_state(
     nerf_model=None,
     lbs_weight_smooth_K: int = 30,
     lbs_weight_smooth_N: int = 5000,
+    placeholder: bool = False,
 ) -> AvatarState:
     """Build the avatar from a point cloud: canonical SMPL-X mesh,
     nearest-triangle attachment, prune-near-mesh (points close to a
@@ -358,7 +396,13 @@ def init_avatar_state(
     ``nerf_params``) continues the stage-1 field: its encoder's tables
     (the triplane's planes or the grid's tables) are copied verbatim into
     the avatar's encoder and its sigma / albedo head
-    into ``model.color_mlp``; only the deform net is drawn."""
+    into ``model.color_mlp``; only the deform net is drawn.
+
+    ``placeholder``: the caller copies a checkpoint over every tensor of
+    the state (a warm start or a resume, sized by its checkpoint), so the
+    cloud stands as the positions and the mesh attachment, the prune, the
+    LBS-weight transfer and the inverse LBS are skipped (their tensors zero
+    or all alive); the generator's draws are the same."""
     device = resolve_device(device)
     if model.smpl.device != device:
         raise ValueError(f"model.smpl is on {model.smpl.device}, not {device}")
@@ -366,36 +410,18 @@ def init_avatar_state(
         generator = torch.Generator(device=device).manual_seed(0)
     point_cloud = torch.as_tensor(point_cloud, dtype=torch.float32,
                                   device=device)
-    smpl_out = smplx_forward(model.smpl, model.canonical_inputs)
-    verts = smpl_out.vertices[0]
-    faces = torch.as_tensor(model.smpl.faces, device=device)
-
-    nearest = find_nearest_triangles(point_cloud, verts, faces)
-
-    keep = torch.ones(point_cloud.shape[0], dtype=torch.bool, device=device)
-    if prune_dists_close_to_mesh is not None:
-        for part_name, part in model.mesh_parts.items():
-            # hands get a 10x threshold
-            thr = prune_dists_close_to_mesh * (10.0 if part_name == "hands" else 1.0)
-            part_tri = torch.as_tensor(part.triangle_indices, device=device)
-            close = torch.isin(nearest.triangle_indices, part_tri) \
-                & (nearest.sq_dists < thr ** 2)
-            keep = keep & ~close
-
-    lbs_w = initialize_lbs_weights(
-        model.smpl, nearest, point_cloud, smooth=lbs_weight_smooth,
-        smooth_K=lbs_weight_smooth_K, smooth_N=lbs_weight_smooth_N)
-
-    canonical_tr = glbs_transforms(model.smpl, model.canonical_inputs)
-    vso, jso, vpo = effective_offset_flags(model)
-    zero_pose_positions = inverse_lbs(
-        canonical_tr, point_cloud, lbs_w,
-        use_vertex_shape_offsets=vso,
-        use_joint_shape_offsets=jso,
-        use_vertex_pose_offsets=vpo,
-        vertex_indices=nearest.vertex_indices)
-
     N = point_cloud.shape[0]
+    keep = torch.ones(N, dtype=torch.bool, device=device)
+    if placeholder:
+        lbs_w = torch.zeros((N, model.smpl.lbs_weights.shape[1]),
+                            device=device)
+        zero_pose_positions = point_cloud
+        vertex_indices = torch.zeros((N,), dtype=torch.long, device=device)
+    else:
+        zero_pose_positions, lbs_w, keep, vertex_indices = _attach_cloud(
+            model, point_cloud, keep, prune_dists_close_to_mesh,
+            lbs_weight_smooth, lbs_weight_smooth_K, lbs_weight_smooth_N)
+
     C = capacity or N
     if C < N:
         raise ValueError(f"capacity {C} < {N} points")
@@ -445,7 +471,7 @@ def init_avatar_state(
     )
     alive = pad(keep, fill=False)
     z = torch.zeros((C,), device=device)
-    vidx = pad(nearest.vertex_indices, fill=0)
+    vidx = pad(vertex_indices, fill=0)
     return AvatarState(params=params, alive=alive, grad_accum=z,
                        grad_denom=z.clone(), max_radii=z.clone(),
                        vertex_indices=vidx)

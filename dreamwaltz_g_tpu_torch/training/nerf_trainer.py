@@ -130,6 +130,23 @@ def _vs_weight(cfg) -> float:
         if getattr(cfg, "backbone", "") == "triplane" else 0.0
 
 
+def pretrain_losses(model: NeRFModel, grid: OccupancyGrid, cam_c2w,
+                    cam_intr, gt_depth, gt_mask, jitter,
+                    num_steps: int = 96, compact_steps: int = 0):
+    """The pretrain's (mask MSE, depth MSE on the mask) of one view of
+    ``gt_mask``'s (H, W), with the stratification ``jitter``."""
+    H, W = gt_mask.shape
+    zeros = torch.zeros(model.color_channels, device=gt_depth.device)
+    _, depth, wsum = _render_image(
+        model, grid, cam_c2w, cam_intr, H, W, jitter, num_steps, zeros,
+        compact_steps=compact_steps)
+    m = gt_mask.float()
+    mask_loss = torch.mean((wsum - m) ** 2)
+    depth_loss = torch.sum(m * (depth - gt_depth) ** 2) \
+        / torch.clamp(torch.sum(m), min=1.0)
+    return mask_loss, depth_loss
+
+
 def make_pretrain_step(model: NeRFModel, image_height: int, image_width: int,
                        num_steps: int = 96, lambda_mask: float = 1.0,
                        lambda_depth: float = 1.0, compact_steps: int = 0,
@@ -151,14 +168,9 @@ def make_pretrain_step(model: NeRFModel, image_height: int, image_width: int,
         tstate.opt_state.zero_grad()
         if jitter is None:
             jitter = _draw((H * W, num_steps), generator, device, "jitter")
-        zeros = torch.zeros(model.color_channels, device=device)
-        _, depth, wsum = _render_image(
-            model, grid, cam_c2w, cam_intr, H, W, jitter, num_steps, zeros,
-            compact_steps=compact_steps)
-        m = gt_mask.float()
-        mask_loss = torch.mean((wsum - m) ** 2)
-        depth_loss = torch.sum(m * (depth - gt_depth) ** 2) \
-            / torch.clamp(torch.sum(m), min=1.0)
+        mask_loss, depth_loss = pretrain_losses(
+            model, grid, cam_c2w, cam_intr, gt_depth, gt_mask, jitter,
+            num_steps=num_steps, compact_steps=compact_steps)
         loss = lambda_mask * mask_loss + lambda_depth * depth_loss
         if vs_weight > 0.0:
             rays_o, rays_d = get_rays(cam_c2w[None], cam_intr[None], H, W)

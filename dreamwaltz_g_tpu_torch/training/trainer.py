@@ -1021,7 +1021,8 @@ class Trainer:
                 lbs_weight_smooth_K=r.lbs_weight_smooth_K,
                 lbs_weight_smooth_N=r.lbs_weight_smooth_N,
                 init_scales=seed_scales, device=self.device,
-                nerf_model=nerf_model)
+                nerf_model=nerf_model,
+                placeholder=forced_capacity is not None)
         self.export_stats["capacity"] = capacity
 
         spatial = r.spatial_scale or 1.0
@@ -1101,7 +1102,8 @@ class Trainer:
         model2 = self._build_avatar_model()
         state2 = A.init_avatar_state(
             model2, cloud2, self.generator, capacity=cap2,
-            prune_dists_close_to_mesh=None, device=self.device)
+            prune_dists_close_to_mesh=None, device=self.device,
+            placeholder=True)
         load_avatar_tree(state2, model2, raw["params"])
         self.extra_states = (state2,)
         self.extra_models = (model2,)

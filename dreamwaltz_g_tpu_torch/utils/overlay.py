@@ -3,7 +3,8 @@
 Port of ``dreamwaltz_g_tpu/utils/overlay.py`` (numpy + OpenCV on the host):
 alpha-blend rendered avatar frames onto the inpainted source video,
 resizing both to the smaller common size, and export the composited mp4
-(and optionally its frames as PNGs).
+(and optionally its frames as PNGs); ``overlay_pngs_on_video`` does the
+same from a folder of RGBA PNGs and an mp4 on disk.
 
 The render path composites the video background *into* the render
 (``image + (1 - alpha) * bg``); this module goes the other way: it takes
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -77,3 +78,25 @@ def overlay_frames_on_video(
     write_video(output_path, out_frames, fps=fps)
     return output_path
 
+
+
+def overlay_pngs_on_video(
+    image_folder: str,
+    video_path: str,
+    output_path: str,
+    fps: Optional[int] = None,
+    save_images: bool = True,
+) -> str:
+    """The folder's RGBA PNGs, in name order, over the mp4's frames
+    (``overlay_frames_on_video``; 30 fps unless ``fps``). Returns the mp4
+    path."""
+    from PIL import Image
+
+    from .media import read_video
+
+    pngs = sorted(f for f in os.listdir(image_folder) if f.endswith(".png"))
+    rgba = [np.asarray(Image.open(osp.join(image_folder, f)).convert("RGBA"))
+            for f in pngs]
+    return overlay_frames_on_video(rgba, list(read_video(video_path)),
+                                   output_path, fps=fps or 30,
+                                   save_images=save_images)

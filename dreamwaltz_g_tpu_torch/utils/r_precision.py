@@ -151,10 +151,12 @@ class CLIPTextTower(CLIPTextModel):
 
 def preprocess_images(images, size: int = 224, device="cuda"
                       ) -> torch.Tensor:
-    """(B, H, W, 3) float [0, 1] -> CLIP-normalized (B, size, size, 3) on
-    ``device``, resized as ``jax.image.resize(..., 'bilinear')`` resizes
-    (antialiased when it shrinks)."""
-    x = torch.as_tensor(np.asarray(images), dtype=torch.float32,
+    """(B, H, W, 3) float [0, 1] (array-like or a tensor) -> CLIP-normalized
+    (B, size, size, 3) on ``device``, resized as ``jax.image.resize(...,
+    'bilinear')`` resizes (antialiased when it shrinks)."""
+    if not isinstance(images, torch.Tensor):
+        images = np.asarray(images)
+    x = torch.as_tensor(images, dtype=torch.float32,
                         device=resolve_device(device))
     if x.shape[1] != size or x.shape[2] != size:
         x = resize_images(x, size, size)

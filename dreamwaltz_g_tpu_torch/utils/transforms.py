@@ -16,6 +16,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .._device import resolve_device
+
+
+def quat_identity(shape=(), dtype=torch.float32, device="cuda"
+                  ) -> torch.Tensor:
+    """(*shape, 4) identity quaternions."""
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype,
+                    device=resolve_device(device))
+    q[..., 0] = 1.0
+    return q
+
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=eps)
@@ -40,6 +51,12 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """The conjugate (w, -x, -y, -z): the inverse of a unit quaternion."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -199,6 +216,18 @@ class RigidTransform(NamedTuple):
         if rotation_mode != "quaternion":
             raise ValueError(f"unknown rotation_mode {rotation_mode!r}")
         return quat_multiply(matrix_to_quat(t.rot), quaternions)
+
+
+def transform_points_homogeneous(mat: torch.Tensor, points: torch.Tensor):
+    """(..., 4, 4) applied to (..., 3) points. Returns (the divided points
+    (..., 3), w (...,)); a |w| below 1e-8 divides by 1e-8 of w's sign."""
+    p = torch.einsum("...ij,...j->...i", mat[..., :3, :3], points) \
+        + mat[..., :3, 3]
+    w = torch.einsum("...j,...j->...", mat[..., 3, :3], points) \
+        + mat[..., 3, 3]
+    tiny = torch.where(w < 0, -1e-8, 1e-8).to(w.dtype)
+    w_safe = torch.where(w.abs() < 1e-8, tiny, w)
+    return p / w_safe[..., None], w
 
 
 def look_at_rotation(forward: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

@@ -253,3 +253,48 @@ def test_renders_take_the_sorted_blend_only(pair, monkeypatch):
         tset.state, tset.observed, cams.extrinsic[0], cams.intrinsics[0],
         cams.tanfov[0], bg)
     assert calls == ["blend_sorted"] * 3
+
+
+@pytest.mark.parametrize("mesh_part", ["face", None])
+def test_placeholder_init_restores_to_the_same_state(mesh_part):
+    """``init_avatar_state(placeholder=True)`` (the trainer's warm start and
+    resume, whose checkpoint overwrites the state) skips the cloud's
+    attachment: with a checkpoint's tree copied over it, the state and the
+    networks equal the full initialisation's with the same tree copied
+    over, to the bit, and the generator's later draws are the same."""
+    import copy
+
+    from dreamwaltz_g_tpu_torch.training.trainer import (
+        avatar_tree,
+        load_avatar_tree,
+    )
+
+    setup = tts.tiny_avatar_setup(mesh_part=mesh_part, device="cpu",
+                                  prune_dists_close_to_mesh=0.01)
+    saved = copy.deepcopy(avatar_tree(setup.state, setup.model))
+    C = setup.state.capacity
+    cloud = torch.as_tensor(np.random.default_rng(1).normal(size=(C, 3))
+                            * 0.2, dtype=torch.float32)
+    runs = []
+    for placeholder in (False, True):
+        model = copy.deepcopy(setup.model)
+        gen = torch.Generator().manual_seed(3)
+        state = TA.init_avatar_state(model, cloud, gen, capacity=C,
+                                     prune_dists_close_to_mesh=0.01,
+                                     device="cpu", placeholder=placeholder)
+        draws = torch.rand(8, generator=gen)
+        load_avatar_tree(state, model, copy.deepcopy(saved))
+        runs.append((avatar_tree(state, model), draws))
+    (full, d_full), (fast, d_fast) = runs
+    assert torch.equal(d_full, d_fast)
+
+    def walk(a, b, name):
+        if isinstance(a, dict):
+            assert set(a) == set(b), name
+            for k in a:
+                walk(a[k], b[k], f"{name}.{k}")
+        else:
+            assert torch.equal(a, b), name
+
+    walk(fast, full, "avatar")
+    walk(fast, saved, "avatar")

@@ -87,7 +87,7 @@ def seeded(field):
     jmodel, params, tmodel = field
     jm, jp = JD.DMTetModel.create(RES, 1.0).init_from_nerf(
         jmodel, params, density_thresh=THRESH, fit_scale=True)
-    tm, tp = TD.DMTetModel.create(RES, 1.0).init_from_nerf(
+    tm, tp = TD.DMTetModel.create(RES, 1.0, device="cpu").init_from_nerf(
         tmodel, density_thresh=THRESH, fit_scale=True)
     return jm, jp, tm, tp
 
@@ -95,7 +95,8 @@ def seeded(field):
 @pytest.mark.parametrize("fit_scale", [False, True])
 def test_create_and_init_from_nerf_match_jax(field, fit_scale):
     jmodel, params, tmodel = field
-    j0, t0 = JD.DMTetModel.create(RES, 1.0), TD.DMTetModel.create(RES, 1.0)
+    j0 = JD.DMTetModel.create(RES, 1.0)
+    t0 = TD.DMTetModel.create(RES, 1.0, device="cpu")
     np.testing.assert_array_equal(t0.verts.numpy(), np.asarray(j0.verts))
     np.testing.assert_array_equal(t0.tets.numpy(), np.asarray(j0.tets))
     assert t0.deform_scale == j0.deform_scale and t0.bound == j0.bound

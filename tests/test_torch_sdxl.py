@@ -142,7 +142,7 @@ def test_addition_embed_unet_and_guess_mode_controlnet_match_jax(xl):
     x = _inputs(2)
     T = torch.as_tensor
     jt = jtids(B)
-    tt = make_add_time_ids(B)
+    tt = make_add_time_ids(B, device="cpu")
     np.testing.assert_array_equal(np.asarray(jt), tt.numpy())
     cn_apply = jax.jit(
         lambda guess: jsd.controlnet.apply(
