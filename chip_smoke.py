@@ -256,6 +256,7 @@ text tower and stage-1 field weights are random from the seed too.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -264,6 +265,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 H = W = 1024
 RASTER = dict(tile_size=32, capacity=1024, chunk=128, max_tiles_per_gaussian=16)
@@ -399,8 +401,12 @@ F32_WARMUP, F32_STEPS = 1, 3
 F32_OFF_WARMUP, F32_OFF_STEPS = 1, 2
 
 
+_T0 = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started (``t_s``)."""
+    print(json.dumps(dict(kw, t_s=time.perf_counter() - _T0)), flush=True)
 
 
 def fail(msg):
@@ -1455,6 +1461,67 @@ def params_snapshot(state, model):
             "sq_net": model.sq_net.head_offset.weight.detach().clone()}
 
 
+TRAIN_REPLAYS = 2     # replays of the train phase's first step
+
+
+def avatar_snapshot(tstate, model, metrics):
+    """What a replay of a stage-2 step must give to the bit: its metrics,
+    every avatar leaf (the Gaussians' tensors and the networks' weights)
+    after the update and its gradient, and the densifier's statistics."""
+    import torch
+
+    from dreamwaltz_g_tpu_torch.training.gs_trainer import _leaves
+
+    leaves = _leaves(tstate.avatar, model)
+    a = tstate.avatar
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                values=[t.detach().clone() for t in leaves],
+                grads=[torch.zeros(0) if t.grad is None
+                       else t.grad.detach().clone() for t in leaves],
+                stats=[a.alive.clone(), a.grad_accum.clone(),
+                       a.grad_denom.clone(), a.max_radii.clone()])
+
+
+def train_repeat(base, first, run, gen, gen_state, card):
+    """Phase ``train_repeat``: the train phase's first step again,
+    ``TRAIN_REPLAYS`` times, each from a copy of ``base`` (the avatar
+    model and train state before it) with the generator at
+    ``gen_state``; ``run(model, tstate)`` takes the step with the first
+    run's timestep and guidance scale. Its metrics, updated leaves, their
+    gradients and the densifier's statistics must equal ``first``
+    (``avatar_snapshot``) to the bit, or the script fails."""
+    import copy
+
+    import torch
+
+    from dreamwaltz_g_tpu_torch.scripts.repeat_check import differ
+
+    gen_now = gen.get_state()
+    replays = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_REPLAYS):
+        model, tstate = copy.deepcopy(base)
+        gen.set_state(gen_state)
+        tstate, metrics = run(model, tstate)
+        again = avatar_snapshot(tstate, model, metrics)
+        replays.append(dict(
+            metrics_equal=again["metrics"] == first["metrics"],
+            **{k: differ(again[k], first[k])
+               for k in ("values", "grads", "stats")}))
+        del model, tstate, again
+    gen.set_state(gen_now)
+    torch.cuda.synchronize()
+    equal = all(r["metrics_equal"] and not any(
+        r[k]["differing"] for k in ("values", "grads", "stats"))
+        for r in replays)
+    emit(phase="train_repeat", replays=replays, equal=equal,
+         loss=first["metrics"]["loss"], leaves=len(first["values"]),
+         seconds=time.perf_counter() - t0, **card)
+    if not equal:
+        fail("stage-2 step: a replay parted from the first run")
+
+
 def small_train(dev):
     """One tiny SDS step of the tiny avatar with its mesh part, from the
     same state, weights and noise: on the CPU with the plain versions under
@@ -1954,7 +2021,7 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     runs; counts read. Then the first step again, from a copy of its
     field, grid and generator state with its timestep and guidance scale
     (phase ``nerf_repeat``: loss, gradients, updated weights and occupancy
-    against the first run's, to the bit, reported and not held), and one
+    equal to the first run's to the bit, or the script fails), and one
     profiled step (phase ``nerf_profile``).
     Returns the flash launches of the 7 steps."""
     import copy
@@ -1962,7 +2029,6 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dreamwaltz_g_tpu_torch import kernels
     from dreamwaltz_g_tpu_torch.configs import GuideConfig, NeRFConfig
     from dreamwaltz_g_tpu_torch.data.camera import make_camera_batch
     from dreamwaltz_g_tpu_torch.guidance import layers as TL
@@ -2152,8 +2218,6 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
                            [first["occupied"], first["density"]]),
         loss_equal=again["loss"] == first["loss"], loss=first["loss"],
         loss_again=again["loss"], seconds=time.perf_counter() - t0)
-    # reported, not held: a replay has parted from its first run by an ulp
-    # in a fraction of the gradients, rarely (ROADMAP.md queue C item 5)
     repeat["equal"] = repeat["loss_equal"] and not any(
         repeat[k]["differing"] for k in ("grads", "params", "occupancy"))
     repeat["differing_params"] = [
@@ -2161,6 +2225,8 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
                                   first["grads"])
         if differ([a], [b])["differing"]]
     emit(phase="nerf_repeat", **repeat, **card)
+    if not repeat["equal"]:
+        fail("stage-1 step: the replay parted from the first run")
     del replay, rfield, first, again
 
     # -- one profiled step: device ms by the step's own ranges ------------
@@ -2171,12 +2237,10 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
         tstate, grid, metrics = run_step(tstate, grid)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = device_events(prof)
+    trace = read_trace(prof, "nerf_step_trace.json")
+    on_card = device_events(trace)
     busy_ms = sum(e.device_time_total for e in on_card) / 1e3
     top = sorted(on_card, key=lambda e: -e.device_time_total)[:15]
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    trace = kernels.BUILD_DIR / "nerf_step_trace.json"
-    prof.export_chrome_trace(str(trace))
     stage_dev, stage_host, named = stage_times(
         trace, NERF_STAGE_RANGES, recompute_in="nerf_step.backward")
     emit(phase="nerf_profile", steps=1, wall_ms=wall_ms,
@@ -2393,7 +2457,6 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from dreamwaltz_g_tpu_torch import kernels
     from dreamwaltz_g_tpu_torch.configs import parse_args
     from dreamwaltz_g_tpu_torch.training.trainer import Trainer
     from dreamwaltz_g_tpu_torch.utils import timing
@@ -2404,15 +2467,13 @@ def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
         stage_ranges = NERF_STAGE_RANGES if stage == "nerf" else STAGE_RANGES
     ranges = CLI_RANGES + stage_ranges
     line = {}
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    trace = kernels.BUILD_DIR / f"cli_{label}_trace.json"
 
     def profile_line(prof, wall):
-        prof.export_chrome_trace(str(trace))
+        trace = read_trace(prof, f"cli_{label}_trace.json")
         dev_ms, host_ms, named = stage_times(
             trace, ranges, recompute_in="nerf_step.backward"
             if stage_ranges is NERF_STAGE_RANGES else None)
-        events = device_events(prof)
+        events = device_events(trace)
         busy = sum(e.device_time_total for e in events) / 1e3
         return dict(wall_ms=wall, device_busy_ms=busy,
                     device_busy_share=busy / wall, stage_device_ms=dev_ms,
@@ -3602,6 +3663,19 @@ def _differs(got, want, name):
     return [] if got == want else [name]
 
 
+def dmtet_snapshot(tstate, metrics):
+    """What a replay of a DMTet step must give to the bit: its metrics, the
+    field's weights and sdf / deform after the update, and their
+    gradients."""
+    import torch
+
+    leaves = list(tstate.model.parameters()) + list(tstate.dmtet)
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                values=[t.detach().clone() for t in leaves],
+                grads=[torch.zeros(0) if t.grad is None
+                       else t.grad.detach().clone() for t in leaves])
+
+
 def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
     """Phase ``cli_geometry``, in ``cli_two_stage``'s directory after
     ``cli_modes``: the trainer's other geometries through the port's CLI at
@@ -3612,7 +3686,10 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
     <1.2's run>`` (512^2, ``tet_grid_size`` 128), ``GEOMETRY_STEPS``
     steps, the last profiled by the step's ranges; the band's tets, the
     valid triangles, each step's tile overflow, the albedo decode's peak
-    memory (its checkpointed chunks, forward and backward); then a resumed
+    memory (its checkpointed chunks, forward and backward); the first step
+    again from a copy of its state, draws and inputs (``repeat``: its
+    metrics, updated field, sdf and deform and their gradients equal to the
+    first run's to the bit, without a deterministic switch); then a resumed
     construction whose restored field, sdf, deform and optimizers equal the
     checkpoint to the bit, and one eval frame (B1's forward, no backward).
     (b) vanilla: step 2.1's arguments (without the LBS smoothing, as in
@@ -3633,6 +3710,7 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
 
     from dreamwaltz_g_tpu_torch.configs import parse_args
     from dreamwaltz_g_tpu_torch.gaussian.model import logit32
+    from dreamwaltz_g_tpu_torch.scripts.repeat_check import differ
     from dreamwaltz_g_tpu_torch.training import dmtet_trainer, gs_trainer
     from dreamwaltz_g_tpu_torch.training.checkpoint import (
         load_pytree,
@@ -3698,10 +3776,46 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
         seen["seed"] = {k: v.detach().clone()
                         for k, v in tr.state.dmtet._asdict().items()}
         recorder(seen)(tr)
+        fn = tr.sds_step_fn
+
+        def first_kept(tstate, *a_, **k):
+            # the first step's state, draws and inputs, for its replay
+            if "replay" in seen:
+                return fn(tstate, *a_, **k)
+            seen["replay"] = dict(base=copy.deepcopy(tstate), args=a_,
+                                  kwargs=k, gen=k["generator"].get_state())
+            st, m = fn(tstate, *a_, **k)
+            seen["replay"]["first"] = dmtet_snapshot(st, m)
+            return st, m
+
+        tr.sds_step_fn = first_kept
 
     a = cli_run("dmtet", dm_argv, n, kernel_fns, check=dm_check,
                 stage_ranges=DMTET_STAGE_RANGES)
     tr = seen.pop("trainer")
+    # the first step again from a copy of its state: equal to the bit
+    rep = seen.pop("replay")
+    live = tr.nerf, tr.sds_step_fn
+    gen, gen_now = rep["kwargs"]["generator"], \
+        rep["kwargs"]["generator"].get_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.nerf = rep["base"].model
+    tr._build_nerf_sds_step(tr.train_res)
+    gen.set_state(rep["gen"])
+    st, m = tr.sds_step_fn(rep["base"], *rep["args"], **rep["kwargs"])
+    again = dmtet_snapshot(st, m)
+    tr.nerf, tr.sds_step_fn = live
+    gen.set_state(gen_now)
+    torch.cuda.synchronize()
+    first = rep["first"]
+    a["repeat"] = dict(
+        metrics_equal=again["metrics"] == first["metrics"],
+        **{k: differ(again[k], first[k]) for k in ("values", "grads")},
+        seconds=time.perf_counter() - t0)
+    a["repeat"]["equal"] = a["repeat"]["metrics_equal"] and not any(
+        a["repeat"][k]["differing"] for k in ("values", "grads"))
+    rep = st = again = first = None
     dm = tr.dmtet_model
     with torch.no_grad():
         soup = dm.extract(tr.state.dmtet)
@@ -3711,7 +3825,7 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
              tets_full_grid=6 * (G - 1) ** 3,
              triangle_slots=int(soup.valid.shape[0]),
              valid_triangles=int(soup.valid.sum()),
-             edges=int(tr._tet_edges.shape[0]),
+             edges=tr._tet_edges.n_edges,
              deform_scale=dm.deform_scale,
              tile_overflow=[m["tile_overflow"] for m in seen["metrics"]],
              step_terms=seen["metrics"],
@@ -3854,7 +3968,7 @@ def cli_geometry(dev, card, kernel_fns, tmp, argv, args, exp):
     if not (0 < a["tets"] < 6 * a["tet_grid_size"] ** 3) \
             or a["valid_triangles"] <= 0 or not all(a["moved"].values()) \
             or a["restored_differs"] or a["eval"]["launches"] != one_fwd \
-            or not a["eval"]["finite"]:
+            or not a["eval"]["finite"] or not a["repeat"]["equal"]:
         fail(f"cli_geometry dmtet: {a}")
     dens = [e for e in events if e["event"] == "densify"]
     resets = [e for e in events if e["event"] == "opacity_reset"]
@@ -3967,10 +4081,10 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
 
     (a) MLP background: step 2.1's arguments + ``--render.use_mlp_background
     true`` (the split step), ``SCENE_STEPS`` steps saved at the last two;
-    then ``main`` restores the last but one and trains the last again. Both
-    runs under ``torch.use_deterministic_algorithms`` (the gathers'
-    backward and the blends' panel sums then add in one order), so the
-    resumed step-3 checkpoint equals the uninterrupted one to every bit,
+    then ``main`` restores the last but one and trains the last again, as
+    the trainer runs by default (no deterministic switch: the gathers'
+    backward and the blends' panel sums add in a fixed order), and the
+    resumed last checkpoint equals the uninterrupted one to every bit,
     "background" (the net and its Adan state) included; the net moved.
     (b) Gaussian background: step 2.1's arguments + ``--render.
     use_gs_background`` (``SCENE_BG_GAUSSIANS`` Gaussians on a shell,
@@ -4072,25 +4186,21 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
         "--render.use_mlp_background", "true",
         "--log.save_interval", str(n - 1), "--log.max_keep_ckpts", "0"]
     seen = {}
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        a = cli_run("mlp_bg", mlp_argv, n, kernel_fns, check=recorder(seen),
-                    stage_ranges=SPLIT_STAGE_RANGES)
-        tr = seen.pop("trainer")
-        a.update(step_fn=seen["step_fn"],
-                 tile_overflow=seen.pop("overflow"),
-                 bg_moved={k: not torch.equal(v, seen["bg_seed"][k])
-                           for k, v in tr.bg_net.state_dict().items()},
-                 deterministic=True)
-        split = dict(cli_launches_per_step(True), blend_train_fwd=2,
-                     flash_attn_fwd=FLASH_PER_STEP[0] + seen["vae_flash"])
-        tr = None
-        free()
-        ckpts = out / mlp_exp / "checkpoints"
-        (ckpts / f"step_{n:08d}").rename(tmp / "mlp_bg_last_aside")
-        _, r = cli_drive(kernel_fns, mlp_argv + ["--optim.resume", "true"])
-    finally:
-        torch.use_deterministic_algorithms(False)
+    a = cli_run("mlp_bg", mlp_argv, n, kernel_fns, check=recorder(seen),
+                stage_ranges=SPLIT_STAGE_RANGES)
+    tr = seen.pop("trainer")
+    a.update(step_fn=seen["step_fn"], tile_overflow=seen.pop("overflow"),
+             bg_moved={k: not torch.equal(v, seen["bg_seed"][k])
+                       for k, v in tr.bg_net.state_dict().items()},
+             deterministic_algorithms=(
+                 torch.are_deterministic_algorithms_enabled()))
+    split = dict(cli_launches_per_step(True), blend_train_fwd=2,
+                 flash_attn_fwd=FLASH_PER_STEP[0] + seen["vae_flash"])
+    tr = None
+    free()
+    ckpts = out / mlp_exp / "checkpoints"
+    (ckpts / f"step_{n:08d}").rename(tmp / "mlp_bg_last_aside")
+    _, r = cli_drive(kernel_fns, mlp_argv + ["--optim.resume", "true"])
     r["resumed_differs"] = _differs(
         load_pytree(ckpts / f"step_{n:08d}"),
         load_pytree(tmp / "mlp_bg_last_aside"), "checkpoint")
@@ -4247,6 +4357,7 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
                  f"{line['loss']}")
     if r["launches"] != split or r["resumed_differs"] \
             or a["step_fn"] != "make_avatar_sds_step_split" \
+            or a["deterministic_algorithms"] \
             or not a["bg_moved"] or not all(a["bg_moved"].values()):
         fail(f"cli_scene mlp_bg: resumed {r}, background moved "
              f"{a['bg_moved']}, expected launches {split}")
@@ -5958,6 +6069,7 @@ STAGE_RANGES = (("sds_step.render", "animate_project"),
                 ("sds.denoise", "denoise_cfg"),
                 ("sds.decode", "vae_decode"),
                 ("sds_step.backward", "backward"),
+                ("blend_train.backward", "blend_bwd_b1"),
                 ("sds_step.optimizer_stats", "optimizer_stats"))
 
 
@@ -5966,13 +6078,32 @@ NAMED_KERNELS = ("blend_fwd", "blend_bwd", "flash_fwd", "flash_combine",
                  "flash_bwd", "flash_delta", "indexing_backward")
 
 
-def stage_times(trace_path, stage_ranges=STAGE_RANGES, recompute_in=None):
+# the device work a profiler trace records: kernels, copies and fills
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def read_trace(prof, name):
+    """The events of ``prof``'s Chrome trace, written to
+    ``kernels.BUILD_DIR / name`` and read back. The phases read the trace,
+    not ``prof.events()`` / ``key_averages()``, whose parse into Python
+    objects takes ~60 us an event (~10 s for a stage-1 step)."""
+    from dreamwaltz_g_tpu_torch import kernels
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = kernels.BUILD_DIR / name
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def stage_times(events, stage_ranges=STAGE_RANGES, recompute_in=None):
     """Per-stage device and host ms of one profiled SDS step, from the
-    profiler's Chrome trace. Each kernel, copy or fill on the card is
-    charged to the innermost of the step's own ``record_function`` ranges
-    whose host interval holds the runtime call that launched it (matched by
-    correlation id). So kernels that autograd's device thread launches land
-    in the backward's range, and a nested range's kernels leave its
+    events of the profiler's Chrome trace (``read_trace``). Each kernel,
+    copy or fill on the card is charged to the innermost of the step's own
+    ``record_function`` ranges whose host interval holds the runtime call
+    that launched it (matched by correlation id; the first such range of
+    the shortest span). So kernels that autograd's device thread launches
+    land in the backward's range, and a nested range's kernels leave its
     parent's: ``animate_project`` is the render range less ``bin`` and
     ``blend_fwd_b1``, ``sds_loss`` the guidance range less its two stages.
     Host ms is each range's whole span, nested ranges and the profiler's
@@ -5981,8 +6112,6 @@ def stage_times(trace_path, stage_ranges=STAGE_RANGES, recompute_in=None):
     charged to ``backward_recompute``. Returns (device ms by stage, host ms
     by range, device ms of the hand-written kernels whose name holds each
     of ``NAMED_KERNELS``)."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
     names = dict(stage_ranges)
     ranges = [e for e in events if e.get("cat") == "user_annotation"
               and e.get("name") in names]
@@ -5995,25 +6124,33 @@ def stage_times(trace_path, stage_ranges=STAGE_RANGES, recompute_in=None):
             return "backward_recompute"
         return names[r["name"]]
 
+    stages = [stage(r) for r in ranges]
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
+    work = [(launched.get(e.get("args", {}).get("correlation")), e)
+            for e in events if e.get("cat") in DEVICE_CATEGORIES]
     device = {stage: 0.0 for _, stage in stage_ranges}
     device["outside_ranges"] = 0.0
     if recompute_in:
         device["backward_recompute"] = 0.0
     named = {pattern: 0.0 for pattern in NAMED_KERNELS}
-    for e in events:
-        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        ms = e.get("dur", 0.0) / 1e3
-        ts = launched.get(e.get("args", {}).get("correlation"))
+    # a sweep over the launches in time order: the ranges open at each
+    starts = sorted(range(len(ranges)), key=lambda i: ranges[i]["ts"])
+    active, k = [], 0
+    for ts, e in sorted(work, key=lambda w: -1.0 if w[0] is None else w[0]):
         inner = None
-        for r in ranges if ts is not None else ():
-            if r["ts"] <= ts <= r["ts"] + r["dur"] and (
-                    inner is None or r["dur"] < inner["dur"]):
-                inner = r
-        device[stage(inner) if inner else "outside_ranges"] += ms
+        if ts is not None:
+            while k < len(starts) and ranges[starts[k]]["ts"] <= ts:
+                active.append(starts[k])
+                k += 1
+            active = [i for i in active
+                      if ranges[i]["ts"] + ranges[i]["dur"] >= ts]
+            if active:
+                inner = min(active, key=lambda i: (ranges[i]["dur"], i))
+        ms = e.get("dur", 0.0) / 1e3
+        device[stages[inner] if inner is not None else "outside_ranges"] \
+            += ms
         for pattern in NAMED_KERNELS:
             if pattern in e.get("name", ""):
                 named[pattern] += ms
@@ -6023,17 +6160,24 @@ def stage_times(trace_path, stage_ranges=STAGE_RANGES, recompute_in=None):
     return device, host, named
 
 
-def device_events(prof):
-    """The profile's device work by name (kernels, copies, fills), without
-    the device-side spans of the ``record_function`` ranges, which overlap
-    the kernels inside them."""
-    from torch.autograd import DeviceType
+class DeviceEvent(NamedTuple):
+    """One name's device work in a trace: total us and launches."""
+    key: str
+    device_time_total: float
+    count: int
 
-    ranges = {name for name, _ in STAGE_RANGES + NERF_STAGE_RANGES
-              + DMTET_STAGE_RANGES + VANILLA_STAGE_RANGES
-              + SPLIT_STAGE_RANGES + DP_STAGE_RANGES + CLI_RANGES}
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in ranges]
+
+def device_events(events):
+    """A trace's device work by name (kernels, copies, fills): the
+    ``DeviceEvent`` of each name. The device-side spans of the
+    ``record_function`` ranges, which overlap the kernels inside them, are
+    another category and left out."""
+    by_name = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATEGORIES:
+            us, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (us + e.get("dur", 0.0), n + 1)
+    return [DeviceEvent(k, us, n) for k, (us, n) in by_name.items()]
 
 
 def main():
@@ -6290,7 +6434,7 @@ def main():
         run_frames()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = device_events(prof)
+    on_card = device_events(read_trace(prof, "render_trace.json"))
     busy_ms = sum(e.device_time_total for e in on_card) / 1e3
     top = sorted(on_card, key=lambda e: -e.device_time_total)[:10]
     # single stream, so kernel times do not overlap; the profiler's own host
@@ -6419,6 +6563,9 @@ def main():
                     guidance_scale=gs, generator=gen)
 
     before = params_snapshot(state, model)
+    # the first step again later (phase train_repeat), from copies of these
+    replay_base = copy.deepcopy((model, tstate))
+    replay_gen = gen.get_state()
     train_fns = {"blend_sorted": blend_sorted,
                  "blend_train_fwd": BT.blend_train_fwd,
                  "blend_train_bwd": BT.blend_train_bwd,
@@ -6438,6 +6585,8 @@ def main():
             start_ev.record()
         t0 = time.perf_counter()
         tstate, metrics = sds_step(tstate)
+        if i == 0:
+            first_step = avatar_snapshot(tstate, model, metrics)
         losses.append(float(metrics["loss"]))
         overflows.append(float(metrics["tile_overflow"]))
         step_s.append(time.perf_counter() - t0)
@@ -6489,6 +6638,19 @@ def main():
         fail(f"a parameter group did not move: {moved}")
     if not finite_params:
         fail("a parameter is not finite after training")
+
+    # -- the first step again from copies of its state: equal to the bit ---
+    def replay_step(model_, tstate_):
+        step_ = make_avatar_sds_step(model_, guidance, TRAIN_H, TRAIN_W,
+                                     pgc=pgc, device=dev, **TRAIN_RASTER)
+        return step_(tstate_, gparams, *step_in,
+                     torch.tensor([timesteps[0]], dtype=torch.int32,
+                                  device=dev),
+                     cond_image=cond, guidance_scale=scales[0],
+                     generator=gen)
+
+    train_repeat(replay_base, first_step, replay_step, gen, replay_gen, card)
+    del replay_base, first_step
 
     # -- train times -------------------------------------------------------
     tl_, tc_, packed_ = t_args
@@ -6565,12 +6727,10 @@ def main():
             tstate, metrics = sds_step(tstate)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        on_card = device_events(prof)
+        trace = read_trace(prof, "sds_step_trace.json")
+        on_card = device_events(trace)
         busy_ms = sum(e.device_time_total for e in on_card) / 1e3
         top = sorted(on_card, key=lambda e: -e.device_time_total)[:12]
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        trace = kernels.BUILD_DIR / "sds_step_trace.json"
-        prof.export_chrome_trace(str(trace))
         stage_dev, stage_host, named = stage_times(trace)
         return tstate, dict(
             steps=1, wall_ms=wall_ms, loss=float(metrics["loss"]),

@@ -52,6 +52,7 @@ stack and decodes the latents: the ``--log.check_sd`` samples.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
@@ -69,16 +70,32 @@ DENOISE_TYPES = ("z0", "z0_final", "x0", "x0_final")
 LOSS_TYPES = SCORE_TYPES + DENOISE_TYPES
 
 
+@functools.lru_cache(maxsize=32)
+def resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) float32 weights of one axis of ``resize_images``:
+    ``F.interpolate``'s own bilinear antialiased weights, read off by
+    resizing the identity on the CPU; cached (read-only)."""
+    eye = torch.eye(n_in, dtype=torch.float32)[:, None, None, :]
+    w = F.interpolate(eye, size=(1, n_out), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return w[:, 0, 0, :].T.contiguous().to(device)
+
+
 def resize_images(images: torch.Tensor, height: int, width: int
                   ) -> torch.Tensor:
     """(B, H, W, C) -> (B, height, width, C) as ``jax.image.resize(...,
     'bilinear')`` resizes: half-pixel centres, antialiased when it
-    shrinks. Computed in float32 (the CPU has no bfloat16 antialiased
-    resize) and returned in the input's type."""
-    return F.interpolate(
-        images.permute(0, 3, 1, 2).float(), size=(height, width),
-        mode="bilinear", align_corners=False,
-        antialias=True).permute(0, 2, 3, 1).to(images.dtype)
+    shrinks. Computed in float32 and returned in the input's type, as two
+    products with each axis's weights (``resize_weights``), so that the
+    gradient is two products too: ``F.interpolate``'s antialiased backward
+    adds with atomics on the card, in no fixed order."""
+    B, H, W, C = images.shape
+    x = images.float()
+    x = torch.matmul(resize_weights(H, height, x.device),
+                     x.reshape(B, H, W * C)).reshape(B, height, W, C)
+    x = torch.matmul(x.permute(0, 1, 3, 2),
+                     resize_weights(W, width, x.device).T)
+    return x.permute(0, 1, 3, 2).to(images.dtype)
 
 
 class GuidanceParams(NamedTuple):

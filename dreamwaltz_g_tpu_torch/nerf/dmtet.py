@@ -6,7 +6,8 @@ interpolation, so SDF and deformation gradients flow from any loss on the
 extracted surface. The surface renders as one flat Gaussian a triangle
 through the 3DGS rasterizer (``render_dmtet_splats``), which on the card
 is the train blend's kernels (B1). The band of tets around the seeded
-surface and the grid's unique edges are taken once, on the host, in numpy.
+surface, the grid's unique edges and their neighbour table
+(``edge_table``) are taken once, on the host, in numpy.
 """
 from __future__ import annotations
 
@@ -153,19 +154,56 @@ def unique_tet_edges(tets) -> np.ndarray:
     return np.unique(np.sort(e, axis=1), axis=0)
 
 
-def tet_laplacian_loss(verts: torch.Tensor, edges: torch.Tensor
-                       ) -> torch.Tensor:
+class EdgeTable(NamedTuple):
+    """The edge graph as each vertex's neighbours in a padded table, built
+    once on the host (``edge_table``)."""
+    neighbours: torch.Tensor  # (V, M) int64; a pad names the vertex itself
+    valid: torch.Tensor       # (V, M) bool: the slot holds a neighbour
+    degree: torch.Tensor      # (V,) float32
+    n_edges: int
+
+
+def edge_table(edges, n_vertices: int, device=None) -> EdgeTable:
+    """Each vertex's neighbours over the (E, 2) ``edges`` (an array or a
+    tensor), in the order the JAX package's scatter adds them: first the
+    edges where it is the first end, then those where it is the second,
+    each in edge order. A row is padded with the vertex's own index (not a
+    shared pad row, whose gradient would gather one long run of entries);
+    ``valid`` masks the pads. On ``device`` (default: the edges')."""
+    if device is None:
+        device = edges.device if torch.is_tensor(edges) else "cpu"
+    e = (edges.detach().cpu().numpy() if torch.is_tensor(edges)
+         else np.asarray(edges)).astype(np.int64).reshape(-1, 2)
+    src = np.concatenate([e[:, 0], e[:, 1]])
+    dst = np.concatenate([e[:, 1], e[:, 0]])
+    counts = np.bincount(src, minlength=n_vertices)
+    order = np.argsort(src, kind="stable")
+    slot = np.arange(src.size) - (np.cumsum(counts) - counts)[src[order]]
+    width = max(int(counts.max(initial=0)), 1)
+    table = np.repeat(np.arange(n_vertices)[:, None], width, axis=1)
+    table[src[order], slot] = dst[order]
+    return EdgeTable(
+        neighbours=torch.as_tensor(table, device=device),
+        valid=torch.as_tensor(np.arange(width)[None] < counts[:, None],
+                              device=device),
+        degree=torch.as_tensor(counts, dtype=torch.float32, device=device),
+        n_edges=int(e.shape[0]))
+
+
+def tet_laplacian_loss(verts: torch.Tensor, edges) -> torch.Tensor:
     """Uniform Laplacian over the edge graph: the mean squared distance of
-    each vertex with an edge from its neighbours' mean."""
-    V = verts.shape[0]
-    edges = edges.to(verts.device, torch.long)
-    deg = torch.zeros((V,), device=verts.device).index_add(
-        0, edges.reshape(-1), torch.ones(edges.numel(), device=verts.device))
-    nbr = torch.zeros((V, 3), device=verts.device)
-    nbr = nbr.index_add(0, edges[:, 0], verts[edges[:, 1]])
-    nbr = nbr.index_add(0, edges[:, 1], verts[edges[:, 0]])
-    lap = verts - nbr / torch.clamp(deg[:, None], min=1.0)
-    lap = torch.where(deg[:, None] > 0, lap, torch.zeros_like(lap))
+    each vertex with an edge from its neighbours' mean. ``edges``: an
+    ``EdgeTable`` (the trainer builds one for the run), or (E, 2) edges,
+    tabled here. The neighbour sums are a gather through the table and a
+    sum over its padded axis, in a fixed order (no atomics), so the loss
+    and its gradient repeat to the bit on the card."""
+    if not isinstance(edges, EdgeTable):
+        edges = edge_table(edges, verts.shape[0], verts.device)
+    nbr = torch.where(edges.valid[..., None], verts[edges.neighbours],
+                      torch.zeros((), device=verts.device)).sum(1)
+    deg = edges.degree[:, None]
+    lap = verts - nbr / torch.clamp(deg, min=1.0)
+    lap = torch.where(deg > 0, lap, torch.zeros_like(lap))
     return torch.mean(torch.sum(lap ** 2, dim=-1))
 
 

@@ -11,8 +11,9 @@ view dimension B (1 on the single-view training step).
 Per-entry inputs are the packed rows of ``blend.pack_rows``; per-entry
 gradients come back as a (B, T, K, 16) panel in the same lane layout
 ([d mx, d my, d ca, d cb, d cc, d op, 0, 0, d values...]) and reach the
-Gaussians by ``index_add_`` over ``tile_lists``, the sentinel row dropped:
-the vjp of the per-tile gather, as in the JAX package.
+Gaussians through ``panel_grads``, a sum over ``tile_lists`` in one fixed
+order, the sentinel row dropped: the vjp of the per-tile gather, as in the
+JAX package.
 
 * ``blend_train_fwd`` / ``blend_train_bwd`` / ``blend_tiles_eval`` launch
   ``csrc/blend_train.cu`` for CUDA tensors and take the plain versions for
@@ -46,6 +47,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import kernels
 from .blend import (
@@ -501,17 +503,28 @@ def _operands(tile_lists, tile_counts):
 
 def panel_grads(d_panels: torch.Tensor, tile_lists: torch.Tensor,
                 n_rows: int, CV: int):
-    """The per-tile gather's vjp: sum each (B, T, K, 16) panel entry into
-    its Gaussian's row with ``index_add_``; the sentinel row (n_rows - 1)
-    collects the empty slots and is dropped. Returns the (B, N, ...)
-    gradients of means2d, conic, opacity and values (CV lanes)."""
-    B = tile_lists.shape[0]
+    """The per-tile gather's vjp: each (B, T, K, 16) panel entry summed
+    into its Gaussian's row of its view in one fixed order, (tile, slot),
+    so the same panels give the same bits from call to call. The sum is
+    ``index_put_(accumulate=True)``: on a CUDA tensor PyTorch sorts the
+    row ids with a stable radix sort and adds each row's entries one after
+    another in that order (``index_add_`` adds with atomics there, in no
+    fixed order). Empty slots name the sentinel row (n_rows - 1); each is
+    sent to a spare row of its own and dropped, since the sorted sum walks
+    a row's entries in series and the sentinel's run would be long.
+    Returns the (B, N, ...) gradients of means2d, conic, opacity and
+    values (CV lanes)."""
+    B, T, K = tile_lists.shape
     dev = d_panels.device
-    rows = (tile_lists.long()
-            + n_rows * torch.arange(B, device=dev)[:, None, None])
-    d_rows = torch.zeros((B * n_rows, 16), dtype=torch.float32, device=dev)
-    d_rows.index_add_(0, rows.reshape(-1), d_panels.reshape(-1, 16))
-    d_rows = d_rows.reshape(B, n_rows, 16)[:, :-1]
+    lists = tile_lists.long()
+    rows = lists + n_rows * torch.arange(B, device=dev)[:, None, None]
+    spare = B * n_rows + torch.arange(B * T * K, device=dev).reshape(B, T, K)
+    rows = torch.where(lists == n_rows - 1, spare, rows)
+    d_rows = torch.zeros((B * n_rows + B * T * K, 16), dtype=torch.float32,
+                         device=dev)
+    d_rows.index_put_((rows.reshape(-1),), d_panels.reshape(-1, 16),
+                      accumulate=True)
+    d_rows = d_rows[:B * n_rows].reshape(B, n_rows, 16)[:, :-1]
     return (d_rows[..., 0:2], d_rows[..., 2:5], d_rows[..., 5],
             d_rows[..., 8:8 + CV])
 
@@ -543,12 +556,12 @@ class BlendTilesTrain(torch.autograd.Function):
     def backward(ctx, g_img):
         tile_lists, tile_counts, packed, *saved = ctx.saved_tensors
         tile_size, tiles_x, kw, CV = ctx.meta
-        d_panels = blend_train_bwd(tile_lists, tile_counts, packed, saved,
-                                   _tile(g_img, tile_size), tile_size,
-                                   tiles_x, **kw)
-        return (None, None,
-                *panel_grads(d_panels, tile_lists, packed.shape[1], CV),
-                None, None, None, None, None, None)
+        with record_function("blend_train.backward"):
+            d_panels = blend_train_bwd(tile_lists, tile_counts, packed,
+                                       saved, _tile(g_img, tile_size),
+                                       tile_size, tiles_x, **kw)
+            grads = panel_grads(d_panels, tile_lists, packed.shape[1], CV)
+        return (None, None, *grads, None, None, None, None, None, None)
 
 
 def blend_tiles_train(tile_lists, tile_counts, means2d, conic, opacity,

@@ -28,6 +28,8 @@ from ..guidance.sds import GuidanceParams, ScoreDistillation
 from ..nerf.dmtet import (
     DMTetModel,
     DMTetParams,
+    EdgeTable,
+    edge_table,
     render_dmtet_splats,
     shade_soup,
     soup_normal_consistency,
@@ -52,19 +54,20 @@ class DMTetTrainState(NamedTuple):
 def init_dmtet(nerf: NeRFModel, resolution: int,
                density_thresh: float = 10.0, bound: Optional[float] = None,
                band_dilate: int = 3
-               ) -> Tuple[DMTetModel, DMTetParams, torch.Tensor]:
+               ) -> Tuple[DMTetModel, DMTetParams, EdgeTable]:
     """The tet grid at ``resolution`` fitted to the field's occupied
     region, its SDF seeded from the field (``fit_scale``), pruned to the
     band of tets within ``band_dilate`` rings of the seeded surface.
-    Returns (model, params, unique edges (E, 2)), on the field's
-    device."""
+    Returns (model, params, the unique edges' ``EdgeTable``), on the
+    field's device."""
     dev = nerf.device
     model = DMTetModel.create(resolution=resolution,
                               bound=bound or nerf.bound, device=dev)
     model, dparams = model.init_from_nerf(nerf, density_thresh=density_thresh,
                                           fit_scale=True)
     model = model.prune_to_surface_band(dparams, dilate=band_dilate)
-    edges = torch.as_tensor(unique_tet_edges(model.tets), device=dev)
+    edges = edge_table(unique_tet_edges(model.tets), model.verts.shape[0],
+                       dev)
     return model, dparams, edges
 
 
@@ -118,7 +121,7 @@ def _check_device(model: NeRFModel, device: torch.device) -> None:
 def make_dmtet_sds_step(
     nerf: NeRFModel,
     dmtet_model: DMTetModel,
-    tet_edges: torch.Tensor,
+    tet_edges: EdgeTable,
     guidance: ScoreDistillation,
     image_height: int,
     image_width: int,
