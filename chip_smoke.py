@@ -41,11 +41,11 @@ Phases, one JSON line each:
                    the training paths give it (bf16, and float32 for the
                    tiny step and the float32-guidance step), and backward
                    at the seven that are differentiated, against the plain
-                   versions; the bf16 forward at D = 64 is the Hopper
-                   kernel's (``csrc/flash_fwd_hopper.cu``), and the 64-wide
-                   instantiation of ``csrc/flash_attn.cu``'s row-split
-                   forward, which the main path no longer takes, is held
-                   and timed beside it as its yardstick;
+                   versions; the bf16 forward at D = 40 and 64 is the
+                   Hopper kernel's (``csrc/flash_fwd_hopper.cu``), and the
+                   instantiations of ``csrc/flash_attn.cu``'s row-split
+                   forward at those widths, which the main path no longer
+                   takes, are held and timed beside it as its yardstick;
 11. small_train -- one SDS step of the tiny avatar, with its mesh part,
                    and the tiny guidance with its ControlNet, attention
                    through flash (``FLASH_ATTENTION = "on"``) and the
@@ -275,6 +275,10 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
+# exponentials a second on the special-function units: 132 SMs, 16 ex2 a
+# clock an SM, at the 1,980 MHz maximum SM clock (NVIDIA's Hopper tuning
+# guide and data sheet); the bf16 forward's second floor, B H N^2 of them
+EX2_PER_S = 132 * 16 * 1.98e9
 TF32_FLOP_PER_S = 495e12    # dense, tensor cores
 # float32 operations per (pixel, entry) pair of the blend: every pair
 # evaluates q and w (2 sub, 6 mul + 2 add for q, 2 mul + 1 exp for w) = 13;
@@ -394,6 +398,16 @@ TOL_FLASH_BF16_GRAD = 2.0 ** -6
 # VAE encoder's mid block forward and backward; the 256- and 64-token layers
 # stay on einsum
 FLASH_PER_STEP = (15, 1)
+# the bf16 forward's head widths on the Hopper kernel (``flash._fwd_route``),
+# written out here so that the expected launch counts do not lean on the
+# port's own route; of the SD1.5-size step's 15 forwards, the 7 at 4096
+# tokens (UNet 5, ControlNet 2) are 40 wide and take it in bf16, the 7 at
+# 1024 tokens (D = 80) and the VAE's (D = 512) stay on flash_attn_fwd; the
+# float32 step keeps all 15 there
+HOPPER_WIDTHS = (40, 64)
+HOPPER_PER_STEP = 7
+# the flash launch functions, each counting its own launches
+FLASH_FNS = ("flash_attn_fwd", "flash_fwd_hopper", "flash_attn_bwd")
 OFF_STEPS, OFF_WARMUP = 4, 2   # the einsum-attention comparison run
 # the float32-guidance step (phase train_f32): warm-up and timed steps with
 # flash ("auto"), then with einsum attention ("off")
@@ -984,7 +998,9 @@ def flash_bound(shape, kind, backward):
     products have two routes, whichever is faster, whatever a kernel's
     design: the CUDA cores at 67 TFLOP/s, or three TF32 tensor-core products
     for each at 495 TFLOP/s (165 TFLOP/s of float32 products); both times
-    are reported."""
+    are reported. The bf16 forward also gives the B H N^2 exponentials'
+    floor on the special-function units (``ex2_ms``, ``EX2_PER_S``), which
+    at D <= 64 is as long as the products' or longer."""
     B, N, H, D = shape
     elt = 2 if kind == "bf16" else 4
     ops = (10 if backward else 4) * B * H * N * N * D
@@ -993,6 +1009,8 @@ def flash_bound(shape, kind, backward):
     routes = {}
     if kind == "bf16":
         o_ms = ops / BF16_FLOP_PER_S * 1e3
+        if not backward:
+            routes = dict(ex2_ms=B * H * N * N / EX2_PER_S * 1e3)
     else:
         routes = dict(cuda_cores_ms=ops / FP32_FLOP_PER_S * 1e3,
                       tf32x3_ms=3 * ops / TF32_FLOP_PER_S * 1e3)
@@ -1004,24 +1022,25 @@ def flash_bound(shape, kind, backward):
 
 def hopper_shape(shape, kind):
     """Whether the forward at ``shape`` and ``kind`` is the Hopper
-    kernel's (bf16 at D = 64, ``flash._fwd_route``)."""
-    return kind == "bf16" and shape[-1] == 64
+    kernel's (bf16 at ``HOPPER_WIDTHS``, ``flash._fwd_route``)."""
+    return kind == "bf16" and shape[-1] in HOPPER_WIDTHS
 
 
 def compare_flash(dev):
     """B4 forward at every shape of ``FLASH_SHAPES`` and backward where the
     path differentiates it, against the plain versions on the same inputs;
-    at the Hopper kernel's shapes also the 64-wide row-split forward of
-    ``csrc/flash_attn.cu`` (its yardstick, off the main path). Returns the
-    worst error of each forward kernel (``fwd``: flash_attn.cu's on the
-    main path, ``hopper``, ``rows64``) and of the backward. No input
+    at the Hopper kernel's shapes also the row-split forward of
+    ``csrc/flash_attn.cu`` at the same width (its yardstick, off the main
+    path). Returns the worst error of each forward kernel (``fwd``:
+    flash_attn.cu's on the main path, ``hopper``, ``rows``) and of the
+    backward. No input
     outlives its shape's check: the training phases' peak memory is the
     step's own."""
     import torch
 
     from dreamwaltz_g_tpu_torch.guidance import flash as FL
 
-    worst = {"fwd": 0.0, "hopper": 0.0, "rows64": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "hopper": 0.0, "rows": 0.0, "bwd": 0.0}
     for shape, kind, backward in FLASH_SHAPES:
         q, k, v, g = flash_inputs(dev, shape, kind)
         out, lse = FL.flash_attn_fwd(q, k, v)
@@ -1042,7 +1061,7 @@ def compare_flash(dev):
                     mean_abs_out=float(ref.abs().mean()))
         held = [("hopper" if hopper else "fwd", out, lse)]
         if hopper:
-            held.append(("rows64", *FL._fwd_flash_attn(q, k, v, dev)))
+            held.append(("rows", *FL._fwd_flash_attn(q, k, v, dev)))
             torch.cuda.synchronize()
         bad = False
         for name, o, o_lse in held:
@@ -1051,7 +1070,7 @@ def compare_flash(dev):
             err = (o.float() - ref).abs()
             e_out = float(err.max())
             e_lse = float((o_lse - ref_lse).abs().max())
-            pre = "rows64_" if name == "rows64" else ""
+            pre = "rows_" if name == "rows" else ""
             line.update({f"{pre}max_abs_err_out": e_out,
                          f"{pre}max_err_out_of_tol": float((err / tol).max()),
                          f"{pre}max_abs_err_lse": e_lse})
@@ -1245,23 +1264,24 @@ def f32_family(facts, families):
     fail(f"no ptxas entry for any of {families}")
 
 
-def flash_fwd_build(logs, shape, kind, rows64=False):
+def flash_fwd_build(logs, shape, kind, rows=False):
     """The forward instantiation that ``shape`` runs: its template (tile
     width, then warps and key tile and ring stages, or key tile and ring
     stages; float32: tile width, D-split warps, row groups, key tile and
     ring stages), registers and spills, dynamic shared memory, threads and
     resident blocks an SM (``kernel_build``), from the build ``logs`` by
-    library. The Hopper kernel (bf16, D = 64) has no template, and with
-    ``rows64`` the row-split forward's 64-wide instantiation stands in its
-    place. The wide forward (bf16, D > 128) adds its combine kernel's facts
-    under ``combine``."""
+    library. The Hopper kernel's (bf16, D = 40 or 64) template is its
+    width, and with ``rows`` the row-split forward's instantiation for the
+    same width stands in its place. The wide forward (bf16, D > 128) adds
+    its combine kernel's facts under ``combine``."""
     from dreamwaltz_g_tpu_torch import kernels
 
-    if hopper_shape(shape, kind) and not rows64:
+    if hopper_shape(shape, kind) and not rows:
         return kernel_build(
             ptxas_facts(logs["flash_fwd_hopper"]),
             kernels.load("flash_fwd_hopper").flash_fwd_hopper_info, shape,
-            kind, 0, "flash_fwd_hopper_kernel", lambda *_: True)
+            kind, 0, "flash_fwd_hopper_kernel",
+            lambda args, raw, info: args == [shape[-1]])
     fn = kernels.load("flash_attn").flash_attn_fwd_info
     facts = ptxas_facts(logs["flash_attn"])
     wide = kind == "bf16" and shape[-1] > 128
@@ -1323,8 +1343,9 @@ def flash_times(dev, logs):
     ms (profiler: the mean over the calls, and each kernel's launches'
     median, min and max), the rate 4 (10 backward) B H N^2 D / that mean,
     its share of the bound, and the build facts of each kernel (``logs``:
-    the build logs by library). At the Hopper kernel's shapes the 64-wide
-    row-split forward (its yardstick) is timed beside it under ``rows64``.
+    the build logs by library). At the Hopper kernel's shapes the row-split
+    forward of the same width (its yardstick) is timed beside it under
+    ``rows``.
     Each shape's inputs are made again from the seed (``flash_inputs``),
     out and lse by the kernel, as in ``compare_flash``."""
     import torch
@@ -1356,12 +1377,12 @@ def flash_times(dev, logs):
                 r_ms, r_by, r_spread = kernel_device_ms(
                     lambda: FL._fwd_flash_attn(q, k, v, dev), 20,
                     spread=True)
-                row["rows64"] = dict(
+                row["rows"] = dict(
                     kernel_ms=r_ms, kernel_ms_by_name=r_by,
                     kernel_launch_ms=r_spread,
                     kernel_launch_median_ms=launch_median(r_spread),
                     share_of_bound=bound["bound_ms"] / r_ms,
-                    build=flash_fwd_build(logs, shape, kind, rows64=True))
+                    build=flash_fwd_build(logs, shape, kind, rows=True))
             if backward:
                 bwd_bound = flash_bound(shape, kind, True)
                 bwd_dev_ms, bwd_by_kernel, bwd_spread = kernel_device_ms(
@@ -1422,6 +1443,26 @@ def expected_flash_launches(gparams, latent):
     vcfg = gparams.vae.cfg
     vae = int(flash_domain(latent * latent, vcfg.block_out_channels[-1]))
     return fwd + vae, vae
+
+
+def hopper_launches(gparams, latent, nets=None):
+    """The forwards of one CFG eps pass (``flash_unet_launches``) whose
+    head width is one of ``HOPPER_WIDTHS``: in bf16, the Hopper kernel's.
+    ``nets``: 2 with the ControlNet (the default when it is there)."""
+    if nets is None:
+        nets = 1 if gparams.controlnet is None else 2
+    return sum(flash_unet_launches(gparams, latent, nets, width=w)
+               for w in HOPPER_WIDTHS)
+
+
+def bf16_flash_per_step(gparams, latent):
+    """``expected_flash_launches`` of one bf16 SDS step by launch function:
+    the forwards at ``HOPPER_WIDTHS`` on ``flash_fwd_hopper``, the others on
+    ``flash_attn_fwd``, the backward on ``flash_attn_bwd``."""
+    fwd, bwd = expected_flash_launches(gparams, latent)
+    hop = hopper_launches(gparams, latent)
+    return {"flash_attn_fwd": fwd - hop, "flash_fwd_hopper": hop,
+            "flash_attn_bwd": bwd}
 
 
 def openpose_canvas(model, observed, extrinsic, intrinsics, H, W):
@@ -2023,7 +2064,7 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     (phase ``nerf_repeat``: loss, gradients, updated weights and occupancy
     equal to the first run's to the bit, or the script fails), and one
     profiled step (phase ``nerf_profile``).
-    Returns the flash launches of the 7 steps."""
+    Returns the flash launches of the 7 steps by launch function."""
     import copy
 
     import torch
@@ -2149,13 +2190,12 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
                 torch.cuda.synchronize()
                 refresh_ms = (time.perf_counter() - t0) * 1e3
                 start_ev.record()
-            n0 = [kernel_fns[k].launches for k in ("flash_attn_fwd",
-                                                   "flash_attn_bwd")]
+            n0 = {k: kernel_fns[k].launches for k in FLASH_FNS}
             tstate, grid, metrics = run_step(tstate, grid)
             if i == 0:
                 first = first_step(grid, metrics, field)
-            per_step.append([kernel_fns[k].launches - n0[j] for j, k in
-                             enumerate(("flash_attn_fwd", "flash_attn_bwd"))])
+            per_step.append({k: kernel_fns[k].launches - n0[k]
+                             for k in FLASH_FNS})
             losses.append({k: float(v) for k, v in metrics.items()})
             occupied.append(int(grid.occupied.sum()))
         end_ev.record()
@@ -2168,7 +2208,7 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
     after = nerf_groups_snapshot(field)
     moved = {k: max(float((a - b).abs().max()) for a, b in
                     zip(after[k], before[k])) for k in before}
-    expected = list(expected_flash_launches(gparams, guidance.latent_size))
+    expected = bf16_flash_per_step(gparams, guidance.latent_size)
     emit(phase="nerf_train", steps=[NERF_WARMUP, NERF_STEPS],
          resolution=[NERF_H, NERF_W], config=dataclasses.asdict(cfg),
          sds_step_ms=step_ms, sds_it_per_s=1e3 / step_ms,
@@ -2254,7 +2294,7 @@ def nerf_train(dev, card, guidance, gparams, body, embeds, kernel_fns):
          index_backward_kernels_ms=named["indexing_backward"],
          top_kernels=[[e.key[:80], e.device_time_total / 1e3, e.count]
                       for e in top], **card)
-    return [launches["flash_attn_fwd"], launches["flash_attn_bwd"]]
+    return {k: launches[k] for k in FLASH_FNS}
 
 
 # -- the two-stage run through the port's CLI (phase cli_two_stage) --------
@@ -2424,18 +2464,27 @@ def fit_template(npz, ckpt_dir, dev, cfg=None):
 
 def cli_launches_per_step(stage2):
     """Each kernel's launches a trainer step: flash as the SD1.5-size
-    stack's structure gives, the table blends once a step in stage 2."""
-    return {"flash_attn_fwd": FLASH_PER_STEP[0],
-            "flash_attn_bwd": FLASH_PER_STEP[1], "flash_fwd_hopper": 0,
+    stack's structure gives in bf16 (the 40-wide forwards on the Hopper
+    kernel), the table blends once a step in stage 2."""
+    return {"flash_attn_fwd": FLASH_PER_STEP[0] - HOPPER_PER_STEP,
+            "flash_attn_bwd": FLASH_PER_STEP[1],
+            "flash_fwd_hopper": HOPPER_PER_STEP,
             "blend_train_fwd": int(stage2), "blend_train_bwd": int(stage2),
             "blend_sorted": 0, "blend_tiles_eval": 0}
 
 
 # the flash forward's kernels, whose launches a profiled step counts by
-# name: the Hopper kernel (bf16, D = 64), the row-split and wide bf16
-# forwards and the float32 forward
+# name: the Hopper kernel (bf16, D = 40 and 64), the row-split and wide
+# bf16 forwards and the float32 forward
 FLASH_FWD_KERNELS = ("flash_fwd_hopper_kernel", "flash_fwd_rows_kernel",
                      "flash_fwd_wide_kernel", "flash_fwd_tf32_kernel")
+# those kernels' launches in one bf16 SD1.5-size step: the 7 40-wide
+# forwards on the Hopper kernel, the 7 80-wide on the row-split one, the
+# VAE's on the wide one
+FWD_KERNELS_PER_STEP = {"flash_fwd_hopper_kernel": HOPPER_PER_STEP,
+                        "flash_fwd_rows_kernel": 7,
+                        "flash_fwd_wide_kernel": 1,
+                        "flash_fwd_tf32_kernel": 0}
 
 
 def cli_run(label, argv, n_steps, kernel_fns, check=None, prefetch=True,
@@ -2823,6 +2872,11 @@ def check_two_stage(card, runs, handoff, warm, sequential):
                      f"{line['launches'][name]} times in {n} steps "
                      f"({profiled and profiled[name]} in the profiled "
                      f"one), expected {k} a step")
+        by_name = line.get("profiled_step", {}).get(
+            "flash_fwd_kernel_launches")
+        if by_name is not None and by_name != FWD_KERNELS_PER_STEP:
+            fail(f"cli {step}: the profiled step's flash forward kernels "
+                 f"{by_name}, expected {FWD_KERNELS_PER_STEP}")
     if not handoff["seeded_from_cloud"] or handoff["points"] <= 0:
         fail(f"cli 2.1: not seeded from the exported cloud: {handoff}")
     if handoff["planes_max_abs_diff"] != 0.0:
@@ -3574,6 +3628,9 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
              check_sd_ms=spans["trainer.check_sd"][0],
              expected_flash_fwd=expected_check_sd_launches(
                  gp, latent, steps, n_ctl, len(samples) - n_ctl),
+             expected_hopper=steps * (
+                 n_ctl * hopper_launches(gp, latent, 2)
+                 + (len(samples) - n_ctl) * hopper_launches(gp, latent, 1)),
              conditions=list(tr.cfg.guide.controlnet_condition),
              guidance_scale=tr.cfg.guide.guidance_scale)
     tr = gp = None
@@ -3622,7 +3679,9 @@ def cli_modes(dev, card, kernel_fns, tmp, argv, args, exp):
                   for cond in c["conditions"] if cond != "depth_raw"}
     want_files |= {f"control_az{az}.png" for az in azims}
     want_files |= {f"sd_{g:g}.png" for g in scales}
-    want_c = dict(quiet, flash_attn_fwd=c["expected_flash_fwd"])
+    want_c = dict(quiet, flash_attn_fwd=c["expected_flash_fwd"]
+                  - c["expected_hopper"],
+                  flash_fwd_hopper=c["expected_hopper"])
     if set(c["files"]) != want_files or c["launches"] != want_c \
             or any(f["std"] <= 0.0 or not f["finite"]
                    for f in c["files"].values()) \
@@ -4195,7 +4254,8 @@ def cli_scene(dev, card, kernel_fns, tmp, argv, args, exp):
              deterministic_algorithms=(
                  torch.are_deterministic_algorithms_enabled()))
     split = dict(cli_launches_per_step(True), blend_train_fwd=2,
-                 flash_attn_fwd=FLASH_PER_STEP[0] + seen["vae_flash"])
+                 flash_attn_fwd=FLASH_PER_STEP[0] - HOPPER_PER_STEP
+                 + seen["vae_flash"])
     tr = None
     free()
     ckpts = out / mlp_exp / "checkpoints"
@@ -4471,7 +4531,7 @@ def trained_grads(tr):
 def flash_counted(launches):
     """(forwards, backwards) of flash in a launch count: the forward's two
     kernels (``flash_attn_fwd``, and ``flash_fwd_hopper`` for bf16 at
-    D = 64) together."""
+    D = 40 and 64) together."""
     return [launches["flash_attn_fwd"] + launches.get("flash_fwd_hopper", 0),
             launches["flash_attn_bwd"]]
 
@@ -4903,8 +4963,9 @@ def cli_multiview(dev, card, kernel_fns, tmp, argv, args, exp, b1_runs):
     gradient finite and nonzero (but ``MV_UNREACHED``'s); B1 one forward and
     one backward launch a stage-2 step, each at V = MV_BATCH views; B4
     forward launches a step equal ``expected_flash_launches``, those of the
-    UNet and the ControlNet at the CFG batch 2 x MV_BATCH, the VAE's D =
-    512 forward and backward at MV_BATCH. Returns each run's launches."""
+    UNet and the ControlNet at the CFG batch 2 x MV_BATCH (the 40-wide ones
+    on the Hopper kernel), the VAE's D = 512 forward and backward at
+    MV_BATCH. Returns each run's launches."""
     import gc
     from collections import Counter
 
@@ -4954,6 +5015,7 @@ def cli_multiview(dev, card, kernel_fns, tmp, argv, args, exp, b1_runs):
                         gp, latent)),
                     flash_cfg_per_step=flash_unet_launches(
                         gp, latent, 1 if gp.controlnet is None else 2),
+                    hopper_per_step=hopper_launches(gp, latent),
                     vae_flash=[vae_flash_launches(gp, latent),
                                gp.vae.cfg.block_out_channels[-1]],
                     launch_shapes=sorted(
@@ -5007,26 +5069,35 @@ def cli_multiview(dev, card, kernel_fns, tmp, argv, args, exp, b1_runs):
         if got_blend != want_blend:
             fail(f"cli_multiview {run}: table blend launches {got_blend}, "
                  f"expected {want_blend}")
-        f_fwd = sum(c for k, c in shapes.items() if k[0] == "flash_attn_fwd")
-        f_bwd = sum(c for k, c in shapes.items() if k[0] == "flash_attn_bwd")
+        fwd_fns = ("flash_attn_fwd", "flash_fwd_hopper")
+        by_fn = {f: sum(c for k, c in shapes.items() if k[0] == f)
+                 for f in FLASH_FNS}
+        f_fwd = by_fn["flash_attn_fwd"] + by_fn["flash_fwd_hopper"]
+        f_bwd = by_fn["flash_attn_bwd"]
         cfg_batch = sum(c for k, c in shapes.items()
-                        if k[0] == "flash_attn_fwd" and k[1] == 2 * B)
+                        if k[0] in fwd_fns and k[1] == 2 * B)
+        hopper = sum(c for k, c in shapes.items()
+                     if k[0] in fwd_fns and k[2] in HOPPER_WIDTHS)
         if [f_fwd, f_bwd] != [fwd * n, bwd * n] \
                 or cfg_batch != cfg_per_step * n \
+                or by_fn["flash_fwd_hopper"] != hopper \
+                or hopper != line["hopper_per_step"] * n \
                 or shapes.get(("flash_attn_fwd", B, d_vae), 0) != vae * n \
                 or shapes.get(("flash_attn_bwd", B, d_vae), 0) != vae * n:
             fail(f"cli_multiview {run}: flash launches {shapes}, expected "
                  f"{[fwd, bwd]} a step: the UNet's and the ControlNet's "
-                 f"{cfg_per_step} at batch {2 * B}, the VAE's {vae} at "
-                 f"D = {d_vae}, batch {B}")
-        if [line["launches"]["flash_attn_fwd"],
-                line["launches"]["flash_attn_bwd"]] != [f_fwd, f_bwd]:
+                 f"{cfg_per_step} at batch {2 * B} ("
+                 f"{line['hopper_per_step']} of them 40 or 64 wide, on the "
+                 f"Hopper kernel), the VAE's {vae} at D = {d_vae}, batch {B}")
+        if {f: line["launches"][f] for f in FLASH_FNS} != by_fn:
             fail(f"cli_multiview {run}: counts {line['launches']} against "
                  f"the recorded launches {shapes}")
         prof = line.get("profiled_step", {}).get("launches")
         if prof is not None and (
-                [prof["flash_attn_fwd"], prof["flash_attn_bwd"]]
-                != [fwd, bwd] or prof["blend_train_fwd"] != int(stage2)
+                [prof["flash_attn_fwd"] + prof["flash_fwd_hopper"],
+                 prof["flash_attn_bwd"]] != [fwd, bwd]
+                or prof["flash_fwd_hopper"] != line["hopper_per_step"]
+                or prof["blend_train_fwd"] != int(stage2)
                 or prof["blend_train_bwd"] != int(stage2)):
             fail(f"cli_multiview {run}: profiled step launches {prof}")
         if not line["step_fn"].endswith("_dp.<locals>.step"):
@@ -5857,8 +5928,8 @@ def cli_multicard(dev, card, kernel_fns, tmp, argv, args, exp):
     # -- (a) -------------------------------------------------------------
     a0 = ranks[0]["a"]
     per_step = {k: [r["a"]["launches"][k] / MC_STEPS for r in ranks]
-                for k in ("blend_train_fwd", "blend_train_bwd",
-                          "flash_attn_fwd", "flash_attn_bwd")}
+                for k in ("blend_train_fwd", "blend_train_bwd")
+                + FLASH_FNS}
     grad_err = {g: mc_envelope(a0["grads"][g], w)
                 for g, w in one_a["grads"].items() if w.abs().max() > 0}
     line["a"] = dict(
@@ -5985,9 +6056,10 @@ def cli_multicard(dev, card, kernel_fns, tmp, argv, args, exp):
         fail(f"cli_multicard (a): group gradients outside the envelope "
              f"{grad_err}")
     if any(v != [1.0, 1.0] for k, v in per_step.items()
-           if k.startswith("blend")) or per_step["flash_attn_fwd"] != [
-            float(FLASH_PER_STEP[0])] * 2 or per_step["flash_attn_bwd"] != [
-            float(FLASH_PER_STEP[1])] * 2:
+           if k.startswith("blend")) or any(
+            per_step[k] != [float(n)] * 2
+            for k, n in cli_launches_per_step(True).items()
+            if k in FLASH_FNS):
         fail(f"cli_multicard (a): launches a step {per_step}")
     lb = line["b"]
     for r, (e, m) in enumerate(zip(lb["tp2"], lb["mutated"])):
@@ -6000,28 +6072,31 @@ def cli_multicard(dev, card, kernel_fns, tmp, argv, args, exp):
     fwd_exp, bwd_exp = lb["flash_expected"]
     for r, res in enumerate(ranks):
         shapes = dict(res["b"]["flash_shapes"])
+        got = res["b"]["launches"]
         fwd = sum(c for (name, _), c in shapes.items()
-                  if name == "flash_attn_fwd")
-        tp_shapes = {s for (name, s) in shapes
-                     if name == "flash_attn_fwd" and s[-1] in (40, 80)}
-        if res["b"]["launches"]["flash_attn_fwd"] != fwd_exp \
-                or fwd != fwd_exp or res["b"]["launches"][
-                    "flash_attn_bwd"] != bwd_exp \
-                or tp_shapes != {(2, 4096, 4, 40), (2, 1024, 4, 80)}:
+                  if name in ("flash_attn_fwd", "flash_fwd_hopper"))
+        hop = sum(c for (name, _), c in shapes.items()
+                  if name == "flash_fwd_hopper")
+        tp_shapes = {(name, s) for (name, s) in shapes
+                     if s[-1] in (40, 80)}
+        if got["flash_attn_fwd"] + got["flash_fwd_hopper"] != fwd_exp \
+                or fwd != fwd_exp or got["flash_attn_bwd"] != bwd_exp \
+                or got["flash_fwd_hopper"] != hop or hop != HOPPER_PER_STEP \
+                or tp_shapes != {("flash_fwd_hopper", (2, 4096, 4, 40)),
+                                 ("flash_attn_fwd", (2, 1024, 4, 80))}:
             fail(f"cli_multicard (b): rank {r}'s flash launches {shapes}, "
-                 f"expected {lb['flash_expected']} at 4 heads a rank")
+                 f"expected {lb['flash_expected']} at 4 heads a rank, "
+                 f"{HOPPER_PER_STEP} of them 40 wide on the Hopper kernel")
     lf = line["f"]
     if not lf["states_equal"] or not all(
             math.isfinite(x) for r in lf["loss"] for x in r):
         fail(f"cli_multicard (f): the replicas' states differ or their "
              f"losses {lf['loss']} are not finite: "
              f"{[r['f']['digests'] for r in ranks]}")
-    per_step_f = [{k: r[k] for k in ("blend_train_fwd", "blend_train_bwd",
-                                     "flash_attn_fwd", "flash_attn_bwd")}
-                  for r in lf["launches"]]
-    if any(p != {"blend_train_fwd": 1, "blend_train_bwd": 1,
-                 "flash_attn_fwd": FLASH_PER_STEP[0],
-                 "flash_attn_bwd": FLASH_PER_STEP[1]} for p in per_step_f):
+    want_f = {k: n for k, n in cli_launches_per_step(True).items()
+              if k in ("blend_train_fwd", "blend_train_bwd") + FLASH_FNS}
+    per_step_f = [{k: r[k] for k in want_f} for r in lf["launches"]]
+    if any(p != want_f for p in per_step_f):
         fail(f"cli_multicard (f): launches of its one step {per_step_f}")
     lc = line["c"]
     if lc["digests"][0] != lc["digests"][1]:
@@ -6597,14 +6672,15 @@ def main():
     train_launches = {name: fn.launches for name, fn in train_fns.items()}
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     flash_per_step = expected_flash_launches(gparams, guidance.latent_size)
-    if flash_per_step != FLASH_PER_STEP:
+    by_fn = bf16_flash_per_step(gparams, guidance.latent_size)
+    if flash_per_step != FLASH_PER_STEP \
+            or by_fn["flash_fwd_hopper"] != HOPPER_PER_STEP:
         fail(f"the SD1.5-size stack's structure gives {flash_per_step} flash "
-             f"launches a step, not {FLASH_PER_STEP}")
+             f"launches a step ({by_fn}), not {FLASH_PER_STEP} with "
+             f"{HOPPER_PER_STEP} on the Hopper kernel")
     want = {"blend_train_fwd": n_steps, "blend_train_bwd": n_steps,
             "blend_sorted": 0, "blend_tiles_eval": 0,
-            "flash_attn_fwd": flash_per_step[0] * n_steps,
-            "flash_attn_bwd": flash_per_step[1] * n_steps,
-            "flash_fwd_hopper": 0}
+            **{k: n * n_steps for k, n in by_fn.items()}}
     for name, n in want.items():
         if train_launches[name] != n:
             fail(f"{name} launched {train_launches[name]} times in "
@@ -6685,7 +6761,7 @@ def main():
     # the same run with einsum attention ("off"), the (B, H, N, N) scores
     # in device memory: its step time and its peak memory beside flash's
     TL.FLASH_ATTENTION = "off"
-    n_fwd = FL.flash_attn_fwd.launches
+    n_fwd = FL.flash_attn_fwd.launches + FL.flash_fwd_hopper.launches
     torch.cuda.reset_peak_memory_stats()
     for i in range(OFF_WARMUP + OFF_STEPS):
         if i == OFF_WARMUP:
@@ -6697,7 +6773,7 @@ def main():
     TL.FLASH_ATTENTION = "auto"
     off_ms = start_ev.elapsed_time(end_ev) / OFF_STEPS
     off_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    if FL.flash_attn_fwd.launches != n_fwd:
+    if FL.flash_attn_fwd.launches + FL.flash_fwd_hopper.launches != n_fwd:
         fail('flash launched under FLASH_ATTENTION = "off"')
     if not math.isfinite(float(metrics["loss"])):
         fail("non-finite SDS loss with einsum attention")
@@ -6865,19 +6941,21 @@ def main():
                 "bound_by": bound["bound_by"], "library_ms": library, **more}
 
     # a flash entry's ms, plain_ms, bound_ms and library_ms are those of the
-    # shape that does most of a step's work in that kernel: (2, 4096, 8, 40)
-    # forward, (1, 4096, 1, 512) backward, (2, 4096, 10, 64) the Hopper
-    # forward (SDXL's 64^2 level); every shape stands in by_shape
+    # shape that does most of a bf16 SD1.5 step's work in that kernel:
+    # (2, 1024, 8, 80) forward (7 a step, against the VAE's one), (1, 4096,
+    # 1, 512) backward, (2, 4096, 8, 40) the Hopper forward (SD1.5's 64^2
+    # level); every shape stands in by_shape
     flash_src = "dreamwaltz_g_tpu_torch/csrc/flash_attn.cu"
     flash_replaces = "dreamwaltz_g_tpu/guidance/layers.py:153"
-    f_fwd, _, f_bwd = flash_rows[:3]
+    _, f_fwd, f_bwd = flash_rows[:3]
     hopper_rows = [r for r in flash_rows if hopper_shape(r["shape"],
                                                          r["type"])]
-    h_fwd = next(r for r in hopper_rows if r["shape"] == [2, 4096, 10, 64])
+    h_fwd = next(r for r in hopper_rows if r["shape"] == [2, 4096, 8, 40])
 
     def by_path(name):
         # a kernel's launches in each path that can launch it
         return {"train": train_launches[name], "cli": cli[name],
+                "nerf_train": nerf_flash[name],
                 **{phase: {k: v[name] for k, v in runs.items()}
                    for phase, runs in (("cli_modes", mode_runs),
                                        ("cli_geometry", geometry_runs),
@@ -6989,14 +7067,14 @@ def main():
               p_ms["blend_tiles_eval"], bounds["blend_tiles_eval"],
               kernel_ms=errs_avatar[4]["blend_tiles_eval"]),
         entry("flash_attn_fwd", flash_src, flash_replaces,
-              train_launches["flash_attn_fwd"] + nerf_flash[0]
+              train_launches["flash_attn_fwd"] + nerf_flash["flash_attn_fwd"]
               + cli["flash_attn_fwd"],
               flash_err["fwd"],
               f_fwd["fwd_ms"], f_fwd["fwd_plain_ms"], f_fwd["fwd_bound"],
               library=f_fwd["library"]["fwd_ms"], shape=f_fwd["shape"],
               kernel_ms=f_fwd["fwd_kernel_ms"],
               launches_by_path={"train": train_launches["flash_attn_fwd"],
-                                "nerf_train": nerf_flash[0],
+                                "nerf_train": nerf_flash["flash_attn_fwd"],
                                 "cli": cli["flash_attn_fwd"],
                                 "cli_modes": {
                                     k: v["flash_attn_fwd"]
@@ -7035,11 +7113,17 @@ def main():
         entry("flash_fwd_hopper",
               "dreamwaltz_g_tpu_torch/csrc/flash_fwd_hopper.cu",
               flash_replaces,
-              train_launches["flash_fwd_hopper"] + cli["flash_fwd_hopper"],
+              train_launches["flash_fwd_hopper"]
+              + nerf_flash["flash_fwd_hopper"] + cli["flash_fwd_hopper"],
               flash_err["hopper"],
               h_fwd["fwd_ms"], h_fwd["fwd_plain_ms"], h_fwd["fwd_bound"],
               library=h_fwd["library"]["fwd_ms"], shape=h_fwd["shape"],
               kernel_ms=h_fwd["fwd_kernel_ms"],
+              kernel_launch_median_ms=h_fwd["fwd_kernel_launch_median_ms"],
+              ex2_ms=h_fwd["fwd_bound"]["ex2_ms"],
+              rows_kernel_ms=h_fwd["rows"]["kernel_ms"],
+              rows_kernel_launch_median_ms=h_fwd["rows"][
+                  "kernel_launch_median_ms"],
               launches_by_path=by_path("flash_fwd_hopper"),
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"],
@@ -7048,23 +7132,25 @@ def main():
                          "kernel_launch_median_ms":
                              r["fwd_kernel_launch_median_ms"],
                          "share_of_bound": r["fwd_share_of_bound"],
-                         "rows64_kernel": r["rows64"]["build"]["kernel"],
-                         "rows64_kernel_ms": r["rows64"]["kernel_ms"],
-                         "rows64_kernel_launch_median_ms":
-                             r["rows64"]["kernel_launch_median_ms"],
-                         "rows64_max_abs_err": flash_err["rows64"],
+                         "build": r["build"],
+                         "rows_kernel": r["rows"]["build"]["kernel"],
+                         "rows_kernel_ms": r["rows"]["kernel_ms"],
+                         "rows_kernel_launch_median_ms":
+                             r["rows"]["kernel_launch_median_ms"],
+                         "rows_max_abs_err": flash_err["rows"],
                          "bound_ms": r["fwd_bound"]["bound_ms"],
+                         "ex2_ms": r["fwd_bound"]["ex2_ms"],
                          "library_ms": r["library"]["fwd_ms"]}
                         for r in hopper_rows]),
         entry("flash_attn_bwd", flash_src, flash_replaces,
-              train_launches["flash_attn_bwd"] + nerf_flash[1]
+              train_launches["flash_attn_bwd"] + nerf_flash["flash_attn_bwd"]
               + cli["flash_attn_bwd"],
               flash_err["bwd"],
               f_bwd["bwd_ms"], f_bwd["bwd_plain_ms"], f_bwd["bwd_bound"],
               library=f_bwd["library"]["bwd_ms"], shape=f_bwd["shape"],
               kernel_ms=f_bwd["bwd_kernel_ms"],
               launches_by_path={"train": train_launches["flash_attn_bwd"],
-                                "nerf_train": nerf_flash[1],
+                                "nerf_train": nerf_flash["flash_attn_bwd"],
                                 "cli": cli["flash_attn_bwd"],
                                 "cli_geometry": {
                                     k: v["flash_attn_bwd"]

@@ -1,22 +1,25 @@
-// Flash self-attention forward at head dimension 64 in bf16, for sm_90a:
-// TMA copies, wgmma products and warp-specialised warpgroups.
+// Flash self-attention forward at head dimensions 40 and 64 in bf16, for
+// sm_90a: TMA copies, wgmma products and warp-specialised warpgroups.
 //
-// Replaces, at D = 64 in bf16, the forward of the TPU kernel behind
+// Replaces, at D = 40 and 64 in bf16, the forward of the TPU kernel behind
 // dreamwaltz_g_tpu/guidance/layers.py:153 `_flash_kernel` (pallas_call
-// :167): out = softmax(Q K^T / sqrt(64)) V over (B, N, H, 64) and the
+// :167): out = softmax(Q K^T / sqrt(D)) V over (B, N, H, D) and the
 // (B, H, N) float32 lse = row max + log(row sum) of the scaled scores, in
-// natural log. SDXL's and SD2.x's heads are 64 wide; the other widths stay
-// with csrc/flash_attn.cu. The arithmetic is the row-split forward's there:
-// float32 scores and softmax, each exponent one FFMA (scale log2 e folded
-// in) and one ex2.approx, each probability rounded to bf16 once and the
-// output once, so guidance/flash.py's plain versions are its twins.
+// natural log. SD1.5's heads at its 64^2 latents are 40 wide, SDXL's and
+// SD2.x's 64; the other widths stay with csrc/flash_attn.cu. The
+// arithmetic is the row-split forward's there: float32 scores and
+// softmax, each exponent one FFMA (scale log2 e folded in) and one
+// ex2.approx, each probability rounded to bf16 once and the output once,
+// so guidance/flash.py's plain versions are its twins.
 //
-// Bound on this card: operations, 4 B H N^2 64 for the two products at the
-// tensor cores' 989 TFLOP/s (0.087 ms at SDXL's (2, 4096, 10, 64); NVIDIA
-// H100 80GB HBM3 at its 700 W limit), but the B H N^2 exponentials, at 16
-// ex2 a clock an SM, set a floor of the same size (~0.09 ms there at
-// ~1.75 GHz): at D = 64 a key costs as much on the special-function units
-// as on the tensor cores, and the design keeps both busy at once.
+// Bound on this card: operations, 4 B H N^2 D for the two products at the
+// tensor cores' 989 TFLOP/s (0.087 ms at SDXL's (2, 4096, 10, 64), 0.043 ms
+// at SD1.5's (2, 4096, 8, 40); NVIDIA H100 80GB HBM3 at its 700 W limit),
+// but the B H N^2 exponentials, at 16 ex2 a clock an SM, set a floor of
+// ~0.09 ms and ~0.072 ms there at ~1.75 GHz: at D = 64 a key costs as much
+// on the special-function units as on the tensor cores, and at D = 40 the
+// exponentials alone set the floor. The design keeps both units busy at
+// once.
 //
 // Design:
 //  * A block owns 128 query rows of one (batch, head): three warpgroups,
@@ -24,21 +27,27 @@
 //    N is a multiple of 128 under the modules' flash gate.
 //  * The producer's first thread issues every copy as a TMA load: the Q
 //    tile once, then 128-key tiles of K and V (16 KB each) into a ring of
-//    STAGES stages, each stage with its own K-full, V-full and empty
-//    mbarrier, so the scores of a tile start before its V lands. The
-//    producer gives its registers to the consumers (setmaxnreg).
-//  * A 64-wide bf16 row is 128 bytes, the TMA's and wgmma's 128-byte
-//    swizzle exactly: every tile lands swizzled, with no padding and no
-//    bank conflicts, and the products read it from shared memory through
-//    descriptors. The tensor maps (4-D: D, H, N, B, by the tensors' own
-//    strides) are encoded on the host through CUDA's entry-point query and
-//    cached by (pointer, shape, strides); they reach the kernel as
-//    __grid_constant__ parameters.
-//  * S = Q K^T: wgmma m64n128k16, Q and K K-major from shared memory, four
-//    k-steps. The softmax runs on the accumulator in registers (a row's 128
+//    stages (3 at D = 40, 2 at D = 64), each with its own K-full, V-full
+//    and empty mbarrier, so the scores of a tile start before its V lands.
+//    The producer gives its registers to the consumers (setmaxnreg).
+//  * Every tile is 64 columns wide: a row of 128 bytes, the TMA's and
+//    wgmma's 128-byte swizzle exactly, so every tile lands swizzled, with
+//    no padding and no bank conflicts, and the products read it from shared
+//    memory through descriptors. The tensor maps (4-D: D, H, N, B, by the
+//    tensors' own strides) span D columns; at D = 40 the box's columns
+//    40-63 lie past the map's first dimension, and TMA fills them with
+//    zeros (not the next head's values), so a 40-wide tile lands as a
+//    64-wide one whose last 24 columns are zero, with the same byte count
+//    for the barrier. The maps are encoded on the host through CUDA's
+//    entry-point query and cached by (pointer, width, shape, strides); they
+//    reach the kernel as __grid_constant__ parameters.
+//  * S = Q K^T: wgmma m64n128k16, Q and K K-major from shared memory,
+//    ceil(D / 16) k-steps (three at D = 40: columns 40-47 are zeros on both
+//    sides). The softmax runs on the accumulator in registers (a row's 128
 //    scores over a quad of lanes), and P, rounded to bf16 in registers, is
-//    the A operand of O += P V: wgmma m64n64k16, V from shared memory with
-//    the transpose bit (its rows are keys), eight k-steps.
+//    the A operand of O += P V: wgmma m64nDk16 (N = D, a multiple of 8), V
+//    from shared memory with the transpose bit (its rows are keys), eight
+//    k-steps; the accumulator is D / 2 floats a thread.
 //  * Overlap comes from the two consumers: while one runs its softmax on
 //    the special-function units, the other's products run on the tensor
 //    cores. Within a consumer the products and the softmax take turns: an
@@ -64,24 +73,23 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 64;        // head dimension
+constexpr int BOX_D = 64;     // a tile's columns: one 128-byte row
 constexpr int BM = 128;       // query rows a block
 constexpr int BN = 128;       // keys a tile
-constexpr int STAGES = 2;     // K / V ring
 constexpr int THREADS = 384;  // a producer and two consumer warpgroups
-constexpr int TILE = BN * HD * 2;  // bytes of a K or V tile, and of Q
+// bytes of a K or V tile, and of Q, whatever the head dimension: TMA
+// writes (and counts) the whole box, zeros past the map's D columns
+constexpr int TILE = BN * BOX_D * 2;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
-// byte offsets from a 1024-byte aligned base: Q, the K ring, the V ring,
-// then the barriers (Q full; K full, V full and empty for each stage)
-constexpr int OFF_Q = 0;
-constexpr int OFF_K = OFF_Q + TILE;
-constexpr int OFF_V = OFF_K + STAGES * TILE;
-constexpr int OFF_BAR = OFF_V + STAGES * TILE;
-constexpr int N_BARS = 1 + 3 * STAGES;
-// dynamic shared memory a block: the layout and the base's alignment slack
-constexpr int SMEM_BYTES = OFF_BAR + 8 * N_BARS + 1024;
+// the K / V ring's stages at head dimension HD: 3 at D = 40, where the
+// copies of 80-byte rows take about as long as a tile's products and
+// softmax, 2 at D = 64, where a third stage was slower (PERF.md, section 6)
+template <int HD>
+constexpr int ring_stages() {
+  return HD == 40 ? 3 : 2;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -127,7 +135,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// box {64, 1, 128, 1} of a 4-D map at (0, h, n, b) into shared memory
+// box {BOX_D, 1, 128, 1} of a 4-D map at (0, h, n, b) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int h, int n, int b) {
   asm volatile(
@@ -145,8 +153,9 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 // and stride byte offsets (16-byte units) and the layout type in bits 62-63.
 // K-major (Q, K): rows of 128 bytes, 8-row groups 1024 bytes apart (the
 // stride offset), the leading offset unused. MN-major (V under the transpose
-// bit): the 8-key groups 1024 bytes apart; N = 64 is one swizzle atom wide,
-// so the leading offset is unused too. A k-step moves the start address:
+// bit): the 8-key groups 1024 bytes apart; N = 64 (or 40) lies within one
+// swizzle atom, so the leading offset is unused too. A k-step moves the
+// start address:
 // 32 bytes along a K-major row, 16 rows (2048 bytes) down V.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
@@ -218,12 +227,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (64 x 64, float32) += A B: A 64 x 16 from registers (the m16n8k16 A
-// fragment of each warp's 16 rows), B 16 x 64 from shared memory through its
-// descriptor, MN-major (the transpose bit set)
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
+// d (64 x D, float32) += A B for D = 40 or 64 (d: D / 2 floats): A 64 x 16
+// from registers (the m16n8k16 A fragment of each warp's 16 rows), B 16 x D
+// from shared memory through its descriptor, MN-major (the transpose bit
+// set); D = 40 reads the first 40 columns of the 64-wide swizzle atom
+__device__ __forceinline__ void wgmma_pv(float (&d)[20],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -310,10 +338,11 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 }
 
-__device__ __forceinline__ void rescale(float (&o)[32],
+template <int R>
+__device__ __forceinline__ void rescale(float (&o)[R],
                                         const float (&alpha)[2]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     o[4 * j] *= alpha[0];
     o[4 * j + 1] *= alpha[0];
     o[4 * j + 2] *= alpha[1];
@@ -325,9 +354,20 @@ __device__ __forceinline__ void rescale(float (&o)[32],
 // the kernel
 // ---------------------------------------------------------------------------
 
+// a block's shared memory with a ring of S stages, by byte offsets from a
+// 1024-byte aligned base: Q, the K ring, the V ring, then the barriers (Q
+// full; K full, V full and empty for each stage)
+template <int S>
 struct Ring {
+  static constexpr int STAGES = S;
+  static constexpr int OFF_K = TILE;
+  static constexpr int OFF_V = OFF_K + S * TILE;
+  static constexpr int OFF_BAR = OFF_V + S * TILE;
+  // dynamic shared memory a block: the layout and the base's alignment
+  // slack
+  static constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 3 * S) + 1024;
   uint32_t base;  // the 1024-byte aligned start of the layout
-  __device__ uint32_t q() const { return base + OFF_Q; }
+  __device__ uint32_t q() const { return base; }
   __device__ uint32_t k(int s) const { return base + OFF_K + s * TILE; }
   __device__ uint32_t v(int s) const { return base + OFF_V + s * TILE; }
   __device__ uint32_t q_full() const { return base + OFF_BAR; }
@@ -335,19 +375,24 @@ struct Ring {
     return base + OFF_BAR + 8 * (1 + s);
   }
   __device__ uint32_t v_full(int s) const {
-    return base + OFF_BAR + 8 * (1 + STAGES + s);
+    return base + OFF_BAR + 8 * (1 + S + s);
   }
   __device__ uint32_t empty(int s) const {
-    return base + OFF_BAR + 8 * (1 + 2 * STAGES + s);
+    return base + OFF_BAR + 8 * (1 + 2 * S + s);
   }
 };
 
+template <int HD>
+using RingOf = Ring<ring_stages<HD>()>;
+
 // the producer's one thread: Q, then each key tile's K and V into the ring
 // once the consumers have released its stage
-__device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* tq,
+template <typename R>
+__device__ __forceinline__ void produce(const R& r, const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, int n_tiles,
                                         int b, int h, int q0) {
+  constexpr int STAGES = R::STAGES;
   mbar_expect_tx(r.q_full(), TILE);
   tma_load(r.q(), tq, r.q_full(), h, q0, b);
   for (int i = 0; i < n_tiles; ++i) {
@@ -360,27 +405,33 @@ __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* tq,
   }
 }
 
-// one consumer warpgroup's 64 query rows: rows q0 + 64 c ..
-__device__ __forceinline__ void consume(const Ring& r, bf16* __restrict__ out,
+// one consumer warpgroup's 64 query rows: rows q0 + 64 c .. (head
+// dimension HD)
+template <int HD>
+__device__ __forceinline__ void consume(const RingOf<HD>& r,
+                                        bf16* __restrict__ out,
                                         float* __restrict__ lse, int N,
                                         int H, int n_tiles, int b, int h,
                                         int q0, float scale_log2) {
+  constexpr int STAGES = RingOf<HD>::STAGES;
   const int c = threadIdx.x / 128 - 1;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const uint64_t dq = sw128_desc(r.q() + c * 64 * HD * 2);
+  const uint64_t dq = sw128_desc(r.q() + c * 64 * BOX_D * 2);
 
-  float s[64], o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // o: the m64nHD accumulator, lane 4 g + t holding o[4 j .. 4 j + 1] of
+  // row g, columns 8 j + 2 t and + 1, and o[4 j + 2 .. 4 j + 3] of row g + 8
+  float s[64], o[HD / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float alpha[2];
   uint32_t pa[8][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 
   // S = Q K^T of the stage's key tile, issued (the caller commits)
   auto issue_s = [&](int stage) {
     const uint64_t dk = sw128_desc(r.k(stage));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < (HD + 15) / 16; ++kk)
       wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
   };
   // O += P V of the stage's key tile, issued (the caller commits)
@@ -388,7 +439,7 @@ __device__ __forceinline__ void consume(const Ring& r, bf16* __restrict__ out,
     const uint64_t dv = sw128_desc(r.v(stage));
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      wgmma_m64n64k16_rs(o, pa[kk], dv + (2048 >> 4) * kk);
+      wgmma_pv(o, pa[kk], dv + (2048 >> 4) * kk);
   };
 
   mbar_wait(r.q_full(), 0);
@@ -415,7 +466,7 @@ __device__ __forceinline__ void consume(const Ring& r, bf16* __restrict__ out,
     if (lane == 0) mbar_arrive(r.empty(st));
   }
 
-  // out and lse are contiguous (B, N, H, 64) and (B, H, N); lse is the
+  // out and lse are contiguous (B, N, H, HD) and (B, H, N); lse is the
   // natural log: (m + log2 l) ln 2
   float inv[2];
 #pragma unroll
@@ -427,7 +478,7 @@ __device__ __forceinline__ void consume(const Ring& r, bf16* __restrict__ out,
   bf16* o_lo = out + (((long long)b * N + row) * H + h) * HD;
   bf16* o_hi = o_lo + (long long)8 * H * HD;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     const int d = 8 * j + 2 * t;
     *reinterpret_cast<__nv_bfloat162*>(o_lo + d) =
         __floats2bfloat162_rn(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
@@ -441,6 +492,7 @@ __device__ __forceinline__ void consume(const Ring& r, bf16* __restrict__ out,
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -448,7 +500,8 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                         bf16* __restrict__ out, float* __restrict__ lse,
                         int N, int H, float scale_log2) {
   extern __shared__ unsigned char smem[];
-  const Ring r{(smem_u32(smem) + 1023) & ~1023u};
+  const RingOf<HD> r{(smem_u32(smem) + 1023) & ~1023u};
+  constexpr int STAGES = RingOf<HD>::STAGES;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
   const int n_tiles = N / BN;
   if (threadIdx.x == 0) {
@@ -467,7 +520,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) produce(r, &tq, &tk, &tv, n_tiles, b, h, q0);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consume(r, out, lse, N, H, n_tiles, b, h, q0, scale_log2);
+    consume<HD>(r, out, lse, N, H, n_tiles, b, h, q0, scale_log2);
   }
 }
 
@@ -509,17 +562,17 @@ EncodeTiled encode_tiled() {
 
 struct MapKey {
   const void* p;
-  int B, N, H;
+  int D, B, N, H;
   long long sb, sn, sh;
   bool operator==(const MapKey& o) const {
-    return p == o.p && B == o.B && N == o.N && H == o.H && sb == o.sb &&
-           sn == o.sn && sh == o.sh;
+    return p == o.p && D == o.D && B == o.B && N == o.N && H == o.H &&
+           sb == o.sb && sn == o.sn && sh == o.sh;
   }
 };
 
-// the tensor maps encoded so far, by (pointer, shape, strides): a training
-// step's allocator hands the same buffers out step after step, and an
-// encode costs about as much host time as a small call's kernel
+// the tensor maps encoded so far, by (pointer, width, shape, strides): a
+// training step's allocator hands the same buffers out step after step,
+// and an encode costs about as much host time as a small call's kernel
 constexpr int MAP_CACHE = 64;
 struct {
   MapKey key[MAP_CACHE];
@@ -528,12 +581,13 @@ struct {
   std::mutex mutex;
 } maps;
 
-// a (B, N, H, 64) bf16 tensor with element strides (sb, sn, sh) and unit
-// stride along D as a 4-D map (64, H, N, B) of {64, 1, 128, 1} boxes with
-// the 128-byte swizzle; 0 or an error code
-int tensor_map(CUtensorMap* map, const void* p, int B, int N, int H,
+// a (B, N, H, D) bf16 tensor with element strides (sb, sn, sh) and unit
+// stride along D as a 4-D map (D, H, N, B) of {64, 1, 128, 1} boxes with
+// the 128-byte swizzle (at D < 64 the box's columns past D are out of
+// bounds: TMA writes zeros there); 0 or an error code
+int tensor_map(CUtensorMap* map, const void* p, int D, int B, int N, int H,
                long long sb, long long sn, long long sh) {
-  const MapKey key{p, B, N, H, sb, sn, sh};
+  const MapKey key{p, D, B, N, H, sb, sn, sh};
   std::lock_guard<std::mutex> lock(maps.mutex);
   for (int i = 0; i < maps.count; ++i)
     if (maps.key[i] == key) {
@@ -542,11 +596,11 @@ int tensor_map(CUtensorMap* map, const void* p, int B, int N, int H,
     }
   EncodeTiled encode = encode_tiled();
   if (!encode) return FLASH_NO_ENCODER;
-  const cuuint64_t dims[4] = {HD, (cuuint64_t)H, (cuuint64_t)N,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {HD, 1, BN, 1};
+  const cuuint32_t box[4] = {BOX_D, 1, BN, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -565,11 +619,49 @@ bool tma_ok(const void* p, long long sb, long long sn, long long sh) {
   return (uintptr_t)p % 16 == 0 && sb % 8 == 0 && sn % 8 == 0 && sh % 8 == 0;
 }
 
+// one launch of the kernel at width HD
+template <int HD>
+int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+           void* out, float* lse, int B, int N, int H, cudaStream_t stream) {
+  constexpr int SMEM_BYTES = RingOf<HD>::SMEM_BYTES;
+  // once a process for each width, not on every launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_hopper_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (attr != cudaSuccess) return attr;
+  flash_fwd_hopper_kernel<HD><<<dim3(N / BM, H, B), THREADS, SMEM_BYTES,
+                                stream>>>(
+      mq, mk, mv, (bf16*)out, lse, N, H,
+      1.4426950408889634f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
+// the kernel's launch facts at width HD (flash_fwd_hopper_info's order)
+template <int HD>
+int facts(int* info) {
+  auto kernel = flash_fwd_hopper_kernel<HD>;
+  constexpr int SMEM_BYTES = RingOf<HD>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      THREADS, SMEM_BYTES);
+  const int f[7] = {BOX_D,  THREADS,      BM,
+                    SMEM_BYTES, blocks, attr.numRegs,
+                    (int)attr.localSizeBytes};
+  for (int i = 0; i < 7; ++i) info[i] = f[i];
+  return err;
+}
+
 }  // namespace
 
-// q, k, v: (B, N, H, 64) bf16 with element strides (b, n, h), unit stride
-// along D, 16-byte aligned bases and strides of whole 16 bytes (else
-// FLASH_BAD_SHAPE); out contiguous (B, N, H, 64) bf16; lse contiguous
+// q, k, v: (B, N, H, D) bf16, D = 40 or 64, with element strides (b, n, h),
+// unit stride along D, 16-byte aligned bases and strides of whole 16 bytes
+// (else FLASH_BAD_SHAPE); out contiguous (B, N, H, D) bf16; lse contiguous
 // (B, H, N) float32. N must be a multiple of 128.
 extern "C" int flash_fwd_hopper(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int B, int N, int H,
@@ -577,48 +669,29 @@ extern "C" int flash_fwd_hopper(const void* q, const void* k, const void* v,
                                 long long sqh, long long skb, long long skn,
                                 long long skh, long long svb, long long svn,
                                 long long svh, void* stream_) {
-  if (D != HD || N < BN || N % BN || B < 1 || H < 1 ||
+  if ((D != 40 && D != 64) || N < BN || N % BN || B < 1 || H < 1 ||
       !tma_ok(q, sqb, sqn, sqh) || !tma_ok(k, skb, skn, skh) ||
       !tma_ok(v, svb, svn, svh))
     return FLASH_BAD_SHAPE;
   CUtensorMap mq, mk, mv;
-  int rc = tensor_map(&mq, q, B, N, H, sqb, sqn, sqh);
-  if (!rc) rc = tensor_map(&mk, k, B, N, H, skb, skn, skh);
-  if (!rc) rc = tensor_map(&mv, v, B, N, H, svb, svn, svh);
+  int rc = tensor_map(&mq, q, D, B, N, H, sqb, sqn, sqh);
+  if (!rc) rc = tensor_map(&mk, k, D, B, N, H, skb, skn, skh);
+  if (!rc) rc = tensor_map(&mv, v, D, B, N, H, svb, svn, svh);
   if (rc) return rc;
-  // once a process, not on every launch
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_hopper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (attr != cudaSuccess) return attr;
-  flash_fwd_hopper_kernel<<<dim3(N / BM, H, B), THREADS, SMEM_BYTES,
-                            (cudaStream_t)stream_>>>(
-      mq, mk, mv, (bf16*)out, lse, N, H,
-      1.4426950408889634f / sqrtf((float)HD));
-  return cudaGetLastError();
+  const cudaStream_t stream = (cudaStream_t)stream_;
+  return D == 40 ? launch<40>(mq, mk, mv, out, lse, B, N, H, stream)
+                 : launch<64>(mq, mk, mv, out, lse, B, N, H, stream);
 }
 
-// The kernel's launch facts for head dimension D and the type is_bf16,
-// part 0 (the one kernel; FLASH_BAD_SHAPE elsewhere), in flash_attn.cu's
-// flash_attn_fwd_info order: {tile width, threads, query rows a block,
-// dynamic shared-memory bytes, resident blocks an SM, registers a thread,
-// local-memory bytes a thread}
+// The kernel's launch facts for head dimension D (40 or 64) and the type
+// is_bf16, part 0 (the one kernel; FLASH_BAD_SHAPE elsewhere), in
+// flash_attn.cu's flash_attn_fwd_info order: {tile width (the box's 64
+// columns), threads, query rows a block, dynamic shared-memory bytes,
+// resident blocks an SM, registers a thread, local-memory bytes a thread}
 extern "C" int flash_fwd_hopper_info(int D, int is_bf16, int part,
                                      int* info) {
-  if (D != HD || !is_bf16 || part != 0) return FLASH_BAD_SHAPE;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_hopper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, flash_fwd_hopper_kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, flash_fwd_hopper_kernel, THREADS, SMEM_BYTES);
-  const int facts[7] = {HD,     THREADS,      BM,
-                        SMEM_BYTES, blocks, attr.numRegs,
-                        (int)attr.localSizeBytes};
-  for (int i = 0; i < 7; ++i) info[i] = facts[i];
-  return err;
+  if (!is_bf16 || part != 0) return FLASH_BAD_SHAPE;
+  if (D == 40) return facts<40>(info);
+  if (D == 64) return facts<64>(info);
+  return FLASH_BAD_SHAPE;
 }

@@ -4,11 +4,12 @@ without the N x N scores in device memory.
 Port of the kernel path of ``dreamwaltz_g_tpu/guidance/layers.py``
 (``_flash_kernel`` / ``flash_self_attention``, TPU kernel B4). On CUDA
 tensors ``flash_attn_fwd`` / ``flash_attn_bwd`` launch the hand-written
-kernels of ``csrc/flash_attn.cu``, but for the bf16 forward at D = 64
-(SDXL's and SD2.x's heads), which ``_fwd_route`` sends to
-``flash_fwd_hopper`` (``csrc/flash_fwd_hopper.cu``: TMA copies and wgmma
-products, the same roundings; a D = 64 view that TMA cannot describe
-raises). Each of the two forward wrappers counts its own launches. bf16
+kernels of ``csrc/flash_attn.cu``, but for the bf16 forward at
+``HOPPER_WIDTHS`` (SD1.5's 40-wide heads at its 64^2 latents, SDXL's and
+SD2.x's 64-wide ones), which ``_fwd_route`` sends to ``flash_fwd_hopper``
+(``csrc/flash_fwd_hopper.cu``: TMA copies and wgmma products, the same
+roundings; a view at those widths that TMA cannot describe raises). Each
+of the two forward wrappers counts its own launches. bf16
 runs through the tensor cores; float32
 through them too, each product as three TF32 products, whose plain twins
 are ``flash_attention_tf32_plain`` and ``flash_attention_tf32_plain_bwd``;
@@ -47,6 +48,8 @@ WIDE_KEY_SPLITS = 2
 #: the widest head the kernels take (a 512-wide tile of K and V fills one
 #: block's shared memory); the modules' gate sends wider heads to einsum
 MAX_HEAD_DIM = 512
+#: the head widths of the bf16 forward on ``csrc/flash_fwd_hopper.cu``
+HOPPER_WIDTHS = (40, 64)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -275,18 +278,20 @@ def _strides(*tensors):
 
 def _fwd_route(D: int, dtype: torch.dtype) -> str:
     """The forward kernel's launch function for head dimension ``D`` in
-    ``dtype``: ``flash_fwd_hopper`` for bf16 at D = 64 (the Hopper design,
-    ``csrc/flash_fwd_hopper.cu``), ``flash_attn_fwd`` (``csrc/
-    flash_attn.cu``: the row-split, wide and float32 forwards) for every
-    other pair."""
-    return "flash_fwd_hopper" if dtype == torch.bfloat16 and D == 64 \
+    ``dtype``: ``flash_fwd_hopper`` for bf16 at ``HOPPER_WIDTHS`` (the
+    Hopper design, ``csrc/flash_fwd_hopper.cu``), ``flash_attn_fwd``
+    (``csrc/flash_attn.cu``: the row-split, wide and float32 forwards) for
+    every other pair."""
+    return "flash_fwd_hopper" \
+        if dtype == torch.bfloat16 and D in HOPPER_WIDTHS \
         else "flash_attn_fwd"
 
 
 def _fwd_flash_attn(q, k, v, dev) -> Tuple[torch.Tensor, torch.Tensor]:
     """``csrc/flash_attn.cu``'s forward for any (D, type) it takes (at
-    D = 64 in bf16 its 64-wide row-split instantiation), launched and not
-    counted: ``flash_attn_fwd`` counts its own calls of it."""
+    D = 40 and 64 in bf16 its row-split instantiations, off the main path),
+    launched and not counted: ``flash_attn_fwd`` counts its own calls of
+    it."""
     B, N, H, D = q.shape
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=dev)
@@ -304,16 +309,17 @@ def _fwd_flash_attn(q, k, v, dev) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def flash_fwd_hopper(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 forward at D = 64 (``flash_attn_fwd``'s outputs) through
-    ``csrc/flash_fwd_hopper.cu``; the plain version on CPU tensors. Raises
-    on another type or width, and on a view whose base is not 16-byte
-    aligned or whose strides are not whole 16 bytes (what a TMA tensor map
-    cannot describe): there is no other kernel to fall back to."""
+    """The bf16 forward at D = 40 or 64 (``flash_attn_fwd``'s outputs)
+    through ``csrc/flash_fwd_hopper.cu``; the plain version on CPU tensors.
+    Raises on another type or width, and on a view whose base is not
+    16-byte aligned or whose strides are not whole 16 bytes (what a TMA
+    tensor map cannot describe): there is no other kernel to fall back
+    to."""
     dev = _check("flash_fwd_hopper", q, k, v)
     B, N, H, D = q.shape
-    if q.dtype != torch.bfloat16 or D != 64:
-        raise ValueError(f"flash_fwd_hopper: bf16 at D = 64 only, not "
-                         f"{q.dtype} at D = {D}")
+    if q.dtype != torch.bfloat16 or D not in HOPPER_WIDTHS:
+        raise ValueError(f"flash_fwd_hopper: bf16 at D = 40 or 64 only, "
+                         f"not {q.dtype} at D = {D}")
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v)
     for n, t in (("q", q), ("k", k), ("v", v)):
@@ -334,8 +340,9 @@ def flash_fwd_hopper(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
 def flash_attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward: (out (B, N, H, D) in q's type, contiguous; lse (B, H, N)
     float32). Kernel on CUDA tensors, plain version on CPU tensors; bf16 at
-    D = 64 goes to ``flash_fwd_hopper`` (``_fwd_route``), which counts that
-    launch, every other call to ``csrc/flash_attn.cu``, counted here."""
+    D = 40 and 64 goes to ``flash_fwd_hopper`` (``_fwd_route``), which
+    counts that launch, every other call to ``csrc/flash_attn.cu``, counted
+    here."""
     dev = _check("flash_attn_fwd", q, k, v)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v)

@@ -22,10 +22,14 @@ inputs:
 The bf16 kernels have tile widths 48, 64, 80, 128 and 512; the head
 dimensions below cover each width exactly (80, 128, 512) and zero-padded
 (16, 24 and 40 in 48, 256 and 384 in 512). D = 20 and a view that is not
-16-byte aligned take the element-wise tile load. The bf16 forward at
-D = 64 is the Hopper kernel's (``csrc/flash_fwd_hopper.cu``: 128 query
-rows a block over two consumer warpgroups, 128-key tiles through a 2-stage
-TMA ring); it raises on a view TMA cannot describe. The row-split forward
+16-byte aligned take the element-wise tile load (the row-split forward
+called directly at D = 40). The bf16 forward at D = 40 and 64 is the
+Hopper kernel's (``csrc/flash_fwd_hopper.cu``: 128 query rows a block over
+two consumer warpgroups, 128-key tiles through a TMA ring of 3 stages at
+D = 40 and 2 at D = 64, 64 columns a tile, zeros past D = 40); it raises
+on a view TMA cannot describe. At D = 40 N = 1152's 9 key tiles end at the
+end of the ring and N = 1280's 10 part-way round it (at D = 64 N = 1152's
+end part-way round), N = 128 is one tile. The row-split forward
 (D <= 128) streams 64-key tiles through a ring of 3 shared-memory stages
 (2 at 64 and above 80): N = 128 has fewer key tiles than stages; every N
 (a multiple of 128) gives an even count of tiles, and N = 1280's 20 end
@@ -72,11 +76,12 @@ def _qkv(dev, shape, dtype, seed=0):
             for _ in range(4)]
 
 
-def _hold_fwd(q, k, v, peaked=False):
-    """Kernel forward against the plain version; returns (out, lse).
-    ``peaked``: rows whose weight sits on a few keys, held to the bf16
-    roundings' worst case (``TOL_BF16_OUT_PEAKED``)."""
-    out, lse = FL.flash_attn_fwd(q, k, v)
+def _hold_fwd(q, k, v, peaked=False, fwd=None):
+    """Kernel forward (``fwd``, ``flash_attn_fwd`` by default) against the
+    plain version; returns (out, lse). ``peaked``: rows whose weight sits
+    on a few keys, held to the bf16 roundings' worst case
+    (``TOL_BF16_OUT_PEAKED``)."""
+    out, lse = (fwd or FL.flash_attn_fwd)(q, k, v)
     torch.cuda.synchronize()
     ref, ref_lse = FL.flash_attention_plain(q.float(), k.float(), v.float())
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -93,9 +98,9 @@ def _hold_fwd(q, k, v, peaked=False):
     return out, lse
 
 
-def _hold(q, k, v, g):
+def _hold(q, k, v, g, fwd=None):
     """Kernel forward and backward against the plain versions."""
-    _hold_bwd(q, k, v, g, *_hold_fwd(q, k, v))
+    _hold_bwd(q, k, v, g, *_hold_fwd(q, k, v, fwd=fwd))
 
 
 def _hold_bwd(q, k, v, g, out, lse):
@@ -218,10 +223,12 @@ def test_bf16_wide_lse_and_the_backward_from_its_outputs():
 @pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (2, 1024, 8, 80),
                                    (1, 4096, 1, 512), (2, 4096, 10, 64),
                                    (2, 1024, 20, 64), (2, 9216, 5, 64),
-                                   (2, 2304, 10, 64)])
+                                   (2, 2304, 10, 64), (8, 4096, 8, 40)])
 def test_bf16_at_the_training_steps_shapes_from_a_cold_cache(shape):
-    """The UNet's, the ControlNet's and the VAE's shapes, and SDXL's and
-    SD2.1-768's 64-wide levels (the Hopper kernel's), forward only. They
+    """The UNet's, the ControlNet's and the VAE's shapes, the multi-view
+    step's batch 8 at SD1.5's 64^2 level, and SDXL's and SD2.1-768's
+    64-wide levels (the Hopper kernel's, as the 40-wide ones are), forward
+    only. They
     fill the card with blocks, and the inputs are evicted from the 50 MB L2
     first, so the first copies of every resident block queue on device
     memory together: a read of a ring stage before its copies land shows
@@ -235,6 +242,10 @@ def test_bf16_at_the_training_steps_shapes_from_a_cold_cache(shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [40, 512])
 def test_bf16_takes_a_view_that_is_not_16_byte_aligned(D):
+    """Views off the 16-byte grid through ``csrc/flash_attn.cu``'s forward
+    (at D = 40 its row-split kernel, called directly: the main path sends
+    bf16 D = 40 to the Hopper kernel, which raises on such views) and
+    backward: their element-wise loads."""
     dev = _card()
     B, N, H = 2, 1024, 2
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -243,7 +254,8 @@ def test_bf16_takes_a_view_that_is_not_16_byte_aligned(D):
     q, k, v, g = (flat[4 + i * B * N * H * D:][:B * N * H * D]
                   .view(B, N, H, D) for i in range(4))
     assert q.data_ptr() % 16 != 0
-    _hold(q, k, v, g.contiguous())
+    _hold(q, k, v, g.contiguous(),
+          fwd=lambda a, b, c: FL._fwd_flash_attn(a, b, c, a.device))
 
 
 @pytest.mark.gpu
@@ -504,23 +516,27 @@ def test_f32_takes_a_view_that_is_not_16_byte_aligned(D):
 
 
 @pytest.mark.gpu
-def test_hopper_forward_over_one_key_tile():
+@pytest.mark.parametrize("D", [40, 64])
+def test_hopper_forward_over_one_key_tile(D):
     """N = 128: one key tile, the Q tile's only one; the ring's first
     stage alone, every row's max in it."""
     dev = _card()
-    q, k, v, _ = _qkv(dev, (2, 128, 3, 64), torch.bfloat16, seed=21)
+    q, k, v, _ = _qkv(dev, (2, 128, 3, D), torch.bfloat16, seed=21)
     _hold_fwd(q, k, v)
 
 
 @pytest.mark.gpu
-def test_hopper_forward_takes_a_fused_projection_or_raises():
-    """q, k, v as (B, N, H, 64) views of one (B, N, 3 H 64) projection
-    (strides of whole 16 bytes, 16-byte aligned bases): the Hopper kernel
-    takes them. The same views 8 bytes into their buffer are not 16-byte
-    aligned, which a TMA tensor map cannot describe: the forward raises,
-    with no other kernel to fall back to."""
+@pytest.mark.parametrize("D", [40, 64])
+def test_hopper_forward_takes_a_fused_projection_or_raises(D):
+    """q, k, v as (B, N, H, D) views of one (B, N, 3 H D) projection
+    (strides of whole 16 bytes, 16-byte aligned bases; at D = 40 a head's
+    row is 80 bytes, and the tensor map's 40 columns keep the next head's
+    values out of the 64-wide tile): the Hopper kernel takes them. The
+    same views 8 bytes into their buffer are not 16-byte aligned, which a
+    TMA tensor map cannot describe: the forward raises, with no other
+    kernel to fall back to."""
     dev = _card()
-    B, N, H, D = 2, 1024, 4, 64
+    B, N, H = 2, 1024, 4
     gen = torch.Generator(device=dev).manual_seed(23)
     flat = torch.randn(B * N * 3 * H * D + 4, generator=gen,
                        device=dev).to(torch.bfloat16)
@@ -539,8 +555,9 @@ def test_hopper_forward_takes_a_fused_projection_or_raises():
 
 
 @pytest.mark.gpu
-def test_hopper_launch_is_counted_under_its_own_name():
-    """A bf16 forward at D = 64 counts one launch on ``flash_fwd_hopper``
+@pytest.mark.parametrize("D", [40, 64])
+def test_hopper_launch_is_counted_under_its_own_name(D):
+    """A bf16 forward at D = 40 or 64 counts one launch on ``flash_fwd_hopper``
     and none on ``flash_attn_fwd``, and the profiler sees one
     ``flash_fwd_hopper_kernel`` and no row-split kernel; the autograd
     function's backward stays ``flash_attn_bwd``'s."""
@@ -548,7 +565,7 @@ def test_hopper_launch_is_counted_under_its_own_name():
     from torch.profiler import ProfilerActivity, profile
 
     dev = _card()
-    q, k, v, g = _qkv(dev, (1, 1024, 2, 64), torch.bfloat16, seed=25)
+    q, k, v, g = _qkv(dev, (1, 1024, 2, D), torch.bfloat16, seed=25)
     for t in (q, k, v):
         t.requires_grad_(True)
     FL.flash_attn_fwd.launches = FL.flash_attn_bwd.launches = 0
