@@ -41,7 +41,7 @@ Phases, one JSON line each:
                    the training paths give it (bf16, and float32 for the
                    tiny step and the float32-guidance step), and backward
                    at the seven that are differentiated, against the plain
-                   versions; the bf16 forward at D = 40 and 64 is the
+                   versions; the bf16 forward at D = 40, 64 and 80 is the
                    Hopper kernel's (``csrc/flash_fwd_hopper.cu``), and the
                    instantiations of ``csrc/flash_attn.cu``'s row-split
                    forward at those widths, which the main path no longer
@@ -401,11 +401,11 @@ FLASH_PER_STEP = (15, 1)
 # the bf16 forward's head widths on the Hopper kernel (``flash._fwd_route``),
 # written out here so that the expected launch counts do not lean on the
 # port's own route; of the SD1.5-size step's 15 forwards, the 7 at 4096
-# tokens (UNet 5, ControlNet 2) are 40 wide and take it in bf16, the 7 at
-# 1024 tokens (D = 80) and the VAE's (D = 512) stay on flash_attn_fwd; the
+# tokens (UNet 5, ControlNet 2, 40 wide) and the 7 at 1024 tokens (80
+# wide) take it in bf16, the VAE's (D = 512) stays on flash_attn_fwd; the
 # float32 step keeps all 15 there
-HOPPER_WIDTHS = (40, 64)
-HOPPER_PER_STEP = 7
+HOPPER_WIDTHS = (40, 64, 80)
+HOPPER_PER_STEP = 14
 # the flash launch functions, each counting its own launches
 FLASH_FNS = ("flash_attn_fwd", "flash_fwd_hopper", "flash_attn_bwd")
 OFF_STEPS, OFF_WARMUP = 4, 2   # the einsum-attention comparison run
@@ -1270,7 +1270,7 @@ def flash_fwd_build(logs, shape, kind, rows=False):
     stages; float32: tile width, D-split warps, row groups, key tile and
     ring stages), registers and spills, dynamic shared memory, threads and
     resident blocks an SM (``kernel_build``), from the build ``logs`` by
-    library. The Hopper kernel's (bf16, D = 40 or 64) template is its
+    library. The Hopper kernel's (bf16, D = 40, 64 or 80) template is its
     width, and with ``rows`` the row-split forward's instantiation for the
     same width stands in its place. The wide forward (bf16, D > 128) adds
     its combine kernel's facts under ``combine``."""
@@ -2464,8 +2464,8 @@ def fit_template(npz, ckpt_dir, dev, cfg=None):
 
 def cli_launches_per_step(stage2):
     """Each kernel's launches a trainer step: flash as the SD1.5-size
-    stack's structure gives in bf16 (the 40-wide forwards on the Hopper
-    kernel), the table blends once a step in stage 2."""
+    stack's structure gives in bf16 (the 40- and 80-wide forwards on the
+    Hopper kernel), the table blends once a step in stage 2."""
     return {"flash_attn_fwd": FLASH_PER_STEP[0] - HOPPER_PER_STEP,
             "flash_attn_bwd": FLASH_PER_STEP[1],
             "flash_fwd_hopper": HOPPER_PER_STEP,
@@ -2474,15 +2474,15 @@ def cli_launches_per_step(stage2):
 
 
 # the flash forward's kernels, whose launches a profiled step counts by
-# name: the Hopper kernel (bf16, D = 40 and 64), the row-split and wide
-# bf16 forwards and the float32 forward
+# name: the Hopper kernel (bf16, D = 40, 64 and 80), the row-split and
+# wide bf16 forwards and the float32 forward
 FLASH_FWD_KERNELS = ("flash_fwd_hopper_kernel", "flash_fwd_rows_kernel",
                      "flash_fwd_wide_kernel", "flash_fwd_tf32_kernel")
-# those kernels' launches in one bf16 SD1.5-size step: the 7 40-wide
-# forwards on the Hopper kernel, the 7 80-wide on the row-split one, the
-# VAE's on the wide one
+# those kernels' launches in one bf16 SD1.5-size step: the 7 40-wide and
+# the 7 80-wide forwards on the Hopper kernel, none on the row-split one,
+# the VAE's on the wide one
 FWD_KERNELS_PER_STEP = {"flash_fwd_hopper_kernel": HOPPER_PER_STEP,
-                        "flash_fwd_rows_kernel": 7,
+                        "flash_fwd_rows_kernel": 0,
                         "flash_fwd_wide_kernel": 1,
                         "flash_fwd_tf32_kernel": 0}
 
@@ -4531,7 +4531,7 @@ def trained_grads(tr):
 def flash_counted(launches):
     """(forwards, backwards) of flash in a launch count: the forward's two
     kernels (``flash_attn_fwd``, and ``flash_fwd_hopper`` for bf16 at
-    D = 40 and 64) together."""
+    D = 40, 64 and 80) together."""
     return [launches["flash_attn_fwd"] + launches.get("flash_fwd_hopper", 0),
             launches["flash_attn_bwd"]]
 
@@ -4963,9 +4963,9 @@ def cli_multiview(dev, card, kernel_fns, tmp, argv, args, exp, b1_runs):
     gradient finite and nonzero (but ``MV_UNREACHED``'s); B1 one forward and
     one backward launch a stage-2 step, each at V = MV_BATCH views; B4
     forward launches a step equal ``expected_flash_launches``, those of the
-    UNet and the ControlNet at the CFG batch 2 x MV_BATCH (the 40-wide ones
-    on the Hopper kernel), the VAE's D = 512 forward and backward at
-    MV_BATCH. Returns each run's launches."""
+    UNet and the ControlNet at the CFG batch 2 x MV_BATCH (the 40- and
+    80-wide ones on the Hopper kernel), the VAE's D = 512 forward and
+    backward at MV_BATCH. Returns each run's launches."""
     import gc
     from collections import Counter
 
@@ -5087,8 +5087,8 @@ def cli_multiview(dev, card, kernel_fns, tmp, argv, args, exp, b1_runs):
             fail(f"cli_multiview {run}: flash launches {shapes}, expected "
                  f"{[fwd, bwd]} a step: the UNet's and the ControlNet's "
                  f"{cfg_per_step} at batch {2 * B} ("
-                 f"{line['hopper_per_step']} of them 40 or 64 wide, on the "
-                 f"Hopper kernel), the VAE's {vae} at D = {d_vae}, batch {B}")
+                 f"{line['hopper_per_step']} of them 40, 64 or 80 wide, on "
+                 f"the Hopper kernel), the VAE's {vae} at D = {d_vae}, batch {B}")
         if {f: line["launches"][f] for f in FLASH_FNS} != by_fn:
             fail(f"cli_multiview {run}: counts {line['launches']} against "
                  f"the recorded launches {shapes}")
@@ -6083,10 +6083,11 @@ def cli_multicard(dev, card, kernel_fns, tmp, argv, args, exp):
                 or fwd != fwd_exp or got["flash_attn_bwd"] != bwd_exp \
                 or got["flash_fwd_hopper"] != hop or hop != HOPPER_PER_STEP \
                 or tp_shapes != {("flash_fwd_hopper", (2, 4096, 4, 40)),
-                                 ("flash_attn_fwd", (2, 1024, 4, 80))}:
+                                 ("flash_fwd_hopper", (2, 1024, 4, 80))}:
             fail(f"cli_multicard (b): rank {r}'s flash launches {shapes}, "
                  f"expected {lb['flash_expected']} at 4 heads a rank, "
-                 f"{HOPPER_PER_STEP} of them 40 wide on the Hopper kernel")
+                 f"{HOPPER_PER_STEP} of them 40 or 80 wide on the Hopper "
+                 "kernel")
     lf = line["f"]
     if not lf["states_equal"] or not all(
             math.isfinite(x) for r in lf["loss"] for x in r):
@@ -6942,15 +6943,17 @@ def main():
 
     # a flash entry's ms, plain_ms, bound_ms and library_ms are those of the
     # shape that does most of a bf16 SD1.5 step's work in that kernel:
-    # (2, 1024, 8, 80) forward (7 a step, against the VAE's one), (1, 4096,
-    # 1, 512) backward, (2, 4096, 8, 40) the Hopper forward (SD1.5's 64^2
-    # level); every shape stands in by_shape
+    # (1, 4096, 1, 512) forward (the VAE's, its one bf16 forward on the main
+    # path) and backward, (2, 4096, 8, 40) the Hopper forward (SD1.5's 64^2
+    # level), with its 80-wide level (2, 1024, 8, 80) beside it under
+    # at_80; every shape stands in by_shape
     flash_src = "dreamwaltz_g_tpu_torch/csrc/flash_attn.cu"
     flash_replaces = "dreamwaltz_g_tpu/guidance/layers.py:153"
-    _, f_fwd, f_bwd = flash_rows[:3]
+    f_fwd = f_bwd = flash_rows[2]
     hopper_rows = [r for r in flash_rows if hopper_shape(r["shape"],
                                                          r["type"])]
     h_fwd = next(r for r in hopper_rows if r["shape"] == [2, 4096, 8, 40])
+    h_80 = next(r for r in hopper_rows if r["shape"] == [2, 1024, 8, 80])
 
     def by_path(name):
         # a kernel's launches in each path that can launch it
@@ -7124,6 +7127,16 @@ def main():
               rows_kernel_ms=h_fwd["rows"]["kernel_ms"],
               rows_kernel_launch_median_ms=h_fwd["rows"][
                   "kernel_launch_median_ms"],
+              at_80={"shape": h_80["shape"], "ms": h_80["fwd_ms"],
+                     "plain_ms": h_80["fwd_plain_ms"],
+                     "kernel_ms": h_80["fwd_kernel_ms"],
+                     "kernel_launch_median_ms":
+                         h_80["fwd_kernel_launch_median_ms"],
+                     "rows_kernel_launch_median_ms":
+                         h_80["rows"]["kernel_launch_median_ms"],
+                     "bound_ms": h_80["fwd_bound"]["bound_ms"],
+                     "bound_by": h_80["fwd_bound"]["bound_by"],
+                     "library_ms": h_80["library"]["fwd_ms"]},
               launches_by_path=by_path("flash_fwd_hopper"),
               by_shape=[{"shape": r["shape"], "type": r["type"],
                          "kernel": r["build"]["kernel"],

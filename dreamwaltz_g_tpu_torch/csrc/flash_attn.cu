@@ -14,9 +14,10 @@
 // 700 W limit), but the B H N^2 = 268M exponentials set a floor above it: at
 // 16 ex2 a clock an SM, ~0.07 ms on 132 SMs at ~1.7 GHz.
 //
-// bf16 forward, D <= 128 (the ControlNet's and the UNet's D = 80: 7 of a
-// bf16 training step's 15 launches; the main path sends D = 40 and 64 to
-// csrc/flash_fwd_hopper.cu), FlashAttention-2 on mma.sync:
+// bf16 forward, D <= 128 (the main path sends D = 40, 64 and 80 to
+// csrc/flash_fwd_hopper.cu; the instantiations at widths 48, 64 and 80 stay
+// for the other widths they cover and as its yardstick), FlashAttention-2
+// on mma.sync:
 //  * Each warp owns 16 query rows and every key of a 64-key tile. The
 //    scores stay in their m16n8k16 accumulators; row max and row sum reduce
 //    over the quad of lanes that holds a row (two shuffles); each exponent
@@ -2097,11 +2098,11 @@ struct RowsConfig {
 
 // the row-split forward's instantiation for a head dimension D <= 128
 // (tile width, warps, ring stages), handed to f. The main path sends bf16
-// at D = 40 and 64 to csrc/flash_fwd_hopper.cu; widths 48 and 64 stay for
-// the other widths they cover and as its yardstick. At width 64 4 warps
-// and 2 stages fit 4 blocks an SM (128 registers, 46,080 B): 0.36 ms at
-// (2, 4096, 10, 64) against 0.45 for 8 warps and 3 stages, 1 block an SM
-// at 130 registers (NVIDIA H100 80GB HBM3, 700 W, launch medians)
+// at D = 40, 64 and 80 to csrc/flash_fwd_hopper.cu; widths 48, 64 and 80
+// stay for the other widths they cover and as its yardstick. At width 64
+// 4 warps and 2 stages fit 4 blocks an SM (128 registers, 46,080 B):
+// 0.36 ms at (2, 4096, 10, 64) against 0.45 for 8 warps and 3 stages,
+// 1 block an SM at 130 registers (NVIDIA H100 80GB HBM3, 700 W, launch medians)
 template <typename F>
 cudaError_t with_rows_config(int D, F&& f) {
   if (D <= 48) return f(RowsConfig<48, 8, 3>{});

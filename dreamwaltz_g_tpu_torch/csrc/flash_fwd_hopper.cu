@@ -1,60 +1,68 @@
-// Flash self-attention forward at head dimensions 40 and 64 in bf16, for
-// sm_90a: TMA copies, wgmma products and warp-specialised warpgroups.
+// Flash self-attention forward at head dimensions 40, 64 and 80 in bf16,
+// for sm_90a: TMA copies, wgmma products and warp-specialised warpgroups.
 //
-// Replaces, at D = 40 and 64 in bf16, the forward of the TPU kernel behind
-// dreamwaltz_g_tpu/guidance/layers.py:153 `_flash_kernel` (pallas_call
-// :167): out = softmax(Q K^T / sqrt(D)) V over (B, N, H, D) and the
-// (B, H, N) float32 lse = row max + log(row sum) of the scaled scores, in
-// natural log. SD1.5's heads at its 64^2 latents are 40 wide, SDXL's and
-// SD2.x's 64; the other widths stay with csrc/flash_attn.cu. The
-// arithmetic is the row-split forward's there: float32 scores and
-// softmax, each exponent one FFMA (scale log2 e folded in) and one
-// ex2.approx, each probability rounded to bf16 once and the output once,
-// so guidance/flash.py's plain versions are its twins.
+// Replaces, at D = 40, 64 and 80 in bf16, the forward of the TPU kernel
+// behind dreamwaltz_g_tpu/guidance/layers.py:153 `_flash_kernel`
+// (pallas_call :167): out = softmax(Q K^T / sqrt(D)) V over (B, N, H, D)
+// and the (B, H, N) float32 lse = row max + log(row sum) of the scaled
+// scores, in natural log. SD1.5's heads are 40 wide at its 64^2 latents
+// and 80 wide at 32^2, SDXL's and SD2.x's 64; the other widths stay with
+// csrc/flash_attn.cu. The arithmetic is the row-split forward's there:
+// float32 scores and softmax, each exponent one FFMA (scale log2 e folded
+// in) and one ex2.approx, each probability rounded to bf16 once and the
+// output once, so guidance/flash.py's plain versions are its twins.
 //
 // Bound on this card: operations, 4 B H N^2 D for the two products at the
 // tensor cores' 989 TFLOP/s (0.087 ms at SDXL's (2, 4096, 10, 64), 0.043 ms
-// at SD1.5's (2, 4096, 8, 40); NVIDIA H100 80GB HBM3 at its 700 W limit),
-// but the B H N^2 exponentials, at 16 ex2 a clock an SM, set a floor of
-// ~0.09 ms and ~0.072 ms there at ~1.75 GHz: at D = 64 a key costs as much
-// on the special-function units as on the tensor cores, and at D = 40 the
-// exponentials alone set the floor. The design keeps both units busy at
-// once.
+// at SD1.5's (2, 4096, 8, 40), 0.0054 ms at its (2, 1024, 8, 80); NVIDIA
+// H100 80GB HBM3 at its 700 W limit), but the B H N^2 exponentials, at 16
+// ex2 a clock an SM, set a floor of ~0.09 ms and ~0.072 ms at the first two
+// at ~1.75 GHz: at D = 64 a key costs as much on the special-function units
+// as on the tensor cores, and at D = 40 the exponentials alone set the
+// floor. The design keeps both units busy at once.
 //
 // Design:
 //  * A block owns 128 query rows of one (batch, head): three warpgroups,
 //    one producer and two consumers of 64 rows each. Grid (N / 128, H, B);
 //    N is a multiple of 128 under the modules' flash gate.
 //  * The producer's first thread issues every copy as a TMA load: the Q
-//    tile once, then 128-key tiles of K and V (16 KB each) into a ring of
-//    stages (3 at D = 40, 2 at D = 64), each with its own K-full, V-full
-//    and empty mbarrier, so the scores of a tile start before its V lands.
+//    tile once, then 128-key tiles of K and V into a ring of stages (3 at
+//    D = 40 and 80, 2 at D = 64), each with its own K-full, V-full and
+//    empty mbarrier, so the scores of a tile start before its V lands.
 //    The producer gives its registers to the consumers (setmaxnreg).
-//  * Every tile is 64 columns wide: a row of 128 bytes, the TMA's and
-//    wgmma's 128-byte swizzle exactly, so every tile lands swizzled, with
-//    no padding and no bank conflicts, and the products read it from shared
+//  * A tile's first 64 columns are one slab of 128-byte rows, the TMA's and
+//    wgmma's 128-byte swizzle exactly, so it lands swizzled, with no
+//    padding and no bank conflicts, and the products read it from shared
 //    memory through descriptors. The tensor maps (4-D: D, H, N, B, by the
 //    tensors' own strides) span D columns; at D = 40 the box's columns
 //    40-63 lie past the map's first dimension, and TMA fills them with
 //    zeros (not the next head's values), so a 40-wide tile lands as a
 //    64-wide one whose last 24 columns are zero, with the same byte count
-//    for the barrier. The maps are encoded on the host through CUDA's
-//    entry-point query and cached by (pointer, width, shape, strides); they
-//    reach the kernel as __grid_constant__ parameters.
+//    for the barrier. A row of 80 columns (160 bytes) is wider than the
+//    128-byte swizzle atom: at D = 80 its last 16 columns land in a second
+//    slab of 32-byte rows with the 32-byte swizzle, through a second map a
+//    tensor (box {16, 1, 128, 1} at column 64), so a tile is 20 KB with no
+//    zeros copied. The maps are encoded on the host through CUDA's
+//    entry-point query and cached by (pointer, box, shape, strides); they
+//    reach the kernel as one __grid_constant__ parameter.
 //  * S = Q K^T: wgmma m64n128k16, Q and K K-major from shared memory,
 //    ceil(D / 16) k-steps (three at D = 40: columns 40-47 are zeros on both
-//    sides). The softmax runs on the accumulator in registers (a row's 128
-//    scores over a quad of lanes), and P, rounded to bf16 in registers, is
-//    the A operand of O += P V: wgmma m64nDk16 (N = D, a multiple of 8), V
-//    from shared memory with the transpose bit (its rows are keys), eight
-//    k-steps; the accumulator is D / 2 floats a thread.
+//    sides; at D = 80 four on the first slab and one on the second). The
+//    softmax runs on the accumulator in registers (a row's 128 scores over
+//    a quad of lanes), and P, rounded to bf16 in registers, is the A
+//    operand of O += P V: wgmma m64nDk16 (N = D, a multiple of 8; at D = 80
+//    m64n64k16 on the first slab and m64n16k16 on the second, from the same
+//    P registers), V from shared memory with the transpose bit (its rows
+//    are keys), eight k-steps; the accumulator is D / 2 floats a thread.
 //  * Overlap comes from the two consumers: while one runs its softmax on
 //    the special-function units, the other's products run on the tensor
 //    cores. Within a consumer the products and the softmax take turns: an
 //    overlapped loop (tile i's S issued before tile i - 1's P V is done)
 //    was serialised by ptxas (its C7513 note) in every form tried, and was
 //    no faster (PERF.md, section 6), nor was a ping-pong of the two
-//    consumers on named barriers.
+//    consumers on named barriers. One overlap that ptxas keeps, P V's
+//    first half running while the second half of the tile's P is computed
+//    (`split_pv`), is built but taken at no width yet.
 //  * A wait that never ends traps (a launch error) instead of hanging the
 //    card.
 //
@@ -73,22 +81,48 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BOX_D = 64;     // a tile's columns: one 128-byte row
+constexpr int BOX_D = 64;     // the first slab's columns: one 128-byte row
+constexpr int TAIL_D = 16;    // the second slab's at D = 80: a 32-byte row
 constexpr int BM = 128;       // query rows a block
 constexpr int BN = 128;       // keys a tile
 constexpr int THREADS = 384;  // a producer and two consumer warpgroups
-// bytes of a K or V tile, and of Q, whatever the head dimension: TMA
-// writes (and counts) the whole box, zeros past the map's D columns
-constexpr int TILE = BN * BOX_D * 2;
+// bytes of a tile's first slab (K, V or Q), whatever the head dimension:
+// TMA writes (and counts) the whole box, zeros past the map's D columns
+constexpr int SLAB = BN * BOX_D * 2;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 
+// whether head dimension HD has a second slab (columns 64 .. HD - 1)
+template <int HD>
+__host__ __device__ constexpr bool has_tail() {
+  static_assert(HD == 40 || HD == 64 || HD == 64 + TAIL_D, "a Hopper width");
+  return HD > BOX_D;
+}
+
+// bytes of a K, V or Q tile at head dimension HD
+template <int HD>
+__host__ __device__ constexpr int tile_bytes() {
+  return SLAB + (has_tail<HD>() ? BN * TAIL_D * 2 : 0);
+}
+
 // the K / V ring's stages at head dimension HD: 3 at D = 40, where the
 // copies of 80-byte rows take about as long as a tile's products and
-// softmax, 2 at D = 64, where a third stage was slower (PERF.md, section 6)
+// softmax, and at D = 80; 2 at D = 64, where a third stage was slower
+// (PERF.md, section 6)
 template <int HD>
-constexpr int ring_stages() {
-  return HD == 40 ? 3 : 2;
+__host__ __device__ constexpr int ring_stages() {
+  return HD == 64 ? 2 : 3;
+}
+
+// whether a tile's P V is split around its exponentials at head dimension
+// HD: P V's first four k-steps issued once the first half of the tile's
+// exponentials is done, and the second half computed while they run. No
+// width takes it: its gain at D = 64 and 80 was not there at every shape in
+// every turn (PERF.md, section 6), so each width runs the tile's softmax
+// whole, then all of P V; flash_hopper_variants.py's `split_pv` turns it on
+template <int HD>
+__host__ __device__ constexpr bool split_pv() {
+  return false;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -135,13 +169,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// box {BOX_D, 1, 128, 1} of a 4-D map at (0, h, n, b) into shared memory
+// the map's box of a 4-D map at (d, h, n, b) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int h, int n, int b) {
+                                         uint32_t bar, int d, int h, int n,
+                                         int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(0), "r"(h), "r"(n), "r"(b)
+      "l"((uint64_t)map), "r"(bar), "r"(d), "r"(h), "r"(n), "r"(b)
       : "memory");
 }
 
@@ -160,6 +195,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// the same for the 32-byte swizzle (layout type 3), D = 80's second slab:
+// rows of 32 bytes, 8-row groups 256 bytes apart. K-major, a row is one
+// k-step's 16 columns; MN-major, V's 16 columns are one swizzle atom (the
+// leading offset unused) and a k-step moves 16 rows (512 bytes) down.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -227,10 +271,24 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (64 x D, float32) += A B for D = 40 or 64 (d: D / 2 floats): A 64 x 16
-// from registers (the m16n8k16 A fragment of each warp's 16 rows), B 16 x D
-// from shared memory through its descriptor, MN-major (the transpose bit
-// set); D = 40 reads the first 40 columns of the 64-wide swizzle atom
+// d (64 x N, float32) += A B for N = 16, 40 or 64 (d: N / 2 floats): A
+// 64 x 16 from registers (the m16n8k16 A fragment of each warp's 16 rows),
+// B 16 x N from shared memory through its descriptor, MN-major (the
+// transpose bit set); N = 40 reads the first 40 columns of the 64-wide
+// swizzle atom, N = 16 D = 80's second slab
+__device__ __forceinline__ void wgmma_pv(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+}
+
 __device__ __forceinline__ void wgmma_pv(float (&d)[20],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
@@ -300,16 +358,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 // A warp's 16 rows of a tile's scores s as the m64n128 accumulator holds
 // them (lane 4 g + t: s[4 j .. 4 j + 1] row g, keys 8 j + 2 t and + 1;
 // s[4 j + 2 .. 4 j + 3] row g + 8). m: the running row maxima in the log2
-// domain of the scaled scores; l: this lane's partial row sums. The tile's
-// P = 2^(scale_log2 s - m) comes back as the A fragments of P V's 8 k-steps
-// (the accumulator layout of keys 16 k .. 16 k + 15 is the A layout), each
-// value rounded to bf16 once; alpha = 2^(m_old - m_new) for O, l rescaled.
-__device__ __forceinline__ void softmax_tile(const float (&s)[64],
-                                             uint32_t (&pa)[8][4],
-                                             float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2],
-                                             float scale_log2) {
-  float mx[2] = {-INFINITY, -INFINITY}, neg_m[2], sum[2] = {0.f, 0.f};
+// domain of the scaled scores, taken to the tile's (neg_m = -m), and
+// alpha = 2^(m_old - m_new), which rescales O and the row sums.
+__device__ __forceinline__ void tile_max(const float (&s)[64], float (&m)[2],
+                                         float (&alpha)[2],
+                                         float (&neg_m)[2],
+                                         float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
@@ -323,8 +378,19 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
     m[r] = m_new;
     neg_m[r] = -m_new;
   }
+}
+
+// P = 2^(scale_log2 s - m) of keys 64 HALF .. 64 HALF + 63 as the A
+// fragments of P V's k-steps 4 HALF .. 4 HALF + 3 (the accumulator layout
+// of keys 16 k .. 16 k + 15 is the A layout), each value rounded to bf16
+// once; sum: this lane's partial row sums, added in key order
+template <int HALF>
+__device__ __forceinline__ void tile_exp(const float (&s)[64],
+                                         uint32_t (&pa)[8][4],
+                                         const float (&neg_m)[2],
+                                         float (&sum)[2], float scale_log2) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 8 * HALF; j < 8 * HALF + 8; ++j) {
     float p0 = ex2(fmaf(s[4 * j], scale_log2, neg_m[0]));
     float p1 = ex2(fmaf(s[4 * j + 1], scale_log2, neg_m[0]));
     float p2 = ex2(fmaf(s[4 * j + 2], scale_log2, neg_m[1]));
@@ -334,8 +400,16 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
     pa[j / 2][2 * (j & 1)] = pack_bf16(p0, p1);
     pa[j / 2][2 * (j & 1) + 1] = pack_bf16(p2, p3);
   }
+}
+
+// fence_regs of the A fragments of P V's k-steps 4 HALF .. 4 HALF + 3 only
+// (the other half may be in flight)
+template <int HALF>
+__device__ __forceinline__ void fence_half(uint32_t (&r)[8][4]) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+  for (int i = 4 * HALF; i < 4 * HALF + 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 template <int R>
@@ -354,22 +428,22 @@ __device__ __forceinline__ void rescale(float (&o)[R],
 // the kernel
 // ---------------------------------------------------------------------------
 
-// a block's shared memory with a ring of S stages, by byte offsets from a
-// 1024-byte aligned base: Q, the K ring, the V ring, then the barriers (Q
-// full; K full, V full and empty for each stage)
-template <int S>
+// a block's shared memory with a ring of S stages of T-byte tiles, by byte
+// offsets from a 1024-byte aligned base: Q, the K ring, the V ring, then
+// the barriers (Q full; K full, V full and empty for each stage)
+template <int S, int T>
 struct Ring {
   static constexpr int STAGES = S;
-  static constexpr int OFF_K = TILE;
-  static constexpr int OFF_V = OFF_K + S * TILE;
-  static constexpr int OFF_BAR = OFF_V + S * TILE;
+  static constexpr int OFF_K = T;
+  static constexpr int OFF_V = OFF_K + S * T;
+  static constexpr int OFF_BAR = OFF_V + S * T;
   // dynamic shared memory a block: the layout and the base's alignment
   // slack
   static constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 3 * S) + 1024;
   uint32_t base;  // the 1024-byte aligned start of the layout
   __device__ uint32_t q() const { return base; }
-  __device__ uint32_t k(int s) const { return base + OFF_K + s * TILE; }
-  __device__ uint32_t v(int s) const { return base + OFF_V + s * TILE; }
+  __device__ uint32_t k(int s) const { return base + OFF_K + s * T; }
+  __device__ uint32_t v(int s) const { return base + OFF_V + s * T; }
   __device__ uint32_t q_full() const { return base + OFF_BAR; }
   __device__ uint32_t k_full(int s) const {
     return base + OFF_BAR + 8 * (1 + s);
@@ -383,26 +457,68 @@ struct Ring {
 };
 
 template <int HD>
-using RingOf = Ring<ring_stages<HD>()>;
+using RingOf = Ring<ring_stages<HD>(), tile_bytes<HD>()>;
+
+// the kernel's tensor maps, each spanning its tensor's D columns: Q's, K's
+// and V's first slab's (box {64, 1, 128, 1}, 128-byte swizzle) and, at
+// D = 80, their second slab's (box {16, 1, 128, 1}, 32-byte swizzle)
+template <int HD>
+struct Maps {
+  static constexpr int SLABS = has_tail<HD>() ? 2 : 1;
+  CUtensorMap q[SLABS], k[SLABS], v[SLABS];
+};
 
 // the producer's one thread: Q, then each key tile's K and V into the ring
 // once the consumers have released its stage
-template <typename R>
-__device__ __forceinline__ void produce(const R& r, const CUtensorMap* tq,
-                                        const CUtensorMap* tk,
-                                        const CUtensorMap* tv, int n_tiles,
+template <int HD>
+__device__ __forceinline__ void produce(const RingOf<HD>& r,
+                                        const Maps<HD>& mp, int n_tiles,
                                         int b, int h, int q0) {
-  constexpr int STAGES = R::STAGES;
-  mbar_expect_tx(r.q_full(), TILE);
-  tma_load(r.q(), tq, r.q_full(), h, q0, b);
+  constexpr int STAGES = RingOf<HD>::STAGES;
+  // one tile of a tensor: its slabs, completing one barrier
+  auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                  int n) {
+    mbar_expect_tx(bar, tile_bytes<HD>());
+    tma_load(dst, map, bar, 0, h, n, b);
+    if constexpr (has_tail<HD>())
+      tma_load(dst + SLAB, map + 1, bar, BOX_D, h, n, b);
+  };
+  load(r.q(), mp.q, r.q_full(), q0);
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % STAGES;
     mbar_wait(r.empty(s), ((i / STAGES) & 1) ^ 1);
-    mbar_expect_tx(r.k_full(s), TILE);
-    tma_load(r.k(s), tk, r.k_full(s), h, i * BN, b);
-    mbar_expect_tx(r.v_full(s), TILE);
-    tma_load(r.v(s), tv, r.v_full(s), h, i * BN, b);
+    load(r.k(s), mp.k, r.k_full(s), i * BN);
+    load(r.v(s), mp.v, r.v_full(s), i * BN);
   }
+}
+
+// O += P V's k-step from the A fragment a: o's first 64 columns (all of
+// them at D = 40 and 64) from the first slab's descriptor dv, and at
+// D = 80 the last 16 from the second slab's, dv_tail
+template <int HD>
+__device__ __forceinline__ void pv_step(float (&o)[HD / 2],
+                                        const uint32_t (&a)[4], uint64_t dv,
+                                        uint64_t dv_tail) {
+  if constexpr (has_tail<HD>()) {
+    wgmma_pv(*reinterpret_cast<float(*)[BOX_D / 2]>(&o[0]), a, dv);
+    wgmma_pv(*reinterpret_cast<float(*)[TAIL_D / 2]>(&o[BOX_D / 2]), a,
+             dv_tail);
+  } else {
+    wgmma_pv(o, a, dv);
+  }
+}
+
+// O += P V's k-steps K0 .. K1 - 1 from the stage's V tile at v, issued (the
+// caller commits)
+template <int HD, int K0, int K1>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         uint32_t v) {
+  const uint64_t dv = sw128_desc(v);
+  const uint64_t dv_tail = sw32_desc(v + SLAB);
+#pragma unroll
+  for (int kk = K0; kk < K1; ++kk)
+    pv_step<HD>(o, pa[kk], dv + (2048 >> 4) * kk, dv_tail + (512 >> 4) * kk);
 }
 
 // one consumer warpgroup's 64 query rows: rows q0 + 64 c .. (head
@@ -414,10 +530,13 @@ __device__ __forceinline__ void consume(const RingOf<HD>& r,
                                         int H, int n_tiles, int b, int h,
                                         int q0, float scale_log2) {
   constexpr int STAGES = RingOf<HD>::STAGES;
+  // Q K^T's k-steps on the first slab (its columns past D are zeros)
+  constexpr int S_STEPS = ((HD < BOX_D ? HD : BOX_D) + 15) / 16;
   const int c = threadIdx.x / 128 - 1;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const uint64_t dq = sw128_desc(r.q() + c * 64 * BOX_D * 2);
+  const uint64_t dq_tail = sw32_desc(r.q() + SLAB + c * 64 * TAIL_D * 2);
 
   // o: the m64nHD accumulator, lane 4 g + t holding o[4 j .. 4 j + 1] of
   // row g, columns 8 j + 2 t and + 1, and o[4 j + 2 .. 4 j + 3] of row g + 8
@@ -431,37 +550,48 @@ __device__ __forceinline__ void consume(const RingOf<HD>& r,
   auto issue_s = [&](int stage) {
     const uint64_t dk = sw128_desc(r.k(stage));
 #pragma unroll
-    for (int kk = 0; kk < (HD + 15) / 16; ++kk)
+    for (int kk = 0; kk < S_STEPS; ++kk)
       wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
-  };
-  // O += P V of the stage's key tile, issued (the caller commits)
-  auto issue_pv = [&](int stage) {
-    const uint64_t dv = sw128_desc(r.v(stage));
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_pv(o, pa[kk], dv + (2048 >> 4) * kk);
+    if constexpr (has_tail<HD>())
+      wgmma_m64n128k16_ss(s, dq_tail, sw32_desc(r.k(stage) + SLAB), 1);
   };
 
   mbar_wait(r.q_full(), 0);
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % STAGES;
     const uint32_t ph = (i / STAGES) & 1;
+    float neg_m[2], sum[2] = {0.f, 0.f};
     mbar_wait(r.k_full(st), ph);
     wgmma_fence();
     issue_s(st);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile(s, pa, m, l, alpha, scale_log2);
+    tile_max(s, m, alpha, neg_m, scale_log2);
+    tile_exp<0>(s, pa, neg_m, sum, scale_log2);
+    if constexpr (!split_pv<HD>()) tile_exp<1>(s, pa, neg_m, sum, scale_log2);
     rescale(o, alpha);
     mbar_wait(r.v_full(st), ph);
     fence_regs(o);
-    fence_regs(pa);
-    wgmma_fence();
-    issue_pv(st);
+    if constexpr (split_pv<HD>()) {
+      fence_half<0>(pa);
+      wgmma_fence();
+      issue_pv<HD, 0, 4>(o, pa, r.v(st));
+      wgmma_commit();
+      tile_exp<1>(s, pa, neg_m, sum, scale_log2);
+      fence_half<1>(pa);
+      wgmma_fence();
+      issue_pv<HD, 4, 8>(o, pa, r.v(st));
+    } else {
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv<HD, 0, 8>(o, pa, r.v(st));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + sum[rr];
     // one lane a warp: the 8 consumer warps release the stage together
     if (lane == 0) mbar_arrive(r.empty(st));
   }
@@ -494,9 +624,7 @@ __device__ __forceinline__ void consume(const RingOf<HD>& r,
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv,
+flash_fwd_hopper_kernel(const __grid_constant__ Maps<HD> maps,
                         bf16* __restrict__ out, float* __restrict__ lse,
                         int N, int H, float scale_log2) {
   extern __shared__ unsigned char smem[];
@@ -517,7 +645,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
   // no block-wide barrier below: the producer's idle threads leave
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 0) produce(r, &tq, &tk, &tv, n_tiles, b, h, q0);
+    if (threadIdx.x == 0) produce<HD>(r, maps, n_tiles, b, h, q0);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     consume<HD>(r, out, lse, N, H, n_tiles, b, h, q0, scale_log2);
@@ -562,17 +690,18 @@ EncodeTiled encode_tiled() {
 
 struct MapKey {
   const void* p;
-  int D, B, N, H;
+  int D, box, B, N, H;
   long long sb, sn, sh;
   bool operator==(const MapKey& o) const {
-    return p == o.p && D == o.D && B == o.B && N == o.N && H == o.H &&
-           sb == o.sb && sn == o.sn && sh == o.sh;
+    return p == o.p && D == o.D && box == o.box && B == o.B && N == o.N &&
+           H == o.H && sb == o.sb && sn == o.sn && sh == o.sh;
   }
 };
 
-// the tensor maps encoded so far, by (pointer, width, shape, strides): a
-// training step's allocator hands the same buffers out step after step,
-// and an encode costs about as much host time as a small call's kernel
+// the tensor maps encoded so far, by (pointer, width, box, shape,
+// strides): a training step's allocator hands the same buffers out step
+// after step, and an encode costs about as much host time as a small
+// call's kernel
 constexpr int MAP_CACHE = 64;
 struct {
   MapKey key[MAP_CACHE];
@@ -582,12 +711,13 @@ struct {
 } maps;
 
 // a (B, N, H, D) bf16 tensor with element strides (sb, sn, sh) and unit
-// stride along D as a 4-D map (D, H, N, B) of {64, 1, 128, 1} boxes with
-// the 128-byte swizzle (at D < 64 the box's columns past D are out of
-// bounds: TMA writes zeros there); 0 or an error code
-int tensor_map(CUtensorMap* map, const void* p, int D, int B, int N, int H,
-               long long sb, long long sn, long long sh) {
-  const MapKey key{p, D, B, N, H, sb, sn, sh};
+// stride along D as a 4-D map (D, H, N, B) of {box, 1, 128, 1} boxes:
+// box 64 with the 128-byte swizzle (at D < 64 the box's columns past D are
+// out of bounds: TMA writes zeros there), or box 16 with the 32-byte
+// swizzle (D = 80's second slab, loaded at column 64); 0 or an error code
+int tensor_map(CUtensorMap* map, const void* p, int D, int box_d, int B,
+               int N, int H, long long sb, long long sn, long long sh) {
+  const MapKey key{p, D, box_d, B, N, H, sb, sn, sh};
   std::lock_guard<std::mutex> lock(maps.mutex);
   for (int i = 0; i < maps.count; ++i)
     if (maps.key[i] == key) {
@@ -600,11 +730,13 @@ int tensor_map(CUtensorMap* map, const void* p, int D, int B, int N, int H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {BOX_D, 1, BN, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_d, 1, BN, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             box_d == BOX_D ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return FLASH_TMA_ENCODE;
   int slot = maps.count < MAP_CACHE ? maps.count++ : maps.next;
@@ -619,11 +751,29 @@ bool tma_ok(const void* p, long long sb, long long sn, long long sh) {
   return (uintptr_t)p % 16 == 0 && sb % 8 == 0 && sn % 8 == 0 && sh % 8 == 0;
 }
 
+// the maps of Q, K and V, each given as its base and element strides
+// (b, n, h), at width HD; 0 or an error code
+template <int HD>
+int make_maps(Maps<HD>* mp, const void* const (&p)[3],
+              const long long (&s)[3][3], int B, int N, int H) {
+  CUtensorMap* dst[3] = {mp->q, mp->k, mp->v};
+  for (int i = 0; i < 3; ++i)
+    for (int slab = 0; slab < Maps<HD>::SLABS; ++slab) {
+      int rc = tensor_map(&dst[i][slab], p[i], HD, slab ? TAIL_D : BOX_D, B,
+                          N, H, s[i][0], s[i][1], s[i][2]);
+      if (rc) return rc;
+    }
+  return 0;
+}
+
 // one launch of the kernel at width HD
 template <int HD>
-int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-           void* out, float* lse, int B, int N, int H, cudaStream_t stream) {
+int launch(const void* const (&p)[3], const long long (&s)[3][3], void* out,
+           float* lse, int B, int N, int H, cudaStream_t stream) {
   constexpr int SMEM_BYTES = RingOf<HD>::SMEM_BYTES;
+  Maps<HD> mp;
+  int rc = make_maps<HD>(&mp, p, s, B, N, H);
+  if (rc) return rc;
   // once a process for each width, not on every launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_hopper_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -631,8 +781,7 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
   if (attr != cudaSuccess) return attr;
   flash_fwd_hopper_kernel<HD><<<dim3(N / BM, H, B), THREADS, SMEM_BYTES,
                                 stream>>>(
-      mq, mk, mv, (bf16*)out, lse, N, H,
-      1.4426950408889634f / sqrtf((float)HD));
+      mp, (bf16*)out, lse, N, H, 1.4426950408889634f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -650,8 +799,12 @@ int facts(int* info) {
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
                                                       THREADS, SMEM_BYTES);
-  const int f[7] = {BOX_D,  THREADS,      BM,
-                    SMEM_BYTES, blocks, attr.numRegs,
+  const int f[7] = {has_tail<HD>() ? BOX_D + TAIL_D : BOX_D,
+                    THREADS,
+                    BM,
+                    SMEM_BYTES,
+                    blocks,
+                    attr.numRegs,
                     (int)attr.localSizeBytes};
   for (int i = 0; i < 7; ++i) info[i] = f[i];
   return err;
@@ -659,39 +812,40 @@ int facts(int* info) {
 
 }  // namespace
 
-// q, k, v: (B, N, H, D) bf16, D = 40 or 64, with element strides (b, n, h),
-// unit stride along D, 16-byte aligned bases and strides of whole 16 bytes
-// (else FLASH_BAD_SHAPE); out contiguous (B, N, H, D) bf16; lse contiguous
-// (B, H, N) float32. N must be a multiple of 128.
+// q, k, v: (B, N, H, D) bf16, D = 40, 64 or 80, with element strides (b,
+// n, h), unit stride along D, 16-byte aligned bases and strides of whole
+// 16 bytes (else FLASH_BAD_SHAPE); out contiguous (B, N, H, D) bf16; lse
+// contiguous (B, H, N) float32. N must be a multiple of 128.
 extern "C" int flash_fwd_hopper(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int B, int N, int H,
                                 int D, long long sqb, long long sqn,
                                 long long sqh, long long skb, long long skn,
                                 long long skh, long long svb, long long svn,
                                 long long svh, void* stream_) {
-  if ((D != 40 && D != 64) || N < BN || N % BN || B < 1 || H < 1 ||
-      !tma_ok(q, sqb, sqn, sqh) || !tma_ok(k, skb, skn, skh) ||
+  if ((D != 40 && D != 64 && D != 80) || N < BN || N % BN || B < 1 ||
+      H < 1 || !tma_ok(q, sqb, sqn, sqh) || !tma_ok(k, skb, skn, skh) ||
       !tma_ok(v, svb, svn, svh))
     return FLASH_BAD_SHAPE;
-  CUtensorMap mq, mk, mv;
-  int rc = tensor_map(&mq, q, D, B, N, H, sqb, sqn, sqh);
-  if (!rc) rc = tensor_map(&mk, k, D, B, N, H, skb, skn, skh);
-  if (!rc) rc = tensor_map(&mv, v, D, B, N, H, svb, svn, svh);
-  if (rc) return rc;
+  const void* const p[3] = {q, k, v};
+  const long long s[3][3] = {
+      {sqb, sqn, sqh}, {skb, skn, skh}, {svb, svn, svh}};
   const cudaStream_t stream = (cudaStream_t)stream_;
-  return D == 40 ? launch<40>(mq, mk, mv, out, lse, B, N, H, stream)
-                 : launch<64>(mq, mk, mv, out, lse, B, N, H, stream);
+  if (D == 40) return launch<40>(p, s, out, lse, B, N, H, stream);
+  if (D == 64) return launch<64>(p, s, out, lse, B, N, H, stream);
+  return launch<80>(p, s, out, lse, B, N, H, stream);
 }
 
-// The kernel's launch facts for head dimension D (40 or 64) and the type
-// is_bf16, part 0 (the one kernel; FLASH_BAD_SHAPE elsewhere), in
-// flash_attn.cu's flash_attn_fwd_info order: {tile width (the box's 64
-// columns), threads, query rows a block, dynamic shared-memory bytes,
-// resident blocks an SM, registers a thread, local-memory bytes a thread}
+// The kernel's launch facts for head dimension D (40, 64 or 80) and the
+// type is_bf16, part 0 (the one kernel; FLASH_BAD_SHAPE elsewhere), in
+// flash_attn.cu's flash_attn_fwd_info order: {tile width (the slabs'
+// columns: 64, or 80 at D = 80), threads, query rows a block, dynamic
+// shared-memory bytes, resident blocks an SM, registers a thread,
+// local-memory bytes a thread}
 extern "C" int flash_fwd_hopper_info(int D, int is_bf16, int part,
                                      int* info) {
   if (!is_bf16 || part != 0) return FLASH_BAD_SHAPE;
   if (D == 40) return facts<40>(info);
   if (D == 64) return facts<64>(info);
+  if (D == 80) return facts<80>(info);
   return FLASH_BAD_SHAPE;
 }

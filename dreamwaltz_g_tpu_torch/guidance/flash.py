@@ -5,19 +5,18 @@ Port of the kernel path of ``dreamwaltz_g_tpu/guidance/layers.py``
 (``_flash_kernel`` / ``flash_self_attention``, TPU kernel B4). On CUDA
 tensors ``flash_attn_fwd`` / ``flash_attn_bwd`` launch the hand-written
 kernels of ``csrc/flash_attn.cu``, but for the bf16 forward at
-``HOPPER_WIDTHS`` (SD1.5's 40-wide heads at its 64^2 latents, SDXL's and
-SD2.x's 64-wide ones), which ``_fwd_route`` sends to ``flash_fwd_hopper``
-(``csrc/flash_fwd_hopper.cu``: TMA copies and wgmma products, the same
-roundings; a view at those widths that TMA cannot describe raises). Each
-of the two forward wrappers counts its own launches. bf16
-runs through the tensor cores; float32
-through them too, each product as three TF32 products, whose plain twins
-are ``flash_attention_tf32_plain`` and ``flash_attention_tf32_plain_bwd``;
-scores and softmax stay in registers and K and V stream through a ring of
-asynchronous copies, as the source's header note sets out); on CPU tensors
-they take the plain versions below. There is
-no compile probe and no fallback: a CUDA tensor launches the kernel or the
-call raises.
+``HOPPER_WIDTHS`` (SD1.5's 40-wide heads at its 64^2 latents and 80-wide
+ones at 32^2, SDXL's and SD2.x's 64-wide ones), which ``_fwd_route`` sends
+to ``flash_fwd_hopper`` (``csrc/flash_fwd_hopper.cu``: TMA copies and
+wgmma products, the same roundings; a view at those widths that TMA cannot
+describe raises). Each of the two forward wrappers counts its own
+launches. bf16 runs through the tensor cores; float32 through them too,
+each product as three TF32 products, whose plain twins are
+``flash_attention_tf32_plain`` and ``flash_attention_tf32_plain_bwd``.
+Scores and softmax stay in registers and K and V stream through a ring of
+asynchronous copies, as the source's header note sets out. On CPU tensors
+the wrappers take the plain versions below. There is no compile probe and
+no fallback: a CUDA tensor launches the kernel or the call raises.
 
 The bf16 forward at D > 128 (the VAE's mid block, D = 512) cuts the keys
 into ``WIDE_KEY_SPLITS`` ranges, one block's work each, and merges their
@@ -49,7 +48,7 @@ WIDE_KEY_SPLITS = 2
 #: block's shared memory); the modules' gate sends wider heads to einsum
 MAX_HEAD_DIM = 512
 #: the head widths of the bf16 forward on ``csrc/flash_fwd_hopper.cu``
-HOPPER_WIDTHS = (40, 64)
+HOPPER_WIDTHS = (40, 64, 80)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -289,9 +288,9 @@ def _fwd_route(D: int, dtype: torch.dtype) -> str:
 
 def _fwd_flash_attn(q, k, v, dev) -> Tuple[torch.Tensor, torch.Tensor]:
     """``csrc/flash_attn.cu``'s forward for any (D, type) it takes (at
-    D = 40 and 64 in bf16 its row-split instantiations, off the main path),
-    launched and not counted: ``flash_attn_fwd`` counts its own calls of
-    it."""
+    D = 40, 64 and 80 in bf16 its row-split instantiations, off the main
+    path), launched and not counted: ``flash_attn_fwd`` counts its own
+    calls of it."""
     B, N, H, D = q.shape
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=dev)
@@ -309,7 +308,7 @@ def _fwd_flash_attn(q, k, v, dev) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def flash_fwd_hopper(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 forward at D = 40 or 64 (``flash_attn_fwd``'s outputs)
+    """The bf16 forward at D = 40, 64 or 80 (``flash_attn_fwd``'s outputs)
     through ``csrc/flash_fwd_hopper.cu``; the plain version on CPU tensors.
     Raises on another type or width, and on a view whose base is not
     16-byte aligned or whose strides are not whole 16 bytes (what a TMA
@@ -318,7 +317,7 @@ def flash_fwd_hopper(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = _check("flash_fwd_hopper", q, k, v)
     B, N, H, D = q.shape
     if q.dtype != torch.bfloat16 or D not in HOPPER_WIDTHS:
-        raise ValueError(f"flash_fwd_hopper: bf16 at D = 40 or 64 only, "
+        raise ValueError(f"flash_fwd_hopper: bf16 at D = 40, 64 or 80 only, "
                          f"not {q.dtype} at D = {D}")
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v)
@@ -340,7 +339,7 @@ def flash_fwd_hopper(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
 def flash_attn_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward: (out (B, N, H, D) in q's type, contiguous; lse (B, H, N)
     float32). Kernel on CUDA tensors, plain version on CPU tensors; bf16 at
-    D = 40 and 64 goes to ``flash_fwd_hopper`` (``_fwd_route``), which
+    D = 40, 64 and 80 goes to ``flash_fwd_hopper`` (``_fwd_route``), which
     counts that launch, every other call to ``csrc/flash_attn.cu``, counted
     here."""
     dev = _check("flash_attn_fwd", q, k, v)

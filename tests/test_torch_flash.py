@@ -352,12 +352,12 @@ def test_bf16_roundings_against_the_forward_limits(peaked):
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("D", [16, 40, 64, 80, 128, 512])
 def test_forward_route_names_the_hopper_kernel_for_bf16_at_64_only(D, dtype):
-    """``_fwd_route``: the bf16 forward at D = 40 (SD1.5's heads at its 64^2
-    latents) and D = 64 (SDXL's and SD2.x's heads) is ``flash_fwd_hopper``'s
-    (``csrc/flash_fwd_hopper.cu``); every other (D, type), float32 at
-    D = 40 and 64 among them, stays with ``flash_attn_fwd``
-    (``csrc/flash_attn.cu``)."""
-    hopper = D in (40, 64) and dtype == torch.bfloat16
+    """``_fwd_route``: the bf16 forward at D = 40 and 80 (SD1.5's heads at
+    its 64^2 and 32^2 latents) and D = 64 (SDXL's and SD2.x's heads) is
+    ``flash_fwd_hopper``'s (``csrc/flash_fwd_hopper.cu``); every other
+    (D, type), float32 at D = 40, 64 and 80 among them, stays with
+    ``flash_attn_fwd`` (``csrc/flash_attn.cu``)."""
+    hopper = D in (40, 64, 80) and dtype == torch.bfloat16
     assert FL._fwd_route(D, dtype) == (
         "flash_fwd_hopper" if hopper else "flash_attn_fwd")
     assert FL._LIBRARY[FL._fwd_route(D, dtype)] == (
@@ -367,35 +367,41 @@ def test_forward_route_names_the_hopper_kernel_for_bf16_at_64_only(D, dtype):
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 40),
                                      (torch.bfloat16, 80),
+                                     (torch.bfloat16, 128),
                                      (torch.float32, 64),
-                                     (torch.float32, 40)])
+                                     (torch.float32, 40),
+                                     (torch.float32, 80)])
 def test_hopper_wrapper_takes_the_plain_version_on_the_cpu_or_raises(dtype,
                                                                        D):
     """``flash_fwd_hopper`` on CPU tensors: the plain version at bf16
-    D = 40 and 64, a ValueError for any other pair; no launch counted."""
+    D = 40, 64 and 80, a ValueError for any other pair; no launch
+    counted."""
     q, k, v = (torch.as_tensor(x).to(dtype)
                for x in _qkvg((1, 128, 2, D), 3)[:3])
     before = FL.flash_fwd_hopper.launches
-    if dtype == torch.bfloat16 and D in (40, 64):
+    if dtype == torch.bfloat16 and D in (40, 64, 80):
         out, lse = FL.flash_fwd_hopper(q, k, v)
         ref, ref_lse = FL.flash_attention_plain(q, k, v)
         assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
     else:
-        with pytest.raises(ValueError, match="bf16 at D = 40 or 64 only"):
+        with pytest.raises(ValueError,
+                           match="bf16 at D = 40, 64 or 80 only"):
             FL.flash_fwd_hopper(q, k, v)
     assert FL.flash_fwd_hopper.launches == before
 
 
-def test_hopper_wrapper_matches_jax_kernel_at_sd15_width():
-    """``flash_fwd_hopper`` on CPU tensors at (1, 256, 2, 40), SD1.5's head
-    width, against the interpreted TPU kernel on the same values (the bf16
-    inputs widened to float32 for the JAX side): ``TOL_OUT`` on top of the
-    one rounding of the output to bf16 (half a bf16 unit, at most 2^-8 of
-    the value), which the wrapper's output carries and the float32 JAX
-    output does not; the lse within ``TOL_OUT`` of a float64 logsumexp of
-    the scaled scores; no launch counted."""
+@pytest.mark.parametrize("D", [40, 80])
+def test_hopper_wrapper_matches_jax_kernel_at_sd15_width(D):
+    """``flash_fwd_hopper`` on CPU tensors at (1, 256, 2, D), SD1.5's head
+    widths (40 at its 64^2 latents, 80 at 32^2), against the interpreted
+    TPU kernel on the same values (the bf16 inputs widened to float32 for
+    the JAX side): ``TOL_OUT`` on top of the one rounding of the output to
+    bf16 (half a bf16 unit, at most 2^-8 of the value), which the
+    wrapper's output carries and the float32 JAX output does not; the lse
+    within ``TOL_OUT`` of a float64 logsumexp of the scaled scores; no
+    launch counted."""
     q, k, v = (torch.as_tensor(x).to(torch.bfloat16)
-               for x in _qkvg((1, 256, 2, 40), 40)[:3])
+               for x in _qkvg((1, 256, 2, D), D)[:3])
     with pltpu.force_tpu_interpret_mode():
         jout = np.asarray(JL.flash_self_attention(
             *(jnp.asarray(t.float().numpy()) for t in (q, k, v))))
@@ -406,16 +412,15 @@ def test_hopper_wrapper_matches_jax_kernel_at_sd15_width():
     err = np.abs(out.float().numpy() - jout)
     assert bool((err <= TOL_OUT + 2.0 ** -8 * np.abs(jout)).all())
     s = np.einsum("bqhd,bkhd->bhqk", *(t.float().numpy() for t in (q, k)),
-                  dtype=np.float64) / np.sqrt(40.0)
+                  dtype=np.float64) / np.sqrt(float(D))
     ref_lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
         + s.max(-1)
     assert float(np.abs(lse.numpy() - ref_lse).max()) <= TOL_OUT
 
 
-@pytest.mark.parametrize("name", ["tree", "pingpong", "stages_swapped",
-                                  "split_pv", "no_exp", "no_pv",
+@pytest.mark.parametrize("name", ["tree", "split_pv", "no_exp", "no_pv",
                                   "no_softmax", "no_loads",
-                                  "no_loads_no_softmax"])
+                                  "no_loads_no_softmax", "one_tile"])
 def test_hopper_variants_edit_the_kernel_source(name):
     """``scripts/flash_hopper_variants.py``'s variants each apply their
     edit to ``csrc/flash_fwd_hopper.cu`` as it stands (the script raises
@@ -424,9 +429,20 @@ def test_hopper_variants_edit_the_kernel_source(name):
     from dreamwaltz_g_tpu_torch.scripts import flash_hopper_variants as FV
 
     text = FV.SOURCE.read_text()
-    assert set(FV.VARIANTS) == {"tree", "pingpong", "stages_swapped",
-                                "split_pv", "no_exp", "no_pv", "no_softmax",
-                                "no_loads", "no_loads_no_softmax"}
+    assert set(FV.VARIANTS) == {"tree", "split_pv", "no_exp", "no_pv",
+                                "no_softmax", "no_loads",
+                                "no_loads_no_softmax", "one_tile"}
     assert (FV.variant(name, text) == text) == (name == "tree")
     with pytest.raises(ValueError):
         FV.variant("no_such_variant", text)
+
+
+@pytest.mark.parametrize("D", FL.HOPPER_WIDTHS)
+def test_hopper_variants_hold_and_time_every_hopper_width(D):
+    """``scripts/flash_hopper_variants.py`` holds each variant against the
+    plain version at a shape of every width that ``_fwd_route`` sends to
+    the Hopper kernel, and times it at four shapes of that width."""
+    from dreamwaltz_g_tpu_torch.scripts import flash_hopper_variants as FV
+
+    assert any(shape[-1] == D for shape in FV.HELD)
+    assert sum(shape[-1] == D for shape in FV.SHAPES) == 4

@@ -19,17 +19,20 @@ inputs:
   gradients round P, dS and the result likewise and are held to 2^-6 of
   each gradient's largest entry.
 
-The bf16 kernels have tile widths 48, 64, 80, 128 and 512; the head
-dimensions below cover each width exactly (80, 128, 512) and zero-padded
-(16, 24 and 40 in 48, 256 and 384 in 512). D = 20 and a view that is not
-16-byte aligned take the element-wise tile load (the row-split forward
-called directly at D = 40). The bf16 forward at D = 40 and 64 is the
-Hopper kernel's (``csrc/flash_fwd_hopper.cu``: 128 query rows a block over
-two consumer warpgroups, 128-key tiles through a TMA ring of 3 stages at
-D = 40 and 2 at D = 64, 64 columns a tile, zeros past D = 40); it raises
-on a view TMA cannot describe. At D = 40 N = 1152's 9 key tiles end at the
-end of the ring and N = 1280's 10 part-way round it (at D = 64 N = 1152's
-end part-way round), N = 128 is one tile. The row-split forward
+The bf16 kernels of ``csrc/flash_attn.cu`` have tile widths 48, 64, 80,
+128 and 512; the head dimensions below cover each width exactly (80, 128,
+512) and zero-padded (16, 24 and 40 in 48, 256 and 384 in 512). D = 20
+and a view that is not 16-byte aligned take the element-wise tile load
+(the row-split forward called directly at D = 40 and 80). The bf16
+forward at D = 40, 64 and 80 is the Hopper kernel's
+(``csrc/flash_fwd_hopper.cu``: 128 query rows a block over two consumer
+warpgroups, 128-key tiles through a TMA ring of 3 stages at D = 40 and 80
+and 2 at D = 64; a tile's first 64 columns in one slab, zeros past
+D = 40, and at D = 80 its last 16 in a second slab of 32-byte rows); it
+raises on a view TMA cannot describe. At D = 40 N = 1152's 9 key tiles
+end at the end of the ring and N = 1280's 10 part-way round it (at D = 64
+N = 1152's end part-way round), at D = 80 N = 4096's 32 and N = 1024's 8
+end part-way round it, N = 128 is one tile. The row-split forward
 (D <= 128) streams 64-key tiles through a ring of 3 shared-memory stages
 (2 at 64 and above 80): N = 128 has fewer key tiles than stages; every N
 (a multiple of 128) gives an even count of tiles, and N = 1280's 20 end
@@ -223,12 +226,13 @@ def test_bf16_wide_lse_and_the_backward_from_its_outputs():
 @pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (2, 1024, 8, 80),
                                    (1, 4096, 1, 512), (2, 4096, 10, 64),
                                    (2, 1024, 20, 64), (2, 9216, 5, 64),
-                                   (2, 2304, 10, 64), (8, 4096, 8, 40)])
+                                   (2, 2304, 10, 64), (8, 4096, 8, 40),
+                                   (8, 1024, 8, 80)])
 def test_bf16_at_the_training_steps_shapes_from_a_cold_cache(shape):
     """The UNet's, the ControlNet's and the VAE's shapes, the multi-view
-    step's batch 8 at SD1.5's 64^2 level, and SDXL's and SD2.1-768's
-    64-wide levels (the Hopper kernel's, as the 40-wide ones are), forward
-    only. They
+    step's batch 8 at SD1.5's 64^2 and 32^2 levels, and SDXL's and
+    SD2.1-768's 64-wide levels (the Hopper kernel's, as the 40- and 80-wide
+    ones are), forward only. They
     fill the card with blocks, and the inputs are evicted from the 50 MB L2
     first, so the first copies of every resident block queue on device
     memory together: a read of a ring stage before its copies land shows
@@ -240,12 +244,12 @@ def test_bf16_at_the_training_steps_shapes_from_a_cold_cache(shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [40, 512])
+@pytest.mark.parametrize("D", [40, 80, 512])
 def test_bf16_takes_a_view_that_is_not_16_byte_aligned(D):
     """Views off the 16-byte grid through ``csrc/flash_attn.cu``'s forward
-    (at D = 40 its row-split kernel, called directly: the main path sends
-    bf16 D = 40 to the Hopper kernel, which raises on such views) and
-    backward: their element-wise loads."""
+    (at D = 40 and 80 its row-split kernel, called directly: the main path
+    sends bf16 D = 40 and 80 to the Hopper kernel, which raises on such
+    views) and backward: their element-wise loads."""
     dev = _card()
     B, N, H = 2, 1024, 2
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -516,7 +520,7 @@ def test_f32_takes_a_view_that_is_not_16_byte_aligned(D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [40, 64])
+@pytest.mark.parametrize("D", [40, 64, 80])
 def test_hopper_forward_over_one_key_tile(D):
     """N = 128: one key tile, the Q tile's only one; the ring's first
     stage alone, every row's max in it."""
@@ -526,12 +530,13 @@ def test_hopper_forward_over_one_key_tile(D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [40, 64])
+@pytest.mark.parametrize("D", [40, 64, 80])
 def test_hopper_forward_takes_a_fused_projection_or_raises(D):
     """q, k, v as (B, N, H, D) views of one (B, N, 3 H D) projection
     (strides of whole 16 bytes, 16-byte aligned bases; at D = 40 a head's
     row is 80 bytes, and the tensor map's 40 columns keep the next head's
-    values out of the 64-wide tile): the Hopper kernel takes them. The
+    values out of the 64-wide tile; at D = 80 the second slab's box starts
+    at column 64 of the same row): the Hopper kernel takes them. The
     same views 8 bytes into their buffer are not 16-byte aligned, which a
     TMA tensor map cannot describe: the forward raises, with no other
     kernel to fall back to."""
@@ -555,10 +560,11 @@ def test_hopper_forward_takes_a_fused_projection_or_raises(D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [40, 64])
+@pytest.mark.parametrize("D", [40, 64, 80])
 def test_hopper_launch_is_counted_under_its_own_name(D):
-    """A bf16 forward at D = 40 or 64 counts one launch on ``flash_fwd_hopper``
-    and none on ``flash_attn_fwd``, and the profiler sees one
+    """A bf16 forward at D = 40, 64 or 80 counts one launch on
+    ``flash_fwd_hopper`` and none on ``flash_attn_fwd``, and the profiler
+    sees one
     ``flash_fwd_hopper_kernel`` and no row-split kernel; the autograd
     function's backward stays ``flash_attn_bwd``'s."""
     from torch.autograd import DeviceType
@@ -582,3 +588,26 @@ def test_hopper_launch_is_counted_under_its_own_name(D):
     assert sum(c for n, c in launched.items()
                if "flash_fwd_hopper_kernel" in n) == 1
     assert not any("flash_fwd_rows_kernel" in n for n in launched)
+
+
+@pytest.mark.gpu
+def test_hopper_rescales_when_the_max_arrives_in_the_last_tile_at_80():
+    """The Hopper kernel at D = 80, called by name: q scaled x8 with a
+    positive component 72, and the last key along it, so every row's
+    largest score is its last and comes from D = 80's second slab (columns
+    64-79) of Q and K; each row's running maximum jumps in the last of
+    8 key tiles, part-way round the 3-stage ring, and the output
+    accumulated so far, both slabs of it, must be rescaled."""
+    dev = _card()
+    B, N, H, D, col = 2, 1024, 3, 80, 72
+    q, k, v, _ = _qkv(dev, (B, N, H, D), torch.float32, seed=27)
+    q = 8 * q
+    q[..., col] = q[..., col].abs() + 32
+    k[:, -1] = 0
+    k[:, -1, :, col] = 2 * D ** 0.5
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    assert bool((s.argmax(-1) == N - 1).all())
+    before = FL.flash_fwd_hopper.launches
+    _hold_fwd(q, k, v, fwd=FL.flash_fwd_hopper)
+    assert FL.flash_fwd_hopper.launches == before + 1
